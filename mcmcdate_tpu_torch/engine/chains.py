@@ -1,0 +1,325 @@
+"""High-level MCMC orchestration: burn-in, sampling, monitors, checkpoints.
+
+Port of ``mcmcdate_tpu/engine/chains.py`` for MHG with the sequential sweep
+(``MHKernel``) on one device.  NUTS, MC3, the fiber moves, the bold
+contrary kernels, the ticket-batched ``FastSweeps`` and the device mesh
+stay in the JAX package for now.  The sampler's random streams derive
+from a ``uint32[2]`` key that is split once per sweep chunk and saved in
+the checkpoint.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from mcmcdate_tpu.engine.diagnostics import summarize
+
+from ..models.dating import DatingModel
+from ..models.state import FIELDS, State
+from . import checkpoint as ckpt
+from . import proposals as props
+from .mh import BurnInSettings, MHKernel, tune_step
+from .monitor import MonitorWriter
+
+CHUNK = 10  # sweeps per chunk; all reference schedules are multiples
+
+
+def new_key(seed: int) -> np.ndarray:
+    """The ``uint32[2]`` RNG key of a seed (laid out like a JAX PRNG key)."""
+    return np.asarray([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
+
+
+def split_key(key) -> tuple:
+    """``(next_key, seed)``: a fresh key and a 63-bit seed, both derived
+    from ``key`` alone."""
+    words = np.random.SeedSequence([int(k) for k in np.asarray(key)]).generate_state(4)
+    return words[:2].astype(np.uint32), (int(words[2]) << 31) ^ int(words[3])
+
+
+def _slim_outs(outs):
+    """Slice the per-node monitor leaves to chain 0 on the device before the
+    host copy: only chain 0's heights and rates go to the tree monitors;
+    scalar leaves keep all chains for the cross-chain diagnostics."""
+    if not isinstance(outs, dict):
+        return outs
+    slim = dict(outs)
+    for k in ("heights", "rates"):
+        if k in slim:
+            slim[k] = slim[k][:, :1]
+    return slim
+
+
+def _diag_node_subset(model: DatingModel, max_nodes: int = 16):
+    """Node subset whose ages feed the cross-chain diagnostics: the root,
+    up to half the budget of calibrated nodes, then the largest inner
+    subtrees."""
+    topo = model.topo
+    labels = {0: "root"}
+    take = [0]
+    cal = model.calibrations
+    if cal.n:
+        for i in np.linspace(0, cal.n - 1, min(cal.n, max_nodes // 2)).astype(int):
+            nd = int(np.asarray(cal.node)[i])
+            if nd not in labels:
+                labels[nd] = (cal.names[i] if cal.names else f"node{nd}")
+                take.append(nd)
+    sizes = np.asarray(topo.n_nodes_subtree)
+    inner = [int(i) for i in np.asarray(topo.inner_nodes) if i != 0]
+    for i in sorted(inner, key=lambda j: -int(sizes[j])):
+        if len(take) >= max_nodes:
+            break
+        if i not in labels:
+            labels[i] = f"node{i}"
+            take.append(i)
+    return np.asarray(take, np.int32), [labels[i] for i in take]
+
+
+@dataclass
+class RunSettings:
+    """Mirrors the reference ``Settings``."""
+
+    analysis_name: str
+    burn_in: BurnInSettings = field(default_factory=BurnInSettings.default)
+    iterations: int = 8000
+    n_chains: int = 4
+    monitor_period: int = 2
+    save_period: int = 1000  # checkpoint every this many iterations
+    out_dir: str = "."
+    seed: Optional[int] = None
+    dtype: str = "float32"
+    # The ticket-batched sweep is not ported yet; True raises.
+    fast_sweep: bool = False
+    device: str = "cuda"
+
+
+class ChainRunner:
+    """Runs burn-in and sampling of one model and proposal table."""
+
+    def __init__(self, model: DatingModel, table: props.ProposalTable,
+                 settings: RunSettings, log=print):
+        if settings.fast_sweep:
+            raise NotImplementedError(
+                "the ticket-batched sweep (FastSweeps) is not ported to PyTorch yet "
+                "(ROADMAP.md, Queue 1 item 5); run with fast_sweep=False")
+        self.model = model
+        self.table = table
+        self.s = settings
+        self.log = log
+        self.kern = MHKernel(model, table)
+        self.dtype = getattr(torch, settings.dtype)
+        self.device = torch.device(settings.device)
+        self.targets = torch.as_tensor(table.target_rates(), dtype=self.dtype,
+                                       device=self.device)
+        self.tune_max = torch.as_tensor(table.tune_max(), dtype=self.dtype, device=self.device)
+        self.diag_idx, self.diag_labels = _diag_node_subset(model)
+        self._diag_idx_dev = torch.as_tensor(self.diag_idx.astype(np.int64),
+                                             device=self.device)
+        # Cross-chain draw history ({name: [arrays of [T, chains]]}),
+        # persisted as the trace sidecar at every checkpoint.
+        self._draws_hist: dict = {}
+        # Wall seconds per sweep of every chunk run, and the accepted and
+        # attempted proposals of the whole run (all chains).
+        self.sweep_seconds: list = []
+        self.accepted = 0
+        self.attempted = 0
+
+    def _collect(self, state: State, lp_pr, lp_lik):
+        """One sweep's monitor row for every chain.  The sweep updates the
+        state in place, so the state leaves are copies."""
+        m = self.model
+        return dict(
+            birth=state.birth.clone(),
+            death=state.death.clone(),
+            height=state.height.clone(),
+            rate_mean=state.rate_mean.clone(),
+            rate_var=state.rate_var.clone(),
+            heights=state.heights.clone(),
+            rates=state.rates.clone(),
+            lp_post=lp_pr + lp_lik,
+            lp_prior=lp_pr,
+            lp_lik=lp_lik,
+            lp_cal=m.log_prior_cal_con_brace(state),
+            lp_bd=m.log_prior_birth_death(state),
+            lp_clock=m.log_prior_relaxed_clock(state),
+            # Absolute ages of the diagnostic node subset, for ALL chains.
+            ages_diag=state.heights[:, self._diag_idx_dev] * state.height[:, None],
+        )
+
+    def init_chains(self, state: State, jitter_rates: bool = True):
+        """Broadcast the initial state over chains; ``jitter_rates`` draws
+        each chain's initial branch rates from Gamma(5, 0.2) (see the JAX
+        package) so that tuning cannot collapse the rate variance and the
+        chains start apart."""
+        C = self.s.n_chains
+        batch = State(**{
+            k: getattr(state, k)[:1].expand((C,) + getattr(state, k).shape[1:])
+            .to(device=self.device, dtype=self.dtype).contiguous()
+            for k in FIELDS
+        })
+        if jitter_rates:
+            rng = np.random.default_rng(self.s.seed or 0)
+            r = rng.gamma(5.0, 0.2, size=(C, self.model.topo.n))
+            r[:, 0] = 1.0  # stem entry unused
+            batch = batch.replace(rates=torch.as_tensor(r, dtype=self.dtype, device=self.device))
+        tuning = torch.ones((C, self.table.n_proposals), dtype=self.dtype, device=self.device)
+        return batch, tuning
+
+    def _run_window(self, batch, tuning, key, n_sweeps, collect=False):
+        """Run ``n_sweeps`` (a multiple of CHUNK, padded up) sweeps; returns
+        the batch, the key, the summed accept and attempt counts and the
+        collected rows per chunk (host arrays, monitor leaves slimmed)."""
+        n_chunks = max(1, (n_sweeps + CHUNK - 1) // CHUNK)
+        acc_sum = tot_sum = 0
+        outs_all = []
+        for _ in range(n_chunks):
+            key, seed = split_key(key)
+            t0 = time.perf_counter()
+            batch, _, _, acc, tot, outs = self.kern.sweeps(
+                batch, tuning, seed, CHUNK,
+                collect=self._collect if collect else None,
+            )
+            acc_sum = acc_sum + acc
+            tot_sum = tot_sum + tot
+            self.accepted += int(acc.sum())
+            self.attempted += int(tot.sum())
+            if collect:
+                stacked = _slim_outs({k: torch.stack([o[k] for o in outs]) for k in outs[0]})
+                outs_all.append({k: v.cpu().numpy() for k, v in stacked.items()})
+            self.sweep_seconds.append((time.perf_counter() - t0) / CHUNK)
+        return batch, key, acc_sum, tot_sum, outs_all
+
+    def burn_in(self, batch, tuning, key):
+        """Custom auto-tuning windows (BurnInWithCustomAutoTuning)."""
+        bi = self.s.burn_in
+        done = 0
+        t0 = time.time()
+        for kind, windows in (("fast", bi.fast), ("slow", bi.slow)):
+            for w in windows:
+                batch, key, acc, tot, _ = self._run_window(batch, tuning, key, w)
+                tuning = tune_step(tuning, acc.to(self.dtype), tot.to(self.dtype),
+                                   self.targets, tune_max=self.tune_max)
+                done += w
+                rate = float(acc.to(self.dtype).sum()) / max(float(tot.to(self.dtype).sum()),
+                                                             1.0)
+                self.log(
+                    f"burn-in [{kind}] window {w}: {done}/{bi.total} iterations, "
+                    f"acceptance {rate:.3f}, {time.time() - t0:.1f}s elapsed"
+                )
+        return batch, tuning, key
+
+    def sample(self, batch, tuning, key, iterations, monitor: Optional[MonitorWriter],
+               start_iteration: int = 0, on_checkpoint: Optional[Callable] = None):
+        """Sampling phase with monitors (chain 0), cross-chain scalar draws
+        for the convergence diagnostics and periodic checkpoints."""
+        it = start_iteration
+        t0 = time.time()
+        next_save = it + self.s.save_period
+        scalar_names = ("birth", "death", "height", "rate_mean", "rate_var", "lp_post")
+        draws = self._draws_hist
+        for k in scalar_names:
+            draws.setdefault(k, [])
+        while it < start_iteration + iterations:
+            n = min(CHUNK, start_iteration + iterations - it)
+            batch, key, acc, tot, outs_all = self._run_window(batch, tuning, key, n,
+                                                              collect=True)
+            if monitor is not None:
+                for outs in outs_all:
+                    # leaves are [sweeps, chains, ...]; monitor chain 0.
+                    monitor.write_rows(it, {k: v[:, 0] for k, v in outs.items()})
+                    for k2 in scalar_names:
+                        draws[k2].append(outs[k2])
+                    for j, lbl in enumerate(self.diag_labels):
+                        draws.setdefault(f"age[{lbl}]", []).append(outs["ages_diag"][:, :, j])
+            it += n
+            if on_checkpoint is not None and it >= next_save:
+                on_checkpoint(batch, tuning, key, it)
+                next_save = it + self.s.save_period
+        if monitor is not None:
+            monitor.flush()
+        self.log(
+            f"sampling: {iterations} iterations x {self.s.n_chains} chains in "
+            f"{time.time() - t0:.1f}s"
+        )
+        self._write_diagnostics(draws)
+        return batch, tuning, key
+
+    def trace_arrays(self) -> dict:
+        """Full cross-chain draw history as ``{name: [draws, chains]}``."""
+        return {k: np.concatenate(v, axis=0) for k, v in self._draws_hist.items() if v}
+
+    # Fraction of the sampling draws dropped before R-hat/ESS (residual
+    # post-burn-in drift otherwise dominates split R-hat on long runs).
+    DIAG_DROP_FRACTION = 0.25
+
+    def _write_diagnostics(self, draws):
+        """Cross-chain R-hat and bulk/tail ESS of the scalar parameters and
+        the diagnostic node ages, logged and written to
+        ``<analysis>.diagnostics.tsv``."""
+        if not draws or not next(iter(draws.values())):
+            return
+        samples = {k: np.concatenate(v, axis=0) for k, v in draws.items() if v}
+        drop = int(next(iter(samples.values())).shape[0] * self.DIAG_DROP_FRACTION)
+        samples = {k: v[drop:] for k, v in samples.items()}
+        if drop:
+            self.log(f"diagnostics: dropping the first {drop} draws "
+                     f"({self.DIAG_DROP_FRACTION:.0%}) as residual warmup")
+        self.log("convergence diagnostics (all chains):")
+        table = summarize(samples, log=self.log)
+        path = f"{self.s.out_dir}/{self.s.analysis_name}.diagnostics.tsv"
+        with open(path, "w") as fh:
+            fh.write("Parameter\tMean\tSD\tESS\tTailESS\tRhat\n")
+            for k, s in table.items():
+                fh.write(
+                    f"{k}\t{s['mean']:.6g}\t{s['sd']:.6g}\t{s['ess']:.1f}\t"
+                    f"{s['ess_tail']:.1f}\t{s['rhat']:.4f}\n"
+                )
+
+
+def run_analysis(model: DatingModel, init: State, settings: RunSettings, *,
+                 init_from: Optional[tuple] = None, log=print) -> ChainRunner:
+    """The ``run`` entry point: burn-in, a checkpoint, sampling with
+    monitors, a final checkpoint.  ``init_from = (state, tuning,
+    same_cycle)`` warm-starts from a previous save.  Returns the runner
+    (its ``sweep_seconds`` hold the wall time per sweep of every chunk)."""
+    table = props.build_proposal_table(model.topo, model.braces, model.calibrations_available)
+    runner = ChainRunner(model, table, settings, log=log)
+    key = new_key(settings.seed if settings.seed is not None else 42)
+
+    def do_checkpoint(batch, tuning, k, it):
+        ckpt.save(settings.analysis_name, batch, tuning, k, it, table.n_proposals,
+                  out_dir=settings.out_dir)
+        trace = runner.trace_arrays()
+        if trace:
+            ckpt.save_trace(settings.analysis_name, trace, out_dir=settings.out_dir)
+        log(f"checkpoint at iteration {it}")
+
+    if init_from is not None:
+        # Warm start: reuse the saved batch; reuse tuning and a reduced
+        # burn-in only when the cycle shape matches.
+        state0, tuning0, same_cycle = init_from
+        _, tuning = runner.init_chains(init)
+        batch = state0.to(device=runner.device, dtype=runner.dtype)
+        if batch.n_chains == 1:  # single saved chain -> broadcast
+            batch, _ = runner.init_chains(batch, jitter_rates=False)
+        if same_cycle and tuning0 is not None:
+            tuning = torch.as_tensor(tuning0, dtype=runner.dtype, device=runner.device)
+            if tuning.dim() == 1:
+                tuning = tuning.expand(settings.n_chains, -1).contiguous()
+            settings.burn_in = BurnInSettings.informed()
+    else:
+        batch, tuning = runner.init_chains(init)
+    monitor = MonitorWriter(model, settings.analysis_name, settings.out_dir,
+                            period=settings.monitor_period, log=log).open()
+    log(f"burn-in: {settings.burn_in.total} iterations")
+    batch, tuning, key = runner.burn_in(batch, tuning, key)
+    do_checkpoint(batch, tuning, key, 0)
+    batch, tuning, key = runner.sample(batch, tuning, key, settings.iterations, monitor,
+                                       on_checkpoint=do_checkpoint)
+    do_checkpoint(batch, tuning, key, settings.iterations)
+    monitor.close()
+    return runner

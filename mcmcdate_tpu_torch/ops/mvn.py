@@ -1,0 +1,114 @@
+"""Multivariate-normal approximations of the phylogenetic likelihood.
+
+Port of ``mcmcdate_tpu/ops/mvn.py`` for the ``full``, ``univariate`` and
+``none`` kinds.  :class:`LikelihoodData` is the same host description as
+the JAX package's (copied, because that module imports JAX).  The
+``sparse`` and ``banded`` kinds are not ported yet (ROADMAP.md, Queue 1:
+"sparse and banded specs").
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..kernels.whiten import whiten
+from .dists import LN_SQRT_2PI
+
+FULL = "full"
+SPARSE = "sparse"
+BANDED = "banded"
+UNIVARIATE = "univariate"
+NONE = "none"
+
+NOT_PORTED = ("the {} likelihood kind is not ported to PyTorch yet "
+              "(ROADMAP.md, Queue 1: sparse and banded specs)")
+
+
+@dataclass(frozen=True)
+class LikelihoodData:
+    """Static (host) likelihood data produced by ``prepare``: for the MVN
+    kinds ``precision`` is the inverted covariance, ``chol_precision`` its
+    lower Cholesky factor and ``log_det_sigma`` the covariance's log
+    determinant; for ``univariate`` ``variances`` holds the per-branch
+    variances."""
+
+    kind: str
+    mu: Optional[np.ndarray] = None
+    precision: Optional[np.ndarray] = None
+    chol_precision: Optional[np.ndarray] = None
+    log_det_sigma: Optional[float] = None
+    variances: Optional[np.ndarray] = None
+
+    @staticmethod
+    def none() -> "LikelihoodData":
+        return LikelihoodData(kind=NONE)
+
+    @staticmethod
+    def full(mu, precision, log_det_sigma) -> "LikelihoodData":
+        precision = np.asarray(precision, dtype=np.float64)
+        return LikelihoodData(
+            kind=FULL,
+            mu=np.asarray(mu, dtype=np.float64),
+            precision=precision,
+            chol_precision=np.linalg.cholesky(precision),
+            log_det_sigma=float(log_det_sigma),
+        )
+
+    @staticmethod
+    def univariate(mu, variances) -> "LikelihoodData":
+        return LikelihoodData(
+            kind=UNIVARIATE,
+            mu=np.asarray(mu, dtype=np.float64),
+            variances=np.asarray(variances, dtype=np.float64),
+        )
+
+    @property
+    def dim(self) -> int:
+        return 0 if self.mu is None else len(self.mu)
+
+
+def mvn_log_density(dx, chol_precision, log_det_sigma):
+    """log N(dx; 0, Sigma) per chain via the precision Cholesky factor: the
+    quadratic form ``||dx @ L||^2`` is the whiten kernel's epilogue."""
+    k = dx.shape[-1]
+    _, quad = whiten(dx, chol_precision)
+    return -LN_SQRT_2PI * k - 0.5 * (log_det_sigma + quad)
+
+
+def univariate_log_density(dx, variances, log_var_sum):
+    k = dx.shape[-1]
+    quad = torch.sum(dx * dx / variances, dim=-1)
+    return -LN_SQRT_2PI * k - 0.5 * (log_var_sum + quad)
+
+
+def make_log_likelihood(data: LikelihoodData, dtype=torch.float64, device="cpu"):
+    """``log_lik(distances [C, D]) -> [C]`` closed over the static data."""
+    if data.kind == NONE:
+        def f_none(d):
+            return d.new_zeros(d.shape[:-1])
+
+        return f_none
+    if data.kind in (SPARSE, BANDED):
+        raise NotImplementedError(NOT_PORTED.format(data.kind))
+    mu = torch.as_tensor(data.mu, dtype=dtype, device=device)
+    if data.kind == FULL:
+        chol = torch.as_tensor(data.chol_precision, dtype=dtype, device=device)
+        log_det = float(data.log_det_sigma)
+
+        def f_mvn(d):
+            return mvn_log_density(d - mu, chol, log_det)
+
+        return f_mvn
+    if data.kind == UNIVARIATE:
+        var = torch.as_tensor(data.variances, dtype=dtype, device=device)
+        log_var_sum = float(np.sum(np.log(data.variances)))
+
+        def f_uni(d):
+            return univariate_log_density(d - mu, var, log_var_sum)
+
+        return f_uni
+    raise ValueError(f"Unknown likelihood kind {data.kind!r}")

@@ -1,0 +1,223 @@
+"""Profile the sequential sweep on a CUDA card and check its carry.
+
+Run from the root of a checkout, on a machine with a card:
+
+    python -m mcmcdate_tpu_torch.tools.profile_sweep [--out profile_sweep.json]
+        [--trace TRACE.json]
+
+at the shape of ``chip_smoke.py``'s main path (136 taxa x 1024 chains):
+
+1. ``simulate`` and ``prepare --likelihood-spec full`` in a temporary
+   directory, then the run's initial chain batch (jittered rates, untuned
+   proposals), as ``run`` builds it;
+2. ``WARMUP`` sweeps, then ``TIMED`` sweeps, each timed on the host clock
+   up to a device sync;
+3. one sweep under ``torch.profiler``: kernel launches (runtime and driver
+   API calls), device time per kernel name, and the device's busy share:
+   the union of the kernel, memcpy and memset intervals of the trace over
+   the sweep's host span, so that rows which overlap or repeat one another
+   count once;
+4. one sweep with the carry checked after every ticket:
+   the carried distances ``d``, whitened residual ``y`` and prior terms
+   against direct float32 evaluations of the carried state, and at the end
+   the carried log posterior against direct float32 and float64 ones.
+
+Writes the record to ``--out`` (also printed as the last line).  The
+profiler's chrome trace (hundreds of MB at the default shape) is kept only
+where ``--trace`` names a file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import tempfile
+import time
+
+import torch
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+PORT_KERNELS = ("prior_terms_kernel", "whiten", "accept_select_kernel")
+TAXA, CHAINS, TREES, SEED = 136, 1024, 600, 1
+WARMUP, TIMED = 10, 2
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def setup(tmp: str):
+    """The run's model, runner and initial batch and tuning, on the card."""
+    from .. import cli
+    from ..engine import proposals as props
+    from ..engine.chains import ChainRunner
+
+    data = os.path.join(tmp, "data")
+    cli.main(["simulate", "--leaves", str(TAXA), "--trees", str(TREES), "--out", data])
+    cli.main(["prepare", "-a", "prof", "--rooted-tree", os.path.join(data, "time.tree"),
+              "--trees", os.path.join(data, "trees.nwk"), "--likelihood-spec", "full",
+              "--out-dir", tmp])
+    args = cli.build_parser().parse_args(
+        ["run", "-a", "prof", "--chains", str(CHAINS), "--seed", str(SEED),
+         "--device", "cuda", "--out-dir", tmp])
+    quiet = lambda *a: None  # noqa: E731
+    model, init = cli._load_model(args, torch.device("cuda"), torch.float32, quiet)
+    table = props.build_proposal_table(model.topo, model.braces, model.calibrations_available)
+    runner = ChainRunner(model, table, cli._settings(args), log=quiet)
+    batch, tuning = runner.init_chains(init)
+    return runner, batch, tuning
+
+
+def _union(intervals) -> float:
+    """Total length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def trace_summary(trace_path: str) -> dict:
+    """Launches, device time per kernel and the busy share of the sweep
+    from a chrome trace with one ``sweep`` annotation (times in us)."""
+    with open(trace_path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    span = next(e for e in events if e.get("cat") == "user_annotation" and e["name"] == "sweep")
+    t0, t1 = span["ts"], span["ts"] + span["dur"]
+    device = [e for e in events if e.get("cat") in DEVICE_CATS and t0 <= e["ts"] <= t1]
+    launches = sum(1 for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver") and e["name"] in LAUNCH_NAMES
+                   and t0 <= e["ts"] <= t1)
+    per_name: dict = {}
+    for e in device:
+        n, us = per_name.get(e["name"], (0, 0.0))
+        per_name[e["name"]] = (n + 1, us + e["dur"])
+    busy_us = _union((e["ts"], min(e["ts"] + e["dur"], t1)) for e in device)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])
+    port = {}
+    for k in PORT_KERNELS:
+        rows = [(n, us) for name, (n, us) in per_name.items() if k in name]
+        n = sum(r[0] for r in rows)
+        us = sum(r[1] for r in rows)
+        port[k] = dict(calls=n, device_s=us * 1e-6, us_per_call=us / n if n else None)
+    return dict(
+        sweep_host_s=span["dur"] * 1e-6,
+        launches=launches,
+        device_events=len(device),
+        device_sum_s=sum(e["dur"] for e in device) * 1e-6,
+        device_busy_s=busy_us * 1e-6,
+        busy_share=busy_us / span["dur"] if span["dur"] else None,
+        port_kernels=port,
+        top_device=[dict(name=name[:120], calls=n, device_s=us * 1e-6)
+                    for name, (n, us) in top[:12]],
+    )
+
+
+def direct_log_posterior(model, state, dtype):
+    """``[C]`` log posterior of ``state`` evaluated afresh by the kernels'
+    plain versions in ``dtype``, on the state's device."""
+    from ..kernels.prior_terms import prior_terms_plain
+    from ..kernels.whiten import whiten_plain
+    from ..ops.heights import distances_internal
+
+    m = dataclasses.replace(model, dtype=dtype)
+    s = state.to(dtype=dtype)
+    _, q = whiten_plain(distances_internal(s, m.topo), m.chol_internal_t, sub=m.mu_internal_t)
+    return prior_terms_plain(m, s).sum(-1) + m.log_lik_const - 0.5 * q
+
+
+def check_carry(runner, batch, tuning, seed: int) -> dict:
+    """One sweep with the carry held against direct float32 evaluations
+    after every ticket; largest absolute errors over all tickets and chains."""
+    from ..kernels.prior_terms import prior_terms_plain
+    from ..kernels.whiten import whiten_plain
+    from ..ops.heights import distances_internal
+
+    kern = runner.kern
+    m = kern.model
+    worst = {k: torch.zeros((), device=runner.device) for k in ("d", "y", "terms")}
+    ticket_step = kern.ticket_step
+
+    def checked(carry, *a, **k):
+        out = ticket_step(carry, *a, **k)
+        d = distances_internal(carry.batch, m.topo)
+        y, _ = whiten_plain(d, m.chol_internal_t, sub=m.mu_internal_t)
+        terms = prior_terms_plain(m, carry.batch)
+        for key, a_, b_ in (("d", carry.d, d), ("y", carry.y, y), ("terms", carry.terms, terms)):
+            worst[key] = torch.maximum(worst[key], (a_ - b_).abs().nan_to_num(0.0).max())
+        return out
+
+    kern.ticket_step = checked
+    try:
+        batch, lp_pr, lp_lik, *_ = kern.sweeps(batch, tuning, seed, 1)
+    finally:
+        kern.ticket_step = ticket_step
+    lp = (lp_pr + lp_lik).double()
+    d32 = direct_log_posterior(m, batch, torch.float32).double()
+    d64 = direct_log_posterior(m, batch, torch.float64)
+    return dict(
+        max_abs_err={k: float(v) for k, v in worst.items()},
+        lp_scale=float(d64.abs().max()),
+        lp_carried_vs_f32=float((lp - d32).abs().max()),
+        lp_f32_vs_f64=float((d32 - d64).abs().max()),
+        lp_carried_vs_f64=float((lp - d64).abs().max()),
+        birth_minus_death_min_abs=float((batch.birth.double() - batch.death.double())
+                                        .abs().min()),
+    )
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default="profile_sweep.json")
+    ap.add_argument("--trace", default=None, help="where to keep the chrome trace")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_sweep needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    rec = dict(card=_card(), taxa=TAXA, chains=CHAINS, torch=torch.__version__)
+    with tempfile.TemporaryDirectory() as tmp:
+        runner, batch, tuning = setup(tmp)
+    kern = runner.kern
+    rec["tickets_per_sweep"] = runner.table.n_tickets
+    t0 = time.perf_counter()
+    batch = kern.sweeps(batch, tuning, 100, WARMUP)[0]
+    torch.cuda.synchronize()
+    rec["warmup_s"] = time.perf_counter() - t0
+    times = []
+    for i in range(TIMED):
+        t0 = time.perf_counter()
+        batch = kern.sweeps(batch, tuning, 200 + i, 1)[0]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rec["sweep_s"] = times
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("sweep"):
+            batch = kern.sweeps(batch, tuning, 300, 1)[0]
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = args.trace or os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        rec["profiled"] = trace_summary(trace)
+    rec["carry"] = check_carry(runner, batch, tuning, 400)
+    with open(args.out, "w") as fh:
+        json.dump(rec, fh, indent=1)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+if __name__ == "__main__":
+    main()
