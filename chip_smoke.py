@@ -6,20 +6,31 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the port's CUDA kernels from csrc/ and prints the time;
-3. kernels: runs K1 prior_terms, K2 whiten (full, gather and range-1024
-   row lists) and K3 accept_select on the card against their plain PyTorch
-   versions, at the run's shape (136 taxa x 1024 chains) and at the bench
-   shape (1000 taxa x 1024 chains), with the float32 tolerances below, and
-   times each with CUDA events;
-4. main path: simulate -> prepare --likelihood-spec full -> run (MHG, the
-   sequential sweep) at 136 taxa x 1024 chains through the port's CLI, in
-   a temporary directory; checks the outputs and that the run launched
-   every kernel.
+2. build: compiles the port's CUDA kernels from csrc/ (one nvcc per
+   source, all started together) and prints the time;
+3. kernels: runs every kernel on the card against its plain PyTorch
+   version, at the run's shape (136 taxa x 1024 chains) and at the bench
+   shape (1000 taxa x 1024 chains), with the float32 tolerances below:
+   K1 prior_terms, K2 whiten (full, gather and range-1024 row lists), K3
+   accept_select, and on FastSweeps' own plan steps of a synthetic model
+   K4 point_scan, K5 range_scan and K6 contra_step in its two modes
+   (contra_slide and contra_range, a record each).  Each kernel's device
+   time and its plain version's are read from the profiler over
+   back-to-back calls;
+4. main path: simulate -> prepare --likelihood-spec full -> run (MHG,
+   FastSweeps) at 136 taxa x 1024 chains through the port's CLI, in a
+   temporary directory; checks the outputs, the carried log posterior and
+   that the run launched every kernel;
+5. full width: FastSweeps through ChainRunner at 1000 taxa x 1024 chains
+   (D = 1,997) on the synthetic model; median s/sweep, carry check, K4-K6
+   launched;
+6. sequential path: the same 136-taxon model through
+   RunSettings(fast_sweep=False) (MHKernel); carry check, K1-K3 launched.
 
-The last two lines of standard output are the card's name and power limit
-and, on success, ``{"ok": true, "device": {...}}``; the line before them is
-the kernels' JSON record.
+Every phase after the kernels sets each wrapper's launch count to 0 just
+before it and reads it just after.  The last two lines of standard output
+are the card's name and power limit and, on success, ``{"ok": true,
+"device": {...}}``; the line before them is the kernels' JSON record.
 """
 
 from __future__ import annotations
@@ -38,11 +49,18 @@ MAIN_TAXA = 136
 BENCH_TAXA = 1000
 CHAINS = 1024
 TREES = 600
-# The run's iterations after the --profile burn-in (60 sweeps).  --profile
-# alone would run 50; cut to 20 so the whole script stays inside its
-# time limit (about 5 s per sweep at this shape on an H100).  Only the
-# iterations are cut, never the taxa or the chains.
+# The main path's iterations after the --profile burn-in (60 sweeps).
+# --profile alone would run 50; cut to 20 (about 3 s per sweep at this
+# shape on an H100).  The full-width phase runs 10 sweeps (one chunk) and
+# one more for the carry check (about 7 s per sweep at 1000 taxa); the
+# sequential phase 10 and one (about 5.5 s per sweep at 136 taxa).  Only
+# sweep counts are cut, never taxa or chains, so that the whole script
+# stays inside half its 1200 s limit.
 ITERATIONS = 20
+FULL_WIDTH_SWEEPS = 10
+SEQUENTIAL_SWEEPS = 10
+# Back-to-back calls per kernel timing.
+REPS = 20
 
 # float32 tolerances of kernel against plain version, both on the card.
 # K1: same formulas and CUDA math library, products rounded one by one
@@ -59,6 +77,25 @@ K2_REL = 1e-5
 # K3: the term sum is reduced in another order; accept decisions may
 # differ only where |log u - log alpha| is below this.
 K3_TIE = 1e-4
+# K4, K5: the scans' sums run in another order.  Per chain, decisions agree
+# up to the first that differs, which must be a tie (|log u - log alpha| <
+# SCAN_TIE); dq agrees up to there within SCAN_REL of the chain's |dq|.
+SCAN_TIE = 1e-4
+SCAN_REL = 1e-5
+# K6 (both modes): the same formulas built with -fmad=false, but CUDA's
+# normal CDF, its inverse and log in place of PyTorch's, so a proposal may
+# differ from the plain one in its last bits, and a term that divides by a
+# short branch amplifies that.  So: the kernel's proposals are within
+# CONTRA_REL (1 + |h|) of the plain version's from the same uniforms;
+# replayed through the plain version, they give the kernel's log proposal
+# ratios within SCAN_TIE (1 + |lq|), its decisions except at ties (|log u -
+# log alpha| < SCAN_TIE) and, with the ties taken as the kernel took them,
+# its heights, rates and terms within CONTRA_REL (1 + |x|) and its accept
+# counts, on every chain and ticket; the kernel keeps every branch distance
+# (h_parent - h) r within CONTRA_REL (|h_parent| + |h|) |r| of its old value
+# (the subtraction cancels on short branches); and its terms equal a fresh
+# evaluation of its own new state within CONTRA_REL (1 + |term|).
+CONTRA_REL = 1e-5
 # The main path's carried log posterior (float32, updated at every accept)
 # against a direct float32 evaluation of its final state by the plain
 # versions: relative to the largest |log posterior|.
@@ -77,7 +114,19 @@ KERNELS = (
      "mcmcdate_tpu/models/dating.py:209"),
     ("accept_select", "mcmcdate_tpu_torch/kernels/csrc/accept_select.cu",
      "mcmcdate_tpu/engine/mh.py:120"),
+    ("point_scan", "mcmcdate_tpu_torch/kernels/csrc/point_scan.cu",
+     "mcmcdate_tpu/engine/fast_sweep.py:1477"),
+    ("range_scan", "mcmcdate_tpu_torch/kernels/csrc/range_scan.cu",
+     "mcmcdate_tpu/engine/fast_sweep.py:1839"),
+    ("contra_slide", "mcmcdate_tpu_torch/kernels/csrc/contra_step.cu",
+     "mcmcdate_tpu/engine/fast_sweep.py:1223"),
+    ("contra_range", "mcmcdate_tpu_torch/kernels/csrc/contra_step.cu",
+     "mcmcdate_tpu/engine/fast_sweep.py:1566"),
 )
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
+# bytes/s and float32 operations/s outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
 
 
 class SmokeError(RuntimeError):
@@ -85,8 +134,10 @@ class SmokeError(RuntimeError):
 
 
 def check(cond, msg):
+    """Raise with ``msg`` (or ``msg()``, built only on failure) unless
+    ``cond``."""
     if not cond:
-        raise SmokeError(msg)
+        raise SmokeError(msg() if callable(msg) else msg)
 
 
 def log(msg):
@@ -123,22 +174,48 @@ def _sync():
     torch.cuda.synchronize()
 
 
-def _time_ms(fn, reps=20):
-    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
-    import torch
+def _device_ms(fn, only=None, reps=REPS):
+    """Device milliseconds per call of ``fn`` over ``reps`` back-to-back
+    calls, from the profiler's kernel, memcpy and memset intervals (only
+    those whose name contains ``only``, or one of them, where given), so
+    the host's enqueue gaps do not count.  A profile that recorded none of those intervals
+    (the profiler's device trace can come back empty) is taken again, up
+    to twice."""
+    from torch.profiler import ProfilerActivity, profile
 
+    names = (only,) if isinstance(only, str) else only
     fn()
     _sync()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            _sync()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+        dev = [e for e in events if e.get("ph") == "X"
+               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+               and (names is None or any(o in e["name"] for o in names))]
+        if dev:
+            break
+    check(dev, f"the profiler recorded no device time for {names or 'the call'}")
+    return sum(e["dur"] for e in dev) / 1e3 / reps
+
+
+def _bound(nbytes, ops):
+    """``(bound_ms, bound_by)``: the larger of the byte time and the
+    float32 operation time at the card's published peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _record(err, ms, plain_ms, nbytes, ops, library_ms=None):
+    bound_ms, bound_by = _bound(nbytes, ops)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def _perturbed(model, batch, seed):
@@ -226,7 +303,8 @@ def check_prior_terms(n_taxa):
               f"prior_terms {clock}: infinite terms differ")
         err = (k[fin] - p[fin]).abs()
         bad = err > K1_ATOL + K1_RTOL * p[fin].abs()
-        check(not bool(bad.any()), f"prior_terms {clock}: max error {float(err.max()):.3g}")
+        check(not bool(bad.any()),
+              lambda: f"prior_terms {clock}: max error {float(err.max()):.3g}")
         worst = max(worst, float(err.max()))
         bd = slice(4, 4 + m.topo.n + 1)
         p64 = prior_terms_plain(dataclasses.replace(m, dtype=torch.float64),
@@ -236,12 +314,19 @@ def check_prior_terms(n_taxa):
         check(torch.equal(fin, torch.isfinite(kb)), f"prior_terms {clock}: finiteness vs f64")
         err = (kb[fin] - p64[fin]).abs()
         bad = err > K1_BD_F64_ATOL + K1_BD_F64_RTOL * p64[fin].abs()
-        check(not bool(bad.any()),
+        check(not bool(bad.any()), lambda:
               f"prior_terms {clock}: birth-death terms off float64 by {float(err.max()):.3g}")
     s = _perturbed(model, batch, 2)
-    ms = _time_ms(lambda: prior_terms(model, s))
-    plain_ms = _time_ms(lambda: prior_terms_plain(model, s))
-    return worst, ms, plain_ms
+    ms = _device_ms(lambda: prior_terms(model, s), only="prior_terms_kernel")
+    plain_ms = _device_ms(lambda: prior_terms_plain(model, s))
+    C, N = s.heights.shape
+    T = sum(model.term_block_sizes)
+    # Bytes: heights and rates, five scalars per chain, parent and leaf
+    # flags in; the term vector out.  Operations: about 100 per node and
+    # chain (two double-precision D/E evaluations and a gamma density, with
+    # each exp, log or lgamma counted as 10).
+    nbytes = 4 * (2 * C * N + 5 * C) + 5 * N + 4 * C * T
+    return _record(worst, ms, plain_ms, nbytes, 100 * C * N)
 
 
 def check_whiten(n_taxa):
@@ -282,9 +367,16 @@ def check_whiten(n_taxa):
                   f"whiten {name} {what}: max error {err:.3g} at scale {scale:.3g}")
             worst = max(worst, err)
     kw = cases["full-delta"]
-    ms = _time_ms(lambda: whiten(L=L, **kw))
-    plain_ms = _time_ms(lambda: whiten_plain(L=L, **kw))
-    return worst, ms, plain_ms
+    ms = _device_ms(lambda: whiten(L=L, **kw), only="whiten")
+    plain_ms = _device_ms(lambda: whiten_plain(L=L, **kw))
+    # One PyTorch call of the same product, cuBLAS float32 (TF32 off).
+    xs = (d2 - mu).contiguous()
+    library_ms = _device_ms(lambda: torch.matmul(xs, L))
+    C = d.shape[0]
+    # Bytes: x, y, mu and L in, dy and the per-chain sum out.  Operations:
+    # the [C, D] x [D, D] product.
+    nbytes = 4 * (2 * C * D + D + D * D) + 4 * (C * D + C)
+    return _record(worst, ms, plain_ms, nbytes, 2 * C * D * D, library_ms)
 
 
 def check_accept_select(n_taxa):
@@ -347,24 +439,363 @@ def check_accept_select(n_taxa):
         check(torch.equal(fin, torch.isfinite(a.float())), f"accept_select {name}: inf differs")
         worst = max(worst, float((a[fin].float() - b[fin].float()).abs().max()))
     check(worst == 0.0, f"accept_select: selected values differ by {worst:.3g}")
-    ms = _time_ms(lambda: run(accept_select, 1))
-    base = _time_ms(lambda: run(lambda *a, **k: None, 1))  # the copies alone
-    plain_ms = _time_ms(lambda: run(accept_select_plain, 1))
-    return worst, max(ms - base, 0.0), max(plain_ms - base, 0.0)
+    ms = _device_ms(lambda: run(accept_select, 1), only="accept_select_kernel")
+    base = _device_ms(lambda: run(lambda *a, **k: None, 1))  # the copies alone
+    plain_ms = _device_ms(lambda: run(accept_select_plain, 1)) - base
+    N, D, T = old.heights.shape[1], d.shape[1], terms.shape[1]
+    # Bytes: both term rows, the four per-chain deltas and uniforms, the old
+    # state and d, y in; for the accepted chains the new state, terms, d and
+    # dy in and terms, state, d and y out; one accept flag per chain.
+    row_in = 4 * (2 * N + 4 + T + 2 * D)      # new state less death, terms2, d_new, dy
+    row_out = 4 * (2 * N + 4 + T + 2 * D)
+    nbytes = 4 * C * (2 * T + 4 + 2 * N + 5 + 2 * D) + n_acc * (row_in + row_out) + C
+    return _record(worst, ms, max(plain_ms, 0.0), nbytes, C * (3 * T + 10))
+
+
+_FAST = {}
+
+
+def _fast(n_taxa):
+    """FastSweeps on the synthetic model of a shape, with a carry (z and q
+    filled), a tuning and a generator (built once)."""
+    import torch
+
+    from mcmcdate_tpu_torch.engine import fast_sweep, proposals as P
+
+    if n_taxa not in _FAST:
+        model, batch = _model(n_taxa)
+        table = P.build_proposal_table(model.topo, model.braces, False)
+        fs = fast_sweep.FastSweeps(model, table)
+        carry = fs.init_carry(batch)
+        carry.z, carry.q = fs._zq_from_y(model.whitened_residual_internal(carry.batch))
+        gen = torch.Generator(device="cuda").manual_seed(n_taxa)
+        tuning = 0.3 + 2.7 * torch.rand((CHAINS, table.n_proposals), generator=gen,
+                                        device="cuda")
+        _FAST[n_taxa] = fs, carry, tuning, gen
+    return _FAST[n_taxa]
+
+
+def _recorded(name, call):
+    """The arguments FastSweeps hands to the kernel wrapper ``name`` (K4
+    or K5) during ``call()``: the shapes and values of the main path."""
+    from mcmcdate_tpu_torch.engine import fast_sweep
+
+    real = getattr(fast_sweep, name)
+    got = []
+
+    def rec(*args):
+        got.append(tuple(a.clone() for a in args))
+        return real(*args)
+
+    setattr(fast_sweep, name, rec)
+    try:
+        call()
+    finally:
+        setattr(fast_sweep, name, real)
+    check(got, f"the step never called {name}")
+    return got[0]
+
+
+def _draws(fs, sx, tuning, gen, gamma):
+    import torch
+
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    n = sx["rows"].shape[0]
+    draw = (standard_gamma(sx["sd"] / tuning[:, sx["rows"]], gen) if gamma
+            else torch.rand((CHAINS, n), generator=gen, device="cuda"))
+    return draw, torch.rand((CHAINS, n), generator=gen, device="cuda")
+
+
+def _scan_agree(name, acc_k, dq_k, acc_p, dq_p, la_p, logu):
+    """K4/K5 decisions and dq against the plain version's: per chain equal
+    up to the first decision that differs, which must be a tie.  Returns
+    the largest |dq| difference over the compared entries."""
+    import torch
+
+    differ = acc_k != acc_p
+    first = torch.where(differ.any(1), differ.int().argmax(1), acc_k.shape[1])
+    upto = torch.arange(acc_k.shape[1], device=acc_k.device)[None, :] <= first[:, None]
+    gap = (la_p - logu).abs()[differ & upto]
+    check(bool((gap < SCAN_TIE).all()), lambda: f"{name}: {int(differ.sum())} decisions "
+          f"differ beyond ties (largest |log u - log alpha| {float(gap.max()):.3g})")
+    scale = dq_p.abs().amax(1, keepdim=True).clamp(min=1.0)
+    err = (dq_k - dq_p).abs()
+    check(bool((err <= SCAN_REL * scale)[upto].all()),
+          lambda: f"{name}: dq off by {float(err[upto].max()):.3g}")
+    return float(err[upto].max()), int(differ.sum())
+
+
+def check_point_scan(n_taxa):
+    import torch
+
+    from mcmcdate_tpu_torch.engine import proposals as P
+    from mcmcdate_tpu_torch.kernels.point_scan import SUB, point_scan, point_scan_plain
+
+    fs, carry, tuning, gen = _fast(n_taxa)
+    worst, timed = 0.0, None
+    for kind in (P.K_SCALE_BRANCH_RATE, P.K_SLIDE_NODE_ULTRA):
+        sx = fs.spec_t[kind][0]  # the planner's first (largest) step
+        draw, u = _draws(fs, sx, tuning, gen, kind == P.K_SCALE_BRANCH_RATE)
+        args = _recorded("point_scan",
+                         lambda: fs.point_lik_step(kind, carry, tuning, sx, draw, u))
+        ak, dk = point_scan(*args)
+        ap, dp = point_scan_plain(*args)
+        _sync()
+        delta, _, _, d_pr, lmhg, uu = args
+        err, n_diff = _scan_agree(f"point_scan kind {kind}", ak, dk, ap, dp,
+                                  d_pr - 0.5 * dp + lmhg, torch.log(uu))
+        check(0 < int(ap.sum()) < ap.numel(), f"point_scan kind {kind}: not a mixed case")
+        log(f"[kernels] point_scan kind {kind} at {n_taxa} taxa: B={delta.shape[1]}, "
+            f"KD={delta.shape[2]}, {int(ap.sum())} accepts, {n_diff} tie decisions differ")
+        worst = max(worst, err)
+        timed = args, ap
+    args, ap = timed  # the node slides: the widest step (KD = 3)
+    ms = _device_ms(lambda: point_scan(*args), only="point_scan_kernel")
+    plain_ms = _device_ms(lambda: point_scan_plain(*args))
+    C, B, KD = args[0].shape
+    F = B * KD
+    # Bytes: deltas, zG, Pblk, d_pr, lmhg and u in; accept and dq out.
+    # Operations: dq0, the cross terms of each sub-block and, for this
+    # run's accepts, the zG updates of the later columns.
+    ops = C * B * (2 * KD + 2 * KD * KD)
+    for lo in range(0, B, SUB):
+        sn = min(SUB, B - lo)
+        ops += C * sn * (sn - 1) * KD * KD
+        if lo + sn < B:
+            ops += int(ap[:, lo:lo + sn].sum()) * 2 * KD * (F - (lo + sn) * KD)
+    nbytes = 4 * (2 * C * F + F * F + 3 * C * B) + 5 * C * B
+    return _record(worst, ms, plain_ms, nbytes, ops)
+
+
+def check_range_scan(n_taxa):
+    import torch
+
+    from mcmcdate_tpu_torch.engine import proposals as P
+    from mcmcdate_tpu_torch.kernels.range_scan import range_scan, range_scan_plain
+
+    fs, carry, tuning, gen = _fast(n_taxa)
+    worst, timed = 0.0, None
+    for (kind, rb), steps in fs.range_t.items():
+        if kind == P.K_SCALE_SUBTREES_CONTRA:
+            continue
+        sx = steps[0]
+        draw, u = _draws(fs, sx, tuning, gen, kind == P.K_SCALE_SUBTREE_RATE)
+        args = _recorded("range_scan",
+                         lambda: fs.range_lik_step(kind, carry, tuning, sx, draw, u))
+        ak, dk = range_scan(*args)
+        ap, dp = range_scan_plain(*args)
+        _sync()
+        g, _, _, _, d_pr, lmhg, uu = args
+        err, n_diff = _scan_agree(f"range_scan kind {kind} rows {rb}", ak, dk, ap, dp,
+                                  d_pr - 0.5 * dp + lmhg, torch.log(uu))
+        log(f"[kernels] range_scan kind {kind} at {n_taxa} taxa: S={g.shape[1]}, "
+            f"RB={g.shape[2]}, {int(ap.sum())} accepts, {n_diff} tie decisions differ")
+        worst = max(worst, err)
+        if timed is None or g.shape[1] > timed[0].shape[1]:
+            timed = args
+    args = timed  # the block with the most tickets
+    ms = _device_ms(lambda: range_scan(*args), only="range_scan_")
+    plain_ms = _device_ms(lambda: range_scan_plain(*args))
+    C, S, RB = args[0].shape
+    F = S * RB
+    # Bytes: g, zg, Q and the four [C, S] inputs in; accept and dq out.
+    # Operations: the Gram blocks a <= b (2 RB^2 + 2 RB each), v, the scan.
+    ops = C * (S * (S + 1) // 2 * (2 * RB * RB + 2 * RB) + 2 * S * RB + 3 * S * S)
+    nbytes = 4 * (2 * C * F + F * F + 4 * C * S) + 5 * C * S
+    return _record(worst, ms, plain_ms, nbytes, ops)
+
+
+def _contra_agree(name, mode, fs, carry, tuning, sx, u_prop, u_acc):
+    """K6 in one mode on one step against its plain version, on copies of
+    ``carry``: the kernel's proposals against the plain version's from the
+    same uniforms; the kernel's proposals replayed through the plain
+    version, whose decisions must equal the kernel's except at ties and,
+    with the ties taken as the kernel took them, whose heights, rates, terms
+    and accept counts must equal the kernel's on every chain and ticket;
+    distance invariance; and the kernel's terms against a fresh evaluation
+    of its own new state.  Returns ``(worst differences, kernel output,
+    run(fn))``, where ``run`` calls the kernel or its plain version on that
+    function's own copy."""
+    import torch
+
+    from mcmcdate_tpu_torch.engine.fast_sweep import FastCarry
+    from mcmcdate_tpu_torch.kernels import contra_step as K
+    from mcmcdate_tpu_torch.kernels.prior_terms import prior_terms_plain
+    from mcmcdate_tpu_torch.models.state import FIELDS, State
+
+    kernel, plain, given = getattr(K, f"contra_{mode}"), getattr(K, f"contra_{mode}_plain"), \
+        getattr(K, f"contra_{mode}_given")
+    model = fs.model
+    leaf = model.topo.is_leaf_t
+
+    def copy():
+        return FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
+                         carry.terms.clone(), carry.d, carry.z, carry.q, carry.acc.clone())
+
+    def run(fn, c):
+        return fn(c.batch, c.terms, c.acc, tuning, sx, leaf, model.clock, u_prop, u_acc)
+
+    def lengths(st):
+        """Branch distances (time x rate) and the size of the products they
+        are the difference of: a short branch loses bits to cancellation."""
+        par, nr = model.topo.parent_t, model.topo.non_root_t
+        h, r = st.heights, st.rates
+        return (torch.where(nr, (h[:, par] - h) * r, 0.0),
+                torch.where(nr, (h[:, par].abs() + h.abs()) * r.abs(), 0.0))
+
+    worst = {}
+
+    def within(what, a, b, rel):
+        fin = torch.isfinite(b)
+        check(torch.equal(fin, torch.isfinite(a)), f"{name} {what}: finiteness differs")
+        inf = ~fin & ~torch.isnan(b)
+        check(torch.equal(a[inf], b[inf]), f"{name} {what}: infinite values differ")
+        err = (a - b).abs()[fin]
+        worst[what] = float(err.max()) if err.numel() else 0.0
+        check(bool((err <= rel * (1 + b.abs()[fin])).all()),
+              lambda: f"{name} {what}: off the plain version by {worst[what]:.3g}")
+
+    ck, cp, cr = copy(), copy(), copy()
+    ok, op = run(kernel, ck), run(plain, cp)
+    _sync()
+    valid = sx["valid"].expand_as(ok.accept)
+    # The proposals, drawn from the same uniforms.
+    within("h_prop", torch.where(valid, ok.h_prop, 0.0), torch.where(valid, op.h_prop, 0.0),
+           CONTRA_REL)
+    # The kernel's proposals through the plain version, each decision taken
+    # as the kernel took it (log 0 < any finite log alpha; log NaN < nothing).
+    forced = torch.where(ok.accept, 0.0, math.nan)
+    orr = given(cr.batch, cr.terms, cr.acc, tuning, sx, leaf, model.clock, ok.h_prop, forced)
+    within("lq", torch.where(valid, ok.lq, 0.0), torch.where(valid, orr.lq, 0.0), SCAN_TIE)
+    check(torch.equal(orr.accept, ok.accept),
+          f"{name}: the kernel accepted a proposal whose log alpha the plain version makes -inf")
+    logu = torch.log(u_acc)
+    differ = ((logu < orr.log_alpha) & valid) != ok.accept
+    gap = (logu - orr.log_alpha).abs()[differ]
+    check(bool((gap < SCAN_TIE).all()), lambda: f"{name}: {int(differ.sum())} decisions differ "
+          f"beyond ties (largest |log u - log alpha| {float(gap.max()):.3g})")
+    fin = torch.isfinite(orr.log_alpha)
+    check(torch.equal(fin, torch.isfinite(ok.log_alpha)), f"{name}: log alpha finiteness differs")
+    worst["log_alpha"] = float((ok.log_alpha - orr.log_alpha).abs()[fin].max())
+    for what, a, b in (("heights", ck.batch.heights, cr.batch.heights),
+                       ("rates", ck.batch.rates, cr.batch.rates), ("terms", ck.terms, cr.terms)):
+        within(what, a, b, CONTRA_REL)
+    check(torch.equal(ck.acc, cr.acc), f"{name}: accept counts differ")
+    check(0 < int(ok.accept.sum()) < int(valid.sum()), f"{name}: not a mixed case")
+    (l0, m0), (l1, _) = lengths(carry.batch), lengths(ck.batch)
+    worst["distances"] = float(((l1 - l0).abs() / m0.clamp(min=1e-30)).max())
+    check(worst["distances"] <= CONTRA_REL, lambda: f"{name}: a branch distance moved by "
+          f"{worst['distances']:.3g} of its heights' products")
+    direct = prior_terms_plain(model, ck.batch)
+    fin = torch.isfinite(direct)
+    check(torch.equal(fin, torch.isfinite(ck.terms)), f"{name} terms: finiteness differs")
+    err = (ck.terms[fin] - direct[fin]).abs()
+    worst["fresh_terms"] = float(err.max())
+    check(bool((err <= CONTRA_REL * (1 + direct[fin].abs())).all()),
+          lambda: f"{name} terms: off a fresh evaluation by {worst['fresh_terms']:.3g}")
+    n_bits = sum(int((x != y).sum()) for x, y in (
+        (ck.batch.heights, cp.batch.heights), (ck.batch.rates, cp.batch.rates),
+        (ck.terms, cp.terms)))
+    log(f"[kernels] {name}: {tuple(u_acc.shape)} tickets, {int(ok.accept.sum())} accepts, "
+        f"{int(differ.sum())} tie decisions differ from the replay, "
+        f"{int((ok.accept != op.accept).sum())} from the plain run, {n_bits} values not "
+        f"bitwise equal to the plain run's; largest differences {json.dumps(worst)}")
+    return worst, ok, lambda fn: run(fn, ck if fn is kernel else cp)
+
+
+def _contra_steps(fs, mode):
+    """The plan steps of a K6 mode: the first contrary slide step, or the
+    first block of each contrary range bucket (largest rows first)."""
+    from mcmcdate_tpu_torch.engine import proposals as P
+
+    if mode == "slide":
+        return [("slide", fs.spec_t[P.K_SLIDE_NODES_CONTRA][0], 1)]
+    return sorted(((f"range {rb} rows", blocks[0], len(blocks))
+                   for (k, rb), blocks in fs.range_t.items()
+                   if k == P.K_SCALE_SUBTREES_CONTRA), key=lambda s: -s[1]["own"].shape[1])
+
+
+def _check_contra(mode, n_taxa):
+    """K6's ``mode`` at every step of ``_contra_steps``; the record keeps
+    the step of the bucket with the most blocks (the most launches)."""
+    from mcmcdate_tpu_torch.kernels import contra_step as K
+
+    kernel, plain = getattr(K, f"contra_{mode}"), getattr(K, f"contra_{mode}_plain")
+    fs, carry, tuning, gen = _fast(n_taxa)
+    worst, timed = 0.0, None
+    for step, sx, n_blocks in _contra_steps(fs, mode):
+        u_prop, u_acc = _draws(fs, sx, tuning, gen, False)
+        w, ok, run = _contra_agree(f"contra_{mode} {step} at {n_taxa} taxa", mode, fs, carry,
+                                   tuning, sx, u_prop, u_acc)
+        worst = max(worst, w["h_prop"], w["heights"])
+        ms = _device_ms(lambda: run(kernel), only=f"contra_{mode}_kernel")
+        plain_ms = _device_ms(lambda: run(plain))
+        log(f"[kernels] contra_{mode} {step} at {n_taxa} taxa: device time per call: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if timed is None or n_blocks > timed[0]:
+            timed = n_blocks, sx, ok.accept, ms, plain_ms
+    _, sx, accept, ms, plain_ms = timed
+    return sx, accept, ms, plain_ms, worst
+
+
+def check_contra_slide(n_taxa):
+    sx, accept, ms, plain_ms, worst = _check_contra("slide", n_taxa)
+    C, B = accept.shape
+    KC, KT = sx["ch"].shape[1], sx["t_rows"].shape[1]
+    # Bytes: per (chain, ticket) the gathered heights, rates, tuning,
+    # uniforms and touched terms in, the accept mask, log alpha and the
+    # proposal out, and for its accepts the height, rates, terms and count
+    # out; per chain four scalars; the step's plan arrays.  Operations:
+    # about 60 per touched term and 100 for the truncated normal (each
+    # special function counted as 10).
+    nbytes = (4 * C * B * (9 + 2 * KC + KT) + C * B + 16 * C + B * (4 * (4 + KC + KT) + 1)
+              + 4 * int(accept.sum()) * (3 + KC + KT))
+    return _record(worst, ms, plain_ms, nbytes, C * B * (60 * KT + 100))
+
+
+def check_contra_range(n_taxa):
+    sx, accept, ms, plain_ms, worst = _check_contra("range", n_taxa)
+    C, S = accept.shape
+    RB = sx["own"].shape[1]
+    rows = (sx["own"] >= 0).sum(1)                      # valid rows per ticket [S]
+    R = int(rows.sum())
+    acc_rows = int((accept.to(rows.dtype) * rows).sum())
+    # Bytes: per (chain, ticket) the tuning, uniforms and parent height in
+    # and the accept mask, log alpha and proposal out; per chain and valid
+    # row its height, rate and two terms in, and for the accepted tickets'
+    # rows the same out; per chain four scalars; the block's plan arrays
+    # (rows, parents, leaf flags).  Operations: about 120 per row (its
+    # birth-death term in double and its clock term) and 100 per ticket
+    # for the truncated normal (special functions counted as 10).
+    nbytes = (4 * C * S * 7 + C * S + 4 * C * R * 4 + 4 * acc_rows * 4 + 16 * C
+              + S * RB * 9 + 4 * S * 8)
+    return _record(worst, ms, plain_ms, nbytes, C * (120 * R + 100 * S))
+
+
+CHECKS = {"prior_terms": check_prior_terms, "whiten": check_whiten,
+          "accept_select": check_accept_select, "point_scan": check_point_scan,
+          "range_scan": check_range_scan, "contra_slide": check_contra_slide,
+          "contra_range": check_contra_range}
 
 
 def phase_kernels():
+    """Every kernel against its plain version at both shapes; the record
+    keeps the run's shape (136 taxa)."""
     results = {}
     for n_taxa in (MAIN_TAXA, BENCH_TAXA):
-        for name, fn in (("prior_terms", check_prior_terms), ("whiten", check_whiten),
-                         ("accept_select", check_accept_select)):
+        for name, fn in CHECKS.items():
             t0 = time.perf_counter()
-            err, ms, plain_ms = fn(n_taxa)
-            log(f"[kernels] {name} at {n_taxa} taxa x {CHAINS} chains: max error {err:.3g}, "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                f"(check took {time.perf_counter() - t0:.1f} s)")
+            r = fn(n_taxa)
+            lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+            log(f"[kernels] {name} at {n_taxa} taxa x {CHAINS} chains: max error "
+                f"{r['max_abs_err']:.3g}, device time per call: kernel {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}) (check took {time.perf_counter() - t0:.1f} s)")
             if n_taxa == MAIN_TAXA:
-                results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                results[name] = r
+        _FAST.pop(n_taxa, None)
+        _MODELS.pop(n_taxa, None)
     return results
 
 
@@ -397,17 +828,36 @@ def check_carried_posterior(runner, run_dir, lp_post):
     return err, err64
 
 
-def phase_main_path():
-    import numpy as np
-
-    from mcmcdate_tpu_torch import cli
+def _wrappers():
     from mcmcdate_tpu_torch.kernels.accept_select import accept_select
+    from mcmcdate_tpu_torch.kernels.contra_step import contra_range, contra_slide
+    from mcmcdate_tpu_torch.kernels.point_scan import point_scan
     from mcmcdate_tpu_torch.kernels.prior_terms import prior_terms
+    from mcmcdate_tpu_torch.kernels.range_scan import range_scan
     from mcmcdate_tpu_torch.kernels.whiten import whiten
 
-    wrappers = {"prior_terms": prior_terms, "whiten": whiten, "accept_select": accept_select}
+    return {"prior_terms": prior_terms, "whiten": whiten, "accept_select": accept_select,
+            "point_scan": point_scan, "range_scan": range_scan, "contra_slide": contra_slide,
+            "contra_range": contra_range}
+
+
+def _counted(run):
+    """Launch counts of every kernel during ``run()``, set to 0 just before
+    it; returns ``(counts, run's result)``."""
+    wrappers = _wrappers()
     for w in wrappers.values():
         w.launches = 0
+    out = run()
+    return {k: w.launches for k, w in wrappers.items()}, out
+
+
+def phase_main_path():
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch import cli
+    from mcmcdate_tpu_torch.engine.fast_sweep import FastSweeps
+
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "data")
         t0 = time.perf_counter()
@@ -420,11 +870,11 @@ def phase_main_path():
                   "--out-dir", tmp])
         log(f"[main path] prepare took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        runner = cli.main(["run", "-a", "smoke", "--chains", str(CHAINS), "--profile",
-                           "--seed", "1", "--device", "cuda", "--iterations", str(ITERATIONS),
-                           "--out-dir", tmp])
+        launches, runner = _counted(lambda: cli.main(
+            ["run", "-a", "smoke", "--chains", str(CHAINS), "--profile", "--seed", "1",
+             "--device", "cuda", "--iterations", str(ITERATIONS), "--out-dir", tmp]))
         wall = time.perf_counter() - t0
-        launches = {k: w.launches for k, w in wrappers.items()}
+        check(isinstance(runner.kern, FastSweeps), "run did not take FastSweeps")
         for suffix in ("params.monitor", "timetree.monitor", "ratetree.monitor",
                        "prior.monitor", "mcmc.npz", "mcmc.json", "trace.npz"):
             check(os.path.exists(os.path.join(tmp, f"smoke.{suffix}")), f"missing smoke.{suffix}")
@@ -436,22 +886,96 @@ def phase_main_path():
         rate = runner.accepted / runner.attempted
         check(0.0 < rate < 1.0, f"overall acceptance {rate}")
         n_sweeps = len(runner.sweep_seconds) * 10
-        tickets = runner.table.n_tickets * n_sweeps
         for k, n in launches.items():
-            check(n > 0, f"the run never launched {k}")
-        check(launches["prior_terms"] >= tickets,
-              f"prior_terms launched {launches['prior_terms']} times for {tickets} tickets")
+            check(n > 0, f"the main path never launched {k}")
+        # The sequential model for the last phase: this run's prepared data.
+        args = cli.build_parser().parse_args(["run", "-a", "smoke", "--out-dir", tmp])
+        seq_model, seq_init = cli._load_model(args, torch.device("cuda"), torch.float32,
+                                              lambda *a: None)
+    med = statistics.median(runner.sweep_seconds)
+    per_sweep = {k: n / n_sweeps for k, n in launches.items()}
+    log(f"[main path] FastSweeps, {MAIN_TAXA} taxa x {CHAINS} chains, {n_sweeps} sweeps "
+        f"(--profile burn-in of 60, then {ITERATIONS} iterations: cut from --profile's 50) "
+        f"in {wall:.1f} s; median "
+        f"{med:.4f} s per sweep on {torch.cuda.get_device_name(0)}; acceptance {rate:.4f}; "
+        f"carried log posterior within {lp_err:.3g} of the direct float32 one (float32 vs "
+        f"float64 evaluation of the final state: {lp_f64:.3g}); launches {launches}; "
+        f"per sweep {json.dumps({k: round(v, 2) for k, v in per_sweep.items()})}")
+    return launches, (seq_model, seq_init)
+
+
+def _check_lp(name, model, batch, lp_carried):
+    """A run's carried float32 log posterior against a direct float32
+    evaluation of its final state, and that against float64 (the limits of
+    the main path's check)."""
     import torch
 
+    from mcmcdate_tpu_torch.tools.profile_sweep import direct_log_posterior
+
+    d32 = direct_log_posterior(model, batch, torch.float32).double()
+    d64 = direct_log_posterior(model, batch, torch.float64)
+    check(bool(torch.isfinite(lp_carried).all()), f"{name}: log posterior not finite")
+    scale = float(d32.abs().max())
+    err = float((lp_carried.double() - d32).abs().max())
+    check(err <= LP_REL * scale,
+          f"{name}: carried log posterior off the direct one by {err:.3g} at scale {scale:.3g}")
+    err64 = float((d32 - d64).abs().max())
+    check(err64 <= LP_F64_REL * scale,
+          f"{name}: float32 log posterior off float64 by {err64:.3g} at scale {scale:.3g}")
+    return err, err64
+
+
+def _runner_phase(name, model, init, fast_sweep, n_sweeps, need):
+    """``n_sweeps`` sweeps through ``ChainRunner`` (chunks of 10, counted),
+    then one more sweep whose carried log posterior is checked.  Fails
+    unless every kernel in ``need`` was launched."""
+    import torch
+
+    from mcmcdate_tpu_torch.engine import proposals as P
+    from mcmcdate_tpu_torch.engine.chains import ChainRunner, RunSettings, new_key
+
+    table = P.build_proposal_table(model.topo, model.braces, model.calibrations_available)
+    settings = RunSettings(name, n_chains=CHAINS, seed=1, device="cuda",
+                           fast_sweep=fast_sweep)
+    runner = ChainRunner(model, table, settings, log=lambda *a: None)
+    batch, tuning = runner.init_chains(init)
+
+    def run():
+        out = runner._run_window(batch, tuning, new_key(1), n_sweeps)
+        b, _, acc, tot, _ = out
+        b2, lp_pr, lp_lik, *_ = runner.kern.sweeps(b, tuning, 7, 1)
+        return b2, lp_pr + lp_lik, float(acc.sum()) / float(tot.sum())
+
+    t0 = time.perf_counter()
+    launches, (batch, lp, rate) = _counted(run)
+    wall = time.perf_counter() - t0
+    for k in need:
+        check(launches[k] > 0, f"{name}: never launched {k}")
+    err, err64 = _check_lp(name, model, batch, lp)
     med = statistics.median(runner.sweep_seconds)
-    log(f"[main path] {MAIN_TAXA} taxa x {CHAINS} chains, {runner.table.n_tickets} tickets "
-        f"per sweep, {n_sweeps} sweeps (--profile burn-in of 60, then {ITERATIONS} "
-        f"iterations: cut from --profile's 50 to fit the time limit) in {wall:.1f} s; "
-        f"median {med:.4f} s per sweep on {torch.cuda.get_device_name(0)}; "
-        f"acceptance {rate:.4f}; carried log posterior within {lp_err:.3g} of the direct "
-        f"float32 one (float32 vs float64 evaluation of the final state: {lp_f64:.3g}); "
-        f"launches {launches}")
-    return launches, med
+    log(f"[{name}] {type(runner.kern).__name__}, {model.topo.n_leaves} taxa x {CHAINS} "
+        f"chains, {n_sweeps + 1} sweeps in {wall:.1f} s; median {med:.4f} s per sweep "
+        f"(chunks of 10) on {torch.cuda.get_device_name(0)}; acceptance {rate:.4f}; carried "
+        f"log posterior within {err:.3g} of the direct float32 one (float32 vs float64: "
+        f"{err64:.3g}); launches {launches}")
+    return launches
+
+
+def phase_full_width():
+    from mcmcdate_tpu_torch import synthetic
+
+    model, batch = synthetic.build(BENCH_TAXA, 1, device="cuda")
+    log(f"[full width] cut: {FULL_WIDTH_SWEEPS} sweeps (+1 for the carry check)")
+    return _runner_phase("full width", model, batch, True, FULL_WIDTH_SWEEPS,
+                         ("point_scan", "range_scan", "contra_slide", "contra_range"))
+
+
+def phase_sequential(seq):
+    model, init = seq
+    log(f"[sequential] cut: {SEQUENTIAL_SWEEPS} sweeps (+1 for the carry check) of the "
+        f"main path's model")
+    return _runner_phase("sequential", model, init, False, SEQUENTIAL_SWEEPS,
+                         ("prior_terms", "whiten", "accept_select"))
 
 
 def main():
@@ -460,13 +984,21 @@ def main():
 
     smi = phase_device()
     phase_build()
+    t0 = time.perf_counter()
     results = phase_kernels()
-    launches, _ = phase_main_path()
+    log(f"[kernels] all checks took {time.perf_counter() - t0:.1f} s")
+    launches, seq = phase_main_path()
+    full = phase_full_width()
+    sequential = phase_sequential(seq)
     check("jax" not in sys.modules, "the port imported jax")
+    check(not [m for m in sys.modules if m == "mcmcdate_tpu" or m.startswith("mcmcdate_tpu.")],
+          "the port imported the JAX package")
 
     name = torch.cuda.get_device_name(0)
     record = {"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep, launches=launches[k],
+             launches_by_path={"main": launches[k], "full_width": full[k],
+                               "sequential": sequential[k]},
              **results[k]) for k, src, rep in KERNELS
     ]}
     print(json.dumps(record), flush=True)

@@ -345,7 +345,7 @@ def cmd_run(args):
 
 
 def cmd_simulate(args):
-    from mcmcdate_tpu.utils.simulate import simulate, write_fixture
+    from .utils.simulate import simulate, write_fixture
 
     sim = simulate(n_leaves=args.leaves, n_trees=args.trees, seed=args.seed,
                    rate_var=args.rate_var)

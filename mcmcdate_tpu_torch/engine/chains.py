@@ -1,9 +1,10 @@
 """High-level MCMC orchestration: burn-in, sampling, monitors, checkpoints.
 
-Port of ``mcmcdate_tpu/engine/chains.py`` for MHG with the sequential sweep
-(``MHKernel``) on one device.  NUTS, MC3, the fiber moves, the bold
-contrary kernels, the ticket-batched ``FastSweeps`` and the device mesh
-stay in the JAX package for now.  The sampler's random streams derive
+Port of ``mcmcdate_tpu/engine/chains.py`` for MHG on one device, with the
+ticket-batched ``FastSweeps`` by default and the sequential ``MHKernel``
+as the fallback, chosen as the JAX package chooses.  NUTS, MC3, the fiber
+moves, the bold contrary kernels and the device mesh stay in the JAX
+package for now.  The sampler's random streams derive
 from a ``uint32[2]`` key that is split once per sweep chunk and saved in
 the checkpoint.
 """
@@ -17,12 +18,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from mcmcdate_tpu.engine.diagnostics import summarize
-
 from ..models.dating import DatingModel
 from ..models.state import FIELDS, State
+from ..ops import mvn
 from . import checkpoint as ckpt
 from . import proposals as props
+from .diagnostics import summarize
+from .fast_sweep import UNIVARIATE_DENSE_MAX, FastSweeps
 from .mh import BurnInSettings, MHKernel, tune_step
 from .monitor import MonitorWriter
 
@@ -92,8 +94,7 @@ class RunSettings:
     out_dir: str = "."
     seed: Optional[int] = None
     dtype: str = "float32"
-    # The ticket-batched sweep is not ported yet; True raises.
-    fast_sweep: bool = False
+    fast_sweep: bool = True  # ticket-batched sweep (engine/fast_sweep.py)
     device: str = "cuda"
 
 
@@ -102,15 +103,19 @@ class ChainRunner:
 
     def __init__(self, model: DatingModel, table: props.ProposalTable,
                  settings: RunSettings, log=print):
-        if settings.fast_sweep:
-            raise NotImplementedError(
-                "the ticket-batched sweep (FastSweeps) is not ported to PyTorch yet "
-                "(ROADMAP.md, Queue 1 item 5); run with fast_sweep=False")
         self.model = model
         self.table = table
         self.s = settings
         self.log = log
-        self.kern = MHKernel(model, table)
+        univariate_too_big = (model.likelihood.kind == mvn.UNIVARIATE
+                              and model.likelihood.dim > UNIVARIATE_DENSE_MAX)
+        if settings.fast_sweep and not univariate_too_big:
+            # The univariate kind rides the batched sweep as a dense diagonal
+            # up to UNIVARIATE_DENSE_MAX dims; beyond that the sequential
+            # sweep avoids the O(N^2) diagonal.
+            self.kern = FastSweeps(model, table)
+        else:
+            self.kern = MHKernel(model, table)
         self.dtype = getattr(torch, settings.dtype)
         self.device = torch.device(settings.device)
         self.targets = torch.as_tensor(table.target_rates(), dtype=self.dtype,

@@ -1,0 +1,1196 @@
+"""Ticket-batched sweep (FastSweeps): the default proposal cycle of ``run``.
+
+Port of ``mcmcdate_tpu/engine/fast_sweep.py`` without its optional bold
+contrary mixture and fiber node-slide, without NUTS and without the banded
+and sparse likelihood kinds.  A sweep executes sets of provably
+non-interacting proposal tickets as one vectorised step each: their prior
+dependencies are disjoint by construction, and the likelihood couples them
+only through the carried ``z = P (d - mu)`` and ``q = (d-mu)' P (d-mu)``,
+for which a sequential accept scan over each batch applies the exact
+pairwise corrections (see the JAX module's docstring).
+
+Phases of a sweep, in the JAX package's order:
+
+1. the tickets the planner cannot batch, through the sequential
+   :class:`~.mh.MHKernel` on ``plan.seq_table`` (host-drawn order, ``y``
+   carry);
+2. the 14 global-move families of :data:`GLOB_ORDER`, one ticket at a time
+   (plain torch);
+3. the point mega-steps: distance-invariant contrary node slides (kernel
+   K6 ``contra_slide``) and the likelihood-coupled node slides and
+   branch-rate scales (kernel K4 ``point_scan`` for the accept scan);
+4. the subtree-range blocks: the ultrametric and rate subtree scales
+   (kernel K5 ``range_scan`` for the Gram blocks and the accept scan) and
+   the distance-invariant contrary subtree scales (K6 ``contra_range``).
+
+The state is ``[chains, param]`` throughout; every P, z and d row access is
+a plain index gather and every write-back an ``index_add_`` (the JAX
+module's one-hot selector matmuls and transposed range layout are TPU
+workarounds).  Every step function takes its random draws as arguments;
+:meth:`FastSweeps.sweeps` draws them from ``torch.Generator``s on the
+batch's device.  Steps update the carry in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..kernels.contra_step import contra_range, contra_slide
+from ..kernels.point_scan import point_scan
+from ..kernels.range_scan import range_scan
+from ..kernels.whiten import whiten
+from ..models.dating import DatingModel
+from ..models.state import FIELDS, State
+from ..ops import mvn
+from ..ops.dists import gamma_scale_sample, standard_gamma, truncated_normal_sample
+from ..ops.heights import distances_internal
+from ..ops.local_terms import (
+    NEG_INF,
+    cal_range_terms,
+    clock_term_local,
+    is_bad,
+    range_gather,
+    range_scaled,
+    slide_terms,
+    sum_valid,
+)
+from ..ops.node_priors import SQRT_2_OVER_PI
+from . import proposals as P
+from .mh import Carry, MHKernel
+
+BATCH_MAX = 512
+SUB = 64  # correction-scan sub-block size
+
+
+# ---------------------------------------------------------------------------
+# Host-side planning (copied from the JAX module; NumPy only)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MegaSpec:
+    """Stacked static arrays for all mega-steps of one kind.
+
+    Leading axis = mega-step; second = ticket slot (padded to a common B).
+    ``valid`` masks pad slots.  ``t_*`` are flat term-vector row indices;
+    ``d_rows`` are internal-layout distance rows (-1 where absent).
+    Calibration slot j maps to t_rows slot KT-KN+j.
+    """
+
+    kind: int
+    rows: np.ndarray      # int32[M, B] proposal-table row per ticket
+    node: np.ndarray      # int32[M, B]
+    par: np.ndarray       # int32[M, B]
+    ch: np.ndarray        # int32[M, B, KC]
+    valid: np.ndarray     # bool[M, B]
+    t_rows: np.ndarray    # int32[M, B, KT] touched term rows (-1 pad)
+    d_rows: np.ndarray    # int32[M, B, KD] touched distance rows (-1 pad)
+    sd: np.ndarray        # f64[M, B] base kernel parameter (sd / shape)
+    cal_lo: np.ndarray    # f64[M, B, KN] absolute lower bound (0 if none)
+    cal_lo_s: np.ndarray  # f64[M, B, KN] sqrt(2/pi) * lower pm (1 if none)
+    cal_hi: np.ndarray    # f64[M, B, KN] absolute upper bound (inf if none)
+    cal_hi_s: np.ndarray  # f64[M, B, KN] sqrt(2/pi) * upper pm (1 if none)
+
+    @property
+    def n_mega(self) -> int:
+        return self.rows.shape[0]
+
+    @property
+    def b(self) -> int:
+        return self.rows.shape[1]
+
+
+@dataclass(frozen=True)
+class RangeSpec:
+    """Stacked sub-blocks of subtree-range tickets (one step = one sub-block
+    of tickets with pairwise-disjoint pre-order ranges, each padded to
+    ``RB`` rows).  ``own`` holds the covered node rows per ticket slot (-1
+    pad); the ``cal_*`` slots hold calibrated nodes inside the range."""
+
+    kind: int
+    rows: np.ndarray     # int32[M, S]
+    node: np.ndarray     # int32[M, S]
+    par: np.ndarray      # int32[M, S]
+    valid: np.ndarray    # bool[M, S]
+    sd: np.ndarray       # f64[M, S]
+    n_inner: np.ndarray  # int32[M, S] inner nodes in subtree
+    n_nodes: np.ndarray  # int32[M, S] nodes (branches) in subtree
+    own: np.ndarray      # int32[M, S, RB] covered node rows (-1 pad)
+    own_par: np.ndarray  # int32[M, S, RB] parent of each covered row
+    cal_t_rows: np.ndarray  # int32[M, S, KN] term rows (-1 pad)
+    cal_hsrc: np.ndarray    # int32[M, S, KN] node whose height feeds slot
+    cal_lo: np.ndarray      # f64[M, S, KN]
+    cal_lo_s: np.ndarray    # f64[M, S, KN]
+    cal_hi: np.ndarray      # f64[M, S, KN]
+    cal_hi_s: np.ndarray    # f64[M, S, KN]
+
+    @property
+    def n_blocks(self) -> int:
+        return self.rows.shape[0]
+
+
+@dataclass(frozen=True)
+class GlobGroup:
+    """Weight-expanded tickets of one global-move family: hyper-parameter
+    scales, the contrary global moves and the subtree scales the range
+    phase cannot take (root-adjacent, > ``RB_MAX`` rows, or
+    constraint/brace-coupled ranges)."""
+
+    tag: str
+    rows: np.ndarray      # int32[n] original table row per ticket
+    sd: np.ndarray        # float64[n] kernel width parameter
+    aux: np.ndarray       # int32[n] SC_* code or subtree node index
+    lo: np.ndarray        # int32[n] subtree node range start (pre-order)
+    hi: np.ndarray        # int32[n] subtree node range end
+    n_inner: np.ndarray   # int32[n] inner nodes in subtree
+    n_nodes: np.ndarray   # int32[n] nodes (branches) in subtree
+    rj: np.ndarray        # bool[n]  apply the root-branch Jacobian ratio
+
+    @property
+    def n_tickets(self) -> int:
+        return self.rows.shape[0]
+
+
+# Group execution order (static composition; any fixed order is a valid
+# kernel composition).
+GLOB_ORDER = (
+    "bd_scale", "rate_mean", "rate_var", "height", "hm_contra",
+    "norm_contra", "normh_contra", "var_tree", "var_auto", "rates_time",
+    "slide_root", "sub_contra", "sub_ultra", "sub_rate",
+)
+GAMMA_TAGS = frozenset({"bd_scale", "rate_mean", "rate_var", "height", "hm_contra",
+                        "norm_contra", "normh_contra", "var_tree", "var_auto", "sub_rate"})
+
+
+@dataclass(frozen=True)
+class FastPlan:
+    specs: Dict[int, MegaSpec]
+    range_specs: Dict[tuple, RangeSpec]
+    glob_groups: Dict[str, GlobGroup]
+    seq_table: P.ProposalTable  # leftover rows for the sequential fallback
+    seq_rows: np.ndarray        # mapping: seq-table row -> original row
+
+
+BATCHED_KINDS = (P.K_SLIDE_NODES_CONTRA, P.K_SLIDE_NODE_ULTRA, P.K_SCALE_BRANCH_RATE)
+RANGE_KINDS = (P.K_SCALE_SUBTREE_ULTRA, P.K_SCALE_SUBTREE_RATE, P.K_SCALE_SUBTREES_CONTRA)
+# (tickets, rows) per range block: every bucket is a 1024-row grid; larger
+# subtrees go to the sub_* global families.
+RANGE_BUCKETS = ((64, 16), (16, 64), (4, 256))
+RB_MAX = max(rb for _, rb in RANGE_BUCKETS)
+
+
+def plan_batches(model: DatingModel, table: P.ProposalTable) -> FastPlan:
+    """Greedy host-side plan: point kinds colored into mega-steps of at most
+    ``BATCH_MAX`` tickets with no parent-child pair and no repeated row;
+    range kinds packed size-descending first-fit into bucketed blocks of
+    disjoint subtrees; global families grouped; the rest stays sequential.
+    Tickets on constraint/brace nodes stay sequential (those terms couple
+    other nodes' heights); calibrated nodes batch with per-ticket slots."""
+    topo = model.topo
+    n = topo.n
+    parent = np.asarray(topo.parent)
+    children = np.asarray(topo.children)
+    kc = children.shape[1]
+    pos = np.asarray(topo.internal_pos)
+
+    cal = model.calibrations
+    hard_np: set = set()
+    if model.constraints.n:
+        hard_np.update(int(x) for x in np.asarray(model.constraints.young))
+        hard_np.update(int(x) for x in np.asarray(model.constraints.old))
+    if model.braces.n:
+        hard_np.update(int(x) for x in np.asarray(model.braces.node).ravel() if x >= 0)
+    cal_rows_of: Dict[int, List[int]] = {}
+    if cal.n:
+        for cr, nd_ in enumerate(np.asarray(cal.node)):
+            cal_rows_of.setdefault(int(nd_), []).append(cr)
+    nodes_off = 4 + 2 * (n + 1)  # term-vector offset of calibration rows
+
+    kind = np.asarray(table.kind)
+    node = np.asarray(table.node)
+    weight = np.asarray(table.weight)
+    root_jac = np.asarray(table.root_jac)
+    par_tab = np.asarray(table.par)
+
+    batched_tickets: Dict[int, List[int]] = {k: [] for k in BATCHED_KINDS}
+    seq_row_mask = np.ones(len(kind), bool)
+
+    for r in range(len(kind)):
+        k = int(kind[r])
+        if k not in BATCHED_KINDS:
+            continue
+        i = int(node[r])
+        if root_jac[r]:
+            continue  # root-adjacent: sequential
+        if k != P.K_SCALE_BRANCH_RATE and i in hard_np:
+            continue  # constraint/brace terms couple other nodes
+        seq_row_mask[r] = False
+        batched_tickets[k].extend([r] * int(weight[r]))
+
+    specs = {}
+    for k, tickets in batched_tickets.items():
+        if not tickets:
+            continue
+        # Greedy coloring: two tickets conflict if the same row (weight
+        # copies) or their nodes are in a parent-child relation.
+        colors: List[List[int]] = []
+        color_nodes: List[set] = []
+        color_rows: List[set] = []
+        for t in tickets:
+            i = int(node[t])
+            neigh = {i, int(parent[i])} | {int(c) for c in children[i] if c >= 0}
+            placed = False
+            for ci in range(len(colors)):
+                if t in color_rows[ci] or neigh & color_nodes[ci] or len(colors[ci]) >= BATCH_MAX:
+                    continue
+                colors[ci].append(t)
+                color_nodes[ci].add(i)
+                color_rows[ci].add(t)
+                placed = True
+                break
+            if not placed:
+                colors.append([t])
+                color_nodes.append({i})
+                color_rows.append({t})
+        m = len(colors)
+        b = max(len(c) for c in colors)
+        if k == P.K_SCALE_BRANCH_RATE:
+            kn = 0  # rates only: calibration terms unaffected
+        else:
+            kn = max((len(cal_rows_of.get(int(node[t]), ())) for t in tickets), default=0)
+        kt = 2 * (1 + kc) + kn  # bd + clock rows for node + children + cal
+        kd = 1 if k == P.K_SCALE_BRANCH_RATE else 1 + kc
+        S = dict(
+            rows=np.zeros((m, b), np.int32),
+            node=np.zeros((m, b), np.int32),
+            par=np.zeros((m, b), np.int32),
+            ch=np.full((m, b, kc), -1, np.int32),
+            valid=np.zeros((m, b), bool),
+            t_rows=np.full((m, b, kt), -1, np.int32),
+            d_rows=np.full((m, b, kd), -1, np.int32),
+            sd=np.zeros((m, b), np.float64),
+            cal_lo=np.zeros((m, b, kn), np.float64),
+            cal_lo_s=np.ones((m, b, kn), np.float64),
+            cal_hi=np.full((m, b, kn), np.inf, np.float64),
+            cal_hi_s=np.ones((m, b, kn), np.float64),
+        )
+        bd_off = 4
+        ck_off = 4 + (n + 1)
+        for ci, col in enumerate(colors):
+            for s, t in enumerate(col):
+                i = int(node[t])
+                S["rows"][ci, s] = t
+                S["node"][ci, s] = i
+                S["par"][ci, s] = int(parent[i])
+                S["valid"][ci, s] = True
+                S["sd"][ci, s] = par_tab[t]
+                cs = [int(c) for c in children[i] if c >= 0]
+                for j, c in enumerate(cs):
+                    S["ch"][ci, s, j] = c
+                if k == P.K_SCALE_BRANCH_RATE:
+                    S["t_rows"][ci, s, 0] = ck_off + i
+                    S["d_rows"][ci, s, 0] = pos[i]
+                else:
+                    tl = [bd_off + i, ck_off + i]
+                    tl += [bd_off + c for c in cs]
+                    tl += [ck_off + c for c in cs]
+                    S["t_rows"][ci, s, : len(tl)] = tl
+                    for j, cr in enumerate(cal_rows_of.get(i, ())):
+                        S["t_rows"][ci, s, 2 * (1 + kc) + j] = nodes_off + cr
+                        S["cal_lo"][ci, s, j] = cal.lower[cr]
+                        S["cal_lo_s"][ci, s, j] = SQRT_2_OVER_PI * cal.lower_pm[cr]
+                        S["cal_hi"][ci, s, j] = cal.upper[cr]
+                        S["cal_hi_s"][ci, s, j] = SQRT_2_OVER_PI * cal.upper_pm[cr]
+                    if k == P.K_SLIDE_NODE_ULTRA:
+                        dl = sorted({int(pos[i])} | {int(pos[c]) for c in cs})
+                        S["d_rows"][ci, s, : len(dl)] = dl
+        specs[k] = MegaSpec(kind=k, **S)
+
+    # --- range kinds: subtree scales batched as disjoint-range sub-blocks.
+    subtree_end = np.asarray(topo.subtree_end)
+    n_inner_sub = np.asarray(topo.n_inner_subtree)
+    n_nodes_sub = np.asarray(topo.n_nodes_subtree)
+    range_tickets: Dict[int, List[int]] = {k: [] for k in RANGE_KINDS}
+    for r in range(len(kind)):
+        k = int(kind[r])
+        if k not in RANGE_KINDS:
+            continue
+        i = int(node[r])
+        size = int(subtree_end[i]) - i
+        if root_jac[r] or size > RB_MAX:
+            continue
+        if k != P.K_SCALE_SUBTREE_RATE:
+            # Height-changing kinds: constraint/brace nodes inside the range
+            # stay sequential; calibrated nodes use the per-ticket slots.
+            if any(i <= x < subtree_end[i] for x in hard_np):
+                continue
+        seq_row_mask[r] = False
+        range_tickets[k].extend([r] * int(weight[r]))
+
+    range_specs = {}
+    for k, all_tickets in range_tickets.items():
+        prev_rb = 0
+        for subr, rb in RANGE_BUCKETS:
+            tickets = [t for t in all_tickets
+                       if prev_rb < int(subtree_end[node[t]]) - int(node[t]) <= rb]
+            prev_rb = rb
+            if not tickets:
+                continue
+            # First-fit over size-descending tickets: a block needs
+            # pairwise-disjoint ranges and distinct table rows.
+            tickets = sorted(tickets, key=lambda t: int(node[t]) - int(subtree_end[node[t]]))
+            blocks: List[List[int]] = []
+            block_mask: List[np.ndarray] = []
+            block_rows: List[set] = []
+            for t in tickets:
+                i = int(node[t])
+                lo, hi = i, int(subtree_end[i])
+                placed = False
+                for bi in range(len(blocks)):
+                    if (len(blocks[bi]) >= subr or t in block_rows[bi]
+                            or block_mask[bi][lo:hi].any()):
+                        continue
+                    blocks[bi].append(t)
+                    block_mask[bi][lo:hi] = True
+                    block_rows[bi].add(t)
+                    placed = True
+                    break
+                if not placed:
+                    blocks.append([t])
+                    msk = np.zeros(n, bool)
+                    msk[lo:hi] = True
+                    block_mask.append(msk)
+                    block_rows.append({t})
+            m = len(blocks)
+            if k == P.K_SCALE_SUBTREE_RATE:
+                kn = 0
+            else:
+                kn = max((sum(len(cal_rows_of.get(x, ()))
+                              for x in range(int(node[t]), int(subtree_end[node[t]])))
+                          for t in tickets), default=0)
+            S = dict(
+                rows=np.zeros((m, subr), np.int32),
+                node=np.zeros((m, subr), np.int32),
+                par=np.zeros((m, subr), np.int32),
+                valid=np.zeros((m, subr), bool),
+                sd=np.zeros((m, subr), np.float64),
+                n_inner=np.ones((m, subr), np.int32),
+                n_nodes=np.ones((m, subr), np.int32),
+                own=np.full((m, subr, rb), -1, np.int32),
+                own_par=np.zeros((m, subr, rb), np.int32),
+                cal_t_rows=np.full((m, subr, kn), -1, np.int32),
+                cal_hsrc=np.zeros((m, subr, kn), np.int32),
+                cal_lo=np.zeros((m, subr, kn), np.float64),
+                cal_lo_s=np.ones((m, subr, kn), np.float64),
+                cal_hi=np.full((m, subr, kn), np.inf, np.float64),
+                cal_hi_s=np.ones((m, subr, kn), np.float64),
+            )
+            for bi, blk in enumerate(blocks):
+                for s, t in enumerate(blk):
+                    i = int(node[t])
+                    lo, hi = i, int(subtree_end[i])
+                    S["rows"][bi, s] = t
+                    S["node"][bi, s] = i
+                    S["par"][bi, s] = int(parent[i])
+                    S["valid"][bi, s] = True
+                    S["sd"][bi, s] = par_tab[t]
+                    S["n_inner"][bi, s] = n_inner_sub[i]
+                    S["n_nodes"][bi, s] = n_nodes_sub[i]
+                    S["own"][bi, s, : hi - lo] = np.arange(lo, hi)
+                    S["own_par"][bi, s, : hi - lo] = parent[lo:hi]
+                    if kn:
+                        slot = 0
+                        for x in range(lo, hi):
+                            for cr in cal_rows_of.get(x, ()):
+                                S["cal_t_rows"][bi, s, slot] = nodes_off + cr
+                                S["cal_hsrc"][bi, s, slot] = x
+                                S["cal_lo"][bi, s, slot] = cal.lower[cr]
+                                S["cal_lo_s"][bi, s, slot] = SQRT_2_OVER_PI * cal.lower_pm[cr]
+                                S["cal_hi"][bi, s, slot] = cal.upper[cr]
+                                S["cal_hi_s"][bi, s, slot] = SQRT_2_OVER_PI * cal.upper_pm[cr]
+                                slot += 1
+            range_specs[(k, rb)] = RangeSpec(kind=k, **S)
+
+    # --- global-move families: everything here leaves the sequential phase.
+    glob_lists: Dict[str, List[int]] = {t: [] for t in GLOB_ORDER}
+    sub_tag = {P.K_SCALE_SUBTREE_ULTRA: "sub_ultra",
+               P.K_SCALE_SUBTREE_RATE: "sub_rate",
+               P.K_SCALE_SUBTREES_CONTRA: "sub_contra"}
+    kind_tag = {P.K_SCALE_HEIGHT_RATEMEAN_CONTRA: "hm_contra",
+                P.K_SCALE_NORM_RATE_TREE_CONTRA: "norm_contra",
+                P.K_SCALE_NORM_HEIGHT_RATE_TREE_CONTRA: "normh_contra",
+                P.K_SCALE_VAR_RATE_TREE: "var_tree",
+                P.K_SCALE_VAR_RATE_TREE_AUTOCORR: "var_auto",
+                P.K_SCALE_RATES_TIME_TREE_CONTRA: "rates_time",
+                P.K_SLIDE_ROOT_CONTRA: "slide_root"}
+    sc_tag = {P.SC_BIRTH: "bd_scale", P.SC_DEATH: "bd_scale",
+              P.SC_BIRTH_DEATH: "bd_scale", P.SC_BIRTH_DEATH_CONTRA: "bd_scale",
+              P.SC_RATE_MEAN: "rate_mean", P.SC_RATE_VAR: "rate_var",
+              P.SC_HEIGHT: "height"}
+    aux_tab = np.asarray(table.aux)
+    for r in range(len(kind)):
+        if not seq_row_mask[r]:
+            continue
+        k = int(kind[r])
+        if k == P.K_SCALE_SCALAR:
+            tag = sc_tag.get(int(aux_tab[r]))
+        else:
+            tag = kind_tag.get(k, sub_tag.get(k))
+        if tag is None:
+            continue
+        seq_row_mask[r] = False
+        glob_lists[tag].extend([r] * int(weight[r]))
+    glob_groups: Dict[str, GlobGroup] = {}
+    for tag in GLOB_ORDER:
+        ts = glob_lists[tag]
+        if not ts:
+            continue
+        m = len(ts)
+        G = dict(
+            rows=np.zeros(m, np.int32), sd=np.zeros(m, np.float64),
+            aux=np.zeros(m, np.int32), lo=np.zeros(m, np.int32),
+            hi=np.zeros(m, np.int32), n_inner=np.ones(m, np.int32),
+            n_nodes=np.ones(m, np.int32), rj=np.zeros(m, bool),
+        )
+        for s, t in enumerate(ts):
+            G["rows"][s] = t
+            G["sd"][s] = par_tab[t]
+            G["rj"][s] = bool(root_jac[t])
+            if int(kind[t]) == P.K_SCALE_SCALAR:
+                G["aux"][s] = aux_tab[t]
+            else:
+                i = int(node[t])
+                G["aux"][s] = i
+                if int(kind[t]) in sub_tag:
+                    G["lo"][s] = i
+                    G["hi"][s] = subtree_end[i]
+                    G["n_inner"][s] = n_inner_sub[i]
+                    G["n_nodes"][s] = n_nodes_sub[i]
+        glob_groups[tag] = GlobGroup(tag=tag, **G)
+
+    seq_rows = np.nonzero(seq_row_mask)[0].astype(np.int32)
+    seq_table = _subset_table(table, seq_rows)
+    return FastPlan(specs=specs, range_specs=range_specs, glob_groups=glob_groups,
+                    seq_table=seq_table, seq_rows=seq_rows)
+
+
+def _subset_table(table: P.ProposalTable, rows: np.ndarray) -> P.ProposalTable:
+    weight = np.asarray(table.weight)[rows]
+    tickets = np.concatenate(
+        [np.full(w, p, np.int32) for p, w in enumerate(weight)]
+    ) if len(rows) else np.zeros(0, np.int32)
+
+    def sub(a):
+        return None if a is None else np.asarray(a)[rows]
+
+    return P.ProposalTable(
+        kind=sub(table.kind), node=sub(table.node), aux=sub(table.aux), par=sub(table.par),
+        weight=weight, dim=sub(table.dim), root_jac=sub(table.root_jac),
+        names=tuple(table.names[r] for r in rows), tickets=tickets,
+        d_class=sub(table.d_class), d_lo=sub(table.d_lo), didx=sub(table.didx),
+        prior_class=sub(table.prior_class),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Device steps
+# ---------------------------------------------------------------------------
+
+
+UNIVARIATE_DENSE_MAX = 4096  # dims; above this the diagonal kind stays sequential
+
+
+@dataclass
+class FastCarry:
+    """What the batched phases carry per chain and update in place: the
+    state, the prior terms ``[C, T]``, the internal-layout distances ``d``
+    ``[C, D]``, ``z = P (d - mu)`` ``[C, D]`` (``[C, 0]`` without a
+    likelihood), ``q = (d-mu)' P (d-mu)`` ``[C]`` and the accept counts
+    ``[C, P]``."""
+
+    batch: State
+    terms: torch.Tensor
+    d: torch.Tensor
+    z: torch.Tensor
+    q: torch.Tensor
+    acc: torch.Tensor
+
+
+def spec_tensors(spec, device, dtype) -> dict:
+    """A plan spec's arrays on ``device``: integer fields int32, float
+    fields in ``dtype``, masks bool."""
+    out = {}
+    for f in dataclasses.fields(spec):
+        if f.name in ("kind", "tag"):
+            continue
+        a = np.asarray(getattr(spec, f.name))
+        if a.dtype == bool:
+            out[f.name] = torch.as_tensor(a, device=device)
+        elif np.issubdtype(a.dtype, np.integer):
+            out[f.name] = torch.as_tensor(a.astype(np.int32), device=device)
+        else:
+            out[f.name] = torch.as_tensor(a, dtype=dtype, device=device)
+    return out
+
+
+def step_tensors(spec, device, dtype) -> List[dict]:
+    """Per-step tensors of a :class:`MegaSpec` or :class:`RangeSpec`,
+    trimmed to the step's valid slots (they come first) and, for range
+    blocks, to the rows its tickets use: pad slots and rows never accept
+    and contribute exact zeros, so the trim changes no result and spares
+    the gathers and the scan their padding."""
+    full = spec_tensors(spec, device, dtype)
+    valid = np.asarray(spec.valid)
+    out = []
+    for m in range(valid.shape[0]):
+        n = int(valid[m].sum())
+        sx = {k: v[m, :n].contiguous() for k, v in full.items()}
+        if "own" in sx:
+            rb = int((np.asarray(spec.own[m, :n]) >= 0).sum(-1).max())
+            sx["own"] = sx["own"][:, :rb].contiguous()
+            sx["own_par"] = sx["own_par"][:, :rb].contiguous()
+        out.append(sx)
+    return out
+
+
+class FastSweeps:
+    """Drop-in alternative to ``MHKernel.sweeps`` using the batched plan,
+    for the full, univariate (as a dense diagonal, up to
+    ``UNIVARIATE_DENSE_MAX`` dims) and none likelihood kinds."""
+
+    def __init__(self, model: DatingModel, table: P.ProposalTable, bold_p: float = 0.0,
+                 fiber_slide: float = 0.0):
+        if bold_p or fiber_slide:
+            raise NotImplementedError(
+                "the bold contrary mixture and the fiber node-slide are not ported "
+                "(ROADMAP.md, Queue 1)")
+        kind = model.likelihood.kind
+        if kind in (mvn.SPARSE, mvn.BANDED):
+            raise NotImplementedError(mvn.NOT_PORTED.format(kind))
+        self.model = model
+        self.table = table
+        self.plan = plan_batches(model, table)
+        self.seq_kern = MHKernel(model, self.plan.seq_table)
+        self.use_lik = kind != mvn.NONE
+        self.dim = model.likelihood.dim
+        dev, dt = model.device, model.dtype
+        if kind == mvn.UNIVARIATE:
+            if self.dim > UNIVARIATE_DENSE_MAX:
+                raise ValueError(
+                    f"FastSweeps univariate path materializes a diagonal {self.dim}^2 "
+                    f"precision; use the sequential kernel above {UNIVARIATE_DENSE_MAX} dims")
+            inv_sd = np.asarray(model.inv_sd_internal, np.float64)
+            prec, chol = np.diag(inv_sd * inv_sd), np.diag(inv_sd)
+        elif self.use_lik:
+            perm = model.topo.ref_to_internal_perm
+            prec, chol = model.likelihood.precision[np.ix_(perm, perm)], model.chol_internal
+        if self.use_lik:
+            # Constants of the closed-form uniform distance scalings
+            # (rate-mean / absolute-height scales): with d' = u d,
+            # z' = u z + (u-1) P mu and dq = (u^2-1) q + 2u(u-1) mu'z + (u-1)^2 mu'P mu.
+            mu64 = np.asarray(model.mu_internal, np.float64)
+            pmu = np.asarray(prec, np.float64) @ mu64
+            self.P = torch.as_tensor(np.asarray(prec, np.float64), dtype=dt, device=dev)
+            self.L = torch.as_tensor(np.asarray(chol, np.float64), dtype=dt, device=dev)
+            self.mu = model.mu_internal_t
+            self.Pmu = torch.as_tensor(pmu, dtype=dt, device=dev)
+            self.mPm = float(mu64 @ pmu)
+        topo = model.topo
+        self.pos_t = torch.as_tensor(np.asarray(topo.internal_pos, np.int32), device=dev)
+        self.is_leaf_t = topo.is_leaf_t
+        self.spec_t = {k: step_tensors(s, dev, dt) for k, s in self.plan.specs.items()}
+        self.range_t = {k: step_tensors(s, dev, dt) for k, s in self.plan.range_specs.items()}
+
+    # -- precision/Cholesky right-multiplications -----------------------
+
+    def _x_P(self, X):
+        """``X @ P_internal``."""
+        return X @ self.P
+
+    def _x_Lt(self, X):
+        """``X @ L.T`` with ``P_internal = L L'``."""
+        return X @ self.L.T
+
+    # -- carried-quantity conversions ----------------------------------
+
+    def _zq_from_y(self, y):
+        if not self.use_lik:
+            return y.new_zeros((y.shape[0], 0)), y.new_zeros(y.shape[0])
+        return self._x_Lt(y), torch.sum(y * y, dim=-1)
+
+    def _y_from_d(self, d):
+        """Whitened residual ``(d - mu) L``: kernel K2 for the full kind,
+        elementwise for the univariate one."""
+        m = self.model
+        if not self.use_lik:
+            return d.new_zeros((d.shape[0], 0))
+        if m.likelihood.kind == mvn.UNIVARIATE:
+            return (d - m.mu_internal_t) * m.inv_sd_internal_t
+        y, _ = whiten(d, m.chol_internal_t, rows=m.rows_all, sub=m.mu_internal_t)
+        return y
+
+    # -- global-move families ------------------------------------------
+
+    def glob_step(self, tag: str, carry: FastCarry, tune, sx: dict, draw, u_acc):
+        """One ticket of the global-move family ``tag`` on every chain.
+
+        ``sx`` holds the ticket's host values (``sd``, ``aux``, ``lo``,
+        ``hi``, ``n_inner``, ``n_nodes``, ``rj``), ``tune`` its tuning
+        ``[C]``, ``draw`` the kernel's standard-gamma variate or uniform
+        ``[C]`` and ``u_acc`` the accept uniforms ``[C]``.  The ratio takes
+        only the term blocks the move can change (from one evaluation of the
+        proposed state); ``d/z/q`` are updated in closed
+        form (uniform distance scalings), not at all (distance-invariant
+        moves) or through one ``delta @ P`` product.  Returns the accept
+        mask."""
+        model = self.model
+        topo = model.topo
+        N = topo.n
+        n_br = N - 1
+        o_bd, o_ck, o_nd = 4, 4 + (N + 1), 4 + 2 * (N + 1)
+        nn = model.calibrations.n + model.constraints.n + model.braces.n
+        use_lik = self.use_lik
+        batch, d, z, q = carry.batch, carry.d, carry.z, carry.q
+        h, r = batch.heights, batch.rates
+        non_root = topo.non_root_t
+        child_list = [int(c) for c in topo.children[0] if c >= 0]
+        n_inner_total = int((~np.asarray(topo.is_leaf)).sum())
+        sd = float(sx["sd"])
+        lik_upd = True
+
+        def uniform_scale_lik(u):
+            d_new = u[:, None] * d
+            if not use_lik:
+                return d_new, z, q, torch.zeros_like(q)
+            s = torch.sum(self.mu * z, dim=-1)
+            um1 = u - 1.0
+            dq = (u * u - 1.0) * q + 2.0 * u * um1 * s + um1 * um1 * self.mPm
+            z_new = u[:, None] * z + um1[:, None] * self.Pmu[None, :]
+            return d_new, z_new, q + dq, dq
+
+        def dense_lik(bnew):
+            d_new = distances_internal(bnew, topo)
+            if not use_lik:
+                return d_new, z, q, torch.zeros_like(q)
+            delta = d_new - d
+            w = self._x_P(delta)
+            dq = torch.sum(delta * (2.0 * z + w), dim=-1)
+            return d_new, z + w, q + dq, dq
+
+
+        if tag in GAMMA_TAGS:
+            u, base, logu = gamma_scale_sample(draw, sd, tune)
+        if tag == "bd_scale":
+            aux = int(sx["aux"])
+            is_joint, is_con = aux == P.SC_BIRTH_DEATH, aux == P.SC_BIRTH_DEATH_CONTRA
+            coef = 2.0 if is_joint else 0.0 if is_con else 1.0
+            lmhg = base + coef * logu
+            b_fac = u if aux == P.SC_BIRTH or is_joint or is_con else 1.0
+            d_fac = u if aux == P.SC_DEATH or is_joint else (1.0 / u if is_con else 1.0)
+            bnew = batch.replace(birth=batch.birth * b_fac, death=batch.death * d_fac)
+            blocks = ["sc", "bd"]
+            fields = ("birth", "death")
+            lik_upd = False
+        elif tag == "rate_mean":
+            lmhg = base + logu
+            bnew = batch.replace(rate_mean=batch.rate_mean * u)
+            blocks = ["sc"]
+            fields = ("rate_mean",)
+            lik = uniform_scale_lik(u)
+        elif tag == "rate_var":
+            lmhg = base + logu
+            bnew = batch.replace(rate_var=batch.rate_var * u)
+            blocks = ["sc", "ck"]
+            fields = ("rate_var",)
+            lik_upd = False
+        elif tag == "height":
+            lmhg = base + logu
+            bnew = batch.replace(height=batch.height * u)
+            blocks = ["nd"]
+            fields = ("height",)
+            lik = uniform_scale_lik(u)
+        elif tag == "hm_contra":
+            lmhg = base
+            bnew = batch.replace(height=batch.height * u, rate_mean=batch.rate_mean / u)
+            blocks = ["sc", "nd"]
+            fields = ("height", "rate_mean")
+            lik_upd = False
+        elif tag in ("norm_contra", "normh_contra"):
+            # Distances (incl. the root branch) are exactly invariant: the
+            # divided scalar cancels rates * u.
+            lmhg = base + (n_br - 1) * logu
+            rates = torch.where(non_root, r * u[:, None], r)
+            if tag == "norm_contra":
+                bnew = batch.replace(rate_mean=batch.rate_mean / u, rates=rates)
+                blocks = ["sc", "ck"]
+                fields = ("rate_mean", "rates")
+            else:
+                bnew = batch.replace(height=batch.height / u, rates=rates)
+                blocks = ["ck", "nd"]
+                fields = ("height", "rates")
+            lik_upd = False
+        elif tag in ("var_tree", "var_auto"):
+            if tag == "var_tree":
+                mean = torch.sum(torch.where(non_root, r, 0.0), dim=-1) / n_br
+                rates_new = (r - mean[:, None]) * u[:, None] + mean[:, None]
+                exp_ = n_br + 1
+            else:
+                mu_r = batch.rate_mean[:, None]
+                rates_new = mu_r + u[:, None] * (r - mu_r)
+                exp_ = n_br + 2
+            ok = torch.all(torch.where(non_root, rates_new > 0, True), dim=-1)
+            lmhg = torch.where(ok, base + exp_ * logu, NEG_INF)
+            rates = torch.where(non_root, rates_new, r)
+            bnew = batch.replace(rate_var=batch.rate_var * u * u, rates=rates)
+            blocks = ["sc", "ck"]
+            fields = ("rate_var", "rates")
+            lik = dense_lik(bnew)
+        elif tag == "rates_time":
+            h_mc = h[:, child_list].amax(dim=1)
+            h_new, lq = truncated_normal_sample(draw, h_mc, sd, tune, 0.0, h[:, 0])
+            xi = h_new / h_mc
+            h2 = torch.cat([h[:, :1], h[:, 1:] * xi[:, None]], dim=1)
+            # (inner - 1) non-root heights scale by xi, minus the sampled
+            # coordinate, minus 2 for birth and rate_mean divided by xi.
+            lmhg = lq + (n_inner_total - 1 - 1 - 2) * torch.log(xi)
+            bnew = batch.replace(heights=h2, birth=batch.birth / xi,
+                                 rate_mean=batch.rate_mean / xi)
+            blocks = ["sc", "bd",
+                      "ck"]
+            if nn:
+                blocks.append("nd")
+            fields = ("heights", "birth", "rate_mean")
+            lik = dense_lik(bnew)
+        elif tag == "slide_root":
+            ht = batch.height
+            hch = h[:, child_list]
+            ht_oldest = ht * hch.amax(dim=1)
+            ht_new, lq = truncated_normal_sample(draw, ht, sd, tune, ht_oldest, math.inf)
+            u = ht_new / ht
+            scale_mask = (~self.is_leaf_t) & (torch.arange(N, device=h.device) != 0)
+            h2 = torch.where(scale_mask[None, :], h / u[:, None], h)
+            xi = (1.0 - hch) / (u[:, None] - hch)
+            rates = r.clone()
+            rates[:, child_list] = r[:, child_list] * xi
+            lmhg = lq - (n_inner_total - 1) * torch.log(u) + torch.sum(torch.log(xi), dim=-1)
+            bnew = batch.replace(height=ht_new, heights=h2, rates=rates)
+            blocks = ["bd", "ck"]
+            if nn:
+                blocks.append("nd")
+            fields = ("height", "heights", "rates")
+            lik = dense_lik(bnew)
+        elif tag in ("sub_ultra", "sub_contra"):
+            i, lo, hi_e = int(sx["aux"]), int(sx["lo"]), int(sx["hi"])
+            hi_h = h[:, i]
+            hp = h[:, int(topo.parent[i])]
+            hnew, lq = truncated_normal_sample(draw, hi_h, sd, tune, 0.0, hp)
+            xi = hnew / hi_h
+            h2 = h.clone()
+            h2[:, lo:hi_e] = h[:, lo:hi_e] * xi[:, None]
+            if tag == "sub_ultra":
+                lmhg = lq + (int(sx["n_inner"]) - 1) * torch.log(xi)
+                bnew = batch.replace(heights=h2)
+                fields = ("heights",)
+            else:
+                xi_stem = (hp - hi_h) / (hp - hnew)
+                rates = r.clone()
+                rates[:, i + 1:hi_e] = r[:, i + 1:hi_e] / xi[:, None]
+                rates[:, i] = r[:, i] * xi_stem
+                lmhg = (lq + (int(sx["n_inner"]) - int(sx["n_nodes"])) * torch.log(xi)
+                        + torch.log(xi_stem))
+                bnew = batch.replace(heights=h2, rates=rates)
+                fields = ("heights", "rates")
+            blocks = ["bd", "ck"]
+            if nn:
+                blocks.append("nd")
+            if tag == "sub_ultra":
+                lik = dense_lik(bnew)
+            else:
+                # contrary subtree scales are exactly distance invariant
+                # (xi_stem compensates the stem; xi cancels inside).
+                lik_upd = False
+        elif tag == "sub_rate":
+            lo, hi_e = int(sx["lo"]), int(sx["hi"])
+            rates = r.clone()
+            rates[:, lo:hi_e] = r[:, lo:hi_e] * u[:, None]
+            lmhg = base + int(sx["n_nodes"]) * logu
+            bnew = batch.replace(rates=rates)
+            blocks = ["ck"]
+            fields = ("rates",)
+            lik = dense_lik(bnew)
+        else:
+            raise ValueError(tag)
+
+        d_new, z_new, q_new, dq = lik if lik_upd else (d, z, q, torch.zeros_like(q))
+        lj = 0.0
+        if lik_upd and sx["rj"]:
+            # Root-branch Jacobian ratio; the merged root-adjacent entry is
+            # internal row 0.
+            lj = torch.log(d[:, 0]) - torch.log(d_new[:, 0])
+
+        # All term blocks of the proposed state in one evaluation (kernel K1
+        # on the card); only those the move can change enter the ratio.
+        full = model.log_prior_terms(bnew)
+        spans = {"sc": (0, 4), "bd": (o_bd, o_ck), "ck": (o_ck, o_nd), "nd": (o_nd, o_nd + nn)}
+        d_pr = 0.0
+        invalid = False
+        outs = []
+        for blk in blocks:
+            lo, hi = spans[blk]
+            nb, old = full[:, lo:hi], carry.terms[:, lo:hi]
+            d_pr = d_pr + sum_valid(nb - old)
+            invalid = invalid | torch.any(is_bad(nb), dim=-1)
+            outs.append((nb, old))
+        log_alpha = d_pr - 0.5 * dq + lmhg + lj
+        log_alpha = torch.where(invalid | torch.isnan(log_alpha), NEG_INF, log_alpha)
+        accept = torch.log(u_acc) < log_alpha
+        a = accept[:, None]
+        for nb, old in outs:
+            old.copy_(torch.where(a, nb, old))
+        for f in fields:
+            cur = getattr(batch, f)
+            cur.copy_(torch.where(a if cur.dim() == 2 else accept, getattr(bnew, f), cur))
+        if lik_upd:
+            d.copy_(torch.where(a, d_new, d))
+            if use_lik:
+                z.copy_(torch.where(a, z_new, z))
+            q.copy_(torch.where(accept, q_new, q))
+        return accept
+
+    # -- point mega-steps -------------------------------------------------
+
+    def contra_slide_step(self, carry: FastCarry, tuning, sx: dict, u_prop, u_acc):
+        """One mega-step of distance-invariant contrary node slides
+        (slideNodesAtContrarily), all tickets at once: kernel K6.  Returns
+        the ``[C, B]`` accept mask."""
+        m = self.model
+        return contra_slide(carry.batch, carry.terms, carry.acc, tuning, sx, m.topo.is_leaf_t,
+                            m.clock, u_prop, u_acc).accept
+
+    def point_lik_step(self, kind: int, carry: FastCarry, tuning, sx: dict, draw, u_acc):
+        """One mega-step of likelihood-coupled node slides or branch-rate
+        scales, with the exact sequential-correction accept scan (kernel
+        K4).  ``draw`` is the truncated-normal uniform or standard-gamma
+        variate ``[C, B]``.  Returns the ``[C, B]`` accept mask."""
+        model = self.model
+        is_branch = kind == P.K_SCALE_BRANCH_RATE
+        batch, terms, d = carry.batch, carry.terms, carry.d
+        node, par, ch, valid = sx["node"], sx["par"], sx["ch"], sx["valid"]
+        t_rows, d_rows, rows, sd = sx["t_rows"], sx["d_rows"], sx["rows"], sx["sd"]
+        C, B = draw.shape
+        kc, kd, kt = ch.shape[-1], d_rows.shape[-1], t_rows.shape[-1]
+        h, r = batch.heights, batch.rates
+        tune = tuning[:, rows]
+        var = batch.rate_var[:, None]
+        d_ok = d_rows >= 0
+        d_safe = torch.clamp(d_rows, min=0)
+        d_old = d[:, d_safe]                                  # [C, B, KD]
+
+        if is_branch:
+            u, base, logu = gamma_scale_sample(draw, sd, tune)
+            r_new = r[:, node] * u
+            lq = base + logu
+            tn0 = clock_term_local(model.clock, r_new, h[:, par] - h[:, node], var)[..., None]
+            tn = torch.cat([tn0, tn0.new_zeros(tn0.shape[:-1] + (kt - 1,))], dim=-1)
+            d_new = torch.where(d_ok, d_old * u[..., None], d_old)
+        else:
+            hi = h[:, node]
+            hp = h[:, par]
+            ch_ok = ch >= 0
+            ch_i = torch.clamp(ch, min=0)
+            hch = h[:, ch_i]                                   # [C, B, KC]
+            hc_max = torch.where(ch_ok, hch, NEG_INF).amax(dim=-1)
+            hnew, lq = truncated_normal_sample(draw, hi, sd, tune, hc_max, hp)
+            tn = slide_terms(model.clock, batch, self.is_leaf_t, sx, hnew, hp, hch, r[:, node],
+                             r[:, ch_i])
+            # New distance rows: the node's own branch gets t = hp - hnew,
+            # a child c's branch t = hnew - h_c; d = scale * t * r.
+            sc = (batch.height * batch.rate_mean)[:, None]
+            pos = self.pos_t
+            pos_i = pos[node]
+            d_new = d_old.clone()
+            for slot in range(kd):
+                is_i = d_rows[:, slot] == pos_i
+                t_val = torch.where(is_i, hp - hnew, 0.0)
+                r_val = torch.where(is_i, r[:, node], 0.0)
+                for j in range(kc):
+                    cj = ch_i[:, j]
+                    owns = (d_rows[:, slot] == pos[cj]) & ch_ok[:, j]
+                    t_val = torch.where(owns, hnew - h[:, cj], t_val)
+                    r_val = torch.where(owns, r[:, cj], r_val)
+                d_new[:, :, slot] = torch.where(d_ok[:, slot], sc * t_val * r_val,
+                                                d_old[:, :, slot])
+
+        delta = torch.where(d_ok, d_new - d_old, 0.0)          # [C, B, KD]
+        t_ok = t_rows >= 0
+        t_safe = torch.clamp(t_rows, min=0)
+        told = terms[:, t_safe]
+        d_pr = sum_valid(torch.where(t_ok, tn - told, 0.0))
+        invalid = torch.any(t_ok & is_bad(tn), dim=-1)
+        lmhg = torch.where(invalid | ~valid, NEG_INF, lq)
+
+        if not self.use_lik:
+            log_alpha = d_pr + lmhg
+            log_alpha = torch.where(torch.isnan(log_alpha), NEG_INF, log_alpha)
+            accept = torch.log(u_acc) < log_alpha
+        else:
+            d_flat = d_safe.reshape(-1)
+            ok_flat = d_ok.reshape(-1).to(d.dtype)
+            Prow = self.P[d_flat] * ok_flat[:, None]           # [B*KD, D]
+            Pblk = Prow[:, d_flat] * ok_flat[None, :]          # [B*KD, B*KD]
+            zG = carry.z[:, d_flat] * ok_flat                  # [C, B*KD]
+            accept, dq_all = point_scan(delta.contiguous(), zG.contiguous(),
+                                        Pblk.contiguous(), d_pr, lmhg, u_acc)
+
+        # --- apply ---
+        accept = accept & valid
+        a = accept[..., None]
+        if is_branch:
+            r[:, node] = torch.where(accept, r_new, r[:, node])
+        else:
+            h[:, node] = torch.where(accept, hnew, h[:, node])
+        terms[:, t_safe] = torch.where(a & t_ok, tn, told)
+        if self.use_lik:
+            # Tickets of a step touch disjoint rows and pad slots add zero.
+            dacc = torch.where(a & d_ok, delta, 0.0).reshape(C, B * kd)
+            d.index_add_(1, d_flat, dacc)
+            carry.z += dacc @ Prow
+            carry.q += torch.sum(torch.where(accept, dq_all, 0.0), dim=-1)
+        else:
+            d[:, d_safe] = torch.where(a & d_ok, d_new, d_old)
+        carry.acc.index_add_(1, rows, accept.to(carry.acc.dtype))
+        return accept
+
+    # -- subtree-range blocks ---------------------------------------------
+
+    def range_contra_step(self, carry: FastCarry, tuning, sx: dict, u_prop, u_acc):
+        """One block of distance-invariant contrary subtree scales
+        (scaleSubTreesAtContrarily), all tickets at once: kernel K6's range
+        mode.  Returns the ``[C, S]`` accept mask."""
+        m = self.model
+        return contra_range(carry.batch, carry.terms, carry.acc, tuning, sx, m.topo.is_leaf_t,
+                            m.clock, u_prop, u_acc).accept
+
+    def range_lik_step(self, kind: int, carry: FastCarry, tuning, sx: dict, draw, u_acc):
+        """One block of likelihood-coupled subtree scales, ultrametric
+        (Ultrametric.hs:126-188) or rate (Unconstrained.hs:95-137).  Each
+        ticket's distance delta is rank-1, ``delta_b = (f_b - 1) g_b``;
+        kernel K5 forms the Gram blocks ``g_a' Q_ab g_b`` and runs the
+        accept scan.  Returns the ``[C, S]`` accept mask."""
+        model = self.model
+        N = model.topo.n
+        is_rate = kind == P.K_SCALE_SUBTREE_RATE
+        batch, terms, d = carry.batch, carry.terms, carry.d
+        h, r = batch.heights, batch.rates
+        node, par, valid, rows, sd = sx["node"], sx["par"], sx["valid"], sx["rows"], sx["sd"]
+        C, S = draw.shape
+        tune = tuning[:, rows]
+        rg = range_gather(batch, sx)
+        own_ok, own_s, is_root, h_own, hpar_own, r_own = rg
+        RB = own_s.shape[-1]
+        d_own = torch.where(own_ok, self.pos_t[own_s], 0)     # [S, RB]
+        d_old_g = d[:, d_own]                                  # [C, S, RB]
+        var = batch.rate_var[:, None, None]
+        if is_rate:
+            f, base, logu = gamma_scale_sample(draw, sd, tune)   # [C, S]
+            lq = base + sx["n_nodes"] * logu
+            r_new = r_own * f[..., None]
+            ck_new = clock_term_local(model.clock, r_new, hpar_own - h_own, var)
+            t_news = ((4 + (N + 1) + own_s, ck_new),)
+            g = torch.where(own_ok, d_old_g, 0.0)
+        else:
+            hi = h[:, node]
+            hp = h[:, par]
+            hnew, lq = truncated_normal_sample(draw, hi, sd, tune, 0.0, hp)
+            f = hnew / hi                                     # xi  [C, S]
+            lq = lq + (sx["n_inner"] - 1) * torch.log(f)
+            h_new, bd_new, ck_new = range_scaled(model.clock, batch, self.is_leaf_t, rg, f, r_own)
+            t_news = ((4 + own_s, bd_new), (4 + (N + 1) + own_s, ck_new))
+            # The subtree root's own branch keeps its parent: its delta is
+            # (f - 1) times -scale * r * h.
+            height_rm = (batch.height * batch.rate_mean)[:, None, None]
+            g = torch.where(is_root, -height_rm * r_own * h_own, d_old_g)
+            g = torch.where(own_ok, g, 0.0)
+
+        d_pr = torch.zeros_like(f)
+        invalid = torch.zeros_like(valid).expand(C, S)
+        olds = []
+        for t_rows_k, tn_k in t_news:
+            told_k = terms[:, t_rows_k]
+            olds.append(told_k)
+            d_pr = d_pr + sum_valid(torch.where(own_ok, tn_k - told_k, 0.0))
+            invalid = invalid | torch.any(own_ok & is_bad(tn_k), dim=-1)
+        knr = 0 if is_rate else sx["cal_t_rows"].shape[-1]
+        if knr:
+            cal_ok, cal_safe, cal_new, cal_old, dpc, invc = cal_range_terms(batch, terms, sx, f)
+            d_pr = d_pr + dpc
+            invalid = invalid | invc
+        lmhg = torch.where(invalid | ~valid, NEG_INF, lq)
+        # Pad slots (sd = 0) draw f = NaN; their coefficient is 0, so the
+        # scan's cross terms with them are 0 and not NaN.  (The JAX step
+        # keeps the NaN, and then rejects every ticket of a padded block.)
+        coef = torch.where(valid, f - 1.0, 0.0)                # [C, S]
+
+        if not self.use_lik:
+            log_alpha = d_pr + lmhg
+            accept = torch.log(u_acc) < torch.where(torch.isnan(log_alpha), NEG_INF, log_alpha)
+        else:
+            d_flat = d_own.reshape(-1)
+            ok_flat = own_ok.reshape(-1).to(d.dtype)
+            zg = (carry.z[:, d_flat] * ok_flat).reshape(C, S, RB)
+            Prow = self.P[d_flat] * ok_flat[:, None]           # [S*RB, D]
+            Q = Prow[:, d_flat] * ok_flat[None, :]             # [S*RB, S*RB]
+            accept, dq_all = range_scan(g.contiguous(), zg.contiguous(), Q.contiguous(),
+                                        coef.contiguous(), d_pr, lmhg, u_acc)
+
+        accept = accept & valid
+        am = accept[..., None] & own_ok
+        if is_rate:
+            r[:, own_s] = torch.where(am, r_new, r_own)
+        else:
+            h[:, own_s] = torch.where(am, h_new, h_own)
+            if knr:
+                terms[:, cal_safe] = torch.where(accept[..., None] & cal_ok, cal_new, cal_old)
+        for (t_rows_k, tn_k), told_k in zip(t_news, olds):
+            terms[:, t_rows_k] = torch.where(am, tn_k, told_k)
+        delta = coef[..., None] * g
+        dacc = torch.where(am, delta, 0.0)
+        if self.use_lik:
+            dacc = dacc.reshape(C, S * RB)
+            d.index_add_(1, d_flat, dacc)
+            carry.z += dacc @ Prow
+            carry.q += torch.sum(torch.where(accept, dq_all, 0.0), dim=-1)
+        else:
+            d[:, d_own] = torch.where(am, d_old_g + delta, d_old_g)
+        carry.acc.index_add_(1, rows, accept.to(carry.acc.dtype))
+        return accept
+
+    # -- the sweep -----------------------------------------------------
+
+    def init_carry(self, batch: State) -> FastCarry:
+        """Carried quantities of a fresh batch (a copy: sweeps update it in
+        place); ``z``/``q`` are filled at the start of each batched phase."""
+        m = self.model
+        batch = State(**{k: getattr(batch, k).clone() for k in FIELDS})
+        C = batch.n_chains
+        z = batch.heights.new_zeros((C, self.dim if self.use_lik else 0))
+        acc = torch.zeros((C, self.table.n_proposals), dtype=torch.int32,
+                          device=batch.heights.device)
+        return FastCarry(batch, m.log_prior_terms(batch), distances_internal(batch, m.topo), z,
+                         batch.height.new_zeros(C), acc)
+
+    def sweep_once(self, carry: FastCarry, y, tuning, host_gen, gen):
+        """One sweep of every phase on ``carry`` (in place) with the
+        whitened residual ``y`` at its start; returns ``y`` at its end."""
+        self.seq_phase(carry, y, tuning, host_gen, gen)
+        carry.z, carry.q = self._zq_from_y(y)
+        self.glob_phase(carry, tuning, gen)
+        self.point_phase(carry, tuning, gen)
+        self.range_phase(carry, tuning, gen)
+        return self._y_from_d(carry.d)
+
+    @staticmethod
+    def _rand(carry: FastCarry, gen, *shape):
+        return torch.rand(shape, generator=gen, dtype=carry.d.dtype, device=carry.d.device)
+
+    def seq_phase(self, carry: FastCarry, y, tuning, host_gen, gen):
+        """The tickets the planner cannot batch, through the sequential
+        kernel in a host-drawn order (``y`` carry, updated in place)."""
+        plan = self.plan
+        if not len(plan.seq_table.tickets):
+            return
+        m = self.model
+        C, dev = carry.d.shape[0], carry.d.device
+        rows_t = torch.as_tensor(plan.seq_rows.astype(np.int64), device=dev)
+        seq = Carry(carry.batch, carry.terms, carry.d if self.use_lik else None,
+                    y if self.use_lik else None,
+                    torch.zeros((C, plan.seq_table.n_proposals), dtype=torch.int32, device=dev))
+        self.seq_kern.sweep_once(seq, tuning[:, rows_t], host_gen, gen)
+        carry.acc.index_add_(1, rows_t, seq.acc)
+        if not self.use_lik:
+            carry.d.copy_(distances_internal(carry.batch, m.topo))
+
+    def glob_phase(self, carry: FastCarry, tuning, gen):
+        """The global-move families in :data:`GLOB_ORDER`, one ticket at a
+        time."""
+        C, dev = carry.d.shape[0], carry.d.device
+        for tag, grp in self.plan.glob_groups.items():
+            tun = tuning[:, torch.as_tensor(grp.rows.astype(np.int64), device=dev)].T
+            for s in range(grp.n_tickets):
+                sx = dict(sd=grp.sd[s], aux=grp.aux[s], lo=grp.lo[s], hi=grp.hi[s],
+                          n_inner=grp.n_inner[s], n_nodes=grp.n_nodes[s], rj=bool(grp.rj[s]))
+                if tag in GAMMA_TAGS:
+                    draw = standard_gamma(float(grp.sd[s]) / tun[s], gen)
+                else:
+                    draw = self._rand(carry, gen, C)
+                accept = self.glob_step(tag, carry, tun[s], sx, draw, self._rand(carry, gen, C))
+                carry.acc[:, int(grp.rows[s])] += accept.to(torch.int32)
+
+    def point_phase(self, carry: FastCarry, tuning, gen):
+        """The point mega-steps: contrary slides (K6), then the
+        likelihood-coupled slides and branch-rate scales (K4)."""
+        C = carry.d.shape[0]
+        for k, steps in self.spec_t.items():
+            for sx in steps:
+                B = sx["rows"].shape[0]
+                if k == P.K_SLIDE_NODES_CONTRA:
+                    self.contra_slide_step(carry, tuning, sx, self._rand(carry, gen, C, B),
+                                           self._rand(carry, gen, C, B))
+                    continue
+                if k == P.K_SCALE_BRANCH_RATE:
+                    draw = standard_gamma(sx["sd"] / tuning[:, sx["rows"]], gen)
+                else:
+                    draw = self._rand(carry, gen, C, B)
+                self.point_lik_step(k, carry, tuning, sx, draw, self._rand(carry, gen, C, B))
+
+    def range_phase(self, carry: FastCarry, tuning, gen):
+        """The subtree-range blocks in the plan's order: ultrametric and rate
+        subtree scales (K5), then contrary subtree scales."""
+        C = carry.d.shape[0]
+        for (k, _), steps in self.range_t.items():
+            for sx in steps:
+                S = sx["rows"].shape[0]
+                if k == P.K_SCALE_SUBTREES_CONTRA:
+                    self.range_contra_step(carry, tuning, sx, self._rand(carry, gen, C, S),
+                                           self._rand(carry, gen, C, S))
+                    continue
+                if k == P.K_SCALE_SUBTREE_RATE:
+                    draw = standard_gamma(sx["sd"] / tuning[:, sx["rows"]], gen)
+                else:
+                    draw = self._rand(carry, gen, C, S)
+                self.range_lik_step(k, carry, tuning, sx, draw, self._rand(carry, gen, C, S))
+
+    def lp_of(self, carry: FastCarry, y):
+        """Per-chain log prior and log likelihood from the carried terms
+        and whitened residual."""
+        lp_pr = torch.sum(carry.terms, dim=-1)
+        if not self.use_lik:
+            return lp_pr, torch.zeros_like(lp_pr)
+        return lp_pr, self.model.log_lik_const - 0.5 * torch.sum(y * y, dim=-1)
+
+    def sweeps(self, batch: State, tuning, seed: int, n: int,
+               collect: Optional[Callable] = None):
+        """Same contract as ``MHKernel.sweeps``: ``n`` sweeps of the chain
+        batch, ``seed`` seeding the sequential phase's ticket order (host)
+        and every draw (on the batch's device).  Returns ``(batch, lp_pr,
+        lp_lik, acc, tot, outs)``."""
+        device = batch.heights.device
+        host_gen = torch.Generator().manual_seed(seed)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        carry = self.init_carry(batch)
+        y = self.model.whitened_residual_internal(carry.batch)
+        C = batch.n_chains
+        outs = []
+        for _ in range(n):
+            y = self.sweep_once(carry, y, tuning, host_gen, gen)
+            if collect is not None:
+                outs.append(collect(carry.batch, *self.lp_of(carry, y)))
+        tot = (torch.as_tensor(self.table.weight, dtype=torch.int32, device=device) * n
+               ).expand(C, -1)
+        return (carry.batch, *self.lp_of(carry, y), carry.acc, tot, outs)

@@ -147,30 +147,35 @@ class MHKernel:
         runs after each sweep.  Returns ``(batch, lp_pr, lp_lik, acc, tot,
         outs)`` with ``outs`` the list of per-sweep collections."""
         device = batch.heights.device
-        dtype = batch.heights.dtype
         host_gen = torch.Generator().manual_seed(seed)
         gen = torch.Generator(device=device).manual_seed(seed)
         carry = self.init_carry(batch)
         C = batch.n_chains
-        t = self.table
-        tickets = torch.as_tensor(t.tickets)
-        gamma_kind = [int(k) in props.GAMMA_KINDS for k in t.kind]
-        par = torch.as_tensor(t.par, dtype=dtype, device=device)
         outs = []
         for _ in range(n):
-            order = tickets[torch.randperm(len(tickets), generator=host_gen)].tolist()
-            u_prop = torch.rand((len(order), C), generator=gen, dtype=dtype, device=device)
-            u_acc = torch.rand((len(order), C), generator=gen, dtype=dtype, device=device)
-            for j, pidx in enumerate(order):
-                if gamma_kind[pidx]:
-                    draw = standard_gamma(par[pidx] / tuning[:, pidx], gen)
-                else:
-                    draw = u_prop[j]
-                self.ticket_step(carry, tuning, pidx, draw, u_acc[j])
+            self.sweep_once(carry, tuning, host_gen, gen)
             if collect is not None:
                 outs.append(collect(carry.batch, *self.lp_of(carry)))
-        tot = (torch.as_tensor(t.weight, dtype=torch.int32, device=device) * n).expand(C, -1)
+        tot = (torch.as_tensor(self.table.weight, dtype=torch.int32, device=device) * n
+               ).expand(C, -1)
         return (carry.batch, *self.lp_of(carry), carry.acc, tot, outs)
+
+    def sweep_once(self, carry: Carry, tuning, host_gen, gen):
+        """One pass over the weight-expanded tickets on ``carry`` (in
+        place), in an order drawn from the host generator ``host_gen``,
+        with the per-chain draws from ``gen``."""
+        t = self.table
+        C, dtype, device = tuning.shape[0], carry.terms.dtype, carry.terms.device
+        tickets = torch.as_tensor(t.tickets)
+        order = tickets[torch.randperm(len(tickets), generator=host_gen)].tolist()
+        u_prop = torch.rand((len(order), C), generator=gen, dtype=dtype, device=device)
+        u_acc = torch.rand((len(order), C), generator=gen, dtype=dtype, device=device)
+        for j, pidx in enumerate(order):
+            if int(t.kind[pidx]) in props.GAMMA_KINDS:
+                draw = standard_gamma(float(t.par[pidx]) / tuning[:, pidx], gen)
+            else:
+                draw = u_prop[j]
+            self.ticket_step(carry, tuning, pidx, draw, u_acc[j])
 
 
 def tune_step(tuning, acc, tot, targets, rate=1.0, tune_max=None):

@@ -33,10 +33,9 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from mcmcdate_tpu.tree.flat import FlatTopology
-from mcmcdate_tpu.tree.rose import Node, mrca_path, read_one_newick
-
 from ..ops.node_priors import BraceSet, CalibrationSet, ConstraintSet
+from ..tree.flat import FlatTopology
+from ..tree.rose import Node, mrca_path, read_one_newick
 
 
 class SpecError(ValueError):

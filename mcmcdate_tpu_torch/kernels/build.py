@@ -1,8 +1,9 @@
 """Build the port's CUDA sources into one shared library and load it.
 
 The sources in ``csrc/`` have a plain C interface, so ``nvcc`` compiles
-them in seconds without PyTorch's headers.  The library lands in
-``_build/`` under a name that hashes the sources and flags, so an edited
+them in seconds without PyTorch's headers, one process per source, all
+started together.  The library lands in ``_build/`` under a name that
+hashes the sources, the headers and the flags, so an edited
 source is never served by a stale build; it is loaded with ``ctypes``.
 Building happens at the first launch, never at import.
 """
@@ -23,13 +24,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "_build")
 
-# No --use_fast_math: the prior and accept kernels rely on exact isnan,
-# isinf and -inf.  Those two also round every product on its own
-# (-fmad=false), as the op-by-op plain versions do; the product kernel
-# keeps fused multiply-adds.
+# No --use_fast_math: the kernels rely on exact isnan, isinf and -inf.  The
+# prior, accept and contrary-slide kernels also round every product on its
+# own (-fmad=false), as the op-by-op plain versions do; the product and
+# scan kernels keep fused multiply-adds.
 COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                 "-Xcompiler", "-fPIC"]
-FILE_FLAGS = {"prior_terms.cu": ["-fmad=false"], "accept_select.cu": ["-fmad=false"]}
+FILE_FLAGS = {"prior_terms.cu": ["-fmad=false"], "accept_select.cu": ["-fmad=false"],
+              "contra_step.cu": ["-fmad=false"]}
 
 
 def _nvcc() -> str:
@@ -45,7 +47,7 @@ def _sources():
 
 def library_path() -> str:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(_sources() + glob.glob(os.path.join(CSRC, "*.cuh"))):
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as fh:
             h.update(fh.read())

@@ -1,0 +1,97 @@
+"""K4 ``point_scan``: the sequential-correction accept scan of a point
+mega-step (likelihood-coupled node slides and branch-rate scales).
+
+Replaces the XLA-compiled correction scan of ``FastSweeps._mega_point_lik``
+(``mcmcdate_tpu/engine/fast_sweep.py:1477-1534``).  Per chain, over the
+step's B tickets in order, each with a distance delta ``delta_t`` on KD
+rows: ``dq0_t = 2 delta_t . zG_t + delta_t' Pself_t delta_t``, the cross
+terms ``T_at = delta_a' Pcross_at delta_t`` and the scan ``dq_t = dq0_t +
+2 sum_{a<t accepted} T_at``, ``log alpha_t = dpr_t - dq_t / 2 + lmhg_t``,
+accept where ``log u_t < log alpha_t``.  The scan runs in sub-blocks of
+``SUB`` tickets; between them the gathered ``zG`` takes the accepted
+deltas through ``Pblk`` (``zG += dacc @ Pblk[sub rows]``).
+
+On the H100 it is bound by operations and by its serial scan: the cross
+terms are ``B * SUB * KD^2`` multiply-adds per chain and the ``zG`` update
+``B * KD * B * KD`` at most, all from the step's ``Pblk`` (up to 9 MB,
+shared by every chain, so it streams from L2).  The kernel
+(``csrc/point_scan.cu``) runs one block per chain with the chain's ``zG``,
+its deltas and the sub-block's ``T`` in shared memory, and one warp
+running the scan with a warp-reduced correction.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = (_P,) * 6 + (_P, _P) + (_I,) * 4 + (_P,)
+SUB = 64  # correction-scan sub-block size (fast_sweep.SUB)
+
+
+def point_scan_plain(delta, zG, Pblk, d_pr, lmhg, u):
+    """Plain PyTorch version of :func:`point_scan`."""
+    C, B, kd = delta.shape
+    Pblk4 = Pblk.reshape(B, kd, B, kd)
+    logu = torch.log(u)
+    zG = zG.clone()
+    accept = torch.zeros((C, B), dtype=torch.bool, device=delta.device)
+    dq_all = torch.zeros_like(d_pr)
+    n_sub = (B + SUB - 1) // SUB
+    for s0 in range(n_sub):
+        lo, hi = s0 * SUB, min(s0 * SUB + SUB, B)
+        sn = hi - lo
+        dl = delta[:, lo:hi]                                  # [C, S, KD]
+        zg = zG[:, lo * kd:hi * kd].reshape(C, sn, kd)
+        blk = Pblk4[lo:hi, :, lo:hi, :]
+        pself = torch.diagonal(blk, dim1=0, dim2=2).permute(2, 0, 1)   # [S, KD, KD]
+        dq0 = (2.0 * torch.sum(dl * zg, dim=-1)
+               + torch.einsum("csi,sij,csj->cs", dl, pself, dl))
+        T = torch.einsum("cai,abij,cbj->cab", dl, blk.permute(0, 2, 1, 3), dl)
+        accm = torch.zeros((C, sn), dtype=delta.dtype, device=delta.device)
+        for t in range(sn):
+            dq_t = dq0[:, t] + 2.0 * torch.sum(accm * T[:, :, t], dim=-1)
+            la_t = d_pr[:, lo + t] - 0.5 * dq_t + lmhg[:, lo + t]
+            la_t = torch.where(torch.isnan(la_t), -torch.inf, la_t)
+            a_t = logu[:, lo + t] < la_t
+            accm[:, t] = a_t.to(delta.dtype)
+            accept[:, lo + t] = a_t
+            dq_all[:, lo + t] = dq_t
+        if s0 < n_sub - 1:
+            dacc = torch.where(accept[:, lo:hi, None], dl, 0.0)
+            zG = zG + dacc.reshape(C, -1) @ Pblk[lo * kd:hi * kd]
+    return accept, dq_all
+
+
+def point_scan(delta, zG, Pblk, d_pr, lmhg, u):
+    """Accept scan of a point mega-step.  ``delta`` ``[C, B, KD]`` are the
+    tickets' distance deltas (zero on pad rows), ``zG`` ``[C, B*KD]`` the
+    carried ``z`` at their rows, ``Pblk`` ``[B*KD, B*KD]`` the precision
+    between them (zero rows and columns for pads), ``d_pr``, ``lmhg`` and
+    the accept uniforms ``u`` ``[C, B]``.  Returns ``(accept [C, B] bool,
+    dq [C, B])``.  The plain version runs for CPU tensors, kernel K4 for
+    CUDA tensors (float32)."""
+    if delta.device.type == "cpu":
+        return point_scan_plain(delta, zG, Pblk, d_pr, lmhg, u)
+    C, B, kd = delta.shape
+    for name, t in (("delta", delta), ("zG", zG), ("Pblk", Pblk), ("d_pr", d_pr),
+                    ("lmhg", lmhg), ("u", u)):
+        build.require_cuda(t, name, torch.float32)
+    accept = torch.empty((C, B), dtype=torch.uint8, device=delta.device)
+    dq = torch.empty((C, B), dtype=torch.float32, device=delta.device)
+    p = build.ptr
+    err = build.bind("mcmcdate_point_scan_f32", _ARGTYPES)(
+        p(delta), p(zG), p(Pblk), p(d_pr), p(lmhg), p(u), p(accept), p(dq), C, B, kd, SUB,
+        build.stream_ptr(delta.device),
+    )
+    build.check(err, "point_scan kernel")
+    point_scan.launches += 1
+    return accept.bool(), dq
+
+
+point_scan.launches = 0

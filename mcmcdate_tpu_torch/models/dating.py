@@ -20,7 +20,7 @@ from ..kernels.prior_terms import kernel_arrays as prior_kernel_arrays, prior_te
 from ..kernels.whiten import whiten
 from ..ops import birth_death, clocks, heights as H, mvn, node_priors
 from ..ops.dists import exponential_logpdf, gamma_logpdf
-from ..tree import DeviceTopology, FlatTopology
+from ..tree import DeviceTopology
 from .state import State
 
 
@@ -28,8 +28,9 @@ from .state import State
 class DatingModel:
     """Static model description (``getMcmcProps``) bound to a device.
 
-    ``topo`` may be given as a :class:`FlatTopology`; it is wrapped in a
-    :class:`DeviceTopology` on ``device``."""
+    ``topo`` may be given as a flat topology (the port's ``FlatTopology``
+    or the JAX package's); it is wrapped in a :class:`DeviceTopology` on
+    ``device``."""
 
     topo: DeviceTopology
     likelihood: mvn.LikelihoodData
@@ -46,7 +47,7 @@ class DatingModel:
     dtype: torch.dtype = torch.float64
 
     def __post_init__(self):
-        if isinstance(self.topo, FlatTopology):
+        if not isinstance(self.topo, DeviceTopology):
             self.topo = DeviceTopology(self.topo, self.device)
         self.device = torch.device(self.device)
 

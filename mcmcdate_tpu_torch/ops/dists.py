@@ -127,6 +127,12 @@ def truncated_normal_sample(u, mean, sd, tune, a, b):
     ``log q(y->x) - log q(x->y)``.  ``mean``, ``a`` and ``b`` broadcast
     against ``u`` (bounds may be infinite); the value is clamped strictly
     inside the interval, as in the JAX package."""
+    x = truncated_normal_draw(u, mean, sd, tune, a, b)
+    return x, truncated_normal_lq(mean, sd, tune, a, b, x)
+
+
+def truncated_normal_draw(u, mean, sd, tune, a, b):
+    """The value alone of :func:`truncated_normal_sample`."""
     mean, a, b, tune = (torch.broadcast_to(_t(v, u), u.shape) for v in (mean, a, b, tune))
     s = tune * sd
     alpha = (a - mean) / s
@@ -140,11 +146,17 @@ def truncated_normal_sample(u, mean, sd, tune, a, b):
     width = torch.where(_finite(b - a), b - a, s)
     lo = torch.where(_finite(a), a + eps * width, -math.inf)
     hi = torch.where(_finite(b), b - eps * width, math.inf)
-    x = torch.minimum(torch.maximum(x, lo), hi)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def truncated_normal_lq(mean, sd, tune, a, b, x):
+    """The ``log_mhg`` of :func:`truncated_normal_sample` for the value
+    ``x``: ``log q(x->mean) - log q(mean->x)``."""
+    mean, a, b, tune = (torch.broadcast_to(_t(v, x), x.shape) for v in (mean, a, b, tune))
     # Forward and reverse kernel densities in one pass: row 0 is
-    # log q(x -> y), row 1 log q(y -> x).
-    lq = truncated_normal_logpdf(torch.stack([mean, x]), s, a, b, torch.stack([x, mean]))
-    return x, lq[1] - lq[0]
+    # log q(mean -> x), row 1 log q(x -> mean).
+    lq = truncated_normal_logpdf(torch.stack([mean, x]), tune * sd, a, b, torch.stack([x, mean]))
+    return lq[1] - lq[0]
 
 
 def gamma_scale_sample(g, shape, tune):

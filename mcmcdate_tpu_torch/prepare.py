@@ -25,8 +25,8 @@ from typing import List
 
 import numpy as np
 
-from mcmcdate_tpu.tree.flat import FlatTopology
-from mcmcdate_tpu.tree.rose import (
+from .tree.flat import FlatTopology
+from .tree.rose import (
     Node,
     assign_indices,
     bipartition,
@@ -37,7 +37,7 @@ from mcmcdate_tpu.tree.rose import (
     tree_from_arrays,
     write_newick,
 )
-from mcmcdate_tpu.utils import native
+from .utils import native
 
 from .io.lhdata import save_data
 from .ops import mvn

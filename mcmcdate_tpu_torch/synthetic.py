@@ -9,12 +9,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mcmcdate_tpu.tree.flat import FlatTopology
-from mcmcdate_tpu.utils.simulate import random_ultrametric_tree
-
 from .models.dating import DatingModel
 from .models.state import init_state
 from .ops import mvn
+from .tree.flat import FlatTopology
+from .utils.simulate import random_ultrametric_tree
 
 
 def build(n_taxa: int, n_chains: int, dtype=torch.float32, device="cuda", seed: int = 0,

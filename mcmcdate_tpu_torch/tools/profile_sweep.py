@@ -1,11 +1,13 @@
-"""Profile the sequential sweep on a CUDA card and check its carry.
+"""Profile a sweep on a CUDA card and check its carry.
 
 Run from the root of a checkout, on a machine with a card:
 
-    python -m mcmcdate_tpu_torch.tools.profile_sweep [--out profile_sweep.json]
-        [--trace TRACE.json]
+    python -m mcmcdate_tpu_torch.tools.profile_sweep [--sweep fast|sequential]
+        [--out profile_sweep.json] [--trace TRACE.json]
 
-at the shape of ``chip_smoke.py``'s main path (136 taxa x 1024 chains):
+at the shape of ``chip_smoke.py``'s main path (136 taxa x 1024 chains),
+for the ticket-batched sweep (``fast``, the default, as ``run`` takes it)
+or the sequential one:
 
 1. ``simulate`` and ``prepare --likelihood-spec full`` in a temporary
    directory, then the run's initial chain batch (jittered rates, untuned
@@ -16,11 +18,17 @@ at the shape of ``chip_smoke.py``'s main path (136 taxa x 1024 chains):
    API calls), device time per kernel name, and the device's busy share:
    the union of the kernel, memcpy and memset intervals of the trace over
    the sweep's host span, so that rows which overlap or repeat one another
-   count once;
-4. one sweep with the carry checked after every ticket:
-   the carried distances ``d``, whitened residual ``y`` and prior terms
-   against direct float32 evaluations of the carried state, and at the end
-   the carried log posterior against direct float32 and float64 ones.
+   count once.  For the ticket-batched sweep, also launches, device time
+   and host span per phase (``seq``, ``glob``, ``point``, ``range``,
+   ``y``): a device interval belongs to the phase whose host span holds
+   the launch it came from;
+4. one sweep with the carry checked: for the sequential sweep after every
+   ticket (distances ``d``, whitened residual ``y``, prior terms against
+   direct float32 evaluations of the carried state); for the batched one
+   at the end of every phase (``d``, the terms, and ``y`` after the
+   sequential phase or ``z = P (d - mu)`` and ``q`` after the others); at
+   the end the carried log posterior against direct float32 and float64
+   ones.
 
 Writes the record to ``--out`` (also printed as the last line).  The
 profiler's chrome trace (hundreds of MB at the default shape) is kept only
@@ -41,7 +49,9 @@ import torch
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
-PORT_KERNELS = ("prior_terms_kernel", "whiten", "accept_select_kernel")
+PORT_KERNELS = ("prior_terms_kernel", "whiten", "accept_select_kernel", "point_scan_kernel",
+                "range_scan_", "contra_slide_kernel", "contra_range_kernel")
+PHASES = ("seq", "glob", "point", "range", "y")
 TAXA, CHAINS, TREES, SEED = 136, 1024, 600, 1
 WARMUP, TIMED = 10, 2
 
@@ -53,7 +63,7 @@ def _card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def setup(tmp: str):
+def setup(tmp: str, fast: bool = True):
     """The run's model, runner and initial batch and tuning, on the card."""
     from .. import cli
     from ..engine import proposals as props
@@ -70,7 +80,8 @@ def setup(tmp: str):
     quiet = lambda *a: None  # noqa: E731
     model, init = cli._load_model(args, torch.device("cuda"), torch.float32, quiet)
     table = props.build_proposal_table(model.topo, model.braces, model.calibrations_available)
-    runner = ChainRunner(model, table, cli._settings(args), log=quiet)
+    settings = dataclasses.replace(cli._settings(args), fast_sweep=fast)
+    runner = ChainRunner(model, table, settings, log=quiet)
     batch, tuning = runner.init_chains(init)
     return runner, batch, tuning
 
@@ -90,15 +101,16 @@ def _union(intervals) -> float:
 
 def trace_summary(trace_path: str) -> dict:
     """Launches, device time per kernel and the busy share of the sweep
-    from a chrome trace with one ``sweep`` annotation (times in us)."""
+    from a chrome trace with one ``sweep`` annotation (times in us); per
+    phase where the trace has phase annotations."""
     with open(trace_path) as fh:
         events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
     span = next(e for e in events if e.get("cat") == "user_annotation" and e["name"] == "sweep")
     t0, t1 = span["ts"], span["ts"] + span["dur"]
     device = [e for e in events if e.get("cat") in DEVICE_CATS and t0 <= e["ts"] <= t1]
-    launches = sum(1 for e in events
-                   if e.get("cat") in ("cuda_runtime", "cuda_driver") and e["name"] in LAUNCH_NAMES
-                   and t0 <= e["ts"] <= t1)
+    launch_ev = [e for e in events
+                 if e.get("cat", "").startswith("cuda_") and e["name"] in LAUNCH_NAMES
+                 and t0 <= e["ts"] <= t1]
     per_name: dict = {}
     for e in device:
         n, us = per_name.get(e["name"], (0, 0.0))
@@ -111,9 +123,9 @@ def trace_summary(trace_path: str) -> dict:
         n = sum(r[0] for r in rows)
         us = sum(r[1] for r in rows)
         port[k] = dict(calls=n, device_s=us * 1e-6, us_per_call=us / n if n else None)
-    return dict(
+    out = dict(
         sweep_host_s=span["dur"] * 1e-6,
-        launches=launches,
+        launches=len(launch_ev),
         device_events=len(device),
         device_sum_s=sum(e["dur"] for e in device) * 1e-6,
         device_busy_s=busy_us * 1e-6,
@@ -122,6 +134,27 @@ def trace_summary(trace_path: str) -> dict:
         top_device=[dict(name=name[:120], calls=n, device_s=us * 1e-6)
                     for name, (n, us) in top[:12]],
     )
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") == "user_annotation" and e["name"] in PHASES)
+    if spans:
+        def phase_of(ts):
+            return next((nm for a, b, nm in spans if a <= ts <= b), None)
+
+        launch_at = {e.get("args", {}).get("correlation"): e["ts"] for e in launch_ev}
+        phases = {nm: dict(host_s=0.0, launches=0, device_s=0.0) for _, _, nm in spans}
+        for a, b, nm in spans:
+            phases[nm]["host_s"] += (b - a) * 1e-6
+        for e in launch_ev:
+            nm = phase_of(e["ts"])
+            if nm:
+                phases[nm]["launches"] += 1
+        for e in device:
+            ts = launch_at.get(e.get("args", {}).get("correlation"))
+            nm = phase_of(ts) if ts is not None else None
+            if nm:
+                phases[nm]["device_s"] += e["dur"] * 1e-6
+        out["phases"] = phases
+    return out
 
 
 def direct_log_posterior(model, state, dtype):
@@ -138,8 +171,9 @@ def direct_log_posterior(model, state, dtype):
 
 
 def check_carry(runner, batch, tuning, seed: int) -> dict:
-    """One sweep with the carry held against direct float32 evaluations
-    after every ticket; largest absolute errors over all tickets and chains."""
+    """One sequential sweep with the carry held against direct float32
+    evaluations after every ticket; largest absolute errors over all
+    tickets and chains."""
     from ..kernels.prior_terms import prior_terms_plain
     from ..kernels.whiten import whiten_plain
     from ..ops.heights import distances_internal
@@ -163,11 +197,77 @@ def check_carry(runner, batch, tuning, seed: int) -> dict:
         batch, lp_pr, lp_lik, *_ = kern.sweeps(batch, tuning, seed, 1)
     finally:
         kern.ticket_step = ticket_step
-    lp = (lp_pr + lp_lik).double()
+    return dict(max_abs_err={k: float(v) for k, v in worst.items()},
+                **_lp_check(m, batch, lp_pr + lp_lik))
+
+
+def _wrapped(kern, names, around):
+    """Replace each phase method ``names`` of ``kern`` by ``around(name,
+    method)``; returns a function that restores them."""
+    saved = {nm: getattr(kern, nm) for nm in names}
+    for nm, fn in saved.items():
+        setattr(kern, nm, around(nm, fn))
+
+    def restore():
+        for nm, fn in saved.items():
+            setattr(kern, nm, fn)
+    return restore
+
+
+# FastSweeps methods of the phases, by phase name.
+FAST_PHASES = {"seq": "seq_phase", "glob": "glob_phase", "point": "point_phase",
+               "range": "range_phase", "y": "_y_from_d"}
+
+
+def check_carry_fast(runner, batch, tuning, seed: int) -> dict:
+    """One batched sweep with the carry held against direct float32
+    evaluations at the end of every phase; largest absolute errors over
+    all chains, per phase, each beside the largest direct value
+    (``<name>_scale``)."""
+    from ..kernels.prior_terms import prior_terms_plain
+    from ..ops.heights import distances_internal
+
+    kern = runner.kern
+    m = kern.model
+    worst: dict = {}
+
+    def around(name, fn):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            if name == "y":
+                return out
+            carry = a[0]
+            d = distances_internal(carry.batch, m.topo)
+            got = {"d": (carry.d, d), "terms": (carry.terms, prior_terms_plain(m, carry.batch))}
+            if name == "seq":
+                got["y"] = (a[1], kern._y_from_d(d))
+            elif kern.use_lik:
+                z = kern._x_P(d - kern.mu)
+                got["z"] = (carry.z, z)
+                got["q"] = (carry.q, ((d - kern.mu) * z).sum(-1))
+            w = worst.setdefault(name, {})
+            for k, (x, y) in got.items():
+                w[k] = max(w.get(k, 0.0), float((x - y).abs().nan_to_num(0.0).max()))
+                w[k + "_scale"] = max(w.get(k + "_scale", 0.0),
+                                      float(y.abs().nan_to_num(0.0).max()))
+            return out
+        return run
+
+    restore = _wrapped(kern, [v for k, v in FAST_PHASES.items() if k != "y"],
+                       lambda nm, fn: around(next(k for k, v in FAST_PHASES.items() if v == nm),
+                                             fn))
+    try:
+        batch, lp_pr, lp_lik, *_ = kern.sweeps(batch, tuning, seed, 1)
+    finally:
+        restore()
+    return dict(max_abs_err=worst, **_lp_check(m, batch, lp_pr + lp_lik))
+
+
+def _lp_check(m, batch, lp) -> dict:
+    lp = lp.double()
     d32 = direct_log_posterior(m, batch, torch.float32).double()
     d64 = direct_log_posterior(m, batch, torch.float64)
     return dict(
-        max_abs_err={k: float(v) for k, v in worst.items()},
         lp_scale=float(d64.abs().max()),
         lp_carried_vs_f32=float((lp - d32).abs().max()),
         lp_f32_vs_f64=float((d32 - d64).abs().max()),
@@ -179,6 +279,7 @@ def check_carry(runner, batch, tuning, seed: int) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sweep", choices=("fast", "sequential"), default="fast")
     ap.add_argument("--out", default="profile_sweep.json")
     ap.add_argument("--trace", default=None, help="where to keep the chrome trace")
     args = ap.parse_args(argv)
@@ -188,10 +289,12 @@ def main(argv=None) -> dict:
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    rec = dict(card=_card(), taxa=TAXA, chains=CHAINS, torch=torch.__version__)
+    fast = args.sweep == "fast"
+    rec = dict(card=_card(), sweep=args.sweep, taxa=TAXA, chains=CHAINS, torch=torch.__version__)
     with tempfile.TemporaryDirectory() as tmp:
-        runner, batch, tuning = setup(tmp)
+        runner, batch, tuning = setup(tmp, fast)
     kern = runner.kern
+    rec["kernel"] = type(kern).__name__
     rec["tickets_per_sweep"] = runner.table.n_tickets
     t0 = time.perf_counter()
     batch = kern.sweeps(batch, tuning, 100, WARMUP)[0]
@@ -204,15 +307,28 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     rec["sweep_s"] = times
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("sweep"):
-            batch = kern.sweeps(batch, tuning, 300, 1)[0]
-            torch.cuda.synchronize()
+
+    def annotated(nm, fn):
+        phase = next(k for k, v in FAST_PHASES.items() if v == nm)
+
+        def run(*a, **k):
+            with record_function(phase):
+                return fn(*a, **k)
+        return run
+
+    restore = _wrapped(kern, list(FAST_PHASES.values()), annotated) if fast else (lambda: None)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("sweep"):
+                batch = kern.sweeps(batch, tuning, 300, 1)[0]
+                torch.cuda.synchronize()
+    finally:
+        restore()
     with tempfile.TemporaryDirectory() as tmp:
         trace = args.trace or os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(trace)
         rec["profiled"] = trace_summary(trace)
-    rec["carry"] = check_carry(runner, batch, tuning, 400)
+    rec["carry"] = (check_carry_fast if fast else check_carry)(runner, batch, tuning, 400)
     with open(args.out, "w") as fh:
         json.dump(rec, fh, indent=1)
     print(json.dumps(rec), flush=True)

@@ -1,8 +1,8 @@
-"""The JAX package's host tree code (NumPy only) plus device index arrays.
+"""Host tree code (NumPy only) plus device index arrays.
 
-``tree/rose.py`` and ``tree/flat.py`` of ``mcmcdate_tpu`` import no JAX, so
-the port reuses them; :class:`DeviceTopology` adds the index tensors the
-torch code gathers with.
+``rose.py`` and ``flat.py`` are copies of the JAX package's host modules of
+the same names (the port imports nothing of that package);
+:class:`DeviceTopology` adds the index tensors the torch code gathers with.
 """
 
 from __future__ import annotations
@@ -10,10 +10,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mcmcdate_tpu.tree.flat import FlatTopology
-from mcmcdate_tpu.tree.rose import (  # noqa: F401
+from .flat import FlatTopology
+from .rose import (  # noqa: F401
     Node,
     make_ultrametric,
+    mrca_path,
     node_heights,
     normalize_height,
     read_one_newick,
@@ -21,8 +22,9 @@ from mcmcdate_tpu.tree.rose import (  # noqa: F401
 
 
 class DeviceTopology:
-    """A :class:`FlatTopology` with its index arrays as int64 tensors on
-    ``device``; every other attribute reads through to the host topology."""
+    """A flat topology (:class:`FlatTopology`, or any object with its
+    fields) with its index arrays as int64 tensors on ``device``; every
+    other attribute reads through to the host topology."""
 
     def __init__(self, flat: FlatTopology, device="cpu"):
         self.flat = flat

@@ -1,0 +1,2 @@
+"""Host utilities: the native Newick parser and the fixture simulator
+(copies of the JAX package's NumPy-only modules)."""

@@ -94,3 +94,150 @@ def test_accept_select_kernel(card):
     assert torch.equal(tk.nan_to_num(), tp.nan_to_num())
     for f in FIELDS:
         assert torch.equal(getattr(sk, f), getattr(sp, f))
+
+
+# -- the FastSweeps kernels (K4, K5, K6) --------------------------------------
+
+TIE = 1e-4  # decisions may differ only where |log u - log alpha| is below this
+
+
+def _scan_agree(acc_k, dq_k, acc_p, dq_p, la_p, logu, rel=1e-5):
+    """Accept decisions and dq of a scan kernel against its plain version:
+    per chain, equal up to the first decision that differs (which must be a
+    tie); dq within ``rel`` of the chain's largest |dq|."""
+    differ = acc_k != acc_p
+    first = torch.where(differ.any(1), differ.int().argmax(1), acc_k.shape[1])
+    cols = torch.arange(acc_k.shape[1], device=acc_k.device)[None, :]
+    upto = cols <= first[:, None]
+    assert torch.all((la_p - logu).abs()[differ & upto] < TIE)
+    scale = dq_p.abs().amax(1, keepdim=True).clamp(min=1.0)
+    assert torch.all(((dq_k - dq_p).abs() <= rel * scale)[upto])
+    return int(differ.sum())
+
+
+def test_point_scan_kernel(card):
+    from mcmcdate_tpu_torch.kernels.point_scan import point_scan, point_scan_plain
+
+    g = torch.Generator(device=card).manual_seed(3)
+    C, B, KD = 64, 150, 3
+    F = B * KD
+    a = torch.randn(F, F, generator=g, device=card) / F ** 0.5
+    P = (a @ a.T + torch.eye(F, device=card)).contiguous()
+    delta = 0.05 * torch.randn(C, B, KD, generator=g, device=card)
+    delta[:, 140:] = 0.0  # pad slots
+    zG = torch.randn(C, F, generator=g, device=card)
+    d_pr = 0.1 * torch.randn(C, B, generator=g, device=card)
+    lmhg = torch.randn(C, B, generator=g, device=card)
+    lmhg[:, 140:] = -math.inf
+    u = torch.rand(C, B, generator=g, device=card)
+    before = point_scan.launches
+    ak, dk = point_scan(delta, zG, P, d_pr, lmhg, u)
+    assert point_scan.launches == before + 1
+    ap, dp = point_scan_plain(delta, zG, P, d_pr, lmhg, u)
+    assert 0 < int(ap.sum()) < ap.numel()
+    _scan_agree(ak, dk, ap, dp, d_pr - 0.5 * dp + lmhg, torch.log(u))
+
+
+def test_range_scan_kernel(card):
+    from mcmcdate_tpu_torch.kernels.range_scan import range_scan, range_scan_plain
+
+    g = torch.Generator(device=card).manual_seed(4)
+    for C, S, RB in ((70, 64, 16), (40, 16, 64), (33, 4, 256)):
+        F = S * RB
+        a = torch.randn(F, F, generator=g, device=card) / F ** 0.5
+        Q = (a @ a.T + torch.eye(F, device=card)).contiguous()
+        gg = torch.randn(C, S, RB, generator=g, device=card)
+        gg[:, :, RB - 3:] = 0.0  # pad rows
+        zg = torch.randn(C, S, RB, generator=g, device=card)
+        coef = 0.02 * torch.randn(C, S, generator=g, device=card)
+        d_pr = 0.1 * torch.randn(C, S, generator=g, device=card)
+        lmhg = torch.randn(C, S, generator=g, device=card)
+        u = torch.rand(C, S, generator=g, device=card)
+        ak, dk = range_scan(gg, zg, Q, coef, d_pr, lmhg, u)
+        ap, dp = range_scan_plain(gg, zg, Q, coef, d_pr, lmhg, u)
+        assert 0 < int(ap.sum()) < ap.numel()
+        _scan_agree(ak, dk, ap, dp, d_pr - 0.5 * dp + lmhg, torch.log(u))
+
+
+def _contra_agree(model, batch, table, sx, seed, mode):
+    """K6 in one mode on one step against its plain version.  Proposals may
+    differ in their last bits (CUDA's normal CDF and inverse against
+    PyTorch's), which a short branch amplifies in its terms: the kernel's
+    proposals are held to the plain version's, and, replayed through the
+    plain version, to its decisions up to ties and, with the ties taken as
+    the kernel took them, to its state on every chain; then to distance
+    invariance and to its own terms."""
+    from mcmcdate_tpu_torch.kernels import contra_step as K
+
+    kernel, plain, given = (getattr(K, f"contra_{mode}{s}") for s in ("", "_plain", "_given"))
+    C, B = batch.n_chains, sx["rows"].shape[0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tuning = torch.rand(C, table.n_proposals, generator=g, device="cuda") * 3 + 0.3
+    u_prop = torch.rand(C, B, generator=g, device="cuda")
+    u_acc = torch.rand(C, B, generator=g, device="cuda")
+    terms = model.log_prior_terms(batch)
+
+    def fresh():
+        return (State(**{f: getattr(batch, f).clone() for f in FIELDS}), terms.clone(),
+                torch.zeros((C, table.n_proposals), dtype=torch.int32, device="cuda"))
+
+    def near(a, b, rel=1e-5):
+        fin = torch.isfinite(b)
+        assert torch.equal(fin, torch.isfinite(a))
+        assert torch.all((a[fin] - b[fin]).abs() <= rel * (1 + b[fin].abs()))
+
+    sk, tk, acck = fresh()
+    ok = kernel(sk, tk, acck, tuning, sx, model.topo.is_leaf_t, model.clock, u_prop, u_acc)
+    sp, tp, accp = fresh()
+    op = plain(sp, tp, accp, tuning, sx, model.topo.is_leaf_t, model.clock, u_prop, u_acc)
+    valid = sx["valid"].expand_as(ok.accept)
+    assert 0 < int(ok.accept.sum()) < int(valid.sum())
+    near(torch.where(valid, ok.h_prop, 0.0), torch.where(valid, op.h_prop, 0.0))
+    sr, tr, accr = fresh()
+    forced = torch.where(ok.accept, 0.0, math.nan)
+    orr = given(sr, tr, accr, tuning, sx, model.topo.is_leaf_t, model.clock, ok.h_prop, forced)
+    near(torch.where(valid, ok.lq, 0.0), torch.where(valid, orr.lq, 0.0), TIE)
+    assert torch.equal(orr.accept, ok.accept)
+    differ = ((torch.log(u_acc) < orr.log_alpha) & valid) != ok.accept
+    assert torch.all((torch.log(u_acc) - orr.log_alpha).abs()[differ] < TIE)
+    for a, b in ((sk.heights, sr.heights), (sk.rates, sr.rates), (tk, tr)):
+        near(a, b)
+    assert torch.equal(acck, accr)
+    par, nr = model.topo.parent_t, model.topo.non_root_t
+
+    def lengths(st):
+        h, r = st.heights, st.rates
+        return torch.where(nr, (h[:, par] - h) * r, 0.0)
+
+    # Distances are kept up to the cancellation in h_parent - h.
+    mag = torch.where(nr, (batch.heights[:, par].abs() + batch.heights.abs())
+                      * batch.rates.abs(), 0.0)
+    assert torch.all((lengths(sk) - lengths(batch)).abs() <= 1e-5 * mag)
+    near(tk, prior_terms_plain(model, sk))
+
+
+def _fast(model):
+    from mcmcdate_tpu_torch.engine import fast_sweep as TF, proposals as TP
+
+    table = TP.build_proposal_table(model.topo, model.braces, False)
+    return TF.FastSweeps(model, table), table
+
+
+@pytest.mark.parametrize("clock", clocks.MODELS)
+def test_contra_slide_kernel(card, clock):
+    from mcmcdate_tpu_torch.engine import proposals as TP
+
+    model, batch = _model(clock)
+    fs, table = _fast(model)
+    _contra_agree(model, batch, table, fs.spec_t[TP.K_SLIDE_NODES_CONTRA][0], 5, "slide")
+
+
+def test_contra_range_kernel(card):
+    from mcmcdate_tpu_torch.engine import proposals as TP
+
+    model, batch = _model()
+    fs, table = _fast(model)
+    keys = [k for k in fs.range_t if k[0] == TP.K_SCALE_SUBTREES_CONTRA]
+    assert keys
+    for k in keys:
+        _contra_agree(model, batch, table, fs.range_t[k][0], k[1], "range")

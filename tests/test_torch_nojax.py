@@ -1,6 +1,7 @@
-"""The PyTorch port never imports JAX: in a fresh interpreter, import every
-module of ``mcmcdate_tpu_torch`` and run ``simulate``, ``prepare`` and
-``run --device cpu`` through its CLI on a 6-leaf fixture."""
+"""The PyTorch port never imports JAX nor the JAX package: in a fresh
+interpreter, import every module of ``mcmcdate_tpu_torch`` and run
+``simulate``, ``prepare`` and ``run --device cpu`` through its CLI on a
+6-leaf fixture."""
 
 import os
 import subprocess
@@ -29,6 +30,9 @@ runner = cli.main(["run", "-a", "x", "--device", "cpu", "--chains", "4", "--iter
 assert os.path.exists(os.path.join(d, "x.mcmc.npz"))
 assert 0 < runner.accepted < runner.attempted
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
+assert not bad, bad
+# Nor anything of the JAX package, not even its modules that import no JAX.
+bad = sorted(m for m in sys.modules if m == "mcmcdate_tpu" or m.startswith("mcmcdate_tpu."))
 assert not bad, bad
 print("NOJAX-OK")
 """

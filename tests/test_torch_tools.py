@@ -44,3 +44,54 @@ def test_trace_summary(tmp_path):
     assert s["port_kernels"]["prior_terms_kernel"] == dict(calls=1, device_s=pytest.approx(1e-5),
                                                            us_per_call=10.0)
     assert s["port_kernels"]["accept_select_kernel"]["calls"] == 0
+
+
+def test_trace_summary_phases(tmp_path):
+    """Device time goes to the phase whose host span holds its launch."""
+    ev = [
+        dict(ph="X", cat="user_annotation", name="sweep", ts=0, dur=100),
+        dict(ph="X", cat="user_annotation", name="glob", ts=10, dur=20),
+        dict(ph="X", cat="user_annotation", name="range", ts=40, dur=30),
+        dict(ph="X", cat="cuda_runtime", name="cudaLaunchKernel", ts=12, dur=1,
+             args=dict(correlation=1)),
+        dict(ph="X", cat="cuda_runtime", name="cudaLaunchKernel", ts=45, dur=1,
+             args=dict(correlation=2)),
+        dict(ph="X", cat="cuda_runtime", name="cudaLaunchKernel", ts=80, dur=1,
+             args=dict(correlation=3)),
+        # launched in glob, runs during range: still glob's
+        dict(ph="X", cat="kernel", name="a", ts=50, dur=7, args=dict(correlation=1)),
+        dict(ph="X", cat="kernel", name="b", ts=60, dur=5, args=dict(correlation=2)),
+        dict(ph="X", cat="kernel", name="c", ts=85, dur=2, args=dict(correlation=3)),
+    ]
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    ph = trace_summary(str(path))["phases"]
+    assert ph["glob"] == dict(host_s=pytest.approx(20e-6), launches=1,
+                              device_s=pytest.approx(7e-6))
+    assert ph["range"] == dict(host_s=pytest.approx(30e-6), launches=1,
+                               device_s=pytest.approx(5e-6))
+
+
+def test_fast_sweep_carry_check_on_cpu():
+    """The per-phase carry check of the batched sweep, on a small float64
+    model on the CPU: every carried quantity equals its direct value."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch import synthetic
+    from mcmcdate_tpu_torch.engine import proposals as P
+    from mcmcdate_tpu_torch.engine.chains import ChainRunner, RunSettings
+    from mcmcdate_tpu_torch.tools.profile_sweep import check_carry_fast
+
+    model, batch = synthetic.build(10, 1, dtype=torch.float64, device="cpu")
+    table = P.build_proposal_table(model.topo, model.braces, False)
+    runner = ChainRunner(model, table, RunSettings("t", n_chains=8, seed=1, dtype="float64",
+                                                   device="cpu"), log=lambda *a: None)
+    b, tuning = runner.init_chains(batch)
+    out = check_carry_fast(runner, b, tuning, 3)
+    assert set(out["max_abs_err"]) == {"seq", "glob", "point", "range"}
+    for phase, errs in out["max_abs_err"].items():
+        err = {k: v for k, v in errs.items() if not k.endswith("_scale")}
+        assert all(np.isfinite(v) and v < 1e-9 * max(1.0, errs[k + "_scale"])
+                   for k, v in err.items()), (phase, errs)
+    assert out["lp_carried_vs_f64"] < 1e-8 * max(1.0, out["lp_scale"])
