@@ -13,9 +13,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    shape (1000 taxa x 1024 chains), with the float32 tolerances below:
    K1 prior_terms, K2 whiten (full, gather and range-1024 row lists), K3
    accept_select, and on FastSweeps' own plan steps of a synthetic model
-   K4 point_scan, K5 range_scan and K6 contra_step in its two modes
-   (contra_slide and contra_range, a record each).  Each kernel's device
-   time and its plain version's are read from the profiler over
+   K4 point_scan, K5 (the likelihood range-block step: range_lik_prologue,
+   range_scan and range_lik_epilogue, a record each, checked by replaying
+   the kernels' proposals through the plain step) and K6 contra_step in its
+   two modes (contra_slide and contra_range, a record each).  Each kernel's
+   device time and its plain version's are read from the profiler over
    back-to-back calls;
 4. main path: simulate -> prepare --likelihood-spec full -> run (MHG,
    FastSweeps) at 136 taxa x 1024 chains through the port's CLI, in a
@@ -80,6 +82,10 @@ K3_TIE = 1e-4
 # K4, K5: the scans' sums run in another order.  Per chain, decisions agree
 # up to the first that differs, which must be a tie (|log u - log alpha| <
 # SCAN_TIE); dq agrees up to there within SCAN_REL of the chain's |dq|.
+# K5's range step is replayed through the plain step with the kernel's
+# proposals (within CONTRA_REL (1 + |x|) of the plain ones from the same
+# draws) and decisions: heights, rates and terms must then be bitwise
+# equal, d, z and q within SCAN_REL of their largest |value|.
 SCAN_TIE = 1e-4
 SCAN_REL = 1e-5
 # K6 (both modes): the same formulas built with -fmad=false, but CUDA's
@@ -116,8 +122,12 @@ KERNELS = (
      "mcmcdate_tpu/engine/mh.py:120"),
     ("point_scan", "mcmcdate_tpu_torch/kernels/csrc/point_scan.cu",
      "mcmcdate_tpu/engine/fast_sweep.py:1477"),
+    ("range_lik_prologue", "mcmcdate_tpu_torch/kernels/csrc/range_step.cu",
+     "mcmcdate_tpu/engine/fast_sweep.py:1695"),
     ("range_scan", "mcmcdate_tpu_torch/kernels/csrc/range_scan.cu",
      "mcmcdate_tpu/engine/fast_sweep.py:1839"),
+    ("range_lik_epilogue", "mcmcdate_tpu_torch/kernels/csrc/range_step.cu",
+     "mcmcdate_tpu/engine/fast_sweep.py:1876"),
     ("contra_slide", "mcmcdate_tpu_torch/kernels/csrc/contra_step.cu",
      "mcmcdate_tpu/engine/fast_sweep.py:1223"),
     ("contra_range", "mcmcdate_tpu_torch/kernels/csrc/contra_step.cu",
@@ -326,7 +336,7 @@ def check_prior_terms(n_taxa):
     # chain (two double-precision D/E evaluations and a gamma density, with
     # each exp, log or lgamma counted as 10).
     nbytes = 4 * (2 * C * N + 5 * C) + 5 * N + 4 * C * T
-    return _record(worst, ms, plain_ms, nbytes, 100 * C * N)
+    return {"prior_terms": _record(worst, ms, plain_ms, nbytes, 100 * C * N)}
 
 
 def check_whiten(n_taxa):
@@ -350,8 +360,8 @@ def check_whiten(n_taxa):
     rng1024 = torch.as_tensor(range_rows(lo, 1024, D), dtype=torch.int32, device=d.device)
     delta = (d2 - d).contiguous()
     cases = {
-        "full": dict(x=d, rows=model.rows_all, sub=mu),
-        "full-delta": dict(x=d2, rows=model.rows_all, sub=mu, y=y, minus_y=True),
+        "full": dict(x=d, sub=mu),
+        "full-delta": dict(x=d2, sub=mu, y=y, minus_y=True),
         "gather": dict(x=delta, rows=gather, y=y),
         "range1024": dict(x=delta, rows=rng1024, y=y),
     }
@@ -376,7 +386,7 @@ def check_whiten(n_taxa):
     # Bytes: x, y, mu and L in, dy and the per-chain sum out.  Operations:
     # the [C, D] x [D, D] product.
     nbytes = 4 * (2 * C * D + D + D * D) + 4 * (C * D + C)
-    return _record(worst, ms, plain_ms, nbytes, 2 * C * D * D, library_ms)
+    return {"whiten": _record(worst, ms, plain_ms, nbytes, 2 * C * D * D, library_ms)}
 
 
 def check_accept_select(n_taxa):
@@ -449,7 +459,7 @@ def check_accept_select(n_taxa):
     row_in = 4 * (2 * N + 4 + T + 2 * D)      # new state less death, terms2, d_new, dy
     row_out = 4 * (2 * N + 4 + T + 2 * D)
     nbytes = 4 * C * (2 * T + 4 + 2 * N + 5 + 2 * D) + n_acc * (row_in + row_out) + C
-    return _record(worst, ms, max(plain_ms, 0.0), nbytes, C * (3 * T + 10))
+    return {"accept_select": _record(worst, ms, max(plain_ms, 0.0), nbytes, C * (3 * T + 10))}
 
 
 _FAST = {}
@@ -476,8 +486,8 @@ def _fast(n_taxa):
 
 
 def _recorded(name, call):
-    """The arguments FastSweeps hands to the kernel wrapper ``name`` (K4
-    or K5) during ``call()``: the shapes and values of the main path."""
+    """The arguments FastSweeps hands to the kernel wrapper ``name`` (K4)
+    during ``call()``: the shapes and values of the main path."""
     from mcmcdate_tpu_torch.engine import fast_sweep
 
     real = getattr(fast_sweep, name)
@@ -565,45 +575,200 @@ def check_point_scan(n_taxa):
         if lo + sn < B:
             ops += int(ap[:, lo:lo + sn].sum()) * 2 * KD * (F - (lo + sn) * KD)
     nbytes = 4 * (2 * C * F + F * F + 3 * C * B) + 5 * C * B
-    return _record(worst, ms, plain_ms, nbytes, ops)
+    return {"point_scan": _record(worst, ms, plain_ms, nbytes, ops)}
 
 
-def check_range_scan(n_taxa):
+def _same(a, b):
+    """Bitwise equal, NaN where NaN."""
+    import torch
+
+    nan = torch.isnan(b)
+    return torch.equal(torch.isnan(a), nan) and torch.equal(a[~nan], b[~nan])
+
+
+def _range_step_agree(name, fs, carry, tuning, kind, sx, draw, u):
+    """K5's likelihood range step (prologue, range_scan, epilogue and the z
+    product, as ``FastSweeps.range_lik_step`` runs them) on one block,
+    against its plain version, on copies of ``carry``: the kernel's
+    proposals against the plain version's from the same draws; the kernel's
+    proposals replayed through ``range_lik_given``, with every decision
+    taken as the kernel took it, whose log alpha must give the kernel's
+    decisions except at ties and whose heights, rates and terms must equal
+    the kernel's bitwise, with d, z and q within SCAN_REL of their scale
+    and dq within SCAN_REL of each chain's.  Returns ``(worst differences,
+    recorded kernel inputs and outputs, copy)``."""
+    import torch
+
+    from mcmcdate_tpu_torch.engine import fast_sweep, proposals as P
+    from mcmcdate_tpu_torch.engine.fast_sweep import FastCarry
+    from mcmcdate_tpu_torch.kernels import range_step as K
+    from mcmcdate_tpu_torch.models.state import FIELDS, State
+
+    model = fs.model
+    rate = kind == P.K_SCALE_SUBTREE_RATE
+    leaf = model.topo.is_leaf_t
+
+    def copy():
+        return FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
+                         carry.terms.clone(), carry.d.clone(), carry.z.clone(),
+                         carry.q.clone(), carry.acc.clone())
+
+    rec = {}
+    real = {k: getattr(fast_sweep, k) for k in ("range_lik_prologue", "range_scan",
+                                                 "range_lik_epilogue")}
+
+    def recorder(key):
+        def run(*args):
+            rec[key + "_args"] = args
+            rec[key] = real[key](*args)
+            return rec[key]
+        return run
+
+    ck, cr = copy(), copy()
+    for k in real:
+        setattr(fast_sweep, k, recorder(k))
+    try:
+        accept = fs.range_lik_step(kind, ck, tuning, sx, draw, u)
+    finally:
+        for k, fn in real.items():
+            setattr(fast_sweep, k, fn)
+    _sync()
+    check(len(rec) == 6, f"{name}: the step did not run all three kernels")
+    pro = rec["range_lik_prologue"]
+    dq = rec["range_scan"][1]
+    worst = {}
+
+    def within(what, a, b, rel, scale=None):
+        fin = torch.isfinite(b)
+        check(torch.equal(fin, torch.isfinite(a)), f"{name} {what}: finiteness differs")
+        err = (a - b).abs()[fin]
+        worst[what] = float(err.max()) if err.numel() else 0.0
+        lim = rel * (1 + b.abs()[fin]) if scale is None else rel * scale
+        check(bool((err <= lim).all()),
+              lambda: f"{name} {what}: off the plain version by {worst[what]:.3g}")
+
+    # The proposals, from the same draws.
+    pp = K.range_lik_prologue_plain(rate, carry.batch, carry.terms, carry.d, carry.z, tuning,
+                                    sx, leaf, model.clock, draw)
+    within("prop", pro.prop, pp.prop, CONTRA_REL)
+    # The kernel's proposals through the plain step, each decision forced
+    # as the kernel took it (log 0 < any finite log alpha; log NaN < nothing).
+    forced = torch.where(accept, 0.0, math.nan)
+    acc_r, pr, dq_r = K.range_lik_given(rate, cr.batch, cr.terms, cr.d, cr.z, cr.q, cr.acc,
+                                        tuning, sx, leaf, model.clock, pro.prop, forced)
+    check(torch.equal(acc_r, accept),
+          f"{name}: the kernel accepted a proposal whose log alpha the plain version makes -inf")
+    within("lq", pro.lq, pr.lq, SCAN_TIE)
+    la = torch.nan_to_num(pr.d_pr - 0.5 * dq_r + pr.lmhg, nan=-math.inf)
+    differ = (torch.log(u) < la) != accept
+    gap = (torch.log(u) - la).abs()[differ]
+    check(bool((gap < SCAN_TIE).all()), lambda: f"{name}: {int(differ.sum())} decisions differ "
+          f"beyond ties (largest |log u - log alpha| {float(gap.max()):.3g})")
+    within("dq", dq, dq_r, SCAN_REL, dq_r.abs().amax(1, keepdim=True).clamp(min=1.0))
+    for what, a, b in (("heights", ck.batch.heights, cr.batch.heights),
+                       ("rates", ck.batch.rates, cr.batch.rates), ("terms", ck.terms, cr.terms)):
+        check(_same(a, b), lambda: f"{name} {what}: {int((a != b).sum())} values differ from "
+              f"the replay's")
+    for what, a, b in (("d", ck.d, cr.d), ("z", ck.z, cr.z), ("q", ck.q, cr.q)):
+        within(what, a, b, SCAN_REL, max(1.0, float(b.abs().max())))
+    check(torch.equal(ck.acc, cr.acc), f"{name}: accept counts differ")
+    check(0 < int(accept.sum()) < accept.numel(), f"{name}: not a mixed case")
+    log(f"[kernels] {name}: S={accept.shape[1]}, RB={sx['own'].shape[1]}, "
+        f"{int(accept.sum())} accepts, {int(differ.sum())} tie decisions differ from the "
+        f"replay, heights, rates and terms bitwise equal to it; largest differences "
+        f"{json.dumps(worst)}")
+    return worst, rec, copy
+
+
+def check_range_step(n_taxa):
+    """K5 (prologue, range_scan, epilogue) on the first block of every
+    bucket of both likelihood range kinds; the records keep the block with
+    the most tickets.  Returns a record per kernel."""
     import torch
 
     from mcmcdate_tpu_torch.engine import proposals as P
+    from mcmcdate_tpu_torch.kernels import range_step as K
     from mcmcdate_tpu_torch.kernels.range_scan import range_scan, range_scan_plain
 
     fs, carry, tuning, gen = _fast(n_taxa)
-    worst, timed = 0.0, None
+    worst, timed = {}, None
     for (kind, rb), steps in fs.range_t.items():
         if kind == P.K_SCALE_SUBTREES_CONTRA:
             continue
         sx = steps[0]
         draw, u = _draws(fs, sx, tuning, gen, kind == P.K_SCALE_SUBTREE_RATE)
-        args = _recorded("range_scan",
-                         lambda: fs.range_lik_step(kind, carry, tuning, sx, draw, u))
-        ak, dk = range_scan(*args)
-        ap, dp = range_scan_plain(*args)
-        _sync()
-        g, _, _, _, d_pr, lmhg, uu = args
-        err, n_diff = _scan_agree(f"range_scan kind {kind} rows {rb}", ak, dk, ap, dp,
-                                  d_pr - 0.5 * dp + lmhg, torch.log(uu))
-        log(f"[kernels] range_scan kind {kind} at {n_taxa} taxa: S={g.shape[1]}, "
-            f"RB={g.shape[2]}, {int(ap.sum())} accepts, {n_diff} tie decisions differ")
-        worst = max(worst, err)
-        if timed is None or g.shape[1] > timed[0].shape[1]:
-            timed = args
-    args = timed  # the block with the most tickets
-    ms = _device_ms(lambda: range_scan(*args), only="range_scan_")
-    plain_ms = _device_ms(lambda: range_scan_plain(*args))
-    C, S, RB = args[0].shape
+        w, rec, copy = _range_step_agree(f"range step kind {kind} rows {rb} at {n_taxa} taxa",
+                                         fs, carry, tuning, kind, sx, draw, u)
+        for k, v in w.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        if timed is None or sx["rows"].shape[0] > timed[1]["rows"].shape[0]:
+            timed = kind, sx, draw, u, rec, copy
+    kind, sx, draw, u, rec, copy = timed
+    rate = kind == P.K_SCALE_SUBTREE_RATE
+    model = fs.model
+    leaf = model.topo.is_leaf_t
+    pro, (accept, dq) = rec["range_lik_prologue"], rec["range_scan"]
+    c1, c2, c3 = copy(), copy(), copy()
+    pargs = (rate, c1.batch, c1.terms, c1.d, c1.z, tuning, sx, leaf, model.clock, draw)
+    eargs = (rate, c2.batch, c2.terms, c2.d, c2.q, c2.acc, sx, pro, accept, dq)
+    sargs = rec["range_scan_args"]
+
+    def plain_step():
+        p = K.range_lik_prologue_plain(*pargs)
+        a, q_ = range_scan_plain(p.g, p.zg, sx["Q"], p.coef, p.d_pr, p.lmhg, u)
+        _, dacc = K.range_lik_epilogue_plain(rate, c3.batch, c3.terms, c3.d, c3.q, c3.acc, sx,
+                                             p, a, q_)
+        c3.z.addmm_(dacc, sx["Prow"])
+
+    ms = {"prologue": _device_ms(lambda: K.range_lik_prologue(*pargs),
+                                 only="range_lik_prologue_kernel"),
+          "scan": _device_ms(lambda: range_scan(*sargs), only="range_scan_kernel"),
+          "epilogue": _device_ms(lambda: K.range_lik_epilogue(*eargs),
+                                 only="range_lik_epilogue_kernel"),
+          "step": _device_ms(lambda: fs.range_lik_step(kind, c3, tuning, sx, draw, u))}
+    plain = {"prologue": _device_ms(lambda: K.range_lik_prologue_plain(*pargs)),
+             "scan": _device_ms(lambda: range_scan_plain(*sargs)),
+             "epilogue": _device_ms(lambda: K.range_lik_epilogue_plain(*eargs)),
+             "step": _device_ms(plain_step)}
+    C, S = accept.shape
+    RB = sx["own"].shape[1]
     F = S * RB
-    # Bytes: g, zg, Q and the four [C, S] inputs in; accept and dq out.
-    # Operations: the Gram blocks a <= b (2 RB^2 + 2 RB each), v, the scan.
-    ops = C * (S * (S + 1) // 2 * (2 * RB * RB + 2 * RB) + 2 * S * RB + 3 * S * S)
-    nbytes = 4 * (2 * C * F + F * F + 4 * C * S) + 5 * C * S
-    return _record(worst, ms, plain_ms, nbytes, ops)
+    KN = pro.cal_new.shape[-1]
+    R = int((sx["own"] >= 0).sum())                     # valid rows of the block
+    rows_acc = int((accept.to(torch.int64) * (sx["own"] >= 0).sum(1)).sum())
+    log(f"[kernels] range step kind {kind} at {n_taxa} taxa (S={S}, RB={RB}): device time per "
+        f"block: the step {ms['step']:.4f} ms (plain {plain['step']:.4f} ms), of which "
+        f"prologue {ms['prologue']:.4f}, range_scan {ms['scan']:.4f}, epilogue "
+        f"{ms['epilogue']:.4f} ms")
+    # Prologue.  Bytes: per chain and ticket the draw, tuning, the root's
+    # and its parent's heights in and five outputs; per chain and valid row
+    # its height, parent height, rate, d, z and two terms in; five row
+    # outputs per chain and row slot; per calibration slot a height and a
+    # term in and the term out; five scalars per chain; the block's plan
+    # arrays.  Operations: about 120 per row (the birth-death term in
+    # double, the clock term) and 100 per ticket (the proposal), special
+    # functions counted as 10.
+    pro_bytes = (4 * C * S * 9 + 4 * C * R * 7 + 4 * C * F * 5 + 4 * C * S * KN * 3 + 20 * C
+                 + 4 * 3 * F + 4 * 8 * S)
+    # range_scan.  Bytes: g, zg, Q and the four [C, S] inputs in; accept
+    # and dq out.  Operations: the Gram blocks a <= b (2 RB^2 + 2 RB each),
+    # v, the scan.
+    scan_ops = C * (S * (S + 1) // 2 * (2 * RB * RB + 2 * RB) + 2 * S * RB + 3 * S * S)
+    scan_bytes = 4 * (2 * C * F + F * F + 4 * C * S) + 5 * C * S
+    # Epilogue.  Bytes: accept, coef and dq per chain and ticket in; dacc
+    # out; per accepted row g and its three new values in, its height or
+    # rate and two terms out, d in and out; q in and out; the block's
+    # plan arrays.  Operations: one product per accepted row.
+    epi_bytes = (9 * C * S + 4 * C * F + (28 if rate else 36) * rows_acc + 8 * C + 4 * 2 * F
+                 + 4 * S)
+    sw = worst
+    return {
+        "range_lik_prologue": _record(max(sw["prop"], sw["lq"]), ms["prologue"],
+                                      plain["prologue"], pro_bytes, C * (120 * R + 100 * S)),
+        "range_scan": _record(sw["dq"], ms["scan"], plain["scan"], scan_bytes, scan_ops),
+        "range_lik_epilogue": _record(max(sw["d"], sw["z"], sw["q"]), ms["epilogue"],
+                                      plain["epilogue"], epi_bytes, rows_acc),
+    }
 
 
 def _contra_agree(name, mode, fs, carry, tuning, sx, u_prop, u_acc):
@@ -751,7 +916,7 @@ def check_contra_slide(n_taxa):
     # special function counted as 10).
     nbytes = (4 * C * B * (9 + 2 * KC + KT) + C * B + 16 * C + B * (4 * (4 + KC + KT) + 1)
               + 4 * int(accept.sum()) * (3 + KC + KT))
-    return _record(worst, ms, plain_ms, nbytes, C * B * (60 * KT + 100))
+    return {"contra_slide": _record(worst, ms, plain_ms, nbytes, C * B * (60 * KT + 100))}
 
 
 def check_contra_range(n_taxa):
@@ -770,13 +935,12 @@ def check_contra_range(n_taxa):
     # for the truncated normal (special functions counted as 10).
     nbytes = (4 * C * S * 7 + C * S + 4 * C * R * 4 + 4 * acc_rows * 4 + 16 * C
               + S * RB * 9 + 4 * S * 8)
-    return _record(worst, ms, plain_ms, nbytes, C * (120 * R + 100 * S))
+    return {"contra_range": _record(worst, ms, plain_ms, nbytes, C * (120 * R + 100 * S))}
 
 
-CHECKS = {"prior_terms": check_prior_terms, "whiten": check_whiten,
-          "accept_select": check_accept_select, "point_scan": check_point_scan,
-          "range_scan": check_range_scan, "contra_slide": check_contra_slide,
-          "contra_range": check_contra_range}
+# Each check returns its kernels' records by kernel name.
+CHECKS = (check_prior_terms, check_whiten, check_accept_select, check_point_scan,
+          check_range_step, check_contra_slide, check_contra_range)
 
 
 def phase_kernels():
@@ -784,16 +948,16 @@ def phase_kernels():
     keeps the run's shape (136 taxa)."""
     results = {}
     for n_taxa in (MAIN_TAXA, BENCH_TAXA):
-        for name, fn in CHECKS.items():
+        for fn in CHECKS:
             t0 = time.perf_counter()
-            r = fn(n_taxa)
-            lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
-            log(f"[kernels] {name} at {n_taxa} taxa x {CHAINS} chains: max error "
-                f"{r['max_abs_err']:.3g}, device time per call: kernel {r['ms']:.4f} ms, "
-                f"plain {r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}) (check took {time.perf_counter() - t0:.1f} s)")
-            if n_taxa == MAIN_TAXA:
-                results[name] = r
+            for name, r in fn(n_taxa).items():
+                lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+                log(f"[kernels] {name} at {n_taxa} taxa x {CHAINS} chains: max error "
+                    f"{r['max_abs_err']:.3g}, device time per call: kernel {r['ms']:.4f} ms, "
+                    f"plain {r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']}) (check took {time.perf_counter() - t0:.1f} s)")
+                if n_taxa == MAIN_TAXA:
+                    results[name] = r
         _FAST.pop(n_taxa, None)
         _MODELS.pop(n_taxa, None)
     return results
@@ -834,11 +998,13 @@ def _wrappers():
     from mcmcdate_tpu_torch.kernels.point_scan import point_scan
     from mcmcdate_tpu_torch.kernels.prior_terms import prior_terms
     from mcmcdate_tpu_torch.kernels.range_scan import range_scan
+    from mcmcdate_tpu_torch.kernels.range_step import range_lik_epilogue, range_lik_prologue
     from mcmcdate_tpu_torch.kernels.whiten import whiten
 
     return {"prior_terms": prior_terms, "whiten": whiten, "accept_select": accept_select,
-            "point_scan": point_scan, "range_scan": range_scan, "contra_slide": contra_slide,
-            "contra_range": contra_range}
+            "point_scan": point_scan, "range_lik_prologue": range_lik_prologue,
+            "range_scan": range_scan, "range_lik_epilogue": range_lik_epilogue,
+            "contra_slide": contra_slide, "contra_range": contra_range}
 
 
 def _counted(run):
@@ -967,7 +1133,8 @@ def phase_full_width():
     model, batch = synthetic.build(BENCH_TAXA, 1, device="cuda")
     log(f"[full width] cut: {FULL_WIDTH_SWEEPS} sweeps (+1 for the carry check)")
     return _runner_phase("full width", model, batch, True, FULL_WIDTH_SWEEPS,
-                         ("point_scan", "range_scan", "contra_slide", "contra_range"))
+                         ("point_scan", "range_lik_prologue", "range_scan", "range_lik_epilogue",
+                          "contra_slide", "contra_range"))
 
 
 def phase_sequential(seq):

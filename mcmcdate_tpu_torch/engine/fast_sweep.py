@@ -20,8 +20,9 @@ Phases of a sweep, in the JAX package's order:
    K6 ``contra_slide``) and the likelihood-coupled node slides and
    branch-rate scales (kernel K4 ``point_scan`` for the accept scan);
 4. the subtree-range blocks: the ultrametric and rate subtree scales
-   (kernel K5 ``range_scan`` for the Gram blocks and the accept scan) and
-   the distance-invariant contrary subtree scales (K6 ``contra_range``).
+   (K5: the kernels ``range_lik_prologue``, ``range_scan`` for the Gram
+   blocks and the accept scan, and ``range_lik_epilogue``) and the
+   distance-invariant contrary subtree scales (K6 ``contra_range``).
 
 The state is ``[chains, param]`` throughout; every P, z and d row access is
 a plain index gather and every write-back an ``index_add_`` (the JAX
@@ -43,7 +44,13 @@ import torch
 
 from ..kernels.contra_step import contra_range, contra_slide
 from ..kernels.point_scan import point_scan
-from ..kernels.range_scan import range_scan
+from ..kernels.range_scan import kernel_layout, range_scan
+from ..kernels.range_step import (
+    range_lik_epilogue,
+    range_lik_epilogue_plain,
+    range_lik_prologue,
+    range_lik_prologue_plain,
+)
 from ..kernels.whiten import whiten
 from ..models.dating import DatingModel
 from ..models.state import FIELDS, State
@@ -52,11 +59,8 @@ from ..ops.dists import gamma_scale_sample, standard_gamma, truncated_normal_sam
 from ..ops.heights import distances_internal
 from ..ops.local_terms import (
     NEG_INF,
-    cal_range_terms,
     clock_term_local,
     is_bad,
-    range_gather,
-    range_scaled,
     slide_terms,
     sum_valid,
 )
@@ -606,6 +610,33 @@ class FastSweeps:
         self.is_leaf_t = topo.is_leaf_t
         self.spec_t = {k: step_tensors(s, dev, dt) for k, s in self.plan.specs.items()}
         self.range_t = {k: step_tensors(s, dev, dt) for k, s in self.plan.range_specs.items()}
+        for (k, _), steps in self.range_t.items():
+            if k != P.K_SCALE_SUBTREES_CONTRA:
+                for sx in steps:
+                    self._range_rows(sx)
+        # A rate group's gamma shapes depend on the tuning alone, which a
+        # sweep does not change: the group gathers them in one launch.
+        self.range_gamma = {
+            key: (torch.cat([sx["rows"] for sx in steps]), torch.cat([sx["sd"] for sx in steps]))
+            for key, steps in self.range_t.items() if key[0] == P.K_SCALE_SUBTREE_RATE}
+
+    def _range_rows(self, sx: dict):
+        """The distance rows of a likelihood range block, ``d_flat`` ``[S
+        RB]`` (0 on pad rows), and with a likelihood the block's precision
+        rows ``Prow = P[d_flat]`` ``[S RB, D]`` and ``Q = Prow[:, d_flat]``
+        (zero on pad rows and columns).  They depend on the plan alone, so
+        each block gathers them once, here: the 452 blocks of the synthetic
+        1000-taxon model hold 0.59 GB of ``Q`` and 1.86 GB of ``Prow`` in
+        float32 (trimmed to their rows), against 16 MB for ``P``.  ``Q`` is
+        kept in :func:`~..kernels.range_scan.kernel_layout`."""
+        own_ok = sx["own"] >= 0
+        sx["d_flat"] = torch.where(own_ok, self.pos_t[torch.clamp(sx["own"], min=0)],
+                                   0).reshape(-1).contiguous()
+        if self.use_lik:
+            ok = own_ok.reshape(-1).to(self.P.dtype)
+            prow = self.P[sx["d_flat"]] * ok[:, None]
+            sx["Prow"] = prow
+            sx["Q"] = kernel_layout(prow[:, sx["d_flat"]] * ok[None, :])
 
     # -- precision/Cholesky right-multiplications -----------------------
 
@@ -632,7 +663,7 @@ class FastSweeps:
             return d.new_zeros((d.shape[0], 0))
         if m.likelihood.kind == mvn.UNIVARIATE:
             return (d - m.mu_internal_t) * m.inv_sd_internal_t
-        y, _ = whiten(d, m.chol_internal_t, rows=m.rows_all, sub=m.mu_internal_t)
+        y, _ = whiten(d, m.chol_internal_t, sub=m.mu_internal_t)
         return y
 
     # -- global-move families ------------------------------------------
@@ -980,95 +1011,26 @@ class FastSweeps:
     def range_lik_step(self, kind: int, carry: FastCarry, tuning, sx: dict, draw, u_acc):
         """One block of likelihood-coupled subtree scales, ultrametric
         (Ultrametric.hs:126-188) or rate (Unconstrained.hs:95-137).  Each
-        ticket's distance delta is rank-1, ``delta_b = (f_b - 1) g_b``;
-        kernel K5 forms the Gram blocks ``g_a' Q_ab g_b`` and runs the
-        accept scan.  Returns the ``[C, S]`` accept mask."""
-        model = self.model
-        N = model.topo.n
-        is_rate = kind == P.K_SCALE_SUBTREE_RATE
-        batch, terms, d = carry.batch, carry.terms, carry.d
-        h, r = batch.heights, batch.rates
-        node, par, valid, rows, sd = sx["node"], sx["par"], sx["valid"], sx["rows"], sx["sd"]
-        C, S = draw.shape
-        tune = tuning[:, rows]
-        rg = range_gather(batch, sx)
-        own_ok, own_s, is_root, h_own, hpar_own, r_own = rg
-        RB = own_s.shape[-1]
-        d_own = torch.where(own_ok, self.pos_t[own_s], 0)     # [S, RB]
-        d_old_g = d[:, d_own]                                  # [C, S, RB]
-        var = batch.rate_var[:, None, None]
-        if is_rate:
-            f, base, logu = gamma_scale_sample(draw, sd, tune)   # [C, S]
-            lq = base + sx["n_nodes"] * logu
-            r_new = r_own * f[..., None]
-            ck_new = clock_term_local(model.clock, r_new, hpar_own - h_own, var)
-            t_news = ((4 + (N + 1) + own_s, ck_new),)
-            g = torch.where(own_ok, d_old_g, 0.0)
-        else:
-            hi = h[:, node]
-            hp = h[:, par]
-            hnew, lq = truncated_normal_sample(draw, hi, sd, tune, 0.0, hp)
-            f = hnew / hi                                     # xi  [C, S]
-            lq = lq + (sx["n_inner"] - 1) * torch.log(f)
-            h_new, bd_new, ck_new = range_scaled(model.clock, batch, self.is_leaf_t, rg, f, r_own)
-            t_news = ((4 + own_s, bd_new), (4 + (N + 1) + own_s, ck_new))
-            # The subtree root's own branch keeps its parent: its delta is
-            # (f - 1) times -scale * r * h.
-            height_rm = (batch.height * batch.rate_mean)[:, None, None]
-            g = torch.where(is_root, -height_rm * r_own * h_own, d_old_g)
-            g = torch.where(own_ok, g, 0.0)
-
-        d_pr = torch.zeros_like(f)
-        invalid = torch.zeros_like(valid).expand(C, S)
-        olds = []
-        for t_rows_k, tn_k in t_news:
-            told_k = terms[:, t_rows_k]
-            olds.append(told_k)
-            d_pr = d_pr + sum_valid(torch.where(own_ok, tn_k - told_k, 0.0))
-            invalid = invalid | torch.any(own_ok & is_bad(tn_k), dim=-1)
-        knr = 0 if is_rate else sx["cal_t_rows"].shape[-1]
-        if knr:
-            cal_ok, cal_safe, cal_new, cal_old, dpc, invc = cal_range_terms(batch, terms, sx, f)
-            d_pr = d_pr + dpc
-            invalid = invalid | invc
-        lmhg = torch.where(invalid | ~valid, NEG_INF, lq)
-        # Pad slots (sd = 0) draw f = NaN; their coefficient is 0, so the
-        # scan's cross terms with them are 0 and not NaN.  (The JAX step
-        # keeps the NaN, and then rejects every ticket of a padded block.)
-        coef = torch.where(valid, f - 1.0, 0.0)                # [C, S]
-
+        ticket's distance delta is rank-1, ``delta_b = (f_b - 1) g_b``: the
+        prologue kernel draws the proposals and evaluates their terms, K5
+        (``range_scan``) forms the Gram blocks ``g_a' Q_ab g_b`` and runs the
+        accept scan, the epilogue kernel writes the accepted tickets back,
+        and one product updates ``z``.  ``Q`` and ``Prow`` are the block's
+        own (built with the plan).  Without a likelihood the plain prologue
+        and epilogue run alone.  Returns the ``[C, S]`` accept mask."""
+        m = self.model
+        rate = kind == P.K_SCALE_SUBTREE_RATE
+        args = (rate, carry.batch, carry.terms, carry.d)
         if not self.use_lik:
-            log_alpha = d_pr + lmhg
+            pro = range_lik_prologue_plain(*args, None, tuning, sx, m.topo.is_leaf_t, m.clock,
+                                           draw)
+            log_alpha = pro.d_pr + pro.lmhg
             accept = torch.log(u_acc) < torch.where(torch.isnan(log_alpha), NEG_INF, log_alpha)
-        else:
-            d_flat = d_own.reshape(-1)
-            ok_flat = own_ok.reshape(-1).to(d.dtype)
-            zg = (carry.z[:, d_flat] * ok_flat).reshape(C, S, RB)
-            Prow = self.P[d_flat] * ok_flat[:, None]           # [S*RB, D]
-            Q = Prow[:, d_flat] * ok_flat[None, :]             # [S*RB, S*RB]
-            accept, dq_all = range_scan(g.contiguous(), zg.contiguous(), Q.contiguous(),
-                                        coef.contiguous(), d_pr, lmhg, u_acc)
-
-        accept = accept & valid
-        am = accept[..., None] & own_ok
-        if is_rate:
-            r[:, own_s] = torch.where(am, r_new, r_own)
-        else:
-            h[:, own_s] = torch.where(am, h_new, h_own)
-            if knr:
-                terms[:, cal_safe] = torch.where(accept[..., None] & cal_ok, cal_new, cal_old)
-        for (t_rows_k, tn_k), told_k in zip(t_news, olds):
-            terms[:, t_rows_k] = torch.where(am, tn_k, told_k)
-        delta = coef[..., None] * g
-        dacc = torch.where(am, delta, 0.0)
-        if self.use_lik:
-            dacc = dacc.reshape(C, S * RB)
-            d.index_add_(1, d_flat, dacc)
-            carry.z += dacc @ Prow
-            carry.q += torch.sum(torch.where(accept, dq_all, 0.0), dim=-1)
-        else:
-            d[:, d_own] = torch.where(am, d_old_g + delta, d_old_g)
-        carry.acc.index_add_(1, rows, accept.to(carry.acc.dtype))
+            return range_lik_epilogue_plain(*args, carry.q, carry.acc, sx, pro, accept, None)[0]
+        pro = range_lik_prologue(*args, carry.z, tuning, sx, m.topo.is_leaf_t, m.clock, draw)
+        accept, dq = range_scan(pro.g, pro.zg, sx["Q"], pro.coef, pro.d_pr, pro.lmhg, u_acc)
+        accept, dacc = range_lik_epilogue(*args, carry.q, carry.acc, sx, pro, accept, dq)
+        carry.z.addmm_(dacc, sx["Prow"])
         return accept
 
     # -- the sweep -----------------------------------------------------
@@ -1153,7 +1115,12 @@ class FastSweeps:
         """The subtree-range blocks in the plan's order: ultrametric and rate
         subtree scales (K5), then contrary subtree scales."""
         C = carry.d.shape[0]
-        for (k, _), steps in self.range_t.items():
+        for key, steps in self.range_t.items():
+            k = key[0]
+            if k == P.K_SCALE_SUBTREE_RATE:
+                rows, sd = self.range_gamma[key]
+                shape = sd / tuning.index_select(1, rows)
+            off = 0
             for sx in steps:
                 S = sx["rows"].shape[0]
                 if k == P.K_SCALE_SUBTREES_CONTRA:
@@ -1161,9 +1128,10 @@ class FastSweeps:
                                            self._rand(carry, gen, C, S))
                     continue
                 if k == P.K_SCALE_SUBTREE_RATE:
-                    draw = standard_gamma(sx["sd"] / tuning[:, sx["rows"]], gen)
+                    draw = standard_gamma(shape[:, off:off + S], gen)
                 else:
                     draw = self._rand(carry, gen, C, S)
+                off += S
                 self.range_lik_step(k, carry, tuning, sx, draw, self._rand(carry, gen, C, S))
 
     def lp_of(self, carry: FastCarry, y):

@@ -103,8 +103,8 @@ class MHKernel:
                 d_lik = -0.5 * torch.sum(dy * (2.0 * carry.y + dy), dim=-1)
             elif dc == props.DC_FULL:
                 d_new = distances_internal(state_new, m.topo)
-                dy, d_lik = whiten(d_new, m.chol_internal_t, rows=m.rows_all,
-                                   sub=m.mu_internal_t, y=carry.y, minus_y=True)
+                dy, d_lik = whiten(d_new, m.chol_internal_t, sub=m.mu_internal_t, y=carry.y,
+                                   minus_y=True)
             elif dc != props.DC_INV:
                 d_new = distances_internal(state_new, m.topo)
                 dy, d_lik = whiten(d_new - carry.d, m.chol_internal_t, rows=self.rows[pidx],

@@ -1,5 +1,6 @@
 // Device versions of the port's plain-torch densities, shared by the
-// kernels that evaluate prior terms (K1 prior_terms, K6 contra_step).
+// kernels that evaluate prior terms (K1 prior_terms, K5's range step, K6
+// contra_step).
 // Each mirrors its plain version operation by operation (ops/dists.py,
 // ops/birth_death.py); build without fast math so isnan/isinf/-inf are
 // exact.
@@ -7,6 +8,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 
 namespace mcmcdate {
@@ -14,6 +16,7 @@ namespace mcmcdate {
 constexpr float kLnSqrt2Pi = 0.9189385332046727f;
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
 constexpr double kEpsNearCritical = 1e-6;
+constexpr float kSqrt1_2 = 0.70710678118654752440f;
 
 __device__ __forceinline__ float clip0(float x) { return x < 0.f ? 0.f : x; }
 
@@ -118,6 +121,80 @@ __device__ __forceinline__ float bd_term_local(double h_node, double h_parent, b
   de_factors(la, mu, c, dt, &log_d, &e);
   if (!(dt > 0.0)) log_d = -INFINITY;
   return (float)(log_d + (leaf ? 0.0 : log(la)));
+}
+
+// The truncated normal of the node slides and subtree scales (ops/dists.py)
+// and the soft-calibration term (ops/local_terms.py).
+
+__device__ inline float ndtr(float x) {
+  const float t = x * kSqrt1_2;
+  const float z = fabsf(t);
+  if (z < kSqrt1_2) return 0.5f + 0.5f * erff(t);
+  const float y = 0.5f * erfcf(z);
+  return t > 0.f ? 1.0f - y : y;
+}
+
+__device__ inline float log_ndtr(float x) {
+  const float t = x * kSqrt1_2;
+  if (x < -1.0f) return logf(erfcxf(-t) / 2.0f) - t * t;
+  return log1pf(-erfcf(t) / 2.0f);
+}
+
+// torch.clamp / torch.maximum semantics: NaN propagates.
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
+  if (isnan(x)) return x;
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// log(Phi(beta) - Phi(alpha)), stably in the tails (_truncnorm_log_z).
+__device__ inline float truncnorm_log_z(float mean, float sd, float a, float b) {
+  const float alpha = (a - mean) / sd;
+  const float beta = (b - mean) / sd;
+  const bool flip = alpha + beta > 0.f;
+  const float lo = flip ? -beta : alpha;
+  const float hi = flip ? -alpha : beta;
+  const float llo = log_ndtr(lo);
+  const float lhi = log_ndtr(hi);
+  float diff = llo - lhi;
+  if (!isnan(diff) && diff > 0.f) diff = 0.f;
+  return lhi + log1pf(-expf(diff) + FLT_MIN);
+}
+
+__device__ inline float truncnorm_logpdf(float mean, float sd, float a, float b, float x) {
+  if (!(x >= a && x <= b)) return -INFINITY;
+  const float z = (x - mean) / sd;
+  return -kLnSqrt2Pi - logf(sd) - 0.5f * z * z - truncnorm_log_z(mean, sd, a, b);
+}
+
+// truncated_normal_sample (ops/dists.py) at the uniform u.
+__device__ inline void truncnorm_sample(float u, float mean, float sd, float tune, float a,
+                                        float b, float* x_out, float* lq_out) {
+  const float s = tune * sd;
+  const float alpha = (a - mean) / s;
+  const float beta = (b - mean) / s;
+  const float pa = ndtr(alpha);
+  const float pb = ndtr(beta);
+  const float p = pa + u * (pb - pa);
+  float x = mean + s * normcdfinvf(clamp_nan(p, FLT_MIN, 1.0f - 10.0f * FLT_EPSILON));
+  const float eps = 32.0f * FLT_EPSILON;
+  const float width = isfinite(b - a) ? b - a : s;
+  const float lo = isfinite(a) ? a + eps * width : -INFINITY;
+  const float hi = isfinite(b) ? b - eps * width : INFINITY;
+  x = clamp_nan(x, lo, hi);
+  *x_out = x;
+  *lq_out = truncnorm_logpdf(x, s, a, b, mean) - truncnorm_logpdf(mean, s, a, b, x);
+}
+
+// One calibration term of a node at relative height h (_cal_terms_local).
+__device__ inline float cal_term_local(float h, float height, float lo, float lo_s, float hi,
+                                       float hi_s) {
+  const float lo_rel = lo / height;
+  const float hi_rel = hi / height;
+  const float below = clamp_nan(lo_rel - h, 0.f, INFINITY);
+  const float above = clamp_nan(h - hi_rel, 0.f, INFINITY);
+  const float b = below / (lo_s > 0.f ? lo_s : 1.0f);
+  const float u = above / (hi_s > 0.f ? hi_s : 1.0f);
+  return -0.5f * (b * b) - 0.5f * (isfinite(hi_rel) ? u * u : 0.0f);
 }
 
 }  // namespace mcmcdate

@@ -9,8 +9,9 @@ all classes: every row (full), the <= KG touched entries (gather), or
 ``{0} U [lo, lo+B)`` (range); entries equal to ``D`` read as zero.  On the
 H100 the full class is a float32 product computed on the SIMT cores (no
 TF32), the others are bound by reading ``L[rows, :]`` and writing ``dy``;
-the kernel (``csrc/whiten.cu``) gathers and subtracts while it loads its
-tiles and reduces each chain's row in its epilogue.
+the kernel (``csrc/whiten.cu``) is a register-tiled GEMM that stages its
+tiles with asynchronous copies into two buffers, gathers and subtracts
+while it stages, and reduces each chain's row in its epilogue.
 """
 
 from __future__ import annotations
@@ -64,26 +65,26 @@ def whiten(x, L, rows=None, sub=None, y=None, minus_y=False):
     when ``y`` is given (the log-likelihood delta), else ``sum(dy^2)``.
 
     ``x`` and ``y`` are ``[C, D]``, ``L`` ``[D, D]``, ``sub`` ``[D]``,
-    ``rows`` an int32 ``[R]`` list (None: every row).  The plain version
+    ``rows`` an int32 ``[R]`` list (None: every row, the full class, which
+    the kernel reads contiguously with no index reads).  The plain version
     runs for CPU tensors, kernel K2 for CUDA tensors (float32)."""
     if x.device.type == "cpu":
         return whiten_plain(x, L, rows, sub, y, minus_y)
     C, D = x.shape
-    if rows is None:
-        rows = torch.arange(D, dtype=torch.int32, device=x.device)
     for name, t in (("x", x), ("L", L), ("sub", sub), ("y", y)):
         if t is not None:
             build.require_cuda(t, name, torch.float32)
-    build.require_cuda(rows, "rows", torch.int32)
+    if rows is not None:
+        build.require_cuda(rows, "rows", torch.int32)
     if L.shape != (D, D):
         raise ValueError(f"L must be [{D}, {D}], got {tuple(L.shape)}")
-    tiles = build.bind("mcmcdate_whiten_tiles", (_I,))(D)
+    tiles = build.bind("mcmcdate_whiten_tiles", (_I, _I))(C, D)
     dy = torch.empty((C, D), dtype=torch.float32, device=x.device)
     red = torch.empty(C, dtype=torch.float32, device=x.device)
     partial = torch.empty((C, tiles), dtype=torch.float32, device=x.device)
     p = build.ptr
     err = build.bind("mcmcdate_whiten_f32", _ARGTYPES)(
-        p(x), p(sub), p(rows), rows.numel(), p(L), p(y), int(bool(minus_y)),
+        p(x), p(sub), p(rows), D if rows is None else rows.numel(), p(L), p(y), int(bool(minus_y)),
         -0.5 if y is not None else 1.0, p(dy), p(red), p(partial), C, D,
         build.stream_ptr(x.device),
     )

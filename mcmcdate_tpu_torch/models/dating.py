@@ -188,11 +188,6 @@ class DatingModel:
     def inv_sd_internal_t(self):
         return self._dev(self.inv_sd_internal)
 
-    @cached_property
-    def rows_all(self):
-        """int32 row list of every distance: K2's full class."""
-        return torch.arange(self.likelihood.dim, dtype=torch.int32, device=self.device)
-
     def whitened_residual_internal(self, state: State):
         """Internal-layout whitened residual ``y`` ``[C, D]`` (kernel K2 for
         the full kind); empty for the none kind."""
@@ -201,7 +196,7 @@ class DatingModel:
         d = H.distances_internal(state, self.topo)
         if self.likelihood.kind == mvn.UNIVARIATE:
             return (d - self.mu_internal_t) * self.inv_sd_internal_t
-        y, _ = whiten(d, self.chol_internal_t, rows=self.rows_all, sub=self.mu_internal_t)
+        y, _ = whiten(d, self.chol_internal_t, sub=self.mu_internal_t)
         return y
 
     @property

@@ -167,14 +167,20 @@ def gamma_scale_sample(g, shape, tune):
     Returns ``(u, log_mhg_base, log_u)``; a proposal that scales ``n_up``
     coordinates by ``u`` and ``n_down`` by ``1/u`` adds
     ``(n_up - n_down) * log u``."""
-    shape = _t(shape, g)
+    u = g * (tune / _t(shape, g))
+    return (u, *gamma_scale_lq(u, shape, tune))
+
+
+def gamma_scale_lq(u, shape, tune):
+    """``(log_mhg_base, log_u)`` of :func:`gamma_scale_sample` for the
+    factor ``u``."""
+    shape = _t(shape, u)
     k = shape / tune
     theta = tune / shape
-    u = g * theta
     log_u = torch.log(u)
     # Forward and reverse densities in one pass: rows g(u) and g(1/u).
     log_g = gamma_logpdf(k, theta, torch.stack([u, 1.0 / u]))
-    return u, log_g[1] - log_g[0] - 2.0 * log_u, log_u
+    return log_g[1] - log_g[0] - 2.0 * log_u, log_u
 
 
 def standard_gamma(shape, generator):

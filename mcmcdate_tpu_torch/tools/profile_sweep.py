@@ -20,8 +20,9 @@ or the sequential one:
    the sweep's host span, so that rows which overlap or repeat one another
    count once.  For the ticket-batched sweep, also launches, device time
    and host span per phase (``seq``, ``glob``, ``point``, ``range``,
-   ``y``): a device interval belongs to the phase whose host span holds
-   the launch it came from;
+   ``y``), with the phase's launches counted by the kernel they started:
+   a device interval belongs to the phase whose host span holds the launch
+   it came from; and the number of range blocks of each proposal kind;
 4. one sweep with the carry checked: for the sequential sweep after every
    ticket (distances ``d``, whitened residual ``y``, prior terms against
    direct float32 evaluations of the carried state); for the batched one
@@ -50,10 +51,12 @@ import torch
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 PORT_KERNELS = ("prior_terms_kernel", "whiten", "accept_select_kernel", "point_scan_kernel",
-                "range_scan_", "contra_slide_kernel", "contra_range_kernel")
+                "range_lik_prologue_kernel", "range_scan_kernel", "range_lik_epilogue_kernel",
+                "contra_slide_kernel", "contra_range_kernel")
 PHASES = ("seq", "glob", "point", "range", "y")
 TAXA, CHAINS, TREES, SEED = 136, 1024, 600, 1
 WARMUP, TIMED = 10, 2
+TOP_BY_PHASE = 16  # kernel names kept per phase, by launches
 
 
 def _card() -> str:
@@ -141,13 +144,20 @@ def trace_summary(trace_path: str) -> dict:
             return next((nm for a, b, nm in spans if a <= ts <= b), None)
 
         launch_at = {e.get("args", {}).get("correlation"): e["ts"] for e in launch_ev}
+        kernel_of = {e.get("args", {}).get("correlation"): e["name"] for e in device}
         phases = {nm: dict(host_s=0.0, launches=0, device_s=0.0) for _, _, nm in spans}
+        by_kernel = {nm: {} for nm in phases}
         for a, b, nm in spans:
             phases[nm]["host_s"] += (b - a) * 1e-6
         for e in launch_ev:
             nm = phase_of(e["ts"])
             if nm:
                 phases[nm]["launches"] += 1
+                k = kernel_of.get(e.get("args", {}).get("correlation"), e["name"])[:100]
+                by_kernel[nm][k] = by_kernel[nm].get(k, 0) + 1
+        for nm, counts in by_kernel.items():
+            phases[nm]["launches_by_kernel"] = dict(
+                sorted(counts.items(), key=lambda kv: -kv[1])[:TOP_BY_PHASE])
         for e in device:
             ts = launch_at.get(e.get("args", {}).get("correlation"))
             nm = phase_of(ts) if ts is not None else None
@@ -296,6 +306,11 @@ def main(argv=None) -> dict:
     kern = runner.kern
     rec["kernel"] = type(kern).__name__
     rec["tickets_per_sweep"] = runner.table.n_tickets
+    if fast:
+        blocks: dict = {}
+        for (k, _), steps in kern.range_t.items():
+            blocks[str(k)] = blocks.get(str(k), 0) + len(steps)
+        rec["range_blocks_by_kind"] = blocks
     t0 = time.perf_counter()
     batch = kern.sweeps(batch, tuning, 100, WARMUP)[0]
     torch.cuda.synchronize()

@@ -1,0 +1,81 @@
+"""Time the ticket-batched sweep (FastSweeps) of one checkout of the port on
+a CUDA card, so that two checkouts can be compared in one call.
+
+Run as a file, from the root of a checkout, on a machine with a card:
+
+    python3 mcmcdate_tpu_torch/tools/sweep_time.py [--root DIR]
+
+It imports ``mcmcdate_tpu_torch`` from ``--root`` (default: the checkout
+that holds this file; an unpacked archive of another commit compares that
+commit, which need not have this tool: ``profile_sweep.py`` times only the
+checkout it belongs to, at 136 taxa), builds the synthetic full-MVN model
+and chain batch of each shape in ``TAXA`` x ``CHAINS`` (``synthetic.build``,
+seed 0), constructs ``FastSweeps`` (timed: it gathers each range block's
+precision rows), runs ``WARMUP`` sweeps, then times ``TIMED`` single
+sweeps on the host clock, each ending in a device sync.  Prints one JSON
+line per shape with the card's name and power limit.  Run each checkout in
+its own process, in turns (A, B, B, A): host speed varies between calls.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+TAXA, CHAINS, WARMUP, TIMED = (136, 1000), 1024, 2, 5
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)))
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    from mcmcdate_tpu_torch import synthetic
+    from mcmcdate_tpu_torch.engine import fast_sweep, proposals
+
+    if not torch.cuda.is_available():
+        raise SystemExit("sweep_time needs a CUDA card")
+    if not fast_sweep.__file__.startswith(root):
+        raise SystemExit(f"imported {fast_sweep.__file__}, not the checkout at {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    out = []
+    for taxa in TAXA:
+        model, batch = synthetic.build(taxa, CHAINS, device="cuda")
+        table = proposals.build_proposal_table(model.topo, model.braces, False)
+        t0 = time.perf_counter()
+        fs = fast_sweep.FastSweeps(model, table)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        tuning = torch.ones((CHAINS, table.n_proposals), device="cuda")
+        batch = fs.sweeps(batch, tuning, 1, WARMUP)[0]
+        torch.cuda.synchronize()
+        times = []
+        for i in range(TIMED):
+            t0 = time.perf_counter()
+            batch = fs.sweeps(batch, tuning, 2 + i, 1)[0]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        rec = dict(root=root, card=card, taxa=taxa, chains=CHAINS,
+                   tickets_per_sweep=int(table.n_tickets), setup_s=setup_s, sweep_s=times,
+                   median_s=statistics.median(times))
+        print(json.dumps(rec), flush=True)
+        out.append(rec)
+        del fs, model, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+if __name__ == "__main__":
+    main()

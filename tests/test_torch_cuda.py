@@ -56,7 +56,10 @@ def test_whiten_kernel(card):
     L, mu = model.chol_internal_t, model.mu_internal_t
     y, _ = whiten_plain(d, L, sub=mu)
     D = d.shape[1]
-    for rows in (model.rows_all, torch.as_tensor([2, 0, D, 5], dtype=torch.int32, device=card),
+    # None: the full class (contiguous rows, no row list); then the same
+    # rows as an explicit list.
+    for rows in (None, torch.arange(D, dtype=torch.int32, device=card),
+                 torch.as_tensor([2, 0, D, 5], dtype=torch.int32, device=card),
                  torch.as_tensor(range_rows(3, 64, D), dtype=torch.int32, device=card)):
         for kw in (dict(sub=mu), dict(y=y), dict(sub=mu, y=y, minus_y=True)):
             dk, rk = whiten(d, L, rows=rows, **kw)
@@ -139,13 +142,15 @@ def test_point_scan_kernel(card):
 
 
 def test_range_scan_kernel(card):
-    from mcmcdate_tpu_torch.kernels.range_scan import range_scan, range_scan_plain
+    from mcmcdate_tpu_torch.kernels.range_scan import kernel_layout, range_scan, range_scan_plain
 
     g = torch.Generator(device=card).manual_seed(4)
-    for C, S, RB in ((70, 64, 16), (40, 16, 64), (33, 4, 256)):
+    # Full and ragged blocks: 1024 rows, a trimmed bucket (RB not a
+    # multiple of the kernel's 8-column stages), one long ticket.
+    for C, S, RB in ((70, 64, 16), (40, 16, 64), (33, 4, 256), (21, 33, 15), (9, 1, 235)):
         F = S * RB
         a = torch.randn(F, F, generator=g, device=card) / F ** 0.5
-        Q = (a @ a.T + torch.eye(F, device=card)).contiguous()
+        Q = kernel_layout(a @ a.T + torch.eye(F, device=card))
         gg = torch.randn(C, S, RB, generator=g, device=card)
         gg[:, :, RB - 3:] = 0.0  # pad rows
         zg = torch.randn(C, S, RB, generator=g, device=card)
@@ -157,6 +162,66 @@ def test_range_scan_kernel(card):
         ap, dp = range_scan_plain(gg, zg, Q, coef, d_pr, lmhg, u)
         assert 0 < int(ap.sum()) < ap.numel()
         _scan_agree(ak, dk, ap, dp, d_pr - 0.5 * dp + lmhg, torch.log(u))
+
+
+def test_range_step_kernel(card):
+    """K5's range step (prologue, range_scan, epilogue) on every likelihood
+    range block of a 40-taxon model, against the plain step replayed at
+    the kernel's proposals and decisions: proposals within 1e-5 (1 + |x|)
+    of the plain ones from the same draws, decisions equal except at ties,
+    heights, rates and terms bitwise equal, d, z and q within 1e-5 of scale."""
+    from mcmcdate_tpu_torch.engine import fast_sweep as TF, proposals as TP
+    from mcmcdate_tpu_torch.kernels import range_step as K
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    model, batch = _model()
+    fs, table = _fast(model)
+    leaf = model.topo.is_leaf_t
+    g = torch.Generator(device=card).manual_seed(6)
+    C = batch.n_chains
+    tuning = torch.rand(C, table.n_proposals, generator=g, device=card) * 3 + 0.3
+    carry = fs.init_carry(batch)
+    carry.z, carry.q = fs._zq_from_y(model.whitened_residual_internal(carry.batch))
+    n_acc = n = 0
+    for (k, _), blocks in fs.range_t.items():
+        if k == TP.K_SCALE_SUBTREES_CONTRA:
+            continue
+        rate = k == TP.K_SCALE_SUBTREE_RATE
+        for sx in blocks[:3]:
+            S = sx["rows"].shape[0]
+            draw = (standard_gamma(sx["sd"] / tuning[:, sx["rows"]], g) if rate
+                    else torch.rand(C, S, generator=g, device=card))
+            u = torch.rand(C, S, generator=g, device=card)
+            copies = [TF.FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
+                                   carry.terms.clone(), carry.d.clone(), carry.z.clone(),
+                                   carry.q.clone(), carry.acc.clone()) for _ in range(2)]
+            ck, cr = copies
+            before = [K.range_lik_prologue.launches, K.range_lik_epilogue.launches]
+            pro = K.range_lik_prologue(rate, ck.batch, ck.terms, ck.d, ck.z, tuning, sx, leaf,
+                                       model.clock, draw)
+            pp = K.range_lik_prologue_plain(rate, ck.batch, ck.terms, ck.d, ck.z, tuning, sx,
+                                            leaf, model.clock, draw)
+            assert torch.all((pro.prop - pp.prop).abs() <= 1e-5 * (1 + pp.prop.abs()))
+            accept = fs.range_lik_step(k, ck, tuning, sx, draw, u)
+            assert [K.range_lik_prologue.launches, K.range_lik_epilogue.launches] == [
+                before[0] + 2, before[1] + 1]
+            forced = torch.where(accept, 0.0, math.nan)
+            acc_r, pr, dq_r = K.range_lik_given(rate, cr.batch, cr.terms, cr.d, cr.z, cr.q,
+                                                cr.acc, tuning, sx, leaf, model.clock, pro.prop,
+                                                forced)
+            assert torch.equal(acc_r, accept)
+            la = torch.nan_to_num(pr.d_pr - 0.5 * dq_r + pr.lmhg, nan=-math.inf)
+            differ = (torch.log(u) < la) != accept
+            assert torch.all((torch.log(u) - la).abs()[differ] < TIE)
+            for a, b in ((ck.batch.heights, cr.batch.heights), (ck.batch.rates, cr.batch.rates),
+                         (ck.terms, cr.terms)):
+                assert torch.equal(a.nan_to_num(), b.nan_to_num())
+            for a, b in ((ck.d, cr.d), (ck.z, cr.z), (ck.q, cr.q)):
+                assert (a - b).abs().max() <= 1e-5 * max(1.0, float(b.abs().max()))
+            assert torch.equal(ck.acc, cr.acc)
+            n_acc += int(accept.sum())
+            n += accept.numel()
+    assert 0 < n_acc < n
 
 
 def _contra_agree(model, batch, table, sx, seed, mode):

@@ -103,7 +103,8 @@ def test_whiten_plain_matches_residual_and_classes():
     delta = d2 - d
     # br_full (engine/mh.py:154-156)
     dy_ref = (d2 - mu) @ L - y
-    dy, dl = whiten(torch.as_tensor(d2), Lt, rows=pm.rows_all, sub=mut, y=torch.as_tensor(y),
+    rows_all = torch.arange(D, dtype=torch.int32)  # the full class as an explicit row list
+    dy, dl = whiten(torch.as_tensor(d2), Lt, rows=rows_all, sub=mut, y=torch.as_tensor(y),
                     minus_y=True)
     close(dy, dy_ref, atol=1e-13)
     close(dl, -0.5 * np.sum(dy_ref * (2 * y + dy_ref), axis=-1), atol=1e-12)

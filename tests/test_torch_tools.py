@@ -67,9 +67,9 @@ def test_trace_summary_phases(tmp_path):
     path.write_text(json.dumps({"traceEvents": ev}))
     ph = trace_summary(str(path))["phases"]
     assert ph["glob"] == dict(host_s=pytest.approx(20e-6), launches=1,
-                              device_s=pytest.approx(7e-6))
+                              device_s=pytest.approx(7e-6), launches_by_kernel={"a": 1})
     assert ph["range"] == dict(host_s=pytest.approx(30e-6), launches=1,
-                               device_s=pytest.approx(5e-6))
+                               device_s=pytest.approx(5e-6), launches_by_kernel={"b": 1})
 
 
 def test_fast_sweep_carry_check_on_cpu():
