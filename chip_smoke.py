@@ -15,8 +15,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    accept_select, and on FastSweeps' own plan steps of a synthetic model
    K4 point_scan, K5 (the likelihood range-block step: range_lik_prologue,
    range_scan and range_lik_epilogue, a record each, checked by replaying
-   the kernels' proposals through the plain step) and K6 contra_step in its
-   two modes (contra_slide and contra_range, a record each).  Each kernel's
+   the kernels' proposals through the plain step), K6 contra_step in its
+   two modes (contra_slide and contra_range, a record each) and, on the
+   14 global-move families of the same model with node priors and the
+   calibrated proposal table, the glob kernels G1 glob_scan, G2
+   glob_dense_prologue and G3 glob_dense_epilogue (a record each, checked
+   by replaying their proposals and decisions through the plain family
+   scan; FastSweeps.glob_phase must launch only them).  Each kernel's
    device time and its plain version's are read from the profiler over
    back-to-back calls;
 4. main path: simulate -> prepare --likelihood-spec full -> run (MHG,
@@ -25,7 +30,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    that the run launched every kernel;
 5. full width: FastSweeps through ChainRunner at 1000 taxa x 1024 chains
    (D = 1,997) on the synthetic model; median s/sweep, carry check, K4-K6
-   launched;
+   and G1-G3 launched;
 6. sequential path: the same 136-taxon model through
    RunSettings(fast_sweep=False) (MHKernel); carry check, K1-K3 launched.
 
@@ -102,6 +107,12 @@ SCAN_REL = 1e-5
 # (the subtraction cancels on short branches); and its terms equal a fresh
 # evaluation of its own new state within CONTRA_REL (1 + |term|).
 CONTRA_REL = 1e-5
+# The glob kernels' truncated-normal proposals x = mean + s ndtri(p), with p
+# in float32 from each side's own normal CDF: a few ulps of p move x by
+# dx/dp = s / phi(z) each, which is large in the tails.  They must be within
+# CONTRA_REL (1 + |x|) + PROP_ULPS float32 eps dx/dp of the plain version's
+# from the same draws (the gamma families' factor is one product: exact).
+PROP_ULPS = 8
 # The main path's carried log posterior (float32, updated at every accept)
 # against a direct float32 evaluation of its final state by the plain
 # versions: relative to the largest |log posterior|.
@@ -132,11 +143,18 @@ KERNELS = (
      "mcmcdate_tpu/engine/fast_sweep.py:1223"),
     ("contra_range", "mcmcdate_tpu_torch/kernels/csrc/contra_step.cu",
      "mcmcdate_tpu/engine/fast_sweep.py:1566"),
+    ("glob_scan", "mcmcdate_tpu_torch/kernels/csrc/glob_step.cu",
+     "mcmcdate_tpu/engine/fast_sweep.py:878"),
+    ("glob_dense_prologue", "mcmcdate_tpu_torch/kernels/csrc/glob_step.cu",
+     "mcmcdate_tpu/engine/fast_sweep.py:949"),
+    ("glob_dense_epilogue", "mcmcdate_tpu_torch/kernels/csrc/glob_step.cu",
+     "mcmcdate_tpu/engine/fast_sweep.py:1192"),
 )
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
-# bytes/s and float32 operations/s outside the tensor cores.
+# bytes/s, and float32 and float64 operations/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12
 
 
 class SmokeError(RuntimeError):
@@ -215,15 +233,17 @@ def _device_ms(fn, only=None, reps=REPS):
     return sum(e["dur"] for e in dev) / 1e3 / reps
 
 
-def _bound(nbytes, ops):
+def _bound(nbytes, ops, ops64=0):
     """``(bound_ms, bound_by)``: the larger of the byte time and the
-    float32 operation time at the card's published peaks."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    operation time (``ops`` float32 and ``ops64`` float64 operations) at the
+    card's published peaks."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (ops / PEAK_F32 + ops64 / PEAK_F64) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _record(err, ms, plain_ms, nbytes, ops, library_ms=None):
-    bound_ms, bound_by = _bound(nbytes, ops)
+def _record(err, ms, plain_ms, nbytes, ops, library_ms=None, ops64=0):
+    bound_ms, bound_by = _bound(nbytes, ops, ops64)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
@@ -938,9 +958,229 @@ def check_contra_range(n_taxa):
     return {"contra_range": _record(worst, ms, plain_ms, nbytes, C * (120 * R + 100 * S))}
 
 
+_GLOB = {}
+
+
+def _glob_fast(n_taxa):
+    """FastSweeps on the synthetic model of a shape with the smoke's node
+    priors and the calibrated proposal table, where all 14 glob families
+    appear, with a carry (z and q filled), a tuning and a generator (built
+    once)."""
+    import dataclasses
+
+    import torch
+
+    from mcmcdate_tpu_torch.engine import fast_sweep, proposals as P
+
+    if n_taxa not in _GLOB:
+        model, batch = _model(n_taxa)
+        cal, con, br = _node_priors(model.topo)
+        model = dataclasses.replace(model, calibrations=cal, constraints=con, braces=br)
+        table = P.build_proposal_table(model.topo, model.braces, model.calibrations_available)
+        fs = fast_sweep.FastSweeps(model, table)
+        carry = fs.init_carry(batch)
+        carry.z, carry.q = fs._zq_from_y(model.whitened_residual_internal(carry.batch))
+        gen = torch.Generator(device="cuda").manual_seed(n_taxa + 1)
+        tuning = 0.3 + 2.7 * torch.rand((CHAINS, table.n_proposals), generator=gen,
+                                        device="cuda")
+        _GLOB[n_taxa] = fs, carry, tuning, gen
+    return _GLOB[n_taxa]
+
+
+def _copy_carry(carry):
+    from mcmcdate_tpu_torch.engine.fast_sweep import FastCarry
+    from mcmcdate_tpu_torch.models.state import FIELDS, State
+
+    return FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
+                     carry.terms.clone(), carry.d.clone(), carry.z.clone(), carry.q.clone(),
+                     carry.acc.clone())
+
+
+def _glob_draws(fam, tuning, gen):
+    """A family's draws as ``FastSweeps.glob_phase`` makes them: ``(tun,
+    draws, u_acc)``, each ``[C, n]``."""
+    import torch
+
+    from mcmcdate_tpu_torch.kernels import glob_step as G
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    tun = tuning.index_select(1, fam.rows)
+    draws = (standard_gamma(fam.sd / tun, gen) if fam.tag in G.GAMMA_TAGS
+             else torch.rand((CHAINS, fam.n), generator=gen, device="cuda"))
+    return tun, draws, torch.rand((CHAINS, fam.n), generator=gen, device="cuda")
+
+
+def _glob_run(fs, fam, carry, tun, draws, u_acc):
+    """A family through the glob kernels, as ``FastSweeps.glob_phase``
+    runs it: ``(accept, prop, mean)`` ``[C, n]`` (mean: var_tree's only)."""
+    import torch
+
+    from mcmcdate_tpu_torch.kernels import glob_step as G
+
+    if G.FAMILIES[fam.tag].lik != G.DENSE:
+        out = G.glob_scan(fs.glob, fam, carry, tun, draws, u_acc)
+        return out.accept, out.prop, None
+    acc, prop, mean = [], [], []
+    for s in range(fam.n):
+        pro = G.glob_dense_prologue(fs.glob, fam, s, carry, tun, draws)
+        acc.append(G.glob_dense_epilogue(fs.glob, fam, s, carry, pro, fs._x_P(pro.delta), u_acc))
+        prop.append(pro.prop)
+        mean.append(pro.mean)
+    return (torch.stack(acc, 1), torch.stack(prop, 1),
+            torch.stack(mean, 1) if fam.tag == "var_tree" else None)
+
+
+def _glob_agree(name, fs, carry, fam, tun, draws, u):
+    """One family through the glob kernels against its plain scan, on
+    copies of ``carry``: the kernels' proposals (and var_tree's rate means)
+    against the plain version's from the same draws; the kernels'
+    proposals replayed through ``glob_family_plain`` with every decision
+    taken as the kernels took it, whose log alpha must give the kernels'
+    decisions except at ties and whose heights, rates, scalars and terms
+    must equal the kernels' bitwise, with d, z and q within SCAN_REL of
+    their scale and equal accept counts.  Returns ``(worst differences,
+    accept)``."""
+    import torch
+
+    ck, cr = _copy_carry(carry), _copy_carry(carry)
+    accept, prop, mean = _glob_run(fs, fam, ck, tun, draws, u)
+    _sync()
+    forced = torch.where(accept, 0.0, math.nan)
+    rec = fs.glob_family_plain(fam.tag, cr, tun, draws, forced, given=dict(prop=prop, mean=mean))
+    _sync()
+    worst = {}
+
+    def within(what, a, b, lim):
+        fin = torch.isfinite(b)
+        check(torch.equal(fin, torch.isfinite(a)), f"{name} {what}: finiteness differs")
+        err = (a - b).abs()[fin]
+        worst[what] = float(err.max()) if err.numel() else 0.0
+        check(bool((err <= lim[fin] if torch.is_tensor(lim) else err <= lim).all()),
+              lambda: f"{name} {what}: off the plain version by {worst[what]:.3g}")
+
+    lim = CONTRA_REL * (1 + rec.prop.abs())
+    if rec.dx_dp is not None:
+        lim = lim + PROP_ULPS * torch.finfo(torch.float32).eps * rec.dx_dp
+    within("prop", prop, rec.prop, lim)
+    if mean is not None:
+        within("mean", mean, rec.mean, CONTRA_REL * (1 + rec.mean.abs()))
+    check(torch.equal(rec.accept, accept),
+          f"{name}: the kernel accepted a proposal whose log alpha the plain version makes -inf")
+    differ = (torch.log(u) < rec.log_alpha) != accept
+    gap = (torch.log(u) - rec.log_alpha).abs()[differ]
+    check(bool((gap < SCAN_TIE).all()), lambda: f"{name}: {int(differ.sum())} decisions differ "
+          f"beyond ties (largest |log u - log alpha| {float(gap.max()):.3g})")
+    for what in ("heights", "rates", "birth", "death", "height", "rate_mean", "rate_var"):
+        a, b = getattr(ck.batch, what), getattr(cr.batch, what)
+        check(_same(a, b), lambda: f"{name} {what}: {int((a != b).sum())} values differ from "
+              f"the replay's")
+    check(_same(ck.terms, cr.terms), lambda: f"{name} terms: "
+          f"{int((ck.terms != cr.terms).sum())} values differ from the replay's")
+    for what, a, b in (("d", ck.d, cr.d), ("z", ck.z, cr.z), ("q", ck.q, cr.q)):
+        within(what, a, b, SCAN_REL * max(1.0, float(b.abs().max())))
+    check(torch.equal(ck.acc, cr.acc), f"{name}: accept counts differ")
+    log(f"[kernels] {name}: {fam.n} tickets, {int(accept.sum())} accepts of {accept.numel()}, "
+        f"{int(differ.sum())} tie decisions differ from the replay, state and terms bitwise "
+        f"equal to it; largest differences {json.dumps(worst)}")
+    return worst, accept
+
+
+def check_glob(n_taxa):
+    """G1-G3 on all 14 glob families of the calibrated synthetic model,
+    each family's tickets in full, against the plain scan; then
+    ``FastSweeps.glob_phase`` on the card launches only the glob kernels
+    (never K1 nor the plain step).  The records time G1 on bd_scale (the
+    family with the most tickets) and G2/G3 on sub_ultra's first ticket."""
+    import torch
+
+    from mcmcdate_tpu_torch.engine.fast_sweep import GLOB_ORDER
+    from mcmcdate_tpu_torch.kernels import glob_step as G
+
+    fs, carry, tuning, gen = _glob_fast(n_taxa)
+    check(tuple(fs.glob_fam) == GLOB_ORDER,
+          f"the calibrated model has the glob families {tuple(fs.glob_fam)}")
+    worst, n_acc, n_all, draws_of = {}, 0, 0, {}
+    for tag, fam in fs.glob_fam.items():
+        draws_of[tag] = _glob_draws(fam, tuning, gen)
+        w, accept = _glob_agree(f"glob {tag} at {n_taxa} taxa", fs, carry, fam, *draws_of[tag])
+        for k, v in w.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        n_acc += int(accept.sum())
+        n_all += accept.numel()
+        draws_of[tag] += (accept,)
+    check(0 < n_acc < n_all, f"glob families accepted {n_acc} of {n_all}: not a mixed case")
+    dense = [f for f in fs.glob_fam.values() if G.FAMILIES[f.tag].lik == G.DENSE]
+    counts, _ = _counted(lambda: fs.glob_phase(_copy_carry(carry), tuning, gen))
+    want = dict(glob_scan=len(fs.glob_fam) - len(dense),
+                glob_dense_prologue=sum(f.n for f in dense),
+                glob_dense_epilogue=sum(f.n for f in dense))
+    check({k: v for k, v in counts.items() if v} == want,
+          f"glob_phase launched {counts}, not only the glob kernels {want}")
+    C, N = carry.batch.heights.shape
+    D = carry.d.shape[1]
+    nn = carry.terms.shape[1] - 4 - 2 * (N + 1)  # node-prior terms
+    log(f"[kernels] glob_phase at {n_taxa} taxa: launches {want}, K1 and the plain step none")
+
+    # G1 on bd_scale, the whole family.
+    fam = fs.glob_fam["bd_scale"]
+    tun, draws, u, accept = draws_of["bd_scale"]
+    c1, c2 = _copy_carry(carry), _copy_carry(carry)
+    ms1 = _device_ms(lambda: G.glob_scan(fs.glob, fam, c1, tun, draws, u), only="glob_scan_kernel")
+    plain1 = _device_ms(lambda: fs.glob_family_plain("bd_scale", c2, tun, draws, u), reps=3)
+    n = fam.n
+    # Bytes: per chain the heights, the sc and bd term blocks and the five
+    # scalars in, the three draws per ticket in and accept and prop out;
+    # for the chains that accepted a ticket the two blocks and the two
+    # rates out; the family's plan arrays.  Operations: per chain and
+    # ticket the birth-death block in double (about 100 per node, each
+    # exp or log counted as 10) and the proposal and scalar terms (about
+    # 100 in float32).
+    moved = int(accept.any(1).sum())
+    nb1 = C * (4 * (N + (N + 5) + 5 + 3 * n) + 5 * n) + moved * 4 * (N + 7) + 12 * n
+    # G2 and G3 on sub_ultra's first ticket.
+    fam = fs.glob_fam["sub_ultra"]
+    tun, draws, u, accept = draws_of["sub_ultra"]
+    c3 = _copy_carry(carry)
+    pro = G.glob_dense_prologue(fs.glob, fam, 0, c3, tun, draws)
+    w = fs._x_P(pro.delta)
+    pplain = G.glob_dense_prologue_plain(fs.glob, "sub_ultra", c3, tun[:, 0], fam.ticket(0),
+                                         draws[:, 0])
+    ms2 = _device_ms(lambda: G.glob_dense_prologue(fs.glob, fam, 0, c3, tun, draws),
+                     only="glob_dense_prologue_kernel")
+    plain2 = _device_ms(lambda: G.glob_dense_prologue_plain(
+        fs.glob, "sub_ultra", c3, tun[:, 0], fam.ticket(0), draws[:, 0]))
+    c4, c5 = _copy_carry(carry), _copy_carry(carry)
+    acc0 = G.glob_dense_epilogue(fs.glob, fam, 0, _copy_carry(carry), pro, w, u)
+    ms3 = _device_ms(lambda: G.glob_dense_epilogue(fs.glob, fam, 0, c4, pro, w, u),
+                     only="glob_dense_epilogue_kernel")
+    plain3 = _device_ms(lambda: G.glob_dense_epilogue_plain(fs.glob, "sub_ultra", c5, pplain, w,
+                                                             u[:, 0], int(fam.grp.rows[0])))
+    blk = 2 * (N + 1) + nn  # bd, ck and nd blocks
+    # G2.  Bytes: per chain heights, rates, the three blocks, d, five
+    # scalars and two draws in; the proposed heights, blocks, d_new, delta,
+    # five scalars and six per-chain values out.  Operations: the
+    # birth-death block in double, the clock block (about 40 per node) and
+    # the distances (4 per row) in float32.
+    nb2 = 4 * C * (2 * N + blk + D + 7) + 4 * C * (N + blk + 2 * D + 11)
+    # G3.  Bytes: per chain delta, z, w, q and five per-chain values in;
+    # for the accepted chains the proposed heights, blocks, d_new and z in
+    # and heights, blocks, d, z, q and the count out.  Operations: dq (4
+    # per row).
+    na = int(acc0.sum())
+    nb3 = 4 * C * (3 * D + 6) + 4 * na * (2 * (N + blk + 2 * D) + 2)
+    return {
+        "glob_scan": _record(max(worst["prop"], worst.get("mean", 0.0)), ms1, plain1, nb1,
+                             100 * C * n, ops64=100 * C * n * N),
+        "glob_dense_prologue": _record(worst["prop"], ms2, plain2, nb2,
+                                      C * (40 * (N + 1) + 4 * D + 100), ops64=100 * C * N),
+        "glob_dense_epilogue": _record(max(worst["d"], worst["z"], worst["q"]), ms3, plain3,
+                                       nb3, 4 * C * D),
+    }
+
+
 # Each check returns its kernels' records by kernel name.
 CHECKS = (check_prior_terms, check_whiten, check_accept_select, check_point_scan,
-          check_range_step, check_contra_slide, check_contra_range)
+          check_range_step, check_contra_slide, check_contra_range, check_glob)
 
 
 def phase_kernels():
@@ -959,6 +1199,7 @@ def phase_kernels():
                 if n_taxa == MAIN_TAXA:
                     results[name] = r
         _FAST.pop(n_taxa, None)
+        _GLOB.pop(n_taxa, None)
         _MODELS.pop(n_taxa, None)
     return results
 
@@ -995,6 +1236,11 @@ def check_carried_posterior(runner, run_dir, lp_post):
 def _wrappers():
     from mcmcdate_tpu_torch.kernels.accept_select import accept_select
     from mcmcdate_tpu_torch.kernels.contra_step import contra_range, contra_slide
+    from mcmcdate_tpu_torch.kernels.glob_step import (
+        glob_dense_epilogue,
+        glob_dense_prologue,
+        glob_scan,
+    )
     from mcmcdate_tpu_torch.kernels.point_scan import point_scan
     from mcmcdate_tpu_torch.kernels.prior_terms import prior_terms
     from mcmcdate_tpu_torch.kernels.range_scan import range_scan
@@ -1004,7 +1250,9 @@ def _wrappers():
     return {"prior_terms": prior_terms, "whiten": whiten, "accept_select": accept_select,
             "point_scan": point_scan, "range_lik_prologue": range_lik_prologue,
             "range_scan": range_scan, "range_lik_epilogue": range_lik_epilogue,
-            "contra_slide": contra_slide, "contra_range": contra_range}
+            "contra_slide": contra_slide, "contra_range": contra_range, "glob_scan": glob_scan,
+            "glob_dense_prologue": glob_dense_prologue,
+            "glob_dense_epilogue": glob_dense_epilogue}
 
 
 def _counted(run):
@@ -1134,7 +1382,8 @@ def phase_full_width():
     log(f"[full width] cut: {FULL_WIDTH_SWEEPS} sweeps (+1 for the carry check)")
     return _runner_phase("full width", model, batch, True, FULL_WIDTH_SWEEPS,
                          ("point_scan", "range_lik_prologue", "range_scan", "range_lik_epilogue",
-                          "contra_slide", "contra_range"))
+                          "contra_slide", "contra_range", "glob_scan", "glob_dense_prologue",
+                          "glob_dense_epilogue"))
 
 
 def phase_sequential(seq):

@@ -14,8 +14,12 @@ Phases of a sweep, in the JAX package's order:
 1. the tickets the planner cannot batch, through the sequential
    :class:`~.mh.MHKernel` on ``plan.seq_table`` (host-drawn order, ``y``
    carry);
-2. the 14 global-move families of :data:`GLOB_ORDER`, one ticket at a time
-   (plain torch);
+2. the 14 global-move families of :data:`GLOB_ORDER`, each family's draws
+   in one or two generator calls: kernel G1 ``glob_scan`` walks a whole
+   family whose distances are untouched or scale uniformly, and a ticket of
+   the six families whose distances change takes kernels G2
+   ``glob_dense_prologue`` and G3 ``glob_dense_epilogue`` around one
+   ``delta @ P`` product;
 3. the point mega-steps: distance-invariant contrary node slides (kernel
    K6 ``contra_slide``) and the likelihood-coupled node slides and
    branch-rate scales (kernel K4 ``point_scan`` for the accept scan);
@@ -35,7 +39,6 @@ batch's device.  Steps update the carry in place.
 from __future__ import annotations
 
 import dataclasses
-import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
@@ -43,6 +46,18 @@ import numpy as np
 import torch
 
 from ..kernels.contra_step import contra_range, contra_slide
+from ..kernels.glob_step import (
+    DENSE,
+    FAMILIES,
+    GAMMA_TAGS,
+    GlobConsts,
+    GlobFamily,
+    glob_dense_epilogue,
+    glob_dense_prologue,
+    glob_family_plain,
+    glob_scan,
+    glob_ticket_plain,
+)
 from ..kernels.point_scan import point_scan
 from ..kernels.range_scan import kernel_layout, range_scan
 from ..kernels.range_step import (
@@ -162,14 +177,8 @@ class GlobGroup:
 
 
 # Group execution order (static composition; any fixed order is a valid
-# kernel composition).
-GLOB_ORDER = (
-    "bd_scale", "rate_mean", "rate_var", "height", "hm_contra",
-    "norm_contra", "normh_contra", "var_tree", "var_auto", "rates_time",
-    "slide_root", "sub_contra", "sub_ultra", "sub_rate",
-)
-GAMMA_TAGS = frozenset({"bd_scale", "rate_mean", "rate_var", "height", "hm_contra",
-                        "norm_contra", "normh_contra", "var_tree", "var_auto", "sub_rate"})
+# kernel composition): the glob kernels' family table.
+GLOB_ORDER = tuple(FAMILIES)
 
 
 @dataclass(frozen=True)
@@ -619,6 +628,22 @@ class FastSweeps:
         self.range_gamma = {
             key: (torch.cat([sx["rows"] for sx in steps]), torch.cat([sx["sd"] for sx in steps]))
             for key, steps in self.range_t.items() if key[0] == P.K_SCALE_SUBTREE_RATE}
+        # The same for the branch-rate scales' point steps.
+        self.point_gamma = {
+            k: (torch.cat([sx["rows"] for sx in steps]), torch.cat([sx["sd"] for sx in steps]))
+            for k, steps in self.spec_t.items() if k == P.K_SCALE_BRANCH_RATE}
+        child_list = [int(c) for c in topo.children[0] if c >= 0]
+        self.glob = GlobConsts(
+            model=model, use_lik=self.use_lik, P=self.P if self.use_lik else None,
+            mu=self.mu if self.use_lik else None, Pmu=self.Pmu if self.use_lik else None,
+            mPm=self.mPm if self.use_lik else 0.0, child_list=child_list,
+            n_inner_total=int((~np.asarray(topo.is_leaf)).sum()),
+            sc_codes=dict(birth=P.SC_BIRTH, death=P.SC_DEATH, bd=P.SC_BIRTH_DEATH,
+                          bdc=P.SC_BIRTH_DEATH_CONTRA),
+            dist_idx=torch.as_tensor(np.asarray(topo.internal_dist_index, np.int32), device=dev),
+            root_ch=torch.as_tensor(np.asarray(child_list, np.int32), device=dev))
+        self.glob_fam = {tag: GlobFamily.of(grp, dev, dt)
+                         for tag, grp in self.plan.glob_groups.items()}
 
     def _range_rows(self, sx: dict):
         """The distance rows of a likelihood range block, ``d_flat`` ``[S
@@ -669,7 +694,8 @@ class FastSweeps:
     # -- global-move families ------------------------------------------
 
     def glob_step(self, tag: str, carry: FastCarry, tune, sx: dict, draw, u_acc):
-        """One ticket of the global-move family ``tag`` on every chain.
+        """One ticket of the global-move family ``tag`` on every chain (the
+        one-ticket plain step, in place; accepts are not counted).
 
         ``sx`` holds the ticket's host values (``sd``, ``aux``, ``lo``,
         ``hi``, ``n_inner``, ``n_nodes``, ``rj``), ``tune`` its tuning
@@ -680,219 +706,15 @@ class FastSweeps:
         form (uniform distance scalings), not at all (distance-invariant
         moves) or through one ``delta @ P`` product.  Returns the accept
         mask."""
-        model = self.model
-        topo = model.topo
-        N = topo.n
-        n_br = N - 1
-        o_bd, o_ck, o_nd = 4, 4 + (N + 1), 4 + 2 * (N + 1)
-        nn = model.calibrations.n + model.constraints.n + model.braces.n
-        use_lik = self.use_lik
-        batch, d, z, q = carry.batch, carry.d, carry.z, carry.q
-        h, r = batch.heights, batch.rates
-        non_root = topo.non_root_t
-        child_list = [int(c) for c in topo.children[0] if c >= 0]
-        n_inner_total = int((~np.asarray(topo.is_leaf)).sum())
-        sd = float(sx["sd"])
-        lik_upd = True
+        return glob_ticket_plain(self.glob, tag, carry, tune, sx, draw, u_acc).accept
 
-        def uniform_scale_lik(u):
-            d_new = u[:, None] * d
-            if not use_lik:
-                return d_new, z, q, torch.zeros_like(q)
-            s = torch.sum(self.mu * z, dim=-1)
-            um1 = u - 1.0
-            dq = (u * u - 1.0) * q + 2.0 * u * um1 * s + um1 * um1 * self.mPm
-            z_new = u[:, None] * z + um1[:, None] * self.Pmu[None, :]
-            return d_new, z_new, q + dq, dq
-
-        def dense_lik(bnew):
-            d_new = distances_internal(bnew, topo)
-            if not use_lik:
-                return d_new, z, q, torch.zeros_like(q)
-            delta = d_new - d
-            w = self._x_P(delta)
-            dq = torch.sum(delta * (2.0 * z + w), dim=-1)
-            return d_new, z + w, q + dq, dq
-
-
-        if tag in GAMMA_TAGS:
-            u, base, logu = gamma_scale_sample(draw, sd, tune)
-        if tag == "bd_scale":
-            aux = int(sx["aux"])
-            is_joint, is_con = aux == P.SC_BIRTH_DEATH, aux == P.SC_BIRTH_DEATH_CONTRA
-            coef = 2.0 if is_joint else 0.0 if is_con else 1.0
-            lmhg = base + coef * logu
-            b_fac = u if aux == P.SC_BIRTH or is_joint or is_con else 1.0
-            d_fac = u if aux == P.SC_DEATH or is_joint else (1.0 / u if is_con else 1.0)
-            bnew = batch.replace(birth=batch.birth * b_fac, death=batch.death * d_fac)
-            blocks = ["sc", "bd"]
-            fields = ("birth", "death")
-            lik_upd = False
-        elif tag == "rate_mean":
-            lmhg = base + logu
-            bnew = batch.replace(rate_mean=batch.rate_mean * u)
-            blocks = ["sc"]
-            fields = ("rate_mean",)
-            lik = uniform_scale_lik(u)
-        elif tag == "rate_var":
-            lmhg = base + logu
-            bnew = batch.replace(rate_var=batch.rate_var * u)
-            blocks = ["sc", "ck"]
-            fields = ("rate_var",)
-            lik_upd = False
-        elif tag == "height":
-            lmhg = base + logu
-            bnew = batch.replace(height=batch.height * u)
-            blocks = ["nd"]
-            fields = ("height",)
-            lik = uniform_scale_lik(u)
-        elif tag == "hm_contra":
-            lmhg = base
-            bnew = batch.replace(height=batch.height * u, rate_mean=batch.rate_mean / u)
-            blocks = ["sc", "nd"]
-            fields = ("height", "rate_mean")
-            lik_upd = False
-        elif tag in ("norm_contra", "normh_contra"):
-            # Distances (incl. the root branch) are exactly invariant: the
-            # divided scalar cancels rates * u.
-            lmhg = base + (n_br - 1) * logu
-            rates = torch.where(non_root, r * u[:, None], r)
-            if tag == "norm_contra":
-                bnew = batch.replace(rate_mean=batch.rate_mean / u, rates=rates)
-                blocks = ["sc", "ck"]
-                fields = ("rate_mean", "rates")
-            else:
-                bnew = batch.replace(height=batch.height / u, rates=rates)
-                blocks = ["ck", "nd"]
-                fields = ("height", "rates")
-            lik_upd = False
-        elif tag in ("var_tree", "var_auto"):
-            if tag == "var_tree":
-                mean = torch.sum(torch.where(non_root, r, 0.0), dim=-1) / n_br
-                rates_new = (r - mean[:, None]) * u[:, None] + mean[:, None]
-                exp_ = n_br + 1
-            else:
-                mu_r = batch.rate_mean[:, None]
-                rates_new = mu_r + u[:, None] * (r - mu_r)
-                exp_ = n_br + 2
-            ok = torch.all(torch.where(non_root, rates_new > 0, True), dim=-1)
-            lmhg = torch.where(ok, base + exp_ * logu, NEG_INF)
-            rates = torch.where(non_root, rates_new, r)
-            bnew = batch.replace(rate_var=batch.rate_var * u * u, rates=rates)
-            blocks = ["sc", "ck"]
-            fields = ("rate_var", "rates")
-            lik = dense_lik(bnew)
-        elif tag == "rates_time":
-            h_mc = h[:, child_list].amax(dim=1)
-            h_new, lq = truncated_normal_sample(draw, h_mc, sd, tune, 0.0, h[:, 0])
-            xi = h_new / h_mc
-            h2 = torch.cat([h[:, :1], h[:, 1:] * xi[:, None]], dim=1)
-            # (inner - 1) non-root heights scale by xi, minus the sampled
-            # coordinate, minus 2 for birth and rate_mean divided by xi.
-            lmhg = lq + (n_inner_total - 1 - 1 - 2) * torch.log(xi)
-            bnew = batch.replace(heights=h2, birth=batch.birth / xi,
-                                 rate_mean=batch.rate_mean / xi)
-            blocks = ["sc", "bd",
-                      "ck"]
-            if nn:
-                blocks.append("nd")
-            fields = ("heights", "birth", "rate_mean")
-            lik = dense_lik(bnew)
-        elif tag == "slide_root":
-            ht = batch.height
-            hch = h[:, child_list]
-            ht_oldest = ht * hch.amax(dim=1)
-            ht_new, lq = truncated_normal_sample(draw, ht, sd, tune, ht_oldest, math.inf)
-            u = ht_new / ht
-            scale_mask = (~self.is_leaf_t) & (torch.arange(N, device=h.device) != 0)
-            h2 = torch.where(scale_mask[None, :], h / u[:, None], h)
-            xi = (1.0 - hch) / (u[:, None] - hch)
-            rates = r.clone()
-            rates[:, child_list] = r[:, child_list] * xi
-            lmhg = lq - (n_inner_total - 1) * torch.log(u) + torch.sum(torch.log(xi), dim=-1)
-            bnew = batch.replace(height=ht_new, heights=h2, rates=rates)
-            blocks = ["bd", "ck"]
-            if nn:
-                blocks.append("nd")
-            fields = ("height", "heights", "rates")
-            lik = dense_lik(bnew)
-        elif tag in ("sub_ultra", "sub_contra"):
-            i, lo, hi_e = int(sx["aux"]), int(sx["lo"]), int(sx["hi"])
-            hi_h = h[:, i]
-            hp = h[:, int(topo.parent[i])]
-            hnew, lq = truncated_normal_sample(draw, hi_h, sd, tune, 0.0, hp)
-            xi = hnew / hi_h
-            h2 = h.clone()
-            h2[:, lo:hi_e] = h[:, lo:hi_e] * xi[:, None]
-            if tag == "sub_ultra":
-                lmhg = lq + (int(sx["n_inner"]) - 1) * torch.log(xi)
-                bnew = batch.replace(heights=h2)
-                fields = ("heights",)
-            else:
-                xi_stem = (hp - hi_h) / (hp - hnew)
-                rates = r.clone()
-                rates[:, i + 1:hi_e] = r[:, i + 1:hi_e] / xi[:, None]
-                rates[:, i] = r[:, i] * xi_stem
-                lmhg = (lq + (int(sx["n_inner"]) - int(sx["n_nodes"])) * torch.log(xi)
-                        + torch.log(xi_stem))
-                bnew = batch.replace(heights=h2, rates=rates)
-                fields = ("heights", "rates")
-            blocks = ["bd", "ck"]
-            if nn:
-                blocks.append("nd")
-            if tag == "sub_ultra":
-                lik = dense_lik(bnew)
-            else:
-                # contrary subtree scales are exactly distance invariant
-                # (xi_stem compensates the stem; xi cancels inside).
-                lik_upd = False
-        elif tag == "sub_rate":
-            lo, hi_e = int(sx["lo"]), int(sx["hi"])
-            rates = r.clone()
-            rates[:, lo:hi_e] = r[:, lo:hi_e] * u[:, None]
-            lmhg = base + int(sx["n_nodes"]) * logu
-            bnew = batch.replace(rates=rates)
-            blocks = ["ck"]
-            fields = ("rates",)
-            lik = dense_lik(bnew)
-        else:
-            raise ValueError(tag)
-
-        d_new, z_new, q_new, dq = lik if lik_upd else (d, z, q, torch.zeros_like(q))
-        lj = 0.0
-        if lik_upd and sx["rj"]:
-            # Root-branch Jacobian ratio; the merged root-adjacent entry is
-            # internal row 0.
-            lj = torch.log(d[:, 0]) - torch.log(d_new[:, 0])
-
-        # All term blocks of the proposed state in one evaluation (kernel K1
-        # on the card); only those the move can change enter the ratio.
-        full = model.log_prior_terms(bnew)
-        spans = {"sc": (0, 4), "bd": (o_bd, o_ck), "ck": (o_ck, o_nd), "nd": (o_nd, o_nd + nn)}
-        d_pr = 0.0
-        invalid = False
-        outs = []
-        for blk in blocks:
-            lo, hi = spans[blk]
-            nb, old = full[:, lo:hi], carry.terms[:, lo:hi]
-            d_pr = d_pr + sum_valid(nb - old)
-            invalid = invalid | torch.any(is_bad(nb), dim=-1)
-            outs.append((nb, old))
-        log_alpha = d_pr - 0.5 * dq + lmhg + lj
-        log_alpha = torch.where(invalid | torch.isnan(log_alpha), NEG_INF, log_alpha)
-        accept = torch.log(u_acc) < log_alpha
-        a = accept[:, None]
-        for nb, old in outs:
-            old.copy_(torch.where(a, nb, old))
-        for f in fields:
-            cur = getattr(batch, f)
-            cur.copy_(torch.where(a if cur.dim() == 2 else accept, getattr(bnew, f), cur))
-        if lik_upd:
-            d.copy_(torch.where(a, d_new, d))
-            if use_lik:
-                z.copy_(torch.where(a, z_new, z))
-            q.copy_(torch.where(accept, q_new, q))
-        return accept
+    def glob_family_plain(self, tag: str, carry: FastCarry, tun, draws, u_acc, given=None):
+        """The plain scan of family ``tag``: :meth:`glob_step` over its
+        tickets in order, each counted in ``carry.acc``; ``tun``, ``draws``
+        and ``u_acc`` are ``[C, n]``.  Returns a
+        :class:`~..kernels.glob_step.GlobOut` ``[C, n]`` (see
+        :func:`~..kernels.glob_step.glob_family_plain` for ``given``)."""
+        return glob_family_plain(self.glob, self.glob_fam[tag], carry, tun, draws, u_acc, given)
 
     # -- point mega-steps -------------------------------------------------
 
@@ -1079,26 +901,35 @@ class FastSweeps:
             carry.d.copy_(distances_internal(carry.batch, m.topo))
 
     def glob_phase(self, carry: FastCarry, tuning, gen):
-        """The global-move families in :data:`GLOB_ORDER`, one ticket at a
-        time."""
-        C, dev = carry.d.shape[0], carry.d.device
-        for tag, grp in self.plan.glob_groups.items():
-            tun = tuning[:, torch.as_tensor(grp.rows.astype(np.int64), device=dev)].T
-            for s in range(grp.n_tickets):
-                sx = dict(sd=grp.sd[s], aux=grp.aux[s], lo=grp.lo[s], hi=grp.hi[s],
-                          n_inner=grp.n_inner[s], n_nodes=grp.n_nodes[s], rj=bool(grp.rj[s]))
-                if tag in GAMMA_TAGS:
-                    draw = standard_gamma(float(grp.sd[s]) / tun[s], gen)
-                else:
-                    draw = self._rand(carry, gen, C)
-                accept = self.glob_step(tag, carry, tun[s], sx, draw, self._rand(carry, gen, C))
-                carry.acc[:, int(grp.rows[s])] += accept.to(torch.int32)
+        """The global-move families in :data:`GLOB_ORDER`.  A family's draws
+        come first, ``[C, n]`` in one or two generator calls (a sweep does
+        not change the tuning): kernel G1 then walks the whole family, or
+        each ticket of a dense family takes G2, ``delta @ P`` and G3."""
+        C = carry.d.shape[0]
+        for tag, fam in self.glob_fam.items():
+            tun = tuning.index_select(1, fam.rows)
+            if tag in GAMMA_TAGS:
+                draws = standard_gamma(fam.sd / tun, gen)
+            else:
+                draws = self._rand(carry, gen, C, fam.n)
+            u_acc = self._rand(carry, gen, C, fam.n)
+            if FAMILIES[tag].lik != DENSE:
+                glob_scan(self.glob, fam, carry, tun, draws, u_acc)
+                continue
+            for s in range(fam.n):
+                pro = glob_dense_prologue(self.glob, fam, s, carry, tun, draws)
+                w = self._x_P(pro.delta) if self.use_lik else None
+                glob_dense_epilogue(self.glob, fam, s, carry, pro, w, u_acc)
 
     def point_phase(self, carry: FastCarry, tuning, gen):
         """The point mega-steps: contrary slides (K6), then the
         likelihood-coupled slides and branch-rate scales (K4)."""
         C = carry.d.shape[0]
         for k, steps in self.spec_t.items():
+            if k == P.K_SCALE_BRANCH_RATE:
+                rows, sd = self.point_gamma[k]
+                shape = sd / tuning.index_select(1, rows)
+            off = 0
             for sx in steps:
                 B = sx["rows"].shape[0]
                 if k == P.K_SLIDE_NODES_CONTRA:
@@ -1106,9 +937,10 @@ class FastSweeps:
                                            self._rand(carry, gen, C, B))
                     continue
                 if k == P.K_SCALE_BRANCH_RATE:
-                    draw = standard_gamma(sx["sd"] / tuning[:, sx["rows"]], gen)
+                    draw = standard_gamma(shape[:, off:off + B], gen)
                 else:
                     draw = self._rand(carry, gen, C, B)
+                off += B
                 self.point_lik_step(k, carry, tuning, sx, draw, self._rand(carry, gen, C, B))
 
     def range_phase(self, carry: FastCarry, tuning, gen):

@@ -4,8 +4,10 @@ One wrapper module per kernel: ``prior_terms`` (K1), ``whiten`` (K2) and
 ``accept_select`` (K3) for the sequential sweep, ``point_scan`` (K4), K5 (the
 likelihood range-block step: ``range_step``'s ``range_lik_prologue`` and
 ``range_lik_epilogue`` around ``range_scan``, the Gram blocks and accept
-scan) and ``contra_step`` (K6, with two wrappers: ``contra_slide`` and
-``contra_range``) for the ticket-batched one.
+scan), ``contra_step`` (K6, with two wrappers: ``contra_slide`` and
+``contra_range``) and ``glob_step`` (the global-move families: G1
+``glob_scan``, G2 ``glob_dense_prologue`` and G3 ``glob_dense_epilogue``)
+for the ticket-batched one.
 A wrapper runs the plain PyTorch version for CPU tensors and launches its
 kernel for CUDA tensors (or raises); it counts its launches in
 ``<wrapper>.launches``.  ``build`` compiles ``csrc/*.cu`` with ``nvcc`` at

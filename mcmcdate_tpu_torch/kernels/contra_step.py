@@ -175,7 +175,7 @@ def contra_range_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_ac
     return ContraOut(accept, log_alpha, hnew, lq)
 
 
-def _check_inputs(state, terms, acc, tuning, sx, u_prop, u_acc, ints):
+def _check_inputs(state, terms, acc, tuning, sx, is_leaf, u_prop, u_acc, ints):
     for name, t in (("heights", state.heights), ("rates", state.rates), ("terms", terms),
                     ("tuning", tuning), ("birth", state.birth), ("death", state.death),
                     ("rate_var", state.rate_var), ("height", state.height), ("sd", sx["sd"]),
@@ -184,11 +184,16 @@ def _check_inputs(state, terms, acc, tuning, sx, u_prop, u_acc, ints):
     for name in ints:
         build.require_cuda(sx[name], name, torch.int32)
     build.require_cuda(acc, "acc", torch.int32)
+    # The step's valid slots, the leaf flags and the accept mask are bool
+    # tensors, which the kernels read and write as bytes 0 / 1: no
+    # conversion at each call.
+    for name, t in (("valid", sx["valid"]), ("is_leaf", is_leaf)):
+        build.require_cuda(t, name, torch.bool)
 
 
 def _outputs(C, B, device):
     """The kernel's accept mask and its three float outputs."""
-    return (torch.empty((C, B), dtype=torch.uint8, device=device),
+    return (torch.empty((C, B), dtype=torch.bool, device=device),
             *(torch.empty((C, B), dtype=torch.float32, device=device) for _ in range(3)))
 
 
@@ -208,27 +213,23 @@ def contra_slide(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc):
     KN = sx["cal_lo"].shape[-1]
     if KT > KT_MAX:
         raise ValueError(f"contra_slide: {KT} touched terms per ticket, the kernel holds {KT_MAX}")
-    _check_inputs(state, terms, acc, tuning, sx, u_prop, u_acc,
+    _check_inputs(state, terms, acc, tuning, sx, is_leaf, u_prop, u_acc,
                   ("node", "par", "ch", "t_rows", "rows"))
     cal = [sx[k].contiguous() if KN else None for k in ("cal_lo", "cal_lo_s", "cal_hi",
                                                         "cal_hi_s")]
-    # Converted inputs are held until the launch: a temporary freed inside
-    # the argument list could hand its memory to the next one.
-    valid = sx["valid"].to(torch.uint8)
-    leaf = is_leaf.to(torch.uint8)
     accept, log_alpha, h_prop, lq = _outputs(C, B, terms.device)
     p = build.ptr
     err = build.bind("mcmcdate_contra_slide_f32", _SLIDE_ARGTYPES)(
         p(state.heights), p(state.rates), p(terms), p(acc), p(tuning), p(state.birth),
         p(state.death), p(state.rate_var), p(state.height), p(sx["node"]), p(sx["par"]),
-        p(sx["ch"]), p(sx["t_rows"]), p(sx["rows"]), p(valid), p(sx["sd"]), *map(p, cal),
-        p(leaf), p(u_prop), p(u_acc), p(accept), p(log_alpha), p(h_prop), p(lq),
+        p(sx["ch"]), p(sx["t_rows"]), p(sx["rows"]), p(sx["valid"]), p(sx["sd"]), *map(p, cal),
+        p(is_leaf), p(u_prop), p(u_acc), p(accept), p(log_alpha), p(h_prop), p(lq),
         C, B, N, terms.shape[1], acc.shape[1], KC, KT, KN, clocks.MODELS.index(clock),
         build.stream_ptr(terms.device),
     )
     build.check(err, "contra_slide kernel")
     contra_slide.launches += 1
-    return ContraOut(accept.bool(), log_alpha, h_prop, lq)
+    return ContraOut(accept, log_alpha, h_prop, lq)
 
 
 def contra_range(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc):
@@ -243,27 +244,25 @@ def contra_range(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc):
     C, N = state.heights.shape
     S, RB = sx["own"].shape
     KN = sx["cal_t_rows"].shape[-1]
-    _check_inputs(state, terms, acc, tuning, sx, u_prop, u_acc,
+    _check_inputs(state, terms, acc, tuning, sx, is_leaf, u_prop, u_acc,
                   ("node", "par", "own", "own_par", "rows", "n_inner", "n_nodes", "cal_t_rows",
                    "cal_hsrc"))
     cal = [sx[k] if KN else None for k in ("cal_t_rows", "cal_hsrc", "cal_lo", "cal_lo_s",
                                            "cal_hi", "cal_hi_s")]
-    valid = sx["valid"].to(torch.uint8)
-    leaf = is_leaf.to(torch.uint8)
     accept, log_alpha, h_prop, lq = _outputs(C, S, terms.device)
     p = build.ptr
     err = build.bind("mcmcdate_contra_range_f32", _RANGE_ARGTYPES)(
         p(state.heights), p(state.rates), p(terms), p(acc), p(tuning), p(state.birth),
         p(state.death), p(state.rate_var), p(state.height), p(sx["node"]), p(sx["par"]),
-        p(sx["own"]), p(sx["own_par"]), p(sx["rows"]), p(valid), p(sx["sd"]),
+        p(sx["own"]), p(sx["own_par"]), p(sx["rows"]), p(sx["valid"]), p(sx["sd"]),
         p(sx["n_inner"]), p(sx["n_nodes"]), *map(p, cal),
-        p(leaf), p(u_prop), p(u_acc), p(accept), p(log_alpha), p(h_prop), p(lq),
+        p(is_leaf), p(u_prop), p(u_acc), p(accept), p(log_alpha), p(h_prop), p(lq),
         C, S, N, terms.shape[1], acc.shape[1], RB, KN, clocks.MODELS.index(clock),
         build.stream_ptr(terms.device),
     )
     build.check(err, "contra_range kernel")
     contra_range.launches += 1
-    return ContraOut(accept.bool(), log_alpha, h_prop, lq)
+    return ContraOut(accept, log_alpha, h_prop, lq)
 
 
 contra_slide.launches = 0

@@ -52,7 +52,8 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 PORT_KERNELS = ("prior_terms_kernel", "whiten", "accept_select_kernel", "point_scan_kernel",
                 "range_lik_prologue_kernel", "range_scan_kernel", "range_lik_epilogue_kernel",
-                "contra_slide_kernel", "contra_range_kernel")
+                "contra_slide_kernel", "contra_range_kernel", "glob_scan_kernel",
+                "glob_dense_prologue_kernel", "glob_dense_epilogue_kernel")
 PHASES = ("seq", "glob", "point", "range", "y")
 TAXA, CHAINS, TREES, SEED = 136, 1024, 600, 1
 WARMUP, TIMED = 10, 2

@@ -306,3 +306,111 @@ def test_contra_range_kernel(card):
     assert keys
     for k in keys:
         _contra_agree(model, batch, table, fs.range_t[k][0], k[1], "range")
+
+
+# -- the glob-family kernels (G1-G3) ------------------------------------------
+
+
+def _glob_fast(seed):
+    """FastSweeps on a 12-leaf synthetic model with calibrations, a
+    constraint and a brace and the calibrated proposal table (all 14 glob
+    families), a carry, a tuning and a generator."""
+    import dataclasses
+
+    from mcmcdate_tpu_torch.engine import fast_sweep as TF, proposals as TP
+    from mcmcdate_tpu_torch.ops.node_priors import BraceSet, CalibrationSet, ConstraintSet
+
+    model, batch = synthetic.build(12, 96, device="cuda")
+    inner = [int(i) for i in model.topo.inner_nodes if i != 0]
+    cal = CalibrationSet(node=np.asarray([0, inner[0], inner[1]], np.int32),
+                         lower=np.asarray([1.0, 0.4, 0.0]), lower_pm=np.asarray([0.01, 0.02, 1.0]),
+                         upper=np.asarray([2.0, np.inf, 0.3]),
+                         upper_pm=np.asarray([0.01, 1.0, 0.05]))
+    con = ConstraintSet(young=np.asarray([inner[-1]], np.int32),
+                        old=np.asarray([inner[-2]], np.int32), pm=np.asarray([0.01]))
+    br = BraceSet(node=np.asarray([[inner[2], inner[-3], -1]], np.int32), sd=np.asarray([0.02]))
+    model = dataclasses.replace(model, calibrations=cal, constraints=con, braces=br)
+    table = TP.build_proposal_table(model.topo, model.braces, True)
+    fs = TF.FastSweeps(model, table)
+    assert tuple(fs.glob_fam) == TF.GLOB_ORDER
+    carry = fs.init_carry(batch)
+    carry.z, carry.q = fs._zq_from_y(model.whitened_residual_internal(carry.batch))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tuning = torch.rand(96, table.n_proposals, generator=g, device="cuda") * 3 + 0.3
+    return fs, carry, tuning, g
+
+
+@pytest.mark.parametrize("dense", (False, True), ids=("G1", "G2-G3"))
+def test_glob_kernels(card, dense):
+    """G1 glob_scan (the scan families) or G2 and G3 around the product
+    (the dense families) on every family of a 12-leaf calibrated model,
+    against the plain family scan replayed at the kernels' proposals and
+    decisions: proposals within 1e-5 (1 + |x|) of the plain ones from the
+    same draws (plus 8 float32 ulps of the CDF value a truncated-normal
+    proposal inverts), decisions equal except at ties, heights, rates, scalars and
+    terms bitwise equal, d, z and q within 1e-5 of scale, accept counts
+    equal; one G1 launch per family, one G2 and one G3 per ticket."""
+    from mcmcdate_tpu_torch.engine.fast_sweep import FastCarry
+    from mcmcdate_tpu_torch.kernels import glob_step as G
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    fs, carry, tuning, g = _glob_fast(8)
+    C = carry.d.shape[0]
+
+    def copy():
+        return FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
+                         carry.terms.clone(), carry.d.clone(), carry.z.clone(), carry.q.clone(),
+                         carry.acc.clone())
+
+    def near(a, b, lim):
+        fin = torch.isfinite(b)
+        assert torch.equal(fin, torch.isfinite(a))
+        assert torch.all((a - b).abs()[fin] <= (lim[fin] if torch.is_tensor(lim) else lim))
+
+    n_acc = n = 0
+    wrappers = (G.glob_scan, G.glob_dense_prologue, G.glob_dense_epilogue)
+    for tag, fam in fs.glob_fam.items():
+        if (G.FAMILIES[tag].lik == G.DENSE) != dense:
+            continue
+        tun = tuning.index_select(1, fam.rows)
+        draws = (standard_gamma(fam.sd / tun, g) if tag in G.GAMMA_TAGS
+                 else torch.rand(C, fam.n, generator=g, device=card))
+        u = torch.rand(C, fam.n, generator=g, device=card)
+        ck, cr = copy(), copy()
+        before = [w.launches for w in wrappers]
+        if dense:
+            acc, prop, mean = [], [], []
+            for s in range(fam.n):
+                pro = G.glob_dense_prologue(fs.glob, fam, s, ck, tun, draws)
+                acc.append(G.glob_dense_epilogue(fs.glob, fam, s, ck, pro, fs._x_P(pro.delta), u))
+                prop.append(pro.prop)
+                mean.append(pro.mean)
+            accept, prop = torch.stack(acc, 1), torch.stack(prop, 1)
+            mean = torch.stack(mean, 1) if tag == "var_tree" else None
+            assert [w.launches for w in wrappers] == [before[0], before[1] + fam.n,
+                                                      before[2] + fam.n]
+        else:
+            out = G.glob_scan(fs.glob, fam, ck, tun, draws, u)
+            accept, prop, mean = out.accept, out.prop, None
+            assert [w.launches for w in wrappers] == [before[0] + 1, before[1], before[2]]
+        forced = torch.where(accept, 0.0, math.nan)
+        rec = fs.glob_family_plain(tag, cr, tun, draws, forced, given=dict(prop=prop, mean=mean))
+        # Within a few float32 ulps of the CDF value the proposal inverts.
+        lim = 1e-5 * (1 + rec.prop.abs())
+        if rec.dx_dp is not None:
+            lim = lim + 8 * torch.finfo(torch.float32).eps * rec.dx_dp
+        near(prop, rec.prop, lim)
+        if mean is not None:
+            near(mean, rec.mean, 1e-5 * (1 + rec.mean.abs()))
+        assert torch.equal(rec.accept, accept)
+        differ = (torch.log(u) < rec.log_alpha) != accept
+        assert torch.all((torch.log(u) - rec.log_alpha).abs()[differ] < TIE)
+        for f in FIELDS:
+            assert torch.equal(getattr(ck.batch, f).nan_to_num(), getattr(cr.batch, f).nan_to_num())
+        assert torch.equal(ck.terms.nan_to_num(), cr.terms.nan_to_num())
+        for a, b in ((ck.d, cr.d), (ck.z, cr.z), (ck.q, cr.q)):
+            near(a, b, 1e-5 * max(1.0, float(b.abs().max())))
+        assert torch.equal(ck.acc, cr.acc)
+        n_acc += int(accept.sum())
+        n += accept.numel()
+    assert 0 < n_acc < n
