@@ -13,10 +13,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    shape (1000 taxa x 1024 chains), with the float32 tolerances below:
    K1 prior_terms, K2 whiten (full, gather and range-1024 row lists), K3
    accept_select, and on FastSweeps' own plan steps of a synthetic model
-   K4 point_scan, K5 (the likelihood range-block step: range_lik_prologue,
-   range_scan and range_lik_epilogue, a record each, checked by replaying
-   the kernels' proposals through the plain step), K6 contra_step in its
-   two modes (contra_slide and contra_range, a record each) and, on the
+   K4 (the likelihood point step: point_lik_prologue, point_scan and
+   point_lik_epilogue, a record each, checked on the first step of both
+   point kinds by replaying the kernels' proposals through the plain step;
+   one point_lik_step must launch only the three and the z product), K5
+   (the likelihood range-block step: range_lik_prologue, range_scan and
+   range_lik_epilogue, likewise), both without a likelihood as well (the
+   prologue and the epilogue alone, the epilogue taking the decisions), K6 contra_step in its two modes
+   (contra_slide, and contra_range with a record per row bucket:
+   contra_range_16, _64 and _256) and, on the
    14 global-move families of the same model with node priors and the
    calibrated proposal table, the glob kernels G1 glob_scan, G2
    glob_dense_prologue and G3 glob_dense_epilogue (a record each, checked
@@ -26,12 +31,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    back-to-back calls;
 4. main path: simulate -> prepare --likelihood-spec full -> run (MHG,
    FastSweeps) at 136 taxa x 1024 chains through the port's CLI, in a
-   temporary directory; checks the outputs, the carried log posterior and
-   that the run launched every kernel;
+   temporary directory; checks the outputs, the carried log posterior,
+   that the run launched every kernel, and that its point steps went
+   through the three K4 kernels alone (as many launches of each);
 5. full width: FastSweeps through ChainRunner at 1000 taxa x 1024 chains
    (D = 1,997) on the synthetic model; median s/sweep, carry check, K4-K6
-   and G1-G3 launched;
-6. sequential path: the same 136-taxon model through
+   and G1-G3 launched, the point steps through K4 alone;
+6. prior only: FastSweeps through ChainRunner at 136 taxa x 1024 chains
+   on the synthetic model without its likelihood; carry check, the point
+   steps and range blocks through their prologue and epilogue kernels
+   alone, K6 and G1-G3 launched;
+7. sequential path: the same 136-taxon model through
    RunSettings(fast_sweep=False) (MHKernel); carry check, K1-K3 launched.
 
 Every phase after the kernels sets each wrapper's launch count to 0 just
@@ -65,6 +75,7 @@ TREES = 600
 # stays inside half its 1200 s limit.
 ITERATIONS = 20
 FULL_WIDTH_SWEEPS = 10
+PRIOR_ONLY_SWEEPS = 10
 SEQUENTIAL_SWEEPS = 10
 # Back-to-back calls per kernel timing.
 REPS = 20
@@ -131,8 +142,12 @@ KERNELS = (
      "mcmcdate_tpu/models/dating.py:209"),
     ("accept_select", "mcmcdate_tpu_torch/kernels/csrc/accept_select.cu",
      "mcmcdate_tpu/engine/mh.py:120"),
+    ("point_lik_prologue", "mcmcdate_tpu_torch/kernels/csrc/point_step.cu",
+     "mcmcdate_tpu/engine/fast_sweep.py:1324"),
     ("point_scan", "mcmcdate_tpu_torch/kernels/csrc/point_scan.cu",
      "mcmcdate_tpu/engine/fast_sweep.py:1477"),
+    ("point_lik_epilogue", "mcmcdate_tpu_torch/kernels/csrc/point_step.cu",
+     "mcmcdate_tpu/engine/fast_sweep.py:1536"),
     ("range_lik_prologue", "mcmcdate_tpu_torch/kernels/csrc/range_step.cu",
      "mcmcdate_tpu/engine/fast_sweep.py:1695"),
     ("range_scan", "mcmcdate_tpu_torch/kernels/csrc/range_scan.cu",
@@ -141,8 +156,8 @@ KERNELS = (
      "mcmcdate_tpu/engine/fast_sweep.py:1876"),
     ("contra_slide", "mcmcdate_tpu_torch/kernels/csrc/contra_step.cu",
      "mcmcdate_tpu/engine/fast_sweep.py:1223"),
-    ("contra_range", "mcmcdate_tpu_torch/kernels/csrc/contra_step.cu",
-     "mcmcdate_tpu/engine/fast_sweep.py:1566"),
+    *((f"contra_range_{rb}", "mcmcdate_tpu_torch/kernels/csrc/contra_step.cu",
+       "mcmcdate_tpu/engine/fast_sweep.py:1566") for rb in (16, 64, 256)),
     ("glob_scan", "mcmcdate_tpu_torch/kernels/csrc/glob_step.cu",
      "mcmcdate_tpu/engine/fast_sweep.py:878"),
     ("glob_dense_prologue", "mcmcdate_tpu_torch/kernels/csrc/glob_step.cu",
@@ -505,27 +520,6 @@ def _fast(n_taxa):
     return _FAST[n_taxa]
 
 
-def _recorded(name, call):
-    """The arguments FastSweeps hands to the kernel wrapper ``name`` (K4)
-    during ``call()``: the shapes and values of the main path."""
-    from mcmcdate_tpu_torch.engine import fast_sweep
-
-    real = getattr(fast_sweep, name)
-    got = []
-
-    def rec(*args):
-        got.append(tuple(a.clone() for a in args))
-        return real(*args)
-
-    setattr(fast_sweep, name, rec)
-    try:
-        call()
-    finally:
-        setattr(fast_sweep, name, real)
-    check(got, f"the step never called {name}")
-    return got[0]
-
-
 def _draws(fs, sx, tuning, gen, gamma):
     import torch
 
@@ -537,73 +531,337 @@ def _draws(fs, sx, tuning, gen, gamma):
     return draw, torch.rand((CHAINS, n), generator=gen, device="cuda")
 
 
-def _scan_agree(name, acc_k, dq_k, acc_p, dq_p, la_p, logu):
-    """K4/K5 decisions and dq against the plain version's: per chain equal
-    up to the first decision that differs, which must be a tie.  Returns
-    the largest |dq| difference over the compared entries."""
-    import torch
-
-    differ = acc_k != acc_p
-    first = torch.where(differ.any(1), differ.int().argmax(1), acc_k.shape[1])
-    upto = torch.arange(acc_k.shape[1], device=acc_k.device)[None, :] <= first[:, None]
-    gap = (la_p - logu).abs()[differ & upto]
-    check(bool((gap < SCAN_TIE).all()), lambda: f"{name}: {int(differ.sum())} decisions "
-          f"differ beyond ties (largest |log u - log alpha| {float(gap.max()):.3g})")
-    scale = dq_p.abs().amax(1, keepdim=True).clamp(min=1.0)
-    err = (dq_k - dq_p).abs()
-    check(bool((err <= SCAN_REL * scale)[upto].all()),
-          lambda: f"{name}: dq off by {float(err[upto].max()):.3g}")
-    return float(err[upto].max()), int(differ.sum())
-
-
-def check_point_scan(n_taxa):
-    import torch
-
-    from mcmcdate_tpu_torch.engine import proposals as P
-    from mcmcdate_tpu_torch.kernels.point_scan import SUB, point_scan, point_scan_plain
-
-    fs, carry, tuning, gen = _fast(n_taxa)
-    worst, timed = 0.0, None
-    for kind in (P.K_SCALE_BRANCH_RATE, P.K_SLIDE_NODE_ULTRA):
-        sx = fs.spec_t[kind][0]  # the planner's first (largest) step
-        draw, u = _draws(fs, sx, tuning, gen, kind == P.K_SCALE_BRANCH_RATE)
-        args = _recorded("point_scan",
-                         lambda: fs.point_lik_step(kind, carry, tuning, sx, draw, u))
-        ak, dk = point_scan(*args)
-        ap, dp = point_scan_plain(*args)
-        _sync()
-        delta, _, _, d_pr, lmhg, uu = args
-        err, n_diff = _scan_agree(f"point_scan kind {kind}", ak, dk, ap, dp,
-                                  d_pr - 0.5 * dp + lmhg, torch.log(uu))
-        check(0 < int(ap.sum()) < ap.numel(), f"point_scan kind {kind}: not a mixed case")
-        log(f"[kernels] point_scan kind {kind} at {n_taxa} taxa: B={delta.shape[1]}, "
-            f"KD={delta.shape[2]}, {int(ap.sum())} accepts, {n_diff} tie decisions differ")
-        worst = max(worst, err)
-        timed = args, ap
-    args, ap = timed  # the node slides: the widest step (KD = 3)
-    ms = _device_ms(lambda: point_scan(*args), only="point_scan_kernel")
-    plain_ms = _device_ms(lambda: point_scan_plain(*args))
-    C, B, KD = args[0].shape
-    F = B * KD
-    # Bytes: deltas, zG, Pblk, d_pr, lmhg and u in; accept and dq out.
-    # Operations: dq0, the cross terms of each sub-block and, for this
-    # run's accepts, the zG updates of the later columns.
-    ops = C * B * (2 * KD + 2 * KD * KD)
-    for lo in range(0, B, SUB):
-        sn = min(SUB, B - lo)
-        ops += C * sn * (sn - 1) * KD * KD
-        if lo + sn < B:
-            ops += int(ap[:, lo:lo + sn].sum()) * 2 * KD * (F - (lo + sn) * KD)
-    nbytes = 4 * (2 * C * F + F * F + 3 * C * B) + 5 * C * B
-    return {"point_scan": _record(worst, ms, plain_ms, nbytes, ops)}
-
-
 def _same(a, b):
     """Bitwise equal, NaN where NaN."""
     import torch
 
     nan = torch.isnan(b)
     return torch.equal(torch.isnan(a), nan) and torch.equal(a[~nan], b[~nan])
+
+
+def _copy_carry(carry):
+    from mcmcdate_tpu_torch.engine.fast_sweep import FastCarry
+    from mcmcdate_tpu_torch.models.state import FIELDS, State
+
+    return FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
+                     carry.terms.clone(), carry.d.clone(), carry.z.clone(), carry.q.clone(),
+                     carry.acc.clone())
+
+
+def _step_recorded(names, step):
+    """Run ``step()`` with the kernel wrappers ``names`` of FastSweeps'
+    module recorded: ``{name: output, name + "_args": arguments}``."""
+    from mcmcdate_tpu_torch.engine import fast_sweep
+
+    rec = {}
+    real = {k: getattr(fast_sweep, k) for k in names}
+
+    def recorder(key):
+        def run(*args):
+            rec[key + "_args"] = args
+            rec[key] = real[key](*args)
+            return rec[key]
+        return run
+
+    for k in real:
+        setattr(fast_sweep, k, recorder(k))
+    try:
+        out = step()
+    finally:
+        for k, fn in real.items():
+            setattr(fast_sweep, k, fn)
+    _sync()
+    return rec, out
+
+
+def _within(name, worst, what, a, b, rel, scale=None):
+    """``a`` within ``rel (1 + |b|)`` of ``b`` (or ``rel scale``; a tensor of
+    scales, such as each chain's, holds every entry to the smallest) where
+    ``b`` is finite, with the same finite entries; the largest difference
+    goes to ``worst[what]``."""
+    import torch
+
+    fin = torch.isfinite(b)
+    check(torch.equal(fin, torch.isfinite(a)), f"{name} {what}: finiteness differs")
+    err = (a - b).abs()[fin]
+    worst[what] = float(err.max()) if err.numel() else 0.0
+    if scale is None:
+        lim = rel * (1 + b.abs()[fin])
+    else:
+        lim = rel * float(scale.min() if torch.is_tensor(scale) else scale)
+    check(bool((err <= lim).all()),
+          lambda: f"{name} {what}: off the plain version by {worst[what]:.3g}")
+
+
+K4_NAMES = ("point_lik_prologue", "point_scan", "point_lik_epilogue")
+
+
+def _point_step_agree(name, fs, carry, tuning, kind, sx, draw, u):
+    """K4's likelihood point step (prologue, point_scan, epilogue and the z
+    product, as ``FastSweeps.point_lik_step`` runs them) on one step,
+    against its plain version, on copies of ``carry``: the kernel's
+    proposals against the plain version's from the same draws; the kernel's
+    proposals replayed through ``point_lik_given``, with every decision
+    taken as the kernel took it, whose log alpha must give the kernel's
+    decisions except at ties, whose new terms must equal the prologue's
+    and whose heights, rates and terms after the step must equal the
+    kernels' bitwise, with d, z and q within SCAN_REL of their scale and dq
+    within SCAN_REL of the smallest chain's (each chain's largest |dq|, at
+    least 1).  Returns ``(worst differences, recorded kernel inputs and
+    outputs)``."""
+    import torch
+
+    from mcmcdate_tpu_torch.engine import proposals as P
+    from mcmcdate_tpu_torch.kernels import point_step as K
+
+    model = fs.model
+    branch = kind == P.K_SCALE_BRANCH_RATE
+    leaf = model.topo.is_leaf_t
+    ck, cr = _copy_carry(carry), _copy_carry(carry)
+    rec, accept = _step_recorded(K4_NAMES, lambda: fs.point_lik_step(kind, ck, tuning, sx,
+                                                                      draw, u))
+    check(len(rec) == 6, f"{name}: the step did not run all three kernels")
+    pro = rec["point_lik_prologue"]
+    dq = rec["point_scan"][1]
+    worst = {}
+    pp = K.point_lik_prologue_plain(branch, carry.batch, carry.terms, carry.d, carry.z, tuning,
+                                    sx, leaf, fs.pos_t, model.clock, draw)
+    _within(name, worst, "prop", pro.prop, pp.prop, CONTRA_REL)
+    forced = torch.where(accept, 0.0, math.nan)
+    acc_r, pr, dq_r = K.point_lik_given(branch, cr.batch, cr.terms, cr.d, cr.z, cr.q, cr.acc,
+                                        tuning, sx, leaf, fs.pos_t, model.clock, pro.prop, forced)
+    check(torch.equal(acc_r, accept),
+          f"{name}: the kernel accepted a proposal whose log alpha the plain version makes -inf")
+    _within(name, worst, "lq", pro.lq, pr.lq, SCAN_TIE)
+    check(_same(pro.tn, pr.tn), lambda: f"{name}: {int((pro.tn != pr.tn).sum())} new terms "
+          f"differ from the replay's")
+    for what in ("delta", "zG", "d_pr"):
+        _within(name, worst, what, getattr(pro, what), getattr(pr, what), SCAN_REL)
+    la = torch.nan_to_num(pr.d_pr - 0.5 * dq_r + pr.lmhg, nan=-math.inf)
+    differ = (torch.log(u) < la) != accept
+    gap = (torch.log(u) - la).abs()[differ]
+    check(bool((gap < SCAN_TIE).all()), lambda: f"{name}: {int(differ.sum())} decisions differ "
+          f"beyond ties (largest |log u - log alpha| {float(gap.max()):.3g})")
+    _within(name, worst, "dq", dq, dq_r, SCAN_REL, dq_r.abs().amax(1, keepdim=True).clamp(min=1.0))
+    for what, a, b in (("heights", ck.batch.heights, cr.batch.heights),
+                       ("rates", ck.batch.rates, cr.batch.rates), ("terms", ck.terms, cr.terms)):
+        check(_same(a, b), lambda: f"{name} {what}: {int((a != b).sum())} values differ from "
+              f"the replay's")
+    for what, a, b in (("d", ck.d, cr.d), ("z", ck.z, cr.z), ("q", ck.q, cr.q)):
+        _within(name, worst, what, a, b, SCAN_REL, max(1.0, float(b.abs().max())))
+    check(torch.equal(ck.acc, cr.acc), f"{name}: accept counts differ")
+    check(0 < int(accept.sum()) < accept.numel(), f"{name}: not a mixed case")
+    log(f"[kernels] {name}: B={accept.shape[1]}, KD={sx['d_rows'].shape[1]}, "
+        f"{int(accept.sum())} accepts, {int(differ.sum())} tie decisions differ from the "
+        f"replay, heights, rates and terms bitwise equal to it; largest differences "
+        f"{json.dumps(worst)}")
+    return worst, rec
+
+
+def _kernel_names(fn, reps=3):
+    """The device kernels (and copies) that ``reps`` calls of ``fn`` launch,
+    by name, and the kernel launches the host made (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            _sync()
+        events = prof.events()
+        names = [e.name for e in events if e.device_type.name == "CUDA"]
+        launches = sum(e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                                  "cuLaunchKernelEx") for e in events)
+        if names:
+            return names, launches
+    raise SmokeError("the profiler recorded no device kernel")
+
+
+def check_point_step(n_taxa):
+    """K4 (prologue, point_scan, epilogue) on the planner's first (largest)
+    step of both likelihood point kinds; one point_lik_step launches only
+    the three K4 kernels and the z product; the records time the node
+    slides' step (KD = 3, the widest).  Returns a record per kernel."""
+    import torch
+
+    from mcmcdate_tpu_torch.engine import proposals as P
+    from mcmcdate_tpu_torch.kernels import point_step as K
+    from mcmcdate_tpu_torch.kernels.point_scan import SUB, point_scan, point_scan_plain
+
+    fs, carry, tuning, gen = _fast(n_taxa)
+    model = fs.model
+    leaf = model.topo.is_leaf_t
+    worst = {}
+    for kind in (P.K_SCALE_BRANCH_RATE, P.K_SLIDE_NODE_ULTRA):
+        branch = kind == P.K_SCALE_BRANCH_RATE
+        sx = fs.spec_t[kind][0]
+        draw, u = _draws(fs, sx, tuning, gen, branch)
+        w, rec = _point_step_agree(f"point step kind {kind} at {n_taxa} taxa", fs, carry,
+                                   tuning, kind, sx, draw, u)
+        for k, v in w.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    # The slide step (the last): its kernels alone, and what one step launches.
+    # Three steps: only the three K4 kernels and the product's one or two
+    # gemm kernels, each K4 kernel in at least two of the profiler's
+    # records (it may drop one), at most 5 launches a step.
+    c0 = _copy_carry(carry)
+    names, launches = _kernel_names(lambda: fs.point_lik_step(kind, c0, tuning, sx, draw, u))
+    k4 = {k: sum(k + "_kernel" in n for n in names) for k in K4_NAMES}
+    other = sorted({n for n in names if not any(k + "_kernel" in n for k in K4_NAMES)})
+    check(all(v >= 2 for v in k4.values()) and all("gemm" in n.lower() for n in other)
+          and launches <= 15,
+          f"three point_lik_steps launched {launches} kernels: {k4} and {other}, not the three "
+          f"K4 kernels and the product alone")
+    log(f"[kernels] three point_lik_steps at {n_taxa} taxa: {launches} launches, K4 {k4}, "
+        f"other {other}")
+    pro, (accept, dq) = rec["point_lik_prologue"], rec["point_scan"]
+    c1, c2, c3 = _copy_carry(carry), _copy_carry(carry), _copy_carry(carry)
+    pargs = (branch, c1.batch, c1.terms, c1.d, c1.z, tuning, sx, leaf, fs.pos_t, model.clock,
+             draw)
+    eargs = (branch, c2.batch, c2.terms, c2.d, c2.q, c2.acc, sx, pro, accept, dq)
+    sargs = rec["point_scan_args"]
+
+    def plain_step():
+        p = K.point_lik_prologue_plain(*pargs)
+        a, q_ = point_scan_plain(p.delta, p.zG, sx["Pblk"], p.d_pr, p.lmhg, u)
+        _, dacc = K.point_lik_epilogue_plain(branch, c3.batch, c3.terms, c3.d, c3.q, c3.acc, sx,
+                                             p, a, q_)
+        c3.z.addmm_(dacc, sx["Prow"])
+
+    ms = {"prologue": _device_ms(lambda: K.point_lik_prologue(*pargs),
+                                 only="point_lik_prologue_kernel"),
+          "scan": _device_ms(lambda: point_scan(*sargs), only="point_scan_kernel"),
+          "epilogue": _device_ms(lambda: K.point_lik_epilogue(*eargs),
+                                 only="point_lik_epilogue_kernel"),
+          "step": _device_ms(lambda: fs.point_lik_step(kind, c3, tuning, sx, draw, u))}
+    plain = {"prologue": _device_ms(lambda: K.point_lik_prologue_plain(*pargs)),
+             "scan": _device_ms(lambda: point_scan_plain(*sargs)),
+             "epilogue": _device_ms(lambda: K.point_lik_epilogue_plain(*eargs)),
+             "step": _device_ms(plain_step)}
+    C, B = accept.shape
+    KC, KT, KD = sx["ch"].shape[1], sx["t_rows"].shape[1], sx["d_rows"].shape[1]
+    KN = sx["cal_lo"].shape[-1]
+    F = B * KD
+    log(f"[kernels] point step kind {kind} at {n_taxa} taxa (B={B}, KD={KD}): device time per "
+        f"step: the step {ms['step']:.4f} ms (plain {plain['step']:.4f} ms), of which "
+        f"prologue {ms['prologue']:.4f}, point_scan {ms['scan']:.4f}, epilogue "
+        f"{ms['epilogue']:.4f} ms")
+    # Prologue.  Bytes: per chain and ticket the draw, tuning, the node's,
+    # its parent's and its children's heights, their rates, the old terms
+    # and d and z at the distance rows in; prop, lq, d_pr, lmhg, the new
+    # terms, delta and zG out; five scalars per chain; the step's plan
+    # arrays.  Operations: about 100 for the proposal and 120 per node whose
+    # birth-death (in double) and clock terms it evaluates (1 + KC), special
+    # functions counted as 10.
+    pro_bytes = (4 * C * B * (2 + (2 + KC) + (1 + KC) + KT + 2 * KD) + 4 * C * B * (4 + KT + 2 * KD)
+                 + 20 * C + 4 * B * (4 + KC + KT + KD + 4 * KN) + B)
+    pro_ops = C * B * (100 + 120 * (1 + KC))
+    # point_scan.  Bytes: deltas, zG, Pblk, d_pr, lmhg and u in; accept and
+    # dq out.  Operations: dq0, the cross terms of each sub-block and, for
+    # this run's accepts, the zG updates of the later columns (at the plain
+    # version's sub-blocks of SUB tickets).
+    scan_ops = C * B * (2 * KD + 2 * KD * KD)
+    for lo in range(0, B, SUB):
+        sn = min(SUB, B - lo)
+        scan_ops += C * sn * (sn - 1) * KD * KD
+        if lo + sn < B:
+            scan_ops += int(accept[:, lo:lo + sn].sum()) * 2 * KD * (F - (lo + sn) * KD)
+    scan_bytes = 4 * (2 * C * F + F * F + 3 * C * B) + 5 * C * B
+    # Epilogue.  Bytes: accept and dq per chain and ticket in, dacc out; per
+    # accepted ticket prop, its new terms and deltas in, its height and
+    # terms out, d in and out at its rows, its accept count in and out; q in
+    # and out; the step's plan arrays.  Operations: one add per accepted
+    # distance row.
+    n_acc = int(accept.sum())
+    epi_bytes = (5 * C * B + 4 * C * F + 4 * n_acc * (1 + KT + KD + 1 + KT + 2 * KD + 2) + 8 * C
+                 + 4 * B * (3 + KT + KD))
+    return {
+        "point_lik_prologue": _record(max(worst["prop"], worst["lq"]), ms["prologue"],
+                                      plain["prologue"], pro_bytes, pro_ops),
+        "point_scan": _record(worst["dq"], ms["scan"], plain["scan"], scan_bytes, scan_ops),
+        "point_lik_epilogue": _record(max(worst["d"], worst["z"], worst["q"]), ms["epilogue"],
+                                      plain["epilogue"], epi_bytes, n_acc * KD),
+    }
+
+
+def check_prior_only_steps(n_taxa):
+    """Without a likelihood, K4's and K5's prologue and epilogue kernels
+    (the epilogue taking the decisions) on the first step of both point
+    kinds and the first block of every bucket of both likelihood range
+    kinds, through ``FastSweeps.point_lik_step`` / ``range_lik_step``: each
+    launches its prologue and epilogue once and nothing else of the port;
+    the plain prologue replayed at the kernels' proposals gives their
+    decisions except at ties, and the plain epilogue on their decisions
+    gives their heights, rates and terms bitwise, d within SCAN_REL of its
+    scale and the same accept counts; q stays as it was.  No records: the
+    kernels' come from their likelihood checks."""
+    import dataclasses
+
+    import torch
+
+    from mcmcdate_tpu_torch.engine import fast_sweep, proposals as P
+    from mcmcdate_tpu_torch.kernels import point_step as KP, range_step as KR
+    from mcmcdate_tpu_torch.ops import mvn
+
+    _, _, tuning, gen = _fast(n_taxa)
+    model, batch = _model(n_taxa)
+    model = dataclasses.replace(model, likelihood=mvn.LikelihoodData.none())
+    fs = fast_sweep.FastSweeps(model, P.build_proposal_table(model.topo, model.braces, False))
+    carry = fs.init_carry(batch)
+    leaf = model.topo.is_leaf_t
+    cases = [("point", k, k == P.K_SCALE_BRANCH_RATE, fs.spec_t[k][0])
+             for k in (P.K_SCALE_BRANCH_RATE, P.K_SLIDE_NODE_ULTRA)]
+    cases += [("range", k, k == P.K_SCALE_SUBTREE_RATE, steps[0])
+              for (k, _), steps in fs.range_t.items() if k != P.K_SCALE_SUBTREES_CONTRA]
+    worst = {}
+    for step, kind, flag, sx in cases:
+        name = f"{step} step kind {kind} without a likelihood at {n_taxa} taxa"
+        draw, u = _draws(fs, sx, tuning, gen, flag)
+        ck, cr = _copy_carry(carry), _copy_carry(carry)
+        run = fs.point_lik_step if step == "point" else fs.range_lik_step
+        counts, accept = _counted(lambda: run(kind, ck, tuning, sx, draw, u))
+        _sync()
+        launched = {k: n for k, n in counts.items() if n}
+        want = {f"{step}_lik_prologue": 1, f"{step}_lik_epilogue": 1}
+        check(launched == want, f"{name}: launched {launched}, not {want}")
+        if step == "point":
+            pro = KP.point_lik_prologue(flag, cr.batch, cr.terms, cr.d, None, tuning, sx, leaf,
+                                        fs.pos_t, model.clock, draw)
+            pr = KP.point_lik_prologue_given(flag, cr.batch, cr.terms, cr.d, None, tuning, sx,
+                                             leaf, fs.pos_t, model.clock, pro.prop)
+            epilogue_plain = KP.point_lik_epilogue_plain
+        else:
+            pro = KR.range_lik_prologue(flag, cr.batch, cr.terms, cr.d, None, tuning, sx, leaf,
+                                        model.clock, draw)
+            pr = KR.range_lik_prologue_given(flag, cr.batch, cr.terms, cr.d, None, tuning, sx,
+                                             leaf, model.clock, pro.prop)
+            epilogue_plain = KR.range_lik_epilogue_plain
+        la = torch.nan_to_num(pr.d_pr + pr.lmhg, nan=-math.inf)
+        differ = ((torch.log(u) < la) & sx["valid"]) != accept
+        gap = (torch.log(u) - la).abs()[differ]
+        check(bool((gap < SCAN_TIE).all()), lambda: f"{name}: {int(differ.sum())} decisions "
+              f"differ beyond ties (largest |log u - log alpha| {float(gap.max()):.3g})")
+        epilogue_plain(flag, cr.batch, cr.terms, cr.d, cr.q, cr.acc, sx, pr, accept, None)
+        for what, a, b in (("heights", ck.batch.heights, cr.batch.heights),
+                           ("rates", ck.batch.rates, cr.batch.rates), ("terms", ck.terms, cr.terms)):
+            check(_same(a, b), lambda: f"{name} {what}: {int((a != b).sum())} values differ "
+                  f"from the replay's")
+        _within(name, worst, "d", ck.d, cr.d, SCAN_REL, max(1.0, float(cr.d.abs().max())))
+        check(torch.equal(ck.acc, cr.acc), f"{name}: accept counts differ")
+        check(torch.equal(ck.q, carry.q), f"{name}: q changed")
+        check(0 < int(accept.sum()) < int(sx["valid"].sum()) * accept.shape[0],
+              f"{name}: not a mixed case")
+        # Three steps launch the prologue and epilogue kernels alone.
+        names, n_launch = _kernel_names(lambda: run(kind, ck, tuning, sx, draw, u))
+        other = sorted({n for n in names if f"{step}_lik_" not in n})
+        check(not other and n_launch <= 6,
+              f"{name}: three steps launched {n_launch} kernels, {other} besides {step}_lik_*")
+        log(f"[kernels] {name}: {int(accept.sum())} accepts, {int(differ.sum())} tie decisions "
+            f"differ from the replay, heights, rates and terms bitwise equal to it; d within "
+            f"{worst['d']:.3g}; three steps launched {n_launch} kernels")
+    return {}
 
 
 def _range_step_agree(name, fs, carry, tuning, kind, sx, draw, u):
@@ -615,57 +873,31 @@ def _range_step_agree(name, fs, carry, tuning, kind, sx, draw, u):
     taken as the kernel took it, whose log alpha must give the kernel's
     decisions except at ties and whose heights, rates and terms must equal
     the kernel's bitwise, with d, z and q within SCAN_REL of their scale
-    and dq within SCAN_REL of each chain's.  Returns ``(worst differences,
-    recorded kernel inputs and outputs, copy)``."""
+    and dq within SCAN_REL of the smallest chain's (each chain's largest
+    |dq|, at least 1).  Returns ``(worst differences, recorded kernel inputs
+    and outputs, copy)``."""
     import torch
 
-    from mcmcdate_tpu_torch.engine import fast_sweep, proposals as P
-    from mcmcdate_tpu_torch.engine.fast_sweep import FastCarry
+    from mcmcdate_tpu_torch.engine import proposals as P
     from mcmcdate_tpu_torch.kernels import range_step as K
-    from mcmcdate_tpu_torch.models.state import FIELDS, State
 
     model = fs.model
     rate = kind == P.K_SCALE_SUBTREE_RATE
     leaf = model.topo.is_leaf_t
 
     def copy():
-        return FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
-                         carry.terms.clone(), carry.d.clone(), carry.z.clone(),
-                         carry.q.clone(), carry.acc.clone())
-
-    rec = {}
-    real = {k: getattr(fast_sweep, k) for k in ("range_lik_prologue", "range_scan",
-                                                 "range_lik_epilogue")}
-
-    def recorder(key):
-        def run(*args):
-            rec[key + "_args"] = args
-            rec[key] = real[key](*args)
-            return rec[key]
-        return run
+        return _copy_carry(carry)
 
     ck, cr = copy(), copy()
-    for k in real:
-        setattr(fast_sweep, k, recorder(k))
-    try:
-        accept = fs.range_lik_step(kind, ck, tuning, sx, draw, u)
-    finally:
-        for k, fn in real.items():
-            setattr(fast_sweep, k, fn)
-    _sync()
+    rec, accept = _step_recorded(("range_lik_prologue", "range_scan", "range_lik_epilogue"),
+                                 lambda: fs.range_lik_step(kind, ck, tuning, sx, draw, u))
     check(len(rec) == 6, f"{name}: the step did not run all three kernels")
     pro = rec["range_lik_prologue"]
     dq = rec["range_scan"][1]
     worst = {}
 
     def within(what, a, b, rel, scale=None):
-        fin = torch.isfinite(b)
-        check(torch.equal(fin, torch.isfinite(a)), f"{name} {what}: finiteness differs")
-        err = (a - b).abs()[fin]
-        worst[what] = float(err.max()) if err.numel() else 0.0
-        lim = rel * (1 + b.abs()[fin]) if scale is None else rel * scale
-        check(bool((err <= lim).all()),
-              lambda: f"{name} {what}: off the plain version by {worst[what]:.3g}")
+        _within(name, worst, what, a, b, rel, scale)
 
     # The proposals, from the same draws.
     pp = K.range_lik_prologue_plain(rate, carry.batch, carry.terms, carry.d, carry.z, tuning,
@@ -890,42 +1122,39 @@ def _contra_agree(name, mode, fs, carry, tuning, sx, u_prop, u_acc):
 
 
 def _contra_steps(fs, mode):
-    """The plan steps of a K6 mode: the first contrary slide step, or the
-    first block of each contrary range bucket (largest rows first)."""
+    """The plan steps of a K6 mode: ``(label, rows bucket, step)`` for the
+    first contrary slide step, or the first block of each contrary range
+    bucket."""
     from mcmcdate_tpu_torch.engine import proposals as P
 
     if mode == "slide":
-        return [("slide", fs.spec_t[P.K_SLIDE_NODES_CONTRA][0], 1)]
-    return sorted(((f"range {rb} rows", blocks[0], len(blocks))
-                   for (k, rb), blocks in fs.range_t.items()
-                   if k == P.K_SCALE_SUBTREES_CONTRA), key=lambda s: -s[1]["own"].shape[1])
+        return [("slide", None, fs.spec_t[P.K_SLIDE_NODES_CONTRA][0])]
+    return sorted(((f"range {rb} rows", rb, blocks[0]) for (k, rb), blocks in fs.range_t.items()
+                   if k == P.K_SCALE_SUBTREES_CONTRA), key=lambda st: st[1])
 
 
 def _check_contra(mode, n_taxa):
-    """K6's ``mode`` at every step of ``_contra_steps``; the record keeps
-    the step of the bucket with the most blocks (the most launches)."""
+    """K6's ``mode`` at every step of ``_contra_steps``: ``[(rows bucket,
+    step, accept, ms, plain_ms, worst)]``."""
     from mcmcdate_tpu_torch.kernels import contra_step as K
 
     kernel, plain = getattr(K, f"contra_{mode}"), getattr(K, f"contra_{mode}_plain")
     fs, carry, tuning, gen = _fast(n_taxa)
-    worst, timed = 0.0, None
-    for step, sx, n_blocks in _contra_steps(fs, mode):
+    out = []
+    for step, rb, sx in _contra_steps(fs, mode):
         u_prop, u_acc = _draws(fs, sx, tuning, gen, False)
         w, ok, run = _contra_agree(f"contra_{mode} {step} at {n_taxa} taxa", mode, fs, carry,
                                    tuning, sx, u_prop, u_acc)
-        worst = max(worst, w["h_prop"], w["heights"])
         ms = _device_ms(lambda: run(kernel), only=f"contra_{mode}_kernel")
         plain_ms = _device_ms(lambda: run(plain))
         log(f"[kernels] contra_{mode} {step} at {n_taxa} taxa: device time per call: kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if timed is None or n_blocks > timed[0]:
-            timed = n_blocks, sx, ok.accept, ms, plain_ms
-    _, sx, accept, ms, plain_ms = timed
-    return sx, accept, ms, plain_ms, worst
+        out.append((rb, sx, ok.accept, ms, plain_ms, max(w["h_prop"], w["heights"])))
+    return out
 
 
 def check_contra_slide(n_taxa):
-    sx, accept, ms, plain_ms, worst = _check_contra("slide", n_taxa)
+    [(_, sx, accept, ms, plain_ms, worst)] = _check_contra("slide", n_taxa)
     C, B = accept.shape
     KC, KT = sx["ch"].shape[1], sx["t_rows"].shape[1]
     # Bytes: per (chain, ticket) the gathered heights, rates, tuning,
@@ -940,22 +1169,27 @@ def check_contra_slide(n_taxa):
 
 
 def check_contra_range(n_taxa):
-    sx, accept, ms, plain_ms, worst = _check_contra("range", n_taxa)
-    C, S = accept.shape
-    RB = sx["own"].shape[1]
-    rows = (sx["own"] >= 0).sum(1)                      # valid rows per ticket [S]
-    R = int(rows.sum())
-    acc_rows = int((accept.to(rows.dtype) * rows).sum())
-    # Bytes: per (chain, ticket) the tuning, uniforms and parent height in
-    # and the accept mask, log alpha and proposal out; per chain and valid
-    # row its height, rate and two terms in, and for the accepted tickets'
-    # rows the same out; per chain four scalars; the block's plan arrays
-    # (rows, parents, leaf flags).  Operations: about 120 per row (its
-    # birth-death term in double and its clock term) and 100 per ticket
-    # for the truncated normal (special functions counted as 10).
-    nbytes = (4 * C * S * 7 + C * S + 4 * C * R * 4 + 4 * acc_rows * 4 + 16 * C
-              + S * RB * 9 + 4 * S * 8)
-    return {"contra_range": _record(worst, ms, plain_ms, nbytes, C * (120 * R + 100 * S))}
+    """A record per row bucket: ``contra_range_16``, ``_64``, ``_256``."""
+    out = {}
+    for rb, sx, accept, ms, plain_ms, worst in _check_contra("range", n_taxa):
+        C, S = accept.shape
+        RB = sx["own"].shape[1]
+        rows = (sx["own"] >= 0).sum(1)                      # valid rows per ticket [S]
+        R = int(rows.sum())
+        acc_rows = int((accept.to(rows.dtype) * rows).sum())
+        # Bytes: per (chain, ticket) the tuning, uniforms and parent height
+        # in and the accept mask, log alpha and proposal out; per chain and
+        # valid row its height, rate and two terms in, and for the accepted
+        # tickets' rows the same out; per chain four scalars; the block's
+        # plan arrays (rows, parents, leaf flags).  Operations: about 120
+        # per row (its birth-death term in double and its clock term) and
+        # 100 per ticket for the truncated normal (special functions
+        # counted as 10).
+        nbytes = (4 * C * S * 7 + C * S + 4 * C * R * 4 + 4 * acc_rows * 4 + 16 * C
+                  + S * RB * 9 + 4 * S * 8)
+        out[f"contra_range_{rb}"] = _record(worst, ms, plain_ms, nbytes,
+                                            C * (120 * R + 100 * S))
+    return out
 
 
 _GLOB = {}
@@ -985,15 +1219,6 @@ def _glob_fast(n_taxa):
                                         device="cuda")
         _GLOB[n_taxa] = fs, carry, tuning, gen
     return _GLOB[n_taxa]
-
-
-def _copy_carry(carry):
-    from mcmcdate_tpu_torch.engine.fast_sweep import FastCarry
-    from mcmcdate_tpu_torch.models.state import FIELDS, State
-
-    return FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
-                     carry.terms.clone(), carry.d.clone(), carry.z.clone(), carry.q.clone(),
-                     carry.acc.clone())
 
 
 def _glob_draws(fam, tuning, gen):
@@ -1179,8 +1404,9 @@ def check_glob(n_taxa):
 
 
 # Each check returns its kernels' records by kernel name.
-CHECKS = (check_prior_terms, check_whiten, check_accept_select, check_point_scan,
-          check_range_step, check_contra_slide, check_contra_range, check_glob)
+CHECKS = (check_prior_terms, check_whiten, check_accept_select, check_point_step,
+          check_range_step, check_prior_only_steps, check_contra_slide, check_contra_range,
+          check_glob)
 
 
 def phase_kernels():
@@ -1242,13 +1468,15 @@ def _wrappers():
         glob_scan,
     )
     from mcmcdate_tpu_torch.kernels.point_scan import point_scan
+    from mcmcdate_tpu_torch.kernels.point_step import point_lik_epilogue, point_lik_prologue
     from mcmcdate_tpu_torch.kernels.prior_terms import prior_terms
     from mcmcdate_tpu_torch.kernels.range_scan import range_scan
     from mcmcdate_tpu_torch.kernels.range_step import range_lik_epilogue, range_lik_prologue
     from mcmcdate_tpu_torch.kernels.whiten import whiten
 
     return {"prior_terms": prior_terms, "whiten": whiten, "accept_select": accept_select,
-            "point_scan": point_scan, "range_lik_prologue": range_lik_prologue,
+            "point_lik_prologue": point_lik_prologue, "point_scan": point_scan,
+            "point_lik_epilogue": point_lik_epilogue, "range_lik_prologue": range_lik_prologue,
             "range_scan": range_scan, "range_lik_epilogue": range_lik_epilogue,
             "contra_slide": contra_slide, "contra_range": contra_range, "glob_scan": glob_scan,
             "glob_dense_prologue": glob_dense_prologue,
@@ -1257,12 +1485,39 @@ def _wrappers():
 
 def _counted(run):
     """Launch counts of every kernel during ``run()``, set to 0 just before
-    it; returns ``(counts, run's result)``."""
+    it, with ``contra_range``'s also by row bucket (``contra_range_16``,
+    ...); returns ``(counts, run's result)``."""
     wrappers = _wrappers()
+    by_rows = wrappers["contra_range"].launches_by_rows
     for w in wrappers.values():
         w.launches = 0
+    for rb in by_rows:
+        by_rows[rb] = 0
     out = run()
-    return {k: w.launches for k, w in wrappers.items()}, out
+    counts = {k: w.launches for k, w in wrappers.items()}
+    counts.update({f"contra_range_{rb}": n for rb, n in by_rows.items()})
+    return counts, out
+
+
+def _check_point_path(name, launches, kern):
+    """The point and range phases of a FastSweeps run went through K4 and
+    K5 alone: one prologue, scan and epilogue per likelihood point step and
+    range block, or without a likelihood one prologue and epilogue and no
+    scan (no plain step), and every contrary range bucket of the plan
+    through K6."""
+    from mcmcdate_tpu_torch.engine import proposals as P
+
+    for step in ("point", "range"):
+        names = tuple(f"{step}_{k}" for k in ("lik_prologue", "scan", "lik_epilogue"))
+        n = {k: launches[k] for k in names}
+        want = n[names[0]] > 0 and n[names[2]] == n[names[0]]
+        want = want and n[names[1]] == (n[names[0]] if kern.use_lik else 0)
+        check(want, f"{name}: the {step} steps launched {n}, not one prologue, "
+              f"{'scan' if kern.use_lik else 'no scan'} and epilogue per step")
+    for (k, rb) in kern.range_t:
+        if k == P.K_SCALE_SUBTREES_CONTRA:
+            check(launches[f"contra_range_{rb}"] > 0,
+                  f"{name}: never launched contra_range on the {rb}-row bucket")
 
 
 def phase_main_path():
@@ -1301,7 +1556,8 @@ def phase_main_path():
         check(0.0 < rate < 1.0, f"overall acceptance {rate}")
         n_sweeps = len(runner.sweep_seconds) * 10
         for k, n in launches.items():
-            check(n > 0, f"the main path never launched {k}")
+            check(n > 0 or k.startswith("contra_range_"), f"the main path never launched {k}")
+        _check_point_path("main path", launches, runner.kern)
         # The sequential model for the last phase: this run's prepared data.
         args = cli.build_parser().parse_args(["run", "-a", "smoke", "--out-dir", tmp])
         seq_model, seq_init = cli._load_model(args, torch.device("cuda"), torch.float32,
@@ -1365,8 +1621,14 @@ def _runner_phase(name, model, init, fast_sweep, n_sweeps, need):
     wall = time.perf_counter() - t0
     for k in need:
         check(launches[k] > 0, f"{name}: never launched {k}")
+    if fast_sweep:
+        _check_point_path(name, launches, runner.kern)
     err, err64 = _check_lp(name, model, batch, lp)
     med = statistics.median(runner.sweep_seconds)
+    if fast_sweep and runner.kern.use_lik:
+        gathered = sum(sx[k].untyped_storage().nbytes() for steps in runner.kern.spec_t.values()
+                       for sx in steps for k in ("Prow", "Pblk") if k in sx)
+        log(f"[{name}] the point steps' Prow and Pblk, gathered once: {gathered / 1e9:.3f} GB")
     log(f"[{name}] {type(runner.kern).__name__}, {model.topo.n_leaves} taxa x {CHAINS} "
         f"chains, {n_sweeps + 1} sweeps in {wall:.1f} s; median {med:.4f} s per sweep "
         f"(chunks of 10) on {torch.cuda.get_device_name(0)}; acceptance {rate:.4f}; carried "
@@ -1381,9 +1643,25 @@ def phase_full_width():
     model, batch = synthetic.build(BENCH_TAXA, 1, device="cuda")
     log(f"[full width] cut: {FULL_WIDTH_SWEEPS} sweeps (+1 for the carry check)")
     return _runner_phase("full width", model, batch, True, FULL_WIDTH_SWEEPS,
-                         ("point_scan", "range_lik_prologue", "range_scan", "range_lik_epilogue",
+                         ("point_lik_prologue", "point_scan", "point_lik_epilogue",
+                          "range_lik_prologue", "range_scan", "range_lik_epilogue",
                           "contra_slide", "contra_range", "glob_scan", "glob_dense_prologue",
                           "glob_dense_epilogue"))
+
+
+def phase_prior_only():
+    import dataclasses
+
+    from mcmcdate_tpu_torch import synthetic
+    from mcmcdate_tpu_torch.ops import mvn
+
+    model, batch = synthetic.build(MAIN_TAXA, 1, device="cuda")
+    model = dataclasses.replace(model, likelihood=mvn.LikelihoodData.none())
+    log(f"[prior only] cut: {PRIOR_ONLY_SWEEPS} sweeps (+1 for the carry check)")
+    return _runner_phase("prior only", model, batch, True, PRIOR_ONLY_SWEEPS,
+                         ("point_lik_prologue", "point_lik_epilogue", "range_lik_prologue",
+                          "range_lik_epilogue", "contra_slide", "contra_range", "glob_scan",
+                          "glob_dense_prologue", "glob_dense_epilogue"))
 
 
 def phase_sequential(seq):
@@ -1405,6 +1683,7 @@ def main():
     log(f"[kernels] all checks took {time.perf_counter() - t0:.1f} s")
     launches, seq = phase_main_path()
     full = phase_full_width()
+    prior = phase_prior_only()
     sequential = phase_sequential(seq)
     check("jax" not in sys.modules, "the port imported jax")
     check(not [m for m in sys.modules if m == "mcmcdate_tpu" or m.startswith("mcmcdate_tpu.")],
@@ -1414,7 +1693,7 @@ def main():
     record = {"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep, launches=launches[k],
              launches_by_path={"main": launches[k], "full_width": full[k],
-                               "sequential": sequential[k]},
+                               "prior_only": prior[k], "sequential": sequential[k]},
              **results[k]) for k, src, rep in KERNELS
     ]}
     print(json.dumps(record), flush=True)

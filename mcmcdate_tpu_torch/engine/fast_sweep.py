@@ -22,7 +22,8 @@ Phases of a sweep, in the JAX package's order:
    ``delta @ P`` product;
 3. the point mega-steps: distance-invariant contrary node slides (kernel
    K6 ``contra_slide``) and the likelihood-coupled node slides and
-   branch-rate scales (kernel K4 ``point_scan`` for the accept scan);
+   branch-rate scales (K4: the kernels ``point_lik_prologue``,
+   ``point_scan`` for the accept scan, and ``point_lik_epilogue``);
 4. the subtree-range blocks: the ultrametric and rate subtree scales
    (K5: the kernels ``range_lik_prologue``, ``range_scan`` for the Gram
    blocks and the accept scan, and ``range_lik_epilogue``) and the
@@ -58,33 +59,21 @@ from ..kernels.glob_step import (
     glob_scan,
     glob_ticket_plain,
 )
-from ..kernels.point_scan import point_scan
+from ..kernels.point_scan import pitched, point_scan
+from ..kernels.point_step import point_lik_epilogue, point_lik_prologue
 from ..kernels.range_scan import kernel_layout, range_scan
-from ..kernels.range_step import (
-    range_lik_epilogue,
-    range_lik_epilogue_plain,
-    range_lik_prologue,
-    range_lik_prologue_plain,
-)
+from ..kernels.range_step import range_lik_epilogue, range_lik_prologue
 from ..kernels.whiten import whiten
 from ..models.dating import DatingModel
 from ..models.state import FIELDS, State
 from ..ops import mvn
-from ..ops.dists import gamma_scale_sample, standard_gamma, truncated_normal_sample
+from ..ops.dists import standard_gamma
 from ..ops.heights import distances_internal
-from ..ops.local_terms import (
-    NEG_INF,
-    clock_term_local,
-    is_bad,
-    slide_terms,
-    sum_valid,
-)
 from ..ops.node_priors import SQRT_2_OVER_PI
 from . import proposals as P
 from .mh import Carry, MHKernel
 
 BATCH_MAX = 512
-SUB = 64  # correction-scan sub-block size
 
 
 # ---------------------------------------------------------------------------
@@ -618,6 +607,10 @@ class FastSweeps:
         self.pos_t = torch.as_tensor(np.asarray(topo.internal_pos, np.int32), device=dev)
         self.is_leaf_t = topo.is_leaf_t
         self.spec_t = {k: step_tensors(s, dev, dt) for k, s in self.plan.specs.items()}
+        for k, steps in self.spec_t.items():
+            if k != P.K_SLIDE_NODES_CONTRA:
+                for sx in steps:
+                    self._point_rows(sx)
         self.range_t = {k: step_tensors(s, dev, dt) for k, s in self.plan.range_specs.items()}
         for (k, _), steps in self.range_t.items():
             if k != P.K_SCALE_SUBTREES_CONTRA:
@@ -662,6 +655,21 @@ class FastSweeps:
             prow = self.P[sx["d_flat"]] * ok[:, None]
             sx["Prow"] = prow
             sx["Q"] = kernel_layout(prow[:, sx["d_flat"]] * ok[None, :])
+
+    def _point_rows(self, sx: dict):
+        """The distance rows of a likelihood point step, ``d_flat`` ``[B KD]``
+        (0 on pad rows), and with a likelihood the step's precision rows
+        ``Prow = P[d_flat]`` ``[B KD, D]`` and ``Pblk = Prow[:, d_flat]``
+        ``[B KD, B KD]`` (zero on pad rows and columns; its rows on a
+        16-byte pitch for K4), gathered once, as :meth:`_range_rows` does
+        for the range blocks."""
+        d_ok = sx["d_rows"] >= 0
+        sx["d_flat"] = torch.clamp(sx["d_rows"], min=0).reshape(-1).contiguous()
+        if self.use_lik:
+            ok = d_ok.reshape(-1).to(self.P.dtype)
+            prow = self.P[sx["d_flat"]] * ok[:, None]
+            sx["Prow"] = prow
+            sx["Pblk"] = pitched(prow[:, sx["d_flat"]] * ok[None, :])
 
     # -- precision/Cholesky right-multiplications -----------------------
 
@@ -728,96 +736,27 @@ class FastSweeps:
 
     def point_lik_step(self, kind: int, carry: FastCarry, tuning, sx: dict, draw, u_acc):
         """One mega-step of likelihood-coupled node slides or branch-rate
-        scales, with the exact sequential-correction accept scan (kernel
-        K4).  ``draw`` is the truncated-normal uniform or standard-gamma
-        variate ``[C, B]``.  Returns the ``[C, B]`` accept mask."""
-        model = self.model
-        is_branch = kind == P.K_SCALE_BRANCH_RATE
-        batch, terms, d = carry.batch, carry.terms, carry.d
-        node, par, ch, valid = sx["node"], sx["par"], sx["ch"], sx["valid"]
-        t_rows, d_rows, rows, sd = sx["t_rows"], sx["d_rows"], sx["rows"], sx["sd"]
-        C, B = draw.shape
-        kc, kd, kt = ch.shape[-1], d_rows.shape[-1], t_rows.shape[-1]
-        h, r = batch.heights, batch.rates
-        tune = tuning[:, rows]
-        var = batch.rate_var[:, None]
-        d_ok = d_rows >= 0
-        d_safe = torch.clamp(d_rows, min=0)
-        d_old = d[:, d_safe]                                  # [C, B, KD]
-
-        if is_branch:
-            u, base, logu = gamma_scale_sample(draw, sd, tune)
-            r_new = r[:, node] * u
-            lq = base + logu
-            tn0 = clock_term_local(model.clock, r_new, h[:, par] - h[:, node], var)[..., None]
-            tn = torch.cat([tn0, tn0.new_zeros(tn0.shape[:-1] + (kt - 1,))], dim=-1)
-            d_new = torch.where(d_ok, d_old * u[..., None], d_old)
-        else:
-            hi = h[:, node]
-            hp = h[:, par]
-            ch_ok = ch >= 0
-            ch_i = torch.clamp(ch, min=0)
-            hch = h[:, ch_i]                                   # [C, B, KC]
-            hc_max = torch.where(ch_ok, hch, NEG_INF).amax(dim=-1)
-            hnew, lq = truncated_normal_sample(draw, hi, sd, tune, hc_max, hp)
-            tn = slide_terms(model.clock, batch, self.is_leaf_t, sx, hnew, hp, hch, r[:, node],
-                             r[:, ch_i])
-            # New distance rows: the node's own branch gets t = hp - hnew,
-            # a child c's branch t = hnew - h_c; d = scale * t * r.
-            sc = (batch.height * batch.rate_mean)[:, None]
-            pos = self.pos_t
-            pos_i = pos[node]
-            d_new = d_old.clone()
-            for slot in range(kd):
-                is_i = d_rows[:, slot] == pos_i
-                t_val = torch.where(is_i, hp - hnew, 0.0)
-                r_val = torch.where(is_i, r[:, node], 0.0)
-                for j in range(kc):
-                    cj = ch_i[:, j]
-                    owns = (d_rows[:, slot] == pos[cj]) & ch_ok[:, j]
-                    t_val = torch.where(owns, hnew - h[:, cj], t_val)
-                    r_val = torch.where(owns, r[:, cj], r_val)
-                d_new[:, :, slot] = torch.where(d_ok[:, slot], sc * t_val * r_val,
-                                                d_old[:, :, slot])
-
-        delta = torch.where(d_ok, d_new - d_old, 0.0)          # [C, B, KD]
-        t_ok = t_rows >= 0
-        t_safe = torch.clamp(t_rows, min=0)
-        told = terms[:, t_safe]
-        d_pr = sum_valid(torch.where(t_ok, tn - told, 0.0))
-        invalid = torch.any(t_ok & is_bad(tn), dim=-1)
-        lmhg = torch.where(invalid | ~valid, NEG_INF, lq)
-
+        scales, with the exact sequential-correction accept scan: the
+        prologue kernel draws the proposals and evaluates their terms and
+        distance deltas, K4 (``point_scan``) runs the accept scan, the
+        epilogue kernel writes the accepted tickets back, and one product
+        updates ``z``.  ``Pblk`` and ``Prow`` are the step's own (built with
+        the plan).  Without a likelihood the prologue and the epilogue run
+        alone, the epilogue taking the decisions.  ``draw`` is the
+        truncated-normal uniform or standard-gamma variate ``[C, B]``.
+        Returns the ``[C, B]`` accept mask."""
+        m = self.model
+        branch = kind == P.K_SCALE_BRANCH_RATE
+        args = (branch, carry.batch, carry.terms, carry.d)
         if not self.use_lik:
-            log_alpha = d_pr + lmhg
-            log_alpha = torch.where(torch.isnan(log_alpha), NEG_INF, log_alpha)
-            accept = torch.log(u_acc) < log_alpha
-        else:
-            d_flat = d_safe.reshape(-1)
-            ok_flat = d_ok.reshape(-1).to(d.dtype)
-            Prow = self.P[d_flat] * ok_flat[:, None]           # [B*KD, D]
-            Pblk = Prow[:, d_flat] * ok_flat[None, :]          # [B*KD, B*KD]
-            zG = carry.z[:, d_flat] * ok_flat                  # [C, B*KD]
-            accept, dq_all = point_scan(delta.contiguous(), zG.contiguous(),
-                                        Pblk.contiguous(), d_pr, lmhg, u_acc)
-
-        # --- apply ---
-        accept = accept & valid
-        a = accept[..., None]
-        if is_branch:
-            r[:, node] = torch.where(accept, r_new, r[:, node])
-        else:
-            h[:, node] = torch.where(accept, hnew, h[:, node])
-        terms[:, t_safe] = torch.where(a & t_ok, tn, told)
-        if self.use_lik:
-            # Tickets of a step touch disjoint rows and pad slots add zero.
-            dacc = torch.where(a & d_ok, delta, 0.0).reshape(C, B * kd)
-            d.index_add_(1, d_flat, dacc)
-            carry.z += dacc @ Prow
-            carry.q += torch.sum(torch.where(accept, dq_all, 0.0), dim=-1)
-        else:
-            d[:, d_safe] = torch.where(a & d_ok, d_new, d_old)
-        carry.acc.index_add_(1, rows, accept.to(carry.acc.dtype))
+            pro = point_lik_prologue(*args, None, tuning, sx, self.is_leaf_t, self.pos_t, m.clock,
+                                     draw)
+            return point_lik_epilogue(*args, carry.q, carry.acc, sx, pro, None, None, u_acc)[0]
+        pro = point_lik_prologue(*args, carry.z, tuning, sx, self.is_leaf_t, self.pos_t, m.clock,
+                                 draw)
+        accept, dq = point_scan(pro.delta, pro.zG, sx["Pblk"], pro.d_pr, pro.lmhg, u_acc)
+        accept, dacc = point_lik_epilogue(*args, carry.q, carry.acc, sx, pro, accept, dq)
+        carry.z.addmm_(dacc, sx["Prow"])
         return accept
 
     # -- subtree-range blocks ---------------------------------------------
@@ -838,17 +777,15 @@ class FastSweeps:
         (``range_scan``) forms the Gram blocks ``g_a' Q_ab g_b`` and runs the
         accept scan, the epilogue kernel writes the accepted tickets back,
         and one product updates ``z``.  ``Q`` and ``Prow`` are the block's
-        own (built with the plan).  Without a likelihood the plain prologue
-        and epilogue run alone.  Returns the ``[C, S]`` accept mask."""
+        own (built with the plan).  Without a likelihood the prologue and
+        the epilogue run alone, the epilogue taking the decisions.  Returns
+        the ``[C, S]`` accept mask."""
         m = self.model
         rate = kind == P.K_SCALE_SUBTREE_RATE
         args = (rate, carry.batch, carry.terms, carry.d)
         if not self.use_lik:
-            pro = range_lik_prologue_plain(*args, None, tuning, sx, m.topo.is_leaf_t, m.clock,
-                                           draw)
-            log_alpha = pro.d_pr + pro.lmhg
-            accept = torch.log(u_acc) < torch.where(torch.isnan(log_alpha), NEG_INF, log_alpha)
-            return range_lik_epilogue_plain(*args, carry.q, carry.acc, sx, pro, accept, None)[0]
+            pro = range_lik_prologue(*args, None, tuning, sx, m.topo.is_leaf_t, m.clock, draw)
+            return range_lik_epilogue(*args, carry.q, carry.acc, sx, pro, None, None, u_acc)[0]
         pro = range_lik_prologue(*args, carry.z, tuning, sx, m.topo.is_leaf_t, m.clock, draw)
         accept, dq = range_scan(pro.g, pro.zg, sx["Q"], pro.coef, pro.d_pr, pro.lmhg, u_acc)
         accept, dacc = range_lik_epilogue(*args, carry.q, carry.acc, sx, pro, accept, dq)

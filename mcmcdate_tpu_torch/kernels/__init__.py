@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
 One wrapper module per kernel: ``prior_terms`` (K1), ``whiten`` (K2) and
-``accept_select`` (K3) for the sequential sweep, ``point_scan`` (K4), K5 (the
+``accept_select`` (K3) for the sequential sweep, K4 (the likelihood point
+step: ``point_step``'s ``point_lik_prologue`` and ``point_lik_epilogue``
+around ``point_scan``, the accept scan), K5 (the
 likelihood range-block step: ``range_step``'s ``range_lik_prologue`` and
 ``range_lik_epilogue`` around ``range_scan``, the Gram blocks and accept
 scan), ``contra_step`` (K6, with two wrappers: ``contra_slide`` and

@@ -18,10 +18,13 @@ every (chain, ticket) pair is independent.
 On the H100 both are bound by their special functions (ndtr, ndtri,
 log_ndtr, lgamma and the double-precision birth-death exp/log per touched
 node); their bytes are a few gathered floats per (chain, ticket) and
-touched node.  The kernels (``csrc/contra_step.cu``) run one thread per
-(chain, ticket) and keep every intermediate in registers (the range mode
-walks the subtree's rows twice, the second time in reverse pre-order to
-write): one launch per step in place of the plain version's ~150.
+touched node.  The kernels (``csrc/contra_step.cu``) keep every
+intermediate in registers, one launch per step in place of the plain
+version's ~150: the slide mode runs one thread per (chain, ticket), the
+range mode a group of lanes per (chain, ticket) (:func:`group_width`: a
+power of 2 up to a warp, about ``ROWS_PER_LANE`` rows a lane), its lanes
+striding over the subtree's rows (at most 8 a lane) and summing with
+shuffles.
 
 Both wrappers return a :class:`ContraOut`: besides the accept mask, each
 ticket's log acceptance ratio and the proposal it drew, so that a check
@@ -65,10 +68,21 @@ _RANGE_ARGTYPES = (
     + (_P,) * 9  # node, par, own, own_par, rows, valid, sd, n_inner, n_nodes
     + (_P,) * 6  # cal_t_rows, cal_hsrc, cal_lo, cal_lo_s, cal_hi, cal_hi_s
     + (_P,) * 7  # is_leaf, u_prop, u_acc, accept, log_alpha, h_prop, lq
-    + (_I,) * 8  # C, S, N, T, P, RB, KN, clock_model
+    + (_I,) * 9  # C, S, N, T, P, RB, KN, clock_model, width
     + (_P,)  # stream
 )
 KT_MAX = 64  # touched terms per ticket the slide kernel holds in registers
+# Range rows a lane of the group takes (up to 8): every lane also evaluates
+# the ticket's proposal, about 3 rows' work, so 4 rows a lane measured
+# fastest on all three buckets (PERF.md).
+ROWS_PER_LANE = 4
+CAL_PER_LANE = 4  # calibration slots a lane holds
+ROWS_MAX = 8 * 32  # subtree rows per ticket the range kernel holds (8 per lane)
+CAL_MAX = CAL_PER_LANE * 32  # calibration slots per ticket the range kernel holds
+# The range blocks' row buckets (``engine.fast_sweep.RANGE_BUCKETS``): a
+# block's rows (its largest subtree) fall in one of them, by which the
+# range launches are counted too (``contra_range.launches_by_rows``).
+ROW_BUCKETS = (16, 64, 256)
 
 
 class ContraOut(NamedTuple):
@@ -175,6 +189,16 @@ def contra_range_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_ac
     return ContraOut(accept, log_alpha, hnew, lq)
 
 
+def group_width(rows: int, cal: int) -> int:
+    """Lanes per (chain, ticket) of the range kernel: enough for
+    ``ROWS_PER_LANE`` rows and ``CAL_PER_LANE`` calibration slots a lane, a
+    power of 2, at most a warp."""
+    width = 1
+    while width < 32 and (width * ROWS_PER_LANE < rows or width * CAL_PER_LANE < cal):
+        width *= 2
+    return width
+
+
 def _check_inputs(state, terms, acc, tuning, sx, is_leaf, u_prop, u_acc, ints):
     for name, t in (("heights", state.heights), ("rates", state.rates), ("terms", terms),
                     ("tuning", tuning), ("birth", state.birth), ("death", state.death),
@@ -244,6 +268,9 @@ def contra_range(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc):
     C, N = state.heights.shape
     S, RB = sx["own"].shape
     KN = sx["cal_t_rows"].shape[-1]
+    if RB > ROWS_MAX or KN > CAL_MAX:
+        raise ValueError(f"contra_range: {RB} rows and {KN} calibration slots per ticket, the "
+                         f"kernel holds {ROWS_MAX} and {CAL_MAX}")
     _check_inputs(state, terms, acc, tuning, sx, is_leaf, u_prop, u_acc,
                   ("node", "par", "own", "own_par", "rows", "n_inner", "n_nodes", "cal_t_rows",
                    "cal_hsrc"))
@@ -258,12 +285,15 @@ def contra_range(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc):
         p(sx["n_inner"]), p(sx["n_nodes"]), *map(p, cal),
         p(is_leaf), p(u_prop), p(u_acc), p(accept), p(log_alpha), p(h_prop), p(lq),
         C, S, N, terms.shape[1], acc.shape[1], RB, KN, clocks.MODELS.index(clock),
-        build.stream_ptr(terms.device),
+        group_width(RB, KN), build.stream_ptr(terms.device),
     )
     build.check(err, "contra_range kernel")
     contra_range.launches += 1
+    bucket = next(b for b in ROW_BUCKETS if RB <= b)
+    contra_range.launches_by_rows[bucket] += 1
     return ContraOut(accept, log_alpha, h_prop, lq)
 
 
 contra_slide.launches = 0
 contra_range.launches = 0
+contra_range.launches_by_rows = dict.fromkeys(ROW_BUCKETS, 0)

@@ -1,6 +1,6 @@
 // Asynchronous global -> shared copies (cp.async, sm_80 and later), shared
-// by the kernels that stage tiles through shared memory (K2 whiten, K5
-// range_scan).  4-byte copies stage rows of any length and alignment, and
+// by the kernels that stage tiles through shared memory (K2 whiten, K4
+// point_scan, K5 range_scan).  4-byte copies stage rows of any length and alignment, and
 // a false predicate writes a zero without reading global memory (the zero
 // fill of ragged and padded tiles); bulk copies (below) move whole rows
 // whose pitch is a multiple of 16 bytes.
@@ -18,6 +18,14 @@ __device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool 
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = pred ? 4 : 0;
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+
+// Copy 16 bytes (4 floats) from global ``src`` to shared ``dst``, both
+// 16-byte aligned, or write zeros when ``pred`` is false.  Bypasses L1.
+__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

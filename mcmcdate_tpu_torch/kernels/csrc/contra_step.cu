@@ -16,16 +16,27 @@
 // s scales the subtree of node i (rows own[s, :], pre-order, disjoint from
 // the other tickets' subtrees) by xi = h_i'/h_i, the rates inside by 1/xi
 // and the stem rate by (h_p - h_i)/(h_p - h_i'), with every node's
-// birth-death and clock term and the calibrations inside.  A thread walks
-// its subtree once to decide and, if it accepts, once more in reverse
-// pre-order to write (a child before its parent, so each row still reads
-// its parent's old height).
+// birth-death and clock term and the calibrations inside.
 //
-// What bounds it on the H100: special functions (erfc, erfcx, the inverse
+// What bounds them on the H100: special functions (erfc, erfcx, the inverse
 // normal CDF, lgamma, and the birth-death exp/log in double), a few
 // gathered floats per (chain, ticket) and touched node in and out.  The
-// design: one thread per (chain, ticket), everything in registers, one
-// launch per step.  Besides the accept mask, each thread writes its log
+// slide mode runs one thread per (chain, ticket), everything in registers.
+// The range mode takes a group of `width` lanes per (chain, ticket), a
+// power of 2 up to a warp that the wrapper picks for about 4 rows a lane
+// (4 lanes for the 16-row bucket, 16 for the 64-row one, 32 for the
+// 256-row one at 8 rows a lane): every lane evaluates the ticket's
+// proposal, about 3 rows' work, so a narrower group repeats it fewer
+// times, and 4 rows a lane measured faster than a lane per row.
+// Every lane draws the proposal from the same uniform (the same bits, no
+// broadcast); the lanes stride over the subtree's rows and calibration
+// slots, keeping each row's new height, rate and terms in registers (at
+// most 8 rows and 4 slots a lane), and shuffles within the group sum the
+// prior delta and OR the invalid flags.
+// Every lane reads all it reads before the warp synchronises and writes
+// only after it, so a row is written after every read of its old height
+// (its children's parent height): no order of the rows is needed, and no
+// term is evaluated twice.  Besides the accept mask, each ticket writes its log
 // acceptance ratio and the proposal it drew (h_i' and the log proposal
 // ratio), so that a check can replay its proposals through the plain
 // version.
@@ -39,12 +50,16 @@
 #include <math.h>
 
 #include "device_math.cuh"
+#include "lane_groups.cuh"
 
 namespace {
 
 using namespace mcmcdate;
 
 constexpr int kKtMax = 64;
+constexpr int kThreads = 256;
+constexpr int kRowsPerLane = 8;  // range rows a lane holds: RB <= 8 * 32
+constexpr int kCalPerLane = 4;   // range calibration slots a lane holds
 
 struct SlideArgs {
   float* heights;  // [C, N]
@@ -229,78 +244,100 @@ __device__ __forceinline__ RowNew range_row(const RangeArgs& a, const float* h, 
   return out;
 }
 
-__global__ void contra_range_kernel(RangeArgs a) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= a.C * a.S) return;
-  const int c = idx / a.S;
-  const int s = idx - c * a.S;
-  if (!a.valid[s]) {
-    reject_pad(a.accept, a.log_alpha, a.h_prop, a.lq, idx);
-    return;
-  }
+// One group of `width` lanes per (chain, ticket); the groups of a warp never
+// return early, so that every lane takes part in the shuffles and the
+// barrier.
+__global__ void __launch_bounds__(kThreads) contra_range_kernel(RangeArgs a, int width) {
+  const long gid = ((long)blockIdx.x * blockDim.x + threadIdx.x) / width;
+  const int lane = threadIdx.x % width;
+  const bool live = gid < (long)a.C * a.S;
+  const int c = live ? (int)(gid / a.S) : 0;
+  const int s = live ? (int)(gid - (long)c * a.S) : 0;
+  const bool act = live && a.valid[s];
+  const size_t cs = (size_t)c * a.S + s;
   float* h = a.heights + (size_t)c * a.N;
   float* r = a.rates + (size_t)c * a.N;
   float* te = a.terms + (size_t)c * a.T;
   const int i = a.node[s];
-  const float hi = h[i];
-  const float hp = h[a.par[s]];
   const int row = a.rows[s];
-  float hnew, lq;
-  truncnorm_sample(a.u_prop[idx], hi, a.sd[s], a.tuning[(size_t)c * a.P + row], 0.f, hp,
-                   &hnew, &lq);
-  const float xi = hnew / hi;
-  const float xi_stem = (hp - hi) / (hp - hnew);
+  float hnew = NAN, lq = NAN, xi = NAN, xi_stem = NAN;
+  if (act) {
+    const float hi = h[i];
+    const float hp = h[a.par[s]];
+    truncnorm_sample(a.u_prop[cs], hi, a.sd[s], a.tuning[(size_t)c * a.P + row], 0.f, hp,
+                     &hnew, &lq);
+    xi = hnew / hi;
+    xi_stem = (hp - hi) / (hp - hnew);
+  }
   const double la = a.birth[c], mu = a.death[c];
   const float var = a.rate_var[c];
   const int o_ck = 4 + a.N + 1;
-  float d_rows = 0.f;
+  float d_rows = 0.f, d_cal = 0.f;
   bool invalid = false;
-  for (int k = 0; k < a.RB; ++k) {
-    const RowNew n = range_row(a, h, r, s, k, i, xi, xi_stem, la, mu, var);
-    if (n.o < 0) continue;
-    const float diff = (n.bd - te[4 + n.o]) + (n.ck - te[o_ck + n.o]);
+  RowNew nr[kRowsPerLane];
+#pragma unroll
+  for (int j = 0; j < kRowsPerLane; ++j) {
+    const int k = lane + j * width;
+    nr[j].o = -1;
+    if (!act || k >= a.RB) continue;
+    nr[j] = range_row(a, h, r, s, k, i, xi, xi_stem, la, mu, var);
+    if (nr[j].o < 0) continue;
+    const float diff = (nr[j].bd - te[4 + nr[j].o]) + (nr[j].ck - te[o_ck + nr[j].o]);
     if (!isnan(diff)) d_rows += diff;
-    if (isnan(n.bd) || n.bd == -INFINITY || isnan(n.ck) || n.ck == -INFINITY) invalid = true;
+    invalid = invalid || is_bad(nr[j].bd) || is_bad(nr[j].ck);
   }
-  float d_pr = d_rows;
-  if (a.KN > 0) {
-    float d_cal = 0.f;
-    for (int j = 0; j < a.KN; ++j) {
-      const size_t kk = (size_t)s * a.KN + j;
-      if (a.cal_t_rows[kk] < 0) continue;
-      const float cn = cal_term_local(xi * h[a.cal_hsrc[kk]], a.height[c], a.cal_lo[kk],
-                                      a.cal_lo_s[kk], a.cal_hi[kk], a.cal_hi_s[kk]);
-      const float dc = cn - te[a.cal_t_rows[kk]];
-      if (!isnan(dc)) d_cal += dc;
-      if (isnan(cn) || cn == -INFINITY) invalid = true;
-    }
-    d_pr = d_rows + d_cal;
+  int cal_t[kCalPerLane];
+  float cal_v[kCalPerLane];
+#pragma unroll
+  for (int j = 0; j < kCalPerLane; ++j) {
+    const int jj = lane + j * width;
+    cal_t[j] = -1;
+    if (!act || jj >= a.KN) continue;
+    const size_t kk = (size_t)s * a.KN + jj;
+    cal_t[j] = a.cal_t_rows[kk];
+    if (cal_t[j] < 0) continue;
+    cal_v[j] = cal_term_local(xi * h[a.cal_hsrc[kk]], a.height[c], a.cal_lo[kk], a.cal_lo_s[kk],
+                              a.cal_hi[kk], a.cal_hi_s[kk]);
+    const float dc = cal_v[j] - te[cal_t[j]];
+    if (!isnan(dc)) d_cal += dc;
+    invalid = invalid || is_bad(cal_v[j]);
   }
+  d_rows = group_sum(d_rows, width);
+  d_cal = group_sum(d_cal, width);
+  invalid = group_any(invalid, width);
+  const float d_pr = a.KN > 0 ? d_rows + d_cal : d_rows;
   const float log_jac = (float)(a.n_inner[s] - a.n_nodes[s]) * logf(xi) + logf(xi_stem);
   float log_alpha = d_pr + lq + log_jac;
   if (invalid || isnan(log_alpha)) log_alpha = -INFINITY;
-  const bool acc = logf(a.u_acc[idx]) < log_alpha;
-  a.accept[idx] = acc;
-  a.log_alpha[idx] = log_alpha;
-  a.h_prop[idx] = hnew;
-  a.lq[idx] = lq;
+  const bool acc = act && logf(a.u_acc[cs]) < log_alpha;
+  if (lane == 0 && live) {
+    if (act) {
+      a.accept[cs] = acc;
+      a.log_alpha[cs] = log_alpha;
+      a.h_prop[cs] = hnew;
+      a.lq[cs] = lq;
+    } else {
+      reject_pad(a.accept, a.log_alpha, a.h_prop, a.lq, cs);
+    }
+  }
+  // Every lane of the group has read the old heights, rates and terms it
+  // needs; from here on it only writes.
+  __syncwarp();
   if (!acc) return;
-  // Calibrations first: they read heights the row loop overwrites.
-  for (int j = 0; j < a.KN; ++j) {
-    const size_t kk = (size_t)s * a.KN + j;
-    if (a.cal_t_rows[kk] < 0) continue;
-    te[a.cal_t_rows[kk]] = cal_term_local(xi * h[a.cal_hsrc[kk]], a.height[c], a.cal_lo[kk],
-                                          a.cal_lo_s[kk], a.cal_hi[kk], a.cal_hi_s[kk]);
+#pragma unroll
+  for (int j = 0; j < kRowsPerLane; ++j) {
+    const int o = nr[j].o;
+    if (o < 0) continue;
+    te[4 + o] = nr[j].bd;
+    te[o_ck + o] = nr[j].ck;
+    h[o] = nr[j].h;
+    r[o] = nr[j].r;
   }
-  for (int k = a.RB - 1; k >= 0; --k) {
-    const RowNew n = range_row(a, h, r, s, k, i, xi, xi_stem, la, mu, var);
-    if (n.o < 0) continue;
-    te[4 + n.o] = n.bd;
-    te[o_ck + n.o] = n.ck;
-    h[n.o] = n.h;
-    r[n.o] = n.r;
+#pragma unroll
+  for (int j = 0; j < kCalPerLane; ++j) {
+    if (cal_t[j] >= 0) te[cal_t[j]] = cal_v[j];
   }
-  a.acc[(size_t)c * a.P + row] += 1;
+  if (lane == 0) a.acc[(size_t)c * a.P + row] += 1;
 }
 
 }  // namespace
@@ -314,15 +351,21 @@ extern "C" int mcmcdate_contra_range_f32(
     const float* cal_hi, const float* cal_hi_s, const unsigned char* is_leaf,
     const float* u_prop, const float* u_acc, unsigned char* accept, float* log_alpha,
     float* h_prop, float* lq, int C, int S, int N, int T, int P, int RB, int KN,
-    int clock_model, void* stream) {
+    int clock_model, int width, void* stream) {
   RangeArgs a{heights, rates,   terms,      acc,      tuning,    birth,  death,    rate_var,
               height,  node,    par,        own,      own_par,   rows,   valid,    sd,
               n_inner, n_nodes, cal_t_rows, cal_hsrc, cal_lo,    cal_lo_s, cal_hi, cal_hi_s,
               is_leaf, u_prop,  u_acc,      accept,   log_alpha, h_prop, lq,       C,
               S,       N,       T,          P,        RB,        KN,     clock_model};
-  const int n = C * S;
-  if (n > 0) {
-    contra_range_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(a);
+  // width: lanes per (chain, ticket), a power of 2 up to a warp.
+  if (width < 1 || width > 32 || (width & (width - 1)) || RB > kRowsPerLane * width ||
+      KN > kCalPerLane * width) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long threads = (long)C * S * width;
+  if (threads > 0) {
+    contra_range_kernel<<<(int)((threads + kThreads - 1) / kThreads), kThreads, 0,
+                          (cudaStream_t)stream>>>(a, width);
   }
   return (int)cudaGetLastError();
 }

@@ -42,6 +42,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "lane_groups.cuh"
 #include "prior_terms.cuh"
 
 namespace {
@@ -138,12 +139,6 @@ __device__ __forceinline__ ModelArgs model_of(const GlobArgs& a) {
                    a.rho,       a.cal_node,     a.cal_lower, a.cal_lower_pm, a.cal_upper,
                    a.cal_upper_pm, a.n_cal,     a.con_young, a.con_old,   a.con_pm,
                    a.n_con,     a.br_node,      a.br_sd,   a.n_br,        a.br_width};
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // Sums each of v[0..K) over the CTA (every thread gets the totals, summed

@@ -45,6 +45,7 @@
 #include <math.h>
 
 #include "async_copy.cuh"
+#include "lane_groups.cuh"
 
 namespace {
 
@@ -71,12 +72,6 @@ size_t smem_bytes(int S, int F) {
                           + (size_t)F * kChains             // g
                           + kWarps * kChains                // warp partials
                           + 6 * (size_t)kChains * S);       // v, coef, d_pr, lmhg, log u, steps
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // Qt[j * ldq + m] = Q[m, j]: Q's columns as rows of pitch ldq (a multiple

@@ -16,12 +16,15 @@
 // log ratio lq (with the Jacobian's log f terms), each row's new height or
 // rate with its birth-death (in double) and clock terms, the calibration
 // terms inside the range, d_pr, lmhg = invalid ? -inf : lq, coef = f - 1,
-// and each row's delta direction g and carried z (zg).
+// and each row's delta direction g and, with a likelihood (z not null), its
+// carried z (zg).
 // range_lik_epilogue_kernel: for the accepted tickets, the stores of the
 // new heights or rates and terms, d += coef g (rows are disjoint within a
 // block, so plain stores suffice), the accept counts, q += the accepted
-// dq (summed in a fixed order), and dacc (coef g where accepted, else 0)
-// for the z update.
+// dq (summed in a fixed order; skipped without a likelihood, dq null), and
+// dacc (coef g where accepted, else 0) for the z update.  Without a
+// likelihood it also takes the decisions, log u < d_pr + lmhg (u_acc not
+// null, accept written).
 //
 // What bounds them on the H100: special functions (the inverse normal CDF
 // and erfc, or lgamma, per ticket; the birth-death exp/log in double and a
@@ -45,6 +48,7 @@
 #include <math.h>
 
 #include "device_math.cuh"
+#include "lane_groups.cuh"
 
 namespace {
 
@@ -58,7 +62,7 @@ struct PrologueArgs {
   const float* rates;    // [C, N]
   const float* terms;    // [C, T]
   const float* d;        // [C, D]
-  const float* z;        // [C, D]
+  const float* z;        // [C, D], null without a likelihood
   const float* tuning;   // [C, P]
   const float* birth;    // [C]
   const float* death;
@@ -89,34 +93,13 @@ struct PrologueArgs {
   float* d_pr;    // [C, S]
   float* lmhg;    // [C, S]
   float* g;       // [C, S, RB]
-  float* zg;      // [C, S, RB]
+  float* zg;      // [C, S, RB] (with z)
   float* x_new;   // [C, S, RB]
   float* bd_new;  // [C, S, RB] (ultrametric only)
   float* ck_new;  // [C, S, RB]
   float* cal_new;  // [C, S, KN]
   int C, S, N, T, P, D, RB, KN, clock_model, rate;
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ bool is_bad(float x) { return isnan(x) || x == -INFINITY; }
-
-// Sum over the aligned group of `width` lanes (a power of 2 up to 32); every
-// lane of the warp takes part.
-__device__ __forceinline__ float group_sum(float v, int width) {
-  for (int off = width / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ bool group_any(bool b, int width) {
-  int v = b;
-  for (int off = width / 2; off > 0; off >>= 1) v |= __shfl_xor_sync(0xffffffffu, v, off);
-  return v != 0;
-}
 
 // One group of `width` lanes per (chain, ticket); the groups of a warp
 // never return early, so that every lane takes part in the shuffles.
@@ -167,7 +150,7 @@ __global__ void __launch_bounds__(kThreads) range_lik_prologue_kernel(PrologueAr
     const int o = a.own[m];
     if (!act || o < 0) {
       a.g[at] = 0.f;
-      a.zg[at] = 0.f;
+      if (a.z != nullptr) a.zg[at] = 0.f;
       a.x_new[at] = 0.f;
       if (!a.rate) a.bd_new[at] = 0.f;
       a.ck_new[at] = 0.f;
@@ -199,7 +182,7 @@ __global__ void __launch_bounds__(kThreads) range_lik_prologue_kernel(PrologueAr
     if (!isnan(dck)) s_ck += dck;
     bad = bad || is_bad(ck);
     a.g[at] = gg;
-    a.zg[at] = a.z[(size_t)c * a.D + dpos];
+    if (a.z != nullptr) a.zg[at] = a.z[(size_t)c * a.D + dpos];
     a.x_new[at] = xn;
     a.ck_new[at] = ck;
   }
@@ -243,8 +226,11 @@ struct EpilogueArgs {
   float* q;        // [C]
   int* acc;        // [C, P]
   float* dacc;     // [C, S, RB]
-  const unsigned char* accept;  // [C, S]
-  const float* dq;              // [C, S]
+  unsigned char* accept;        // [C, S] (written when u_acc is given)
+  const float* dq;              // [C, S], null without a likelihood
+  const float* u_acc;           // [C, S], null with a likelihood
+  const float* d_pr;            // [C, S]
+  const float* lmhg;            // [C, S]
   const float* coef;            // [C, S]
   const float* g;               // [C, S, RB]
   const float* x_new;           // [C, S, RB]
@@ -269,7 +255,15 @@ __global__ void __launch_bounds__(kThreads) range_lik_epilogue_kernel(EpilogueAr
   float* te = a.terms + (size_t)c * a.T;
   float* x = (a.rate ? a.rates : a.heights) + (size_t)c * a.N;
   const int o_ck = 4 + a.N + 1;
-  const bool ok = a.accept[cs] && a.valid[s];
+  bool ok;
+  if (a.u_acc != nullptr) {
+    // The plain version's log u < (NaN ? -inf : d_pr + lmhg): a NaN
+    // compares false as well.
+    ok = logf(a.u_acc[cs]) < a.d_pr[cs] + a.lmhg[cs] && a.valid[s];
+    if (lane == 0) a.accept[cs] = ok;
+  } else {
+    ok = a.accept[cs] && a.valid[s];
+  }
   const float cf = a.coef[cs];
   for (int k = lane; k < a.RB; k += 32) {
     const size_t m = (size_t)s * a.RB + k;
@@ -293,7 +287,7 @@ __global__ void __launch_bounds__(kThreads) range_lik_epilogue_kernel(EpilogueAr
     }
     if (lane == 0) a.acc[(size_t)c * a.P + a.rows[s]] += 1;
   }
-  if (s == 0) {
+  if (s == 0 && a.dq != nullptr) {
     // q += the chain's accepted dq, lanes over the tickets, in a fixed order.
     float q_acc = 0.f;
     for (int t = lane; t < a.S; t += 32) {
@@ -344,16 +338,19 @@ extern "C" int mcmcdate_range_lik_prologue_f32(
 
 extern "C" int mcmcdate_range_lik_epilogue_f32(
     float* heights, float* rates, float* terms, float* d, float* q, int* acc, float* dacc,
-    const unsigned char* accept, const float* dq, const float* coef, const float* g,
-    const float* x_new, const float* bd_new, const float* ck_new, const float* cal_new,
-    const int* own, const int* d_flat, const int* rows, const unsigned char* valid,
-    const int* cal_t_rows, int C, int S, int N, int T, int P, int D, int RB, int KN, int rate,
-    void* stream) {
+    unsigned char* accept, const float* dq, const float* u_acc, const float* d_pr,
+    const float* lmhg, const float* coef, const float* g, const float* x_new,
+    const float* bd_new, const float* ck_new, const float* cal_new, const int* own,
+    const int* d_flat, const int* rows, const unsigned char* valid, const int* cal_t_rows,
+    int C, int S, int N, int T, int P, int D, int RB, int KN, int rate, void* stream) {
   if (!rate && bd_new == nullptr) return (int)cudaErrorInvalidValue;
-  EpilogueArgs a{heights, rates, terms, d,     q,      acc,    dacc,  accept, dq,
-                 coef,    g,     x_new, bd_new, ck_new, cal_new, own, d_flat, rows,
-                 valid,   cal_t_rows, C, S,    N,      T,      P,     D,     RB,
-                 KN,      rate};
+  // With the decisions taken here, the sum of q would read other warps'.
+  if (u_acc != nullptr && dq != nullptr) return (int)cudaErrorInvalidValue;
+  EpilogueArgs a{heights, rates,  terms,  d,          q,      acc,    dacc,  accept,
+                 dq,      u_acc,  d_pr,   lmhg,       coef,   g,      x_new, bd_new,
+                 ck_new,  cal_new, own,   d_flat,     rows,   valid,  cal_t_rows,
+                 C,       S,      N,      T,          P,      D,      RB,    KN,
+                 rate};
   if ((long)C * S > 0) {
     range_lik_epilogue_kernel<<<warp_blocks((long)C * S), kThreads, 0, (cudaStream_t)stream>>>(
         a);

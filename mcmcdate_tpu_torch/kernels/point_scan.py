@@ -11,13 +11,20 @@ accept where ``log u_t < log alpha_t``.  The scan runs in sub-blocks of
 ``SUB`` tickets; between them the gathered ``zG`` takes the accepted
 deltas through ``Pblk`` (``zG += dacc @ Pblk[sub rows]``).
 
-On the H100 it is bound by operations and by its serial scan: the cross
-terms are ``B * SUB * KD^2`` multiply-adds per chain and the ``zG`` update
-``B * KD * B * KD`` at most, all from the step's ``Pblk`` (up to 9 MB,
-shared by every chain, so it streams from L2).  The kernel
-(``csrc/point_scan.cu``) runs one block per chain with the chain's ``zG``,
-its deltas and the sub-block's ``T`` in shared memory, and one warp
-running the scan with a warp-reduced correction.
+On the H100 it is bound by its serial scan and by the reads of the step's
+``Pblk`` (up to 9 MB at 1000 taxa, shared by every chain): the cross terms
+are ``B * SUB * KD^2`` multiply-adds per chain and the ``zG`` update ``B *
+KD * B * KD`` at most.  The kernel (``csrc/point_scan.cu``) gives a block
+to a tile of 8 chains, so that ``Pblk`` is read from L2 once per tile and
+not once per chain: it stages each sub-block's diagonal block of ``Pblk``
+in shared memory (``cp.async``), where one warp per chain runs the scan
+with each lane's tickets in registers (for KD <= 3), adding an accepted
+ticket's delta to the ``zG`` of the later tickets; then it streams the
+panels of the later columns through shared memory (two buffers) and
+applies the sub-block's accepted deltas to them as a register-tiled
+product for the 8 chains.  Its sub-blocks hold ``192 // KD`` tickets (the
+diagonal block then fits in shared memory), not ``SUB``: sub-blocks change
+only the order of the sums.
 """
 
 from __future__ import annotations
@@ -30,8 +37,16 @@ from . import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P,) * 6 + (_P, _P) + (_I,) * 4 + (_P,)
-SUB = 64  # correction-scan sub-block size (fast_sweep.SUB)
+_ARGTYPES = (_P,) * 6 + (_P, _P, _P) + (_I,) * 4 + (_P,)
+SUB = 64  # the plain scan's sub-block (the JAX step's SUB)
+
+
+def pitched(x):
+    """``x`` ``[R, K]`` as a view of a zero-padded ``[R, ceil4(K)]`` buffer:
+    rows on a 16-byte pitch, which the kernel stages with 16-byte copies."""
+    buf = x.new_zeros((x.shape[0], (x.shape[1] + 3) // 4 * 4))
+    buf[:, :x.shape[1]] = x
+    return buf[:, :x.shape[1]]
 
 
 def point_scan_plain(delta, zG, Pblk, d_pr, lmhg, u):
@@ -72,26 +87,32 @@ def point_scan(delta, zG, Pblk, d_pr, lmhg, u):
     """Accept scan of a point mega-step.  ``delta`` ``[C, B, KD]`` are the
     tickets' distance deltas (zero on pad rows), ``zG`` ``[C, B*KD]`` the
     carried ``z`` at their rows, ``Pblk`` ``[B*KD, B*KD]`` the precision
-    between them (zero rows and columns for pads), ``d_pr``, ``lmhg`` and
-    the accept uniforms ``u`` ``[C, B]``.  Returns ``(accept [C, B] bool,
-    dq [C, B])``.  The plain version runs for CPU tensors, kernel K4 for
-    CUDA tensors (float32)."""
+    between them (zero rows and columns for pads; on a CUDA tensor its rows
+    on a 16-byte pitch, as :func:`pitched` makes them),
+    ``d_pr``, ``lmhg`` and the accept uniforms ``u`` ``[C, B]``.  Returns
+    ``(accept [C, B] bool, dq [C, B])``.  The plain version runs for CPU
+    tensors, kernel K4 for CUDA tensors (float32)."""
     if delta.device.type == "cpu":
         return point_scan_plain(delta, zG, Pblk, d_pr, lmhg, u)
     C, B, kd = delta.shape
-    for name, t in (("delta", delta), ("zG", zG), ("Pblk", Pblk), ("d_pr", d_pr),
-                    ("lmhg", lmhg), ("u", u)):
+    for name, t in (("delta", delta), ("zG", zG), ("d_pr", d_pr), ("lmhg", lmhg), ("u", u)):
         build.require_cuda(t, name, torch.float32)
-    accept = torch.empty((C, B), dtype=torch.uint8, device=delta.device)
-    dq = torch.empty((C, B), dtype=torch.float32, device=delta.device)
+    if Pblk.device != delta.device or Pblk.dtype != torch.float32:
+        raise ValueError(f"Pblk must be a float32 tensor on {delta.device}")
+    if Pblk.stride(1) != 1 or Pblk.stride(0) % 4 or Pblk.data_ptr() % 16:
+        raise ValueError("Pblk's rows must lie on a 16-byte pitch (point_scan.pitched)")
+    dev = delta.device
+    accept = torch.empty((C, B), dtype=torch.bool, device=dev)  # written as bytes 0 / 1
+    dq = torch.empty((C, B), dtype=torch.float32, device=dev)
+    zwork = torch.empty_like(zG)  # the chains' zG as the sub-blocks update it
     p = build.ptr
     err = build.bind("mcmcdate_point_scan_f32", _ARGTYPES)(
-        p(delta), p(zG), p(Pblk), p(d_pr), p(lmhg), p(u), p(accept), p(dq), C, B, kd, SUB,
-        build.stream_ptr(delta.device),
+        p(delta), p(zG), p(Pblk), p(d_pr), p(lmhg), p(u), p(accept), p(dq), p(zwork), C, B, kd,
+        Pblk.stride(0), build.stream_ptr(dev),
     )
     build.check(err, "point_scan kernel")
     point_scan.launches += 1
-    return accept.bool(), dq
+    return accept, dq
 
 
 point_scan.launches = 0

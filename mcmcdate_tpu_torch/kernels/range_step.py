@@ -14,11 +14,13 @@ inside by a gamma factor ``f``).
   rates and their birth-death, clock and calibration terms, the prior delta
   ``d_pr``, ``lmhg`` (``-inf`` where a term is invalid), ``coef = f - 1``,
   and the rank-1 delta directions ``g`` with the carried ``z`` at their
-  rows ``zg``.
+  rows ``zg`` (with a likelihood).
 - ``range_lik_epilogue`` (kernel ``range_lik_epilogue_kernel``): the
   write-back of the accepted tickets: heights or rates, terms, ``d += dacc``,
   ``q += sum of accepted dq``, the accept counts, and ``dacc`` ``[C, S RB]``
-  for the ``z`` update ``z += dacc @ Prow``.
+  for the ``z`` update ``z += dacc @ Prow``.  Without a likelihood there
+  is no scan: the epilogue takes the decisions itself, ``log u < d_pr +
+  lmhg``, and leaves ``q``.
 
 On the H100 both are bound by their special functions (the inverse normal
 CDF or lgamma per ticket, the double-precision birth-death exp/log and a
@@ -54,6 +56,7 @@ from ..ops.local_terms import (
     cal_range_terms,
     clock_term_local,
     is_bad,
+    prior_accept,
     range_gather,
     range_scaled,
     sum_valid,
@@ -75,7 +78,7 @@ _PROLOGUE_ARGTYPES = (
 )
 _EPILOGUE_ARGTYPES = (
     (_P,) * 7  # heights, rates, terms, d, q, acc, dacc
-    + (_P,) * 8  # accept, dq, coef, g, x_new, bd_new, ck_new, cal_new
+    + (_P,) * 11  # accept, dq, u_acc, d_pr, lmhg, coef, g, x_new, bd_new, ck_new, cal_new
     + (_P,) * 5  # own, d_flat, rows, valid, cal_t_rows
     + (_I,) * 9  # C, S, N, T, P, D, RB, KN, rate
     + (_P,)  # stream
@@ -175,10 +178,12 @@ def range_lik_prologue_given(rate, state, terms, d, z, tuning, sx, is_leaf, cloc
     return RangeProposal(prop, lq, coef, d_pr, lmhg, g, zg, x_new, bd_new, ck_new, cal_new)
 
 
-def range_lik_epilogue_plain(rate, state, terms, d, q, acc, sx, pro, accept, dq):
+def range_lik_epilogue_plain(rate, state, terms, d, q, acc, sx, pro, accept, dq, u_acc=None):
     """Plain PyTorch version of :func:`range_lik_epilogue` (updates in
     place; ``dq`` None skips ``q``)."""
     N = state.heights.shape[1]
+    if accept is None:
+        accept = prior_accept(pro.d_pr, pro.lmhg, u_acc)
     accept = accept & sx["valid"]
     own_ok = sx["own"] >= 0
     own_s = torch.clamp(sx["own"], min=0)
@@ -223,7 +228,8 @@ def range_lik_prologue(rate, state, terms, d, z, tuning, sx, is_leaf, clock, dra
     own_par, d_flat, rows, valid, sd, n_inner, n_nodes, cal_*``); ``draw``
     ``[C, S]`` is the truncated-normal uniform or the standard gamma
     variate.  The plain version runs for CPU tensors, the kernel for CUDA
-    tensors (float32)."""
+    tensors (float32).  Without a likelihood ``z`` is None, and so is the
+    proposal's ``zg``."""
     if terms.device.type == "cpu":
         return range_lik_prologue_plain(rate, state, terms, d, z, tuning, sx, is_leaf, clock,
                                         draw)
@@ -235,7 +241,8 @@ def range_lik_prologue(rate, state, terms, d, z, tuning, sx, is_leaf, clock, dra
                     ("death", state.death), ("rate_var", state.rate_var),
                     ("height", state.height), ("rate_mean", state.rate_mean),
                     ("sd", sx["sd"]), ("draw", draw)):
-        build.require_cuda(t, name, torch.float32)
+        if t is not None:
+            build.require_cuda(t, name, torch.float32)
     for name in ("node", "par", "own", "own_par", "d_flat", "rows", "n_inner", "n_nodes",
                  "cal_t_rows", "cal_hsrc"):
         build.require_cuda(sx[name], name, torch.int32)
@@ -249,7 +256,8 @@ def range_lik_prologue(rate, state, terms, d, z, tuning, sx, is_leaf, clock, dra
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     pro = RangeProposal(out(C, S), out(C, S), out(C, S), out(C, S), out(C, S), out(C, S, RB),
-                        out(C, S, RB), out(C, S, RB), None if rate else out(C, S, RB),
+                        None if z is None else out(C, S, RB), out(C, S, RB),
+                        None if rate else out(C, S, RB),
                         out(C, S, RB), out(C, S, KN))
     p = build.ptr
     err = build.bind("mcmcdate_range_lik_prologue_f32", _PROLOGUE_ARGTYPES)(
@@ -266,34 +274,44 @@ def range_lik_prologue(rate, state, terms, d, z, tuning, sx, is_leaf, clock, dra
     return pro
 
 
-def range_lik_epilogue(rate, state, terms, d, q, acc, sx, pro, accept, dq):
+def range_lik_epilogue(rate, state, terms, d, q, acc, sx, pro, accept, dq, u_acc=None):
     """The write-back of a likelihood range block on every chain, in place:
     heights (ultrametric) or rates (rate), terms, ``d``, ``q`` and the accept
     counts ``acc`` of the accepted tickets (``accept``, ``dq`` from
     :func:`~.range_scan.range_scan`, ``pro`` from the prologue; pad slots
-    never accept, their ``lmhg`` is ``-inf``).  Returns ``(accept, dacc [C,
-    S RB])`` with ``dacc`` the accepted distance deltas at the block's rows
-    (``d_flat``).  The plain version
-    runs for CPU tensors, the kernel for CUDA tensors (float32)."""
+    never accept, their ``lmhg`` is ``-inf``).  Without a likelihood
+    ``accept`` and ``dq`` are None and the accept uniforms ``u_acc`` are
+    given: the epilogue decides, ``log u < d_pr + lmhg``, and leaves ``q``.
+    Returns ``(accept, dacc [C, S RB])`` with ``dacc`` the accepted distance
+    deltas at the block's rows (``d_flat``).  The plain version runs for
+    CPU tensors, the kernel for CUDA tensors (float32)."""
     if terms.device.type == "cpu":
-        return range_lik_epilogue_plain(rate, state, terms, d, q, acc, sx, pro, accept, dq)
+        return range_lik_epilogue_plain(rate, state, terms, d, q, acc, sx, pro, accept, dq,
+                                        u_acc)
     C, N = state.heights.shape
     S, RB = sx["own"].shape
     KN = pro.cal_new.shape[-1]
+    if (accept is None) == (u_acc is None) or (u_acc is not None and dq is not None):
+        raise ValueError("range_lik_epilogue takes accept and dq, or u_acc alone")
     for name, t in (("heights", state.heights), ("rates", state.rates), ("terms", terms),
-                    ("d", d), ("q", q), ("dq", dq), ("coef", pro.coef), ("g", pro.g),
+                    ("d", d), ("q", q), ("dq", dq), ("u_acc", u_acc), ("d_pr", pro.d_pr),
+                    ("lmhg", pro.lmhg), ("coef", pro.coef), ("g", pro.g),
                     ("x_new", pro.x_new), ("ck_new", pro.ck_new), ("cal_new", pro.cal_new)):
-        build.require_cuda(t, name, torch.float32)
+        if t is not None:
+            build.require_cuda(t, name, torch.float32)
     build.require_cuda(acc, "acc", torch.int32)
     for name in ("own", "d_flat", "rows", "cal_t_rows"):
         build.require_cuda(sx[name], name, torch.int32)
+    if accept is None:
+        accept = torch.empty((C, S), dtype=torch.bool, device=terms.device)  # the kernel's
     for name, t in (("valid", sx["valid"]), ("accept", accept)):
         build.require_cuda(t, name, torch.bool)
     dacc = torch.empty((C, S * RB), dtype=torch.float32, device=terms.device)
     p = build.ptr
     err = build.bind("mcmcdate_range_lik_epilogue_f32", _EPILOGUE_ARGTYPES)(
         p(state.heights), p(state.rates), p(terms), p(d), p(q), p(acc), p(dacc), p(accept), p(dq),
-        p(pro.coef), p(pro.g), p(pro.x_new), p(pro.bd_new), p(pro.ck_new), p(pro.cal_new),
+        p(u_acc), p(pro.d_pr), p(pro.lmhg), p(pro.coef), p(pro.g), p(pro.x_new), p(pro.bd_new),
+        p(pro.ck_new), p(pro.cal_new),
         p(sx["own"]), p(sx["d_flat"]), p(sx["rows"]), p(sx["valid"]), p(sx["cal_t_rows"]),
         C, S, N, terms.shape[1], acc.shape[1], d.shape[1], RB, KN, int(bool(rate)),
         build.stream_ptr(terms.device),

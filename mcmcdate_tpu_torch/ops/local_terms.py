@@ -85,6 +85,13 @@ def is_bad(x):
     return torch.isnan(x) | torch.isneginf(x)
 
 
+def prior_accept(d_pr, lmhg, u_acc):
+    """The decisions of a step without a likelihood: ``log u < d_pr +
+    lmhg``, a NaN log alpha rejecting."""
+    log_alpha = d_pr + lmhg
+    return torch.log(u_acc) < torch.where(torch.isnan(log_alpha), NEG_INF, log_alpha)
+
+
 def slide_terms(clock, state, is_leaf, sx, hnew, hp, hch, r_node, r_ch):
     """New terms of a point step's node slides ``[C, B, KT]``, in the order
     of ``sx["t_rows"]``: the node's birth-death and clock terms at its new

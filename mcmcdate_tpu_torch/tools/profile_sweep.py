@@ -3,15 +3,18 @@
 Run from the root of a checkout, on a machine with a card:
 
     python -m mcmcdate_tpu_torch.tools.profile_sweep [--sweep fast|sequential]
-        [--out profile_sweep.json] [--trace TRACE.json]
+        [--taxa 136|1000] [--out profile_sweep.json] [--trace TRACE.json]
 
-at the shape of ``chip_smoke.py``'s main path (136 taxa x 1024 chains),
+at the shape of ``chip_smoke.py``'s main path (136 taxa x 1024 chains) or,
+with ``--taxa 1000``, of its full-width phase (1000 taxa x 1024 chains),
 for the ticket-batched sweep (``fast``, the default, as ``run`` takes it)
 or the sequential one:
 
-1. ``simulate`` and ``prepare --likelihood-spec full`` in a temporary
-   directory, then the run's initial chain batch (jittered rates, untuned
-   proposals), as ``run`` builds it;
+1. at 136 taxa ``simulate`` and ``prepare --likelihood-spec full`` in a
+   temporary directory, then the run's initial chain batch (jittered
+   rates, untuned proposals), as ``run`` builds it; at 1000 taxa the
+   ``synthetic.build`` model (a full MVN likelihood over 1,997 distances)
+   and the same initial batch;
 2. ``WARMUP`` sweeps, then ``TIMED`` sweeps, each timed on the host clock
    up to a device sync;
 3. one sweep under ``torch.profiler``: kernel launches (runtime and driver
@@ -50,12 +53,13 @@ import torch
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
-PORT_KERNELS = ("prior_terms_kernel", "whiten", "accept_select_kernel", "point_scan_kernel",
+PORT_KERNELS = ("prior_terms_kernel", "whiten", "accept_select_kernel",
+                "point_lik_prologue_kernel", "point_scan_kernel", "point_lik_epilogue_kernel",
                 "range_lik_prologue_kernel", "range_scan_kernel", "range_lik_epilogue_kernel",
                 "contra_slide_kernel", "contra_range_kernel", "glob_scan_kernel",
                 "glob_dense_prologue_kernel", "glob_dense_epilogue_kernel")
 PHASES = ("seq", "glob", "point", "range", "y")
-TAXA, CHAINS, TREES, SEED = 136, 1024, 600, 1
+TAXA, FULL_TAXA, CHAINS, TREES, SEED = 136, 1000, 1024, 600, 1
 WARMUP, TIMED = 10, 2
 TOP_BY_PHASE = 16  # kernel names kept per phase, by launches
 
@@ -67,12 +71,22 @@ def _card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def setup(tmp: str, fast: bool = True):
-    """The run's model, runner and initial batch and tuning, on the card."""
-    from .. import cli
+def setup(tmp: str, fast: bool = True, taxa: int = TAXA):
+    """The run's model, runner and initial batch and tuning, on the card:
+    the main path's simulated and prepared model at ``TAXA``, the synthetic
+    model at ``FULL_TAXA``."""
+    from .. import cli, synthetic
     from ..engine import proposals as props
-    from ..engine.chains import ChainRunner
+    from ..engine.chains import ChainRunner, RunSettings
 
+    quiet = lambda *a: None  # noqa: E731
+    if taxa == FULL_TAXA:
+        model, init = synthetic.build(taxa, 1, device="cuda")
+        table = props.build_proposal_table(model.topo, model.braces, False)
+        settings = RunSettings("prof", n_chains=CHAINS, seed=SEED, device="cuda",
+                               fast_sweep=fast)
+        runner = ChainRunner(model, table, settings, log=quiet)
+        return (runner, *runner.init_chains(init))
     data = os.path.join(tmp, "data")
     cli.main(["simulate", "--leaves", str(TAXA), "--trees", str(TREES), "--out", data])
     cli.main(["prepare", "-a", "prof", "--rooted-tree", os.path.join(data, "time.tree"),
@@ -81,7 +95,6 @@ def setup(tmp: str, fast: bool = True):
     args = cli.build_parser().parse_args(
         ["run", "-a", "prof", "--chains", str(CHAINS), "--seed", str(SEED),
          "--device", "cuda", "--out-dir", tmp])
-    quiet = lambda *a: None  # noqa: E731
     model, init = cli._load_model(args, torch.device("cuda"), torch.float32, quiet)
     table = props.build_proposal_table(model.topo, model.braces, model.calibrations_available)
     settings = dataclasses.replace(cli._settings(args), fast_sweep=fast)
@@ -173,12 +186,16 @@ def direct_log_posterior(model, state, dtype):
     plain versions in ``dtype``, on the state's device."""
     from ..kernels.prior_terms import prior_terms_plain
     from ..kernels.whiten import whiten_plain
+    from ..ops import mvn
     from ..ops.heights import distances_internal
 
     m = dataclasses.replace(model, dtype=dtype)
     s = state.to(dtype=dtype)
+    lp = prior_terms_plain(m, s).sum(-1)
+    if m.likelihood.kind == mvn.NONE:
+        return lp
     _, q = whiten_plain(distances_internal(s, m.topo), m.chol_internal_t, sub=m.mu_internal_t)
-    return prior_terms_plain(m, s).sum(-1) + m.log_lik_const - 0.5 * q
+    return lp + m.log_lik_const - 0.5 * q
 
 
 def check_carry(runner, batch, tuning, seed: int) -> dict:
@@ -291,6 +308,7 @@ def _lp_check(m, batch, lp) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", choices=("fast", "sequential"), default="fast")
+    ap.add_argument("--taxa", type=int, choices=(TAXA, FULL_TAXA), default=TAXA)
     ap.add_argument("--out", default="profile_sweep.json")
     ap.add_argument("--trace", default=None, help="where to keep the chrome trace")
     args = ap.parse_args(argv)
@@ -301,9 +319,10 @@ def main(argv=None) -> dict:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     fast = args.sweep == "fast"
-    rec = dict(card=_card(), sweep=args.sweep, taxa=TAXA, chains=CHAINS, torch=torch.__version__)
+    rec = dict(card=_card(), sweep=args.sweep, taxa=args.taxa, chains=CHAINS,
+               torch=torch.__version__)
     with tempfile.TemporaryDirectory() as tmp:
-        runner, batch, tuning = setup(tmp, fast)
+        runner, batch, tuning = setup(tmp, fast, args.taxa)
     kern = runner.kern
     rec["kernel"] = type(kern).__name__
     rec["tickets_per_sweep"] = runner.table.n_tickets

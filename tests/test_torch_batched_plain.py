@@ -4,7 +4,8 @@ take, on their own at float64: the correction scans against a ticket-by-ticket
 evaluation of the quadratic form; the contrary steps keep every branch
 distance, carry terms equal to a fresh evaluation of the new state under
 every clock model, and their replay at given proposals (what the card's
-check uses) reproduces a step and takes forced decisions."""
+check uses) reproduces a step and takes forced decisions; the range
+kernel's lane groups hold every row of the planner's buckets."""
 
 import dataclasses
 import math
@@ -175,3 +176,16 @@ def test_contra_given_replays_and_forces_decisions(mode):
     of = given(sf, tf, af, tuning, sx, leaf, model.clock, op.h_prop, forced)
     assert torch.equal(of.accept, op.accept | flip)
     assert torch.equal(of.log_alpha, op.log_alpha)
+
+
+def test_contra_range_groups_cover_the_buckets():
+    """K6's range lane groups hold every row and calibration slot of each
+    range bucket (at most 8 rows and 4 slots a lane, a power of 2 up to a
+    warp), and its launch counts' buckets are the planner's."""
+    assert K6.ROW_BUCKETS == tuple(rb for _, rb in TF.RANGE_BUCKETS)
+    for rows in range(1, K6.ROWS_MAX + 1):
+        for cal in (0, 1, 5, 40, K6.CAL_MAX):
+            w = K6.group_width(rows, cal)
+            assert w in (1, 2, 4, 8, 16, 32)
+            assert rows <= 8 * w and cal <= 4 * w
+            assert w == 1 or (w // 2) * K6.ROWS_PER_LANE < rows or (w // 2) * 4 < cal

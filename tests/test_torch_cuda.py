@@ -119,7 +119,7 @@ def _scan_agree(acc_k, dq_k, acc_p, dq_p, la_p, logu, rel=1e-5):
 
 
 def test_point_scan_kernel(card):
-    from mcmcdate_tpu_torch.kernels.point_scan import point_scan, point_scan_plain
+    from mcmcdate_tpu_torch.kernels.point_scan import pitched, point_scan, point_scan_plain
 
     g = torch.Generator(device=card).manual_seed(3)
     C, B, KD = 64, 150, 3
@@ -134,11 +134,128 @@ def test_point_scan_kernel(card):
     lmhg[:, 140:] = -math.inf
     u = torch.rand(C, B, generator=g, device=card)
     before = point_scan.launches
-    ak, dk = point_scan(delta, zG, P, d_pr, lmhg, u)
+    with pytest.raises(ValueError, match="pitch"):  # 450 floats a row
+        point_scan(delta, zG, P, d_pr, lmhg, u)
+    ak, dk = point_scan(delta, zG, pitched(P), d_pr, lmhg, u)
     assert point_scan.launches == before + 1
     ap, dp = point_scan_plain(delta, zG, P, d_pr, lmhg, u)
     assert 0 < int(ap.sum()) < ap.numel()
     _scan_agree(ak, dk, ap, dp, d_pr - 0.5 * dp + lmhg, torch.log(u))
+
+
+@pytest.mark.parametrize("C,B,KD", ((70, 150, 3), (13, 200, 1), (8, 64, 3), (1, 5, 3),
+                                    (33, 450, 1), (9, 100, 2), (17, 70, 5)))
+def test_point_scan_kernel_tiles(card, C, B, KD):
+    """The chain-tiled scan at tile counts, ticket counts and KD that leave
+    ragged tiles, sub-blocks (192 / KD tickets) and later-column panels;
+    KD 1-3 keep a lane's tickets in registers, KD 5 in shared memory."""
+    from mcmcdate_tpu_torch.kernels.point_scan import pitched, point_scan, point_scan_plain
+
+    g = torch.Generator(device=card).manual_seed(B + KD)
+    F = B * KD
+    a = torch.randn(F, F, generator=g, device=card) / F ** 0.5
+    P = (a @ a.T + torch.eye(F, device=card)).contiguous()
+    delta = 0.05 * torch.randn(C, B, KD, generator=g, device=card)
+    zG = torch.randn(C, F, generator=g, device=card)
+    d_pr = 0.1 * torch.randn(C, B, generator=g, device=card)
+    lmhg = torch.randn(C, B, generator=g, device=card)
+    u = torch.rand(C, B, generator=g, device=card)
+    ak, dk = point_scan(delta, zG, pitched(P), d_pr, lmhg, u)
+    ap, dp = point_scan_plain(delta, zG, P, d_pr, lmhg, u)
+    assert 0 < int(ap.sum()) < ap.numel()
+    _scan_agree(ak, dk, ap, dp, d_pr - 0.5 * dp + lmhg, torch.log(u))
+
+
+def test_point_step_kernel(card):
+    """K4's point step (prologue, point_scan, epilogue and the z product) on
+    every likelihood point step of a 40-taxon calibrated model, against the
+    plain step replayed at the kernels' proposals and decisions: proposals
+    within 1e-5 (1 + |x|) of the plain ones from the same draws, decisions
+    equal except at ties, heights, rates and terms bitwise equal, d, z and q
+    within 1e-5 of scale; the prologue's and epilogue's outputs against
+    their plain versions'; one launch of each kernel per step."""
+    import dataclasses
+
+    from mcmcdate_tpu_torch.engine import fast_sweep as TF, proposals as TP
+    from mcmcdate_tpu_torch.kernels import point_step as K
+    from mcmcdate_tpu_torch.kernels.point_scan import point_scan
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+    from mcmcdate_tpu_torch.ops.node_priors import CalibrationSet
+
+    model, batch = _model()
+    inner = [int(i) for i in model.topo.inner_nodes if i]
+    cal = CalibrationSet(node=np.asarray([0, inner[1], inner[4]], np.int32),
+                         lower=np.asarray([0.8, 0.1, 0.0]), lower_pm=np.asarray([0.01, 0.02, 1.0]),
+                         upper=np.asarray([1.6, np.inf, 0.9]),
+                         upper_pm=np.asarray([0.01, 1.0, 0.05]))
+    model = dataclasses.replace(model, calibrations=cal)
+    table = TP.build_proposal_table(model.topo, model.braces, True)
+    fs = TF.FastSweeps(model, table)
+    leaf = model.topo.is_leaf_t
+    g = torch.Generator(device=card).manual_seed(9)
+    C = batch.n_chains
+    tuning = torch.rand(C, table.n_proposals, generator=g, device=card) * 3 + 0.3
+    carry = fs.init_carry(batch)
+    carry.z, carry.q = fs._zq_from_y(model.whitened_residual_internal(carry.batch))
+    wrappers = (K.point_lik_prologue, point_scan, K.point_lik_epilogue)
+    n_acc = n = 0
+    for k in (TP.K_SLIDE_NODE_ULTRA, TP.K_SCALE_BRANCH_RATE):
+        branch = k == TP.K_SCALE_BRANCH_RATE
+        for sx in fs.spec_t[k]:
+            B = sx["rows"].shape[0]
+            draw = (standard_gamma(sx["sd"] / tuning[:, sx["rows"]], g) if branch
+                    else torch.rand(C, B, generator=g, device=card))
+            u = torch.rand(C, B, generator=g, device=card)
+            ck, cr, cp = (TF.FastCarry(State(**{f: getattr(carry.batch, f).clone()
+                                                for f in FIELDS}),
+                                       carry.terms.clone(), carry.d.clone(), carry.z.clone(),
+                                       carry.q.clone(), carry.acc.clone()) for _ in range(3))
+            args = (branch, ck.batch, ck.terms, ck.d, ck.z, tuning, sx, leaf, fs.pos_t,
+                    model.clock, draw)
+            pro = K.point_lik_prologue(*args)
+            pp = K.point_lik_prologue_plain(*args)
+            assert torch.all((pro.prop - pp.prop).abs() <= 1e-5 * (1 + pp.prop.abs()))
+            before = [w.launches for w in wrappers]
+            accept = fs.point_lik_step(k, ck, tuning, sx, draw, u)
+            assert [w.launches for w in wrappers] == [b + 1 for b in before]
+            forced = torch.where(accept, 0.0, math.nan)
+            acc_r, pr, dq_r = K.point_lik_given(branch, cr.batch, cr.terms, cr.d, cr.z, cr.q,
+                                                cr.acc, tuning, sx, leaf, fs.pos_t, model.clock,
+                                                pro.prop, forced)
+            assert torch.equal(acc_r, accept)
+            # The prologue's outputs at its own proposals: terms bitwise.
+            assert torch.equal(pro.tn.nan_to_num(), pr.tn.nan_to_num())
+            for a, b in ((pro.lq, pr.lq), (pro.d_pr, pr.d_pr), (pro.delta, pr.delta),
+                         (pro.zG, pr.zG)):
+                fin = torch.isfinite(b)
+                assert torch.equal(fin, torch.isfinite(a))
+                assert torch.all((a - b).abs()[fin] <= 1e-4 * (1 + b.abs()[fin]))
+            la = torch.nan_to_num(pr.d_pr - 0.5 * dq_r + pr.lmhg, nan=-math.inf)
+            differ = (torch.log(u) < la) != accept
+            assert torch.all((torch.log(u) - la).abs()[differ] < TIE)
+            for a, b in ((ck.batch.heights, cr.batch.heights), (ck.batch.rates, cr.batch.rates),
+                         (ck.terms, cr.terms)):
+                assert torch.equal(a.nan_to_num(), b.nan_to_num())
+            for a, b in ((ck.d, cr.d), (ck.z, cr.z), (ck.q, cr.q)):
+                assert (a - b).abs().max() <= 1e-5 * max(1.0, float(b.abs().max()))
+            assert torch.equal(ck.acc, cr.acc)
+            # The epilogue alone against its plain version, on the replay's
+            # decisions and dq.
+            e_args = (cp.batch, cp.terms, cp.d, cp.q, cp.acc, sx, pr, acc_r, dq_r)
+            cq = TF.FastCarry(State(**{f: getattr(cp.batch, f).clone() for f in FIELDS}),
+                              cp.terms.clone(), cp.d.clone(), cp.z.clone(), cp.q.clone(),
+                              cp.acc.clone())
+            _, dacc_k = K.point_lik_epilogue(branch, *e_args)
+            _, dacc_p = K.point_lik_epilogue_plain(branch, cq.batch, cq.terms, cq.d, cq.q, cq.acc,
+                                                   sx, pr, acc_r, dq_r)
+            assert torch.equal(dacc_k, dacc_p)
+            for a, b in ((cp.batch.heights, cq.batch.heights), (cp.batch.rates, cq.batch.rates),
+                         (cp.terms, cq.terms), (cp.d, cq.d), (cp.acc, cq.acc)):
+                assert torch.equal(a.nan_to_num(), b.nan_to_num())
+            assert (cp.q - cq.q).abs().max() <= 1e-5 * max(1.0, float(cq.q.abs().max()))
+            n_acc += int(accept.sum())
+            n += accept.numel()
+    assert 0 < n_acc < n
 
 
 def test_range_scan_kernel(card):
@@ -224,6 +341,83 @@ def test_range_step_kernel(card):
     assert 0 < n_acc < n
 
 
+@pytest.mark.parametrize("step", ("point", "range"))
+def test_prior_only_step_kernels(card, step):
+    """Without a likelihood, FastSweeps' point steps (K4) and range blocks
+    (K5) on the card launch only their prologue and epilogue kernels, the
+    epilogue taking the decisions: on every point step and the first three
+    blocks of each range kind of a 40-taxon model, the plain prologue
+    replayed at the kernels' proposals gives their decisions except at
+    ties, and the plain epilogue on their decisions gives their heights,
+    rates and terms bitwise, d within 1e-5 of scale and the same accept
+    counts; q stays as it was."""
+    import dataclasses
+
+    from mcmcdate_tpu_torch.engine import fast_sweep as TF, proposals as TP
+    from mcmcdate_tpu_torch.kernels import point_step as KP, range_step as KR
+    from mcmcdate_tpu_torch.kernels.point_scan import point_scan
+    from mcmcdate_tpu_torch.kernels.range_scan import range_scan
+    from mcmcdate_tpu_torch.ops import mvn
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    model, batch = _model()
+    model = dataclasses.replace(model, likelihood=mvn.LikelihoodData.none())
+    fs, table = _fast(model)
+    assert not fs.use_lik
+    leaf = model.topo.is_leaf_t
+    g = torch.Generator(device=card).manual_seed(11)
+    C = batch.n_chains
+    tuning = torch.rand(C, table.n_proposals, generator=g, device=card) * 3 + 0.3
+    carry = fs.init_carry(batch)
+    if step == "point":
+        K, scan, run = KP, point_scan, fs.point_lik_step
+        cases = [(k, k == TP.K_SCALE_BRANCH_RATE, sx)
+                 for k in (TP.K_SLIDE_NODE_ULTRA, TP.K_SCALE_BRANCH_RATE) for sx in fs.spec_t[k]]
+
+        def given(flag, c, prop):
+            return KP.point_lik_prologue_given(flag, c.batch, c.terms, c.d, None, tuning, sx,
+                                               leaf, fs.pos_t, model.clock, prop)
+    else:
+        K, scan, run = KR, range_scan, fs.range_lik_step
+        cases = [(k, k == TP.K_SCALE_SUBTREE_RATE, sx) for (k, _), blocks in fs.range_t.items()
+                 if k != TP.K_SCALE_SUBTREES_CONTRA for sx in blocks[:3]]
+
+        def given(flag, c, prop):
+            return KR.range_lik_prologue_given(flag, c.batch, c.terms, c.d, None, tuning, sx,
+                                               leaf, model.clock, prop)
+    prologue, epilogue = (getattr(K, f"{step}_lik_{s}") for s in ("prologue", "epilogue"))
+    epilogue_plain = getattr(K, f"{step}_lik_epilogue_plain")
+    wrappers = (prologue, scan, epilogue)
+    n_acc = n = 0
+    for k, flag, sx in cases:
+        B = sx["rows"].shape[0]
+        draw = (standard_gamma(sx["sd"] / tuning[:, sx["rows"]], g) if flag
+                else torch.rand(C, B, generator=g, device=card))
+        u = torch.rand(C, B, generator=g, device=card)
+        ck, cr = (TF.FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
+                               carry.terms.clone(), carry.d.clone(), carry.z.clone(),
+                               carry.q.clone(), carry.acc.clone()) for _ in range(2))
+        before = [w.launches for w in wrappers]
+        accept = run(k, ck, tuning, sx, draw, u)
+        assert [w.launches for w in wrappers] == [before[0] + 1, before[1], before[2] + 1]
+        pro = prologue(flag, cr.batch, cr.terms, cr.d, None, tuning, sx, leaf,
+                       *((fs.pos_t,) if step == "point" else ()), model.clock, draw)
+        pr = given(flag, cr, pro.prop)
+        la = torch.nan_to_num(pr.d_pr + pr.lmhg, nan=-math.inf)
+        differ = ((torch.log(u) < la) & sx["valid"]) != accept
+        assert torch.all((torch.log(u) - la).abs()[differ] < TIE)
+        epilogue_plain(flag, cr.batch, cr.terms, cr.d, cr.q, cr.acc, sx, pr, accept, None)
+        for a, b in ((ck.batch.heights, cr.batch.heights), (ck.batch.rates, cr.batch.rates),
+                     (ck.terms, cr.terms)):
+            assert torch.equal(a.nan_to_num(), b.nan_to_num())
+        assert (ck.d - cr.d).abs().max() <= 1e-5 * max(1.0, float(cr.d.abs().max()))
+        assert torch.equal(ck.acc, cr.acc)
+        assert torch.equal(ck.q, carry.q)
+        n_acc += int(accept.sum())
+        n += accept.numel()
+    assert 0 < n_acc < n
+
+
 def _contra_agree(model, batch, table, sx, seed, mode):
     """K6 in one mode on one step against its plain version.  Proposals may
     differ in their last bits (CUDA's normal CDF and inverse against
@@ -306,6 +500,23 @@ def test_contra_range_kernel(card):
     assert keys
     for k in keys:
         _contra_agree(model, batch, table, fs.range_t[k][0], k[1], "range")
+
+
+def test_contra_range_kernel_buckets(card):
+    """K6's range mode (lane groups of 16 or 32) on the first block of each
+    of the three row buckets (16, 64 and 256 rows) of a 300-taxon model,
+    one launch each, counted by bucket."""
+    from mcmcdate_tpu_torch.engine import proposals as TP
+    from mcmcdate_tpu_torch.kernels.contra_step import ROW_BUCKETS, contra_range
+
+    model, batch = synthetic.build(300, 64, device="cuda")
+    fs, table = _fast(model)
+    keys = sorted(k for k in fs.range_t if k[0] == TP.K_SCALE_SUBTREES_CONTRA)
+    assert [k[1] for k in keys] == list(ROW_BUCKETS)
+    for k in keys:
+        before = dict(contra_range.launches_by_rows)
+        _contra_agree(model, batch, table, fs.range_t[k][0], k[1], "range")
+        assert contra_range.launches_by_rows[k[1]] == before[k[1]] + 1
 
 
 # -- the glob-family kernels (G1-G3) ------------------------------------------
