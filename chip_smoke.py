@@ -11,17 +11,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. kernels: runs every kernel on the card against its plain PyTorch
    version, at the run's shape (136 taxa x 1024 chains) and at the bench
    shape (1000 taxa x 1024 chains), with the float32 tolerances below:
-   K1 prior_terms, K2 whiten (full, gather and range-1024 row lists), K3
-   accept_select, and on FastSweeps' own plan steps of a synthetic model
+   K1 prior_terms, K2 whiten (full, gather and range-1024 row lists), the
+   sequential sweep's ticket kernels on a synthetic model with node
+   priors and the calibrated table (all 17 proposal kinds): T1
+   ticket_prologue and K3 accept_select on one ticket of every kind and
+   likelihood class, T3 ticket_scan on a 256-ticket run, each checked by
+   replaying their proposals and decisions through the plain versions
+   (records: T1 and K3 on the pulley, T3 on the FastSweeps leftovers' run
+   of a sweep), and on FastSweeps' own plan steps of a synthetic model
    K4 (the likelihood point step: point_lik_prologue, point_scan and
    point_lik_epilogue, a record each, checked on the first step of both
    point kinds by replaying the kernels' proposals through the plain step;
    one point_lik_step must launch only the three and the z product), K5
    (the likelihood range-block step: range_lik_prologue, range_scan and
    range_lik_epilogue, likewise), both without a likelihood as well (the
-   prologue and the epilogue alone, the epilogue taking the decisions), K6 contra_step in its two modes
-   (contra_slide, and contra_range with a record per row bucket:
-   contra_range_16, _64 and _256) and, on the
+   prologue and the epilogue alone, the epilogue taking the decisions), K6
+   contra_step in its two modes (contra_slide, and contra_range with a
+   record per row bucket: contra_range_16, _64 and _256) and, on the
    14 global-move families of the same model with node priors and the
    calibrated proposal table, the glob kernels G1 glob_scan, G2
    glob_dense_prologue and G3 glob_dense_epilogue (a record each, checked
@@ -32,17 +38,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
 4. main path: simulate -> prepare --likelihood-spec full -> run (MHG,
    FastSweeps) at 136 taxa x 1024 chains through the port's CLI, in a
    temporary directory; checks the outputs, the carried log posterior,
-   that the run launched every kernel, and that its point steps went
-   through the three K4 kernels alone (as many launches of each);
+   that the run launched every kernel and no plain proposal kernel, that
+   its point steps went through the three K4 kernels alone (as many
+   launches of each) and that its sequential phase launched no K1;
 5. full width: FastSweeps through ChainRunner at 1000 taxa x 1024 chains
-   (D = 1,997) on the synthetic model; median s/sweep, carry check, K4-K6
-   and G1-G3 launched, the point steps through K4 alone;
+   (D = 1,997) on the synthetic model; median s/sweep, carry check, K4-K6,
+   G1-G3 and the ticket kernels launched, the point steps through K4
+   alone, the sequential phase without K1 or a plain proposal;
 6. prior only: FastSweeps through ChainRunner at 136 taxa x 1024 chains
    on the synthetic model without its likelihood; carry check, the point
    steps and range blocks through their prologue and epilogue kernels
-   alone, K6 and G1-G3 launched;
-7. sequential path: the same 136-taxon model through
-   RunSettings(fast_sweep=False) (MHKernel); carry check, K1-K3 launched.
+   alone, K6, G1-G3 and T3 launched;
+7. sequential path: the same 136-taxon model as the main path through
+   RunSettings(fast_sweep=False) (MHKernel); carry check; every sweep
+   launches T1, K2 and K3 once per ticket that breaks a run, T3 per run,
+   no K1 and no plain proposal;
+8. univariate 10k: ChainRunner with the default settings on a univariate
+   model of 10,000 taxa x 1024 chains (D = 19,997: the sequential sweep,
+   no Cholesky factor); T3 against its plain version on a 256-ticket run
+   of every kind (a record of its own, logged); two timed sweeps and one
+   whose carried log posterior is checked, every sweep through T3 alone.
 
 Every phase after the kernels sets each wrapper's launch count to 0 just
 before it and reads it just after.  The last two lines of standard output
@@ -67,16 +82,18 @@ BENCH_TAXA = 1000
 CHAINS = 1024
 TREES = 600
 # The main path's iterations after the --profile burn-in (60 sweeps).
-# --profile alone would run 50; cut to 20 (about 3 s per sweep at this
-# shape on an H100).  The full-width phase runs 10 sweeps (one chunk) and
-# one more for the carry check (about 7 s per sweep at 1000 taxa); the
-# sequential phase 10 and one (about 5.5 s per sweep at 136 taxa).  Only
-# sweep counts are cut, never taxa or chains, so that the whole script
-# stays inside half its 1200 s limit.
+# --profile alone would run 50; cut to 20.  The full-width, prior-only and
+# sequential phases run 10 sweeps (one chunk) and one more for the carry
+# check; the univariate 10k phase UNI_SWEEPS timed sweeps and one more.
+# Only sweep counts are cut, never taxa or chains, so that the whole script
+# stays inside half its 1200 s limit (PERF.md gives each phase's seconds
+# per sweep on an H100).
 ITERATIONS = 20
 FULL_WIDTH_SWEEPS = 10
 PRIOR_ONLY_SWEEPS = 10
 SEQUENTIAL_SWEEPS = 10
+UNI_TAXA = 10_000
+UNI_SWEEPS = 2
 # Back-to-back calls per kernel timing.
 REPS = 20
 
@@ -140,8 +157,12 @@ KERNELS = (
      "mcmcdate_tpu/models/dating.py:131"),
     ("whiten", "mcmcdate_tpu_torch/kernels/csrc/whiten.cu",
      "mcmcdate_tpu/models/dating.py:209"),
+    ("ticket_prologue", "mcmcdate_tpu_torch/kernels/csrc/ticket_step.cu",
+     "mcmcdate_tpu/engine/proposals.py:388"),
     ("accept_select", "mcmcdate_tpu_torch/kernels/csrc/accept_select.cu",
      "mcmcdate_tpu/engine/mh.py:120"),
+    ("ticket_scan", "mcmcdate_tpu_torch/kernels/csrc/ticket_step.cu",
+     "mcmcdate_tpu/engine/mh.py:271"),
     ("point_lik_prologue", "mcmcdate_tpu_torch/kernels/csrc/point_step.cu",
      "mcmcdate_tpu/engine/fast_sweep.py:1324"),
     ("point_scan", "mcmcdate_tpu_torch/kernels/csrc/point_scan.cu",
@@ -223,7 +244,9 @@ def _device_ms(fn, only=None, reps=REPS):
     those whose name contains ``only``, or one of them, where given), so
     the host's enqueue gaps do not count.  A profile that recorded none of those intervals
     (the profiler's device trace can come back empty) is taken again, up
-    to twice."""
+    to twice; if all three are empty, the time comes from CUDA events
+    around ``reps`` calls (which also count the gaps between launches),
+    and the log says so."""
     from torch.profiler import ProfilerActivity, profile
 
     names = (only,) if isinstance(only, str) else only
@@ -243,9 +266,19 @@ def _device_ms(fn, only=None, reps=REPS):
                and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
                and (names is None or any(o in e["name"] for o in names))]
         if dev:
-            break
-    check(dev, f"the profiler recorded no device time for {names or 'the call'}")
-    return sum(e["dur"] for e in dev) / 1e3 / reps
+            return sum(e["dur"] for e in dev) / 1e3 / reps
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    _sync()
+    ms = start.elapsed_time(end) / reps
+    log(f"[timing] the profiler recorded no device time for {names or 'the call'} three times: "
+        f"{ms:.4f} ms a call from CUDA events")
+    return ms
 
 
 def _bound(nbytes, ops, ops64=0):
@@ -424,77 +457,257 @@ def check_whiten(n_taxa):
     return {"whiten": _record(worst, ms, plain_ms, nbytes, 2 * C * D * D, library_ms)}
 
 
-def check_accept_select(n_taxa):
+def _mh_copy(carry):
+    """A copy of an MHKernel carry."""
+    from mcmcdate_tpu_torch.engine.mh import Carry
+    from mcmcdate_tpu_torch.models.state import FIELDS, State
+
+    def cl(t):
+        return None if t is None else t.clone()
+
+    return Carry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
+                 carry.terms.clone(), cl(carry.d), cl(carry.y), carry.acc.clone(),
+                 carry.nbad.clone())
+
+
+def _mh_same(name, worst, ck, cp, logu, la_p, accept):
+    """A kernel carry against the plain replay's at the kernel's proposals
+    and decisions: decisions differ from the replay's log alpha only at ties
+    (K3_TIE); heights, rates, scalars, terms, d and the accept and bad-term
+    counts bitwise equal; y within SCAN_REL of its scale.  Returns the
+    number of tie decisions."""
+    import torch
+
+    from mcmcdate_tpu_torch.models.state import FIELDS
+
+    differ = (logu < la_p) != accept
+    gap = (logu - la_p).abs()[differ]
+    check(bool((gap < K3_TIE).all()), lambda: f"{name}: {int(differ.sum())} decisions differ "
+          f"beyond ties (largest |log u - log alpha| {float(gap.max()):.3g})")
+    for f in FIELDS:
+        a, b = getattr(ck.batch, f), getattr(cp.batch, f)
+        check(_same(a, b), lambda: f"{name} {f}: {int((a != b).sum())} values differ from the "
+              f"replay's")
+    check(_same(ck.terms, cp.terms), lambda: f"{name} terms: "
+          f"{int((ck.terms != cp.terms).sum())} values differ from the replay's")
+    check(torch.equal(ck.acc, cp.acc) and torch.equal(ck.nbad, cp.nbad),
+          f"{name}: accept or bad-term counts differ")
+    if ck.d is not None:
+        check(torch.equal(ck.d, cp.d), f"{name}: d differs from the replay's")
+        _within(name, worst, "y", ck.y, cp.y, SCAN_REL, max(1.0, float(cp.y.abs().max())))
+    return int(differ.sum())
+
+
+def _prop_lim(rec_prop, dx_dp):
+    import torch
+
+    return CONTRA_REL * (1 + rec_prop.abs()) + PROP_ULPS * torch.finfo(torch.float32).eps * dx_dp
+
+
+def _ticket_one_agree(name, tk, carry, tuning, p, draw, u, worst):
+    """T1, K2 where the row's class needs it, and K3 on one ticket of row
+    ``p`` against the plain versions on copies of ``carry``: the kernel's
+    proposal against the plain one from the same draw; replayed at it
+    (and at var_tree's rate mean), T1's invalid flags and new terms
+    bitwise, d_pr, lmhg and lj within SCAN_TIE (1 + |x|), delta exact; then
+    K3 against the plain epilogue with its decisions (_mh_same)."""
     import torch
 
     from mcmcdate_tpu_torch.kernels.accept_select import accept_select, accept_select_plain
-    from mcmcdate_tpu_torch.models.state import FIELDS, State
-    from mcmcdate_tpu_torch.ops.heights import distances_internal
+    from mcmcdate_tpu_torch.kernels.ticket_step import TicketDraws, ticket_prologue, \
+        ticket_prologue_plain
 
-    model, batch = _model(n_taxa)
-    old = _perturbed(model, batch, 4)
-    new = _perturbed(model, batch, 5).replace(death=old.death)  # one field unchanged
-    terms = model.log_prior_terms(old)
-    terms2 = model.log_prior_terms(new)
-    terms2[3::11, 7] = -math.inf  # some invalid proposals
-    C = terms.shape[0]
-    dev = terms.device
-    g = torch.Generator(device=dev).manual_seed(0)
-    d = distances_internal(old, model.topo).contiguous()
-    d_new = distances_internal(new, model.topo).contiguous()
-    y = torch.randn(d.shape, generator=g, device=dev)
-    dy = 0.1 * torch.randn(d.shape, generator=g, device=dev)
-    d_lik = -0.5 * torch.sum(dy * (2 * y + dy), dim=1)
-    d_pr = torch.sum(terms2 - terms, dim=1)
-    # log_mhg chosen so that about half of the chains accept.
-    log_mhg = -(d_pr + d_lik) + torch.randn(C, generator=g, device=dev)
-    lj = 0.01 * torch.randn(C, generator=g, device=dev)
-    u = torch.rand(C, generator=g, device=dev)
-    P = 40
+    tt = tk.tt
+    dr = TicketDraws.single(p, draw, u)
+    ck, cp = _mh_copy(carry), _mh_copy(carry)
+    pro = ticket_prologue(tt, ck, tuning, dr, 0)
+    k = {f: getattr(pro, f).clone() for f in ("prop", "lmhg", "lj", "d_pr", "invalid")}
+    mean = None if pro.mean is None else pro.mean.clone()
+    tix, rows = tt.tix(p), tt.rows(p)
+    tn = pro.tn[:, tix].clone()
+    has_rows = tt.lik and (rows is None or rows.numel() > 0)
+    dl = None if not has_rows else (pro.delta if rows is None else pro.delta[:, rows]).clone()
+    pp = ticket_prologue_plain(tt, cp, tuning, p, draw)
+    dx = torch.zeros_like(pp.prop) if pp.dx_dp is None else pp.dx_dp
+    err = (k["prop"] - pp.prop).abs()
+    check(bool((err <= _prop_lim(pp.prop, dx)).all()),
+          lambda: f"{name}: proposals off the plain version's by {float(err.max()):.3g}")
+    worst["prop"] = max(worst.get("prop", 0.0), float(err.max()))
+    pp = ticket_prologue_plain(tt, cp, tuning, p, draw, given=k["prop"], given_mean=mean)
+    check(torch.equal(k["invalid"], pp.invalid), f"{name}: invalid flags differ")
+    check(_same(tn, pp.tn[:, tix]), f"{name}: new terms differ from the replay's")
+    for f in ("d_pr", "lmhg", "lj"):
+        _within(name, worst, f, k[f], getattr(pp, f), SCAN_TIE)
+    if dl is not None:
+        check(torch.equal(dl, pp.delta if rows is None else pp.delta[:, rows]),
+              f"{name}: delta differs from the replay's")
+    dy, d_lik = tk._k2(ck, p, pro)
+    ak = accept_select(tt, ck, tuning, dr, 0, pro, dy, d_lik)
+    ap, la_p = accept_select_plain(tt, cp, p, pp, torch.where(ak, 0.0, math.nan), dy, d_lik)
+    check(torch.equal(ak, ap),
+          f"{name}: the kernel accepted a proposal whose log alpha the plain version makes -inf")
+    return _mh_same(name, worst, ck, cp, torch.log(u), la_p, ak), int(ak.sum())
 
-    def run(fn, reps=1):
-        st = State(**{k: getattr(old, k).clone() for k in FIELDS})
-        nw = new.replace(death=st.death)
-        out = dict(terms=terms.clone(), d=d.clone(), y=y.clone(),
-                   acc=torch.zeros((C, P), dtype=torch.int32, device=dev))
-        for _ in range(reps):
-            a = fn(out["terms"], terms2, log_mhg, u, st, nw, out["acc"], 3, d_lik=d_lik, lj=lj,
-                   d=out["d"], d_new=d_new, y=out["y"], dy=dy)
-        return a, st, out
 
-    ak, sk, ok_ = run(accept_select)
-    ap, sp, op = run(accept_select_plain)
+def _ticket_scan_agree(name, tk, carry, tuning, dr, worst):
+    """T3 over the whole of ``dr`` (a run) against ``ticket_scan_plain``
+    replayed at its proposals, rate means and decisions, on copies of
+    ``carry`` (see _ticket_one_agree).  Returns ``(ties, accepts, total)``."""
+    import torch
+
+    from mcmcdate_tpu_torch.kernels.ticket_step import ticket_scan, ticket_scan_plain
+
+    tt = tk.tt
+    ck, cp = _mh_copy(carry), _mh_copy(carry)
+    out = ticket_scan(tt, ck, tuning, dr, 0, dr.n, out=True)
     _sync()
-    differ = ak != ap
-    if bool(differ.any()):
-        alpha = (d_pr.masked_fill(~torch.isfinite(terms2).all(1), -math.inf) + d_lik
-                 + log_mhg + lj)
-        gap = (torch.log(u) - alpha).abs()[differ]
-        check(bool((gap < K3_TIE).all()), f"accept_select: {int(differ.sum())} decisions differ")
-    n_acc = int(ap.sum())
-    check(0 < n_acc < C, f"accept_select check accepted {n_acc} of {C}: not a mixed case")
-    same = ~differ
-    worst = 0.0
-    for name in FIELDS:
-        a, b = getattr(sk, name)[same], getattr(sp, name)[same]
-        worst = max(worst, float((a - b).abs().max()))
-    for name in ("terms", "d", "y", "acc"):
-        a, b = ok_[name][same], op[name][same]
-        fin = torch.isfinite(b.float())
-        check(torch.equal(fin, torch.isfinite(a.float())), f"accept_select {name}: inf differs")
-        worst = max(worst, float((a[fin].float() - b[fin].float()).abs().max()))
-    check(worst == 0.0, f"accept_select: selected values differ by {worst:.3g}")
-    ms = _device_ms(lambda: run(accept_select, 1), only="accept_select_kernel")
-    base = _device_ms(lambda: run(lambda *a, **k: None, 1))  # the copies alone
-    plain_ms = _device_ms(lambda: run(accept_select_plain, 1)) - base
-    N, D, T = old.heights.shape[1], d.shape[1], terms.shape[1]
-    # Bytes: both term rows, the four per-chain deltas and uniforms, the old
-    # state and d, y in; for the accepted chains the new state, terms, d and
-    # dy in and terms, state, d and y out; one accept flag per chain.
-    row_in = 4 * (2 * N + 4 + T + 2 * D)      # new state less death, terms2, d_new, dy
-    row_out = 4 * (2 * N + 4 + T + 2 * D)
-    nbytes = 4 * C * (2 * T + 4 + 2 * N + 5 + 2 * D) + n_acc * (row_in + row_out) + C
-    return {"accept_select": _record(worst, ms, max(plain_ms, 0.0), nbytes, C * (3 * T + 10))}
+    rec = ticket_scan_plain(tt, cp, tuning, dr._replace(u_acc=torch.where(out.accept, 0.0,
+                                                                              math.nan)),
+                            0, dr.n, given=dict(prop=out.prop, mean=out.mean))
+    check(torch.equal(rec.accept, out.accept),
+          f"{name}: the kernel accepted a proposal whose log alpha the plain version makes -inf")
+    err = (out.prop - rec.prop).abs()
+    check(bool((err <= _prop_lim(rec.prop, rec.dx_dp)).all()),
+          lambda: f"{name}: proposals off the plain version's by {float(err.max()):.3g}")
+    worst["prop"] = max(worst.get("prop", 0.0), float(err.max()))
+    ties = _mh_same(name, worst, ck, cp, torch.log(dr.u_acc), rec.log_alpha, out.accept)
+    return ties, int(out.accept.sum()), out.accept.numel()
+
+
+def _ticket_work(tt, order):
+    """What a run of ``order``'s tickets must move and compute per chain:
+    ``(floats, bd terms, other terms)``: per ticket its draws, the state
+    entries it writes (old kept, new written), its term entries (old in,
+    new out), its class rows (d, y in; d, y out) and the flags."""
+    N = tt.N
+    floats = bd = other = 0
+    o_bd, o_ck = 4, 4 + N + 1
+    for p in order:
+        p = int(p)
+        tix = tt.tix(p).cpu().numpy()
+        n_bd = int(((tix >= o_bd) & (tix < o_ck)).sum())
+        fl = int(tt.cols["fields"][p])
+        nodes = (N * ((fl & 1) + ((fl >> 1) & 1))
+                 + (int(tt.n_off[p + 1] - tt.n_off[p])) * (((fl >> 7) & 1) + ((fl >> 8) & 1)))
+        rows = tt.rows(p)
+        nr = tt.D if rows is None else int(rows.numel())
+        floats += 3 + 2 * nodes + 2 * len(tix) + 4 * nr + 5
+        bd += n_bd
+        other += len(tix) - n_bd
+    return floats, bd, other
+
+
+def check_ticket(n_taxa):
+    """T1 ticket_prologue, K3 accept_select and T3 ticket_scan on the
+    calibrated synthetic model (all 17 proposal kinds) under its full MVN:
+    T1 and K3 on one ticket of every kind and every (class, kind) pair
+    against their plain versions; T3 on a 256-ticket run of the table's
+    non-breaking tickets against ticket_scan_plain.  The records time T1
+    and K3 on the pulley (FastSweeps' T1/K2/K3 ticket) and T3 on one run of
+    the FastSweeps leftovers' non-breaking tickets, in a drawn order (the
+    main path's run shape)."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch.engine import mh as M, proposals as P
+    from mcmcdate_tpu_torch.kernels.accept_select import accept_select, accept_select_plain
+    from mcmcdate_tpu_torch.kernels.ticket_step import TicketDraws, ticket_prologue, \
+        ticket_prologue_plain, ticket_scan, ticket_scan_plain
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    fs, fcarry, tuning, gen = _glob_fast(n_taxa)
+    tk = M.MHKernel(fs.model, fs.table)
+    tt = tk.tt
+    carry = tk.init_carry(fcarry.batch)
+    C = carry.terms.shape[0]
+
+    def draw_of(p):
+        return (standard_gamma(float(tt.table.par[p]) / tuning[:, p], gen) if tt.gamma[p]
+                else torch.rand(C, generator=gen, device="cuda"))
+
+    rows = {}
+    for p, kind in enumerate(tt.table.kind):
+        rows.setdefault((int(kind), int(tt.table.aux[p]) if kind == P.K_SCALE_SCALAR else 0), p)
+        rows.setdefault((int(kind), int(tt.d_class[p]), "dc"), p)
+    check({k[0] for k in rows} == set(range(P.N_KINDS)), "the table lacks a proposal kind")
+    worst, ties, n_acc = {}, 0, 0
+    for p in sorted(set(rows.values())):
+        t, a = _ticket_one_agree(f"ticket {tt.table.names[p]} at {n_taxa} taxa", tk, carry,
+                                 tuning, p, draw_of(p), torch.rand(C, generator=gen,
+                                                                   device="cuda"), worst)
+        ties, n_acc = ties + t, n_acc + a
+    check(n_acc > 0, "the ticket checks accepted nothing")
+    log(f"[kernels] ticket_prologue + accept_select at {n_taxa} taxa: {len(set(rows.values()))} "
+        f"rows (every kind and class), {n_acc} accepts, {ties} tie decisions differ from the "
+        f"replay; largest differences {json.dumps(worst)}")
+    tickets = np.asarray(tt.table.tickets)
+    ok = np.asarray([not tt.breaks(int(p)) for p in tickets])
+    order = np.random.default_rng(n_taxa).choice(tickets[ok], 256).astype(np.int32)
+    w3 = {}
+    ties, n_acc, n_all = _ticket_scan_agree(f"ticket_scan at {n_taxa} taxa", tk, carry, tuning,
+                                            tk.draws(order, tuning, gen), w3)
+    check(0 < n_acc < n_all, f"ticket_scan accepted {n_acc} of {n_all}: not a mixed case")
+    log(f"[kernels] ticket_scan at {n_taxa} taxa: 256 tickets that do not break a run, {n_acc} "
+        f"accepts of {n_all}, {ties} tie decisions differ from the replay, state, terms and d "
+        f"bitwise equal to it; largest differences {json.dumps(w3)}")
+
+    # T1 and K3 on the pulley.
+    N, T, D = tt.N, tt.T, tt.D
+    nn = T - 4 - 2 * (N + 1)
+    p = int(np.nonzero(tt.table.kind == P.K_PULLEY_ULTRA)[0][0])
+    draw, u = draw_of(p), torch.rand(C, generator=gen, device="cuda")
+    dr = TicketDraws.single(p, draw, u)
+    c1 = _mh_copy(carry)
+    ms1 = _device_ms(lambda: ticket_prologue(tt, c1, tuning, dr, 0), only="ticket_prologue_kernel")
+    c2 = _mh_copy(carry)
+    plain1 = _device_ms(lambda: ticket_prologue_plain(tt, c2, tuning, p, draw))
+    c3 = _mh_copy(carry)
+    pro = ticket_prologue(tt, c3, tuning, dr, 0)
+    dy, d_lik = tk._k2(c3, p, pro)
+    acc0 = accept_select(tt, _mh_copy(c3), tuning, dr, 0, pro, dy, d_lik)
+    ms3 = _device_ms(lambda: accept_select(tt, c3, tuning, dr, 0, pro, dy, d_lik),
+                     only="accept_select_kernel")
+    c4 = _mh_copy(carry)
+    pp = ticket_prologue_plain(tt, c4, tuning, p, draw)
+    plain3 = _device_ms(lambda: accept_select_plain(tt, c4, p, pp, u, dy, d_lik))
+    # T1.  Bytes: per chain heights and rates in, the new heights and the
+    # old ones out, the bd, ck and nd blocks in and out, d in and d_new and
+    # delta out, a few scalars.  Operations: the birth-death block in
+    # double (about 100 per node, each exp or log counted as 10), the clock
+    # block (about 40 per node) and the distances (4 per row).
+    nb1 = 4 * C * (4 * N + 2 * (2 * (N + 1) + nn) + 3 * D + 12)
+    # K3.  Bytes: per chain dy and y and five values in; for the accepted
+    # chains the three blocks and d_new in, terms, d and y out; for the
+    # rejected ones the old heights in and out.  Operations: y + dy.
+    na = int(acc0.sum())
+    nb3 = 4 * C * (2 * D + 6) + 4 * na * (2 * (2 * (N + 1) + nn) + 3 * D) + 4 * (C - na) * 2 * N
+    # T3 on the FastSweeps leftovers' non-breaking tickets of one sweep.
+    sk = fs.seq_kern
+    rows_t = torch.as_tensor(fs.plan.seq_rows.astype(np.int64), device="cuda")
+    stun = tuning[:, rows_t].contiguous()
+    seq = np.asarray(sk.table.tickets)
+    seq = seq[np.random.default_rng(1).permutation(len(seq))]
+    seq = np.asarray([q for q in seq if not sk.tt.breaks(int(q))], np.int32)
+    scarry = M.Carry(carry.batch, carry.terms, carry.d, carry.y,
+                     torch.zeros((C, sk.table.n_proposals), dtype=torch.int32, device="cuda"),
+                     carry.nbad)
+    sdr = sk.draws(seq, stun, gen)
+    c5, c6 = _mh_copy(scarry), _mh_copy(scarry)
+    ms5 = _device_ms(lambda: ticket_scan(sk.tt, c5, stun, sdr, 0, len(seq)),
+                     only="ticket_scan_kernel")
+    plain5 = _device_ms(lambda: ticket_scan_plain(sk.tt, c6, stun, sdr, 0, len(seq)), reps=1)
+    fl5, bd5, ot5 = _ticket_work(sk.tt, seq)
+    log(f"[kernels] ticket_scan at {n_taxa} taxa: the leftovers' run of {len(seq)} tickets "
+        f"(of {len(sk.table.tickets)} leftovers a sweep): {ms5:.4f} ms, "
+        f"{ms5 / len(seq) * 1e3:.2f} us a ticket")
+    return {
+        "ticket_prologue": _record(max(worst.get("prop", 0.0), worst.get("d_pr", 0.0)), ms1,
+                                   plain1, nb1, C * (40 * (N + 1) + 4 * D + 100),
+                                   ops64=100 * C * N),
+        "accept_select": _record(worst.get("y", 0.0), ms3, plain3, nb3, 4 * C * D),
+        "ticket_scan": _record(max(w3.get("prop", 0.0), w3.get("y", 0.0)), ms5, plain5,
+                               4 * C * fl5, C * (40 * ot5 + 100 * len(seq)), ops64=100 * C * bd5),
+    }
 
 
 _FAST = {}
@@ -1404,7 +1617,7 @@ def check_glob(n_taxa):
 
 
 # Each check returns its kernels' records by kernel name.
-CHECKS = (check_prior_terms, check_whiten, check_accept_select, check_point_step,
+CHECKS = (check_prior_terms, check_whiten, check_ticket, check_point_step,
           check_range_step, check_prior_only_steps, check_contra_slide, check_contra_range,
           check_glob)
 
@@ -1472,9 +1685,11 @@ def _wrappers():
     from mcmcdate_tpu_torch.kernels.prior_terms import prior_terms
     from mcmcdate_tpu_torch.kernels.range_scan import range_scan
     from mcmcdate_tpu_torch.kernels.range_step import range_lik_epilogue, range_lik_prologue
+    from mcmcdate_tpu_torch.kernels.ticket_step import ticket_prologue, ticket_scan
     from mcmcdate_tpu_torch.kernels.whiten import whiten
 
-    return {"prior_terms": prior_terms, "whiten": whiten, "accept_select": accept_select,
+    return {"prior_terms": prior_terms, "whiten": whiten, "ticket_prologue": ticket_prologue,
+            "accept_select": accept_select, "ticket_scan": ticket_scan,
             "point_lik_prologue": point_lik_prologue, "point_scan": point_scan,
             "point_lik_epilogue": point_lik_epilogue, "range_lik_prologue": range_lik_prologue,
             "range_scan": range_scan, "range_lik_epilogue": range_lik_epilogue,
@@ -1483,20 +1698,91 @@ def _wrappers():
             "glob_dense_epilogue": glob_dense_epilogue}
 
 
-def _counted(run):
+def _counted(run, inside=(), within=None):
     """Launch counts of every kernel during ``run()``, set to 0 just before
     it, with ``contra_range``'s also by row bucket (``contra_range_16``,
-    ...); returns ``(counts, run's result)``."""
+    ...); returns ``(counts, run's result)``.  The plain proposal kernels
+    (``proposals.KERNELS``) are counted too, under ``plain_proposals``.
+    ``inside`` names ``(class, method)`` pairs: the launch counts and plain
+    proposals of their calls, and the calls, go to ``within[method]``."""
+    from mcmcdate_tpu_torch.engine import proposals as P
+
     wrappers = _wrappers()
     by_rows = wrappers["contra_range"].launches_by_rows
     for w in wrappers.values():
         w.launches = 0
     for rb in by_rows:
         by_rows[rb] = 0
-    out = run()
+    plain = [0]
+    real_k = dict(P.KERNELS)
+
+    def counting(fn):
+        def k(*a, **kw):
+            plain[0] += 1
+            return fn(*a, **kw)
+        return k
+
+    def inside_of(real, acc):
+        def wrapped(self, *a, **kw):
+            before = {k: w.launches for k, w in wrappers.items()}
+            p0 = plain[0]
+            out = real(self, *a, **kw)
+            for k, w in wrappers.items():
+                acc[k] = acc.get(k, 0) + w.launches - before[k]
+            acc["plain_proposals"] = acc.get("plain_proposals", 0) + plain[0] - p0
+            acc["calls"] = acc.get("calls", 0) + 1
+            return out
+        return wrapped
+
+    saved = [(cls, meth, getattr(cls, meth)) for cls, meth in inside]
+    for kk, fn in real_k.items():
+        P.KERNELS[kk] = counting(fn)
+    for cls, meth, real in saved:
+        setattr(cls, meth, inside_of(real, within.setdefault(meth, {})))
+    try:
+        out = run()
+    finally:
+        P.KERNELS.update(real_k)
+        for cls, meth, real in saved:
+            setattr(cls, meth, real)
     counts = {k: w.launches for k, w in wrappers.items()}
     counts.update({f"contra_range_{rb}": n for rb, n in by_rows.items()})
+    counts["plain_proposals"] = plain[0]
     return counts, out
+
+
+def _check_seq_phase(name, within):
+    """FastSweeps' sequential phase went through the ticket kernels alone:
+    no K1, no plain proposal, T3 launched."""
+    n = within.get("seq_phase", {})
+    check(n.get("calls", 0) > 0, f"{name}: the sequential phase never ran")
+    check(n["prior_terms"] == 0 and n["plain_proposals"] == 0 and n["ticket_scan"] > 0,
+          f"{name}: the sequential phase launched {n}, not T3 (and T1, K2, K3) alone")
+    return {k: round(v / n["calls"], 2) for k, v in n.items() if v and k != "calls"}
+
+
+def _check_seq_sweeps(name, kern, within, n_chunks):
+    """Every MHKernel sweep went through the ticket kernels alone: no K1
+    and no plain proposal inside a sweep; T1, K2 and K3 once per ticket
+    that breaks a run, T3 once per heavy ticket and at most once per run
+    between them.  Returns the launches per sweep."""
+    from mcmcdate_tpu_torch.kernels.ticket_step import HEAVY
+
+    n = within.get("sweep_once", {})
+    calls = n.get("calls", 0)
+    check(calls > 0, f"{name}: no sweep ran")
+    tt = kern.tt
+    brk = sum(tt.breaks(int(p)) for p in kern.table.tickets)
+    heavy = sum(not tt.breaks(int(p)) and tt.work[p] > HEAVY for p in kern.table.tickets)
+    want = {"ticket_prologue": brk * calls, "accept_select": brk * calls,
+            "whiten": brk * calls}
+    got = {k: n.get(k, 0) for k in want}
+    check(got == want, f"{name}: T1, K2, K3 launched {got}, not once per breaking ticket {want}")
+    check(n["prior_terms"] == 0 and n["plain_proposals"] == 0,
+          f"{name}: a sweep launched K1 or a plain proposal: {n}")
+    check(max(1, heavy) * calls <= n["ticket_scan"] <= (2 * (brk + heavy) + n_chunks) * calls,
+          f"{name}: {n['ticket_scan']} T3 launches in {calls} sweeps ({heavy} heavy tickets)")
+    return {k: round(v / calls, 2) for k, v in n.items() if v and k != "calls"}
 
 
 def _check_point_path(name, launches, kern):
@@ -1539,9 +1825,11 @@ def phase_main_path():
                   "--out-dir", tmp])
         log(f"[main path] prepare took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        within = {}
         launches, runner = _counted(lambda: cli.main(
             ["run", "-a", "smoke", "--chains", str(CHAINS), "--profile", "--seed", "1",
-             "--device", "cuda", "--iterations", str(ITERATIONS), "--out-dir", tmp]))
+             "--device", "cuda", "--iterations", str(ITERATIONS), "--out-dir", tmp]),
+            inside=((FastSweeps, "seq_phase"),), within=within)
         wall = time.perf_counter() - t0
         check(isinstance(runner.kern, FastSweeps), "run did not take FastSweeps")
         for suffix in ("params.monitor", "timetree.monitor", "ratetree.monitor",
@@ -1556,7 +1844,10 @@ def phase_main_path():
         check(0.0 < rate < 1.0, f"overall acceptance {rate}")
         n_sweeps = len(runner.sweep_seconds) * 10
         for k, n in launches.items():
-            check(n > 0 or k.startswith("contra_range_"), f"the main path never launched {k}")
+            if k != "plain_proposals":
+                check(n > 0 or k.startswith("contra_range_"), f"the main path never launched {k}")
+        check(launches["plain_proposals"] == 0, "the main path ran a plain proposal kernel")
+        seq_per_sweep = _check_seq_phase("main path", within)
         _check_point_path("main path", launches, runner.kern)
         # The sequential model for the last phase: this run's prepared data.
         args = cli.build_parser().parse_args(["run", "-a", "smoke", "--out-dir", tmp])
@@ -1570,7 +1861,8 @@ def phase_main_path():
         f"{med:.4f} s per sweep on {torch.cuda.get_device_name(0)}; acceptance {rate:.4f}; "
         f"carried log posterior within {lp_err:.3g} of the direct float32 one (float32 vs "
         f"float64 evaluation of the final state: {lp_f64:.3g}); launches {launches}; "
-        f"per sweep {json.dumps({k: round(v, 2) for k, v in per_sweep.items()})}")
+        f"per sweep {json.dumps({k: round(v, 2) for k, v in per_sweep.items()})}; the "
+        f"sequential phase per sweep, no K1 and no plain proposal: {json.dumps(seq_per_sweep)}")
     return launches, (seq_model, seq_init)
 
 
@@ -1598,11 +1890,15 @@ def _check_lp(name, model, batch, lp_carried):
 def _runner_phase(name, model, init, fast_sweep, n_sweeps, need):
     """``n_sweeps`` sweeps through ``ChainRunner`` (chunks of 10, counted),
     then one more sweep whose carried log posterior is checked.  Fails
-    unless every kernel in ``need`` was launched."""
+    unless every kernel in ``need`` was launched, or where a sweep's
+    sequential part (FastSweeps' sequential phase, or the sequential
+    sweep) launched K1 or a plain proposal."""
     import torch
 
     from mcmcdate_tpu_torch.engine import proposals as P
     from mcmcdate_tpu_torch.engine.chains import ChainRunner, RunSettings, new_key
+    from mcmcdate_tpu_torch.engine.fast_sweep import FastSweeps
+    from mcmcdate_tpu_torch.engine.mh import MHKernel
 
     table = P.build_proposal_table(model.topo, model.braces, model.calibrations_available)
     settings = RunSettings(name, n_chains=CHAINS, seed=1, device="cuda",
@@ -1617,12 +1913,18 @@ def _runner_phase(name, model, init, fast_sweep, n_sweeps, need):
         return b2, lp_pr + lp_lik, float(acc.sum()) / float(tot.sum())
 
     t0 = time.perf_counter()
-    launches, (batch, lp, rate) = _counted(run)
+    within = {}
+    inside = (FastSweeps, "seq_phase") if fast_sweep else (MHKernel, "sweep_once")
+    launches, (batch, lp, rate) = _counted(run, inside=(inside,), within=within)
     wall = time.perf_counter() - t0
     for k in need:
         check(launches[k] > 0, f"{name}: never launched {k}")
+    check(launches["plain_proposals"] == 0, f"{name}: ran a plain proposal kernel")
     if fast_sweep:
         _check_point_path(name, launches, runner.kern)
+        seq = _check_seq_phase(name, within)
+    else:
+        seq = _check_seq_sweeps(name, runner.kern, within, 1)
     err, err64 = _check_lp(name, model, batch, lp)
     med = statistics.median(runner.sweep_seconds)
     if fast_sweep and runner.kern.use_lik:
@@ -1633,7 +1935,8 @@ def _runner_phase(name, model, init, fast_sweep, n_sweeps, need):
         f"chains, {n_sweeps + 1} sweeps in {wall:.1f} s; median {med:.4f} s per sweep "
         f"(chunks of 10) on {torch.cuda.get_device_name(0)}; acceptance {rate:.4f}; carried "
         f"log posterior within {err:.3g} of the direct float32 one (float32 vs float64: "
-        f"{err64:.3g}); launches {launches}")
+        f"{err64:.3g}); launches {launches}; {'the sequential phase' if fast_sweep else 'a sweep'}"
+        f" per sweep, no K1 and no plain proposal: {json.dumps(seq)}")
     return launches
 
 
@@ -1646,7 +1949,8 @@ def phase_full_width():
                          ("point_lik_prologue", "point_scan", "point_lik_epilogue",
                           "range_lik_prologue", "range_scan", "range_lik_epilogue",
                           "contra_slide", "contra_range", "glob_scan", "glob_dense_prologue",
-                          "glob_dense_epilogue"))
+                          "glob_dense_epilogue", "ticket_prologue", "accept_select",
+                          "ticket_scan"))
 
 
 def phase_prior_only():
@@ -1661,7 +1965,7 @@ def phase_prior_only():
     return _runner_phase("prior only", model, batch, True, PRIOR_ONLY_SWEEPS,
                          ("point_lik_prologue", "point_lik_epilogue", "range_lik_prologue",
                           "range_lik_epilogue", "contra_slide", "contra_range", "glob_scan",
-                          "glob_dense_prologue", "glob_dense_epilogue"))
+                          "glob_dense_prologue", "glob_dense_epilogue", "ticket_scan"))
 
 
 def phase_sequential(seq):
@@ -1669,7 +1973,95 @@ def phase_sequential(seq):
     log(f"[sequential] cut: {SEQUENTIAL_SWEEPS} sweeps (+1 for the carry check) of the "
         f"main path's model")
     return _runner_phase("sequential", model, init, False, SEQUENTIAL_SWEEPS,
-                         ("prior_terms", "whiten", "accept_select"))
+                         ("prior_terms", "whiten", "ticket_prologue", "accept_select",
+                          "ticket_scan"))
+
+
+def phase_univariate_10k():
+    """The sequential path at its own full width: ChainRunner with the
+    default settings on a univariate model of UNI_TAXA taxa (D = 19,997 >
+    UNIVARIATE_DENSE_MAX, so the runner takes MHKernel; nothing O(N^2):
+    no Cholesky factor) x CHAINS chains.  T3 against its plain version on
+    a 256-ticket run of every kind (the record at this shape); then
+    UNI_SWEEPS timed sweeps and one whose carried log posterior is checked,
+    every sweep through T3 alone (no K1, no plain proposal, no T1, K2 or
+    K3: no ticket breaks a run under the univariate kind)."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch.engine import proposals as P
+    from mcmcdate_tpu_torch.engine.chains import ChainRunner, RunSettings
+    from mcmcdate_tpu_torch.engine.fast_sweep import UNIVARIATE_DENSE_MAX
+    from mcmcdate_tpu_torch.engine.mh import MHKernel
+    from mcmcdate_tpu_torch.kernels.ticket_step import CHUNK, ticket_scan, ticket_scan_plain
+    from mcmcdate_tpu_torch.tools.seq_time import univariate_model
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model, init = univariate_model(UNI_TAXA, seed=0)
+    check(model.chol_internal is None, "the univariate model built a Cholesky factor")
+    check(model.likelihood.dim > UNIVARIATE_DENSE_MAX,
+          f"D = {model.likelihood.dim} does not exceed {UNIVARIATE_DENSE_MAX}")
+    table = P.build_proposal_table(model.topo, model.braces, model.calibrations_available)
+    runner = ChainRunner(model, table, RunSettings("uni10k", n_chains=CHAINS, seed=1,
+                                                   device="cuda"), log=lambda *a: None)
+    tk = runner.kern
+    check(isinstance(tk, MHKernel), f"the runner took {type(tk).__name__}, not MHKernel")
+    batch, tuning = runner.init_chains(init)
+    _sync()
+    setup_s = time.perf_counter() - t0
+    n_t = int(table.n_tickets)
+    log(f"[univariate 10k] {UNI_TAXA} taxa x {CHAINS} chains, D = {model.likelihood.dim}, "
+        f"{table.n_proposals} proposal rows, {n_t} tickets a sweep ({-(-n_t // CHUNK)} chunks); "
+        f"setup {setup_s:.1f} s; cut: {UNI_SWEEPS} timed sweeps (+1 for the carry check)")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    carry = tk.init_carry(batch)
+    order = np.random.default_rng(10).choice(np.asarray(table.tickets), 256).astype(np.int32)
+    dr = tk.draws(order, tuning, gen)
+    w = {}
+    ties, n_acc, n_all = _ticket_scan_agree("ticket_scan at 10000 taxa", tk, carry, tuning, dr, w)
+    check(0 < n_acc < n_all, f"ticket_scan accepted {n_acc} of {n_all}: not a mixed case")
+    c1, c2 = _mh_copy(carry), _mh_copy(carry)
+    ms = _device_ms(lambda: ticket_scan(tk.tt, c1, tuning, dr, 0, len(order)),
+                    only="ticket_scan_kernel", reps=5)
+    plain_ms = _device_ms(lambda: ticket_scan_plain(tk.tt, c2, tuning, dr, 0, len(order)), reps=1)
+    fl, bd, ot = _ticket_work(tk.tt, order)
+    rec = _record(max(w.get("prop", 0.0), w.get("y", 0.0)), ms, plain_ms, 4 * CHAINS * fl,
+                  CHAINS * (40 * ot + 100 * len(order)), ops64=100 * CHAINS * bd)
+    log(f"[kernels] ticket_scan at {UNI_TAXA} taxa x {CHAINS} chains (univariate, 256 tickets of "
+        f"every kind): {n_acc} accepts of {n_all}, {ties} tie decisions differ from the replay, "
+        f"state, terms and d bitwise equal to it; largest differences {json.dumps(w)}; device "
+        f"time per call: kernel {ms:.4f} ms ({ms / len(order) * 1e3:.2f} us a ticket), plain "
+        f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    del carry, c1, c2
+    torch.cuda.empty_cache()
+
+    def run():
+        times, b = [], batch
+        for i in range(UNI_SWEEPS):
+            t1 = time.perf_counter()
+            b = tk.sweeps(b, tuning, 2 + i, 1)[0]
+            _sync()
+            times.append(time.perf_counter() - t1)
+        b2, lp_pr, lp_lik, acc, tot, _ = tk.sweeps(b, tuning, 7, 1)
+        return times, b2, lp_pr + lp_lik, float(acc.sum()) / float(tot.sum())
+
+    within = {}
+    t0 = time.perf_counter()
+    launches, (times, b2, lp, rate) = _counted(run, inside=((MHKernel, "sweep_once"),),
+                                               within=within)
+    wall = time.perf_counter() - t0
+    check(launches["plain_proposals"] == 0, "univariate 10k: ran a plain proposal kernel")
+    per_sweep = _check_seq_sweeps("univariate 10k", tk, within, -(-n_t // CHUNK))
+    check(0.0 < rate < 1.0, f"univariate 10k: acceptance {rate}")
+    err, err64 = _check_lp("univariate 10k", model, b2, lp)
+    log(f"[univariate 10k] MHKernel, {UNI_SWEEPS + 1} sweeps in {wall:.1f} s; sweeps "
+        f"{json.dumps([round(t, 4) for t in times])} s, median {statistics.median(times):.4f} s "
+        f"per sweep on {torch.cuda.get_device_name(0)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; acceptance {rate:.4f}; carried log "
+        f"posterior within {err:.3g} of the direct float32 one (float32 vs float64: "
+        f"{err64:.3g}); launches per sweep {json.dumps(per_sweep)}")
+    return launches, rec
 
 
 def main():
@@ -1685,6 +2077,8 @@ def main():
     full = phase_full_width()
     prior = phase_prior_only()
     sequential = phase_sequential(seq)
+    uni, uni_rec = phase_univariate_10k()
+    log(f"[ticket_scan] at {UNI_TAXA} taxa: {json.dumps(uni_rec)}")
     check("jax" not in sys.modules, "the port imported jax")
     check(not [m for m in sys.modules if m == "mcmcdate_tpu" or m.startswith("mcmcdate_tpu.")],
           "the port imported the JAX package")
@@ -1693,7 +2087,8 @@ def main():
     record = {"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep, launches=launches[k],
              launches_by_path={"main": launches[k], "full_width": full[k],
-                               "prior_only": prior[k], "sequential": sequential[k]},
+                               "prior_only": prior[k], "sequential": sequential[k],
+                               "univariate_10k": uni[k]},
              **results[k]) for k, src, rep in KERNELS
     ]}
     print(json.dumps(record), flush=True)

@@ -4,7 +4,7 @@ Port of ``mcmcdate_tpu/cli.py``.  ``run`` takes the JAX CLI's flags
 except ``--mc3``, ``--hamiltonian``, ``--bold-*``, ``--fiber-*`` and
 ``--trace-dir``, plus ``--device`` (default ``cuda``).  With a CUDA device
 and no card present ``run`` fails; it never carries on on the CPU.
-``simulate`` hands off to the JAX package's NumPy-only fixture generator.
+``simulate`` runs the port's own NumPy-only fixture generator (``utils/simulate.py``).
 ``continue``, ``marginal-likelihood`` and ``analyze`` are not ported yet.
 """
 

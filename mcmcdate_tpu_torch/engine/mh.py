@@ -3,12 +3,19 @@ burn-in schedules.
 
 Port of ``mcmcdate_tpu/engine/mh.py`` (without the in-cycle NUTS move).  A
 sweep runs the weight-expanded proposal tickets in a random order that is
-drawn on the host and shared by all chains, so every ticket is one Python
-dispatch on its proposal kind: no ticket reads a device value back.  Per
-ticket: the proposal (plain torch over the chain axis), the prior terms
-(kernel K1), the incremental whitened residual by the proposal's
-likelihood class (kernel K2), the root-branch Jacobian, then accept and
-select in place (kernel K3).
+drawn on the host and shared by all chains, so the host splits the order
+into runs from the table's static likelihood classes without reading any
+device value back.  A run of tickets whose likelihood update is local (all
+of them without a likelihood or under the univariate kind; under a full MVN
+the distance-invariant and gather classes) is one launch of T3
+``ticket_scan``; a full-MVN ticket of the dense or range classes is T1
+``ticket_prologue``, K2 ``whiten`` for its ``dy`` and K3 ``accept_select``
+(``kernels/ticket_step.py``, ``kernels/accept_select.py``).  The draws come
+per chunk of at most ``CHUNK`` tickets: one uniform call for the
+proposals, one for the accepts and one standard-gamma call over the
+chunk's gamma tickets.  No ticket recomputes the prior terms whole: the
+sweep carries them, with each chain's count of NaN or -inf terms (the JAX
+package's invalid rule reads the whole new term vector).
 """
 
 from __future__ import annotations
@@ -16,15 +23,17 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 
 from ..kernels.accept_select import accept_select
+from ..kernels.ticket_step import CHUNK, LIK_FULL, TicketDraws, TicketTable, count_bad, \
+    ticket_prologue, ticket_scan
 from ..kernels.whiten import range_rows, whiten
 from ..models.dating import DatingModel
 from ..models.state import FIELDS, State
-from ..ops import mvn
 from ..ops.dists import standard_gamma
-from ..ops.heights import distances_internal, log_jacobian_root_branch
+from ..ops.heights import distances_internal
 from . import proposals as props
 
 # Tuning bounds; unbounded tuning is pathological for gamma-kernel scale
@@ -37,14 +46,16 @@ TUNE_MAX = 1e2
 class Carry:
     """What a sweep carries per chain besides the state: the prior terms
     ``[C, T]``, the internal-layout distances ``d`` and whitened residual
-    ``y`` ``[C, D]`` (None without a likelihood) and the accept counts
-    ``[C, P]``."""
+    ``y`` ``[C, D]`` (None without a likelihood), the accept counts
+    ``[C, P]`` and the number of NaN or -inf terms ``nbad`` (int32 ``[C]``;
+    counted at the sweep's start where None)."""
 
     batch: State
     terms: torch.Tensor
     d: Optional[torch.Tensor]
     y: Optional[torch.Tensor]
     acc: torch.Tensor
+    nbad: Optional[torch.Tensor] = None
 
 
 class MHKernel:
@@ -54,69 +65,51 @@ class MHKernel:
     def __init__(self, model: DatingModel, table: props.ProposalTable):
         self.model = model
         self.table = table
-        kind = model.likelihood.kind
-        if kind in (mvn.SPARSE, mvn.BANDED):
-            raise NotImplementedError(mvn.NOT_PORTED.format(kind))
-        self.use_lik = kind != mvn.NONE
-        self.diag_lik = kind == mvn.UNIVARIATE
+        self.tt = TicketTable(model, table)
+        self.use_lik = self.tt.lik != 0
+        # K2's row lists of the full-MVN gather and range classes (int32).
         self.rows = [None] * table.n_proposals
-        if self.use_lik and not self.diag_lik:
+        if self.tt.lik == LIK_FULL:
             D = model.likelihood.dim
-            dev = model.device
-            d_class = table.d_class
             for p in range(table.n_proposals):
-                dc = props.DC_FULL if d_class is None else int(d_class[p])
+                dc = int(self.tt.d_class[p])
                 if dc == props.DC_GATHER:
-                    rows = [int(r) for r in table.didx[p]]
+                    rows = [int(r) for r in self.tt.didx[p]]
                 elif dc in props.D_BUCKETS:
-                    rows = range_rows(int(table.d_lo[p]), props.D_BUCKETS[dc], D)
+                    rows = range_rows(int(self.tt.d_lo[p]), props.D_BUCKETS[dc], D)
                 else:
                     continue
-                self.rows[p] = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+                self.rows[p] = torch.as_tensor(rows, dtype=torch.int32, device=model.device)
+        self.par = np.asarray(table.par, np.float64)
 
-    def _d_class(self, pidx: int) -> int:
-        if self.table.d_class is None:  # hand-built tables: recompute fully
-            return props.DC_FULL
-        return int(self.table.d_class[pidx])
+    def _k2(self, carry: Carry, pidx: int, pro):
+        """K2's ``(dy, d_lik)`` of a full-MVN ticket (None, None for
+        ``DC_INV``)."""
+        m = self.model
+        dc = int(self.tt.d_class[pidx])
+        if self.tt.lik != LIK_FULL or dc == props.DC_INV:
+            return None, None
+        if dc == props.DC_FULL:
+            return whiten(pro.d_new, m.chol_internal_t, sub=m.mu_internal_t, y=carry.y,
+                          minus_y=True)
+        return whiten(pro.delta, m.chol_internal_t, rows=self.rows[pidx], y=carry.y)
+
+    def _one(self, carry: Carry, tuning, dr: TicketDraws, j: int):
+        """Ticket ``j`` of ``dr`` alone: T1, K2 where the row needs it, K3.
+        Returns the accept mask."""
+        pidx = int(dr.order_host[j])
+        pro = ticket_prologue(self.tt, carry, tuning, dr, j)
+        dy, d_lik = self._k2(carry, pidx, pro)
+        return accept_select(self.tt, carry, tuning, dr, j, pro, dy, d_lik)
 
     def ticket_step(self, carry: Carry, tuning, pidx: int, draw, u_acc):
         """Run proposal row ``pidx`` on every chain with the given draws
         (the kernel's uniform or standard-gamma ``[C]`` and the accept
         uniform ``[C]``); updates ``carry`` in place and returns the
         accept mask."""
-        m = self.model
-        t = self.table
-        kind = int(t.kind[pidx])
-        state_new, log_mhg = props.KERNELS[kind](
-            carry.batch, draw, tuning[:, pidx], int(t.node[pidx]), int(t.aux[pidx]),
-            float(t.par[pidx]), m.topo, m.braces,
-        )
-        terms2 = m.log_prior_terms(state_new)
-        d_lik = d_new = dy = None
-        if self.use_lik:
-            dc = self._d_class(pidx)
-            if self.diag_lik:
-                # Diagonal model: the whitening is elementwise, every class
-                # collapses to one expression.
-                d_new = distances_internal(state_new, m.topo)
-                dy = (d_new - carry.d) * m.inv_sd_internal_t
-                d_lik = -0.5 * torch.sum(dy * (2.0 * carry.y + dy), dim=-1)
-            elif dc == props.DC_FULL:
-                d_new = distances_internal(state_new, m.topo)
-                dy, d_lik = whiten(d_new, m.chol_internal_t, sub=m.mu_internal_t, y=carry.y,
-                                   minus_y=True)
-            elif dc != props.DC_INV:
-                d_new = distances_internal(state_new, m.topo)
-                dy, d_lik = whiten(d_new - carry.d, m.chol_internal_t, rows=self.rows[pidx],
-                                   y=carry.y)
-        lj = None
-        if t.root_jac[pidx]:
-            lj = (log_jacobian_root_branch(state_new, m.topo)
-                  - log_jacobian_root_branch(carry.batch, m.topo))
-        return accept_select(
-            carry.terms, terms2, log_mhg, u_acc, carry.batch, state_new, carry.acc, pidx,
-            d_lik=d_lik, lj=lj, d=carry.d, d_new=d_new, y=carry.y, dy=dy,
-        )
+        if carry.nbad is None:
+            carry.nbad = count_bad(carry.terms)
+        return self._one(carry, tuning, TicketDraws.single(pidx, draw, u_acc), 0)
 
     def init_carry(self, batch: State) -> Carry:
         """Carried quantities of a fresh batch (a copy: sweeps update it
@@ -129,7 +122,8 @@ class MHKernel:
             y = m.whitened_residual_internal(batch)
         acc = torch.zeros((batch.n_chains, self.table.n_proposals), dtype=torch.int32,
                           device=batch.heights.device)
-        return Carry(batch, m.log_prior_terms(batch), d, y, acc)
+        terms = m.log_prior_terms(batch)
+        return Carry(batch, terms, d, y, acc, count_bad(terms))
 
     def lp_of(self, carry: Carry):
         """Per-chain log prior and log likelihood from the carried terms."""
@@ -160,22 +154,59 @@ class MHKernel:
                ).expand(C, -1)
         return (carry.batch, *self.lp_of(carry), carry.acc, tot, outs)
 
-    def sweep_once(self, carry: Carry, tuning, host_gen, gen):
+    def draws(self, order: np.ndarray, tuning, gen) -> TicketDraws:
+        """The draws of ``order``'s tickets: two ``[C, n]`` uniform calls
+        (proposals, accepts) and one standard-gamma call over the gamma
+        tickets, whose shapes ``par / tune`` come from one gather."""
+        C, dtype, device = tuning.shape[0], tuning.dtype, tuning.device
+        n = len(order)
+        gcols = np.nonzero(self.tt.gamma[order])[0]
+        gidx_host = np.full(n, -1, np.int32)
+        gidx_host[gcols] = np.arange(len(gcols), dtype=np.int32)
+        host = np.concatenate([order, gidx_host, order[gcols]]).astype(np.int32)
+        dev = torch.as_tensor(host, device=device)
+        u = torch.rand((C, n), generator=gen, dtype=dtype, device=device)
+        u_acc = torch.rand((C, n), generator=gen, dtype=dtype, device=device)
+        g = None
+        if len(gcols):
+            par = torch.as_tensor(self.par[order[gcols]], dtype=dtype, device=device)
+            g = standard_gamma(par / tuning.index_select(1, dev[2 * n:]), gen)
+        return TicketDraws(order, dev[:n], u, g, gidx_host, dev[n:2 * n], u_acc)
+
+    def sweep_once(self, carry: Carry, tuning, host_gen, gen, given=None):
         """One pass over the weight-expanded tickets on ``carry`` (in
-        place), in an order drawn from the host generator ``host_gen``,
-        with the per-chain draws from ``gen``."""
-        t = self.table
-        C, dtype, device = tuning.shape[0], carry.terms.dtype, carry.terms.device
-        tickets = torch.as_tensor(t.tickets)
-        order = tickets[torch.randperm(len(tickets), generator=host_gen)].tolist()
-        u_prop = torch.rand((len(order), C), generator=gen, dtype=dtype, device=device)
-        u_acc = torch.rand((len(order), C), generator=gen, dtype=dtype, device=device)
-        for j, pidx in enumerate(order):
-            if int(t.kind[pidx]) in props.GAMMA_KINDS:
-                draw = standard_gamma(float(t.par[pidx]) / tuning[:, pidx], gen)
+        place), in an order drawn from the host generator ``host_gen``, with
+        the per-chain draws from ``gen``, in chunks of at most ``CHUNK``
+        tickets.  ``given = (order, draws, u_acc)`` replaces the order
+        (table rows ``[n]``) and the draws (each ticket's uniform or
+        standard-gamma draw and its accept uniform, ``[C, n]``)."""
+        if carry.nbad is None:
+            carry.nbad = count_bad(carry.terms)
+        if given is not None:
+            order, draws, u_acc = given
+            order = np.asarray(order, np.int32)
+        else:
+            order = np.asarray(self.table.tickets, np.int32)[
+                torch.randperm(self.table.n_tickets, generator=host_gen).numpy()]
+        for c0 in range(0, len(order), CHUNK):
+            part = order[c0:c0 + CHUNK]
+            if given is None:
+                dr = self.draws(part, tuning, gen)
             else:
-                draw = u_prop[j]
-            self.ticket_step(carry, tuning, pidx, draw, u_acc[j])
+                sl = slice(c0, c0 + len(part))
+                dev = torch.as_tensor(part, device=tuning.device)
+                dr = TicketDraws(part, dev, draws[:, sl].contiguous(), None, None, None,
+                                 u_acc[:, sl].contiguous())
+            for j0, nj, run in self.tt.segments(part):
+                self.segment(carry, tuning, dr, j0, nj, run)
+
+    def segment(self, carry: Carry, tuning, dr: TicketDraws, j0: int, nj: int, run: bool):
+        """Tickets ``j0 .. j0+nj`` of ``dr``: a run (T3), or one ticket that
+        breaks a run (T1, K2, K3)."""
+        if run:
+            ticket_scan(self.tt, carry, tuning, dr, j0, nj)
+        else:
+            self._one(carry, tuning, dr, j0)
 
 
 def tune_step(tuning, acc, tot, targets, rate=1.0, tune_max=None):

@@ -28,7 +28,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..ops.dists import gamma_scale_sample, truncated_normal_sample
+from ..ops.dists import gamma_scale_lq, gamma_scale_sample, truncated_normal_draw, \
+    truncated_normal_lq, truncated_normal_sample
 from ..ops.node_priors import BraceSet
 from ..tree import FlatTopology
 
@@ -376,6 +377,56 @@ GAMMA_KINDS = frozenset({
 })
 
 
+class Replay:
+    """A ticket's draw for the kernels below (``draw``, ``[C]``), with the
+    proposal to build the state from in its place: ``given``, the
+    truncated-normal value or the gamma factor (None: the one drawn), and
+    ``given_mean``, the rate-variance spread's non-root rate mean.  The
+    kernel records what it drew: ``prop``, ``mean`` and, for a truncated
+    normal, ``dx_dp``, the value's sensitivity to the CDF value it inverts
+    (``x = mean + s ndtri(p)``: ``dx/dp = s / phi((x - mean) / s)``).  A
+    check replays another evaluation's proposals (a CUDA kernel's) through
+    these kernels with it."""
+
+    def __init__(self, draw, given=None, given_mean=None):
+        self.draw, self.given, self.given_mean = draw, given, given_mean
+        self.prop = self.mean = self.dx_dp = None
+
+
+def _tn(uni, mean, par, tune, a, b):
+    """``truncated_normal_sample`` of the kernels, from a uniform or a
+    :class:`Replay`."""
+    if not isinstance(uni, Replay):
+        return truncated_normal_sample(uni, mean, par, tune, a, b)
+    x = truncated_normal_draw(uni.draw, mean, par, tune, a, b)
+    s = tune * par
+    uni.prop = x
+    uni.dx_dp = s * math.sqrt(2.0 * math.pi) * torch.exp(0.5 * ((x - mean) / s) ** 2)
+    if uni.given is not None:
+        x = uni.given
+    return x, truncated_normal_lq(mean, par, tune, a, b, x)
+
+
+def _gs(g, par, tune):
+    """``gamma_scale_sample`` of the kernels, from a standard-gamma draw or
+    a :class:`Replay`."""
+    if not isinstance(g, Replay):
+        return gamma_scale_sample(g, par, tune)
+    u = gamma_scale_sample(g.draw, par, tune)[0]
+    g.prop = u
+    if g.given is not None:
+        u = g.given
+    return (u, *gamma_scale_lq(u, par, tune))
+
+
+def _mean(g, mean):
+    """The spread's rate mean, recorded in (and replaced from) a Replay."""
+    if not isinstance(g, Replay):
+        return mean
+    g.mean = mean
+    return mean if g.given_mean is None else g.given_mean
+
+
 def _children(topo, i):
     return [int(c) for c in topo.children[i] if c >= 0]
 
@@ -400,7 +451,7 @@ def _scale_cols(t, lo, hi, f):
 
 
 def _k_scale_scalar(state, g, tune, node, aux, par, topo, braces):
-    u, base, logu = gamma_scale_sample(g, par, tune)
+    u, base, logu = _gs(g, par, tune)
     # n_up - n_down coordinates scaled by u: 1 for the single-scalar moves,
     # 2 for the joint (birth, death) ray, 0 for its contrary variant.
     coef = 2.0 if aux == SC_BIRTH_DEATH else 0.0 if aux == SC_BIRTH_DEATH_CONTRA else 1.0
@@ -423,7 +474,7 @@ def _k_scale_scalar(state, g, tune, node, aux, par, topo, braces):
 
 def _k_scale_height_ratemean_contra(state, g, tune, node, aux, par, topo, braces):
     """scaleContrarily on (timeHeight, rateMean): x -> x*u, y -> y/u."""
-    u, base, _ = gamma_scale_sample(g, par, tune)
+    u, base, _ = _gs(g, par, tune)
     return state.replace(height=state.height * u, rate_mean=state.rate_mean / u), base
 
 
@@ -433,7 +484,7 @@ def _k_slide_node_ultra(state, uni, tune, node, aux, par, topo, braces):
     h = state.heights
     hi = h[:, node]
     hp = h[:, int(topo.parent[node])]
-    hnew, lq = truncated_normal_sample(uni, hi, par, tune, _max_child_height(h, topo, node), hp)
+    hnew, lq = _tn(uni, hi, par, tune, _max_child_height(h, topo, node), hp)
     return state.replace(heights=_set_col(h, node, hnew)), lq
 
 
@@ -442,7 +493,7 @@ def _k_scale_subtree_ultra(state, uni, tune, node, aux, par, topo, braces):
     h = state.heights
     hi = h[:, node]
     hp = h[:, int(topo.parent[node])]
-    hnew, lq = truncated_normal_sample(uni, hi, par, tune, 0.0, hp)
+    hnew, lq = _tn(uni, hi, par, tune, 0.0, hp)
     xi = hnew / hi
     h2 = _scale_cols(h, node, int(topo.subtree_end[node]), xi)
     n_inner = int(topo.n_inner_subtree[node])
@@ -457,7 +508,7 @@ def _k_pulley_ultra(state, uni, tune, node, aux, par, topo, braces):
     brl, brr = ht - hl, ht - hr
     a = -torch.minimum(brl, hr)
     b = torch.minimum(brr, hl)
-    u, lq = truncated_normal_sample(uni, 0.0, par, tune, a, b)
+    u, lq = _tn(uni, 0.0, par, tune, a, b)
     xil, xir = (hl - u) / hl, (hr + u) / hr
     h2 = _scale_cols(h, l, int(topo.subtree_end[l]), xil)
     h2[:, r:int(topo.subtree_end[r])] = h[:, r:int(topo.subtree_end[r])] * xir[:, None]
@@ -468,14 +519,14 @@ def _k_pulley_ultra(state, uni, tune, node, aux, par, topo, braces):
 
 
 def _k_scale_branch_rate(state, g, tune, node, aux, par, topo, braces):
-    u, base, logu = gamma_scale_sample(g, par, tune)
+    u, base, logu = _gs(g, par, tune)
     rates = _set_col(state.rates, node, state.rates[:, node] * u)
     return state.replace(rates=rates), base + logu
 
 
 def _k_scale_subtree_rate(state, g, tune, node, aux, par, topo, braces):
     """Scale all branches of the sub tree including its stem."""
-    u, base, logu = gamma_scale_sample(g, par, tune)
+    u, base, logu = _gs(g, par, tune)
     rates = _scale_cols(state.rates, node, int(topo.subtree_end[node]), u)
     n = int(topo.n_nodes_subtree[node])
     return state.replace(rates=rates), base + n * logu
@@ -483,7 +534,7 @@ def _k_scale_subtree_rate(state, g, tune, node, aux, par, topo, braces):
 
 def _k_scale_norm_rate_tree_contra(state, g, tune, node, aux, par, topo, braces):
     """rateMean / u, branches (without stem) * u."""
-    u, base, logu = gamma_scale_sample(g, par, tune)
+    u, base, logu = _gs(g, par, tune)
     rates = _scale_cols(state.rates, 1, topo.n, u)
     n = topo.n - 1
     return state.replace(rate_mean=state.rate_mean / u, rates=rates), base + (n - 1) * logu
@@ -491,7 +542,7 @@ def _k_scale_norm_rate_tree_contra(state, g, tune, node, aux, par, topo, braces)
 
 def _k_scale_norm_height_rate_tree_contra(state, g, tune, node, aux, par, topo, braces):
     """timeHeight / u, branches (without stem) * u."""
-    u, base, logu = gamma_scale_sample(g, par, tune)
+    u, base, logu = _gs(g, par, tune)
     rates = _scale_cols(state.rates, 1, topo.n, u)
     n = topo.n - 1
     return state.replace(height=state.height / u, rates=rates), base + (n - 1) * logu
@@ -500,10 +551,10 @@ def _k_scale_norm_height_rate_tree_contra(state, g, tune, node, aux, par, topo, 
 def _k_scale_var_rate_tree(state, g, tune, node, aux, par, topo, braces):
     """Variance * u^2, branches spread around their sample mean; log
     determinant (n + 1) log u (see the JAX kernel's derivation)."""
-    u, base, logu = gamma_scale_sample(g, par, tune)
+    u, base, logu = _gs(g, par, tune)
     n = topo.n - 1
     r = state.rates
-    mean = (torch.sum(torch.where(topo.non_root_t, r, 0.0), dim=1) / n)[:, None]
+    mean = (_mean(g, torch.sum(torch.where(topo.non_root_t, r, 0.0), dim=1) / n))[:, None]
     rates_new = (r - mean) * u[:, None] + mean
     ok = torch.all(rates_new[:, 1:] > 0, dim=1)
     rates = r.clone()
@@ -515,7 +566,7 @@ def _k_scale_var_rate_tree(state, g, tune, node, aux, par, topo, braces):
 def _k_scale_var_rate_tree_autocorr(state, g, tune, node, aux, par, topo, braces):
     """Differences to the rate mean scaled by u: r' = mu + u (r - mu);
     log determinant (n + 2) log u."""
-    u, base, logu = gamma_scale_sample(g, par, tune)
+    u, base, logu = _gs(g, par, tune)
     n = topo.n - 1
     mu = state.rate_mean[:, None]
     rates_new = mu + u[:, None] * (state.rates - mu)
@@ -535,7 +586,7 @@ def _k_slide_nodes_contra(state, uni, tune, node, aux, par, topo, braces):
     hp = h[:, int(topo.parent[i])]
     ch = _children(topo, i)
     hch = h[:, ch]
-    hnew, lq = truncated_normal_sample(uni, hi, par, tune, hch.amax(dim=1), hp)
+    hnew, lq = _tn(uni, hi, par, tune, hch.amax(dim=1), hp)
     xi_stem = (hp - hi) / (hp - hnew)
     xi_ch = (hi[:, None] - hch) / (hnew[:, None] - hch)
     rates = _set_col(state.rates, i, state.rates[:, i] * xi_stem)
@@ -552,7 +603,7 @@ def _k_scale_subtrees_contra(state, uni, tune, node, aux, par, topo, braces):
     h = state.heights
     hi = h[:, i]
     hp = h[:, int(topo.parent[i])]
-    hnew, lq = truncated_normal_sample(uni, hi, par, tune, 0.0, hp)
+    hnew, lq = _tn(uni, hi, par, tune, 0.0, hp)
     xi = hnew / hi
     xi_stem = (hp - hi) / (hp - hnew)
     h2 = _scale_cols(h, i, end, xi)
@@ -572,7 +623,7 @@ def _k_slide_root_contra(state, uni, tune, node, aux, par, topo, braces):
     ht = state.height
     ch = _children(topo, 0)
     hch = h[:, ch]
-    ht_new, lq = truncated_normal_sample(uni, ht, par, tune, ht * hch.amax(dim=1), math.inf)
+    ht_new, lq = _tn(uni, ht, par, tune, ht * hch.amax(dim=1), math.inf)
     u = ht_new / ht
     inner = [int(i) for i in topo.inner_nodes if i != 0]
     h2 = h.clone()
@@ -590,7 +641,7 @@ def _k_scale_rates_time_tree_contra(state, uni, tune, node, aux, par, topo, brac
     rate mean by xi."""
     h = state.heights
     h_mc = h[:, _children(topo, 0)].amax(dim=1)
-    h_new, lq = truncated_normal_sample(uni, h_mc, par, tune, 0.0, h[:, 0])
+    h_new, lq = _tn(uni, h_mc, par, tune, 0.0, h[:, 0])
     xi = h_new / h_mc
     h2 = _scale_cols(h, 1, topo.n, xi)
     n_nodes = int((~topo.is_leaf).sum()) - 1
@@ -615,7 +666,7 @@ def _k_slide_braced_ultra(state, uni, tune, node, aux, par, topo, braces):
     intersection of their intervals; Jacobian 1."""
     nodes = _brace_nodes(braces, aux)
     lo, hi = _brace_bounds(state.heights, topo, nodes)
-    delta, lq = truncated_normal_sample(uni, 0.0, par, tune, lo, hi)
+    delta, lq = _tn(uni, 0.0, par, tune, lo, hi)
     h2 = state.heights.clone()
     h2[:, nodes] = state.heights[:, nodes] + delta[:, None]
     return state.replace(heights=h2), lq
@@ -626,7 +677,7 @@ def _k_slide_braced_contra(state, uni, tune, node, aux, par, topo, braces):
     nodes = _brace_nodes(braces, aux)
     h = state.heights
     lo, hi = _brace_bounds(h, topo, nodes)
-    delta, lq = truncated_normal_sample(uni, 0.0, par, tune, lo, hi)
+    delta, lq = _tn(uni, 0.0, par, tune, lo, hi)
     h2 = h.clone()
     h2[:, nodes] = h[:, nodes] + delta[:, None]
     rates = state.rates.clone()

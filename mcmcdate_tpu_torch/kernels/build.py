@@ -33,7 +33,7 @@ COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 FILE_FLAGS = {"prior_terms.cu": ["-fmad=false"], "accept_select.cu": ["-fmad=false"],
               "contra_step.cu": ["-fmad=false"], "point_step.cu": ["-fmad=false"],
               "range_step.cu": ["-fmad=false"],
-              "glob_step.cu": ["-fmad=false"]}
+              "glob_step.cu": ["-fmad=false"], "ticket_step.cu": ["-fmad=false"]}
 
 
 def _nvcc() -> str:

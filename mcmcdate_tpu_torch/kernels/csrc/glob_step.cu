@@ -42,6 +42,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "glob_moves.cuh"
 #include "lane_groups.cuh"
 #include "prior_terms.cuh"
 
@@ -49,17 +50,7 @@ namespace {
 
 using namespace mcmcdate;
 
-// Family codes: the index in kernels/glob_step.py's FAMILIES (GLOB_ORDER).
-enum Family {
-  BD_SCALE, RATE_MEAN, RATE_VAR, HEIGHT, HM_CONTRA, NORM_CONTRA, NORMH_CONTRA,
-  VAR_TREE, VAR_AUTO, RATES_TIME, SLIDE_ROOT, SUB_CONTRA, SUB_ULTRA, SUB_RATE
-};
 enum Block { B_SC = 1, B_BD = 2, B_CK = 4, B_ND = 8 };
-enum Field {
-  F_HEIGHTS = 1, F_RATES = 2, F_BIRTH = 4, F_DEATH = 8, F_HEIGHT = 16, F_RATE_MEAN = 32,
-  F_RATE_VAR = 64
-};
-
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
@@ -141,211 +132,28 @@ __device__ __forceinline__ ModelArgs model_of(const GlobArgs& a) {
                    a.n_con,     a.br_node,      a.br_sd,   a.n_br,        a.br_width};
 }
 
-// Sums each of v[0..K) over the CTA (every thread gets the totals, summed
-// in a fixed order) and ORs `flag`.  Synchronises once; the caller
-// synchronises again before the next call reuses `red`.
-template <int K>
-__device__ __forceinline__ void block_sums(float (&v)[K], float (*red)[kWarps], bool& flag) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) red[k][warp] = v[k];
-  }
-  flag = __syncthreads_or(flag) != 0;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float t = 0.f;
-    for (int w = 0; w < kWarps; ++w) t += red[k][w];
-    v[k] = t;
-  }
+// The glob kernels' view of the moves' arguments (csrc/glob_moves.cuh).
+__device__ __forceinline__ GlobModel gmodel_of(const GlobArgs& a) {
+  return GlobModel{a.parent, a.is_leaf, a.root_ch, a.N, a.n_root_ch, a.n_inner_total,
+                   a.sc_birth, a.sc_death, a.sc_bd, a.sc_bdc};
 }
 
-// torch.amax semantics: NaN propagates.
-__device__ __forceinline__ float max_nan(float m, float x) {
-  return (isnan(x) || x > m) ? x : m;
+// Ticket s of the family, for chain c (cs = c n + s).
+__device__ __forceinline__ Ticket propose(const GlobArgs& a, size_t cs, int s, const float* h,
+                                          const float* r, const Scalars& cur, float mean) {
+  const GlobDraw t{a.family, a.sd[s], a.tun[cs], a.draw[cs], a.aux[s],
+                   a.lo[s],  a.hi[s], a.n_inner[s], a.n_nodes[s]};
+  return mcmcdate::propose(gmodel_of(a), t, h, r, cur, mean);
 }
 
-struct Scalars {
-  float birth, death, height, rate_mean, rate_var;
-};
-
-// One ticket's proposal on one chain, computed alike by every thread of
-// the chain's CTA from the same inputs.
-struct Ticket {
-  float prop;   // the gamma factor u, or the truncated-normal value
-  float lmhg;   // Hastings/Jacobian term, without lj
-  float u;      // the gamma factor (slide_root: ht_new / ht)
-  float xi;     // height factor (rates_time, sub_*)
-  float xi_stem;
-  float mean;   // var_tree: the non-root rates' mean
-  int i, lo, hi;
-  Scalars s;    // proposed scalars
-};
-
-// The proposal of ticket s of the family from its draw (the plain
-// versions: kernels/glob_step.py's _propose, the port of
-// FastSweeps._glob_step's per-family branches).
-__device__ Ticket propose(const GlobArgs& a, size_t cs, int s, const float* h, const float* r,
-                          const Scalars& cur, float mean) {
-  Ticket k;
-  k.s = cur;
-  k.mean = mean;
-  k.u = k.xi = k.xi_stem = 1.0f;
-  k.i = k.lo = k.hi = 0;
-  const float sd = a.sd[s];
-  const float tune = a.tun[cs];
-  const float dr = a.draw[cs];
-  const int n_br = a.N - 1;
-  const int fam = a.family;
-  float base = 0.f, logu = 0.f;
-  const bool gamma = fam <= VAR_AUTO || fam == SUB_RATE;
-  if (gamma) {
-    // gamma_scale_sample: u = g (tune / shape); gamma_scale_lq at u.
-    const float u = dr * (tune / sd);
-    const float kk = sd / tune;
-    const float theta = tune / sd;
-    logu = logf(u);
-    base = (gamma_logpdf(kk, theta, 1.0f / u) - gamma_logpdf(kk, theta, u)) - 2.0f * logu;
-    k.u = u;
-    k.prop = u;
-  }
-  switch (fam) {
-    case BD_SCALE: {
-      const int aux = a.aux[s];
-      const bool joint = aux == a.sc_bd, con = aux == a.sc_bdc;
-      const float coef = joint ? 2.0f : (con ? 0.0f : 1.0f);
-      k.lmhg = base + coef * logu;
-      if (aux == a.sc_birth || joint || con) k.s.birth = cur.birth * k.u;
-      if (aux == a.sc_death || joint) k.s.death = cur.death * k.u;
-      else if (con) k.s.death = cur.death * (1.0f / k.u);
-      break;
-    }
-    case RATE_MEAN:
-      k.lmhg = base + logu;
-      k.s.rate_mean = cur.rate_mean * k.u;
-      break;
-    case RATE_VAR:
-      k.lmhg = base + logu;
-      k.s.rate_var = cur.rate_var * k.u;
-      break;
-    case HEIGHT:
-      k.lmhg = base + logu;
-      k.s.height = cur.height * k.u;
-      break;
-    case HM_CONTRA:
-      k.lmhg = base;
-      k.s.height = cur.height * k.u;
-      k.s.rate_mean = cur.rate_mean / k.u;
-      break;
-    case NORM_CONTRA:
-    case NORMH_CONTRA:
-      k.lmhg = base + (float)(n_br - 1) * logu;
-      if (fam == NORM_CONTRA) k.s.rate_mean = cur.rate_mean / k.u;
-      else k.s.height = cur.height / k.u;
-      break;
-    case VAR_TREE:
-    case VAR_AUTO:
-      // The caller sets lmhg to -inf where a non-root rate would not stay
-      // positive.
-      k.lmhg = base + (float)(fam == VAR_TREE ? n_br + 1 : n_br + 2) * logu;
-      k.s.rate_var = (cur.rate_var * k.u) * k.u;
-      break;
-    case RATES_TIME: {
-      float h_mc = h[a.root_ch[0]];
-      for (int j = 1; j < a.n_root_ch; ++j) h_mc = max_nan(h_mc, h[a.root_ch[j]]);
-      float x, lq;
-      truncnorm_sample(dr, h_mc, sd, tune, 0.f, h[0], &x, &lq);
-      k.prop = x;
-      k.xi = x / h_mc;
-      k.lmhg = lq + (float)(a.n_inner_total - 1 - 1 - 2) * logf(k.xi);
-      k.s.birth = cur.birth / k.xi;
-      k.s.rate_mean = cur.rate_mean / k.xi;
-      break;
-    }
-    case SLIDE_ROOT: {
-      const float ht = cur.height;
-      float hmax = h[a.root_ch[0]];
-      for (int j = 1; j < a.n_root_ch; ++j) hmax = max_nan(hmax, h[a.root_ch[j]]);
-      float x, lq;
-      truncnorm_sample(dr, ht, sd, tune, ht * hmax, INFINITY, &x, &lq);
-      k.prop = x;
-      k.u = x / ht;
-      float lsum = 0.f;
-      for (int j = 0; j < a.n_root_ch; ++j) {
-        const float hc = h[a.root_ch[j]];
-        lsum += logf((1.0f - hc) / (k.u - hc));
-      }
-      k.lmhg = (lq - (float)(a.n_inner_total - 1) * logf(k.u)) + lsum;
-      k.s.height = x;
-      break;
-    }
-    case SUB_CONTRA:
-    case SUB_ULTRA: {
-      k.i = a.aux[s];
-      k.lo = a.lo[s];
-      k.hi = a.hi[s];
-      const float hi_h = h[k.i];
-      const float hp = h[a.parent[k.i]];
-      float x, lq;
-      truncnorm_sample(dr, hi_h, sd, tune, 0.f, hp, &x, &lq);
-      k.prop = x;
-      k.xi = x / hi_h;
-      if (fam == SUB_ULTRA) {
-        k.lmhg = lq + (float)(a.n_inner[s] - 1) * logf(k.xi);
-      } else {
-        k.xi_stem = (hp - hi_h) / (hp - x);
-        k.lmhg = (lq + (float)(a.n_inner[s] - a.n_nodes[s]) * logf(k.xi)) + logf(k.xi_stem);
-      }
-      break;
-    }
-    default:  // SUB_RATE
-      k.lo = a.lo[s];
-      k.hi = a.hi[s];
-      k.lmhg = base + (float)a.n_nodes[s] * logu;
-      break;
-  }
-  return k;
-}
-
-// Node j's proposed height and rate.
 __device__ __forceinline__ float new_height(const GlobArgs& a, const Ticket& k, const float* h,
                                             int j) {
-  switch (a.family) {
-    case RATES_TIME:
-      return j != 0 ? h[j] * k.xi : h[j];
-    case SLIDE_ROOT:
-      return (!a.is_leaf[j] && j != 0) ? h[j] / k.u : h[j];
-    case SUB_CONTRA:
-    case SUB_ULTRA:
-      return (j >= k.lo && j < k.hi) ? h[j] * k.xi : h[j];
-    default:
-      return h[j];
-  }
+  return mcmcdate::new_height(gmodel_of(a), a.family, k, h, j);
 }
 
 __device__ __forceinline__ float new_rate(const GlobArgs& a, const Ticket& k, const float* h,
                                           const float* r, int j) {
-  const bool non_root = a.parent[j] >= 0;
-  switch (a.family) {
-    case NORM_CONTRA:
-    case NORMH_CONTRA:
-      return non_root ? r[j] * k.u : r[j];
-    case VAR_TREE:
-      return non_root ? (r[j] - k.mean) * k.u + k.mean : r[j];
-    case VAR_AUTO:
-      return non_root ? k.s.rate_mean + k.u * (r[j] - k.s.rate_mean) : r[j];
-    case SLIDE_ROOT:
-      return a.parent[j] == 0 ? r[j] * ((1.0f - h[j]) / (k.u - h[j])) : r[j];
-    case SUB_CONTRA:
-      if (j == k.i) return r[j] * k.xi_stem;
-      return (j > k.i && j < k.hi) ? r[j] / k.xi : r[j];
-    case SUB_RATE:
-      return (j >= k.lo && j < k.hi) ? r[j] * k.u : r[j];
-    default:
-      return r[j];
-  }
+  return mcmcdate::new_rate(gmodel_of(a), a.family, k, h, r, j);
 }
 
 // Writes the chain's proposed heights and rates (the fields the family
@@ -566,13 +374,7 @@ __global__ void __launch_bounds__(kThreads) glob_dense_prologue_kernel(GlobArgs 
   const float scale = k.s.height * k.s.rate_mean;
   float dn0 = 0.f;
   for (int j = threadIdx.x; j < a.D; j += kThreads) {
-    const int nd = a.dist_idx[j];
-    float len = (hp[a.parent[nd]] - hp[nd]) * rp[nd];
-    if (j == 0) {
-      const int rr = a.root_right;
-      len = len + (hp[a.parent[rr]] - hp[rr]) * rp[rr];
-    }
-    const float x = len * scale;
+    const float x = distance_row(a.parent, a.dist_idx, a.root_right, hp, rp, scale, j);
     dn[j] = x;
     dl[j] = x - d[j];
     if (j == 0) dn0 = x;

@@ -57,7 +57,8 @@ PORT_KERNELS = ("prior_terms_kernel", "whiten", "accept_select_kernel",
                 "point_lik_prologue_kernel", "point_scan_kernel", "point_lik_epilogue_kernel",
                 "range_lik_prologue_kernel", "range_scan_kernel", "range_lik_epilogue_kernel",
                 "contra_slide_kernel", "contra_range_kernel", "glob_scan_kernel",
-                "glob_dense_prologue_kernel", "glob_dense_epilogue_kernel")
+                "glob_dense_prologue_kernel", "glob_dense_epilogue_kernel",
+                "ticket_prologue_kernel", "ticket_scan_kernel")
 PHASES = ("seq", "glob", "point", "range", "y")
 TAXA, FULL_TAXA, CHAINS, TREES, SEED = 136, 1000, 1024, 600, 1
 WARMUP, TIMED = 10, 2
@@ -194,14 +195,18 @@ def direct_log_posterior(model, state, dtype):
     lp = prior_terms_plain(m, s).sum(-1)
     if m.likelihood.kind == mvn.NONE:
         return lp
-    _, q = whiten_plain(distances_internal(s, m.topo), m.chol_internal_t, sub=m.mu_internal_t)
+    d = distances_internal(s, m.topo)
+    if m.likelihood.kind == mvn.UNIVARIATE:
+        q = (((d - m.mu_internal_t) * m.inv_sd_internal_t) ** 2).sum(-1)
+    else:
+        _, q = whiten_plain(d, m.chol_internal_t, sub=m.mu_internal_t)
     return lp + m.log_lik_const - 0.5 * q
 
 
 def check_carry(runner, batch, tuning, seed: int) -> dict:
     """One sequential sweep with the carry held against direct float32
-    evaluations after every ticket; largest absolute errors over all
-    tickets and chains."""
+    evaluations after every segment (a run of tickets, or a ticket alone);
+    largest absolute errors over all segments and chains."""
     from ..kernels.prior_terms import prior_terms_plain
     from ..kernels.whiten import whiten_plain
     from ..ops.heights import distances_internal
@@ -209,10 +214,10 @@ def check_carry(runner, batch, tuning, seed: int) -> dict:
     kern = runner.kern
     m = kern.model
     worst = {k: torch.zeros((), device=runner.device) for k in ("d", "y", "terms")}
-    ticket_step = kern.ticket_step
+    segment = kern.segment
 
     def checked(carry, *a, **k):
-        out = ticket_step(carry, *a, **k)
+        out = segment(carry, *a, **k)
         d = distances_internal(carry.batch, m.topo)
         y, _ = whiten_plain(d, m.chol_internal_t, sub=m.mu_internal_t)
         terms = prior_terms_plain(m, carry.batch)
@@ -220,11 +225,11 @@ def check_carry(runner, batch, tuning, seed: int) -> dict:
             worst[key] = torch.maximum(worst[key], (a_ - b_).abs().nan_to_num(0.0).max())
         return out
 
-    kern.ticket_step = checked
+    kern.segment = checked
     try:
         batch, lp_pr, lp_lik, *_ = kern.sweeps(batch, tuning, seed, 1)
     finally:
-        kern.ticket_step = ticket_step
+        kern.segment = segment
     return dict(max_abs_err={k: float(v) for k, v in worst.items()},
                 **_lp_check(m, batch, lp_pr + lp_lik))
 

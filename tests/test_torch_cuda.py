@@ -13,6 +13,8 @@ import torch
 
 from mcmcdate_tpu_torch import synthetic
 from mcmcdate_tpu_torch.kernels.accept_select import accept_select, accept_select_plain
+from mcmcdate_tpu_torch.kernels.ticket_step import TicketDraws, count_bad, ticket_prologue, \
+    ticket_prologue_plain, ticket_scan, ticket_scan_plain
 from mcmcdate_tpu_torch.kernels.prior_terms import prior_terms, prior_terms_plain
 from mcmcdate_tpu_torch.kernels.whiten import range_rows, whiten, whiten_plain
 from mcmcdate_tpu_torch.models.state import FIELDS, State
@@ -74,29 +76,41 @@ def test_whiten_kernel(card):
 
 
 def test_accept_select_kernel(card):
-    model, old = _model()
-    new = old.replace(heights=old.heights * 0.999, rates=old.rates * 1.01,
-                      birth=old.birth * 1.1)
-    terms, terms2 = model.log_prior_terms(old), model.log_prior_terms(new)
-    terms2[::5, 3] = -math.inf
-    g = torch.Generator(device=card).manual_seed(1)
-    C = terms.shape[0]
-    log_mhg = torch.randn(C, generator=g, device=card) - (terms2 - terms).sum(1).nan_to_num()
-    u = torch.rand(C, generator=g, device=card)
-    outs = []
-    for fn in (accept_select, accept_select_plain):
-        st = State(**{f: getattr(old, f).clone() for f in FIELDS})
-        nw = new.replace(death=st.death)
-        t = terms.clone()
-        acc = torch.zeros((C, 3), dtype=torch.int32, device=card)
-        a = fn(t, terms2, log_mhg, u, st, nw, acc, 1)
-        outs.append((a, st, t, acc))
-    (ak, sk, tk, acck), (ap, sp, tp, accp) = outs
-    assert torch.equal(ak, ap) and 0 < int(ak.sum()) < C
-    assert torch.equal(acck, accp)
-    assert torch.equal(tk.nan_to_num(), tp.nan_to_num())
-    for f in FIELDS:
-        assert torch.equal(getattr(sk, f), getattr(sp, f))
+    """K3 after T1 against its plain version from the same prologue, on a
+    scalar scale of the birth rate (the scalar and birth-death blocks) and
+    on the rates and time tree contrary move (every block, the heights, and
+    K2's dy of the merged root distance): some chains carry a -inf clock
+    term, which the first ticket leaves alone (those chains must reject);
+    decisions mixed; heights, rates, scalars, terms, d, y, the accept and
+    bad-term counts equal."""
+    from mcmcdate_tpu_torch.engine import proposals as TP
+
+    tk, carry, tuning, g = _ticket_setup("full", 40)
+    tt = tk.tt
+    C = carry.terms.shape[0]
+    carry.terms[::5, 4 + tt.N + 1 + int(np.nonzero(tt.model.topo.is_leaf)[0][0])] = -math.inf
+    carry.nbad = count_bad(carry.terms)
+    t = tt.table
+    birth = int(np.nonzero((t.kind == TP.K_SCALE_SCALAR) & (t.aux == TP.SC_BIRTH))[0][0])
+    rt = int(np.nonzero(t.kind == TP.K_SCALE_RATES_TIME_TREE_CONTRA)[0][0])
+    for p in (birth, rt):
+        draw = (torch._standard_gamma(float(t.par[p]) / tuning[:, p], generator=g) if tt.gamma[p]
+                else torch.rand(C, generator=g, device=card))
+        u = torch.rand(C, generator=g, device=card)
+        dr = TicketDraws.single(p, draw, u)
+        ck, cp = _copy(carry), _copy(carry)
+        before = accept_select.launches
+        pro = ticket_prologue(tt, ck, tuning, dr, 0)
+        prop = pro.prop.clone()
+        dy, d_lik = tk._k2(ck, p, pro)
+        ak, _ = accept_select(tt, ck, tuning, dr, 0, pro, dy, d_lik, out=True)
+        assert accept_select.launches == before + 1
+        pp = ticket_prologue_plain(tt, cp, tuning, p, draw, given=prop)
+        ap, la_p = accept_select_plain(tt, cp, p, pp, torch.where(ak, 0.0, math.nan), dy, d_lik)
+        assert torch.equal(ak, ap) and 0 < int(ak.sum()) < C
+        if p == birth:
+            assert not bool(ak[::5].any())
+        _ticket_agree(ck, cp, torch.log(u), la_p, ak)
 
 
 # -- the FastSweeps kernels (K4, K5, K6) --------------------------------------
@@ -625,3 +639,162 @@ def test_glob_kernels(card, dense):
         n_acc += int(accept.sum())
         n += accept.numel()
     assert 0 < n_acc < n
+
+
+# -- the sequential sweep's ticket kernels (T1, K3, T3) --------------------------
+
+
+def _ticket_setup(lik, n_taxa, C=96, seed=5):
+    """MHKernel on a calibrated synthetic model with a constraint and a
+    brace (all 17 proposal kinds) under the full, univariate or no
+    likelihood kind, with a carry, a tuning and a generator."""
+    import dataclasses
+
+    from mcmcdate_tpu_torch.engine import mh as TM, proposals as TP
+    from mcmcdate_tpu_torch.ops import mvn
+    from mcmcdate_tpu_torch.ops.node_priors import BraceSet, CalibrationSet, ConstraintSet
+
+    model, batch = synthetic.build(n_taxa, C, device="cuda", seed=seed)
+    inner = [int(i) for i in model.topo.inner_nodes if i != 0]
+    cal = CalibrationSet(node=np.asarray([0, inner[0], inner[1]], np.int32),
+                         lower=np.asarray([1.0, 0.4, 0.0]), lower_pm=np.asarray([0.01, 0.02, 1.0]),
+                         upper=np.asarray([2.0, np.inf, 0.3]),
+                         upper_pm=np.asarray([0.01, 1.0, 0.05]))
+    con = ConstraintSet(young=np.asarray([inner[-1]], np.int32),
+                        old=np.asarray([inner[-2]], np.int32), pm=np.asarray([0.01]))
+    br = BraceSet(node=np.asarray([[inner[2], inner[-3], -1]], np.int32), sd=np.asarray([0.02]))
+    kw = dict(calibrations=cal, constraints=con, braces=br)
+    if lik == "univariate":
+        rng = np.random.default_rng(seed)
+        k = model.likelihood.dim
+        kw["likelihood"] = mvn.LikelihoodData.univariate(rng.uniform(0.05, 0.5, k),
+                                                         rng.uniform(1e-4, 1e-2, k))
+    elif lik == "none":
+        kw["likelihood"] = mvn.LikelihoodData.none()
+    model = dataclasses.replace(model, **kw)
+    table = TP.build_proposal_table(model.topo, model.braces, True)
+    assert set(int(x) for x in table.kind) == set(range(TP.N_KINDS))
+    tk = TM.MHKernel(model, table)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tuning = torch.rand(C, table.n_proposals, generator=g, device="cuda") * 3 + 0.3
+    return tk, tk.init_carry(batch), tuning, g
+
+
+def _copy(carry):
+    from mcmcdate_tpu_torch.engine.mh import Carry
+
+    def cl(t):
+        return None if t is None else t.clone()
+
+    return Carry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}), carry.terms.clone(),
+                 cl(carry.d), cl(carry.y), carry.acc.clone(), carry.nbad.clone())
+
+
+def _ticket_agree(ck, cp, logu, la_p, accept, y_rel=1e-5):
+    """A kernel carry against the plain replay's at the kernel's proposals
+    and decisions: decisions differ from the replay's ratio only at ties;
+    heights, rates, scalars, terms, d and the counts bitwise equal; y
+    within ``y_rel`` of its scale."""
+    differ = (logu < la_p) != accept
+    assert torch.all((logu - la_p).abs()[differ] < TIE)
+    for f in FIELDS:
+        assert torch.equal(getattr(ck.batch, f).nan_to_num(), getattr(cp.batch, f).nan_to_num()), f
+    assert torch.equal(ck.terms.nan_to_num(), cp.terms.nan_to_num())
+    assert torch.equal(ck.acc, cp.acc) and torch.equal(ck.nbad, cp.nbad)
+    if ck.d is not None:
+        assert torch.equal(ck.d, cp.d)
+        assert (ck.y - cp.y).abs().max() <= y_rel * max(1.0, float(cp.y.abs().max()))
+
+
+def _prop_near(prop_k, prop_p, dx_dp):
+    """Proposals within 1e-5 (1 + |x|) plus 8 float32 ulps of the CDF
+    value a truncated-normal proposal inverts (gamma factors: exact)."""
+    lim = 1e-5 * (1 + prop_p.abs()) + 8 * torch.finfo(torch.float32).eps * dx_dp
+    assert torch.all((prop_k - prop_p).abs() <= lim)
+
+
+@pytest.mark.parametrize("lik", ("full", "univariate", "none"))
+def test_ticket_prologue_kernel(card, lik):
+    """T1 and K3 (after K2 where the class needs it) on one ticket of every
+    kind and every (class, kind) pair against their plain versions: the
+    kernel's proposals near the plain ones from the same draws; replayed at
+    them, T1's d_pr, lmhg, lj, delta and the new terms, then K3's
+    write-back (see _ticket_agree)."""
+    from mcmcdate_tpu_torch.engine import proposals as TP
+
+    tk, carry, tuning, g = _ticket_setup(lik, 40)
+    tt = tk.tt
+    C = carry.terms.shape[0]
+    rows = {}
+    for p, kind in enumerate(tt.table.kind):
+        rows.setdefault((int(kind), int(tt.table.aux[p]) if kind == TP.K_SCALE_SCALAR else 0), p)
+        rows.setdefault((int(kind), int(tt.d_class[p]), "dc"), p)
+    n_acc = 0
+    for p in sorted(set(rows.values())):
+        gamma = bool(tt.gamma[p])
+        draw = (torch._standard_gamma(float(tt.table.par[p]) / tuning[:, p], generator=g) if gamma
+                else torch.rand(C, generator=g, device=card))
+        u = torch.rand(C, generator=g, device=card)
+        dr = TicketDraws.single(p, draw, u)
+        ck, cp = _copy(carry), _copy(carry)
+        pro = ticket_prologue(tt, ck, tuning, dr, 0)
+        k = {f: getattr(pro, f).clone() for f in ("prop", "lmhg", "lj", "d_pr", "invalid")}
+        mean = None if pro.mean is None else pro.mean.clone()
+        tix = tt.tix(p)
+        tn_k = pro.tn[:, tix].clone()
+        rows_d = tt.rows(p)
+        dl_k = None if pro.delta is None or (rows_d is not None and not rows_d.numel()) else (
+            pro.delta if rows_d is None else pro.delta[:, rows_d]).clone()
+        pp = ticket_prologue_plain(tt, cp, tuning, p, draw)
+        _prop_near(k["prop"], pp.prop, 0.0 if pp.dx_dp is None else pp.dx_dp)
+        pp = ticket_prologue_plain(tt, cp, tuning, p, draw, given=k["prop"], given_mean=mean)
+        assert torch.equal(k["invalid"], pp.invalid)
+        assert torch.equal(tn_k.nan_to_num(), pp.tn[:, tix].nan_to_num())
+        fin = torch.isfinite(pp.d_pr)
+        assert torch.all((k["d_pr"] - pp.d_pr).abs()[fin] <= 1e-4 * (1 + pp.d_pr.abs()[fin]))
+        for f in ("lmhg", "lj"):
+            a, b = k[f], getattr(pp, f)
+            fin = torch.isfinite(b)
+            assert torch.equal(fin, torch.isfinite(a)), f
+            assert torch.all((a - b).abs()[fin] <= 1e-4 * (1 + b.abs()[fin])), f
+        if dl_k is not None:
+            assert torch.equal(dl_k, pp.delta if rows_d is None else pp.delta[:, rows_d])
+        dy, d_lik = tk._k2(ck, p, pro)
+        ak, _ = accept_select(tt, ck, tuning, dr, 0, pro, dy, d_lik, out=True)
+        ap, la_p = accept_select_plain(tt, cp, p, pp, torch.where(ak, 0.0, math.nan), dy, d_lik)
+        assert torch.equal(ak, ap), tt.table.names[p]
+        _ticket_agree(ck, cp, torch.log(u), la_p, ak)
+        n_acc += int(ak.sum())
+    assert n_acc > 0
+
+
+@pytest.mark.parametrize("lik", ("full", "univariate"))
+def test_ticket_scan_kernel(card, lik):
+    """T3 on a 256-ticket run (under a full MVN of DC_INV and DC_GATHER
+    tickets) against ticket_scan_plain replayed at its proposals, rate
+    means and decisions (see _ticket_agree; y within 1e-5 of its scale:
+    the gather's sums run in another order); one launch."""
+    from mcmcdate_tpu_torch.engine import proposals as TP
+
+    tk, carry, tuning, g = _ticket_setup(lik, 40)
+    tt = tk.tt
+    C = carry.terms.shape[0]
+    tickets = np.asarray(tt.table.tickets)
+    ok = np.asarray([not tt.breaks(int(p)) for p in tickets])
+    order = np.random.default_rng(3).choice(tickets[ok], 256).astype(np.int32)
+    if lik == "full":
+        dcs = {int(tt.d_class[p]) for p in order}
+        assert dcs == {TP.DC_INV, TP.DC_GATHER}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dr = tk.draws(order, tuning, gen)
+    ck, cp = _copy(carry), _copy(carry)
+    before = ticket_scan.launches
+    out = ticket_scan(tt, ck, tuning, dr, 0, len(order), out=True)
+    assert ticket_scan.launches == before + 1
+    forced = dr._replace(u_acc=torch.where(out.accept, 0.0, math.nan))
+    rec = ticket_scan_plain(tt, cp, tuning, forced, 0, len(order),
+                            given=dict(prop=out.prop, mean=out.mean))
+    assert torch.equal(rec.accept, out.accept)
+    assert 0 < int(out.accept.sum()) < out.accept.numel()
+    _prop_near(out.prop, rec.prop, rec.dx_dp)
+    _ticket_agree(ck, cp, torch.log(dr.u_acc), rec.log_alpha, out.accept)

@@ -95,3 +95,51 @@ def test_fast_sweep_carry_check_on_cpu():
         assert all(np.isfinite(v) and v < 1e-9 * max(1.0, errs[k + "_scale"])
                    for k, v in err.items()), (phase, errs)
     assert out["lp_carried_vs_f64"] < 1e-8 * max(1.0, out["lp_scale"])
+
+
+def test_sequential_carry_check_on_cpu():
+    """The sequential sweep's carry check (after every run of tickets or
+    ticket alone), on a small float64 model with node priors and the
+    calibrated table (all 17 proposal kinds) on the CPU: the terms a
+    ticket evaluates are all it changes, so the carried terms, d and y
+    equal their direct values."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch import synthetic
+    from mcmcdate_tpu_torch.engine import proposals as P
+    from mcmcdate_tpu_torch.engine.chains import ChainRunner, RunSettings
+    from mcmcdate_tpu_torch.ops.node_priors import BraceSet, CalibrationSet, ConstraintSet
+    from mcmcdate_tpu_torch.tools.profile_sweep import check_carry
+
+    model, batch = synthetic.build(12, 1, dtype=torch.float64, device="cpu", seed=3)
+    inner = [int(i) for i in model.topo.inner_nodes if i != 0]
+    model.calibrations = CalibrationSet(
+        node=np.asarray([0, inner[0]], np.int32), lower=np.asarray([1.0, 0.3]),
+        lower_pm=np.asarray([0.01, 0.02]), upper=np.asarray([2.0, np.inf]),
+        upper_pm=np.asarray([0.01, 1.0]))
+    model.constraints = ConstraintSet(young=np.asarray([inner[-1]], np.int32),
+                                      old=np.asarray([inner[-2]], np.int32),
+                                      pm=np.asarray([0.01]))
+    model.braces = BraceSet(node=np.asarray([[inner[1], inner[-3]]], np.int32),
+                            sd=np.asarray([0.02]))
+    table = P.build_proposal_table(model.topo, model.braces, True)
+    assert set(int(k) for k in table.kind) == set(range(P.N_KINDS))
+    runner = ChainRunner(model, table, RunSettings("t", n_chains=6, seed=1, dtype="float64",
+                                                   device="cpu", fast_sweep=False),
+                         log=lambda *a: None)
+    b, tuning = runner.init_chains(batch)
+    out = check_carry(runner, b, tuning, 5)
+    assert all(np.isfinite(v) and v < 1e-9 for v in out["max_abs_err"].values()), out
+    assert out["lp_carried_vs_f64"] < 1e-8 * max(1.0, out["lp_scale"])
+
+
+def test_seq_time_univariate_model():
+    """The univariate model of the 10,000-taxon phase, at 30 taxa: O(N)
+    data, no Cholesky factor."""
+    from mcmcdate_tpu_torch.tools.seq_time import univariate_model
+
+    model, init = univariate_model(30, device="cpu")
+    assert model.chol_internal is None
+    assert model.likelihood.dim == 57 and model.inv_sd_internal.shape == (57,)
+    assert init.heights.shape == (1, 59)
