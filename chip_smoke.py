@@ -30,9 +30,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    record per row bucket: contra_range_16, _64 and _256) and, on the
    14 global-move families of the same model with node priors and the
    calibrated proposal table, the glob kernels G1 glob_scan, G2
-   glob_dense_prologue and G3 glob_dense_epilogue (a record each, checked
-   by replaying their proposals and decisions through the plain family
-   scan; FastSweeps.glob_phase must launch only them).  Each kernel's
+   glob_dense_prologue and G3 glob_dense_epilogue (checked by replaying
+   their proposals and decisions through the plain family scan;
+   FastSweeps.glob_phase must launch only them; records: G1 on bd_scale's
+   family, G2 per ticket over sub_ultra's, G3 on its first ticket; the
+   log adds G1 on sub_contra, G2 on one var_tree ticket and each subtree
+   ticket's product over its support rows against the full product).  Each kernel's
    device time and its plain version's are read from the profiler over
    back-to-back calls;
 4. main path: simulate -> prepare --likelihood-spec full -> run (MHG,
@@ -1459,9 +1462,12 @@ def _glob_run(fs, fam, carry, tun, draws, u_acc):
         out = G.glob_scan(fs.glob, fam, carry, tun, draws, u_acc)
         return out.accept, out.prop, None
     acc, prop, mean = [], [], []
+    nbad = None
     for s in range(fam.n):
-        pro = G.glob_dense_prologue(fs.glob, fam, s, carry, tun, draws)
-        acc.append(G.glob_dense_epilogue(fs.glob, fam, s, carry, pro, fs._x_P(pro.delta), u_acc))
+        pro = G.glob_dense_prologue(fs.glob, fam, s, carry, tun, draws, nbad)
+        nbad = pro.nbad
+        acc.append(G.glob_dense_epilogue(fs.glob, fam, s, carry, pro, fs.glob_product(fam, s, pro),
+                                         u_acc))
         prop.append(pro.prop)
         mean.append(pro.mean)
     return (torch.stack(acc, 1), torch.stack(prop, 1),
@@ -1523,13 +1529,37 @@ def _glob_agree(name, fs, carry, fam, tun, draws, u):
     return worst, accept
 
 
+def _glob_dense_family(fs, fam, carry, tun, draws):
+    """G2 on every ticket of a dense family in turn, from ``carry`` (read,
+    not changed), as ``glob_phase`` launches it: the prologues' outputs."""
+    from mcmcdate_tpu_torch.kernels import glob_step as G
+
+    out, nbad = [], None
+    for s in range(fam.n):
+        pro = G.glob_dense_prologue(fs.glob, fam, s, carry, tun, draws, nbad)
+        nbad = pro.nbad
+        out.append(pro)
+    return out
+
+
+def _log_record(name, n_taxa, r, what):
+    log(f"[glob] {name} at {n_taxa} taxa ({what}): {json.dumps(r)}")
+
+
 def check_glob(n_taxa):
     """G1-G3 on all 14 glob families of the calibrated synthetic model,
     each family's tickets in full, against the plain scan; then
     ``FastSweeps.glob_phase`` on the card launches only the glob kernels
     (never K1 nor the plain step).  The records time G1 on bd_scale (the
-    family with the most tickets) and G2/G3 on sub_ultra's first ticket."""
-    import torch
+    family with the most tickets), G2 per ticket over the whole sub_ultra
+    family and G3 on sub_ultra's first ticket; the log adds G1 on
+    sub_contra, G2 on sub_ultra's first ticket and on one var_tree ticket,
+    and each subtree ticket's product over its support rows against the
+    full product.  Each bound counts what the call needs at its tickets:
+    a subtree ticket's range of nodes, terms and distance rows, the whole
+    term blocks where the invalid rule reads them (the count of bad
+    entries), the draws, and the outputs the contract asks for."""
+    import numpy as np
 
     from mcmcdate_tpu_torch.engine.fast_sweep import GLOB_ORDER
     from mcmcdate_tpu_torch.kernels import glob_step as G
@@ -1559,58 +1589,169 @@ def check_glob(n_taxa):
     nn = carry.terms.shape[1] - 4 - 2 * (N + 1)  # node-prior terms
     log(f"[kernels] glob_phase at {n_taxa} taxa: launches {want}, K1 and the plain step none")
 
-    # G1 on bd_scale, the whole family.
-    fam = fs.glob_fam["bd_scale"]
-    tun, draws, u, accept = draws_of["bd_scale"]
-    c1, c2 = _copy_carry(carry), _copy_carry(carry)
-    ms1 = _device_ms(lambda: G.glob_scan(fs.glob, fam, c1, tun, draws, u), only="glob_scan_kernel")
-    plain1 = _device_ms(lambda: fs.glob_family_plain("bd_scale", c2, tun, draws, u), reps=3)
-    n = fam.n
-    # Bytes: per chain the heights, the sc and bd term blocks and the five
-    # scalars in, the three draws per ticket in and accept and prop out;
-    # for the chains that accepted a ticket the two blocks and the two
-    # rates out; the family's plan arrays.  Operations: per chain and
-    # ticket the birth-death block in double (about 100 per node, each
-    # exp or log counted as 10) and the proposal and scalar terms (about
-    # 100 in float32).
-    moved = int(accept.any(1).sum())
-    nb1 = C * (4 * (N + (N + 5) + 5 + 3 * n) + 5 * n) + moved * 4 * (N + 7) + 12 * n
-    # G2 and G3 on sub_ultra's first ticket.
+    def scan_record(tag):
+        """G1 on a whole family: ``(record, smem bytes, arrays in shared
+        memory)``."""
+        fam = fs.glob_fam[tag]
+        tun, draws, u, accept = draws_of[tag]
+        c1, c2 = _copy_carry(carry), _copy_carry(carry)
+        smem = G.glob_scan_smem(fs.glob, fam, c1)
+        ms = _device_ms(lambda: G.glob_scan(fs.glob, fam, c1, tun, draws, u),
+                        only="glob_scan_kernel")
+        plain = _device_ms(lambda: fs.glob_family_plain(tag, c2, tun, draws, u), reps=3)
+        n = fam.n
+        moved = int(accept.any(1).sum())
+        draws_b = C * (4 * 3 * n + 5 * n)  # tun, draw, u_acc in; accept, prop out
+        if tag == "bd_scale":
+            # Per chain the heights, the sc and bd blocks and the five
+            # scalars in; for the chains that accepted a ticket the two
+            # blocks and the two rates out; the family's plan arrays.
+            # Operations: per chain and ticket the birth-death block in
+            # double (about 100 per node, each exp or log counted as 10)
+            # and the proposal and scalar terms (about 100 in float32).
+            nbytes = draws_b + 4 * C * (N + (N + 5) + 5) + moved * 4 * (N + 7) + 12 * n
+            return _record(worst["prop"], ms, plain, nbytes, 100 * C * n,
+                           ops64=100 * C * n * (N + 1)), smem
+        # sub_contra.  Bytes: per chain the heights, the bd and ck blocks
+        # whole (the invalid rule counts their bad entries), the node-prior
+        # block and the rates on the union U of the tickets' ranges in; for
+        # the chains that accepted a ticket heights, rates and both blocks
+        # on U out (its upper bound); the plan arrays.  Operations: per
+        # chain and ticket its range's birth-death terms in double and
+        # clock terms (about 40 each) in float32, the node-prior block and
+        # the proposal (about 100).
+        grp = fam.grp
+        span = (grp.hi - grp.lo).astype(np.int64)
+        union = np.zeros(N, bool)
+        for lo, hi in zip(grp.lo, grp.hi):
+            union[lo:hi] = True
+        U = int(union.sum())
+        nbytes = (draws_b + 4 * C * (N + 2 * (N + 1) + nn + U) + moved * 4 * 4 * U
+                  + 4 * 9 * n)
+        return _record(worst["prop"], ms, plain, nbytes,
+                       C * int((40 * span + 20 * nn + 100).sum()),
+                       ops64=100 * C * int(span.sum())), smem
+
+    g1, smem1 = scan_record("bd_scale")
+    g1_sub, smem_sub = scan_record("sub_contra")
+    _log_record("glob_scan", n_taxa, g1, f"bd_scale, {fs.glob_fam['bd_scale'].n} tickets, "
+                f"{smem1[0]} B shared {list(smem1[1])}")
+    _log_record("glob_scan", n_taxa, g1_sub, f"sub_contra, {fs.glob_fam['sub_contra'].n} "
+                f"tickets, {smem_sub[0]} B shared {list(smem_sub[1])}")
+
+    def prologue_bytes(tag, s, first):
+        """G2's bytes at ticket s: see the records below."""
+        fam = fs.glob_fam[tag]
+        if tag in G.SUBTREE_DENSE:
+            K = int(fam.grp.hi[s]) - int(fam.grp.lo[s])
+            # In: the range's heights (and its parent's), rates, bd and ck
+            # terms, the node-prior block, d (copied to d_new), five
+            # scalars, two draws; at the family's first ticket the bd and
+            # ck blocks whole (the count of bad entries).  Out: the
+            # proposed heights or rates and terms on the range, the
+            # node-prior block, d_new, delta, delta_S, five scalars, six
+            # per-chain values.
+            blk = (2 if "bd" in G.FAMILIES[tag].blocks else 1) * K
+            nin = (K + 1) + K + blk + nn + D + 7 + (2 * (N + 1) if first else 0)
+            nout = K + blk + nn + 2 * D + K + 11 + (1 if first else 0)
+            return 4 * C * (nin + nout)
+        # var_tree: in the rates (the mean, the proposal), the heights (the
+        # clock terms), the sc and ck blocks, d, five scalars, two draws;
+        # out the proposed rates, the sc and ck blocks, d_new, delta, five
+        # scalars, six per-chain values.
+        return 4 * C * ((2 * N + (N + 5) + D + 7) + (N + (N + 5) + 2 * D + 11))
+
+    def prologue_ops(tag, s):
+        fam = fs.glob_fam[tag]
+        if tag in G.SUBTREE_DENSE:
+            K = int(fam.grp.hi[s]) - int(fam.grp.lo[s])
+            bd = "bd" in G.FAMILIES[tag].blocks
+            # Its range's clock terms (about 40 each), distances (4 a row),
+            # node-prior block and proposal in float32; birth-death terms in
+            # double (100 each).
+            return C * (40 * K + 4 * K + 20 * nn + 100), (100 * C * K if bd else 0)
+        return C * (40 * (N + 1) + N + 4 * D + 100), 0
+
+    # G2 over the whole sub_ultra family, per ticket, and on its first.
     fam = fs.glob_fam["sub_ultra"]
     tun, draws, u, accept = draws_of["sub_ultra"]
     c3 = _copy_carry(carry)
-    pro = G.glob_dense_prologue(fs.glob, fam, 0, c3, tun, draws)
-    w = fs._x_P(pro.delta)
-    pplain = G.glob_dense_prologue_plain(fs.glob, "sub_ultra", c3, tun[:, 0], fam.ticket(0),
-                                         draws[:, 0])
-    ms2 = _device_ms(lambda: G.glob_dense_prologue(fs.glob, fam, 0, c3, tun, draws),
-                     only="glob_dense_prologue_kernel")
-    plain2 = _device_ms(lambda: G.glob_dense_prologue_plain(
+    pros = _glob_dense_family(fs, fam, c3, tun, draws)
+    ms2 = _device_ms(lambda: _glob_dense_family(fs, fam, c3, tun, draws),
+                     only="glob_dense_prologue_kernel", reps=3) / fam.n
+    plain2 = _device_ms(lambda: [G.glob_dense_prologue_plain(
+        fs.glob, "sub_ultra", c3, tun[:, s], fam.ticket(s), draws[:, s]) for s in range(fam.n)],
+        reps=1) / fam.n
+    nb2 = sum(prologue_bytes("sub_ultra", s, s == 0) for s in range(fam.n)) / fam.n
+    ops2 = [sum(x) / fam.n for x in zip(*(prologue_ops("sub_ultra", s) for s in range(fam.n)))]
+    g2 = _record(worst["prop"], ms2, plain2, nb2, ops2[0], ops64=ops2[1])
+    ms2_0 = _device_ms(lambda: G.glob_dense_prologue(fs.glob, fam, 0, c3, tun, draws),
+                       only="glob_dense_prologue_kernel")
+    plain2_0 = _device_ms(lambda: G.glob_dense_prologue_plain(
         fs.glob, "sub_ultra", c3, tun[:, 0], fam.ticket(0), draws[:, 0]))
+    o0 = prologue_ops("sub_ultra", 0)
+    _log_record("glob_dense_prologue", n_taxa, g2, f"sub_ultra, per ticket over its {fam.n}")
+    _log_record("glob_dense_prologue", n_taxa,
+                _record(worst["prop"], ms2_0, plain2_0, prologue_bytes("sub_ultra", 0, True),
+                        o0[0], ops64=o0[1]),
+                f"sub_ultra's first ticket, {int(fam.grp.hi[0] - fam.grp.lo[0])} nodes, "
+                f"counting the bad entries")
+    # G2 on var_tree's first ticket.
+    fv = fs.glob_fam["var_tree"]
+    tv, dv, _, _ = draws_of["var_tree"]
+    ms_v = _device_ms(lambda: G.glob_dense_prologue(fs.glob, fv, 0, c3, tv, dv),
+                      only="glob_dense_prologue_kernel")
+    plain_v = _device_ms(lambda: G.glob_dense_prologue_plain(
+        fs.glob, "var_tree", c3, tv[:, 0], fv.ticket(0), dv[:, 0]))
+    ov = prologue_ops("var_tree", 0)
+    _log_record("glob_dense_prologue", n_taxa,
+                _record(worst["prop"], ms_v, plain_v, prologue_bytes("var_tree", 0, False),
+                        ov[0], ops64=ov[1]), "var_tree's first ticket")
+
+    # Each subtree ticket's product over its support rows against the full
+    # product, on the G2 outputs above: equal within K2_REL of the largest
+    # |w|; bound 2 C K D operations at the f32 peak (bytes: P[S], delta_S
+    # in, w out).
+    fP = fs._x_P
+    w_err = 0.0
+    for s, pro in enumerate(pros):
+        wr, wf = fs.glob_product(fam, s, pro), fP(pro.delta)
+        w_err = max(w_err, float((wr - wf).abs().max()) / max(1.0, float(wf.abs().max())))
+    check(w_err <= K2_REL, f"the support-row product is off the full one by {w_err:.3g} of scale")
+    ms_r = _device_ms(lambda: [fs.glob_product(fam, s, p) for s, p in enumerate(pros)],
+                      reps=3) / fam.n
+    ms_f = _device_ms(lambda: [fP(p.delta) for p in pros], reps=3) / fam.n
+    Ks = (fam.grp.hi - fam.grp.lo).astype(np.int64)
+    b_r = statistics.fmean(_bound(4 * (K * D + C * K + C * D), 2 * C * K * D)[0] for K in Ks)
+    b_f = _bound(4 * (D * D + 2 * C * D), 2 * C * D * D)[0]
+    log(f"[glob] subtree product at {n_taxa} taxa (sub_ultra, per ticket over its {fam.n}, "
+        f"mean K {statistics.fmean(Ks.tolist()):.1f} of D {D}): support rows {ms_r:.4f} ms "
+        f"(bound {b_r:.4f}), full {ms_f:.4f} ms (bound {b_f:.4f}), largest difference "
+        f"{w_err:.3g} of scale; {2 * C * int(Ks.sum()) * D / 1e9:.3f} against "
+        f"{2 * C * fam.n * D * D / 1e9:.3f} GFLOP for the family")
+
+    # G3 on sub_ultra's first ticket.
     c4, c5 = _copy_carry(carry), _copy_carry(carry)
+    pro = G.glob_dense_prologue(fs.glob, fam, 0, c4, tun, draws)
+    pplain = G.glob_dense_prologue_plain(fs.glob, "sub_ultra", c5, tun[:, 0], fam.ticket(0),
+                                         draws[:, 0])
+    w = fs.glob_product(fam, 0, pro)
     acc0 = G.glob_dense_epilogue(fs.glob, fam, 0, _copy_carry(carry), pro, w, u)
     ms3 = _device_ms(lambda: G.glob_dense_epilogue(fs.glob, fam, 0, c4, pro, w, u),
                      only="glob_dense_epilogue_kernel")
     plain3 = _device_ms(lambda: G.glob_dense_epilogue_plain(fs.glob, "sub_ultra", c5, pplain, w,
                                                              u[:, 0], int(fam.grp.rows[0])))
-    blk = 2 * (N + 1) + nn  # bd, ck and nd blocks
-    # G2.  Bytes: per chain heights, rates, the three blocks, d, five
-    # scalars and two draws in; the proposed heights, blocks, d_new, delta,
-    # five scalars and six per-chain values out.  Operations: the
-    # birth-death block in double, the clock block (about 40 per node) and
-    # the distances (4 per row) in float32.
-    nb2 = 4 * C * (2 * N + blk + D + 7) + 4 * C * (N + blk + 2 * D + 11)
+    K0 = int(fam.grp.hi[0] - fam.grp.lo[0])
+    blk = 2 * K0 + nn  # the range's bd and ck entries, the node-prior block
     # G3.  Bytes: per chain delta, z, w, q and five per-chain values in;
-    # for the accepted chains the proposed heights, blocks, d_new and z in
-    # and heights, blocks, d, z, q and the count out.  Operations: dq (4
-    # per row).
+    # for the accepted chains the proposed heights, terms on the range,
+    # d_new and z in and heights, terms, d, z, q and the count out.
+    # Operations: dq (4 per row).
     na = int(acc0.sum())
-    nb3 = 4 * C * (3 * D + 6) + 4 * na * (2 * (N + blk + 2 * D) + 2)
+    nb3 = 4 * C * (3 * D + 6) + 4 * na * (2 * (K0 + blk + 2 * D) + 2)
     return {
-        "glob_scan": _record(max(worst["prop"], worst.get("mean", 0.0)), ms1, plain1, nb1,
-                             100 * C * n, ops64=100 * C * n * N),
-        "glob_dense_prologue": _record(worst["prop"], ms2, plain2, nb2,
-                                      C * (40 * (N + 1) + 4 * D + 100), ops64=100 * C * N),
+        "glob_scan": g1,
+        "glob_dense_prologue": g2,
         "glob_dense_epilogue": _record(max(worst["d"], worst["z"], worst["q"]), ms3, plain3,
                                        nb3, 4 * C * D),
     }

@@ -51,6 +51,7 @@ from ..kernels.glob_step import (
     DENSE,
     FAMILIES,
     GAMMA_TAGS,
+    SUBTREE_DENSE,
     GlobConsts,
     GlobFamily,
     glob_dense_epilogue,
@@ -634,9 +635,22 @@ class FastSweeps:
             sc_codes=dict(birth=P.SC_BIRTH, death=P.SC_DEATH, bd=P.SC_BIRTH_DEATH,
                           bdc=P.SC_BIRTH_DEATH_CONTRA),
             dist_idx=torch.as_tensor(np.asarray(topo.internal_dist_index, np.int32), device=dev),
-            root_ch=torch.as_tensor(np.asarray(child_list, np.int32), device=dev))
+            root_ch=torch.as_tensor(np.asarray(child_list, np.int32), device=dev),
+            pos=np.asarray(topo.internal_pos, np.int64))
         self.glob_fam = {tag: GlobFamily.of(grp, dev, dt)
                          for tag, grp in self.plan.glob_groups.items()}
+        # The precision rows P[S] of each subtree that a sub_ultra or
+        # sub_rate ticket scales, gathered once (the two families share
+        # their subtrees): at 1000 taxa (synthetic.build) 13 subtrees of
+        # 7,861 rows in all, 63 MB in float32 beside P's 16 MB.
+        self.glob_prows = {}
+        if self.use_lik:
+            for tag in SUBTREE_DENSE & set(self.glob_fam):
+                grp = self.plan.glob_groups[tag]
+                for lo, hi in zip(grp.lo.tolist(), grp.hi.tolist()):
+                    if lo not in self.glob_prows:
+                        rows = torch.as_tensor(self.glob.support(lo, hi), device=dev)
+                        self.glob_prows[lo] = self.P.index_select(0, rows)
 
     def _range_rows(self, sx: dict):
         """The distance rows of a likelihood range block, ``d_flat`` ``[S
@@ -723,6 +737,16 @@ class FastSweeps:
         :class:`~..kernels.glob_step.GlobOut` ``[C, n]`` (see
         :func:`~..kernels.glob_step.glob_family_plain` for ``given``)."""
         return glob_family_plain(self.glob, self.glob_fam[tag], carry, tun, draws, u_acc, given)
+
+    def glob_product(self, fam, s: int, pro):
+        """``w = delta @ P`` of ticket ``s`` of dense family ``fam`` (None
+        without a likelihood): ``delta_S @ P[S]`` over a subtree ticket's
+        support rows, where ``delta`` is zero elsewhere."""
+        if not self.use_lik:
+            return None
+        if pro.delta_s is None:
+            return self._x_P(pro.delta)
+        return pro.delta_s @ self.glob_prows[int(fam.grp.lo[s])]
 
     # -- point mega-steps -------------------------------------------------
 
@@ -841,7 +865,8 @@ class FastSweeps:
         """The global-move families in :data:`GLOB_ORDER`.  A family's draws
         come first, ``[C, n]`` in one or two generator calls (a sweep does
         not change the tuning): kernel G1 then walks the whole family, or
-        each ticket of a dense family takes G2, ``delta @ P`` and G3."""
+        each ticket of a dense family takes G2, ``delta @ P`` (over a
+        subtree ticket's support rows, :meth:`glob_product`) and G3."""
         C = carry.d.shape[0]
         for tag, fam in self.glob_fam.items():
             tun = tuning.index_select(1, fam.rows)
@@ -853,10 +878,12 @@ class FastSweeps:
             if FAMILIES[tag].lik != DENSE:
                 glob_scan(self.glob, fam, carry, tun, draws, u_acc)
                 continue
+            nbad = None
             for s in range(fam.n):
-                pro = glob_dense_prologue(self.glob, fam, s, carry, tun, draws)
-                w = self._x_P(pro.delta) if self.use_lik else None
-                glob_dense_epilogue(self.glob, fam, s, carry, pro, w, u_acc)
+                pro = glob_dense_prologue(self.glob, fam, s, carry, tun, draws, nbad)
+                nbad = pro.nbad
+                glob_dense_epilogue(self.glob, fam, s, carry, pro,
+                                    self.glob_product(fam, s, pro), u_acc)
 
     def point_phase(self, carry: FastCarry, tuning, gen):
         """The point mega-steps: contrary slides (K6), then the

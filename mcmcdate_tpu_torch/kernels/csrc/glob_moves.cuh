@@ -260,9 +260,11 @@ __device__ __forceinline__ float new_rate(const GlobModel& g, int family, const 
 
 // Internal-layout distance row j of the state (h, r) with scale = height
 // * rate_mean: (h_p - h) r of the row's node, the root's second child's
-// branch added to row 0 (ops/heights.py distances_internal).
+// branch added to row 0 (ops/heights.py distances_internal).  h and r are
+// indexed like arrays of float (a state row, or a view of a proposed one).
+template <class HV, class RV>
 __device__ __forceinline__ float distance_row(const int* parent, const int* dist_idx,
-                                              int root_right, const float* h, const float* r,
+                                              int root_right, const HV& h, const RV& r,
                                               float scale, int j) {
   const int nd = dist_idx[j];
   float len = (h[parent[nd]] - h[nd]) * r[nd];

@@ -11,33 +11,49 @@
 // G1 glob_scan_kernel: the eight families whose distances are untouched
 // (bd_scale, rate_var, hm_contra, norm_contra, normh_contra, sub_contra) or
 // scale uniformly (rate_mean, height: d' = u d, z' = u z + (u-1) P mu, dq in
-// closed form from mu'z), one launch for the whole family: the CTA walks
-// the family's tickets in order, and for each forms the proposal from the
-// injected draw, writes the proposed heights or rates to scratch, evaluates
-// the term blocks the family can change (prior_terms.cuh, as K1 does),
-// reduces new - old under sum_valid's NaN rule, decides, and writes the
-// accepted ticket back.
+// closed form from mu'z), one launch for the whole family.  The chain stays
+// on chip for the whole family: its arrays (heights, the old and the new
+// terms of the family's blocks, rates, d and z) live in shared memory as
+// far as a budget allows (the rest in place in global memory: at large N
+// the same kernel reads everything from there), each entry owned by one
+// thread (entry j by thread j mod 128).  Every ticket forms its proposal
+// from the injected draw (every thread alike), evaluates the owned entries
+// the family can change from views of the proposed state (a node's
+// proposed height or rate is a function of its old one: no scratch copy,
+// no barrier), reduces new - old under sum_valid's NaN rule with one
+// barrier, decides in every thread alike and, on accept, lets each thread
+// move its own entries; sub_contra, whose proposal reads other nodes'
+// heights, adds a barrier after an accept.  State and terms go back to
+// global memory once, at the family's end.  sub_contra evaluates only its
+// subtree's pre-order range [lo, hi) of the birth-death and clock blocks;
+// the chain's count of NaN or -inf entries in those blocks, taken once at
+// the start, keeps the invalid rule of the whole new blocks exact.
 // G2 glob_dense_prologue_kernel (one ticket of var_tree, var_auto,
 // rates_time, slide_root, sub_ultra or sub_rate): the proposal, the
 // proposed state, its term blocks, d_new = distances_internal of it and
 // delta = d_new - d, lmhg, the root-branch Jacobian lj, d_pr and the
-// invalid flag.  G3 glob_dense_epilogue_kernel: dq = sum delta (2z + w),
-// the decision, and the write-back of state, terms, d, z, q and the accept
-// count.
+// invalid flag, read from views of the proposed state as in G1 with one
+// reduction barrier (var_tree: two, its rate mean first).  A subtree
+// ticket (sub_ultra, sub_rate) evaluates its terms and distances only on
+// its subtree's nodes and support rows (the rows of its branches, row 0
+// where it hangs from the root), copies d and zeroes delta elsewhere, and
+// also writes delta_S, delta on the support rows in order, for the product
+// delta_S @ P[S]; its invalid rule takes the count of bad entries of the
+// family's blocks that the family's first G2 launch takes and G3 keeps.
+// G3 glob_dense_epilogue_kernel: dq = sum delta (2z + w), the decision,
+// and the write-back of state, terms (a subtree ticket's range), d, z, q
+// and the accept count.
 //
 // What bounds them on the H100: the term blocks' special functions (the
 // birth-death block in double: two D/E evaluations per node), a few floats
-// per node and chain in and out; and the serial walk over a family's
-// tickets, which the host launch per ticket bounded before (about 140
-// plain-torch launches a ticket).  The design: one launch per family for
-// G1 and two per dense ticket, every intermediate of a ticket in registers
-// or in per-chain scratch rows that stay in L2 (proposed heights, rates
-// and terms: any N fits, no shared-memory limit), block reductions by warp
-// shuffles.  Built with -fmad=false: the proposed state and its terms are
-// bitwise the plain step's (which evaluates its terms with K1), given the
-// same proposal; CUDA's normal CDF and its inverse may move a truncated-
-// normal proposal in its last bits, so the checks on the card replay the
-// kernels' proposals.
+// per node and chain in and out, and the serial walk over a family's
+// tickets.  G1 and G2 run 128 threads a CTA with at most 64 registers a
+// thread, so that 8 CTAs fit an SM and 1,024 chains one wave.  Built with
+// -fmad=false: the proposed state and its terms are bitwise the plain
+// step's (which evaluates its terms with K1), given the same proposal;
+// CUDA's normal CDF and its inverse may move a truncated-normal proposal
+// in its last bits, so the checks on the card replay the kernels'
+// proposals.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,8 +67,11 @@ namespace {
 using namespace mcmcdate;
 
 enum Block { B_SC = 1, B_BD = 2, B_CK = 4, B_ND = 8 };
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;  // G1, G2
 constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 8;
+constexpr int kEpiThreads = 256;  // G3
+constexpr int kEpiWarps = kEpiThreads / 32;
 
 // Mirrored field by field by kernels/glob_step.py's _GlobArgs: pointers,
 // then ints, then floats.
@@ -105,22 +124,26 @@ struct GlobArgs {
   unsigned char* accept;
   float* prop;
   float* mean;
-  // scratch of the proposed ticket (G1: per chain; G2 -> G3)
+  // the proposed ticket (G1: new terms not in shared memory; G2 -> G3)
   float* h_new;  // [C, N]
   float* r_new;  // [C, N]
   float* s_new;  // [C, 5] birth, death, height, rate_mean, rate_var
   float* t_new;  // [C, T] (the family's blocks)
   float* d_new;  // [C, D]
   float* delta;  // [C, D]
+  float* delta_s;  // [C, hi - lo] delta on a subtree ticket's support rows
   float* lmhg;   // [C]
   float* lj;     // [C]
   float* d_pr;   // [C]
   unsigned char* invalid;  // [C]
+  int* nbad;     // [C] NaN or -inf old entries of a subtree family's bd and ck blocks
   const float* w;          // [C, D] delta @ P (G3, use_lik)
   // ints
   int N, C, T, D, P, n, s, family, blocks, fields, use_lik, clock_model;
   int n_cal, n_con, n_br, br_width, n_root_ch, root_right, n_inner_total;
   int sc_birth, sc_death, sc_bd, sc_bdc;
+  int smem_budget;  // G1: bytes of shared memory a CTA may take for the chain
+  int count_bad;    // G2: take nbad from the blocks (a family's first ticket)
   // floats
   float mean_root_height, rho, mPm;
 };
@@ -146,82 +169,33 @@ __device__ __forceinline__ Ticket propose(const GlobArgs& a, size_t cs, int s, c
   return mcmcdate::propose(gmodel_of(a), t, h, r, cur, mean);
 }
 
-__device__ __forceinline__ float new_height(const GlobArgs& a, const Ticket& k, const float* h,
-                                            int j) {
-  return mcmcdate::new_height(gmodel_of(a), a.family, k, h, j);
-}
+// The proposed state's heights and rates, node by node from the old ones.
+struct NewHeights {
+  const GlobModel* g;
+  int family;
+  const Ticket* k;
+  const float* h;
+  __device__ __forceinline__ float operator[](int j) const {
+    return new_height(*g, family, *k, h, j);
+  }
+};
 
-__device__ __forceinline__ float new_rate(const GlobArgs& a, const Ticket& k, const float* h,
-                                          const float* r, int j) {
-  return mcmcdate::new_rate(gmodel_of(a), a.family, k, h, r, j);
-}
+struct NewRates {
+  const GlobModel* g;
+  int family;
+  const Ticket* k;
+  const float* h;
+  const float* r;
+  __device__ __forceinline__ float operator[](int j) const {
+    return new_rate(*g, family, *k, h, r, j);
+  }
+};
 
-// Writes the chain's proposed heights and rates (the fields the family
-// changes) to scratch; returns whether a non-root rate is not positive
-// (var_tree, var_auto).
-__device__ bool write_proposed(const GlobArgs& a, const Ticket& k, const float* h, const float* r,
-                               float* hn, float* rn) {
-  bool nonpos = false;
-  for (int j = threadIdx.x; j < a.N; j += kThreads) {
-    if (a.fields & F_HEIGHTS) hn[j] = new_height(a, k, h, j);
-    if (a.fields & F_RATES) {
-      const float x = new_rate(a, k, h, r, j);
-      rn[j] = x;
-      nonpos = nonpos || (a.parent[j] >= 0 && !(x > 0.f));
-    }
-  }
-  return nonpos;
-}
-
-// The family's term blocks of the proposed state (hp, rp, k.s) into tn,
-// with each block's sum of new - old over the non-NaN differences in
-// part[0..3] (sc, bd, ck, nd) and `bad` set by a NaN or -inf new term.
-__device__ void eval_blocks(const GlobArgs& a, const ModelArgs& m, const Ticket& k,
-                            const float* hp, const float* rp, const float* te, float* tn,
-                            float (&part)[4], bool& bad) {
-  const Scalars& s = k.s;
-  const int N = a.N;
-  auto put = [&](int b, int idx, float v) {
-    tn[idx] = v;
-    const float diff = v - te[idx];
-    if (!isnan(diff)) part[b] += diff;
-    bad = bad || isnan(v) || v == -INFINITY;
-  };
-  if (a.blocks & B_SC) {
-    for (int t = threadIdx.x; t < 4; t += kThreads)
-      put(0, t, scalar_term(m, t, s.birth, s.death, s.rate_mean, s.rate_var));
-  }
-  if (a.blocks & B_BD) {
-    for (int j = threadIdx.x; j <= N; j += kThreads)
-      put(1, 4 + j, bd_block_term(m, hp, j, s.birth, s.death));
-  }
-  if (a.blocks & B_CK) {
-    const int o = off_ck(m);
-    for (int j = threadIdx.x; j <= N; j += kThreads)
-      put(2, o + j, clock_block_term(m, hp, rp, j, s.rate_var));
-  }
-  if (a.blocks & B_ND) {
-    const int o = off_nd(m), nn = n_node_terms(m);
-    for (int j = threadIdx.x; j < nn; j += kThreads) put(3, o + j, node_term(m, hp, j, s.height));
-  }
-}
-
-// Copies the family's blocks from tn to te (the same index sets as
-// eval_blocks).
-__device__ void store_blocks(const GlobArgs& a, const ModelArgs& m, const float* tn, float* te) {
-  const int N = a.N;
-  if (a.blocks & B_SC)
-    for (int t = threadIdx.x; t < 4; t += kThreads) te[t] = tn[t];
-  if (a.blocks & B_BD)
-    for (int j = threadIdx.x; j <= N; j += kThreads) te[4 + j] = tn[4 + j];
-  if (a.blocks & B_CK) {
-    const int o = off_ck(m);
-    for (int j = threadIdx.x; j <= N; j += kThreads) te[o + j] = tn[o + j];
-  }
-  if (a.blocks & B_ND) {
-    const int o = off_nd(m), nn = n_node_terms(m);
-    for (int j = threadIdx.x; j < nn; j += kThreads) te[o + j] = tn[o + j];
-  }
+// The first entry in [lo, ...) that this thread owns (entry j: thread j mod
+// kThreads).
+__device__ __forceinline__ int first_owned(int lo) {
+  int j = lo - lo % kThreads + (int)threadIdx.x;
+  return j < lo ? j + kThreads : j;
 }
 
 // The plain version's order: 0 + sum(sc) + sum(bd) + sum(ck) + sum(nd)
@@ -242,160 +216,444 @@ __device__ __forceinline__ void store_scalars(const GlobArgs& a, int c, const Sc
   if (a.fields & F_RATE_VAR) a.rate_var[c] = s.rate_var;
 }
 
-__device__ __forceinline__ void store_nodes(const GlobArgs& a, const float* hn, const float* rn,
-                                            float* h, float* r) {
-  for (int j = threadIdx.x; j < a.N; j += kThreads) {
-    if (a.fields & F_HEIGHTS) h[j] = hn[j];
-    if (a.fields & F_RATES) r[j] = rn[j];
-  }
-}
-
 __device__ __forceinline__ Scalars scalars_of(const GlobArgs& a, int c) {
   return Scalars{a.birth[c], a.death[c], a.height[c], a.rate_mean[c], a.rate_var[c]};
 }
 
+__host__ __device__ __forceinline__ bool is_subtree(int family) {
+  return family == SUB_CONTRA || family == SUB_ULTRA || family == SUB_RATE;
+}
+
+// ---------------------------------------------------------------------------
+// G1's chain arrays, in the order they claim shared memory.
+// ---------------------------------------------------------------------------
+
+enum Array { A_H, A_TBD, A_TCK, A_NBD, A_NCK, A_TND, A_NND, A_R, A_D, A_Z, kArrays };
+// The arrays that hold state (loaded at the start); the new-term arrays are
+// scratch.
+constexpr int kStateArrays = ~((1 << A_NBD) | (1 << A_NCK) | (1 << A_NND));
+
+__host__ __device__ __forceinline__ int array_len(const GlobArgs& a, int i) {
+  switch (i) {
+    case A_H:
+    case A_R:
+      return a.N;
+    case A_TBD:
+    case A_TCK:
+    case A_NBD:
+    case A_NCK:
+      return a.N + 1;
+    case A_TND:
+    case A_NND:
+      return a.n_cal + a.n_con + a.n_br;
+    default:  // A_D, A_Z
+      return a.D;
+  }
+}
+
+__host__ __device__ __forceinline__ bool uniform_family(int family) {
+  return family == RATE_MEAN || family == HEIGHT;
+}
+
+// The arrays family a.family reads.
+__host__ __device__ __forceinline__ int needed_arrays(const GlobArgs& a) {
+  const int nn = a.n_cal + a.n_con + a.n_br;
+  const bool nd = (a.blocks & B_ND) && nn > 0;
+  int need = 0;
+  if ((a.blocks & (B_BD | B_CK)) || nd || a.family == SUB_CONTRA) need |= 1 << A_H;
+  if (a.blocks & B_BD) need |= (1 << A_TBD) | (1 << A_NBD);
+  if (a.blocks & B_CK) need |= (1 << A_TCK) | (1 << A_NCK) | (1 << A_R);
+  if (a.fields & F_RATES) need |= 1 << A_R;
+  if (nd) need |= (1 << A_TND) | (1 << A_NND);
+  if (uniform_family(a.family)) {
+    need |= 1 << A_D;
+    if (a.use_lik) need |= 1 << A_Z;
+  }
+  return need;
+}
+
+// Which needed arrays go to shared memory: in Array order, each that still
+// fits the budget.
+__host__ __device__ __forceinline__ int smem_arrays(const GlobArgs& a) {
+  const int need = needed_arrays(a);
+  int mask = 0, left = a.smem_budget;
+  for (int i = 0; i < kArrays; ++i) {
+    const int bytes = array_len(a, i) * (int)sizeof(float);
+    if ((need >> i & 1) && bytes <= left) {
+      mask |= 1 << i;
+      left -= bytes;
+    }
+  }
+  return mask;
+}
+
+__host__ __device__ __forceinline__ int smem_bytes(const GlobArgs& a, int mask) {
+  int bytes = 0;
+  for (int i = 0; i < kArrays; ++i)
+    if (mask >> i & 1) bytes += array_len(a, i) * (int)sizeof(float);
+  return bytes;
+}
+
+// Chain c's row of array i in global memory (the new terms: its t_new row).
+__device__ __forceinline__ float* global_row(const GlobArgs& a, int c, int i) {
+  const size_t cT = (size_t)c * a.T;
+  const int o_ck = 4 + a.N + 1, o_nd = 4 + 2 * (a.N + 1);
+  switch (i) {
+    case A_H:
+      return a.heights + (size_t)c * a.N;
+    case A_R:
+      return a.rates + (size_t)c * a.N;
+    case A_TBD:
+      return a.terms + cT + 4;
+    case A_TCK:
+      return a.terms + cT + o_ck;
+    case A_TND:
+      return a.terms + cT + o_nd;
+    case A_NBD:
+      return a.t_new + cT + 4;
+    case A_NCK:
+      return a.t_new + cT + o_ck;
+    case A_NND:
+      return a.t_new + cT + o_nd;
+    case A_D:
+      return a.d + (size_t)c * a.D;
+    default:  // A_Z
+      return a.z ? a.z + (size_t)c * a.D : nullptr;
+  }
+}
+
 // G1: one CTA per chain walks all n tickets of a family whose d/z/q are
 // untouched or scale uniformly.
-__global__ void __launch_bounds__(kThreads) glob_scan_kernel(GlobArgs a) {
-  __shared__ float red[5][kWarps];
+__global__ void __launch_bounds__(kThreads, kMinBlocks) glob_scan_kernel(GlobArgs a) {
+  extern __shared__ float smem[];
+  __shared__ float* base[kArrays];
+  __shared__ float red[3][5][kWarps];
   const int c = blockIdx.x;
+  const int tid = threadIdx.x;
   const ModelArgs m = model_of(a);
-  float* h = a.heights + (size_t)c * a.N;
-  float* r = a.rates + (size_t)c * a.N;
-  float* te = a.terms + (size_t)c * a.T;
-  float* d = a.d + (size_t)c * a.D;
-  float* z = a.use_lik ? a.z + (size_t)c * a.D : nullptr;
-  float* hn = a.h_new ? a.h_new + (size_t)c * a.N : nullptr;
-  float* rn = a.r_new ? a.r_new + (size_t)c * a.N : nullptr;
-  float* tn = a.t_new + (size_t)c * a.T;
-  const bool uniform = a.family == RATE_MEAN || a.family == HEIGHT;
-  const bool nodes = (a.fields & (F_HEIGHTS | F_RATES)) != 0;
+  const GlobModel g = gmodel_of(a);
+  const int N = a.N, nn = n_node_terms(m);
+  const bool uniform = uniform_family(a.family);
+  const bool lik = uniform && a.use_lik;
+  const bool sub = a.family == SUB_CONTRA;
+  const int need = needed_arrays(a);
+  const int mask = smem_arrays(a);
+  if (tid == 0) {
+    float* sp = smem;
+    for (int i = 0; i < kArrays; ++i) {
+      base[i] = nullptr;
+      if (mask >> i & 1) {
+        base[i] = sp;
+        sp += array_len(a, i);
+      } else if (need >> i & 1) {
+        base[i] = global_row(a, c, i);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = 0; i < kArrays; ++i) {
+    if (!((mask & kStateArrays) >> i & 1)) continue;
+    const float* src = global_row(a, c, i);
+    float* dst = base[i];
+    for (int j = tid; j < array_len(a, i); j += kThreads) dst[j] = src[j];
+  }
+  __syncthreads();
+  float* const h = base[A_H];
+  float* const r = base[A_R];
+  float* const tbd = base[A_TBD];
+  float* const tck = base[A_TCK];
+  float* const tnd = base[A_TND];
+  // The count of bad old entries of sub_contra's birth-death and clock
+  // blocks (its node-prior block is evaluated whole).
+  float nbad = 0.f;
+  if (sub) {
+    float v[1] = {0.f};
+    for (int j = tid; j <= N; j += kThreads) {
+      if (a.blocks & B_BD) v[0] += is_bad(tbd[j]) ? 1.f : 0.f;
+      if (a.blocks & B_CK) v[0] += is_bad(tck[j]) ? 1.f : 0.f;
+    }
+    bool none = false;
+    block_sums<1>(v, red[2], none);
+    nbad = v[0];
+  }
+  float sc_old[4] = {0.f, 0.f, 0.f, 0.f};
+  if (a.blocks & B_SC)
+    for (int t = 0; t < 4; ++t) sc_old[t] = a.terms[(size_t)c * a.T + t];
+  Scalars cur = scalars_of(a, c);
+  float q0 = lik ? a.q[c] : 0.f;
+  float d0 = uniform ? a.d[(size_t)c * a.D] : 0.f;
+  const bool reduce = (a.blocks & (B_BD | B_CK)) || ((a.blocks & B_ND) && nn > 0) || lik;
+  bool any = false;
   for (int s = 0; s < a.n; ++s) {
     const size_t cs = (size_t)c * a.n + s;
-    // Everything the decision reads is read before the first write-back
-    // below (which follows block_sums' barrier).
-    const Scalars cur = scalars_of(a, c);
-    const float d0 = d[0];
-    const float q0 = a.use_lik ? a.q[c] : 0.f;
-    const float logu_acc = logf(a.u_acc[cs]);
     const Ticket k = propose(a, cs, s, h, r, cur, 0.f);
-    if (nodes) {
-      write_proposed(a, k, h, r, hn, rn);
-      __syncthreads();
-    }
-    const float* hp = (a.fields & F_HEIGHTS) ? hn : h;
-    const float* rp = (a.fields & F_RATES) ? rn : r;
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
+    const NewHeights hp{&g, a.family, &k, h};
+    const NewRates rp{&g, a.family, &k, h, r};
+    // The birth-death and clock entries the ticket can change.
+    const int lo = sub ? k.lo : 0, hi = sub ? k.hi : N + 1;
     bool bad = false;
-    eval_blocks(a, m, k, hp, rp, te, tn, part, bad);
-    float sums[5] = {part[0], part[1], part[2], part[3], 0.f};
-    if (uniform && a.use_lik) {
-      for (int j = threadIdx.x; j < a.D; j += kThreads) sums[4] += a.mu[j] * z[j];
+    float sc_new[4] = {0.f, 0.f, 0.f, 0.f};
+    float sc_sum = 0.f;
+    if (a.blocks & B_SC) {
+      for (int t = 0; t < 4; ++t) {
+        const float x = scalar_term(m, t, k.s.birth, k.s.death, k.s.rate_mean, k.s.rate_var);
+        sc_new[t] = x;
+        const float diff = x - sc_old[t];
+        if (!isnan(diff)) sc_sum += diff;
+        bad = bad || is_bad(x);
+      }
     }
-    block_sums<5>(sums, red, bad);
-    const float tot[4] = {sums[0], sums[1], sums[2], sums[3]};
+    // bd, ck, nd sums of new - old, mu'z, bad old entries in [lo, hi).
+    float v[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    if (a.blocks & B_BD) {
+      float* tn = base[A_NBD];
+      for (int j = first_owned(lo); j < hi; j += kThreads) {
+        const float x = bd_block_term(m, hp, j, k.s.birth, k.s.death);
+        const float o = tbd[j];
+        tn[j] = x;
+        const float diff = x - o;
+        if (!isnan(diff)) v[0] += diff;
+        bad = bad || is_bad(x);
+        if (is_bad(o)) v[4] += 1.f;
+      }
+    }
+    if (a.blocks & B_CK) {
+      float* tn = base[A_NCK];
+      for (int j = first_owned(lo); j < hi; j += kThreads) {
+        const float x = clock_block_term(m, hp, rp, j, k.s.rate_var);
+        const float o = tck[j];
+        tn[j] = x;
+        const float diff = x - o;
+        if (!isnan(diff)) v[1] += diff;
+        bad = bad || is_bad(x);
+        if (is_bad(o)) v[4] += 1.f;
+      }
+    }
+    if ((a.blocks & B_ND) && nn > 0) {
+      float* tn = base[A_NND];
+      for (int j = tid; j < nn; j += kThreads) {
+        const float x = node_term(m, hp, j, k.s.height);
+        tn[j] = x;
+        const float diff = x - tnd[j];
+        if (!isnan(diff)) v[2] += diff;
+        bad = bad || is_bad(x);
+      }
+    }
+    if (lik) {
+      const float* z = base[A_Z];
+      for (int j = tid; j < a.D; j += kThreads) v[3] += a.mu[j] * z[j];
+    }
+    if (reduce) block_sums<5>(v, red[s & 1], bad);
     float dq = 0.f, lj = 0.f;
     const float um1 = k.u - 1.0f;
     if (uniform) {
       // uniform_scale_lik: d' = u d, z' = u z + (u-1) P mu.
       if (a.use_lik)
-        dq = ((k.u * k.u - 1.0f) * q0 + ((2.0f * k.u) * um1) * sums[4]) + (um1 * um1) * a.mPm;
+        dq = ((k.u * k.u - 1.0f) * q0 + ((2.0f * k.u) * um1) * v[3]) + (um1 * um1) * a.mPm;
       if (a.rj[s]) lj = logf(d0) - logf(k.u * d0);
     }
-    float la = ((prior_delta(a.blocks, tot) - 0.5f * dq) + k.lmhg) + lj;
-    if (bad || isnan(la)) la = -INFINITY;
-    const bool acc = logu_acc < la;
+    const float part[4] = {sc_sum, v[0], v[1], v[2]};
+    float la = ((prior_delta(a.blocks, part) - 0.5f * dq) + k.lmhg) + lj;
+    // A bad entry outside [lo, hi) stays in the new blocks.
+    if (bad || (sub && nbad > v[4]) || isnan(la)) la = -INFINITY;
+    const bool acc = logf(a.u_acc[cs]) < la;
     if (acc) {
-      store_blocks(a, m, tn, te);
-      if (nodes) store_nodes(a, hn, rn, h, r);
+      any = true;
+      cur = k.s;
+      for (int t = 0; t < 4; ++t) sc_old[t] = sc_new[t];
+      if (a.blocks & B_BD) {
+        const float* tn = base[A_NBD];
+        for (int j = first_owned(lo); j < hi; j += kThreads) tbd[j] = tn[j];
+      }
+      if (a.blocks & B_CK) {
+        const float* tn = base[A_NCK];
+        for (int j = first_owned(lo); j < hi; j += kThreads) tck[j] = tn[j];
+      }
+      if ((a.blocks & B_ND) && nn > 0) {
+        const float* tn = base[A_NND];
+        for (int j = tid; j < nn; j += kThreads) tnd[j] = tn[j];
+      }
+      // A node's new values read only its own old ones (rates first:
+      // nothing here reads a new height).
+      const int nlo = sub ? k.lo : 0, nhi = sub ? k.hi : N;
+      if (a.fields & F_RATES)
+        for (int j = first_owned(nlo); j < nhi; j += kThreads) r[j] = rp[j];
+      if (a.fields & F_HEIGHTS)
+        for (int j = first_owned(nlo); j < nhi; j += kThreads) h[j] = hp[j];
       if (uniform) {
-        for (int j = threadIdx.x; j < a.D; j += kThreads) {
+        float* d = base[A_D];
+        float* z = base[A_Z];
+        for (int j = tid; j < a.D; j += kThreads) {
           d[j] = k.u * d[j];
-          if (a.use_lik) z[j] = k.u * z[j] + um1 * a.pmu[j];
+          if (lik) z[j] = k.u * z[j] + um1 * a.pmu[j];
         }
+        d0 = k.u * d0;
+        q0 = q0 + dq;
       }
+      nbad = 0.f;
     }
-    if (threadIdx.x == 0) {
-      if (acc) {
-        store_scalars(a, c, k.s);
-        if (uniform && a.use_lik) a.q[c] = q0 + dq;
-        a.acc[(size_t)c * a.P + a.rows[s]] += 1;
-      }
+    if (tid == 0) {
+      if (acc) a.acc[(size_t)c * a.P + a.rows[s]] += 1;
       a.accept[cs] = acc;
       a.prop[cs] = k.prop;
     }
-    __syncthreads();
+    // The next proposal reads other nodes' heights.
+    if (acc && (a.fields & F_HEIGHTS)) __syncthreads();
+  }
+  if (!any) return;
+  // Write back what the family changed and shared memory held; each thread
+  // its own entries.
+  int out = 0;
+  if (a.fields & F_HEIGHTS) out |= 1 << A_H;
+  if (a.fields & F_RATES) out |= 1 << A_R;
+  out |= need & ((1 << A_TBD) | (1 << A_TCK) | (1 << A_TND) | (1 << A_D) | (1 << A_Z));
+  for (int i = 0; i < kArrays; ++i) {
+    if (!((mask & out) >> i & 1)) continue;
+    float* dst = global_row(a, c, i);
+    const float* src = base[i];
+    for (int j = tid; j < array_len(a, i); j += kThreads) dst[j] = src[j];
+  }
+  if (tid == 0) {
+    store_scalars(a, c, cur);
+    if (a.blocks & B_SC)
+      for (int t = 0; t < 4; ++t) a.terms[(size_t)c * a.T + t] = sc_old[t];
+    if (lik) a.q[c] = q0;
   }
 }
 
 // G2: ticket s of a dense family, one CTA per chain.
-__global__ void __launch_bounds__(kThreads) glob_dense_prologue_kernel(GlobArgs a) {
-  __shared__ float red[4][kWarps];
+__global__ void __launch_bounds__(kThreads, kMinBlocks) glob_dense_prologue_kernel(GlobArgs a) {
+  __shared__ float red[2][7][kWarps];
   const int c = blockIdx.x;
   const int s = a.s;
+  const int tid = threadIdx.x;
   const size_t cs = (size_t)c * a.n + s;
   const ModelArgs m = model_of(a);
-  const float* h = a.heights + (size_t)c * a.N;
-  const float* r = a.rates + (size_t)c * a.N;
+  const GlobModel g = gmodel_of(a);
+  const int N = a.N;
+  const float* h = a.heights + (size_t)c * N;
+  const float* r = a.rates + (size_t)c * N;
   const float* te = a.terms + (size_t)c * a.T;
   const float* d = a.d + (size_t)c * a.D;
-  float* hn = a.h_new ? a.h_new + (size_t)c * a.N : nullptr;
-  float* rn = a.r_new ? a.r_new + (size_t)c * a.N : nullptr;
+  float* hn = a.h_new ? a.h_new + (size_t)c * N : nullptr;
+  float* rn = a.r_new ? a.r_new + (size_t)c * N : nullptr;
   float* tn = a.t_new + (size_t)c * a.T;
   float* dn = a.d_new + (size_t)c * a.D;
   float* dl = a.delta + (size_t)c * a.D;
+  const bool sub = is_subtree(a.family);
   float mean = 0.f;
   if (a.family == VAR_TREE) {
     float v[1] = {0.f};
-    for (int j = threadIdx.x; j < a.N; j += kThreads)
+    for (int j = tid; j < N; j += kThreads)
       if (a.parent[j] >= 0) v[0] += r[j];
     bool none = false;
-    block_sums<1>(v, red, none);
-    mean = v[0] / (float)(a.N - 1);
+    block_sums<1>(v, red[1], none);
+    mean = v[0] / (float)(N - 1);
   }
   const Ticket k = propose(a, cs, s, h, r, scalars_of(a, c), mean);
-  bool nonpos = write_proposed(a, k, h, r, hn, rn);
-  if (threadIdx.x == 0) {
+  const NewHeights hp{&g, a.family, &k, h};
+  const NewRates rp{&g, a.family, &k, h, r};
+  // The nodes the ticket moves, and the birth-death and clock entries it
+  // can change.
+  const int nlo = sub ? k.lo : 0, nhi = sub ? k.hi : N;
+  const int bhi = sub ? k.hi : N + 1;
+  // sc, bd, ck, nd sums of new - old, bad old entries in [nlo, bhi),
+  // non-positive non-root rates, bad old entries of the bd and ck blocks.
+  float v[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  bool bad = false;
+  for (int j = first_owned(nlo); j < nhi; j += kThreads) {
+    if (a.fields & F_HEIGHTS) hn[j] = hp[j];
+    if (a.fields & F_RATES) {
+      const float x = rp[j];
+      rn[j] = x;
+      if (a.parent[j] >= 0 && !(x > 0.f)) v[5] = 1.f;
+    }
+  }
+  auto put = [&](int b, int idx, float x, bool ranged) {
+    tn[idx] = x;
+    const float o = te[idx];
+    const float diff = x - o;
+    if (!isnan(diff)) v[b] += diff;
+    bad = bad || is_bad(x);
+    if (ranged && is_bad(o)) v[4] += 1.f;
+  };
+  if (a.blocks & B_SC) {
+    for (int t = tid; t < 4; t += kThreads)
+      put(0, t, scalar_term(m, t, k.s.birth, k.s.death, k.s.rate_mean, k.s.rate_var), false);
+  }
+  if (a.blocks & B_BD) {
+    for (int j = first_owned(nlo); j < bhi; j += kThreads)
+      put(1, 4 + j, bd_block_term(m, hp, j, k.s.birth, k.s.death), sub);
+  }
+  if (a.blocks & B_CK) {
+    const int o = off_ck(m);
+    for (int j = first_owned(nlo); j < bhi; j += kThreads)
+      put(2, o + j, clock_block_term(m, hp, rp, j, k.s.rate_var), sub);
+  }
+  if (a.blocks & B_ND) {
+    const int o = off_nd(m), nn = n_node_terms(m);
+    for (int j = tid; j < nn; j += kThreads) put(3, o + j, node_term(m, hp, j, k.s.height), false);
+  }
+  if (sub && a.count_bad) {
+    for (int j = tid; j <= N; j += kThreads) {
+      if ((a.blocks & B_BD) && is_bad(te[4 + j])) v[6] += 1.f;
+      if ((a.blocks & B_CK) && is_bad(te[off_ck(m) + j])) v[6] += 1.f;
+    }
+  }
+  // distances_internal of the proposed state on the rows the ticket moves:
+  // (h_p - h) r, the root's second child's branch added to row 0, times
+  // height * rate_mean.  A subtree ticket's rows are its nodes' branches
+  // (row 0 stands for the root child it hangs from); delta_S takes them in
+  // node order, which is row order.
+  const float scale = k.s.height * k.s.rate_mean;
+  const int rr = a.root_right;
+  float* ds = sub ? a.delta_s + (size_t)c * (k.hi - k.lo) : nullptr;
+  float dn0 = 0.f;
+  for (int j = tid; j < a.D; j += kThreads) {
+    const float old = d[j];
+    float x = old, dx = 0.f;
+    int node = a.dist_idx[j];
+    if (sub && j == 0 && rr >= k.lo && rr < k.hi) node = rr;
+    if (!sub || (node >= k.lo && node < k.hi)) {
+      x = distance_row(a.parent, a.dist_idx, rr, hp, rp, scale, j);
+      dx = x - old;
+      if (sub) ds[node - k.lo] = dx;
+    }
+    dn[j] = x;
+    dl[j] = dx;
+    if (j == 0) dn0 = x;
+  }
+  block_sums<7>(v, red[0], bad);
+  if (tid == 0) {
     float* sn = a.s_new + (size_t)c * 5;
     sn[0] = k.s.birth;
     sn[1] = k.s.death;
     sn[2] = k.s.height;
     sn[3] = k.s.rate_mean;
     sn[4] = k.s.rate_var;
-  }
-  nonpos = __syncthreads_or(nonpos) != 0;
-  const float* hp = (a.fields & F_HEIGHTS) ? hn : h;
-  const float* rp = (a.fields & F_RATES) ? rn : r;
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  bool bad = false;
-  eval_blocks(a, m, k, hp, rp, te, tn, part, bad);
-  // distances_internal of the proposed state: (h_p - h) r, the root's
-  // second child's branch added to entry 0, times height * rate_mean.
-  const float scale = k.s.height * k.s.rate_mean;
-  float dn0 = 0.f;
-  for (int j = threadIdx.x; j < a.D; j += kThreads) {
-    const float x = distance_row(a.parent, a.dist_idx, a.root_right, hp, rp, scale, j);
-    dn[j] = x;
-    dl[j] = x - d[j];
-    if (j == 0) dn0 = x;
-  }
-  block_sums<4>(part, red, bad);
-  if (threadIdx.x == 0) {
     const bool var = a.family == VAR_TREE || a.family == VAR_AUTO;
-    a.lmhg[c] = (var && nonpos) ? -INFINITY : k.lmhg;
+    a.lmhg[c] = (var && v[5] > 0.f) ? -INFINITY : k.lmhg;
     a.lj[c] = a.rj[s] ? logf(d[0]) - logf(dn0) : 0.f;
+    const float part[4] = {v[0], v[1], v[2], v[3]};
     a.d_pr[c] = prior_delta(a.blocks, part);
-    a.invalid[c] = bad;
+    // A bad entry outside the subtree's range stays in the new blocks.
+    bool invalid = bad;
+    if (sub) {
+      if (a.count_bad) a.nbad[c] = (int)v[6];
+      invalid = invalid || (float)(a.count_bad ? (int)v[6] : a.nbad[c]) > v[4];
+    }
+    a.invalid[c] = invalid;
     a.prop[c] = k.prop;
     a.mean[c] = mean;
   }
 }
 
 // G3: the decision and write-back of ticket s of a dense family.
-__global__ void __launch_bounds__(kThreads) glob_dense_epilogue_kernel(GlobArgs a) {
-  __shared__ float red[1][kWarps];
+__global__ void __launch_bounds__(kEpiThreads) glob_dense_epilogue_kernel(GlobArgs a) {
+  __shared__ float red[1][kEpiWarps];
   const int c = blockIdx.x;
   const int s = a.s;
+  const int tid = threadIdx.x;
   const ModelArgs m = model_of(a);
   float* h = a.heights + (size_t)c * a.N;
   float* r = a.rates + (size_t)c * a.N;
@@ -412,7 +670,7 @@ __global__ void __launch_bounds__(kThreads) glob_dense_epilogue_kernel(GlobArgs 
   const float logu_acc = logf(a.u_acc[(size_t)c * a.n + s]);
   float v[1] = {0.f};
   if (a.use_lik) {
-    for (int j = threadIdx.x; j < a.D; j += kThreads) v[0] += dl[j] * (2.0f * z[j] + w[j]);
+    for (int j = tid; j < a.D; j += kEpiThreads) v[0] += dl[j] * (2.0f * z[j] + w[j]);
   }
   bool none = false;
   block_sums<1>(v, red, none);
@@ -421,19 +679,39 @@ __global__ void __launch_bounds__(kThreads) glob_dense_epilogue_kernel(GlobArgs 
   if (a.invalid[c] || isnan(la)) la = -INFINITY;
   const bool acc = logu_acc < la;
   if (acc) {
-    store_blocks(a, m, tn, te);
-    store_nodes(a, hn, rn, h, r);
-    for (int j = threadIdx.x; j < a.D; j += kThreads) {
+    // G2 wrote a subtree ticket's nodes, birth-death and clock entries only
+    // on its range [lo, hi).
+    const bool sub = is_subtree(a.family);
+    const int lo = sub ? a.lo[s] : 0, nhi = sub ? a.hi[s] : a.N, bhi = sub ? a.hi[s] : a.N + 1;
+    if (a.blocks & B_SC)
+      for (int t = tid; t < 4; t += kEpiThreads) te[t] = tn[t];
+    if (a.blocks & B_BD)
+      for (int j = lo + tid; j < bhi; j += kEpiThreads) te[4 + j] = tn[4 + j];
+    if (a.blocks & B_CK) {
+      const int o = off_ck(m);
+      for (int j = lo + tid; j < bhi; j += kEpiThreads) te[o + j] = tn[o + j];
+    }
+    if (a.blocks & B_ND) {
+      const int o = off_nd(m), nn = n_node_terms(m);
+      for (int j = tid; j < nn; j += kEpiThreads) te[o + j] = tn[o + j];
+    }
+    for (int j = lo + tid; j < nhi; j += kEpiThreads) {
+      if (a.fields & F_HEIGHTS) h[j] = hn[j];
+      if (a.fields & F_RATES) r[j] = rn[j];
+    }
+    for (int j = tid; j < a.D; j += kEpiThreads) {
       d[j] = dn[j];
       if (a.use_lik) z[j] = z[j] + w[j];
     }
   }
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     if (acc) {
       const float* sn = a.s_new + (size_t)c * 5;
       store_scalars(a, c, Scalars{sn[0], sn[1], sn[2], sn[3], sn[4]});
       if (a.use_lik) a.q[c] = q0 + dq;
       a.acc[(size_t)c * a.P + a.rows[s]] += 1;
+      // The accepted blocks hold no bad entry.
+      if (a.nbad) a.nbad[c] = 0;
     }
     a.accept[c] = acc;
   }
@@ -445,9 +723,55 @@ __global__ void __launch_bounds__(kThreads) glob_dense_epilogue_kernel(GlobArgs 
 // type with internal linkage would keep them from being exported.
 extern "C" int mcmcdate_glob_args_size() { return (int)sizeof(GlobArgs); }
 
+// G1's arguments with a negative smem_budget replaced by the default: the
+// shared memory that lets ceil(C / SMs) CTAs (at most kMinBlocks) share an
+// SM, less the 1 KB the system keeps per CTA and the kernel's static arrays.
+static GlobArgs with_budget(const GlobArgs& in) {
+  GlobArgs a = in;
+  if (a.smem_budget >= 0) return a;
+  // The last answer, for the same device and chain count.
+  static int last_dev = -1, last_C = -1, last_budget = 0;
+  int dev = 0, n_sm = 1, smem_sm = 0, optin = 0;
+  cudaGetDevice(&dev);
+  if (dev == last_dev && a.C == last_C) {
+    a.smem_budget = last_budget;
+    return a;
+  }
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  cudaFuncGetAttributes(&attr, glob_scan_kernel);
+  int per_sm = (a.C + n_sm - 1) / n_sm;
+  per_sm = per_sm < 1 ? 1 : (per_sm > kMinBlocks ? kMinBlocks : per_sm);
+  const int fixed = (int)attr.sharedSizeBytes;
+  const int b = smem_sm / per_sm - 1024 - fixed;
+  a.smem_budget = b < optin - fixed ? b : optin - fixed;
+  if (a.smem_budget < 0) a.smem_budget = 0;
+  last_dev = dev;
+  last_C = a.C;
+  last_budget = a.smem_budget;
+  return a;
+}
+
+// The bytes of shared memory G1 takes for a family (and, in *mask, which
+// arrays it holds there).
+extern "C" int mcmcdate_glob_scan_smem(const void* args, int* mask) {
+  const GlobArgs a = with_budget(*static_cast<const GlobArgs*>(args));
+  *mask = smem_arrays(a);
+  return smem_bytes(a, *mask);
+}
+
 extern "C" int mcmcdate_glob_scan_f32(const void* args, void* stream) {
-  const GlobArgs& a = *static_cast<const GlobArgs*>(args);
-  if (a.C > 0 && a.n > 0) glob_scan_kernel<<<a.C, kThreads, 0, (cudaStream_t)stream>>>(a);
+  const GlobArgs a = with_budget(*static_cast<const GlobArgs*>(args));
+  const int bytes = smem_bytes(a, smem_arrays(a));
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        glob_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (a.C > 0 && a.n > 0)
+    glob_scan_kernel<<<a.C, kThreads, bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -459,6 +783,6 @@ extern "C" int mcmcdate_glob_dense_prologue_f32(const void* args, void* stream) 
 
 extern "C" int mcmcdate_glob_dense_epilogue_f32(const void* args, void* stream) {
   const GlobArgs& a = *static_cast<const GlobArgs*>(args);
-  if (a.C > 0) glob_dense_epilogue_kernel<<<a.C, kThreads, 0, (cudaStream_t)stream>>>(a);
+  if (a.C > 0) glob_dense_epilogue_kernel<<<a.C, kEpiThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -62,8 +62,13 @@ __device__ __forceinline__ float scalar_term(const ModelArgs& m, int t, float la
   return gamma_logpdf(1.5f, (float)(1.0 / 6.0), rv);
 }
 
+// The height and rate arguments below are anything indexed like an array
+// of float: a row of the state, or a view that forms a proposed state's
+// values node by node (csrc/glob_step.cu).
+
 // Birth-death term of node j < N (0 at the root), heights h.
-__device__ __forceinline__ float bd_term(const ModelArgs& m, const float* h, int j, float la_f,
+template <class HV>
+__device__ __forceinline__ float bd_term(const ModelArgs& m, const HV& h, int j, float la_f,
                                          float mu_f) {
   const int p = m.parent[j];
   if (p < 0) return 0.0f;
@@ -85,7 +90,8 @@ __device__ __forceinline__ float bd_term(const ModelArgs& m, const float* h, int
 }
 
 // Entry j of the birth-death block (j == N: the rates' validity term).
-__device__ __forceinline__ float bd_block_term(const ModelArgs& m, const float* h, int j, float la,
+template <class HV>
+__device__ __forceinline__ float bd_block_term(const ModelArgs& m, const HV& h, int j, float la,
                                                float mu) {
   if (j == m.N) {
     const bool valid = la >= 0.f && mu >= 0.f && m.rho > 0.f && m.rho <= 1.0f;
@@ -96,8 +102,9 @@ __device__ __forceinline__ float bd_block_term(const ModelArgs& m, const float* 
 
 // Entry j of the clock block (j == N: the rate variance's validity term);
 // r is the chain's rates row.
-__device__ __forceinline__ float clock_block_term(const ModelArgs& m, const float* h,
-                                                  const float* r, int j, float rv) {
+template <class HV, class RV>
+__device__ __forceinline__ float clock_block_term(const ModelArgs& m, const HV& h, const RV& r,
+                                                  int j, float rv) {
   if (j == m.N) return rv > 0.f ? 0.0f : -INFINITY;
   const int p = m.parent[j];
   if (p < 0) return 0.0f;
@@ -105,7 +112,8 @@ __device__ __forceinline__ float clock_block_term(const ModelArgs& m, const floa
 }
 
 // Node term k: calibrations, then constraints, then braces.
-__device__ __forceinline__ float node_term(const ModelArgs& m, const float* h, int k, float H) {
+template <class HV>
+__device__ __forceinline__ float node_term(const ModelArgs& m, const HV& h, int k, float H) {
   if (k < m.n_cal) {
     const float hk = h[m.cal_node[k]];
     const float lo = m.cal_lower[k] / H;
@@ -150,8 +158,9 @@ __device__ __forceinline__ float node_term(const ModelArgs& m, const float* h, i
 
 // Entry t of the flat term vector of the state (h, r, la, mu, H,
 // rate_mean, rv).
-__device__ __forceinline__ float prior_term(const ModelArgs& m, const float* h, const float* r,
-                                            int t, float la, float mu, float H, float rate_mean,
+template <class HV, class RV>
+__device__ __forceinline__ float prior_term(const ModelArgs& m, const HV& h, const RV& r, int t,
+                                            float la, float mu, float H, float rate_mean,
                                             float rv) {
   if (t < 4) return scalar_term(m, t, la, mu, rate_mean, rv);
   if (t < off_ck(m)) return bd_block_term(m, h, t - 4, la, mu);

@@ -12,14 +12,19 @@ independent.
 - ``glob_scan`` (kernel ``glob_scan_kernel``): the eight families whose
   distances are untouched or scale uniformly (``d' = u d``, with ``z`` and
   ``q`` in closed form), one launch for the whole family: one CTA per chain
-  walks its tickets.
+  walks its tickets with the chain's arrays on chip (shared memory as far
+  as a budget allows); sub_contra evaluates only its subtree's range.
 - ``glob_dense_prologue`` and ``glob_dense_epilogue`` (kernels
   ``glob_dense_prologue_kernel``, ``glob_dense_epilogue_kernel``): a
   ticket of the six families whose distances change arbitrarily: the
   prologue proposes, evaluates the term blocks and ``delta = d_new - d``;
   the caller forms ``w = delta @ P`` (one large product, left to
   ``torch.matmul`` as the JAX package leaves it to XLA); the epilogue takes
-  ``dq = sum delta (2 z + w)``, decides and writes back.
+  ``dq = sum delta (2 z + w)``, decides and writes back.  A subtree ticket
+  (sub_ultra, sub_rate) changes only its subtree's distances, its support
+  rows ``S`` (:meth:`GlobConsts.support`): its prologue evaluates only
+  those and also gives ``delta_S = delta[:, S]``, so that the product
+  can be ``delta_S @ P[S]``.
 
 Every wrapper runs the plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors (float32), or raises; it counts its launches in
@@ -37,7 +42,11 @@ means so that a check can replay the kernels' own.
 On the H100 they are bound by the term blocks' special functions (the
 birth-death block in double) and, before them, by the host: the plain
 ticket is about 140 launches.  G1 is one launch per family and a dense
-ticket three (G2, the product, G3); see ``csrc/glob_step.cu``.
+ticket three (G2, the product, G3); see ``csrc/glob_step.cu``.  The
+invalid rule of a range-restricted kernel (a NaN or -inf anywhere in the
+family's new blocks) takes the chain's count of bad old entries: G1 counts
+them at its start, a subtree family's first G2 launch into ``nbad``, which
+the next tickets' G2 read and G3 zeroes on accept.
 """
 
 from __future__ import annotations
@@ -60,6 +69,8 @@ from ..ops.local_terms import NEG_INF, is_bad, sum_valid
 from . import build
 
 NONE, UNIFORM, DENSE = 0, 1, 2  # how a family moves d, z and q
+# The dense families whose tickets move one subtree's distances only.
+SUBTREE_DENSE = frozenset({"sub_ultra", "sub_rate"})
 
 
 class Family(NamedTuple):
@@ -116,6 +127,14 @@ class GlobConsts:
     sc_codes: dict  # birth, death, bd, bdc
     dist_idx: torch.Tensor  # int32 [D]
     root_ch: torch.Tensor   # int32 [K]
+    pos: np.ndarray         # int [N]: each node's internal distance row (root -1)
+
+    def support(self, lo: int, hi: int) -> np.ndarray:
+        """The distance rows of the subtree of pre-order nodes ``[lo, hi)``:
+        its nodes' rows in node order, ascending (row 0 stands for the root
+        child the subtree may hang from).  A ticket that moves only the
+        subtree's heights or rates changes only these rows."""
+        return self.pos[lo:hi]
 
 
 @dataclass
@@ -176,7 +195,9 @@ class GlobDense(NamedTuple):
     """What the dense prologue computes per chain: the proposed state (only
     the family's fields are meaningful; its scalars also as ``scalars``
     ``[C, 5]``: birth, death, height, rate_mean, rate_var), the proposed
-    state's terms ``[C, T]`` (only the family's blocks are meaningful),
+    state's terms ``[C, T]`` (only the family's blocks are meaningful; from
+    kernel G2, a subtree ticket's nodes and bd and ck entries only on its
+    range ``[lo, hi)``),
     ``d_new`` and ``delta = d_new - d`` ``[C, D]``, and ``[C]``: lmhg (with
     the rates' positivity of var_tree and var_auto), the root-branch
     Jacobian ``lj``, the prior delta ``d_pr``, ``invalid`` (a new term NaN
@@ -194,6 +215,13 @@ class GlobDense(NamedTuple):
     prop: torch.Tensor
     mean: torch.Tensor
     dx_dp: Optional[torch.Tensor] = None  # the plain version's (see GlobOut)
+    # A subtree ticket's delta on its support rows, [C, hi - lo] (None for
+    # the whole-distance families).
+    delta_s: Optional[torch.Tensor] = None
+    # G2 on the card, subtree families: each chain's count of NaN or -inf
+    # entries in the family's birth-death and clock blocks, int32 [C], to be
+    # handed to the family's next ticket.
+    nbad: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -424,8 +452,13 @@ def glob_dense_prologue_plain(gc: GlobConsts, tag, carry, tune, sx, draw,
     if sx["rj"]:
         lj = torch.log(d[:, 0]) - torch.log(d_new[:, 0])
     scalars = torch.stack([getattr(bnew, f) for f in _SCALARS], dim=1)
-    return GlobDense(bnew, scalars, full, d_new, d_new - d, lmhg, lj, d_pr, invalid, prop,
-                     mean if mean is not None else torch.zeros_like(d_pr), dx_dp)
+    delta = d_new - d
+    delta_s = None
+    if tag in SUBTREE_DENSE:
+        rows = torch.as_tensor(gc.support(int(sx["lo"]), int(sx["hi"])), device=d.device)
+        delta_s = delta.index_select(1, rows)
+    return GlobDense(bnew, scalars, full, d_new, delta, lmhg, lj, d_pr, invalid, prop,
+                     mean if mean is not None else torch.zeros_like(d_pr), dx_dp, delta_s)
 
 
 def glob_dense_epilogue_plain(gc: GlobConsts, tag, carry, pro: GlobDense, w, u_acc, row=None):
@@ -489,11 +522,12 @@ _PTRS = ("parent", "is_leaf", "cal_node", "cal_lower", "cal_lower_pm", "cal_uppe
          "heights", "rates", "birth", "death", "height", "rate_mean", "rate_var", "terms", "d",
          "z", "q", "acc", "mu", "pmu", "dist_idx", "root_ch",
          "rows", "sd", "aux", "lo", "hi", "n_inner", "n_nodes", "rj", "tun", "draw", "u_acc",
-         "accept", "prop", "mean", "h_new", "r_new", "s_new", "t_new", "d_new", "delta", "lmhg",
-         "lj", "d_pr", "invalid", "w")
+         "accept", "prop", "mean", "h_new", "r_new", "s_new", "t_new", "d_new", "delta",
+         "delta_s", "lmhg", "lj", "d_pr", "invalid", "nbad", "w")
 _INTS = ("N", "C", "T", "D", "P", "n", "s", "family", "blocks", "fields", "use_lik",
          "clock_model", "n_cal", "n_con", "n_br", "br_width", "n_root_ch", "root_right",
-         "n_inner_total", "sc_birth", "sc_death", "sc_bd", "sc_bdc")
+         "n_inner_total", "sc_birth", "sc_death", "sc_bd", "sc_bdc", "smem_budget",
+         "count_bad")
 _FLOATS = ("mean_root_height", "rho", "mPm")
 
 
@@ -513,10 +547,14 @@ def _check_layout() -> None:
         raise RuntimeError("glob_step: the kernel's argument layout does not match the wrapper's")
 
 
-def _launch(name: str, args: dict, device) -> None:
+def _struct(args: dict) -> _GlobArgs:
     _check_layout()
-    st = _GlobArgs(**{k: (v.data_ptr() if isinstance(v, torch.Tensor) else v)
-                      for k, v in args.items()})
+    return _GlobArgs(**{k: (v.data_ptr() if isinstance(v, torch.Tensor) else v)
+                        for k, v in args.items()})
+
+
+def _launch(name: str, args: dict, device) -> None:
+    st = _struct(args)
     fn = build.bind(f"mcmcdate_{name}_f32", (ctypes.c_void_p, ctypes.c_void_p))
     build.check(fn(ctypes.addressof(st), build.stream_ptr(device)), f"{name} kernel")
 
@@ -568,36 +606,68 @@ def _node_scratch(fam_spec, C, N, device):
     return buf("heights"), buf("rates")
 
 
-def glob_scan(gc: GlobConsts, fam: GlobFamily, carry, tun, draws, u_acc) -> GlobOut:
+# G1's chain arrays in the order they claim shared memory (csrc/glob_step.cu
+# Array): heights, old bd and ck terms, new bd and ck terms, old and new nd
+# terms, rates, d, z.
+SCAN_ARRAYS = ("heights", "bd", "ck", "bd_new", "ck_new", "nd", "nd_new", "rates", "d", "z")
+
+
+def _scan_args(gc: GlobConsts, fam: GlobFamily, carry, tun, draws, u_acc,
+               smem_budget: Optional[int]) -> dict:
+    """G1's arguments; ``t_new`` holds the new terms that shared memory
+    does not (-1: the kernel's default budget)."""
+    args = _args(gc, fam, carry, tun, draws, u_acc)
+    C = carry.d.shape[0]
+    dev = carry.d.device
+    args.update(accept=torch.empty((C, fam.n), dtype=torch.bool, device=dev),
+                prop=torch.empty((C, fam.n), dtype=torch.float32, device=dev),
+                t_new=torch.empty_like(carry.terms),
+                smem_budget=-1 if smem_budget is None else int(smem_budget))
+    return args
+
+
+def glob_scan_smem(gc: GlobConsts, fam: GlobFamily, carry, smem_budget=None) -> tuple:
+    """``(bytes, arrays)``: the shared memory kernel G1 takes per chain for
+    ``fam`` on this carry (CUDA tensors) and the names of the chain arrays
+    it holds there (the others stay in global memory), under
+    ``smem_budget`` bytes or, where None, the default budget that lets
+    ``ceil(C / SMs)`` CTAs share an SM."""
+    C = carry.d.shape[0]
+    tk = torch.empty((C, fam.n), dtype=torch.float32, device=carry.d.device)
+    st = _struct(_scan_args(gc, fam, carry, tk, tk, tk, smem_budget))
+    mask = ctypes.c_int(0)
+    fn = build.bind("mcmcdate_glob_scan_smem", (ctypes.c_void_p, ctypes.c_void_p))
+    nbytes = fn(ctypes.addressof(st), ctypes.byref(mask))
+    return nbytes, tuple(a for i, a in enumerate(SCAN_ARRAYS) if mask.value >> i & 1)
+
+
+def glob_scan(gc: GlobConsts, fam: GlobFamily, carry, tun, draws, u_acc,
+              smem_budget: Optional[int] = None) -> GlobOut:
     """All tickets of a family whose ``d/z/q`` are untouched or scale
     uniformly, in order, on every chain, in place (``carry``: a FastCarry;
     ``tun``, ``draws``, ``u_acc`` ``[C, n]``).  Returns a :class:`GlobOut`
     ``[C, n]``.  The plain version (:func:`glob_family_plain`) runs for CPU
-    tensors, kernel G1 for CUDA tensors (float32)."""
+    tensors, kernel G1 for CUDA tensors (float32).  ``smem_budget`` caps the
+    shared memory G1 takes per chain (0: every array in global memory; see
+    :func:`glob_scan_smem`)."""
     if FAMILIES[fam.tag].lik == DENSE:
         raise ValueError(f"glob_scan: {fam.tag} moves the distances densely")
     if carry.d.device.type == "cpu":
         return glob_family_plain(gc, fam, carry, tun, draws, u_acc)
-    args = _args(gc, fam, carry, tun, draws, u_acc)
-    C, N = carry.batch.heights.shape
-    dev = carry.d.device
-    h_new, r_new = _node_scratch(FAMILIES[fam.tag], C, N, dev)
-    accept = torch.empty((C, fam.n), dtype=torch.bool, device=dev)
-    prop = torch.empty((C, fam.n), dtype=torch.float32, device=dev)
-    t_new = torch.empty_like(carry.terms)
-    args.update(accept=accept, prop=prop, t_new=t_new,
-                **{k: v for k, v in (("h_new", h_new), ("r_new", r_new)) if v is not None})
-    _launch("glob_scan", args, dev)
+    args = _scan_args(gc, fam, carry, tun, draws, u_acc, smem_budget)
+    _launch("glob_scan", args, carry.d.device)
     glob_scan.launches += 1
-    return GlobOut(accept, prop)
+    return GlobOut(args["accept"], args["prop"])
 
 
-def glob_dense_prologue(gc: GlobConsts, fam: GlobFamily, s: int, carry, tun, draws) -> GlobDense:
+def glob_dense_prologue(gc: GlobConsts, fam: GlobFamily, s: int, carry, tun, draws,
+                        nbad=None) -> GlobDense:
     """Ticket ``s`` of a dense family (var_tree, var_auto, rates_time,
     slide_root, sub_ultra, sub_rate) on every chain: the proposal from
     ``draws[:, s]`` and its :class:`GlobDense`.  The carry is read, not
     changed.  The plain version runs for CPU tensors, kernel G2 for CUDA
-    tensors (float32)."""
+    tensors (float32).  ``nbad``: the previous ticket's ``GlobDense.nbad``
+    of the same family (None: G2 counts the bad entries afresh)."""
     if carry.d.device.type == "cpu":
         return glob_dense_prologue_plain(gc, fam.tag, carry, tun[:, s], fam.ticket(s),
                                          draws[:, s])
@@ -615,11 +685,21 @@ def glob_dense_prologue(gc: GlobConsts, fam: GlobFamily, s: int, carry, tun, dra
     state = State(heights=batch.heights if h_new is None else h_new,
                   rates=batch.rates if r_new is None else r_new,
                   **{k: scalars[:, i] for i, k in enumerate(_SCALARS)})
+    delta_s = count_bad = None
+    if fam.tag in SUBTREE_DENSE:
+        delta_s = torch.empty((C, int(fam.grp.hi[s]) - int(fam.grp.lo[s])), dtype=torch.float32,
+                              device=dev)
+        count_bad = nbad is None
+        if count_bad:
+            nbad = torch.empty(C, dtype=torch.int32, device=dev)
+        build.require_cuda(nbad, "nbad", torch.int32)
     out = GlobDense(state, scalars, torch.empty_like(carry.terms), torch.empty_like(carry.d),
                     torch.empty_like(carry.d), vec(), vec(), vec(),
-                    torch.empty(C, dtype=torch.bool, device=dev), vec(), vec())
+                    torch.empty(C, dtype=torch.bool, device=dev), vec(), vec(),
+                    delta_s=delta_s, nbad=nbad if fam.tag in SUBTREE_DENSE else None)
     args.update(s=s, h_new=h_new, r_new=r_new, s_new=scalars, t_new=out.terms, d_new=out.d_new,
-                delta=out.delta, lmhg=out.lmhg, lj=out.lj, d_pr=out.d_pr, invalid=out.invalid,
+                delta=out.delta, delta_s=delta_s, lmhg=out.lmhg, lj=out.lj, d_pr=out.d_pr,
+                invalid=out.invalid, nbad=out.nbad, count_bad=int(bool(count_bad)),
                 prop=out.prop, mean=out.mean)
     _launch("glob_dense_prologue", {k: v for k, v in args.items() if v is not None}, dev)
     glob_dense_prologue.launches += 1
@@ -648,8 +728,11 @@ def glob_dense_epilogue(gc: GlobConsts, fam: GlobFamily, s: int, carry, pro: Glo
             build.require_cuda(getattr(pro.state, f), f"{f} (proposed)", torch.float32)
     C = carry.d.shape[0]
     accept = torch.empty(C, dtype=torch.bool, device=carry.d.device)
+    if pro.nbad is not None:
+        build.require_cuda(pro.nbad, "nbad", torch.int32)
     args.update(s=s, s_new=pro.scalars, t_new=pro.terms, d_new=pro.d_new, delta=pro.delta,
                 lmhg=pro.lmhg, lj=pro.lj, d_pr=pro.d_pr, invalid=pro.invalid, accept=accept,
+                nbad=pro.nbad,
                 w=w if gc.use_lik else None,
                 h_new=pro.state.heights if "heights" in fields else None,
                 r_new=pro.state.rates if "rates" in fields else None)

@@ -536,16 +536,18 @@ def test_contra_range_kernel_buckets(card):
 # -- the glob-family kernels (G1-G3) ------------------------------------------
 
 
-def _glob_fast(seed):
-    """FastSweeps on a 12-leaf synthetic model with calibrations, a
-    constraint and a brace and the calibrated proposal table (all 14 glob
-    families), a carry, a tuning and a generator."""
+def _glob_fast(seed, bad_leaf=False, taxa=12, chains=96):
+    """FastSweeps on a synthetic model of ``taxa`` leaves and ``chains``
+    chains with calibrations, a constraint and a brace and the calibrated
+    proposal table (all 14 glob families), a carry, a tuning and a
+    generator.  ``bad_leaf``: chain 0's rate of a leaf that is no root
+    child is -0.5, so its clock term is -inf."""
     import dataclasses
 
     from mcmcdate_tpu_torch.engine import fast_sweep as TF, proposals as TP
     from mcmcdate_tpu_torch.ops.node_priors import BraceSet, CalibrationSet, ConstraintSet
 
-    model, batch = synthetic.build(12, 96, device="cuda")
+    model, batch = synthetic.build(taxa, chains, device="cuda")
     inner = [int(i) for i in model.topo.inner_nodes if i != 0]
     cal = CalibrationSet(node=np.asarray([0, inner[0], inner[1]], np.int32),
                          lower=np.asarray([1.0, 0.4, 0.0]), lower_pm=np.asarray([0.01, 0.02, 1.0]),
@@ -558,28 +560,43 @@ def _glob_fast(seed):
     table = TP.build_proposal_table(model.topo, model.braces, True)
     fs = TF.FastSweeps(model, table)
     assert tuple(fs.glob_fam) == TF.GLOB_ORDER
+    if bad_leaf:
+        topo = model.topo
+        leaf = next(j for j in range(topo.n) if topo.is_leaf[j] and topo.parent[j] != 0)
+        rates = batch.rates.clone()
+        rates[0, leaf] = -0.5
+        batch = batch.replace(rates=rates)
     carry = fs.init_carry(batch)
     carry.z, carry.q = fs._zq_from_y(model.whitened_residual_internal(carry.batch))
     g = torch.Generator(device="cuda").manual_seed(seed)
-    tuning = torch.rand(96, table.n_proposals, generator=g, device="cuda") * 3 + 0.3
+    tuning = torch.rand(chains, table.n_proposals, generator=g, device="cuda") * 3 + 0.3
     return fs, carry, tuning, g
 
 
-@pytest.mark.parametrize("dense", (False, True), ids=("G1", "G2-G3"))
-def test_glob_kernels(card, dense):
-    """G1 glob_scan (the scan families) or G2 and G3 around the product
-    (the dense families) on every family of a 12-leaf calibrated model,
-    against the plain family scan replayed at the kernels' proposals and
-    decisions: proposals within 1e-5 (1 + |x|) of the plain ones from the
-    same draws (plus 8 float32 ulps of the CDF value a truncated-normal
-    proposal inverts), decisions equal except at ties, heights, rates, scalars and
-    terms bitwise equal, d, z and q within 1e-5 of scale, accept counts
-    equal; one G1 launch per family, one G2 and one G3 per ticket."""
+@pytest.mark.parametrize("dense, budget, taxa, chains",
+                         ((False, None, 12, 96), (False, 0, 12, 96), (True, None, 12, 96),
+                          (False, None, 1100, 8)),
+                         ids=("G1", "G1-global", "G2-G3", "G1-wide"))
+def test_glob_kernels(card, dense, budget, taxa, chains):
+    """G1 glob_scan (the scan families; also with every chain array in
+    global memory, a shared-memory budget of 0, and at 1,100 taxa x 8
+    chains, where sub_contra's arrays take more than the 48 KB a launch
+    gets without opting in) or G2 and G3 around the product (the dense
+    families; a subtree ticket's over its support rows) on every family of
+    a calibrated model whose chain 0 has a -inf clock term at a leaf,
+    against the plain family scan replayed at the
+    kernels' proposals and decisions: proposals within 1e-5 (1 + |x|) of
+    the plain ones from the same draws (plus 8 float32 ulps of the CDF
+    value a truncated-normal proposal inverts), decisions equal except at
+    ties, heights, rates, scalars and terms bitwise equal, d, z and q within
+    1e-5 of scale, accept counts equal, chain 0 rejecting every ticket of
+    the subtree families (which evaluate only their subtree's entries); one
+    G1 launch per family, one G2 and one G3 per ticket."""
     from mcmcdate_tpu_torch.engine.fast_sweep import FastCarry
     from mcmcdate_tpu_torch.kernels import glob_step as G
     from mcmcdate_tpu_torch.ops.dists import standard_gamma
 
-    fs, carry, tuning, g = _glob_fast(8)
+    fs, carry, tuning, g = _glob_fast(8, bad_leaf=True, taxa=taxa, chains=chains)
     C = carry.d.shape[0]
 
     def copy():
@@ -605,9 +622,12 @@ def test_glob_kernels(card, dense):
         before = [w.launches for w in wrappers]
         if dense:
             acc, prop, mean = [], [], []
+            nbad = None
             for s in range(fam.n):
-                pro = G.glob_dense_prologue(fs.glob, fam, s, ck, tun, draws)
-                acc.append(G.glob_dense_epilogue(fs.glob, fam, s, ck, pro, fs._x_P(pro.delta), u))
+                pro = G.glob_dense_prologue(fs.glob, fam, s, ck, tun, draws, nbad)
+                nbad = pro.nbad
+                acc.append(G.glob_dense_epilogue(fs.glob, fam, s, ck, pro,
+                                                 fs.glob_product(fam, s, pro), u))
                 prop.append(pro.prop)
                 mean.append(pro.mean)
             accept, prop = torch.stack(acc, 1), torch.stack(prop, 1)
@@ -615,7 +635,11 @@ def test_glob_kernels(card, dense):
             assert [w.launches for w in wrappers] == [before[0], before[1] + fam.n,
                                                       before[2] + fam.n]
         else:
-            out = G.glob_scan(fs.glob, fam, ck, tun, draws, u)
+            nbytes, arrays = G.glob_scan_smem(fs.glob, fam, ck, budget)
+            assert (nbytes == 0) == (budget == 0) and (not arrays) == (budget == 0)
+            if taxa > 1000 and tag == "sub_contra":
+                assert nbytes > 48 * 1024
+            out = G.glob_scan(fs.glob, fam, ck, tun, draws, u, smem_budget=budget)
             accept, prop, mean = out.accept, out.prop, None
             assert [w.launches for w in wrappers] == [before[0] + 1, before[1], before[2]]
         forced = torch.where(accept, 0.0, math.nan)
@@ -636,6 +660,8 @@ def test_glob_kernels(card, dense):
         for a, b in ((ck.d, cr.d), (ck.z, cr.z), (ck.q, cr.q)):
             near(a, b, 1e-5 * max(1.0, float(b.abs().max())))
         assert torch.equal(ck.acc, cr.acc)
+        if tag.startswith("sub_"):
+            assert not accept[0].any() and accept[1:].any()
         n_acc += int(accept.sum())
         n += accept.numel()
     assert 0 < n_acc < n
