@@ -1038,6 +1038,9 @@ def check_prior_only_steps(n_taxa):
         ck, cr = _copy_carry(carry), _copy_carry(carry)
         run = fs.point_lik_step if step == "point" else fs.range_lik_step
         counts, accept = _counted(lambda: run(kind, ck, tuning, sx, draw, u))
+        # A range block's mask is its bucket's buffer, which the steps below
+        # overwrite.
+        accept = accept.clone()
         _sync()
         launched = {k: n for k, n in counts.items() if n}
         want = {f"{step}_lik_prologue": 1, f"{step}_lik_epilogue": 1}
@@ -1148,12 +1151,78 @@ def _range_step_agree(name, fs, carry, tuning, kind, sx, draw, u):
     return worst, rec, copy
 
 
-def check_range_step(n_taxa):
-    """K5 (prologue, range_scan, epilogue) on the first block of every
-    bucket of both likelihood range kinds; the records keep the block with
-    the most tickets.  Returns a record per kernel."""
+def _k5_records(fs, kind, sx, tuning, draw, u, copy, worst):
+    """K5's prologue and epilogue on one block, each timed against its
+    plain version on the same inputs, as records; the prologue's and
+    epilogue's outputs come from the block's ``RangeWork``, as on the main
+    path.  Also returns the inputs, for the record block's scan and step
+    timings."""
     import torch
 
+    from mcmcdate_tpu_torch.engine import proposals as P
+    from mcmcdate_tpu_torch.kernels import range_step as K
+    from mcmcdate_tpu_torch.kernels.range_scan import range_scan
+
+    rate = kind == P.K_SCALE_SUBTREE_RATE
+    model = fs.model
+    leaf = model.topo.is_leaf_t
+    c1, c2 = copy(), copy()
+    pargs = (rate, c1.batch, c1.terms, c1.d, c1.z, tuning, sx, leaf, model.clock, draw)
+    pro = K.range_lik_prologue(*pargs)
+    accept, dq = range_scan(pro.g, pro.zg, sx["Q"], pro.coef, pro.d_pr, pro.lmhg, u)
+    eargs = (rate, c2.batch, c2.terms, c2.d, c2.q, c2.acc, sx, pro, accept, dq)
+    ms_p = _device_ms(lambda: K.range_lik_prologue(*pargs), only="range_lik_prologue_kernel")
+    ms_e = _device_ms(lambda: K.range_lik_epilogue(*eargs), only="range_lik_epilogue_kernel")
+    plain_p = _device_ms(lambda: K.range_lik_prologue_plain(*pargs))
+    plain_e = _device_ms(lambda: K.range_lik_epilogue_plain(*eargs))
+    C, S = accept.shape
+    RB = sx["own"].shape[1]
+    F = S * RB
+    KN = pro.cal_new.shape[-1]
+    R = int((sx["own"] >= 0).sum())                     # real rows of the block
+    rows_acc = int((accept.to(torch.int64) * (sx["own"] >= 0).sum(1)).sum())
+    # Prologue.  Bytes, each value once: per chain and ticket the draw, the
+    # tuning, the height above the subtree root (the truncation bound, or
+    # the root branch's parent) and five outputs; per chain and real row its
+    # height (a non-root row's parent is a row of the same subtree), rate, d
+    # (not on an ultrametric root row, whose direction is its height), z and
+    # its terms in (two, one for the rate kind), and its g, zg, new value
+    # and terms out (five, four for the rate kind); g and zg per chain and
+    # pad slot; per real calibration slot its term in and out (its height
+    # is a row's); five scalars per chain; the block's plan (16 bytes a row
+    # slot, 36 a ticket).  Operations: per ticket the proposal (100, special
+    # functions counted as 10); per real row the clock term and the row's
+    # products (20) and, for the ultrametric kind, its birth-death term in
+    # double (100, under ops64, as check_glob counts it).
+    roots = 0 if rate else int(((sx["own"] == sx["node"][:, None]) & (sx["own"] >= 0)).sum())
+    n_cal = int((sx["cal_t_rows"] >= 0).sum()) if KN else 0
+    row_floats = 9 if rate else 11
+    pro_bytes = (4 * C * S * 8 + 4 * C * (R * row_floats - roots) + 8 * C * (F - R)
+                 + 4 * C * n_cal * 2 + 20 * C + 16 * F + 36 * S)
+    pro_ops, pro_ops64 = C * (20 * R + 100 * S), (0 if rate else 100 * C * R)
+    # Epilogue.  Bytes: accept, coef and dq per chain and ticket in; dacc
+    # out; per accepted row g and its new values in (three, two for the
+    # rate kind), its height or rate and terms out, d in and out; q in and
+    # out; the block's plan.  Operations: one product per accepted row.
+    epi_bytes = (9 * C * S + 4 * C * F + (28 if rate else 36) * rows_acc + 8 * C + 16 * F
+                 + 36 * S)
+    recs = {
+        "range_lik_prologue": _record(max(worst["prop"], worst["lq"]), ms_p, plain_p,
+                                      pro_bytes, pro_ops, ops64=pro_ops64),
+        "range_lik_epilogue": _record(max(worst["d"], worst["z"], worst["q"]), ms_e, plain_e,
+                                      epi_bytes, rows_acc),
+    }
+    return recs, dict(S=S, RB=RB, F=F, R=R, KN=KN, pargs=pargs, accept=accept, dq=dq, pro=pro,
+                      c2=c2)
+
+
+def check_range_step(n_taxa):
+    """K5 (prologue, range_scan, epilogue) on the first block of every
+    bucket of both likelihood range kinds, each replayed against the plain
+    step; the prologue and epilogue timed on each of those blocks (logged
+    with the block's real rows R and slots S RB); the records keep the
+    block with the most tickets, which also times range_scan and the whole
+    step.  Returns a record per kernel."""
     from mcmcdate_tpu_torch.engine import proposals as P
     from mcmcdate_tpu_torch.kernels import range_step as K
     from mcmcdate_tpu_torch.kernels.range_scan import range_scan, range_scan_plain
@@ -1165,21 +1234,22 @@ def check_range_step(n_taxa):
             continue
         sx = steps[0]
         draw, u = _draws(fs, sx, tuning, gen, kind == P.K_SCALE_SUBTREE_RATE)
-        w, rec, copy = _range_step_agree(f"range step kind {kind} rows {rb} at {n_taxa} taxa",
-                                         fs, carry, tuning, kind, sx, draw, u)
+        name = f"range step kind {kind} rows {rb} at {n_taxa} taxa"
+        w, rec, copy = _range_step_agree(name, fs, carry, tuning, kind, sx, draw, u)
         for k, v in w.items():
             worst[k] = max(worst.get(k, 0.0), v)
-        if timed is None or sx["rows"].shape[0] > timed[1]["rows"].shape[0]:
-            timed = kind, sx, draw, u, rec, copy
-    kind, sx, draw, u, rec, copy = timed
+        recs, info = _k5_records(fs, kind, sx, tuning, draw, u, copy, w)
+        for k, r in recs.items():
+            log(f"[kernels] {k} kind {kind} rows {rb} at {n_taxa} taxa (S={info['S']}, "
+                f"RB={info['RB']}, R={info['R']} of S RB={info['F']}): kernel {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        if timed is None or info["S"] > timed[2]["S"]:
+            timed = kind, sx, info, recs, draw, u, rec
+    kind, sx, info, recs, draw, u, rec = timed
     rate = kind == P.K_SCALE_SUBTREE_RATE
-    model = fs.model
-    leaf = model.topo.is_leaf_t
-    pro, (accept, dq) = rec["range_lik_prologue"], rec["range_scan"]
-    c1, c2, c3 = copy(), copy(), copy()
-    pargs = (rate, c1.batch, c1.terms, c1.d, c1.z, tuning, sx, leaf, model.clock, draw)
-    eargs = (rate, c2.batch, c2.terms, c2.d, c2.q, c2.acc, sx, pro, accept, dq)
+    c3 = _copy_carry(carry)
     sargs = rec["range_scan_args"]
+    pargs, pro, c2 = info["pargs"], info["pro"], info["c2"]
 
     def plain_step():
         p = K.range_lik_prologue_plain(*pargs)
@@ -1188,54 +1258,25 @@ def check_range_step(n_taxa):
                                              p, a, q_)
         c3.z.addmm_(dacc, sx["Prow"])
 
-    ms = {"prologue": _device_ms(lambda: K.range_lik_prologue(*pargs),
-                                 only="range_lik_prologue_kernel"),
-          "scan": _device_ms(lambda: range_scan(*sargs), only="range_scan_kernel"),
-          "epilogue": _device_ms(lambda: K.range_lik_epilogue(*eargs),
-                                 only="range_lik_epilogue_kernel"),
+    ms = {"scan": _device_ms(lambda: range_scan(*sargs), only="range_scan_kernel"),
           "step": _device_ms(lambda: fs.range_lik_step(kind, c3, tuning, sx, draw, u))}
-    plain = {"prologue": _device_ms(lambda: K.range_lik_prologue_plain(*pargs)),
-             "scan": _device_ms(lambda: range_scan_plain(*sargs)),
-             "epilogue": _device_ms(lambda: K.range_lik_epilogue_plain(*eargs)),
-             "step": _device_ms(plain_step)}
-    C, S = accept.shape
-    RB = sx["own"].shape[1]
-    F = S * RB
-    KN = pro.cal_new.shape[-1]
-    R = int((sx["own"] >= 0).sum())                     # valid rows of the block
-    rows_acc = int((accept.to(torch.int64) * (sx["own"] >= 0).sum(1)).sum())
+    plain = {"scan": _device_ms(lambda: range_scan_plain(*sargs)), "step": _device_ms(plain_step)}
+    C, S, RB, F = pro.prop.shape[0], info["S"], info["RB"], info["F"]
     log(f"[kernels] range step kind {kind} at {n_taxa} taxa (S={S}, RB={RB}): device time per "
         f"block: the step {ms['step']:.4f} ms (plain {plain['step']:.4f} ms), of which "
-        f"prologue {ms['prologue']:.4f}, range_scan {ms['scan']:.4f}, epilogue "
-        f"{ms['epilogue']:.4f} ms")
-    # Prologue.  Bytes: per chain and ticket the draw, tuning, the root's
-    # and its parent's heights in and five outputs; per chain and valid row
-    # its height, parent height, rate, d, z and two terms in; five row
-    # outputs per chain and row slot; per calibration slot a height and a
-    # term in and the term out; five scalars per chain; the block's plan
-    # arrays.  Operations: about 120 per row (the birth-death term in
-    # double, the clock term) and 100 per ticket (the proposal), special
-    # functions counted as 10.
-    pro_bytes = (4 * C * S * 9 + 4 * C * R * 7 + 4 * C * F * 5 + 4 * C * S * KN * 3 + 20 * C
-                 + 4 * 3 * F + 4 * 8 * S)
+        f"prologue {recs['range_lik_prologue']['ms']:.4f}, range_scan {ms['scan']:.4f}, "
+        f"epilogue {recs['range_lik_epilogue']['ms']:.4f} ms")
     # range_scan.  Bytes: g, zg, Q and the four [C, S] inputs in; accept
     # and dq out.  Operations: the Gram blocks a <= b (2 RB^2 + 2 RB each),
     # v, the scan.
     scan_ops = C * (S * (S + 1) // 2 * (2 * RB * RB + 2 * RB) + 2 * S * RB + 3 * S * S)
     scan_bytes = 4 * (2 * C * F + F * F + 4 * C * S) + 5 * C * S
-    # Epilogue.  Bytes: accept, coef and dq per chain and ticket in; dacc
-    # out; per accepted row g and its three new values in, its height or
-    # rate and two terms out, d in and out; q in and out; the block's
-    # plan arrays.  Operations: one product per accepted row.
-    epi_bytes = (9 * C * S + 4 * C * F + (28 if rate else 36) * rows_acc + 8 * C + 4 * 2 * F
-                 + 4 * S)
-    sw = worst
     return {
-        "range_lik_prologue": _record(max(sw["prop"], sw["lq"]), ms["prologue"],
-                                      plain["prologue"], pro_bytes, C * (120 * R + 100 * S)),
-        "range_scan": _record(sw["dq"], ms["scan"], plain["scan"], scan_bytes, scan_ops),
-        "range_lik_epilogue": _record(max(sw["d"], sw["z"], sw["q"]), ms["epilogue"],
-                                      plain["epilogue"], epi_bytes, rows_acc),
+        "range_lik_prologue": dict(recs["range_lik_prologue"],
+                                   max_abs_err=max(worst["prop"], worst["lq"])),
+        "range_scan": _record(worst["dq"], ms["scan"], plain["scan"], scan_bytes, scan_ops),
+        "range_lik_epilogue": dict(recs["range_lik_epilogue"],
+                                   max_abs_err=max(worst["d"], worst["z"], worst["q"])),
     }
 
 

@@ -63,7 +63,8 @@ from ..kernels.glob_step import (
 from ..kernels.point_scan import pitched, point_scan
 from ..kernels.point_step import point_lik_epilogue, point_lik_prologue
 from ..kernels.range_scan import kernel_layout, range_scan
-from ..kernels.range_step import range_lik_epilogue, range_lik_prologue
+from ..kernels.range_step import RangeWork, range_lik_epilogue, range_lik_prologue, \
+    range_plan
 from ..kernels.whiten import whiten
 from ..models.dating import DatingModel
 from ..models.state import FIELDS, State
@@ -617,6 +618,11 @@ class FastSweeps:
             if k != P.K_SCALE_SUBTREES_CONTRA:
                 for sx in steps:
                     self._range_rows(sx)
+                # One set of K5 outputs on the card per (kind, row bucket),
+                # which its blocks write in turn.
+                work = RangeWork(k == P.K_SCALE_SUBTREE_RATE, self.use_lik, steps)
+                for sx in steps:
+                    sx["work"] = work
         # A rate group's gamma shapes depend on the tuning alone, which a
         # sweep does not change: the group gathers them in one launch.
         self.range_gamma = {
@@ -660,10 +666,13 @@ class FastSweeps:
         each block gathers them once, here: the 452 blocks of the synthetic
         1000-taxon model hold 0.59 GB of ``Q`` and 1.86 GB of ``Prow`` in
         float32 (trimmed to their rows), against 16 MB for ``P``.  ``Q`` is
-        kept in :func:`~..kernels.range_scan.kernel_layout`."""
+        kept in :func:`~..kernels.range_scan.kernel_layout`.  Also the
+        block's row plan for K5's prologue and epilogue kernels (``rplan``,
+        ``tplan``: :func:`~..kernels.range_step.range_plan`)."""
         own_ok = sx["own"] >= 0
         sx["d_flat"] = torch.where(own_ok, self.pos_t[torch.clamp(sx["own"], min=0)],
                                    0).reshape(-1).contiguous()
+        sx["rplan"], sx["tplan"] = range_plan(sx)
         if self.use_lik:
             ok = own_ok.reshape(-1).to(self.P.dtype)
             prow = self.P[sx["d_flat"]] * ok[:, None]
@@ -802,8 +811,11 @@ class FastSweeps:
         accept scan, the epilogue kernel writes the accepted tickets back,
         and one product updates ``z``.  ``Q`` and ``Prow`` are the block's
         own (built with the plan).  Without a likelihood the prologue and
-        the epilogue run alone, the epilogue taking the decisions.  Returns
-        the ``[C, S]`` accept mask."""
+        the epilogue run alone, the epilogue taking the decisions.  On the
+        card both kernels write into the block's (kind, row bucket)
+        :class:`~..kernels.range_step.RangeWork` (``sx["work"]``).  Returns
+        the ``[C, S]`` accept mask; on the card, without a likelihood, it
+        is that work's buffer, valid until the bucket's next block."""
         m = self.model
         rate = kind == P.K_SCALE_SUBTREE_RATE
         args = (rate, carry.batch, carry.terms, carry.d)

@@ -60,12 +60,46 @@ __device__ __forceinline__ float exponential_logpdf(float rate, float x) {
   return x >= 0.f ? logf(rate) - rate * x : -INFINITY;
 }
 
+// The birth and death rates of a chain as de_factors and bd_term_local read
+// them.  BdRates forms d = la - mu, 2 log|d| and log la at each use, as the
+// plain version does; BdConsts (bd_consts) holds them, formed once per
+// chain by the same operations, so a kernel that evaluates many rows of one
+// chain saves a double log per de_factors and one per inner node, with
+// every term bitwise the same.
+struct BdRates {
+  double la, mu;
+  __device__ __forceinline__ double d() const { return la - mu; }
+  __device__ __forceinline__ bool near() const { return fabs(d()) < kEpsNearCritical; }
+  __device__ __forceinline__ double two_log_d() const {
+    const double dd = d();
+    const double d_safe = dd == 0.0 ? 1.0 : dd;
+    return 2.0 * log(fabs(d_safe));
+  }
+  __device__ __forceinline__ double log_la() const { return log(la); }
+};
+
+struct BdConsts {
+  double la, mu, d_, two_log_d_, log_la_;
+  bool near_;
+  __device__ __forceinline__ double d() const { return d_; }
+  __device__ __forceinline__ bool near() const { return near_; }
+  __device__ __forceinline__ double two_log_d() const { return two_log_d_; }
+  __device__ __forceinline__ double log_la() const { return log_la_; }
+};
+
+__device__ __forceinline__ BdConsts bd_consts(double la, double mu) {
+  const BdRates r{la, mu};
+  return BdConsts{la, mu, r.d(), r.two_log_d(), r.log_la(), r.near()};
+}
+
 // log D and E at the top of a branch of length dt (ops/birth_death.py:19),
 // in double.
-__device__ __forceinline__ void de_factors(double la, double mu, double c, double dt,
-                                           double* log_d, double* e) {
-  const double d = la - mu;
-  if (fabs(d) < kEpsNearCritical) {
+template <class K>
+__device__ __forceinline__ void de_factors(const K& k, double c, double dt, double* log_d,
+                                           double* e) {
+  const double la = k.la, mu = k.mu;
+  const double d = k.d();
+  if (k.near()) {
     const double y_nc = (mu - c * la) * dt;
     const double nom = 1.0 - d * dt;
     const double den = 1.0 + y_nc;
@@ -83,10 +117,13 @@ __device__ __forceinline__ void de_factors(double la, double mu, double c, doubl
   const double r = pos ? mu * c1 : mu * c1 * z;
   const double denom = p + q;
   const double denom_safe = denom == 0.0 ? 1.0 : denom;
-  const double d_safe = d == 0.0 ? 1.0 : d;
-  *log_d = denom != 0.0 ? 2.0 * log(fabs(d_safe)) - t_pos - 2.0 * log(fabs(denom_safe))
-                        : -INFINITY;
+  *log_d = denom != 0.0 ? k.two_log_d() - t_pos - 2.0 * log(fabs(denom_safe)) : -INFINITY;
   *e = (r + q) / denom_safe;
+}
+
+__device__ __forceinline__ void de_factors(double la, double mu, double c, double dt,
+                                           double* log_d, double* e) {
+  de_factors(BdRates{la, mu}, c, dt, log_d, e);
 }
 
 // One branch's relaxed-clock term, mean 1 (clock_term_local,
@@ -107,20 +144,60 @@ __device__ __forceinline__ float clock_term_local(int model, float r, float tl, 
   }
 }
 
+// The UncorrelatedGamma clock term (model 0) of a chain: its density's
+// parameters do not depend on the branch, so the terms of gamma_logpdf
+// that depend on the shape alone (log shape, lgamma) are formed once per
+// chain by the same operations; clock_term_local(0, r, tl, var) is
+// gamma_clock_term(gamma_clock(var), r), bitwise.
+struct GammaClock {
+  float shape, scale, shape_m1, shape_log_scale, lgamma_shape, m, head, tail;
+  bool shape_ok;
+};
+
+__device__ __forceinline__ GammaClock gamma_clock(float var) {
+  GammaClock k;
+  k.shape = 1.0f * 1.0f / var;
+  k.scale = var / 1.0f;
+  k.shape_ok = isfinite(k.shape) && (k.shape > 0.f);
+  k.shape_m1 = k.shape - 1.0f;
+  k.shape_log_scale = k.shape * logf(k.scale);
+  k.lgamma_shape = lgammaf(k.shape);
+  k.m = k.shape * k.scale;
+  k.head = 0.5f * logf(k.shape) - kLnSqrt2Pi - logf(k.m);
+  k.tail = 1.0f / (12.0f * k.shape);
+  return k;
+}
+
+__device__ __forceinline__ float gamma_clock_term(const GammaClock& k, float x) {
+  const bool ok = (x > 0.f) && isfinite(x) && k.shape_ok;
+  if (!ok) return -INFINITY;
+  if (k.shape > 1e2f) {
+    const float d = x / k.m;
+    return k.head - logf(d) + k.shape * log1pmx(d - 1.0f) - k.tail;
+  }
+  return k.shape_m1 * logf(x) - x / k.scale - k.shape_log_scale - k.lgamma_shape;
+}
+
 // Birth-death term of a non-root node with rho = 1 (bd_term_local,
 // ops/local_terms.py), in double and rounded once.
+template <class K>
 __device__ __forceinline__ float bd_term_local(double h_node, double h_parent, bool leaf,
-                                               double la, double mu) {
+                                               const K& k) {
   double log_d, e;
   const double dt = h_parent - h_node;
   double c = 0.0;
   if (!leaf) {
-    de_factors(la, mu, 0.0, h_node, &log_d, &e);
+    de_factors(k, 0.0, h_node, &log_d, &e);
     c = e;
   }
-  de_factors(la, mu, c, dt, &log_d, &e);
+  de_factors(k, c, dt, &log_d, &e);
   if (!(dt > 0.0)) log_d = -INFINITY;
-  return (float)(log_d + (leaf ? 0.0 : log(la)));
+  return (float)(log_d + (leaf ? 0.0 : k.log_la()));
+}
+
+__device__ __forceinline__ float bd_term_local(double h_node, double h_parent, bool leaf,
+                                               double la, double mu) {
+  return bd_term_local(h_node, h_parent, leaf, BdRates{la, mu});
 }
 
 // The truncated normal of the node slides and subtree scales (ops/dists.py)

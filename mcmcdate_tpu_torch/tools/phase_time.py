@@ -1,0 +1,240 @@
+"""Time one phase of FastSweeps kernel by kernel for one checkout of the
+port on a CUDA card, so that two checkouts can be compared in one call.
+
+Run as a file, from the root of a checkout, on a machine with a card:
+
+    python3 mcmcdate_tpu_torch/tools/phase_time.py --phase glob|range [--root DIR]
+        [--taxa 136 1000]
+
+It imports ``mcmcdate_tpu_torch`` from ``--root`` (default: the checkout
+that holds this file; an unpacked archive of another commit, which need not
+have this tool), builds the synthetic full-MVN model and chain batch of each
+shape x ``CHAINS`` (``synthetic.build``, seed 0) with the sweep's proposal
+table, as ``sweep_time.py`` does, and runs ``WARMUP`` sweeps.  Device time
+comes from the profiler's kernel, memcpy and memset intervals, by kernel.
+Prints one JSON line per shape with the card's name and power limit.  Run
+each checkout in its own process, in turns (A, B, B, A).
+
+``--phase glob`` profiles ``REPS["glob"]`` runs of every glob family as
+``FastSweeps.glob_phase`` runs it (its draws, then G1 or, per ticket, G2,
+the product ``w = delta @ P`` and G3), each from a copy of the same carry
+made beforehand, and as many whole glob phases.  Kinds: G1
+``glob_scan_kernel``, G2 ``glob_dense_prologue_kernel``, G3
+``glob_dense_epilogue_kernel``, the product (cuBLAS's gemm kernels) and the
+rest (the phase's draws).  Per family its tickets, its device milliseconds
+by kind, and the product's operations (2 C K D per ticket, K the rows the
+checkout's product takes: D, or a subtree ticket's support rows where the
+checkout has ``FastSweeps.glob_product``); the whole phase's device and
+host milliseconds; and the megabytes of the subtrees' gathered precision
+rows ``P[S]`` (``FastSweeps.glob_prows``, where the checkout has them).
+
+``--phase range`` takes the first block of every likelihood range bucket
+of both kinds: it draws the block's proposals and accept uniforms once,
+runs K5's prologue, ``range_scan`` and epilogue once through the kernel
+wrappers (with the positional arguments that every version of them takes),
+and profiles ``REPS["range"]`` calls of the prologue and of the epilogue on
+those inputs (``range_lik_prologue_kernel``,
+``range_lik_epilogue_kernel``).  Per block its kind, bucket, tickets S, row
+slots S RB, real rows R and accepted (chain, ticket) pairs, and the two
+kernels' device milliseconds per call (the epilogue also with every ticket
+rejected, which writes no row back).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CHAINS, WARMUP = 1024, 2
+REPS = {"glob": 3, "range": 20}
+GLOB_KINDS = (("G1", "glob_scan_kernel"), ("G2", "glob_dense_prologue_kernel"),
+              ("G3", "glob_dense_epilogue_kernel"), ("product", "gemm"))
+
+
+def _device_ms(torch, fn, reps, kinds):
+    """Device milliseconds per call of ``fn(i)``, ``i`` = 1 ... ``reps``
+    after an untimed ``fn(0)``, by kind: each kernel, memcpy or memset
+    interval goes to the first of ``kinds`` (``(kind, pattern)`` pairs) whose
+    pattern its lower-cased name holds, else to ``other``.  A profile that
+    recorded none of ``kinds`` (the profiler's device trace can come back
+    empty) is taken again, up to twice, calling ``fn(1)`` ... again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(1 + i)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+        out = {k: 0.0 for k, _ in kinds}
+        out["other"] = 0.0
+        for e in events:
+            if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+                continue
+            kind = next((k for k, pat in kinds if pat in e["name"].lower()), "other")
+            out[kind] += e["dur"] / 1e3 / reps
+        if any(out[k] for k, _ in kinds):
+            return out
+    raise SystemExit(f"the profiler recorded none of {[p for _, p in kinds]} three times")
+
+
+def glob_phase(torch, fs, carry, tuning, gen) -> dict:
+    """The glob phase of ``fs`` by family and kind, from copies of
+    ``carry``."""
+    from mcmcdate_tpu_torch.engine import fast_sweep
+    from mcmcdate_tpu_torch.kernels import glob_step as G
+    from mcmcdate_tpu_torch.models.state import FIELDS, State
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    reps = REPS["glob"]
+    D = carry.d.shape[1]
+    restricted = hasattr(fs, "glob_product")
+
+    def copies():
+        torch.cuda.synchronize()
+        return [fast_sweep.FastCarry(
+            State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
+            carry.terms.clone(), carry.d.clone(), carry.z.clone(), carry.q.clone(),
+            carry.acc.clone()) for _ in range(reps + 1)]
+
+    fams = {}
+    for tag, fam in fs.glob_fam.items():
+        tun = tuning.index_select(1, fam.rows)
+        draws = (standard_gamma(fam.sd / tun, gen) if tag in G.GAMMA_TAGS
+                 else torch.rand((CHAINS, fam.n), generator=gen, device="cuda"))
+        u = torch.rand((CHAINS, fam.n), generator=gen, device="cuda")
+        dense = G.FAMILIES[tag].lik == G.DENSE
+
+        def run(c, fam=fam, tun=tun, draws=draws, u=u, dense=dense):
+            if not dense:
+                G.glob_scan(fs.glob, fam, c, tun, draws, u)
+                return
+            nbad = None
+            for s in range(fam.n):
+                if restricted:
+                    pro = G.glob_dense_prologue(fs.glob, fam, s, c, tun, draws, nbad)
+                    nbad = pro.nbad
+                    w = fs.glob_product(fam, s, pro)
+                else:
+                    pro = G.glob_dense_prologue(fs.glob, fam, s, c, tun, draws)
+                    w = fs._x_P(pro.delta)
+                G.glob_dense_epilogue(fs.glob, fam, s, c, pro, w, u)
+
+        cs = copies()
+        ms = _device_ms(torch, lambda i: run(cs[i]), reps, GLOB_KINDS)
+        k = [D] * fam.n
+        if dense and restricted and tag in getattr(G, "SUBTREE_DENSE", ()):
+            k = [int(h - l) for l, h in zip(fam.grp.lo, fam.grp.hi)]
+        fams[tag] = dict(tickets=fam.n, ms=ms,
+                         product_gflop=(2 * CHAINS * sum(k) * D / 1e9) if dense else 0.0)
+    cs = copies()
+    phase = _device_ms(torch, lambda i: fs.glob_phase(cs[i], tuning, gen), reps, GLOB_KINDS)
+    cs = copies()
+    t0 = time.perf_counter()
+    for c in cs[1:]:
+        fs.glob_phase(c, tuning, gen)
+    torch.cuda.synchronize()
+    return dict(restricted_product=restricted, families=fams, phase_device_ms=phase,
+                phase_host_ms=(time.perf_counter() - t0) / reps * 1e3,
+                product_tflop=sum(f["product_gflop"] for f in fams.values()) / 1e3,
+                prows_mb=sum(p.numel() * p.element_size()
+                             for p in getattr(fs, "glob_prows", {}).values()) / 1e6)
+
+
+def range_phase(torch, fs, carry, tuning, gen) -> dict:
+    """K5's prologue and epilogue on the first block of every likelihood
+    range bucket of ``fs``, each from a copy of ``carry``."""
+    from mcmcdate_tpu_torch.engine import proposals as P
+    from mcmcdate_tpu_torch.kernels import range_step as K
+    from mcmcdate_tpu_torch.kernels.range_scan import range_scan
+    from mcmcdate_tpu_torch.models.state import FIELDS, State
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    reps = REPS["range"]
+    leaf = fs.model.topo.is_leaf_t
+    pk, ek = (("k", "range_lik_prologue_kernel"),), (("k", "range_lik_epilogue_kernel"),)
+    blocks = []
+    for (kind, rb), steps in fs.range_t.items():
+        if kind == P.K_SCALE_SUBTREES_CONTRA:
+            continue
+        sx = steps[0]
+        rate = kind == P.K_SCALE_SUBTREE_RATE
+        S, RB = sx["own"].shape
+        draw = (standard_gamma(sx["sd"] / tuning[:, sx["rows"]], gen) if rate
+                else torch.rand((CHAINS, S), generator=gen, device="cuda"))
+        u = torch.rand((CHAINS, S), generator=gen, device="cuda")
+        state = State(**{f: getattr(carry.batch, f).clone() for f in FIELDS})
+        terms, d, z, q, acc = (carry.terms.clone(), carry.d.clone(), carry.z.clone(),
+                               carry.q.clone(), carry.acc.clone())
+        pargs = (rate, state, terms, d, z, tuning, sx, leaf, fs.model.clock, draw)
+        pro = K.range_lik_prologue(*pargs)
+        accept, dq = range_scan(pro.g, pro.zg, sx["Q"], pro.coef, pro.d_pr, pro.lmhg, u)
+        eargs = (rate, state, terms, d, q, acc, sx, pro, accept, dq)
+        none = (*eargs[:8], torch.zeros_like(accept), dq)
+        blocks.append(dict(
+            kind=kind, bucket=rb, S=S, slots=S * RB, R=int((sx["own"] >= 0).sum()),
+            accepted=int(accept.sum()),
+            prologue_ms=_device_ms(torch, lambda i: K.range_lik_prologue(*pargs), reps, pk)["k"],
+            epilogue_ms=_device_ms(torch, lambda i: K.range_lik_epilogue(*eargs), reps, ek)["k"],
+            epilogue_reject_ms=_device_ms(torch, lambda i: K.range_lik_epilogue(*none), reps,
+                                          ek)["k"]))
+    return dict(reps=reps, blocks=blocks)
+
+
+PHASES = {"glob": glob_phase, "range": range_phase}
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phase", choices=sorted(PHASES), required=True)
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)))
+    ap.add_argument("--taxa", type=int, nargs="+", default=[136, 1000])
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    from mcmcdate_tpu_torch import synthetic
+    from mcmcdate_tpu_torch.engine import fast_sweep, proposals
+
+    if not torch.cuda.is_available():
+        raise SystemExit("phase_time needs a CUDA card")
+    if not fast_sweep.__file__.startswith(root):
+        raise SystemExit(f"imported {fast_sweep.__file__}, not the checkout at {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    out = []
+    for taxa in args.taxa:
+        model, batch = synthetic.build(taxa, CHAINS, device="cuda")
+        table = proposals.build_proposal_table(model.topo, model.braces, False)
+        fs = fast_sweep.FastSweeps(model, table)
+        tuning = torch.ones((CHAINS, table.n_proposals), device="cuda")
+        batch = fs.sweeps(batch, tuning, 1, WARMUP)[0]
+        carry = fs.init_carry(batch)
+        carry.z, carry.q = fs._zq_from_y(model.whitened_residual_internal(carry.batch))
+        gen = torch.Generator(device="cuda").manual_seed(taxa)
+        rec = dict(root=root, card=card, taxa=taxa, chains=CHAINS, phase=args.phase,
+                   **PHASES[args.phase](torch, fs, carry, tuning, gen))
+        print(json.dumps(rec), flush=True)
+        out.append(rec)
+        del fs, model, batch, carry
+        torch.cuda.empty_cache()
+    return out
+
+
+if __name__ == "__main__":
+    main()

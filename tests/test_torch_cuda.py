@@ -295,64 +295,117 @@ def test_range_scan_kernel(card):
         _scan_agree(ak, dk, ap, dp, d_pr - 0.5 * dp + lmhg, torch.log(u))
 
 
-def test_range_step_kernel(card):
-    """K5's range step (prologue, range_scan, epilogue) on every likelihood
-    range block of a 40-taxon model, against the plain step replayed at
-    the kernel's proposals and decisions: proposals within 1e-5 (1 + |x|)
-    of the plain ones from the same draws, decisions equal except at ties,
-    heights, rates and terms bitwise equal, d, z and q within 1e-5 of scale."""
+def _range_case(taxa, chains):
+    """A synthetic model whose chain 0 has a zero rate at a leaf (its clock
+    term -inf, old and new, inside every subtree above the leaf), its
+    FastSweeps, carry (z and q filled) and tuning, and the leaf."""
+    if taxa == 40:
+        model, batch = _model()
+    else:
+        model, batch = synthetic.build(taxa, chains, device="cuda")
+        rng = np.random.default_rng(1)
+        batch = batch.replace(
+            birth=torch.as_tensor(rng.uniform(0.2, 3, chains), dtype=torch.float32, device="cuda"),
+            rate_var=torch.as_tensor(rng.uniform(1e-3, 1, chains), dtype=torch.float32,
+                                     device="cuda"))
+    leaf = int(np.nonzero(np.asarray(model.topo.is_leaf))[0][0])
+    rates = batch.rates.clone()
+    rates[0, leaf] = 0.0
+    batch = batch.replace(rates=rates)
+    fs, table = _fast(model)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    C = batch.n_chains
+    tuning = torch.rand(C, table.n_proposals, generator=g, device="cuda") * 3 + 0.3
+    carry = fs.init_carry(batch)
+    carry.z, carry.q = fs._zq_from_y(model.whitened_residual_internal(carry.batch))
+    return model, fs, carry, tuning, g, leaf
+
+
+def _range_agree(model, fs, carry, tuning, g, k, sx):
+    """One block through ``FastSweeps.range_lik_step`` (K5 on the block's
+    shared outputs) against the plain step replayed at the kernels'
+    proposals and decisions, on copies of ``carry``; returns the decisions."""
     from mcmcdate_tpu_torch.engine import fast_sweep as TF, proposals as TP
     from mcmcdate_tpu_torch.kernels import range_step as K
     from mcmcdate_tpu_torch.ops.dists import standard_gamma
 
-    model, batch = _model()
-    fs, table = _fast(model)
+    rate = k == TP.K_SCALE_SUBTREE_RATE
     leaf = model.topo.is_leaf_t
-    g = torch.Generator(device=card).manual_seed(6)
-    C = batch.n_chains
-    tuning = torch.rand(C, table.n_proposals, generator=g, device=card) * 3 + 0.3
-    carry = fs.init_carry(batch)
-    carry.z, carry.q = fs._zq_from_y(model.whitened_residual_internal(carry.batch))
-    n_acc = n = 0
-    for (k, _), blocks in fs.range_t.items():
+    C, S = carry.d.shape[0], sx["rows"].shape[0]
+    draw = (standard_gamma(sx["sd"] / tuning[:, sx["rows"]], g) if rate
+            else torch.rand(C, S, generator=g, device="cuda"))
+    u = torch.rand(C, S, generator=g, device="cuda")
+    ck, cr = (TF.FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
+                           carry.terms.clone(), carry.d.clone(), carry.z.clone(),
+                           carry.q.clone(), carry.acc.clone()) for _ in range(2))
+    before = [K.range_lik_prologue.launches, K.range_lik_epilogue.launches]
+    pro = K.range_lik_prologue(rate, ck.batch, ck.terms, ck.d, ck.z, tuning, sx, leaf,
+                               model.clock, draw)
+    pp = K.range_lik_prologue_plain(rate, ck.batch, ck.terms, ck.d, ck.z, tuning, sx, leaf,
+                                    model.clock, draw)
+    ok = sx["valid"]  # an invalid ticket proposes NaN
+    prop = pro.prop.clone()  # the step below rewrites the block's buffers
+    assert torch.all((prop - pp.prop).abs()[:, ok] <= 1e-5 * (1 + pp.prop.abs()[:, ok]))
+    assert bool(torch.isnan(prop[:, ~ok]).all())
+    accept = fs.range_lik_step(k, ck, tuning, sx, draw, u)
+    assert [K.range_lik_prologue.launches, K.range_lik_epilogue.launches] == [
+        before[0] + 2, before[1] + 1]
+    forced = torch.where(accept, 0.0, math.nan)
+    acc_r, pr, dq_r = K.range_lik_given(rate, cr.batch, cr.terms, cr.d, cr.z, cr.q, cr.acc,
+                                        tuning, sx, leaf, model.clock, prop, forced)
+    assert torch.equal(acc_r, accept)
+    la = torch.nan_to_num(pr.d_pr - 0.5 * dq_r + pr.lmhg, nan=-math.inf)
+    differ = (torch.log(u) < la) != accept
+    assert torch.all((torch.log(u) - la).abs()[differ] < TIE)
+    for a, b in ((ck.batch.heights, cr.batch.heights), (ck.batch.rates, cr.batch.rates),
+                 (ck.terms, cr.terms)):
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    for a, b in ((ck.d, cr.d), (ck.z, cr.z), (ck.q, cr.q)):
+        assert (a - b).abs().max() <= 1e-5 * max(1.0, float(b.abs().max()))
+    assert torch.equal(ck.acc, cr.acc)
+    return accept
+
+
+@pytest.mark.parametrize("taxa, chains", ((40, 96), (1100, 8)), ids=("40", "1100"))
+def test_range_step_kernel(card, taxa, chains):
+    """K5's range step (prologue, range_scan, epilogue) on every likelihood
+    range block of both kinds (at 1,100 taxa the three row buckets, the
+    256-row one included), each block of a bucket after the one before it
+    on the bucket's shared outputs (consecutive blocks whose pad slots
+    differ included), against the plain step replayed at the kernel's
+    proposals and decisions: proposals within 1e-5 (1 + |x|) of the plain
+    ones from the same draws, decisions equal except at ties, heights,
+    rates and terms bitwise equal, d, z and q within 1e-5 of scale.  Chain
+    0's -inf clock term inside subtrees rejects every ticket whose subtree
+    holds it; a block with an invalid ticket never accepts it."""
+    from mcmcdate_tpu_torch.engine import proposals as TP
+    from mcmcdate_tpu_torch.kernels.range_step import range_plan
+
+    model, fs, carry, tuning, g, leaf = _range_case(taxa, chains)
+    n_acc = n = n_holds = n_pad_changes = 0
+    for (k, rb), blocks in fs.range_t.items():
         if k == TP.K_SCALE_SUBTREES_CONTRA:
             continue
-        rate = k == TP.K_SCALE_SUBTREE_RATE
-        for sx in blocks[:3]:
-            S = sx["rows"].shape[0]
-            draw = (standard_gamma(sx["sd"] / tuning[:, sx["rows"]], g) if rate
-                    else torch.rand(C, S, generator=g, device=card))
-            u = torch.rand(C, S, generator=g, device=card)
-            copies = [TF.FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
-                                   carry.terms.clone(), carry.d.clone(), carry.z.clone(),
-                                   carry.q.clone(), carry.acc.clone()) for _ in range(2)]
-            ck, cr = copies
-            before = [K.range_lik_prologue.launches, K.range_lik_epilogue.launches]
-            pro = K.range_lik_prologue(rate, ck.batch, ck.terms, ck.d, ck.z, tuning, sx, leaf,
-                                       model.clock, draw)
-            pp = K.range_lik_prologue_plain(rate, ck.batch, ck.terms, ck.d, ck.z, tuning, sx,
-                                            leaf, model.clock, draw)
-            assert torch.all((pro.prop - pp.prop).abs() <= 1e-5 * (1 + pp.prop.abs()))
-            accept = fs.range_lik_step(k, ck, tuning, sx, draw, u)
-            assert [K.range_lik_prologue.launches, K.range_lik_epilogue.launches] == [
-                before[0] + 2, before[1] + 1]
-            forced = torch.where(accept, 0.0, math.nan)
-            acc_r, pr, dq_r = K.range_lik_given(rate, cr.batch, cr.terms, cr.d, cr.z, cr.q,
-                                                cr.acc, tuning, sx, leaf, model.clock, pro.prop,
-                                                forced)
-            assert torch.equal(acc_r, accept)
-            la = torch.nan_to_num(pr.d_pr - 0.5 * dq_r + pr.lmhg, nan=-math.inf)
-            differ = (torch.log(u) < la) != accept
-            assert torch.all((torch.log(u) - la).abs()[differ] < TIE)
-            for a, b in ((ck.batch.heights, cr.batch.heights), (ck.batch.rates, cr.batch.rates),
-                         (ck.terms, cr.terms)):
-                assert torch.equal(a.nan_to_num(), b.nan_to_num())
-            for a, b in ((ck.d, cr.d), (ck.z, cr.z), (ck.q, cr.q)):
-                assert (a - b).abs().max() <= 1e-5 * max(1.0, float(b.abs().max()))
-            assert torch.equal(ck.acc, cr.acc)
+        for i, sx in enumerate(blocks):
+            accept = _range_agree(model, fs, carry, tuning, g, k, sx)
+            holds = (sx["own"] == leaf).any(1)
+            assert not bool(accept[0][holds].any())
+            n_holds += int(holds.sum())
+            if i and blocks[i - 1]["own"].shape == sx["own"].shape:
+                n_pad_changes += not torch.equal(blocks[i - 1]["own"] < 0, sx["own"] < 0)
             n_acc += int(accept.sum())
             n += accept.numel()
-    assert 0 < n_acc < n
+        # A copy of the first block whose second ticket is invalid.
+        sx = dict(blocks[0])
+        if sx["rows"].shape[0] > 1:
+            sx["valid"] = sx["valid"].clone()
+            sx["valid"][1] = False
+            sx["rplan"], sx["tplan"] = range_plan(sx)
+            accept = _range_agree(model, fs, carry, tuning, g, k, sx)
+            assert not bool(accept[:, 1].any()) and bool(accept.any())
+    assert 0 < n_acc < n and n_holds > 0
+    if taxa > 1000:
+        assert {rb for (k, rb) in fs.range_t} >= {16, 64, 256} and n_pad_changes > 0
 
 
 @pytest.mark.parametrize("step", ("point", "range"))
