@@ -59,11 +59,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
 8. univariate 10k: ChainRunner with the default settings on a univariate
    model of 10,000 taxa x 1024 chains (D = 19,997: the sequential sweep,
    no Cholesky factor); T3 against its plain version on a 256-ticket run
-   of every kind (a record of its own, logged); two timed sweeps and one
-   whose carried log posterior is checked, every sweep through T3 alone.
+   of light tickets (its warp-per-ticket kernel) and on two heavy tickets
+   alone (its CTA-per-chain kernel: a birth-death scale and a subtree
+   above 1,024 distances), the light run and the birth-death scale each a
+   record of its own (``records_10k`` in the kernels' line); two timed
+   sweeps and one whose carried log posterior is checked, every sweep
+   through T3 alone, both of its kernels launched.
 
 Every phase after the kernels sets each wrapper's launch count to 0 just
-before it and reads it just after.  The last two lines of standard output
+before it and reads it just after (T3's also by kernel: ``light`` and
+``heavy``, in ``launches_by_kernel``).  The last two lines of standard output
 are the card's name and power limit and, on success, ``{"ok": true,
 "device": {...}}``; the line before them is the kernels' JSON record.
 """
@@ -194,6 +199,9 @@ KERNELS = (
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_F64 = 34e12
+# The profiler names of T3's two kernels (a warp per ticket in light runs, a
+# CTA per chain for a heavy ticket).
+T3_KERNELS = ("ticket_run_kernel", "ticket_scan_kernel")
 
 
 class SmokeError(RuntimeError):
@@ -696,8 +704,7 @@ def check_ticket(n_taxa):
                      carry.nbad)
     sdr = sk.draws(seq, stun, gen)
     c5, c6 = _mh_copy(scarry), _mh_copy(scarry)
-    ms5 = _device_ms(lambda: ticket_scan(sk.tt, c5, stun, sdr, 0, len(seq)),
-                     only="ticket_scan_kernel")
+    ms5 = _device_ms(lambda: ticket_scan(sk.tt, c5, stun, sdr, 0, len(seq)), only=T3_KERNELS)
     plain5 = _device_ms(lambda: ticket_scan_plain(sk.tt, c6, stun, sdr, 0, len(seq)), reps=1)
     fl5, bd5, ot5 = _ticket_work(sk.tt, seq)
     log(f"[kernels] ticket_scan at {n_taxa} taxa: the leftovers' run of {len(seq)} tickets "
@@ -874,14 +881,24 @@ def _point_step_agree(name, fs, carry, tuning, kind, sx, draw, u):
     return worst, rec
 
 
-def _kernel_names(fn, reps=3):
+def _kernel_names(fn, reps=3, wrappers=()):
     """The device kernels (and copies) that ``reps`` calls of ``fn`` launch,
-    by name, and the kernel launches the host made (profiler)."""
+    by name, and the kernel launches the host made (profiler).  The
+    profiler's device trace can come back empty, in some processes every
+    time: after six empty ones, where the host's launches were recorded,
+    the names are those of the port's ``wrappers`` (names of ``_wrappers``)
+    whose launch counts rose in the last ``reps`` calls, each as often as
+    it rose, provided they account for every launch the host made (so no
+    other kernel ran); else it fails."""
     from torch.profiler import ProfilerActivity, profile
 
+    wr = _wrappers()
     fn()
     _sync()
-    for _ in range(3):
+    for attempt in range(6):
+        if attempt:
+            time.sleep(1.0)  # the profiler's device trace can come back empty: take it again
+        before = {k: wr[k].launches for k in wrappers}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -892,7 +909,13 @@ def _kernel_names(fn, reps=3):
                                   "cuLaunchKernelEx") for e in events)
         if names:
             return names, launches
-    raise SmokeError("the profiler recorded no device kernel")
+    rose = {k: wr[k].launches - before[k] for k in wrappers}
+    check(launches > 0 and sum(rose.values()) == launches,
+          f"the profiler recorded no device kernel in six traces, and the host's {launches} "
+          f"launches are not those of {rose}")
+    log(f"[timing] the profiler recorded no device kernel in six traces: the host's {launches} "
+        f"launches are the wrappers' {rose}")
+    return [f"{k}_kernel" for k, n in rose.items() for _ in range(n)], launches
 
 
 def check_point_step(n_taxa):
@@ -1073,7 +1096,8 @@ def check_prior_only_steps(n_taxa):
         check(0 < int(accept.sum()) < int(sx["valid"].sum()) * accept.shape[0],
               f"{name}: not a mixed case")
         # Three steps launch the prologue and epilogue kernels alone.
-        names, n_launch = _kernel_names(lambda: run(kind, ck, tuning, sx, draw, u))
+        names, n_launch = _kernel_names(lambda: run(kind, ck, tuning, sx, draw, u),
+                                        wrappers=(f"{step}_lik_prologue", f"{step}_lik_epilogue"))
         other = sorted({n for n in names if f"{step}_lik_" not in n})
         check(not other and n_launch <= 6,
               f"{name}: three steps launched {n_launch} kernels, {other} besides {step}_lik_*")
@@ -1883,7 +1907,9 @@ def _wrappers():
 def _counted(run, inside=(), within=None):
     """Launch counts of every kernel during ``run()``, set to 0 just before
     it, with ``contra_range``'s also by row bucket (``contra_range_16``,
-    ...); returns ``(counts, run's result)``.  The plain proposal kernels
+    ...) and ``ticket_scan``'s by kernel (``ticket_scan_light``: the warp
+    per ticket runs; ``ticket_scan_heavy``: a CTA per chain); returns
+    ``(counts, run's result)``.  The plain proposal kernels
     (``proposals.KERNELS``) are counted too, under ``plain_proposals``.
     ``inside`` names ``(class, method)`` pairs: the launch counts and plain
     proposals of their calls, and the calls, go to ``within[method]``."""
@@ -1891,10 +1917,13 @@ def _counted(run, inside=(), within=None):
 
     wrappers = _wrappers()
     by_rows = wrappers["contra_range"].launches_by_rows
+    by_kind = wrappers["ticket_scan"].launches_by_kind
     for w in wrappers.values():
         w.launches = 0
     for rb in by_rows:
         by_rows[rb] = 0
+    for k in by_kind:
+        by_kind[k] = 0
     plain = [0]
     real_k = dict(P.KERNELS)
 
@@ -1929,6 +1958,7 @@ def _counted(run, inside=(), within=None):
             setattr(cls, meth, real)
     counts = {k: w.launches for k, w in wrappers.items()}
     counts.update({f"contra_range_{rb}": n for rb, n in by_rows.items()})
+    counts.update({f"ticket_scan_{k}": n for k, n in by_kind.items()})
     counts["plain_proposals"] = plain[0]
     return counts, out
 
@@ -2025,8 +2055,10 @@ def phase_main_path():
         rate = runner.accepted / runner.attempted
         check(0.0 < rate < 1.0, f"overall acceptance {rate}")
         n_sweeps = len(runner.sweep_seconds) * 10
+        # Every kernel, but contra_range's buckets one by one and T3's heavy
+        # kernel (at 136 taxa no ticket's work passes HEAVY; phase 8 runs it).
         for k, n in launches.items():
-            if k != "plain_proposals":
+            if k not in ("plain_proposals", "ticket_scan_heavy"):
                 check(n > 0 or k.startswith("contra_range_"), f"the main path never launched {k}")
         check(launches["plain_proposals"] == 0, "the main path ran a plain proposal kernel")
         seq_per_sweep = _check_seq_phase("main path", within)
@@ -2156,7 +2188,7 @@ def phase_sequential(seq):
         f"main path's model")
     return _runner_phase("sequential", model, init, False, SEQUENTIAL_SWEEPS,
                          ("prior_terms", "whiten", "ticket_prologue", "accept_select",
-                          "ticket_scan"))
+                          "ticket_scan", "ticket_scan_light"))
 
 
 def phase_univariate_10k():
@@ -2175,7 +2207,8 @@ def phase_univariate_10k():
     from mcmcdate_tpu_torch.engine.chains import ChainRunner, RunSettings
     from mcmcdate_tpu_torch.engine.fast_sweep import UNIVARIATE_DENSE_MAX
     from mcmcdate_tpu_torch.engine.mh import MHKernel
-    from mcmcdate_tpu_torch.kernels.ticket_step import CHUNK, ticket_scan, ticket_scan_plain
+    from mcmcdate_tpu_torch.kernels.ticket_step import CHUNK, DC_RANGE, HEAVY, ticket_scan, \
+        ticket_scan_plain
     from mcmcdate_tpu_torch.tools.seq_time import univariate_model
 
     torch.cuda.empty_cache()
@@ -2198,25 +2231,50 @@ def phase_univariate_10k():
         f"setup {setup_s:.1f} s; cut: {UNI_SWEEPS} timed sweeps (+1 for the carry check)")
     gen = torch.Generator(device="cuda").manual_seed(10)
     carry = tk.init_carry(batch)
-    order = np.random.default_rng(10).choice(np.asarray(table.tickets), 256).astype(np.int32)
-    dr = tk.draws(order, tuning, gen)
-    w = {}
-    ties, n_acc, n_all = _ticket_scan_agree("ticket_scan at 10000 taxa", tk, carry, tuning, dr, w)
-    check(0 < n_acc < n_all, f"ticket_scan accepted {n_acc} of {n_all}: not a mixed case")
-    c1, c2 = _mh_copy(carry), _mh_copy(carry)
-    ms = _device_ms(lambda: ticket_scan(tk.tt, c1, tuning, dr, 0, len(order)),
-                    only="ticket_scan_kernel", reps=5)
-    plain_ms = _device_ms(lambda: ticket_scan_plain(tk.tt, c2, tuning, dr, 0, len(order)), reps=1)
-    fl, bd, ot = _ticket_work(tk.tt, order)
-    rec = _record(max(w.get("prop", 0.0), w.get("y", 0.0)), ms, plain_ms, 4 * CHAINS * fl,
-                  CHAINS * (40 * ot + 100 * len(order)), ops64=100 * CHAINS * bd)
-    log(f"[kernels] ticket_scan at {UNI_TAXA} taxa x {CHAINS} chains (univariate, 256 tickets of "
-        f"every kind): {n_acc} accepts of {n_all}, {ties} tie decisions differ from the replay, "
-        f"state, terms and d bitwise equal to it; largest differences {json.dumps(w)}; device "
-        f"time per call: kernel {ms:.4f} ms ({ms / len(order) * 1e3:.2f} us a ticket), plain "
-        f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    tt = tk.tt
+    tickets = np.asarray(table.tickets)
+    rng = np.random.default_rng(10)
+    heavy = tt.work[tickets] > HEAVY
+    light = rng.choice(tickets[~heavy], 256).astype(np.int32)
+    # Heavy tickets alone: a subtree above 1,024 distances (the table's
+    # DC_FULL, its own rows here) and the joint birth-death scale (the whole
+    # birth-death block).
+    big = [int(p) for p in np.unique(tickets[heavy]) if table.kind[p] == P.K_SCALE_SUBTREE_ULTRA
+           and int(tk.table.d_class[p]) == P.DC_FULL]
+    bd = [int(p) for p in np.unique(tickets[heavy]) if table.kind[p] == P.K_SCALE_SCALAR
+          and table.aux[p] == P.SC_BIRTH_DEATH]
+    check(big and bd, "univariate 10k: no heavy DC_FULL subtree or birth-death scale ticket")
+    check(int(tt.d_class[big[0]]) == DC_RANGE, "univariate 10k: the big subtree is not DC_RANGE")
+    recs = {}
+    for what, order in (("light", light), ("heavy", np.asarray([bd[0]], np.int32)),
+                        ("heavy_subtree", np.asarray([big[0]], np.int32))):
+        dr = tk.draws(order, tuning, gen)
+        w = {}
+        ties, n_acc, n_all = _ticket_scan_agree(f"ticket_scan {what} at {UNI_TAXA} taxa", tk,
+                                                carry, tuning, dr, w)
+        if what == "light":
+            check(0 < n_acc < n_all, f"ticket_scan accepted {n_acc} of {n_all}: not a mixed case")
+        c1, c2 = _mh_copy(carry), _mh_copy(carry)
+        name = "ticket_run_kernel" if what == "light" else "ticket_scan_kernel"
+        ms = _device_ms(lambda: ticket_scan(tt, c1, tuning, dr, 0, len(order)), only=name,
+                        reps=5)
+        plain_ms = _device_ms(lambda: ticket_scan_plain(tt, c2, tuning, dr, 0, len(order)),
+                              reps=1)
+        fl, nbd, ot = _ticket_work(tt, order)
+        rec = _record(max(w.get("prop", 0.0), w.get("y", 0.0)), ms, plain_ms, 4 * CHAINS * fl,
+                      CHAINS * (40 * ot + 100 * len(order)), ops64=100 * CHAINS * nbd)
+        per = (f"{ms / len(order) * 1e3:.2f} us a ticket" if what == "light"
+               else f"work {int(tt.work[order[0]])}")
+        log(f"[kernels] ticket_scan at {UNI_TAXA} taxa x {CHAINS} chains (univariate, {what}: "
+            f"{len(order)} ticket(s) of rows {sorted(set(order.tolist()))[:4]}...): {n_acc} "
+            f"accepts of {n_all}, {ties} tie decisions differ from the replay, state, terms and d "
+            f"bitwise equal to it; largest differences {json.dumps(w)}; device time per call "
+            f"({name}): kernel {ms:.4f} ms ({per}), plain {plain_ms:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        recs[what] = rec
     del carry, c1, c2
     torch.cuda.empty_cache()
+    rec = {k: recs[k] for k in ("light", "heavy")}
 
     def run():
         times, b = [], batch
@@ -2235,6 +2293,9 @@ def phase_univariate_10k():
     wall = time.perf_counter() - t0
     check(launches["plain_proposals"] == 0, "univariate 10k: ran a plain proposal kernel")
     per_sweep = _check_seq_sweeps("univariate 10k", tk, within, -(-n_t // CHUNK))
+    check(launches["ticket_scan_light"] > 0 and launches["ticket_scan_heavy"] > 0,
+          f"univariate 10k: T3's light and heavy kernels launched "
+          f"{launches['ticket_scan_light']} and {launches['ticket_scan_heavy']} times")
     check(0.0 < rate < 1.0, f"univariate 10k: acceptance {rate}")
     err, err64 = _check_lp("univariate 10k", model, b2, lp)
     log(f"[univariate 10k] MHKernel, {UNI_SWEEPS + 1} sweeps in {wall:.1f} s; sweeps "
@@ -2266,13 +2327,17 @@ def main():
           "the port imported the JAX package")
 
     name = torch.cuda.get_device_name(0)
+    paths = {"main": launches, "full_width": full, "prior_only": prior,
+             "sequential": sequential, "univariate_10k": uni}
     record = {"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep, launches=launches[k],
-             launches_by_path={"main": launches[k], "full_width": full[k],
-                               "prior_only": prior[k], "sequential": sequential[k],
-                               "univariate_10k": uni[k]},
+             launches_by_path={p: n[k] for p, n in paths.items()},
              **results[k]) for k, src, rep in KERNELS
     ]}
+    t3 = next(r for r in record["kernels"] if r["name"] == "ticket_scan")
+    t3["launches_by_kernel"] = {p: {k: n[f"ticket_scan_{k}"] for k in ("light", "heavy")}
+                                for p, n in paths.items()}
+    t3["records_10k"] = uni_rec
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -163,15 +163,19 @@ class MHKernel:
         gcols = np.nonzero(self.tt.gamma[order])[0]
         gidx_host = np.full(n, -1, np.int32)
         gidx_host[gcols] = np.arange(len(gcols), dtype=np.int32)
-        host = np.concatenate([order, gidx_host, order[gcols]]).astype(np.int32)
+        # T3's windows (the card only: the plain versions take one ticket at
+        # a time), in the same copy.
+        lead = self.tt.windows(order) if device.type == "cuda" else np.ones(n, np.int32)
+        host = np.concatenate([order, gidx_host, lead, order[gcols]]).astype(np.int32)
         dev = torch.as_tensor(host, device=device)
         u = torch.rand((C, n), generator=gen, dtype=dtype, device=device)
         u_acc = torch.rand((C, n), generator=gen, dtype=dtype, device=device)
         g = None
         if len(gcols):
             par = torch.as_tensor(self.par[order[gcols]], dtype=dtype, device=device)
-            g = standard_gamma(par / tuning.index_select(1, dev[2 * n:]), gen)
-        return TicketDraws(order, dev[:n], u, g, gidx_host, dev[n:2 * n], u_acc)
+            g = standard_gamma(par / tuning.index_select(1, dev[3 * n:]), gen)
+        return TicketDraws(order, dev[:n], u, g, gidx_host, dev[n:2 * n], u_acc,
+                           dev[2 * n:3 * n] if device.type == "cuda" else None)
 
     def sweep_once(self, carry: Carry, tuning, host_gen, gen, given=None):
         """One pass over the weight-expanded tickets on ``carry`` (in
@@ -194,9 +198,10 @@ class MHKernel:
                 dr = self.draws(part, tuning, gen)
             else:
                 sl = slice(c0, c0 + len(part))
-                dev = torch.as_tensor(part, device=tuning.device)
-                dr = TicketDraws(part, dev, draws[:, sl].contiguous(), None, None, None,
-                                 u_acc[:, sl].contiguous())
+                dev = torch.as_tensor(np.concatenate([part, self.tt.windows(part)]),
+                                      device=tuning.device)
+                dr = TicketDraws(part, dev[:len(part)], draws[:, sl].contiguous(), None, None,
+                                 None, u_acc[:, sl].contiguous(), dev[len(part):])
             for j0, nj, run in self.tt.segments(part):
                 self.segment(carry, tuning, dr, j0, nj, run)
 

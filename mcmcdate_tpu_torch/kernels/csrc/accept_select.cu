@@ -31,10 +31,11 @@ namespace {
 using namespace mcmcdate;
 
 __global__ void __launch_bounds__(kTicketThreads) accept_select_kernel(TicketArgs a) {
-  __shared__ float red[3][kTicketWarps];
+  __shared__ float red[kTicketSums][kTicketWarps];
+  const CtaTeam tm{red};
   const int c = blockIdx.x;
   const int j = a.j0;
-  const int p = row_of(a, j);
+  const Row rw = row_rec(a, row_of(a, j));
   TicketOut o;
   o.lmhg = a.lmhg[c];
   o.lj = a.lj[c];
@@ -44,12 +45,12 @@ __global__ void __launch_bounds__(kTicketThreads) accept_select_kernel(TicketArg
   float d_lik = 0.f;
   const float* dy = nullptr;
   if (a.lik == LIK_DIAG) {
-    d_lik = diag_lik_dev(a, c, p, red);
+    d_lik = diag_lik_dev(a, tm, c, rw);
   } else if (a.lik == LIK_FULL && a.dy_in != nullptr) {
     d_lik = a.dlik_in[c];
     dy = a.dy_in + (size_t)c * a.D;
   }
-  ticket_epilogue_dev(a, c, j, p, o, d_lik, dy, (size_t)c);
+  ticket_epilogue_dev(a, tm, c, j, rw, o, d_lik, dy, (size_t)c);
 }
 
 }  // namespace

@@ -66,13 +66,14 @@ __device__ __forceinline__ float scalar_term(const ModelArgs& m, int t, float la
 // of float: a row of the state, or a view that forms a proposed state's
 // values node by node (csrc/glob_step.cu).
 
-// Birth-death term of node j < N (0 at the root), heights h.
-template <class HV>
-__device__ __forceinline__ float bd_term(const ModelArgs& m, const HV& h, int j, float la_f,
-                                         float mu_f) {
+// Birth-death term of node j < N (0 at the root), heights h, with the
+// chain's rates as a BdRates (formed at each use) or a BdConsts (formed
+// once per chain or ticket: bitwise the same term, device_math.cuh).
+template <class HV, class K>
+__device__ __forceinline__ float bd_term_k(const ModelArgs& m, const HV& h, int j, const K& k) {
   const int p = m.parent[j];
   if (p < 0) return 0.0f;
-  const double la = la_f, mu = mu_f, rho = m.rho;
+  const double rho = m.rho;
   const double hj = h[j];
   const double dt = (double)h[p] - hj;
   const bool leaf = m.is_leaf[j] != 0;
@@ -80,13 +81,19 @@ __device__ __forceinline__ float bd_term(const ModelArgs& m, const HV& h, int j,
   if (leaf) {
     c = 1.0 - rho;
   } else {
-    de_factors(la, mu, 1.0 - rho, hj, &log_d, &e);
+    de_factors(k, 1.0 - rho, hj, &log_d, &e);
     c = e;
   }
-  de_factors(la, mu, c, dt, &log_d, &e);
+  de_factors(k, c, dt, &log_d, &e);
   if (!(dt > 0.0)) log_d = -INFINITY;
-  const float v = (float)(log_d + (leaf ? log(rho) : log(la)));
+  const float v = (float)(log_d + (leaf ? log(rho) : k.log_la()));
   return v == INFINITY ? -INFINITY : v;
+}
+
+template <class HV>
+__device__ __forceinline__ float bd_term(const ModelArgs& m, const HV& h, int j, float la_f,
+                                         float mu_f) {
+  return bd_term_k(m, h, j, BdRates{(double)la_f, (double)mu_f});
 }
 
 // Entry j of the birth-death block (j == N: the rates' validity term).

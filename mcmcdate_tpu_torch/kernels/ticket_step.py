@@ -28,14 +28,19 @@ left), so every kernel runs one CTA per chain.
   ``delta * inv_sd`` on the class rows under the univariate kind), decides
   and writes back only what the ticket touched, or restores the old
   values.
-- ``ticket_scan`` (kernel ``ticket_scan_kernel``): a run of consecutive
-  tickets in one launch, each chain's CTA applying the prologue's, the
-  likelihood's and K3's device functions ticket after ticket.  A run holds
-  every ticket whose likelihood update is local: all of them with no
-  likelihood or under the univariate kind, and under a full MVN the
-  ``DC_INV`` and ``DC_GATHER`` tickets (``dy = delta[rows] @ L[rows, :]``,
-  at most KG rows of ``L``).  A full-MVN ``DC_FULL`` or ``DC_B*`` ticket
-  goes T1, K2, K3 (:meth:`TicketTable.breaks`).
+- ``ticket_scan``: a run of consecutive tickets in one launch, each chain
+  applying the prologue's, the likelihood's and K3's device functions
+  ticket after ticket.  A run holds every ticket whose likelihood update is
+  local: all of them with no likelihood or under the univariate kind, and
+  under a full MVN the ``DC_INV`` and ``DC_GATHER`` tickets (``dy =
+  delta[rows] @ L[rows, :]``, at most KG rows of ``L``).  A full-MVN
+  ``DC_FULL`` or ``DC_B*`` ticket goes T1, K2, K3
+  (:meth:`TicketTable.breaks`).  Two kernels: ``ticket_run_kernel`` for a
+  light run (a warp per ticket, the tickets of a chain in windows of up to
+  ``RUN_SLOTS`` that touch disjoint state, :meth:`TicketTable.windows`,
+  eight chains a CTA in lockstep), ``ticket_scan_kernel`` for a heavy
+  ticket alone (a CTA per chain).  Every kernel reads a ticket's row from
+  its packed record (:attr:`TicketTable.rec`).
 
 Every wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors (float32), or raises; it counts its launches in
@@ -52,7 +57,7 @@ that a check can replay the kernels' own.
 On the H100 a local ticket is bound by latency: a chain walks its tickets
 one after the other, a few dependent loads, a truncated-normal or gamma
 proposal and a few double-precision birth-death terms each; a global one
-by its O(N) term blocks.  See ``csrc/ticket_step.cuh``.
+by its O(N) term blocks.  See ``csrc/ticket_step.cu``.
 """
 
 from __future__ import annotations
@@ -88,10 +93,34 @@ F_HLOC, F_RLOC = 128, 256
 B_SC, B_BD, B_CK, B_ND = 1, 2, 4, 8
 CHUNK = 16384  # tickets whose draws are made at once
 BRACE_MAX = 16  # nodes a brace may hold (kBraceMax of csrc/ticket_step.cuh)
+# Under the univariate kind a subtree move's likelihood class: the subtree's
+# own rows (``FlatTopology.dist_range``, and row 0 where the subtree holds a
+# root child), whatever its size; the table's buckets and ``DC_FULL`` (above
+# 1,024 rows) pad it with rows whose delta is 0.
+DC_RANGE = 6
+# The packed record of a row (``TicketTable.rec``), word for word the
+# ``RecWord`` enum of ``csrc/ticket_step.cuh``: the row's parameters, the
+# count of its class rows (``d_n``), its CSR offsets and counts, its node's
+# parent and up to ``REC_KIDS`` children and, where they fit in the
+# ``REC_WORDS - R_LIST`` words left (``inline``), its node set, explicit term
+# entries and gather rows.
+REC_WORDS, REC_KIDS = 128, 4
+REC_FIELDS = ("row", "mode", "fields", "tblocks", "node", "aux", "lo", "hi", "n_inner", "n_nodes",
+              "lo2", "hi2", "n2", "sd", "rj", "d_class", "d_lo", "d_n", "row0", "t_off", "t_cnt",
+              "n_off", "n_cnt", "parent", "inline")
+R = {k: i for i, k in enumerate(REC_FIELDS)}
+R_KIDS = len(REC_FIELDS)
+R_LIST = R_KIDS + REC_KIDS
+# T3's light runs apply up to RUN_SLOTS consecutive tickets of a chain at
+# once, a warp each, where no two of them touch the same state
+# (``TicketTable.windows``; kRunSlots of csrc/ticket_step.cu).
+RUN_SLOTS = 2
 # A ticket whose work (terms evaluated, nodes written, distance rows) passes
-# this runs in a T3 launch of its own: inside one run, such tickets made a
-# 16,384-ticket chunk at 10,000 taxa take twice as long as its light and
-# heavy tickets apart (PERF.md; ``tools/seq_time.py --chunk``).
+# this runs in a T3 launch of its own, a CTA per chain (``ticket_scan_kernel``);
+# the runs between them take a warp per ticket (``ticket_run_kernel``).  At
+# 10,000 taxa a chunk takes the same time with the cut anywhere from 1,000
+# to 3,000, and 6% longer at 500 (PERF.md; ``tools/seq_time.py --chunk
+# --heavy``).
 HEAVY = 2000
 
 
@@ -137,7 +166,11 @@ class TicketTable:
     whole (``tblocks``) and, for the node-local kinds, the explicit term
     entries (``t_off``/``t_idx``, CSR) and the node set whose heights or
     rates it writes (``n_off``/``n_idx``); the likelihood class of every
-    row; and the same on the model's device (``dev``)."""
+    row (``d_class``, ``d_lo``, ``d_n`` rows, ``row0``; ``DC_RANGE`` for a
+    subtree move under the univariate kind); all of it packed into one
+    record a row (``rec``, :meth:`decode`); what a row touches, for T3's
+    windows (:meth:`conflicts`); and the same on the model's device
+    (``dev``)."""
 
     def __init__(self, model, table: props.ProposalTable):
         self.model = model
@@ -152,9 +185,16 @@ class TicketTable:
         self.N = N
         self.T = sum(model.term_block_sizes)
         self.d_class = (np.full(Pn, props.DC_FULL, np.int32) if table.d_class is None
-                        else np.asarray(table.d_class, np.int32))
+                        else np.asarray(table.d_class, np.int32).copy())
         self.d_lo = (np.ones(Pn, np.int32) if table.d_lo is None
-                     else np.asarray(table.d_lo, np.int32))
+                     else np.asarray(table.d_lo, np.int32)).copy()
+        span = np.zeros(Pn, np.int32)  # a DC_RANGE row's own rows
+        if self.lik == LIK_DIAG:
+            for p in np.nonzero(np.isin(table.kind, [props.K_SCALE_SUBTREE_ULTRA,
+                                                     props.K_SCALE_SUBTREE_RATE]))[0]:
+                if self.d_class[p] == props.DC_FULL or self.d_class[p] in props.D_BUCKETS:
+                    lo, hi = topo.dist_range(int(table.node[p]))
+                    self.d_class[p], self.d_lo[p], span[p] = DC_RANGE, lo, hi - lo
         self.didx = (np.full((Pn, 1), self.D, np.int32) if table.didx is None
                      else np.asarray(table.didx, np.int32))
         self.gamma = np.isin(table.kind, sorted(props.GAMMA_KINDS))
@@ -240,14 +280,128 @@ class TicketTable:
         self.blocks = [(0, 4, B_SC), (off_bd, off_ck, B_BD), (off_ck, off_nd, B_CK),
                        (off_nd, self.T, B_ND)]
         tb, fl = cols["tblocks"], cols["fields"]
-        n_rows = np.select([self.d_class == props.DC_FULL, self.d_class == props.DC_GATHER]
-                           + [self.d_class == dc for dc in props.D_BUCKETS],
-                           [self.D, self.didx.shape[1]]
-                           + [1 + b for b in props.D_BUCKETS.values()], 0)
+        d_n = np.select([self.d_class == props.DC_FULL, self.d_class == props.DC_GATHER]
+                        + [self.d_class == dc for dc in props.D_BUCKETS],
+                        [self.D, self.didx.shape[1]]
+                        + [1 + b for b in props.D_BUCKETS.values()], 0)
+        # Row 0 joins a subtree's own rows where the subtree holds a root
+        # child (its branch is part of row 0).
+        self.row0 = ((self.d_class != DC_RANGE)
+                     | np.isin(cols["node"], [0, *topo.root_children])).astype(np.int32)
+        self.d_n = np.where(self.d_class == DC_RANGE, span + self.row0, d_n).astype(np.int32)
+        self._touch(topo, off_nd)
         self.work = (sum(((tb & bit) > 0) * (b - a) for a, b, bit in self.blocks)
                      + np.diff(self.t_off) + N * ((fl & (F_HEIGHTS | F_RATES)) > 0)
-                     + np.diff(self.n_off) + (n_rows if self.lik else 0))
+                     + np.diff(self.n_off) + (self.d_n if self.lik else 0))
+        self.rec = self._records(np.asarray(table.par, np.float32),
+                                 np.asarray(table.root_jac, bool), np.asarray(topo.parent), ch)
         self._tix, self._rows = {}, {}
+
+    def _touch(self, topo, off_nd) -> None:
+        """What each row's tickets touch, for :meth:`windows`: a node-local
+        row (``local``: a slide, subtree or branch move of a node other than
+        the root and its children, with no node-prior term and, under a full
+        MVN, no likelihood change) writes only nodes of ``[a0, a1)`` (its
+        node's subtree; the node alone for a branch rate), with their term
+        entries and distance rows, and reads only those and its node's
+        parent ``pa``."""
+        cols, node = self.cols, self.cols["node"]
+        end = np.asarray(topo.subtree_end)
+        n0 = np.maximum(node, 0)
+        fl = cols["fields"]
+        kinds = np.asarray(self.table.kind)
+        self.local = ((node >= 0) & ~np.isin(node, [0, *topo.root_children])
+                      & ((fl & (F_HLOC | F_RLOC)) > 0) & ((fl & ~(F_HLOC | F_RLOC)) == 0)
+                      & (cols["tblocks"] == 0)
+                      & np.isin(kinds, [props.K_SLIDE_NODE_ULTRA, props.K_SLIDE_NODES_CONTRA,
+                                        props.K_SCALE_SUBTREE_ULTRA, props.K_SCALE_SUBTREES_CONTRA,
+                                        props.K_SCALE_SUBTREE_RATE, props.K_SCALE_BRANCH_RATE]))
+        nd = np.asarray([(self.t_idx[self.t_off[p]:self.t_off[p + 1]] >= off_nd).any()
+                         for p in range(len(node))], bool)
+        self.local &= ~nd
+        if self.lik == LIK_FULL:  # a full MVN's dy spans every row of y
+            self.local &= self.d_class == props.DC_INV
+        self.a0 = n0.astype(np.int64)
+        self.a1 = np.where(kinds == props.K_SCALE_BRANCH_RATE, n0 + 1, end[n0]).astype(np.int64)
+        self.pa = np.asarray(topo.parent)[n0].astype(np.int64)
+
+    def conflicts(self, p, q) -> np.ndarray:
+        """Whether tickets of rows ``p`` and ``q`` (arrays) may touch the same
+        state: either is not node-local, their subtrees overlap or one's
+        parent lies in the other's subtree."""
+        a0, a1, pa = self.a0, self.a1, self.pa
+        return (~self.local[p] | ~self.local[q] | ((a0[p] < a1[q]) & (a0[q] < a1[p]))
+                | ((pa[p] >= a0[q]) & (pa[p] < a1[q])) | ((pa[q] >= a0[p]) & (pa[q] < a1[p])))
+
+    def windows(self, order) -> np.ndarray:
+        """``lead`` ``[n]`` (int32) of a drawn order: 1 where ticket j starts
+        a window, 0 where it joins the one before.  A window holds at most
+        ``RUN_SLOTS`` consecutive tickets, no two of which :meth:`conflicts`,
+        so T3 may apply them to a chain at once with the sequential result."""
+        order = np.asarray(order)
+        n = len(order)
+        lead = np.ones(n, np.int32)
+        conf = [None] + [np.concatenate([np.ones(d, bool), self.conflicts(order[d:], order[:-d])]
+                                        ).tolist() for d in range(1, min(RUN_SLOTS, n))]
+        s = 0
+        for j in range(1, n):
+            k = j - s
+            if k < RUN_SLOTS and not any(conf[d][j] for d in range(1, k + 1)):
+                lead[j] = 0
+            else:
+                s = j
+        return lead
+
+    def _records(self, sd, rj, parent, children) -> np.ndarray:
+        """The packed records ``[P, REC_WORDS]`` (int32; ``sd`` as its float32
+        bits), with the lists inline where they fit."""
+        cols, Pn = self.cols, len(self.d_class)
+        rec = np.full((Pn, REC_WORDS), -1, np.int32)
+        node = cols["node"]
+        KC = children.shape[1]
+        vals = dict(cols, row=np.arange(Pn), sd=sd.view(np.int32), rj=rj.astype(np.int32),
+                    d_class=self.d_class, d_lo=self.d_lo, d_n=self.d_n, row0=self.row0,
+                    t_off=self.t_off[:-1],
+                    t_cnt=np.diff(self.t_off), n_off=self.n_off[:-1], n_cnt=np.diff(self.n_off),
+                    parent=np.where(node >= 0, parent[np.maximum(node, 0)], -1))
+        for k in REC_FIELDS[:-1]:
+            rec[:, R[k]] = vals[k]
+        if KC <= REC_KIDS:
+            rec[:, R_KIDS:R_KIDS + KC] = np.where(node[:, None] >= 0,
+                                                  children[np.maximum(node, 0)], -1)
+        for p in range(Pn):
+            lists = [self.n_idx[self.n_off[p]:self.n_off[p + 1]],
+                     self.t_idx[self.t_off[p]:self.t_off[p + 1]]]
+            if self.d_class[p] == props.DC_GATHER:
+                lists.append(self.didx[p])
+            flat = np.concatenate(lists)
+            rec[p, R["inline"]] = int(len(flat) <= REC_WORDS - R_LIST)
+            if rec[p, R["inline"]]:
+                rec[p, R_LIST:R_LIST + len(flat)] = flat
+        return rec
+
+    def decode(self, p: int) -> dict:
+        """Row ``p``'s packed record read back: its scalar words by name
+        (``sd`` a float), ``kids`` and the lists ``nodes``, ``terms`` and, for
+        ``DC_GATHER``, ``grows`` (from the record where inline, else from the
+        CSR arrays, as the kernels read them)."""
+        w = self.rec[p]
+        out = {k: int(w[R[k]]) for k in REC_FIELDS}
+        out["sd"] = float(w[R["sd"]:R["sd"] + 1].view(np.float32)[0])
+        out["kids"] = w[R_KIDS:R_LIST].copy()
+        nn, nt = out["n_cnt"], out["t_cnt"]
+        if out["inline"]:
+            out["nodes"] = w[R_LIST:R_LIST + nn].copy()
+            out["terms"] = w[R_LIST + nn:R_LIST + nn + nt].copy()
+            kg = self.didx.shape[1]
+            out["grows"] = w[R_LIST + nn + nt:R_LIST + nn + nt + kg].copy()
+        else:
+            out["nodes"] = self.n_idx[out["n_off"]:out["n_off"] + nn]
+            out["terms"] = self.t_idx[out["t_off"]:out["t_off"] + nt]
+            out["grows"] = self.didx[p]
+        if out["d_class"] != props.DC_GATHER:
+            out["grows"] = None
+        return out
 
     # -- per-row index sets (host, cached as device tensors) -------------
 
@@ -274,6 +428,9 @@ class TicketTable:
                 r = None
             elif dc == props.DC_GATHER:
                 r = self.didx[p][self.didx[p] < D]
+            elif dc == DC_RANGE:
+                lo, r0 = int(self.d_lo[p]), int(self.row0[p])
+                r = np.asarray([0] * r0 + list(range(lo, lo + int(self.d_n[p]) - r0)))
             else:
                 lo = int(self.d_lo[p])
                 r = np.asarray([0] + list(range(lo, min(lo + props.D_BUCKETS[dc], D))))
@@ -317,13 +474,8 @@ class TicketTable:
             return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dv)
 
         ka = m.prior_kernel_arrays
-        out = {k: i32(v) for k, v in self.cols.items()}
-        t = self.table
-        out.update(
-            sd=torch.as_tensor(np.asarray(t.par, np.float32), device=dv),
-            rj=torch.as_tensor(np.asarray(t.root_jac, np.uint8), device=dv),
-            d_class=i32(self.d_class), d_lo=i32(self.d_lo), didx=i32(self.didx),
-            t_off=i32(self.t_off), t_idx=i32(self.t_idx), n_off=i32(self.n_off),
+        out = dict(
+            rec=i32(self.rec), didx=i32(self.didx), t_idx=i32(self.t_idx),
             n_idx=i32(self.n_idx), children=i32(m.topo.children),
             root_ch=i32(m.topo.root_children), dist_idx=i32(m.topo.internal_dist_index),
             parent=ka["parent"], is_leaf=ka["is_leaf"],
@@ -342,7 +494,8 @@ class TicketDraws(NamedTuple):
     ticket's draw where ``g`` is None), the gamma tickets' standard-gamma
     draws ``g`` ``[C, ng]`` at the columns ``gidx_host`` ``[n]`` (-1 for a
     uniform ticket; on the card ``gidx``) and the accept uniforms ``u_acc``
-    ``[C, n]``."""
+    ``[C, n]``; on the card, T3's windows ``lead`` ``[n]`` (int32,
+    :meth:`TicketTable.windows`; None: one ticket at a time)."""
 
     order_host: np.ndarray
     order: Optional[torch.Tensor]
@@ -351,6 +504,7 @@ class TicketDraws(NamedTuple):
     gidx_host: Optional[np.ndarray]
     gidx: Optional[torch.Tensor]
     u_acc: torch.Tensor
+    lead: Optional[torch.Tensor] = None
 
     @property
     def n(self) -> int:
@@ -500,12 +654,11 @@ _PTRS = ("parent", "is_leaf", "children", "cal_node", "cal_lower", "cal_lower_pm
          "dist_idx", "inv_sd", "L",
          "heights", "rates", "birth", "death", "height", "rate_mean", "rate_var", "terms", "d",
          "y", "acc", "nbad",
-         "mode", "fields", "tblocks", "node", "aux", "lo", "hi", "n_inner", "n_nodes", "lo2", "hi2",
-         "n2", "sd", "rj", "d_class", "d_lo", "didx", "t_off", "t_idx", "n_off", "n_idx",
-         "tuning", "order", "draw", "gdraw", "gidx", "u_acc",
+         "rec", "didx", "t_idx", "n_idx",
+         "tuning", "order", "draw", "gdraw", "gidx", "u_acc", "lead",
          "hs", "rs", "ss", "tn", "dn", "dl", "dys", "lmhg", "lj", "d_pr", "invalid", "sprop",
          "smean", "dy_in", "dlik_in", "accept_out", "prop_out", "mean_out", "la_out")
-_ROW_PTRS = _PTRS[_PTRS.index("mode"):_PTRS.index("tuning")]
+_ROW_PTRS = _PTRS[_PTRS.index("rec"):_PTRS.index("tuning")]
 _INTS = ("N", "C", "T", "D", "P", "n", "ng", "j0", "nj", "row", "KC", "KG", "lik",
          "clock_model", "n_cal", "n_con", "n_br", "br_width", "root_right", "n_inner_total",
          "sc_birth", "sc_death", "sc_bd", "sc_bdc")
@@ -524,6 +677,10 @@ def _check_layout() -> None:
     if build.bind("mcmcdate_ticket_args_size", ())() != ctypes.sizeof(_TicketArgs):
         raise RuntimeError("ticket_step: the kernel's argument layout does not match the "
                            "wrapper's")
+    if build.bind("mcmcdate_ticket_rec_words", ())() != REC_WORDS:
+        raise RuntimeError("ticket_step: the kernel's record size does not match the wrapper's")
+    if build.bind("mcmcdate_ticket_run_slots", ())() != RUN_SLOTS:
+        raise RuntimeError("ticket_step: the kernel's window size does not match the wrapper's")
 
 
 def launch(name: str, args: dict, device) -> None:
@@ -581,7 +738,7 @@ def kernel_args(tt: TicketTable, carry, tuning, dr: TicketDraws) -> dict:
         build.require_cuda(t, name, torch.float32)
     for name, t in (("acc", carry.acc), ("nbad", carry.nbad)):
         build.require_cuda(t, name, torch.int32)
-    for name, t in (("order", dr.order), ("gidx", dr.gidx)):
+    for name, t in (("order", dr.order), ("gidx", dr.gidx), ("lead", dr.lead)):
         if t is not None:
             build.require_cuda(t, name, torch.int32)
     C, N = b.heights.shape
@@ -598,7 +755,7 @@ def kernel_args(tt: TicketTable, carry, tuning, dr: TicketDraws) -> dict:
                     sc_bdc=props.SC_BIRTH_DEATH_CONTRA)
     args.update(
         terms=carry.terms, d=carry.d, y=carry.y, acc=carry.acc, nbad=carry.nbad, tuning=tuning,
-        order=dr.order, draw=dr.u, gdraw=dr.g, gidx=dr.gidx, u_acc=dr.u_acc,
+        order=dr.order, draw=dr.u, gdraw=dr.g, gidx=dr.gidx, u_acc=dr.u_acc, lead=dr.lead,
         N=N, C=C, T=tt.T, D=tt.D, P=tt.table.n_proposals, n=dr.n,
         ng=0 if dr.g is None else dr.g.shape[1], row=int(dr.order_host[0]),
         KC=int(np.asarray(m.topo.children).shape[1]), KG=int(tt.didx.shape[1]), lik=tt.lik,
@@ -639,8 +796,13 @@ def ticket_scan(tt: TicketTable, carry, tuning, dr: TicketDraws, j0: int, nj: in
     :meth:`~TicketTable.breaks`) one after the other on every chain, in
     place.  With ``out``, returns their decisions and proposals (and
     var_tree's rate means) ``[C, nj]``.  The plain version
-    (:func:`ticket_scan_plain`) runs for CPU tensors, kernel T3 for CUDA
-    tensors (float32)."""
+    (:func:`ticket_scan_plain`) runs for CPU tensors, T3 for CUDA tensors
+    (float32): ``ticket_run_kernel`` (a warp per ticket, up to
+    ``RUN_SLOTS`` tickets of a window of ``dr.lead`` at once on a chain)
+    where no ticket's work passes ``HEAVY``, else ``ticket_scan_kernel`` (a
+    CTA per chain);
+    ``ticket_scan.launches_by_kind`` counts them as ``light`` and
+    ``heavy``."""
     if carry.terms.device.type == "cpu":
         res = ticket_scan_plain(tt, carry, tuning, dr, j0, nj)
         return res if out else None
@@ -658,8 +820,10 @@ def ticket_scan(tt: TicketTable, carry, tuning, dr: TicketDraws, j0: int, nj: in
                       mean=torch.full((C, dr.n), math.nan, dtype=torch.float32, device=dv))
         args.update(accept_out=res.accept, prop_out=res.prop, mean_out=res.mean)
     args.update(j0=j0, nj=nj)
-    launch("ticket_scan", args, carry.terms.device)
+    heavy = bool((tt.work[dr.order_host[j0:j0 + nj]] > HEAVY).any())
+    launch("ticket_scan" if heavy else "ticket_run", args, carry.terms.device)
     ticket_scan.launches += 1
+    ticket_scan.launches_by_kind["heavy" if heavy else "light"] += 1
     if res is None:
         return None
     sl = slice(j0, j0 + nj)
@@ -668,3 +832,4 @@ def ticket_scan(tt: TicketTable, carry, tuning, dr: TicketDraws, j0: int, nj: in
 
 ticket_prologue.launches = 0
 ticket_scan.launches = 0
+ticket_scan.launches_by_kind = {"light": 0, "heavy": 0}

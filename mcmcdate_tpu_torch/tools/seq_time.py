@@ -4,7 +4,7 @@ CUDA card, so that two checkouts can be compared in one call.
 Run as a file, from the root of a checkout, on a machine with a card:
 
     python3 mcmcdate_tpu_torch/tools/seq_time.py [--root DIR] [--taxa 136|1000|10000]
-        [--prefix N] [--sweeps K] [--chunk]
+        [--prefix N] [--sweeps K] [--chunk] [--heavy H [H ...]]
 
 It imports ``mcmcdate_tpu_torch`` from ``--root`` (default: the checkout
 that holds this file; an unpacked archive of another commit times that
@@ -24,7 +24,17 @@ untuned proposals).  Then:
   drawn ticket order (``ticket_step.CHUNK`` tickets) through T3, timed with
   CUDA events after one untimed pass of each: cut as the sweep cuts it
   (``TicketTable.segments``), as one run, and its light and its heavy
-  tickets (``ticket_step.HEAVY``) each as one run.
+  tickets (``ticket_step.HEAVY``) each as one run, with the time per light
+  ticket (us) and per heavy ticket (ms); ``--heavy H ...`` also times the
+  chunk as the sweep cuts it with ``HEAVY`` set to each ``H`` (the cut
+  between T3's warp-per-chain runs and its CTA-per-chain heavy tickets);
+  ``--bins`` times the chunk's light tickets by work (``BINS``), each bin
+  as one run through either kernel (us a ticket).
+
+- ``--latency``: the latency of one dependent global load (ns), from a
+  single thread chasing a random cyclic permutation (``csrc/probe.cu``) of
+  4 MB (L2) and of 1 GB (device memory), for the ticket kernels' latency
+  floors.
 
 Prints one JSON line with the card's name and power limit.
 """
@@ -68,13 +78,18 @@ def univariate_model(n_taxa: int, seed: int = 0, device="cuda"):
     return model, init_state(tree, topo, 1, dtype=torch.float32, device=device)
 
 
-def time_chunk(kern, batch, tuning) -> dict:
+BINS = (0, 8, 32, 128, 512)
+
+
+def time_chunk(kern, batch, tuning, cuts=(), bins=False) -> dict:
     """T3 on the first chunk of a drawn order: as the sweep cuts it, as one
     run, and its light and heavy tickets each as one run (ms, launches,
-    tickets)."""
+    tickets; us a light ticket, ms a heavy one); then as the sweep cuts it
+    with ``HEAVY`` at each of ``cuts``."""
     import numpy as np
     import torch
 
+    from mcmcdate_tpu_torch.kernels import ticket_step as TS
     from mcmcdate_tpu_torch.kernels.ticket_step import CHUNK, HEAVY, ticket_scan
 
     tt, table = kern.tt, kern.table
@@ -84,8 +99,11 @@ def time_chunk(kern, batch, tuning) -> dict:
     heavy = tt.work[order] > HEAVY
     carry = kern.init_carry(batch)
     out = {}
-    for name, o, cut in (("as_the_sweep", order, True), ("one_run", order, False),
-                         ("light_only", order[~heavy], False), ("heavy_only", order[heavy], False)):
+    runs = [("as_the_sweep", order, True, HEAVY), ("one_run", order, False, HEAVY),
+            ("light_only", order[~heavy], False, HEAVY), ("heavy_only", order[heavy], False, HEAVY)]
+    runs += [(f"as_the_sweep_heavy_{h}", order, True, h) for h in cuts]
+    for name, o, cut, cut_at in runs:
+        TS.HEAVY = cut_at
         dr = kern.draws(o, tuning, gen)
         segs = tt.segments(o) if cut else [(0, len(o), True)]
         if not all(run for _, _, run in segs):
@@ -99,8 +117,69 @@ def time_chunk(kern, batch, tuning) -> dict:
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
-        out[name] = dict(tickets=len(o), launches=len(segs), ms=times[1])
+        out[name] = dict(tickets=len(o), launches=len(segs), ms=times[1],
+                         heavy_tickets=int((tt.work[o] > cut_at).sum()))
+    light = order[tt.work[order] <= HEAVY]
+    groups = [(dict(work=[lo, hi]), light[(tt.work[light] > lo) & (tt.work[light] <= hi)])
+              for lo, hi in zip(BINS, BINS[1:] + (HEAVY,))]
+    groups += [(dict(kind=int(k)), light[table.kind[light] == k])
+               for k in np.unique(table.kind[light])]
+    for rec, o in groups if bins else ():
+        if not len(o):
+            continue
+        dr = kern.draws(o, tuning, gen)
+        rec.update(tickets=len(o), mean_work=float(tt.work[o].mean()))
+        for name, cut_at in (("us_warp", HEAVY), ("us_cta", -1)):
+            TS.HEAVY = cut_at
+            times = []
+            for _ in range(2):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                ticket_scan(tt, carry, tuning, dr, 0, len(o))
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            rec[name] = times[1] / len(o) * 1e3
+        out.setdefault("bins", []).append(rec)
+    TS.HEAVY = HEAVY
+    out["us_per_light_ticket"] = out["light_only"]["ms"] / max(1, len(order[~heavy])) * 1e3
+    out["ms_per_heavy_ticket"] = out["heavy_only"]["ms"] / max(1, len(order[heavy]))
     return out
+
+
+def load_latency() -> dict:
+    """ns per dependent load, links in L2 (4 MB) and in device memory (1 GB):
+    a cyclic permutation with every link on a 128-byte line of its own."""
+    import ctypes
+
+    import torch
+
+    from mcmcdate_tpu_torch.kernels import build
+
+    fn = build.bind("mcmcdate_chase", (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                       ctypes.c_void_p))
+    out, res, steps = torch.zeros(1, dtype=torch.int32, device="cuda"), {}, 100_000
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, nbytes in (("l2", 4 << 20), ("hbm", 1 << 30)):
+        lines = nbytes // 128
+        perm = torch.randperm(lines, generator=gen, device="cuda", dtype=torch.int64) * 32
+        nxt = torch.zeros(lines * 32, dtype=torch.int32, device="cuda")
+        nxt[perm] = torch.roll(perm, -1).to(torch.int32)
+        times = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            build.check(fn(nxt.data_ptr(), steps, out.data_ptr(), build.stream_ptr("cuda")),
+                        "chase kernel")
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / steps * 1e6)
+        # L2: the warm passes; device memory: the first (its 100,000 links,
+        # 12.8 MB of lines, stay in L2 for the next ones).
+        res[f"{name}_ns"] = min(times) if name == "l2" else times[0]
+        del perm, nxt
+    return res
 
 
 def main(argv=None) -> dict:
@@ -110,6 +189,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--prefix", type=int, default=0)
     ap.add_argument("--sweeps", type=int, default=0)
     ap.add_argument("--chunk", action="store_true")
+    ap.add_argument("--heavy", type=int, nargs="*", default=())
+    ap.add_argument("--bins", action="store_true")
+    ap.add_argument("--latency", action="store_true")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -164,8 +246,10 @@ def main(argv=None) -> dict:
         s = time.perf_counter() - t0
         rec.update(prefix_tickets=len(order), prefix_s=s, s_per_ticket=s / len(order),
                    extrapolated_s_per_sweep=s / len(order) * int(table.n_tickets))
+    if args.latency:
+        rec["load_latency"] = load_latency()
     if args.chunk:
-        rec["chunk"] = time_chunk(kern, batch, tuning)
+        rec["chunk"] = time_chunk(kern, batch, tuning, args.heavy, args.bins)
     if args.sweeps:
         batch = kern.sweeps(batch, tuning, 1, 1)[0]
         torch.cuda.synchronize()

@@ -877,3 +877,54 @@ def test_ticket_scan_kernel(card, lik):
     assert 0 < int(out.accept.sum()) < out.accept.numel()
     _prop_near(out.prop, rec.prop, rec.dx_dp)
     _ticket_agree(ck, cp, torch.log(dr.u_acc), rec.log_alpha, out.accept)
+
+
+@pytest.mark.parametrize("lik", ("full", "univariate", "none"))
+@pytest.mark.parametrize("kind", ("light", "heavy", "segments"))
+def test_ticket_scan_light_and_heavy(card, lik, kind):
+    """T3's two kernels on a 192-ticket run that breaks no run: every ticket
+    light (``ticket_run_kernel``, a warp per chain), every ticket heavy
+    (``ticket_scan_kernel``, a CTA per chain; ``HEAVY`` lowered below every
+    ticket's work) and the run cut as a sweep cuts it at the median work
+    (both kernels, launch after launch), each against ticket_scan_plain
+    replayed segment by segment at the kernels' proposals, rate means and
+    decisions (see _ticket_agree: decisions up to ties, state, terms and d
+    bitwise, y within 1e-5 of its scale; the warp sums d_pr and d_lik in
+    another order than the CTA)."""
+    from mcmcdate_tpu_torch.kernels import ticket_step as TS
+
+    tk, carry, tuning, g = _ticket_setup(lik, 40)
+    tt = tk.tt
+    tickets = np.asarray(tt.table.tickets)
+    ok = np.asarray([not tt.breaks(int(p)) for p in tickets])
+    order = np.random.default_rng(6).choice(tickets[ok], 192).astype(np.int32)
+    dr = tk.draws(order, tuning, torch.Generator(device="cuda").manual_seed(7))
+    saved = TS.HEAVY
+    TS.HEAVY = {"light": 10 ** 9, "heavy": -1, "segments": int(np.median(tt.work[order]))}[kind]
+    try:
+        segs = tt.segments(order) if kind == "segments" else [(0, len(order), True)]
+        before = dict(ticket_scan.launches_by_kind)
+        ck, cp = _copy(carry), _copy(carry)
+        forced = torch.full_like(dr.u_acc, math.nan)
+        accept, la = [], []
+        for j0, nj, run in segs:
+            assert run
+            out = ticket_scan(tt, ck, tuning, dr, j0, nj, out=True)
+            forced[:, j0:j0 + nj] = torch.where(out.accept, 0.0, math.nan)
+            rec = ticket_scan_plain(tt, cp, tuning, dr._replace(u_acc=forced), j0, nj,
+                                    given=dict(prop=out.prop, mean=out.mean))
+            assert torch.equal(rec.accept, out.accept)
+            _prop_near(out.prop, rec.prop, rec.dx_dp)
+            accept.append(out.accept)
+            la.append(rec.log_alpha)
+        got = {k: ticket_scan.launches_by_kind[k] - before[k] for k in before}
+    finally:
+        TS.HEAVY = saved
+    want = {"light": {"light": 1, "heavy": 0}, "heavy": {"light": 0, "heavy": 1}}.get(kind)
+    if want is None:
+        assert got["light"] > 0 and got["heavy"] > 0 and sum(got.values()) == len(segs)
+    else:
+        assert got == want
+    accept = torch.cat(accept, 1)
+    assert 0 < int(accept.sum()) < accept.numel()
+    _ticket_agree(ck, cp, torch.log(dr.u_acc), torch.cat(la, 1), accept)
