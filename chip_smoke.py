@@ -34,10 +34,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    their proposals and decisions through the plain family scan;
    FastSweeps.glob_phase must launch only them; records: G1 on bd_scale's
    family, G2 per ticket over sub_ultra's, G3 on its first ticket; the
-   log adds G1 on sub_contra, G2 on one var_tree ticket and each subtree
-   ticket's product over its support rows against the full product).  Each kernel's
+   log adds G1 on sub_contra, G2 on one var_tree ticket, G3 on var_tree's
+   first ticket (whole D) and each subtree ticket's product over its
+   support rows against the full product; K6's and G3's logs also give
+   each bound by the coarser count: K6 without its double operations, G3
+   with every chain reading delta, z and w over D).  Each kernel's
    device time and its plain version's are read from the profiler over
-   back-to-back calls;
+   back-to-back calls (K6 slide's and G3's kernel with the L2 flushed
+   before each call, so that a call cannot read below its bytes bound);
 4. main path: simulate -> prepare --likelihood-spec full -> run (MHG,
    FastSweeps) at 136 taxa x 1024 chains through the port's CLI, in a
    temporary directory; checks the outputs, the carried log posterior,
@@ -104,6 +108,9 @@ UNI_TAXA = 10_000
 UNI_SWEEPS = 2
 # Back-to-back calls per kernel timing.
 REPS = 20
+# Bytes read before each call of a kernel timed with the L2 flushed: several
+# times the H100's 50 MB L2.
+FLUSH_BYTES = 256 << 20
 
 # float32 tolerances of kernel against plain version, both on the card.
 # K1: same formulas and CUDA math library, products rounded one by one
@@ -249,23 +256,33 @@ def _sync():
     torch.cuda.synchronize()
 
 
-def _device_ms(fn, only=None, reps=REPS):
+def _device_ms(fn, only=None, reps=REPS, flush=False):
     """Device milliseconds per call of ``fn`` over ``reps`` back-to-back
     calls, from the profiler's kernel, memcpy and memset intervals (only
     those whose name contains ``only``, or one of them, where given), so
-    the host's enqueue gaps do not count.  A profile that recorded none of those intervals
+    the host's enqueue gaps do not count.  ``flush``: a read of
+    ``FLUSH_BYTES`` before each call evicts its inputs from the L2, as the
+    sweep's other work does between two calls (needs ``only``, which
+    leaves the read out).  A profile that recorded none of those intervals
     (the profiler's device trace can come back empty) is taken again, up
     to twice; if all three are empty, the time comes from CUDA events
     around ``reps`` calls (which also count the gaps between launches),
     and the log says so."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     names = (only,) if isinstance(only, str) else only
+    buf = None
+    if flush:
+        check(names is not None, "a flushed timing needs the kernel's name")
+        buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
     fn()
     _sync()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                if flush:
+                    buf.sum()
                 fn()
             _sync()
         with tempfile.TemporaryDirectory() as tmp:
@@ -278,15 +295,17 @@ def _device_ms(fn, only=None, reps=REPS):
                and (names is None or any(o in e["name"] for o in names))]
         if dev:
             return sum(e["dur"] for e in dev) / 1e3 / reps
-    import torch
-
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    _sync()
-    ms = start.elapsed_time(end) / reps
+    ms = 0.0
+    for _ in range(reps if flush else 1):
+        if flush:
+            buf.sum()
+        start.record()
+        for _ in range(1 if flush else reps):
+            fn()
+        end.record()
+        _sync()
+        ms += start.elapsed_time(end) / reps
     log(f"[timing] the profiler recorded no device time for {names or 'the call'} three times: "
         f"{ms:.4f} ms a call from CUDA events")
     return ms
@@ -1426,7 +1445,8 @@ def _check_contra(mode, n_taxa):
         u_prop, u_acc = _draws(fs, sx, tuning, gen, False)
         w, ok, run = _contra_agree(f"contra_{mode} {step} at {n_taxa} taxa", mode, fs, carry,
                                    tuning, sx, u_prop, u_acc)
-        ms = _device_ms(lambda: run(kernel), only=f"contra_{mode}_kernel")
+        ms = _device_ms(lambda: run(kernel), only=f"contra_{mode}_kernel",
+                        flush=mode == "slide")
         plain_ms = _device_ms(lambda: run(plain))
         log(f"[kernels] contra_{mode} {step} at {n_taxa} taxa: device time per call: kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
@@ -1444,9 +1464,16 @@ def check_contra_slide(n_taxa):
     # out; per chain four scalars; the step's plan arrays.  Operations:
     # about 60 per touched term and 100 for the truncated normal (each
     # special function counted as 10).
+    # Its birth-death terms (1 + KC a ticket) in double: about 100 operations
+    # each, as the other records count them.
     nbytes = (4 * C * B * (9 + 2 * KC + KT) + C * B + 16 * C + B * (4 * (4 + KC + KT) + 1)
               + 4 * int(accept.sum()) * (3 + KC + KT))
-    return {"contra_slide": _record(worst, ms, plain_ms, nbytes, C * B * (60 * KT + 100))}
+    ops = C * B * (60 * KT + 100)
+    rec = _record(worst, ms, plain_ms, nbytes, ops, ops64=100 * C * B * (1 + KC))
+    log(f"[kernels] contra_slide at {n_taxa} taxa: bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}); without the double operations "
+        f"{_bound(nbytes, ops)[0]:.4f} ms")
+    return {"contra_slide": rec}
 
 
 def check_contra_range(n_taxa):
@@ -1795,30 +1822,58 @@ def check_glob(n_taxa):
         f"{w_err:.3g} of scale; {2 * C * int(Ks.sum()) * D / 1e9:.3f} against "
         f"{2 * C * fam.n * D * D / 1e9:.3f} GFLOP for the family")
 
-    # G3 on sub_ultra's first ticket.
-    c4, c5 = _copy_carry(carry), _copy_carry(carry)
-    pro = G.glob_dense_prologue(fs.glob, fam, 0, c4, tun, draws)
-    pplain = G.glob_dense_prologue_plain(fs.glob, "sub_ultra", c5, tun[:, 0], fam.ticket(0),
-                                         draws[:, 0])
-    w = fs.glob_product(fam, 0, pro)
-    acc0 = G.glob_dense_epilogue(fs.glob, fam, 0, _copy_carry(carry), pro, w, u)
-    ms3 = _device_ms(lambda: G.glob_dense_epilogue(fs.glob, fam, 0, c4, pro, w, u),
-                     only="glob_dense_epilogue_kernel")
-    plain3 = _device_ms(lambda: G.glob_dense_epilogue_plain(fs.glob, "sub_ultra", c5, pplain, w,
-                                                             u[:, 0], int(fam.grp.rows[0])))
-    K0 = int(fam.grp.hi[0] - fam.grp.lo[0])
-    blk = 2 * K0 + nn  # the range's bd and ck entries, the node-prior block
-    # G3.  Bytes: per chain delta, z, w, q and five per-chain values in;
-    # for the accepted chains the proposed heights, terms on the range,
-    # d_new and z in and heights, terms, d, z, q and the count out.
-    # Operations: dq (4 per row).
-    na = int(acc0.sum())
-    nb3 = 4 * C * (3 * D + 6) + 4 * na * (2 * (K0 + blk + 2 * D) + 2)
+    def epilogue_record(tag):
+        """G3 on the family's first ticket (kernel, plain, bound), after G2
+        and the product.  Bytes: each value the function must move, once.
+        Every chain: u_acc, d_pr, lmhg, lj, invalid and q in, the accept
+        flag out, and dq's rows of delta, z and w in (a subtree ticket's
+        delta_S and its support rows of z and w; a whole-D family's all D).
+        An accepted chain also: the rest of z and w in and z out over D; the
+        family's scalars, term blocks (a subtree ticket's bd and ck range),
+        heights or rates (its range) and d (its support rows) in from the
+        proposal and out; q out, the accept count in and out.  Operations:
+        dq, 4 per row.  The log also gives the coarser full-D bound (every
+        chain reads delta, z and w over D)."""
+        f = fs.glob_fam[tag]
+        spec = G.FAMILIES[tag]
+        tun_f, draws_f, u_f, _ = draws_of[tag]
+        ca, cb = _copy_carry(carry), _copy_carry(carry)
+        pro = G.glob_dense_prologue(fs.glob, f, 0, ca, tun_f, draws_f)
+        pplain = G.glob_dense_prologue_plain(fs.glob, tag, cb, tun_f[:, 0], f.ticket(0),
+                                             draws_f[:, 0])
+        w = fs.glob_product(f, 0, pro)
+        acc0 = G.glob_dense_epilogue(fs.glob, f, 0, _copy_carry(carry), pro, w, u_f)
+        ms3 = _device_ms(lambda: G.glob_dense_epilogue(fs.glob, f, 0, ca, pro, w, u_f),
+                         only="glob_dense_epilogue_kernel", flush=True)
+        plain3 = _device_ms(lambda: G.glob_dense_epilogue_plain(fs.glob, tag, cb, pplain, w,
+                                                                 u_f[:, 0], int(f.grp.rows[0])))
+        sub = tag in G.SUBTREE_DENSE
+        K = int(f.grp.hi[0] - f.grp.lo[0]) if sub else 0
+        rows = K if sub else D
+        nodes = K if sub else N
+        blocks = {"sc": 4, "bd": K if sub else N + 1, "ck": K if sub else N + 1, "nd": nn}
+        blk = sum(blocks[b] for b in spec.blocks)
+        n_state = sum(nodes for x in ("heights", "rates") if x in spec.fields)
+        n_sc = sum(1 for x in spec.fields if x not in ("heights", "rates"))
+        na = int(acc0.sum())
+        every = 4 * C * (6 + 3 * rows) + C
+        accepted = 4 * na * (2 * (D - rows) + D + 2 * (blk + n_state + n_sc + rows) + 3)
+        nb = every + accepted
+        old_blk = 2 * K + nn if sub else blk
+        nb_old = 4 * C * (3 * D + 6) + 4 * na * (2 * (K + old_blk + 2 * D) + 2)
+        rec = _record(max(worst["d"], worst["z"], worst["q"]), ms3, plain3, nb, 4 * C * rows)
+        log(f"[glob] glob_dense_epilogue at {n_taxa} taxa ({tag}'s first ticket, "
+            f"{'K ' + str(K) + ' support rows' if sub else 'D ' + str(D) + ' rows'}, {na} "
+            f"accepts of {C}): {json.dumps(rec)}; full-D bound "
+            f"{_bound(nb_old, 4 * C * D)[0]:.4f} ms")
+        return rec
+
+    g3 = epilogue_record("sub_ultra")
+    epilogue_record("var_tree")
     return {
         "glob_scan": g1,
         "glob_dense_prologue": g2,
-        "glob_dense_epilogue": _record(max(worst["d"], worst["z"], worst["q"]), ms3, plain3,
-                                       nb3, 4 * C * D),
+        "glob_dense_epilogue": g3,
     }
 
 

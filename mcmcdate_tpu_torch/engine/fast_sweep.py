@@ -90,7 +90,13 @@ class MegaSpec:
     Leading axis = mega-step; second = ticket slot (padded to a common B).
     ``valid`` masks pad slots.  ``t_*`` are flat term-vector row indices;
     ``d_rows`` are internal-layout distance rows (-1 where absent).
-    Calibration slot j maps to t_rows slot KT-KN+j.
+    Calibration slot j maps to t_rows slot KT-KN+j.  A slide's term rows
+    sit where the step's new terms do (``ops.local_terms.slide_terms``):
+    the node's birth-death and clock rows, child slot j's birth-death row
+    at 2+j and its clock row at 2+KC+j (-1 where the node has fewer
+    children than KC), then the calibrations.  The JAX planner packs the
+    children's rows to the front instead, which on a multifurcating tree
+    puts a node with fewer than KC children's terms in the wrong slots.
     """
 
     kind: int
@@ -301,10 +307,10 @@ def plan_batches(model: DatingModel, table: P.ProposalTable) -> FastPlan:
                     S["t_rows"][ci, s, 0] = ck_off + i
                     S["d_rows"][ci, s, 0] = pos[i]
                 else:
-                    tl = [bd_off + i, ck_off + i]
-                    tl += [bd_off + c for c in cs]
-                    tl += [ck_off + c for c in cs]
-                    S["t_rows"][ci, s, : len(tl)] = tl
+                    S["t_rows"][ci, s, :2] = (bd_off + i, ck_off + i)
+                    for j, c in enumerate(cs):
+                        S["t_rows"][ci, s, 2 + j] = bd_off + c
+                        S["t_rows"][ci, s, 2 + kc + j] = ck_off + c
                     for j, cr in enumerate(cal_rows_of.get(i, ())):
                         S["t_rows"][ci, s, 2 * (1 + kc) + j] = nodes_off + cr
                         S["cal_lo"][ci, s, j] = cal.lower[cr]
@@ -643,7 +649,8 @@ class FastSweeps:
             dist_idx=torch.as_tensor(np.asarray(topo.internal_dist_index, np.int32), device=dev),
             root_ch=torch.as_tensor(np.asarray(child_list, np.int32), device=dev),
             pos=np.asarray(topo.internal_pos, np.int64))
-        self.glob_fam = {tag: GlobFamily.of(grp, dev, dt)
+        # Bound once: a subtree family's support rows, which G3 reads.
+        self.glob_fam = {tag: GlobFamily.of(grp, dev, dt, pos=self.glob.pos)
                          for tag, grp in self.plan.glob_groups.items()}
         # The precision rows P[S] of each subtree that a sub_ultra or
         # sub_rate ticket scales, gathered once (the two families share

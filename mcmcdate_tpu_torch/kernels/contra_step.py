@@ -20,8 +20,10 @@ log_ndtr, lgamma and the double-precision birth-death exp/log per touched
 node); their bytes are a few gathered floats per (chain, ticket) and
 touched node.  The kernels (``csrc/contra_step.cu``) keep every
 intermediate in registers, one launch per step in place of the plain
-version's ~150: the slide mode runs one thread per (chain, ticket), the
-range mode a group of lanes per (chain, ticket) (:func:`group_width`: a
+version's ~150: the slide mode runs a thread per chain and tile of its
+tickets (instantiated for the two children of a binary tree; a generic
+kernel takes other steps), the range mode a group of lanes per (chain,
+ticket) (:func:`group_width`: a
 power of 2 up to a warp, about ``ROWS_PER_LANE`` rows a lane), its lanes
 striding over the subtree's rows (at most 8 a lane) and summing with
 shuffles.

@@ -21,7 +21,17 @@
 // What bounds them on the H100: special functions (erfc, erfcx, the inverse
 // normal CDF, lgamma, and the birth-death exp/log in double), a few
 // gathered floats per (chain, ticket) and touched node in and out.  The
-// slide mode runs one thread per (chain, ticket), everything in registers.
+// slide mode runs a thread per chain and tile of tickets, the tickets
+// fastest, so that a warp's lanes take neighbouring tickets of one chain
+// (its heights, rates and terms share cache lines); the tile is the
+// fewest tickets that fit the step into one wave of resident CTAs (2 at
+// 136 taxa x 1024 chains, 8 at 1000).  The chain's
+// birth-death constants (BdConsts) and, under the UncorrelatedGamma
+// clock, its clock constants (GammaClock) are formed once per tile, and
+// every gather of a ticket is issued before the first one is used.  The
+// kernel is instantiated for KC = 2 without calibrations (every binary
+// tree the repo builds), so that its loops unroll and every array lives in
+// registers; other steps take the generic instantiation.
 // The range mode takes a group of `width` lanes per (chain, ticket), a
 // power of 2 up to a warp that the wrapper picks for about 4 rows a lane
 // (4 lanes for the 16-row bucket, 16 for the 64-row one, 32 for the
@@ -57,7 +67,13 @@ namespace {
 using namespace mcmcdate;
 
 constexpr int kKtMax = 64;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // contra_range
+// contra_slide: 128 threads a CTA, at most 128 registers a thread (4 CTAs an
+// SM): the KC = 2 instantiation then keeps every value in registers (capped
+// at 80 or 96 it spills, and ran slower at 1000 taxa x 1024 chains on an
+// H100).
+constexpr int kSlideThreads = 128;
+constexpr int kSlideMinBlocks = 4;
 constexpr int kRowsPerLane = 8;  // range rows a lane holds: RB <= 8 * 32
 constexpr int kCalPerLane = 4;   // range calibration slots a lane holds
 
@@ -94,94 +110,173 @@ struct SlideArgs {
 
 // The outputs of a pad slot: rejected outright, no proposal.
 __device__ __forceinline__ void reject_pad(unsigned char* accept, float* log_alpha,
-                                           float* h_prop, float* lq, int idx) {
+                                           float* h_prop, float* lq, size_t idx) {
   accept[idx] = 0;
   log_alpha[idx] = -INFINITY;
   h_prop[idx] = NAN;
   lq[idx] = NAN;
 }
 
-__global__ void contra_slide_kernel(SlideArgs a) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= a.C * a.B) return;
-  const int c = idx / a.B;
-  const int b = idx - c * a.B;
+// A chain's constants of the slide's terms, formed once per thread: the
+// birth-death rates' d, 2 log|d| and log la (BdConsts) and, under the
+// UncorrelatedGamma clock, the clock density's shape terms (GammaClock).
+// Each term is bitwise the one formed from the rates alone.
+struct SlideChain {
+  BdConsts bd;
+  GammaClock gk;
+  float var, height;
+};
+
+__device__ __forceinline__ float slide_clock(const SlideArgs& a, const SlideChain& k, float r,
+                                             float tl) {
+  return a.clock_model == 0 ? gamma_clock_term(k.gk, r)
+                            : clock_term_local(a.clock_model, r, tl, k.var);
+}
+
+// Ticket b of chain c.  KCT > 0: the step's KC, known at compile time,
+// and no calibration slot, so that every loop unrolls and every array
+// lives in registers; KCT = 0: any KC and KN (runtime loops; the arrays
+// may live in local memory).  The ticket's plan
+// comes first, then every gather of the chain's state and the calibration
+// bounds, all issued before the first use; the terms are then summed in
+// t_rows order, as the plain version sums them.
+template <int KCT>
+__device__ __forceinline__ void slide_ticket(const SlideArgs& a, const SlideChain& k, int c,
+                                             int b, float* h, float* r, float* te) {
+  constexpr int kKc = KCT > 0 ? KCT : (kKtMax - 2) / 2;
+  constexpr int kKt = KCT > 0 ? 2 * (1 + KCT) : kKtMax;
+  // Loop bounds: constants in the KC instantiation (the loops unroll),
+  // the step's own in the generic kernel.
+  const int KC = KCT > 0 ? KCT : a.KC;
+  const int KT = KCT > 0 ? kKt : a.KT;
+  const int KB = 2 * (1 + KC);  // the slots before the calibrations
+  const size_t cb = (size_t)c * a.B + b;
   if (!a.valid[b]) {
-    reject_pad(a.accept, a.log_alpha, a.h_prop, a.lq, idx);
+    reject_pad(a.accept, a.log_alpha, a.h_prop, a.lq, cb);
     return;
   }
-  float* h = a.heights + (size_t)c * a.N;
-  float* r = a.rates + (size_t)c * a.N;
-  float* te = a.terms + (size_t)c * a.T;
+  // The ticket's plan.
   const int i = a.node[b];
   const int p = a.par[b];
-  const int* ch = a.ch + (size_t)b * a.KC;
+  const int row = a.rows[b];
+  const float sd = a.sd[b];
+  int chj[kKc];
+  int tr[kKt];
+  float clo[kKt], clo_s[kKt], chi[kKt], chi_s[kKt];
+#pragma unroll
+  for (int j = 0; j < KC; ++j) chj[j] = a.ch[(size_t)b * KC + j];
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    tr[t] = a.t_rows[(size_t)b * KT + t];
+    if (t >= KB) {
+      const size_t q = (size_t)b * a.KN + (t - KB);
+      clo[t] = a.cal_lo[q];
+      clo_s[t] = a.cal_lo_s[q];
+      chi[t] = a.cal_hi[q];
+      chi_s[t] = a.cal_hi_s[q];
+    }
+  }
+  // The chain's state the ticket reads, all at once.
+  const float u_prop = a.u_prop[cb];
+  const float u_acc = a.u_acc[cb];
+  const float tune = a.tuning[(size_t)c * a.P + row];
   const float hi = h[i];
   const float hp = h[p];
-  float hc_max = -INFINITY;
-  for (int j = 0; j < a.KC; ++j) {
-    if (ch[j] >= 0) hc_max = fmaxf(hc_max, h[ch[j]]);
+  const float ri = r[i];
+  float hch[kKc], rch[kKc], told[kKt];
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+    if (chj[j] >= 0) {
+      hch[j] = h[chj[j]];
+      rch[j] = r[chj[j]];
+    }
   }
-  const int row = a.rows[b];
+#pragma unroll
+  for (int t = 0; t < KT; ++t)
+    if (tr[t] >= 0) told[t] = te[tr[t]];
+  float hc_max = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < KC; ++j)
+    if (chj[j] >= 0) hc_max = fmaxf(hc_max, hch[j]);
   float hnew, lq;
-  truncnorm_sample(a.u_prop[idx], hi, a.sd[b], a.tuning[(size_t)c * a.P + row], hc_max, hp,
-                   &hnew, &lq);
+  truncnorm_sample(u_prop, hi, sd, tune, hc_max, hp, &hnew, &lq);
   const float xi_stem = (hp - hi) / (hp - hnew);
   float log_jac_ch = 0.f;
-  const double la = a.birth[c], mu = a.death[c];
-  const float var = a.rate_var[c];
-  const float r_i_new = r[i] * xi_stem;
-  float tn[kKtMax];
-  float r_ch_new[kKtMax / 2];
-  tn[0] = bd_term_local(hnew, hp, false, la, mu);
-  tn[1] = clock_term_local(a.clock_model, r_i_new, hp - hnew, var);
-  for (int j = 0; j < a.KC; ++j) {
-    const int cj = ch[j];
+  const float r_i_new = ri * xi_stem;
+  float tn[kKt];
+  float r_ch_new[kKc];
+  tn[0] = bd_term_local(hnew, hp, false, k.bd);
+  tn[1] = slide_clock(a, k, r_i_new, hp - hnew);
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+    const int cj = chj[j];
     if (cj >= 0) {
-      const float hc = h[cj];
+      const float hc = hch[j];
       const float xi_ch = (hi - hc) / (hnew - hc);
       log_jac_ch += logf(xi_ch);
-      r_ch_new[j] = r[cj] * xi_ch;
-      tn[2 + j] = bd_term_local(hc, hnew, a.is_leaf[cj] != 0, la, mu);
-      tn[2 + a.KC + j] = clock_term_local(a.clock_model, r_ch_new[j], hnew - hc, var);
+      r_ch_new[j] = rch[j] * xi_ch;
+      tn[2 + j] = bd_term_local(hc, hnew, a.is_leaf[cj] != 0, k.bd);
+      tn[2 + KC + j] = slide_clock(a, k, r_ch_new[j], hnew - hc);
     } else {
       r_ch_new[j] = 0.f;
       tn[2 + j] = 0.f;
-      tn[2 + a.KC + j] = 0.f;
+      tn[2 + KC + j] = 0.f;
     }
   }
   const float log_jac = logf(xi_stem) + log_jac_ch;
-  for (int j = 0; j < a.KN; ++j) {
-    const size_t k = (size_t)b * a.KN + j;
-    tn[2 * (1 + a.KC) + j] = cal_term_local(hnew, a.height[c], a.cal_lo[k], a.cal_lo_s[k],
-                                            a.cal_hi[k], a.cal_hi_s[k]);
-  }
-  const int* tr = a.t_rows + (size_t)b * a.KT;
+#pragma unroll
+  for (int t = KB; t < KT; ++t)
+    tn[t] = cal_term_local(hnew, k.height, clo[t], clo_s[t], chi[t], chi_s[t]);
   float d_pr = 0.f;
   bool invalid = false;
-  for (int k = 0; k < a.KT; ++k) {
-    if (tr[k] < 0) continue;
-    const float diff = tn[k] - te[tr[k]];
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    if (tr[t] < 0) continue;
+    const float diff = tn[t] - told[t];
     if (!isnan(diff)) d_pr += diff;
-    if (isnan(tn[k]) || tn[k] == -INFINITY) invalid = true;
+    if (isnan(tn[t]) || tn[t] == -INFINITY) invalid = true;
   }
   float log_alpha = invalid ? -INFINITY : d_pr + lq + log_jac;
   if (isnan(log_alpha)) log_alpha = -INFINITY;
-  const bool acc = logf(a.u_acc[idx]) < log_alpha;
-  a.accept[idx] = acc;
-  a.log_alpha[idx] = log_alpha;
-  a.h_prop[idx] = hnew;
-  a.lq[idx] = lq;
+  const bool acc = logf(u_acc) < log_alpha;
+  a.accept[cb] = acc;
+  a.log_alpha[cb] = log_alpha;
+  a.h_prop[cb] = hnew;
+  a.lq[cb] = lq;
   if (!acc) return;
   h[i] = hnew;
   r[i] = r_i_new;
-  for (int j = 0; j < a.KC; ++j) {
-    if (ch[j] >= 0) r[ch[j]] = r_ch_new[j];
-  }
-  for (int k = 0; k < a.KT; ++k) {
-    if (tr[k] >= 0) te[tr[k]] = tn[k];
-  }
+#pragma unroll
+  for (int j = 0; j < KC; ++j)
+    if (chj[j] >= 0) r[chj[j]] = r_ch_new[j];
+#pragma unroll
+  for (int t = 0; t < KT; ++t)
+    if (tr[t] >= 0) te[tr[t]] = tn[t];
   a.acc[(size_t)c * a.P + row] += 1;
+}
+
+// A thread per chain and tile of `per` tickets, the tickets fastest: thread
+// j of chain c takes tickets j, j + nj, j + 2 nj, ... (nj threads a chain),
+// so that a warp's lanes take neighbouring tickets of one chain, whose
+// heights, rates and terms share cache lines; the chain's constants are
+// formed once per thread.
+template <int KCT>
+__global__ void __launch_bounds__(kSlideThreads, kSlideMinBlocks)
+    contra_slide_kernel(SlideArgs a, int per) {
+  const int nj = (a.B + per - 1) / per;
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)a.C * nj) return;
+  const int c = (int)(idx / nj);
+  const int j = (int)(idx - (long)c * nj);
+  SlideChain k;
+  k.bd = bd_consts((double)a.birth[c], (double)a.death[c]);
+  k.var = a.rate_var[c];
+  k.height = a.KN > 0 ? a.height[c] : 0.f;
+  if (a.clock_model == 0) k.gk = gamma_clock(k.var);
+  float* h = a.heights + (size_t)c * a.N;
+  float* r = a.rates + (size_t)c * a.N;
+  float* te = a.terms + (size_t)c * a.T;
+  for (int b = j; b < a.B; b += nj) slide_ticket<KCT>(a, k, c, b, h, r, te);
 }
 
 struct RangeArgs {
@@ -370,6 +465,32 @@ extern "C" int mcmcdate_contra_range_f32(
   return (int)cudaGetLastError();
 }
 
+// contra_slide's instantiations: KC = 2 without calibrations (every binary
+// tree the repo builds) and the generic kernel.
+template <int KCT>
+static cudaError_t launch_slide(const SlideArgs& a, cudaStream_t stream) {
+  // Tickets per thread: the fewest that fit the (chain, ticket) pairs in one
+  // wave of resident CTAs (the device's answer cached per kernel).
+  static int dev_cached = -1, slots = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != dev_cached) {
+    int n_sm = 1, per_sm = 1;
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, contra_slide_kernel<KCT>,
+                                                  kSlideThreads, 0);
+    slots = n_sm * (per_sm > 0 ? per_sm : 1) * kSlideThreads;
+    dev_cached = dev;
+  }
+  const long pairs = (long)a.C * a.B;
+  const int per = (int)((pairs + slots - 1) / slots);
+  const long threads = (long)a.C * ((a.B + per - 1) / per);
+  contra_slide_kernel<KCT>
+      <<<(int)((threads + kSlideThreads - 1) / kSlideThreads), kSlideThreads, 0, stream>>>(a,
+                                                                                          per);
+  return cudaGetLastError();
+}
+
 extern "C" int mcmcdate_contra_slide_f32(
     float* heights, float* rates, float* terms, int* acc, const float* tuning,
     const float* birth, const float* death, const float* rate_var, const float* height,
@@ -385,9 +506,8 @@ extern "C" int mcmcdate_contra_slide_f32(
               cal_lo,  cal_lo_s, cal_hi, cal_hi_s, is_leaf, u_prop, u_acc,     accept,
               log_alpha, h_prop, lq,     C,        B,       N,      T,         P,
               KC,      KT,       KN,     clock_model};
-  const int n = C * B;
-  if (n > 0) {
-    contra_slide_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(a);
-  }
-  return (int)cudaGetLastError();
+  if ((long)C * B == 0) return (int)cudaSuccess;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (KC == 2 && KN == 0) return (int)launch_slide<2>(a, st);
+  return (int)launch_slide<0>(a, st);
 }

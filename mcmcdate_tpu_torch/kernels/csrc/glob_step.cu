@@ -40,14 +40,15 @@
 // also writes delta_S, delta on the support rows in order, for the product
 // delta_S @ P[S]; its invalid rule takes the count of bad entries of the
 // family's blocks that the family's first G2 launch takes and G3 keeps.
-// G3 glob_dense_epilogue_kernel: dq = sum delta (2z + w), the decision,
-// and the write-back of state, terms (a subtree ticket's range), d, z, q
+// G3 glob_dense_epilogue_kernel: dq = sum delta (2z + w) (a subtree
+// ticket's over its support rows only), the decision, and the write-back
+// of state, terms (a subtree ticket's range), d (its support rows), z, q
 // and the accept count.
 //
 // What bounds them on the H100: the term blocks' special functions (the
 // birth-death block in double: two D/E evaluations per node), a few floats
 // per node and chain in and out, and the serial walk over a family's
-// tickets.  G1 and G2 run 128 threads a CTA with at most 64 registers a
+// tickets.  G1, G2 and G3 run 128 threads a CTA with at most 64 registers a
 // thread, so that 8 CTAs fit an SM and 1,024 chains one wave.  Built with
 // -fmad=false: the proposed state and its terms are bitwise the plain
 // step's (which evaluates its terms with K1), given the same proposal;
@@ -57,6 +58,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "glob_moves.cuh"
 #include "lane_groups.cuh"
@@ -70,8 +72,15 @@ enum Block { B_SC = 1, B_BD = 2, B_CK = 4, B_ND = 8 };
 constexpr int kThreads = 128;  // G1, G2
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 8;
-constexpr int kEpiThreads = 256;  // G3
+// G3: 128 threads a CTA, at most 64 registers a thread (8 CTAs an SM: 1,024
+// chains in one wave); up to 14 write-back segments, kEpiUnroll entries a
+// thread in flight.
+constexpr int kEpiThreads = 128;
 constexpr int kEpiWarps = kEpiThreads / 32;
+constexpr int kEpiMinBlocks = 8;
+constexpr int kEpiSegs = 16;
+constexpr int kEpiUnroll = 8;
+constexpr int kEpiLong = 4 * kEpiThreads;
 
 // Mirrored field by field by kernels/glob_step.py's _GlobArgs: pointers,
 // then ints, then floats.
@@ -116,6 +125,7 @@ struct GlobArgs {
   const int* n_inner;
   const int* n_nodes;
   const unsigned char* rj;
+  const int* srow;  // [n, 2] a subtree ticket's first support row, then the rest's first
   // per chain and ticket [C, n]
   const float* tun;
   const float* draw;
@@ -648,68 +658,233 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) glob_dense_prologue_kern
   }
 }
 
-// G3: the decision and write-back of ticket s of a dense family.
-__global__ void __launch_bounds__(kEpiThreads) glob_dense_epilogue_kernel(GlobArgs a) {
+// G3: the decision and write-back of ticket s of a dense family, one CTA
+// per chain.
+//
+// The per-chain scalars are loaded first, so that their loads overlap the
+// sum's.  dq = sum delta (2 z + w): a whole-distance family's over all D
+// rows, in 16-byte loads where the rows' alignment allows; a subtree
+// ticket's over its support rows only, from delta_S (delta is exactly 0
+// elsewhere): row srow[s, 0] for its first node, then srow[s, 1] onwards
+// for the others.  One warp-shuffle reduction and one cross-warp step
+// give every thread the sum, and each thread decides alike.  An accepted
+// chain's write-back is one list of segments (dst, src, optional add),
+// built by thread 0 before the reduction's barrier: the family's scalars,
+// term blocks (a subtree ticket's bd and ck range only), heights or rates
+// (its range), d (a subtree ticket's support rows: elsewhere d_new is d)
+// and z += w over all D.  The short segments form one flat list that each
+// thread walks kEpiUnroll entries at a time, all their loads issued before
+// their stores (at 136 taxa one or two rounds for the whole write-back);
+// a long one (kEpiLong entries or more: z, and the whole-D arrays at 1000
+// taxa) goes in 16-byte loads and stores where its rows align.
+struct EpiSeg {
+  float* dst;
+  const float* src;
+  const float* add;  // z's segment: w, added to src
+  int off;           // short: the first entry in the flat list; long: the length
+};
+
+// A long segment (at least kEpiLong entries): 16-byte loads and stores
+// where dst, src and add share their alignment, kEpiUnroll / 2 of them a
+// thread in flight, the entries before the first 16-byte boundary and
+// after the last one alone.
+__device__ __forceinline__ void copy_long(const EpiSeg& g, int tid) {
+  const int len = g.off;
+  int h = (int)(((16 - ((uintptr_t)g.dst & 15)) & 15) >> 2);
+  h = h < len ? h : len;
+  const uintptr_t phase = (uintptr_t)(g.dst + h) | (uintptr_t)(g.src + h) |
+                          (g.add ? (uintptr_t)(g.add + h) : (uintptr_t)0);
+  if (phase & 15) h = len;  // no common alignment: entry by entry
+  for (int j = tid; j < h; j += kEpiThreads) g.dst[j] = g.add ? g.src[j] + g.add[j] : g.src[j];
+  const int nv = (len - h) >> 2;
+  float4* d4 = reinterpret_cast<float4*>(g.dst + h);
+  const float4* s4 = reinterpret_cast<const float4*>(g.src + h);
+  const float4* a4 = reinterpret_cast<const float4*>(g.add + h);
+  constexpr int U = kEpiUnroll / 2;
+  for (int q0 = tid; q0 < nv; q0 += U * kEpiThreads) {
+    float4 x[U], y[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int q = q0 + u * kEpiThreads;
+      if (q < nv) {
+        x[u] = s4[q];
+        if (g.add) y[u] = a4[q];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int q = q0 + u * kEpiThreads;
+      if (q >= nv) continue;
+      float4 v = x[u];
+      if (g.add) {
+        v.x = v.x + y[u].x;
+        v.y = v.y + y[u].y;
+        v.z = v.z + y[u].z;
+        v.w = v.w + y[u].w;
+      }
+      d4[q] = v;
+    }
+  }
+  const int j = h + 4 * nv + tid;
+  if (j < len) g.dst[j] = g.add ? g.src[j] + g.add[j] : g.src[j];
+}
+
+__device__ __forceinline__ float dq_term(float dl, float z, float w) {
+  return dl * (2.0f * z + w);
+}
+
+// A whole-distance family's dq on this thread's rows.
+__device__ __forceinline__ float dq_dense(const float* dl, const float* z, const float* w,
+                                          int D, int tid) {
+  float v = 0.f;
+  // Entries before the first 16-byte boundary of delta's row; the three
+  // rows share their layout, so one test says whether all align there.
+  int j0 = (int)(((16 - ((uintptr_t)dl & 15)) & 15) >> 2);
+  j0 = j0 < D ? j0 : D;
+  const bool vec = ((((uintptr_t)(dl + j0)) | ((uintptr_t)(z + j0)) | ((uintptr_t)(w + j0))) &
+                    15) == 0;
+  if (!vec) {
+#pragma unroll 4
+    for (int j = tid; j < D; j += kEpiThreads) v += dq_term(dl[j], z[j], w[j]);
+    return v;
+  }
+  if (tid < j0) v += dq_term(dl[tid], z[tid], w[tid]);
+  const int nv = (D - j0) >> 2;
+  const float4* dl4 = reinterpret_cast<const float4*>(dl + j0);
+  const float4* z4 = reinterpret_cast<const float4*>(z + j0);
+  const float4* w4 = reinterpret_cast<const float4*>(w + j0);
+#pragma unroll 2
+  for (int q = tid; q < nv; q += kEpiThreads) {
+    const float4 x = dl4[q], zz = z4[q], ww = w4[q];
+    v += dq_term(x.x, zz.x, ww.x);
+    v += dq_term(x.y, zz.y, ww.y);
+    v += dq_term(x.z, zz.z, ww.z);
+    v += dq_term(x.w, zz.w, ww.w);
+  }
+  const int j = j0 + 4 * nv + tid;
+  if (j < D) v += dq_term(dl[j], z[j], w[j]);
+  return v;
+}
+
+__global__ void __launch_bounds__(kEpiThreads, kEpiMinBlocks)
+    glob_dense_epilogue_kernel(GlobArgs a) {
   __shared__ float red[1][kEpiWarps];
+  __shared__ EpiSeg seg[kEpiSegs + 1];  // short segments, then the end of their list
+  __shared__ EpiSeg lseg[kEpiSegs];     // long segments
+  __shared__ int n_seg, n_long;
   const int c = blockIdx.x;
   const int s = a.s;
   const int tid = threadIdx.x;
-  const ModelArgs m = model_of(a);
-  float* h = a.heights + (size_t)c * a.N;
-  float* r = a.rates + (size_t)c * a.N;
-  float* te = a.terms + (size_t)c * a.T;
+  const bool sub = is_subtree(a.family);
   float* d = a.d + (size_t)c * a.D;
   float* z = a.use_lik ? a.z + (size_t)c * a.D : nullptr;
   const float* w = a.use_lik ? a.w + (size_t)c * a.D : nullptr;
-  const float* hn = a.h_new ? a.h_new + (size_t)c * a.N : nullptr;
-  const float* rn = a.r_new ? a.r_new + (size_t)c * a.N : nullptr;
-  const float* tn = a.t_new + (size_t)c * a.T;
   const float* dn = a.d_new + (size_t)c * a.D;
-  const float* dl = a.delta + (size_t)c * a.D;
-  const float q0 = a.q[c];
-  const float logu_acc = logf(a.u_acc[(size_t)c * a.n + s]);
-  float v[1] = {0.f};
+  // The per-chain scalars, before the sum.
+  const float u_acc = a.u_acc[(size_t)c * a.n + s];
+  const float d_pr = a.d_pr[c];
+  const float lmhg = a.lmhg[c];
+  const float lj = a.lj[c];
+  const bool invalid = a.invalid[c];
+  const float q0 = a.use_lik ? a.q[c] : 0.f;
+  int* acc_at = a.acc + (size_t)c * a.P + a.rows[s];
+  const int acc0 = tid == 0 ? *acc_at : 0;
+  // A subtree ticket's nodes [lo, hi) and support rows.
+  const int lo = sub ? a.lo[s] : 0;
+  const int K = sub ? a.hi[s] - lo : 0;
+  const int r0 = sub ? a.srow[2 * s] : 0;
+  const int r1 = sub ? a.srow[2 * s + 1] : 0;
+  float v = 0.f;
   if (a.use_lik) {
-    for (int j = tid; j < a.D; j += kEpiThreads) v[0] += dl[j] * (2.0f * z[j] + w[j]);
-  }
-  bool none = false;
-  block_sums<1>(v, red, none);
-  const float dq = v[0];
-  float la = ((a.d_pr[c] - 0.5f * dq) + a.lmhg[c]) + a.lj[c];
-  if (a.invalid[c] || isnan(la)) la = -INFINITY;
-  const bool acc = logu_acc < la;
-  if (acc) {
-    // G2 wrote a subtree ticket's nodes, birth-death and clock entries only
-    // on its range [lo, hi).
-    const bool sub = is_subtree(a.family);
-    const int lo = sub ? a.lo[s] : 0, nhi = sub ? a.hi[s] : a.N, bhi = sub ? a.hi[s] : a.N + 1;
-    if (a.blocks & B_SC)
-      for (int t = tid; t < 4; t += kEpiThreads) te[t] = tn[t];
-    if (a.blocks & B_BD)
-      for (int j = lo + tid; j < bhi; j += kEpiThreads) te[4 + j] = tn[4 + j];
-    if (a.blocks & B_CK) {
-      const int o = off_ck(m);
-      for (int j = lo + tid; j < bhi; j += kEpiThreads) te[o + j] = tn[o + j];
-    }
-    if (a.blocks & B_ND) {
-      const int o = off_nd(m), nn = n_node_terms(m);
-      for (int j = tid; j < nn; j += kEpiThreads) te[o + j] = tn[o + j];
-    }
-    for (int j = lo + tid; j < nhi; j += kEpiThreads) {
-      if (a.fields & F_HEIGHTS) h[j] = hn[j];
-      if (a.fields & F_RATES) r[j] = rn[j];
-    }
-    for (int j = tid; j < a.D; j += kEpiThreads) {
-      d[j] = dn[j];
-      if (a.use_lik) z[j] = z[j] + w[j];
+    if (sub) {
+      const float* ds = a.delta_s + (size_t)c * K;
+      if (tid == 0 && K > 0) v = dq_term(ds[0], z[r0], w[r0]);
+#pragma unroll 4
+      for (int k = 1 + tid; k < K; k += kEpiThreads) {
+        const int j = r1 + k - 1;
+        v += dq_term(ds[k], z[j], w[j]);
+      }
+    } else {
+      v = dq_dense(a.delta + (size_t)c * a.D, z, w, a.D, tid);
     }
   }
   if (tid == 0) {
+    // The write-back's segments, in the flat list's order.
+    const ModelArgs m = model_of(a);
+    const int nhi = sub ? lo + K : a.N, bhi = sub ? lo + K : a.N + 1;
+    int n = 0, nl = 0, off = 0;
+    auto put = [&](float* dst, const float* src, const float* add, int len) {
+      if (len >= kEpiLong) {
+        lseg[nl++] = EpiSeg{dst, src, add, len};
+      } else if (len > 0) {
+        seg[n++] = EpiSeg{dst, src, add, off};
+        off += len;
+      }
+    };
+    const float* sn = a.s_new + (size_t)c * 5;
+    if (a.fields & F_BIRTH) put(a.birth + c, sn + 0, nullptr, 1);
+    if (a.fields & F_DEATH) put(a.death + c, sn + 1, nullptr, 1);
+    if (a.fields & F_HEIGHT) put(a.height + c, sn + 2, nullptr, 1);
+    if (a.fields & F_RATE_MEAN) put(a.rate_mean + c, sn + 3, nullptr, 1);
+    if (a.fields & F_RATE_VAR) put(a.rate_var + c, sn + 4, nullptr, 1);
+    float* te = a.terms + (size_t)c * a.T;
+    const float* tn = a.t_new + (size_t)c * a.T;
+    if (a.blocks & B_SC) put(te, tn, nullptr, 4);
+    if (a.blocks & B_BD) put(te + 4 + lo, tn + 4 + lo, nullptr, bhi - lo);
+    if (a.blocks & B_CK) put(te + off_ck(m) + lo, tn + off_ck(m) + lo, nullptr, bhi - lo);
+    if (a.blocks & B_ND) put(te + off_nd(m), tn + off_nd(m), nullptr, n_node_terms(m));
+    if (a.fields & F_HEIGHTS)
+      put(a.heights + (size_t)c * a.N + lo, a.h_new + (size_t)c * a.N + lo, nullptr, nhi - lo);
+    if (a.fields & F_RATES)
+      put(a.rates + (size_t)c * a.N + lo, a.r_new + (size_t)c * a.N + lo, nullptr, nhi - lo);
+    if (sub) {
+      put(d + r0, dn + r0, nullptr, K > 0 ? 1 : 0);
+      put(d + r1, dn + r1, nullptr, K - 1);
+    } else {
+      put(d, dn, nullptr, a.D);
+    }
+    if (a.use_lik) put(z, z, w, a.D);
+    seg[n].off = off;  // the end of the list
+    n_seg = n;
+    n_long = nl;
+  }
+  bool none = false;
+  float sum[1] = {v};
+  block_sums<1>(sum, red, none);
+  const float dq = sum[0];
+  float la = ((d_pr - 0.5f * dq) + lmhg) + lj;
+  if (invalid || isnan(la)) la = -INFINITY;
+  const bool acc = logf(u_acc) < la;
+  if (acc) {
+    const int total = seg[n_seg].off;
+    int q = 0;
+    for (int base = tid; base < total; base += kEpiThreads * kEpiUnroll) {
+      float x[kEpiUnroll], y[kEpiUnroll];
+      float* dst[kEpiUnroll];
+      bool add[kEpiUnroll];
+#pragma unroll
+      for (int u = 0; u < kEpiUnroll; ++u) {
+        const int i = base + u * kEpiThreads;
+        dst[u] = nullptr;
+        if (i >= total) continue;
+        while (i >= seg[q + 1].off) ++q;
+        const int k = i - seg[q].off;
+        const float* ad = seg[q].add;
+        dst[u] = seg[q].dst + k;
+        x[u] = seg[q].src[k];
+        add[u] = ad != nullptr;
+        y[u] = add[u] ? ad[k] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kEpiUnroll; ++u)
+        if (dst[u]) *dst[u] = add[u] ? x[u] + y[u] : x[u];
+    }
+    for (int l = 0; l < n_long; ++l) copy_long(lseg[l], tid);
+  }
+  if (tid == 0) {
     if (acc) {
-      const float* sn = a.s_new + (size_t)c * 5;
-      store_scalars(a, c, Scalars{sn[0], sn[1], sn[2], sn[3], sn[4]});
       if (a.use_lik) a.q[c] = q0 + dq;
-      a.acc[(size_t)c * a.P + a.rows[s]] += 1;
+      *acc_at = acc0 + 1;
       // The accepted blocks hold no bad entry.
       if (a.nbad) a.nbad[c] = 0;
     }

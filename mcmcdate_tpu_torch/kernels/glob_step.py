@@ -24,7 +24,8 @@ independent.
   (sub_ultra, sub_rate) changes only its subtree's distances, its support
   rows ``S`` (:meth:`GlobConsts.support`): its prologue evaluates only
   those and also gives ``delta_S = delta[:, S]``, so that the product
-  can be ``delta_S @ P[S]``.
+  can be ``delta_S @ P[S]``, and its epilogue sums ``dq`` and writes ``d``
+  on them alone (``GlobFamily.srow`` says where they are).
 
 Every wrapper runs the plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors (float32), or raises; it counts its launches in
@@ -153,15 +154,22 @@ class GlobFamily:
     n_inner: torch.Tensor
     n_nodes: torch.Tensor
     rj: torch.Tensor
+    # A subtree family's support rows, int32 [n, 2] (None elsewhere): ticket
+    # s's first node's distance row, then the first of the others' rows,
+    # which follow one another (``hi - lo - 1`` rows from the second start).
+    srow: Optional[torch.Tensor]
 
     @classmethod
-    def of(cls, grp, device, dtype) -> "GlobFamily":
+    def of(cls, grp, device, dtype, pos) -> "GlobFamily":
+        """The family on ``device``; ``pos``, each node's internal distance
+        row (``GlobConsts.pos``), gives a subtree family its ``srow``."""
         def i32(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
+        srow = i32(_support_starts(grp, pos)) if grp.tag in SUBTREE_DENSE else None
         return cls(grp.tag, grp, i32(grp.rows), torch.as_tensor(grp.sd, dtype=dtype, device=device),
                    i32(grp.aux), i32(grp.lo), i32(grp.hi), i32(grp.n_inner), i32(grp.n_nodes),
-                   torch.as_tensor(np.asarray(grp.rj, bool), device=device))
+                   torch.as_tensor(np.asarray(grp.rj, bool), device=device), srow)
 
     @property
     def n(self) -> int:
@@ -172,6 +180,20 @@ class GlobFamily:
         g = self.grp
         return dict(sd=float(g.sd[s]), aux=int(g.aux[s]), lo=int(g.lo[s]), hi=int(g.hi[s]),
                     n_inner=int(g.n_inner[s]), n_nodes=int(g.n_nodes[s]), rj=bool(g.rj[s]))
+
+
+def _support_starts(grp, pos) -> np.ndarray:
+    """``[n, 2]``: each subtree ticket's first support row (its first node's,
+    row 0 where that node is a root child) and the first row of the
+    others', which the pre-order layout puts in a row (checked)."""
+    out = np.zeros((grp.n_tickets, 2), np.int64)
+    for s, (lo, hi) in enumerate(zip(grp.lo.tolist(), grp.hi.tolist())):
+        rows = np.asarray(pos[lo:hi], np.int64)
+        if rows[0] < 0 or np.any(np.diff(rows[1:]) != 1):
+            raise ValueError(f"{grp.tag} ticket {s}: support rows {rows.tolist()} are not a row "
+                             f"and one run")
+        out[s] = rows[0], rows[1] if len(rows) > 1 else 0
+    return out
 
 
 class GlobOut(NamedTuple):
@@ -521,7 +543,8 @@ _PTRS = ("parent", "is_leaf", "cal_node", "cal_lower", "cal_lower_pm", "cal_uppe
          "cal_upper_pm", "con_young", "con_old", "con_pm", "br_node", "br_sd",
          "heights", "rates", "birth", "death", "height", "rate_mean", "rate_var", "terms", "d",
          "z", "q", "acc", "mu", "pmu", "dist_idx", "root_ch",
-         "rows", "sd", "aux", "lo", "hi", "n_inner", "n_nodes", "rj", "tun", "draw", "u_acc",
+         "rows", "sd", "aux", "lo", "hi", "n_inner", "n_nodes", "rj", "srow", "tun", "draw",
+         "u_acc",
          "accept", "prop", "mean", "h_new", "r_new", "s_new", "t_new", "d_new", "delta",
          "delta_s", "lmhg", "lj", "d_pr", "invalid", "nbad", "w")
 _INTS = ("N", "C", "T", "D", "P", "n", "s", "family", "blocks", "fields", "use_lik",
@@ -730,9 +753,13 @@ def glob_dense_epilogue(gc: GlobConsts, fam: GlobFamily, s: int, carry, pro: Glo
     accept = torch.empty(C, dtype=torch.bool, device=carry.d.device)
     if pro.nbad is not None:
         build.require_cuda(pro.nbad, "nbad", torch.int32)
+    if fam.tag in SUBTREE_DENSE:
+        # dq and d over the support rows: delta_S and where they are.
+        build.require_cuda(fam.srow, "srow", torch.int32)
+        build.require_cuda(pro.delta_s, "delta_s", torch.float32)
     args.update(s=s, s_new=pro.scalars, t_new=pro.terms, d_new=pro.d_new, delta=pro.delta,
                 lmhg=pro.lmhg, lj=pro.lj, d_pr=pro.d_pr, invalid=pro.invalid, accept=accept,
-                nbad=pro.nbad,
+                nbad=pro.nbad, srow=fam.srow, delta_s=pro.delta_s,
                 w=w if gc.use_lik else None,
                 h_new=pro.state.heights if "heights" in fields else None,
                 r_new=pro.state.rates if "rates" in fields else None)

@@ -3,7 +3,7 @@ port on a CUDA card, so that two checkouts can be compared in one call.
 
 Run as a file, from the root of a checkout, on a machine with a card:
 
-    python3 mcmcdate_tpu_torch/tools/phase_time.py --phase glob|range [--root DIR]
+    python3 mcmcdate_tpu_torch/tools/phase_time.py --phase glob|range|kernels [--root DIR]
         [--taxa 136 1000]
 
 It imports ``mcmcdate_tpu_torch`` from ``--root`` (default: the checkout
@@ -38,6 +38,17 @@ those inputs (``range_lik_prologue_kernel``,
 slots S RB, real rows R and accepted (chain, ticket) pairs, and the two
 kernels' device milliseconds per call (the epilogue also with every ticket
 rejected, which writes no row back).
+
+``--phase kernels`` times, per call, K6 ``contra_slide`` on the first
+contrary slide step and G3 ``glob_dense_epilogue`` on the first ticket of
+sub_ultra and of var_tree (after G2 and the product, with the wrappers'
+positional arguments that every version since the subtree product takes),
+each call on its own copy of the state it writes.  ``flush_ms``: before
+each of ``REPS["kernels"]`` calls, a read of ``FLUSH_BYTES`` (several
+times the H100's 50 MB L2) evicts the call's inputs, as a sweep's other
+work does, so a call cannot read below its bytes bound; ``warm_ms``: the
+same calls back to back, without it.  Per kernel also the accepted
+(chain, ticket) pairs of one call.
 """
 
 from __future__ import annotations
@@ -52,7 +63,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CHAINS, WARMUP = 1024, 2
-REPS = {"glob": 3, "range": 20}
+REPS = {"glob": 3, "range": 20, "kernels": 20}
+FLUSH_BYTES = 256 << 20
 GLOB_KINDS = (("G1", "glob_scan_kernel"), ("G2", "glob_dense_prologue_kernel"),
               ("G3", "glob_dense_epilogue_kernel"), ("product", "gemm"))
 
@@ -193,7 +205,72 @@ def range_phase(torch, fs, carry, tuning, gen) -> dict:
     return dict(reps=reps, blocks=blocks)
 
 
-PHASES = {"glob": glob_phase, "range": range_phase}
+def kernels_phase(torch, fs, carry, tuning, gen) -> dict:
+    """K6 ``contra_slide``'s first step and G3 on sub_ultra's and var_tree's
+    first tickets, per call, with and without an L2 flush before each."""
+    from mcmcdate_tpu_torch.engine import fast_sweep, proposals as P
+    from mcmcdate_tpu_torch.kernels import contra_step as K, glob_step as G
+    from mcmcdate_tpu_torch.models.state import FIELDS, State
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    reps = REPS["kernels"]
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    flush.fill_(1.0)
+
+    def copies():
+        torch.cuda.synchronize()
+        return [fast_sweep.FastCarry(
+            State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
+            carry.terms.clone(), carry.d.clone(), carry.z.clone(), carry.q.clone(),
+            carry.acc.clone()) for _ in range(reps + 1)]
+
+    def timed(call, pattern):
+        kinds = (("k", pattern),)
+        out = {}
+        for name, flushed in (("flush_ms", True), ("warm_ms", False)):
+            cs = copies()
+
+            def fn(i, cs=cs, flushed=flushed):
+                if flushed:
+                    flush.sum()
+                call(cs[i])
+
+            out[name] = _device_ms(torch, fn, reps, kinds)["k"]
+        return out
+
+    out = {}
+    sx = fs.spec_t[P.K_SLIDE_NODES_CONTRA][0]
+    B = sx["rows"].shape[0]
+    u_prop = torch.rand((CHAINS, B), generator=gen, device="cuda")
+    u_acc = torch.rand((CHAINS, B), generator=gen, device="cuda")
+    leaf = fs.model.topo.is_leaf_t
+
+    def slide(c):
+        return K.contra_slide(c.batch, c.terms, c.acc, tuning, sx, leaf, fs.model.clock, u_prop,
+                              u_acc)
+
+    out["contra_slide"] = dict(tickets=B, accepted=int(slide(copies()[0]).accept.sum()),
+                               **timed(slide, "contra_slide_kernel"))
+    for tag in ("sub_ultra", "var_tree"):
+        fam = fs.glob_fam[tag]
+        tun = tuning.index_select(1, fam.rows)
+        draws = (standard_gamma(fam.sd / tun, gen) if tag in G.GAMMA_TAGS
+                 else torch.rand((CHAINS, fam.n), generator=gen, device="cuda"))
+        u = torch.rand((CHAINS, fam.n), generator=gen, device="cuda")
+        pro = G.glob_dense_prologue(fs.glob, fam, 0, copies()[0], tun, draws)
+        w = fs.glob_product(fam, 0, pro)
+
+        def epilogue(c, fam=fam, pro=pro, w=w, u=u):
+            return G.glob_dense_epilogue(fs.glob, fam, 0, c, pro, w, u)
+
+        rows = int(fam.grp.hi[0] - fam.grp.lo[0]) if tag in G.SUBTREE_DENSE else carry.d.shape[1]
+        out[f"glob_dense_epilogue {tag}"] = dict(
+            rows=rows, accepted=int(epilogue(copies()[0]).sum()),
+            **timed(epilogue, "glob_dense_epilogue_kernel"))
+    return dict(reps=reps, flush_mb=FLUSH_BYTES / 1e6, records=out)
+
+
+PHASES = {"glob": glob_phase, "range": range_phase, "kernels": kernels_phase}
 
 
 def main(argv=None) -> list:

@@ -178,6 +178,62 @@ def test_contra_given_replays_and_forces_decisions(mode):
     assert torch.equal(of.log_alpha, op.log_alpha)
 
 
+# Nodes of three and four children beside bifurcating ones (the root
+# bifurcates, as the likelihood's distance layout needs).
+MULTIFURCATING = ("(((a:1,b:1,c:1):1,((d:0.5,e:0.5,f:0.5,g:0.5):1,(h:1,i:1):0.5):0.5):0.5,"
+                  "(j:1.5,(k:0.5,l:0.5):1):1);")
+
+
+@pytest.mark.parametrize("kind", [TP.K_SLIDE_NODES_CONTRA, TP.K_SLIDE_NODE_ULTRA],
+                         ids=["contra", "ultra"])
+def test_multifurcating_slides_keep_terms(kind):
+    """On a tree whose steps hold nodes with fewer children than the widest
+    (KC = 4), every slide step with every proposal accepted leaves carry
+    terms equal to a fresh evaluation of the new state: child slot j's term
+    rows sit at 2+j and 2+KC+j, where the steps' new terms are."""
+    from mcmcdate_tpu_torch.models import DatingModel
+    from mcmcdate_tpu_torch.models.state import init_state
+    from mcmcdate_tpu_torch.ops import mvn
+    from mcmcdate_tpu_torch.tree import FlatTopology
+    from mcmcdate_tpu_torch.tree.rose import parse_newick
+
+    tree = parse_newick(MULTIFURCATING)
+    topo = FlatTopology.from_tree(tree)
+    rng = np.random.default_rng(4)
+    k = topo.n - 2
+    chol = np.tril(rng.normal(size=(k, k)) / np.sqrt(k)) + np.eye(k) * 2.0
+    data = mvn.LikelihoodData(kind=mvn.FULL, mu=rng.uniform(0.05, 0.5, size=k),
+                              precision=chol @ chol.T, chol_precision=chol,
+                              log_det_sigma=float(-2.0 * np.log(np.diag(chol)).sum()))
+    model = DatingModel(topo=topo, likelihood=data, device="cpu", dtype=F64)
+    batch = init_state(tree, topo, C, dtype=F64)
+    h = batch.heights * torch.as_tensor(rng.uniform(0.9, 1.0, size=(C, 1)))
+    h[:, 0] = 1.0
+    h[:, model.topo.is_leaf_t] = 0.0
+    batch = batch.replace(heights=h, rates=torch.as_tensor(rng.gamma(5.0, 0.2, size=(C, topo.n))))
+    table = TP.build_proposal_table(model.topo, model.braces, model.calibrations_available)
+    fs = TF.FastSweeps(model, table)
+    steps = fs.spec_t[kind]
+    assert max(int((sx["ch"] >= 0).sum(1).max()) for sx in steps) == 4
+    assert any(bool(((sx["ch"] >= 0).sum(1) < 4)[sx["valid"]].any()) for sx in steps)
+    carry = fs.init_carry(batch)
+    carry.z, carry.q = fs._zq_from_y(model.whitened_residual_internal(carry.batch))
+    tuning = torch.as_tensor(rng.uniform(0.3, 3.0, size=(C, table.n_proposals)))
+    n_acc = 0
+    for sx in steps:
+        B = sx["rows"].shape[0]
+        u_prop = torch.as_tensor(rng.uniform(size=(C, B)))
+        u_acc = torch.zeros((C, B), dtype=F64)  # log 0 < every finite log alpha
+        if kind == TP.K_SLIDE_NODES_CONTRA:
+            accept = fs.contra_slide_step(carry, tuning, sx, u_prop, u_acc)
+        else:
+            accept = fs.point_lik_step(kind, carry, tuning, sx, u_prop, u_acc)
+        n_acc += int(accept.sum())
+        torch.testing.assert_close(carry.terms, model.log_prior_terms(carry.batch), rtol=1e-10,
+                                   atol=1e-10)
+    assert n_acc > 0
+
+
 def test_contra_range_groups_cover_the_buckets():
     """K6's range lane groups hold every row and calibration slot of each
     range bucket (at most 8 rows and 4 slots a lane, a power of 2 up to a

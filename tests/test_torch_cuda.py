@@ -558,6 +558,56 @@ def test_contra_slide_kernel(card, clock):
     _contra_agree(model, batch, table, fs.spec_t[TP.K_SLIDE_NODES_CONTRA][0], 5, "slide")
 
 
+def _multifurcating(chains=96):
+    """A model on a tree with nodes of three and four children (KC = 4)."""
+    from mcmcdate_tpu_torch.models import DatingModel
+    from mcmcdate_tpu_torch.models.state import init_state
+    from mcmcdate_tpu_torch.ops import mvn
+    from mcmcdate_tpu_torch.tree import FlatTopology
+    from mcmcdate_tpu_torch.tree.rose import parse_newick
+
+    tree = parse_newick("(((a:1,b:1,c:1):1,((d:0.5,e:0.5,f:0.5,g:0.5):1,(h:1,i:1):0.5):0.5):0.5,"
+                        "(j:1.5,(k:0.5,l:0.5):1):1);")
+    topo = FlatTopology.from_tree(tree)
+    rng = np.random.default_rng(4)
+    k = topo.n - 2
+    chol = np.tril(rng.normal(size=(k, k)) / np.sqrt(k)) + np.eye(k) * 2.0
+    data = mvn.LikelihoodData(kind=mvn.FULL, mu=rng.uniform(0.05, 0.5, size=k),
+                              precision=chol @ chol.T, chol_precision=chol,
+                              log_det_sigma=float(-2.0 * np.log(np.diag(chol)).sum()))
+    model = DatingModel(topo=topo, likelihood=data, device="cuda", dtype=torch.float32)
+    batch = init_state(tree, topo, chains, dtype=torch.float32, device="cuda")
+    h = batch.heights * torch.as_tensor(rng.uniform(0.9, 1.0, size=(chains, 1)),
+                                        dtype=torch.float32, device="cuda")
+    h[:, 0] = 1.0
+    h[:, model.topo.is_leaf_t] = 0.0
+    return model, batch.replace(heights=h, rates=torch.as_tensor(
+        rng.gamma(5.0, 0.2, size=(chains, topo.n)), dtype=torch.float32, device="cuda"))
+
+
+@pytest.mark.parametrize("model_of", ("calibrated", "multifurcating"))
+def test_contra_slide_kernel_instantiations(card, model_of):
+    """K6's slide mode on every contrary slide step of a calibrated 40-taxon
+    model (KC = 2 with a calibration slot) and of a multifurcating one
+    (KC = 4), both of which take the generic kernel, against its plain
+    version as test_contra_slide_kernel holds it."""
+    from mcmcdate_tpu_torch.engine import proposals as TP
+
+    if model_of == "calibrated":
+        fs, carry, _, _ = _glob_fast(3, taxa=40, chains=96)
+        model, batch, table = fs.model, carry.batch, fs.table
+    else:
+        model, batch = _multifurcating()
+        fs, table = _fast(model)
+    steps = fs.spec_t[TP.K_SLIDE_NODES_CONTRA]
+    if model_of == "calibrated":
+        assert all(sx["ch"].shape[1] == 2 and 0 < sx["cal_lo"].shape[-1] <= 2 for sx in steps)
+    else:
+        assert all(sx["ch"].shape[1] == 4 for sx in steps)
+    for i, sx in enumerate(steps):
+        _contra_agree(model, batch, table, sx, 11 + i, "slide")
+
+
 def test_contra_range_kernel(card):
     from mcmcdate_tpu_torch.engine import proposals as TP
 
@@ -626,6 +676,48 @@ def _glob_fast(seed, bad_leaf=False, taxa=12, chains=96):
     return fs, carry, tuning, g
 
 
+def _near(a, b, lim):
+    fin = torch.isfinite(b)
+    assert torch.equal(fin, torch.isfinite(a))
+    assert torch.all((a - b).abs()[fin] <= (lim[fin] if torch.is_tensor(lim) else lim))
+
+
+def _glob_copy(carry):
+    from mcmcdate_tpu_torch.engine.fast_sweep import FastCarry
+
+    return FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
+                     carry.terms.clone(), carry.d.clone(), carry.z.clone(), carry.q.clone(),
+                     carry.acc.clone())
+
+
+def _glob_replay_agree(fs, tag, ck, cr, tun, draws, u, accept, prop, mean):
+    """A family's kernel run (carry ``ck``: its accept mask, proposals and
+    var_tree means) against the plain family scan on ``cr`` replayed at the
+    kernels' proposals and decisions: proposals within 1e-5 (1 + |x|) of
+    the plain ones from the same draws (plus 8 float32 ulps of the CDF
+    value a truncated-normal proposal inverts), decisions equal except at
+    ties, heights, rates, scalars and terms bitwise equal, d, z and q within
+    1e-5 of scale, accept counts equal."""
+    forced = torch.where(accept, 0.0, math.nan)
+    rec = fs.glob_family_plain(tag, cr, tun, draws, forced, given=dict(prop=prop, mean=mean))
+    # Within a few float32 ulps of the CDF value the proposal inverts.
+    lim = 1e-5 * (1 + rec.prop.abs())
+    if rec.dx_dp is not None:
+        lim = lim + 8 * torch.finfo(torch.float32).eps * rec.dx_dp
+    _near(prop, rec.prop, lim)
+    if mean is not None:
+        _near(mean, rec.mean, 1e-5 * (1 + rec.mean.abs()))
+    assert torch.equal(rec.accept, accept)
+    differ = (torch.log(u) < rec.log_alpha) != accept
+    assert torch.all((torch.log(u) - rec.log_alpha).abs()[differ] < TIE)
+    for f in FIELDS:
+        assert torch.equal(getattr(ck.batch, f).nan_to_num(), getattr(cr.batch, f).nan_to_num())
+    assert torch.equal(ck.terms.nan_to_num(), cr.terms.nan_to_num())
+    for a, b in ((ck.d, cr.d), (ck.z, cr.z), (ck.q, cr.q)):
+        _near(a, b, 1e-5 * max(1.0, float(b.abs().max())))
+    assert torch.equal(ck.acc, cr.acc)
+
+
 @pytest.mark.parametrize("dense, budget, taxa, chains",
                          ((False, None, 12, 96), (False, 0, 12, 96), (True, None, 12, 96),
                           (False, None, 1100, 8)),
@@ -645,22 +737,11 @@ def test_glob_kernels(card, dense, budget, taxa, chains):
     1e-5 of scale, accept counts equal, chain 0 rejecting every ticket of
     the subtree families (which evaluate only their subtree's entries); one
     G1 launch per family, one G2 and one G3 per ticket."""
-    from mcmcdate_tpu_torch.engine.fast_sweep import FastCarry
     from mcmcdate_tpu_torch.kernels import glob_step as G
     from mcmcdate_tpu_torch.ops.dists import standard_gamma
 
     fs, carry, tuning, g = _glob_fast(8, bad_leaf=True, taxa=taxa, chains=chains)
     C = carry.d.shape[0]
-
-    def copy():
-        return FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
-                         carry.terms.clone(), carry.d.clone(), carry.z.clone(), carry.q.clone(),
-                         carry.acc.clone())
-
-    def near(a, b, lim):
-        fin = torch.isfinite(b)
-        assert torch.equal(fin, torch.isfinite(a))
-        assert torch.all((a - b).abs()[fin] <= (lim[fin] if torch.is_tensor(lim) else lim))
 
     n_acc = n = 0
     wrappers = (G.glob_scan, G.glob_dense_prologue, G.glob_dense_epilogue)
@@ -671,7 +752,7 @@ def test_glob_kernels(card, dense, budget, taxa, chains):
         draws = (standard_gamma(fam.sd / tun, g) if tag in G.GAMMA_TAGS
                  else torch.rand(C, fam.n, generator=g, device=card))
         u = torch.rand(C, fam.n, generator=g, device=card)
-        ck, cr = copy(), copy()
+        ck, cr = _glob_copy(carry), _glob_copy(carry)
         before = [w.launches for w in wrappers]
         if dense:
             acc, prop, mean = [], [], []
@@ -695,29 +776,64 @@ def test_glob_kernels(card, dense, budget, taxa, chains):
             out = G.glob_scan(fs.glob, fam, ck, tun, draws, u, smem_budget=budget)
             accept, prop, mean = out.accept, out.prop, None
             assert [w.launches for w in wrappers] == [before[0] + 1, before[1], before[2]]
-        forced = torch.where(accept, 0.0, math.nan)
-        rec = fs.glob_family_plain(tag, cr, tun, draws, forced, given=dict(prop=prop, mean=mean))
-        # Within a few float32 ulps of the CDF value the proposal inverts.
-        lim = 1e-5 * (1 + rec.prop.abs())
-        if rec.dx_dp is not None:
-            lim = lim + 8 * torch.finfo(torch.float32).eps * rec.dx_dp
-        near(prop, rec.prop, lim)
-        if mean is not None:
-            near(mean, rec.mean, 1e-5 * (1 + rec.mean.abs()))
-        assert torch.equal(rec.accept, accept)
-        differ = (torch.log(u) < rec.log_alpha) != accept
-        assert torch.all((torch.log(u) - rec.log_alpha).abs()[differ] < TIE)
-        for f in FIELDS:
-            assert torch.equal(getattr(ck.batch, f).nan_to_num(), getattr(cr.batch, f).nan_to_num())
-        assert torch.equal(ck.terms.nan_to_num(), cr.terms.nan_to_num())
-        for a, b in ((ck.d, cr.d), (ck.z, cr.z), (ck.q, cr.q)):
-            near(a, b, 1e-5 * max(1.0, float(b.abs().max())))
-        assert torch.equal(ck.acc, cr.acc)
+        _glob_replay_agree(fs, tag, ck, cr, tun, draws, u, accept, prop, mean)
         if tag.startswith("sub_"):
             assert not accept[0].any() and accept[1:].any()
         n_acc += int(accept.sum())
         n += accept.numel()
     assert 0 < n_acc < n
+
+
+@pytest.mark.parametrize("u_acc, taxa, chains",
+                         ((0.0, 40, 96), (1.0, 40, 96), (math.nan, 40, 96), (0.0, 600, 16)),
+                         ids=("accept", "one", "reject", "accept-600"))
+def test_glob_dense_epilogue_forced(card, u_acc, taxa, chains):
+    """G3 on every ticket of every dense family of a calibrated model (40
+    taxa: every write-back segment in the flat walk; 600: the long ones, z
+    and the whole-D arrays, in 16-byte copies) with one accept uniform for
+    all: 0 (every chain with a finite log alpha accepts), 1 (those with a
+    positive one) and NaN (none).  After
+    each launch on a subtree ticket d is bitwise untouched off its support
+    rows (G3 writes those alone); a rejecting chain's d, z and q are
+    bitwise untouched; the family against the plain replay as in
+    test_glob_kernels (z, q within 1e-5 of scale, accept counts equal)."""
+    from mcmcdate_tpu_torch.kernels import glob_step as G
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    fs, carry, tuning, g = _glob_fast(9, taxa=taxa, chains=chains)
+    C, D = carry.d.shape
+    for tag, fam in fs.glob_fam.items():
+        if G.FAMILIES[tag].lik != G.DENSE:
+            continue
+        tun = tuning.index_select(1, fam.rows)
+        draws = (standard_gamma(fam.sd / tun, g) if tag in G.GAMMA_TAGS
+                 else torch.rand(C, fam.n, generator=g, device=card))
+        u = torch.full((C, fam.n), u_acc, device=card)
+        ck, cr = _glob_copy(carry), _glob_copy(carry)
+        acc, prop, mean = [], [], []
+        nbad = None
+        for s in range(fam.n):
+            pro = G.glob_dense_prologue(fs.glob, fam, s, ck, tun, draws, nbad)
+            nbad = pro.nbad
+            d0, z0, q0 = ck.d.clone(), ck.z.clone(), ck.q.clone()
+            a = G.glob_dense_epilogue(fs.glob, fam, s, ck, pro, fs.glob_product(fam, s, pro), u)
+            if tag in G.SUBTREE_DENSE:
+                off = torch.ones(D, dtype=torch.bool, device=card)
+                rows = fs.glob.support(int(fam.grp.lo[s]), int(fam.grp.hi[s]))
+                off[torch.as_tensor(rows, device=card)] = False
+                assert torch.equal(ck.d[:, off], d0[:, off])
+            for x, x0 in ((ck.d, d0), (ck.z, z0), (ck.q, q0)):
+                assert torch.equal(x[~a], x0[~a])
+            acc.append(a)
+            prop.append(pro.prop)
+            mean.append(pro.mean)
+        accept = torch.stack(acc, 1)
+        if math.isnan(u_acc):
+            assert not accept.any()
+        elif u_acc == 0.0:
+            assert accept.sum() > accept.numel() // 2
+        _glob_replay_agree(fs, tag, ck, cr, tun, draws, u, accept, torch.stack(prop, 1),
+                           torch.stack(mean, 1) if tag == "var_tree" else None)
 
 
 # -- the sequential sweep's ticket kernels (T1, K3, T3) --------------------------

@@ -73,7 +73,7 @@ def test_glob_family_scan_matches_jax(lik, tag):
     ref_acc = np.stack(refs, 1)                                  # [C, n]
 
     fs = cs.pfs
-    fam = G.GlobFamily.of(_first(fs.plan.glob_groups[tag], n), "cpu", torch.float64)
+    fam = G.GlobFamily.of(_first(fs.plan.glob_groups[tag], n), "cpu", torch.float64, fs.glob.pos)
     tun = t(cs.tuning[:, fam.grp.rows])
     port = cs.pcarry()
     out = G.glob_family_plain(fs.glob, fam, port, tun, draws, u_acc)

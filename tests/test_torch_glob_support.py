@@ -25,10 +25,10 @@ import numpy as np
 import pytest
 import torch
 
-from mcmcdate_tpu.models.state import State as JState
 from mcmcdate_tpu_torch.kernels import glob_step as G
 from mcmcdate_tpu_torch.ops.dists import standard_gamma
-from torch_fast_common import C, Case, close, t
+from torch_fast_common import C, Case, close, close_carry, jcarry_of, keyed_glob_draws, \
+    run_glob_jax, run_glob_port, t
 
 F64 = jnp.float64
 SUBTREE = ("sub_contra", "sub_ultra", "sub_rate")
@@ -53,61 +53,15 @@ def _jax_step(lik, tag):
     return jax.jit(case(lik).jfs._glob_step(tag, F64))
 
 
-def _keyed_draws(cs, grp, tag, seed):
-    """Per ticket of ``grp``: the JAX key and the draws it makes (the
-    kernel's gamma variate or uniform, and the accept uniform), ``[C]``."""
-    key = jax.random.PRNGKey(seed)
-    out = []
-    for s in range(grp.n_tickets):
-        key, kt = jax.random.split(key)
-        k1, k2 = jax.random.split(kt)
-        tune = jnp.asarray(cs.tuning[:, grp.rows[s]])
-        sd = jnp.asarray(grp.sd[s], F64)
-        draw = (jax.random.gamma(k1, sd / tune, dtype=F64) if tag in G.GAMMA_TAGS
-                else jax.random.uniform(k1, (C,), F64))
-        out.append((kt, tune, draw, jax.random.uniform(k2, (C,), F64)))
-    return out
-
-
 def _run_jax(cs, lik, tag, grp, keyed, jc):
-    step = _jax_step(lik, tag)
-    accept = []
-    for s, (kt, tune, _, _) in enumerate(keyed):
-        sx = {"sd": jnp.asarray(grp.sd[s], F64), "aux": grp.aux[s], "lo": grp.lo[s],
-              "hi": grp.hi[s], "n_inner": grp.n_inner[s], "n_nodes": grp.n_nodes[s],
-              "rj": grp.rj[s]}
-        jc, ref = step(jc, (sx, kt, tune))
-        accept.append(np.asarray(ref))
-    return jc, np.stack(accept, 1)
+    return run_glob_jax(_jax_step(lik, tag), grp, keyed, jc)
 
 
 def _run_port(cs, tag, grp, keyed, carry):
     """The family through the wrappers on CPU tensors: glob_scan, or per
     ticket the prologue, FastSweeps.glob_product and the epilogue."""
-    fs = cs.pfs
-    fam = G.GlobFamily.of(grp, "cpu", torch.float64)
-    tun = t(cs.tuning[:, grp.rows])
-    draws = t(np.stack([np.asarray(k[2]) for k in keyed], 1))
-    u_acc = t(np.stack([np.asarray(k[3]) for k in keyed], 1))
-    if G.FAMILIES[tag].lik != G.DENSE:
-        return G.glob_scan(fs.glob, fam, carry, tun, draws, u_acc).accept.numpy()
-    accept = []
-    for s in range(fam.n):
-        pro = G.glob_dense_prologue(fs.glob, fam, s, carry, tun, draws)
-        accept.append(G.glob_dense_epilogue(fs.glob, fam, s, carry, pro,
-                                            fs.glob_product(fam, s, pro), u_acc))
-    return torch.stack(accept, 1).numpy()
-
-
-def _close_carry(port, jc, use_lik):
-    js, terms, d, z, q = jc
-    for f in ("heights", "rates", "birth", "death", "height", "rate_mean", "rate_var"):
-        close(getattr(port.batch, f), getattr(js, f))
-    close(port.terms, terms)
-    close(port.d, d)
-    if use_lik:
-        close(port.z, z)
-        close(port.q, q)
+    fam = G.GlobFamily.of(grp, "cpu", torch.float64, cs.pfs.glob.pos)
+    return run_glob_port(cs, tag, fam, keyed, carry)
 
 
 @pytest.mark.parametrize("tag", ("sub_ultra", "sub_rate"))
@@ -167,13 +121,13 @@ def test_glob_phase_restricted_product_matches_full(lik):
 def test_subtree_families_match_jax(lik, tag):
     cs = case(lik)
     grp = _distinct(cs.pfs.plan.glob_groups[tag])
-    keyed = _keyed_draws(cs, grp, tag, seed=17 + len(tag))
+    keyed = keyed_glob_draws(cs, grp, tag, seed=17 + len(tag))
     jc, ref = _run_jax(cs, lik, tag, grp, keyed, cs.jcarry())
     port = cs.pcarry()
     accept = _run_port(cs, tag, grp, keyed, port)
     np.testing.assert_array_equal(accept, ref)
     assert 0 < int(ref.sum()) < ref.size
-    _close_carry(port, jc, cs.pfs.use_lik)
+    close_carry(port, jc, cs.pfs.use_lik)
 
 
 @pytest.mark.parametrize("tag", SUBTREE)
@@ -184,18 +138,16 @@ def test_bad_term_outside_subtree_rejects_every_ticket(tag):
     assert np.any((grp.lo > BAD_NODE) | (grp.hi <= BAD_NODE))
     rates = cs.state["rates"].copy()
     rates[0, BAD_NODE] = -0.5
-    keyed = _keyed_draws(cs, grp, tag, seed=29 + len(tag))
+    keyed = keyed_glob_draws(cs, grp, tag, seed=29 + len(tag))
 
     # Both packages start from the port's carry of the bad state (float64).
     port = cs.pfs.init_carry(cs.ps.replace(rates=t(rates)))
     port.z, port.q = cs.pfs._zq_from_y(cs.pm.whitened_residual_internal(port.batch))
     assert int(torch.isneginf(port.terms[0]).sum()) == 1
-    js = JState(**{k: jnp.asarray(getattr(port.batch, k).numpy().copy()) for k in cs.state})
-    jc = (js,) + tuple(jnp.asarray(x.numpy().copy())
-                       for x in (port.terms, port.d, port.z, port.q))
+    jc = jcarry_of(port)
     jc, ref = _run_jax(cs, "full", tag, grp, keyed, jc)
     accept = _run_port(cs, tag, grp, keyed, port)
     np.testing.assert_array_equal(accept, ref)
     assert not ref[0].any()
     assert ref[1:].any()
-    _close_carry(port, jc, True)
+    close_carry(port, jc, True)

@@ -22,11 +22,11 @@ MULTIFURCATING = ("((a:1,b:1,c:1):1,((d:0.5,e:0.5,f:0.5,g:0.5):1,(h:1,i:1):0.5):
                   "(j:1.5,(k:0.5,l:0.5):1):0.5);")
 
 
-def tree_of(shape: str, seed: int):
+def tree_of(shape: str, seed: int, leaves: int = 12):
     if shape == "multi":
         t = parse_newick(MULTIFURCATING)
         return _rooted(t)
-    return random_ultrametric_tree(np.random.default_rng(seed), 12)
+    return random_ultrametric_tree(np.random.default_rng(seed), leaves)
 
 
 def _rooted(t):
@@ -71,9 +71,9 @@ def node_priors(topo):
 class Case:
     """One model in both packages, with a perturbed chain batch."""
 
-    def __init__(self, lik="full", shape="binary", priors=False, seed=3, clock=None):
+    def __init__(self, lik="full", shape="binary", priors=False, seed=3, clock=None, leaves=12):
         rng = np.random.default_rng(seed)
-        t = tree_of(shape, seed)
+        t = tree_of(shape, seed, leaves)
         topo = FlatTopology.from_tree(t)
         self.topo = topo
         s0 = j_init(t, topo)
@@ -147,3 +147,88 @@ def close(port, ref, tol=1e-10):
 
 def t(a):
     return torch.as_tensor(np.array(a))
+
+
+# -- a glob family stepped by both packages over the same keys ---------------
+
+
+def keyed_glob_draws(cs, grp, tag, seed):
+    """Per ticket of ``grp``: the JAX key and the draws it makes (the
+    kernel's gamma variate or uniform, and the accept uniform), ``[C]``."""
+    from mcmcdate_tpu_torch.kernels.glob_step import GAMMA_TAGS
+
+    key = jax.random.PRNGKey(seed)
+    out = []
+    for s in range(grp.n_tickets):
+        key, kt = jax.random.split(key)
+        k1, k2 = jax.random.split(kt)
+        tune = jnp.asarray(cs.tuning[:, grp.rows[s]])
+        sd = jnp.asarray(grp.sd[s], jnp.float64)
+        draw = (jax.random.gamma(k1, sd / tune, dtype=jnp.float64) if tag in GAMMA_TAGS
+                else jax.random.uniform(k1, (C,), jnp.float64))
+        out.append((kt, tune, draw, jax.random.uniform(k2, (C,), jnp.float64)))
+    return out
+
+
+def run_glob_jax(step, grp, keyed, jc):
+    """The JAX ``_glob_step`` (``step``, compiled) over ``grp``'s tickets
+    with the keys of :func:`keyed_glob_draws`: ``(carry, accept [C, n])``."""
+    accept = []
+    for s, (kt, tune, _, _) in enumerate(keyed):
+        sx = {"sd": jnp.asarray(grp.sd[s], jnp.float64), "aux": grp.aux[s], "lo": grp.lo[s],
+              "hi": grp.hi[s], "n_inner": grp.n_inner[s], "n_nodes": grp.n_nodes[s],
+              "rj": grp.rj[s]}
+        jc, ref = step(jc, (sx, kt, tune))
+        accept.append(np.asarray(ref))
+    return jc, np.stack(accept, 1)
+
+
+def run_glob_port(cs, tag, fam, keyed, carry):
+    """The family through the glob wrappers on CPU tensors with the same
+    draws: glob_scan, or per ticket the prologue, FastSweeps.glob_product
+    and the epilogue.  Returns the accept mask ``[C, n]``."""
+    from mcmcdate_tpu_torch.kernels import glob_step as G
+
+    fs = cs.pfs
+    tun = t(cs.tuning[:, fam.grp.rows])
+    draws = t(np.stack([np.asarray(k[2]) for k in keyed], 1))
+    u_acc = t(np.stack([np.asarray(k[3]) for k in keyed], 1))
+    if G.FAMILIES[tag].lik != G.DENSE:
+        return G.glob_scan(fs.glob, fam, carry, tun, draws, u_acc).accept.numpy()
+    accept = []
+    for s in range(fam.n):
+        pro = G.glob_dense_prologue(fs.glob, fam, s, carry, tun, draws)
+        accept.append(G.glob_dense_epilogue(fs.glob, fam, s, carry, pro,
+                                            fs.glob_product(fam, s, pro), u_acc))
+    return torch.stack(accept, 1).numpy()
+
+
+def support_rows(fam, s):
+    """Subtree ticket ``s``'s support rows as G3 reads them from
+    ``fam.srow``: its first node's row, then ``hi - lo - 1`` rows in a row
+    from the second start."""
+    first, rest = (int(x) for x in fam.srow[s])
+    k = int(fam.grp.hi[s]) - int(fam.grp.lo[s])
+    return np.concatenate([[first], np.arange(rest, rest + k - 1)]).astype(np.int64)
+
+
+def jcarry_of(port):
+    """The JAX sweep's ``(state, terms, d, z, q)`` as copies of the port's
+    float64 carry, so that both packages start from the same values."""
+    js = JState(**{k: jnp.asarray(getattr(port.batch, k).numpy().copy())
+                   for k in ("heights", "rates", "birth", "death", "height", "rate_mean",
+                             "rate_var")})
+    return (js,) + tuple(jnp.asarray(x.numpy().copy())
+                         for x in (port.terms, port.d, port.z, port.q))
+
+
+def close_carry(port, jc, use_lik):
+    """The port's carry against the JAX step's ``(state, terms, d, z, q)``."""
+    js, terms, d, z, q = jc
+    for f in ("heights", "rates", "birth", "death", "height", "rate_mean", "rate_var"):
+        close(getattr(port.batch, f), getattr(js, f))
+    close(port.terms, terms)
+    close(port.d, d)
+    if use_lik:
+        close(port.z, z)
+        close(port.q, q)
