@@ -20,9 +20,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (records: T1 and K3 on the pulley, T3 on the FastSweeps leftovers' run
    of a sweep), and on FastSweeps' own plan steps of a synthetic model
    K4 (the likelihood point step: point_lik_prologue, point_scan and
-   point_lik_epilogue, a record each, checked on the first step of both
-   point kinds by replaying the kernels' proposals through the plain step;
-   one point_lik_step must launch only the three and the z product), K5
+   point_lik_epilogue, a record each on the node slides' first step, the
+   prologue's and epilogue's with a second record on the branch scales'
+   first step, checked on the first step of both point kinds by replaying
+   the kernels' proposals through the plain step; one point_lik_step must
+   launch only the three and the z product; at 1000 taxa the slide
+   proposals' largest miss over 8 seeds' draws is logged), K5
    (the likelihood range-block step: range_lik_prologue, range_scan and
    range_lik_epilogue, likewise), both without a likelihood as well (the
    prologue and the epilogue alone, the epilogue taking the decisions), K6
@@ -40,8 +43,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    each bound by the coarser count: K6 without its double operations, G3
    with every chain reading delta, z and w over D).  Each kernel's
    device time and its plain version's are read from the profiler over
-   back-to-back calls (K6 slide's and G3's kernel with the L2 flushed
-   before each call, so that a call cannot read below its bytes bound);
+   back-to-back calls (K4's prologue and epilogue, K6 slide's and G3's
+   kernel with the L2 flushed before each call, so that a call cannot read
+   below its bytes bound);
 4. main path: simulate -> prepare --likelihood-spec full -> run (MHG,
    FastSweeps) at 136 taxa x 1024 chains through the port's CLI, in a
    temporary directory; checks the outputs, the carried log posterior,
@@ -937,11 +941,78 @@ def _kernel_names(fn, reps=3, wrappers=()):
     return [f"{k}_kernel" for k, n in rose.items() for _ in range(n)], launches
 
 
+def _k4_bytes(sx, C, accept, branch, with_z):
+    """The bytes K4's prologue and epilogue must move on one step, each
+    value once.  Prologue: per chain and ticket the draw and tuning in, the
+    node's and its parent's heights, the node's rate and, for a slide, each
+    child's height and rate, the old terms at the real term rows and d (and
+    z) at the distance rows; prop, lq, d_pr, lmhg, the new terms, delta
+    (and zG) out; five scalars per chain; the step's plan records and
+    calibration bounds.  Epilogue: accept per chain and ticket in, dacc
+    out; per accepted ticket dq, prop, its new terms at the real rows and
+    its deltas in, its height or rate and terms out (a rate also in), d in
+    and out at its rows, its accept count in and out; q in and out; the
+    step's node, rows, valid flags, term and distance rows.  Returns
+    ``(prologue, epilogue)``."""
+    B, KC = sx["ch"].shape
+    KT, KD = sx["t_rows"].shape[1], sx["d_rows"].shape[1]
+    KN = sx["cal_lo"].shape[-1]
+    kc = 0 if branch else KC
+    real_t = (sx["t_rows"] >= 0).sum(1)  # [B]
+    nz = 2 if with_z else 1
+    pro = (4 * C * (B * (2 + (2 + kc) + (1 + kc) + nz * KD) + int(real_t.sum()))
+           + 4 * C * B * (4 + KT + nz * KD) + 20 * C + 4 * sx["kplan"].numel() + 16 * B * KN)
+    n_acc = int(accept.sum())
+    acc_t = int((accept * real_t[None, :]).sum())
+    epi = (C * B + 4 * C * B * KD
+           + 4 * n_acc * (2 + KD + (2 if branch else 1) + 2 * KD + 2) + 8 * acc_t + 8 * C
+           + 4 * B * (2 + KT + KD) + B)
+    return pro, epi
+
+
+def _k4_proposal_misses(fs, carry, tuning, sx, seeds=8):
+    """K4's slide proposals against the plain version's from the same
+    uniforms, over ``seeds`` generators' draws: the largest miss as a share
+    of CONTRA_REL (1 + |x|) and in float32 eps times dx/dp (the inverse
+    CDF's sensitivity, s sqrt(2 pi) exp(z^2 / 2)), and how many miss
+    CONTRA_REL (1 + |x|).  Logged only: the check in _point_step_agree is
+    the one that holds."""
+    import torch
+
+    from mcmcdate_tpu_torch.kernels import point_step as K
+
+    model = fs.model
+    leaf = model.topo.is_leaf_t
+    eps = torch.finfo(torch.float32).eps
+    worst = dict(share=0.0, eps_dx_dp=0.0, misses=0, pairs=0)
+    for seed in range(seeds):
+        gen = torch.Generator(device="cuda").manual_seed(1000 + seed)
+        draw = torch.rand((CHAINS, sx["rows"].shape[0]), generator=gen, device="cuda")
+        args = (False, carry.batch, carry.terms, carry.d, carry.z, tuning, sx, leaf, fs.pos_t,
+                model.clock, draw)
+        pk = K.point_lik_prologue(*args).prop
+        pp = K.point_lik_prologue_plain(*args).prop
+        s = tuning[:, sx["rows"]] * sx["sd"]
+        zz = (pp - carry.batch.heights[:, sx["node"]]) / s
+        dx_dp = s * math.sqrt(2.0 * math.pi) * torch.exp(0.5 * zz * zz)
+        err = (pk - pp).abs()
+        lim = CONTRA_REL * (1 + pp.abs())
+        worst["share"] = max(worst["share"], float((err / lim).max()))
+        worst["eps_dx_dp"] = max(worst["eps_dx_dp"], float((err / (eps * dx_dp)).max()))
+        worst["misses"] += int((err > lim).sum())
+        worst["pairs"] += err.numel()
+    return worst
+
+
 def check_point_step(n_taxa):
     """K4 (prologue, point_scan, epilogue) on the planner's first (largest)
     step of both likelihood point kinds; one point_lik_step launches only
     the three K4 kernels and the z product; the records time the node
-    slides' step (KD = 3, the widest).  Returns a record per kernel."""
+    slides' step (KD = 3, the widest), its prologue and epilogue with the
+    L2 flushed before each call, and the same two kernels on the branch
+    kind's step (KD = 1: ``branch`` in each record).  At the full width,
+    K4's slide proposals against the plain ones over 8 seeds' draws, logged
+    (_k4_proposal_misses).  Returns a record per kernel."""
     import torch
 
     from mcmcdate_tpu_torch.engine import proposals as P
@@ -952,6 +1023,7 @@ def check_point_step(n_taxa):
     model = fs.model
     leaf = model.topo.is_leaf_t
     worst = {}
+    k4 = {}
     for kind in (P.K_SCALE_BRANCH_RATE, P.K_SLIDE_NODE_ULTRA):
         branch = kind == P.K_SCALE_BRANCH_RATE
         sx = fs.spec_t[kind][0]
@@ -960,25 +1032,57 @@ def check_point_step(n_taxa):
                                    tuning, kind, sx, draw, u)
         for k, v in w.items():
             worst[k] = max(worst.get(k, 0.0), v)
-    # The slide step (the last): its kernels alone, and what one step launches.
+        # The prologue and epilogue alone, flushed, and their plain versions.
+        pro, (accept, dq) = rec["point_lik_prologue"], rec["point_scan"]
+        c1, c2 = _copy_carry(carry), _copy_carry(carry)
+        pargs = (branch, c1.batch, c1.terms, c1.d, c1.z, tuning, sx, leaf, fs.pos_t,
+                 model.clock, draw)
+        eargs = (branch, c2.batch, c2.terms, c2.d, c2.q, c2.acc, sx, pro, accept, dq)
+        ms = {"prologue": _device_ms(lambda: K.point_lik_prologue(*pargs),
+                                     only="point_lik_prologue_kernel", flush=True),
+              "epilogue": _device_ms(lambda: K.point_lik_epilogue(*eargs),
+                                     only="point_lik_epilogue_kernel", flush=True)}
+        plain = {"prologue": _device_ms(lambda: K.point_lik_prologue_plain(*pargs)),
+                 "epilogue": _device_ms(lambda: K.point_lik_epilogue_plain(*eargs))}
+        pro_bytes, epi_bytes = _k4_bytes(sx, CHAINS, accept, branch, True)
+        KC = 0 if branch else sx["ch"].shape[1]
+        C, B = accept.shape
+        KD = sx["d_rows"].shape[1]
+        # Operations: about 100 for the proposal and 120 per node whose
+        # birth-death (in double) and clock terms it evaluates (1 + KC),
+        # special functions counted as 10.
+        k4[kind] = dict(
+            sx=sx, draw=draw, u=u, rec=rec, pargs=pargs, eargs=eargs, ms=ms, plain=plain,
+            pro=_record(max(w["prop"], w["lq"]), ms["prologue"], plain["prologue"], pro_bytes,
+                        C * B * (100 + 120 * (1 + KC))),
+            epi=_record(max(w["d"], w["z"], w["q"]), ms["epilogue"], plain["epilogue"],
+                        epi_bytes, int(accept.sum()) * KD))
+        log(f"[kernels] point step kind {kind} at {n_taxa} taxa (B={B}, KD={KD}), flushed: "
+            f"prologue {ms['prologue']:.4f} ms (plain {plain['prologue']:.4f}, bound "
+            f"{k4[kind]['pro']['bound_ms']:.4f} {k4[kind]['pro']['bound_by']}), epilogue "
+            f"{ms['epilogue']:.4f} ms (plain {plain['epilogue']:.4f}, bound "
+            f"{k4[kind]['epi']['bound_ms']:.4f} {k4[kind]['epi']['bound_by']})")
+    kind = P.K_SLIDE_NODE_ULTRA
+    branch = False
+    sl = k4[kind]
+    sx, draw, u, rec = sl["sx"], sl["draw"], sl["u"], sl["rec"]
+    # The slide step: its kernels alone, and what one step launches.
     # Three steps: only the three K4 kernels and the product's one or two
     # gemm kernels, each K4 kernel in at least two of the profiler's
     # records (it may drop one), at most 5 launches a step.
     c0 = _copy_carry(carry)
     names, launches = _kernel_names(lambda: fs.point_lik_step(kind, c0, tuning, sx, draw, u))
-    k4 = {k: sum(k + "_kernel" in n for n in names) for k in K4_NAMES}
+    k4n = {k: sum(k + "_kernel" in n for n in names) for k in K4_NAMES}
     other = sorted({n for n in names if not any(k + "_kernel" in n for k in K4_NAMES)})
-    check(all(v >= 2 for v in k4.values()) and all("gemm" in n.lower() for n in other)
+    check(all(v >= 2 for v in k4n.values()) and all("gemm" in n.lower() for n in other)
           and launches <= 15,
-          f"three point_lik_steps launched {launches} kernels: {k4} and {other}, not the three "
+          f"three point_lik_steps launched {launches} kernels: {k4n} and {other}, not the three "
           f"K4 kernels and the product alone")
-    log(f"[kernels] three point_lik_steps at {n_taxa} taxa: {launches} launches, K4 {k4}, "
+    log(f"[kernels] three point_lik_steps at {n_taxa} taxa: {launches} launches, K4 {k4n}, "
         f"other {other}")
-    pro, (accept, dq) = rec["point_lik_prologue"], rec["point_scan"]
-    c1, c2, c3 = _copy_carry(carry), _copy_carry(carry), _copy_carry(carry)
-    pargs = (branch, c1.batch, c1.terms, c1.d, c1.z, tuning, sx, leaf, fs.pos_t, model.clock,
-             draw)
-    eargs = (branch, c2.batch, c2.terms, c2.d, c2.q, c2.acc, sx, pro, accept, dq)
+    accept = rec["point_scan"][0]
+    c3 = _copy_carry(carry)
+    pargs = sl["pargs"]
     sargs = rec["point_scan_args"]
 
     def plain_step():
@@ -988,34 +1092,16 @@ def check_point_step(n_taxa):
                                              p, a, q_)
         c3.z.addmm_(dacc, sx["Prow"])
 
-    ms = {"prologue": _device_ms(lambda: K.point_lik_prologue(*pargs),
-                                 only="point_lik_prologue_kernel"),
-          "scan": _device_ms(lambda: point_scan(*sargs), only="point_scan_kernel"),
-          "epilogue": _device_ms(lambda: K.point_lik_epilogue(*eargs),
-                                 only="point_lik_epilogue_kernel"),
+    ms = {"scan": _device_ms(lambda: point_scan(*sargs), only="point_scan_kernel"),
           "step": _device_ms(lambda: fs.point_lik_step(kind, c3, tuning, sx, draw, u))}
-    plain = {"prologue": _device_ms(lambda: K.point_lik_prologue_plain(*pargs)),
-             "scan": _device_ms(lambda: point_scan_plain(*sargs)),
-             "epilogue": _device_ms(lambda: K.point_lik_epilogue_plain(*eargs)),
-             "step": _device_ms(plain_step)}
+    plain = {"scan": _device_ms(lambda: point_scan_plain(*sargs)), "step": _device_ms(plain_step)}
     C, B = accept.shape
-    KC, KT, KD = sx["ch"].shape[1], sx["t_rows"].shape[1], sx["d_rows"].shape[1]
-    KN = sx["cal_lo"].shape[-1]
+    KD = sx["d_rows"].shape[1]
     F = B * KD
     log(f"[kernels] point step kind {kind} at {n_taxa} taxa (B={B}, KD={KD}): device time per "
         f"step: the step {ms['step']:.4f} ms (plain {plain['step']:.4f} ms), of which "
-        f"prologue {ms['prologue']:.4f}, point_scan {ms['scan']:.4f}, epilogue "
-        f"{ms['epilogue']:.4f} ms")
-    # Prologue.  Bytes: per chain and ticket the draw, tuning, the node's,
-    # its parent's and its children's heights, their rates, the old terms
-    # and d and z at the distance rows in; prop, lq, d_pr, lmhg, the new
-    # terms, delta and zG out; five scalars per chain; the step's plan
-    # arrays.  Operations: about 100 for the proposal and 120 per node whose
-    # birth-death (in double) and clock terms it evaluates (1 + KC), special
-    # functions counted as 10.
-    pro_bytes = (4 * C * B * (2 + (2 + KC) + (1 + KC) + KT + 2 * KD) + 4 * C * B * (4 + KT + 2 * KD)
-                 + 20 * C + 4 * B * (4 + KC + KT + KD + 4 * KN) + B)
-    pro_ops = C * B * (100 + 120 * (1 + KC))
+        f"prologue {sl['ms']['prologue']:.4f} (flushed), point_scan {ms['scan']:.4f}, epilogue "
+        f"{sl['ms']['epilogue']:.4f} ms (flushed)")
     # point_scan.  Bytes: deltas, zG, Pblk, d_pr, lmhg and u in; accept and
     # dq out.  Operations: dq0, the cross terms of each sub-block and, for
     # this run's accepts, the zG updates of the later columns (at the plain
@@ -1027,20 +1113,17 @@ def check_point_step(n_taxa):
         if lo + sn < B:
             scan_ops += int(accept[:, lo:lo + sn].sum()) * 2 * KD * (F - (lo + sn) * KD)
     scan_bytes = 4 * (2 * C * F + F * F + 3 * C * B) + 5 * C * B
-    # Epilogue.  Bytes: accept and dq per chain and ticket in, dacc out; per
-    # accepted ticket prop, its new terms and deltas in, its height and
-    # terms out, d in and out at its rows, its accept count in and out; q in
-    # and out; the step's plan arrays.  Operations: one add per accepted
-    # distance row.
-    n_acc = int(accept.sum())
-    epi_bytes = (5 * C * B + 4 * C * F + 4 * n_acc * (1 + KT + KD + 1 + KT + 2 * KD + 2) + 8 * C
-                 + 4 * B * (3 + KT + KD))
+    if n_taxa == BENCH_TAXA:
+        miss = _k4_proposal_misses(fs, carry, tuning, sx)
+        log(f"[kernels] K4 slide proposals against the plain ones at {n_taxa} taxa, 8 seeds' "
+            f"draws on the first step (B={B}): largest miss {miss['share']:.4g} of CONTRA_REL "
+            f"(1 + |x|), {miss['eps_dx_dp']:.4g} float32 eps dx/dp; {miss['misses']} of "
+            f"{miss['pairs']} pairs miss CONTRA_REL (1 + |x|)")
+    br = k4[P.K_SCALE_BRANCH_RATE]
     return {
-        "point_lik_prologue": _record(max(worst["prop"], worst["lq"]), ms["prologue"],
-                                      plain["prologue"], pro_bytes, pro_ops),
+        "point_lik_prologue": dict(sl["pro"], branch=br["pro"]),
         "point_scan": _record(worst["dq"], ms["scan"], plain["scan"], scan_bytes, scan_ops),
-        "point_lik_epilogue": _record(max(worst["d"], worst["z"], worst["q"]), ms["epilogue"],
-                                      plain["epilogue"], epi_bytes, n_acc * KD),
+        "point_lik_epilogue": dict(sl["epi"], branch=br["epi"]),
     }
 
 

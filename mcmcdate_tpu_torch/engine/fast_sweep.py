@@ -61,7 +61,7 @@ from ..kernels.glob_step import (
     glob_ticket_plain,
 )
 from ..kernels.point_scan import pitched, point_scan
-from ..kernels.point_step import point_lik_epilogue, point_lik_prologue
+from ..kernels.point_step import point_lik_epilogue, point_lik_prologue, point_plan
 from ..kernels.range_scan import kernel_layout, range_scan
 from ..kernels.range_step import RangeWork, range_lik_epilogue, range_lik_prologue, \
     range_plan
@@ -692,9 +692,11 @@ class FastSweeps:
         ``Prow = P[d_flat]`` ``[B KD, D]`` and ``Pblk = Prow[:, d_flat]``
         ``[B KD, B KD]`` (zero on pad rows and columns; its rows on a
         16-byte pitch for K4), gathered once, as :meth:`_range_rows` does
-        for the range blocks."""
+        for the range blocks.  Also the step's plan records for K4's
+        prologue kernel (``kplan``: :func:`~..kernels.point_step.point_plan`)."""
         d_ok = sx["d_rows"] >= 0
         sx["d_flat"] = torch.clamp(sx["d_rows"], min=0).reshape(-1).contiguous()
+        sx["kplan"] = point_plan(sx, self.pos_t, self.is_leaf_t)
         if self.use_lik:
             ok = d_ok.reshape(-1).to(self.P.dtype)
             prow = self.P[sx["d_flat"]] * ok[:, None]

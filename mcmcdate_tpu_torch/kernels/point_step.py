@@ -23,16 +23,48 @@ rows in all, ``d_rows``).
   likelihood there is no scan: the epilogue takes the decisions itself,
   ``log u < d_pr + lmhg``, and leaves ``q``.
 
-On the H100 both are bound by their special functions (the inverse normal
-CDF or lgamma, and the double-precision birth-death exp/log of up to 1 + KC
-nodes, per ticket); their bytes are a few gathered floats per (chain,
-ticket).  The prologue kernel (``csrc/point_step.cu``) takes a thread per
-(chain, ticket); the epilogue a lane per (chain, ticket), the first warp
-of each chain summing ``q`` over its tickets in a fixed order.  Both mirror their
-plain versions operation by operation (built with ``-fmad=false``), with
-CUDA's normal CDF and its inverse in place of PyTorch's: a slide's
-proposal may differ from the plain one in its last bits, so the checks on
-the card replay the kernel's proposals through :func:`point_lik_given`.
+On the H100 the prologue is bound by its instructions and a long dependent
+path per (chain, ticket) pair: its plan, one round of gathers from the
+chain's rows, then its special functions (the inverse normal CDF or
+lgamma, and the double-precision birth-death exp/log of up to 1 + KC
+nodes); its bytes are a few gathered floats per pair.  The epilogue is
+bound by a few dependent rounds of scattered reads and writes in each
+chain's rows.  The kernels (``csrc/point_step.cu``):
+
+- Each step's plan is packed once, when ``FastSweeps`` is built, into one
+  record of ``W`` int32 words a ticket (:func:`point_plan`, ``sx["kplan"]``):
+  node, parent, tuning row, flags (valid, each child's leaf bit), ``sd``'s
+  bits, ``ch``, ``t_rows``, ``d_rows`` and each distance slot's owner (0
+  the node's own branch, 1 + j child j's, -1 none).  A pair reads its
+  record through L1.
+- The prologue is instantiated for the main path's shapes with their
+  sizes at compile time, their arrays in registers: the binary slide (KC =
+  2, KT = 6, KD = 3; it spills 16 bytes under the register cap below) and
+  the branch scale (KT = 6, KD = 1), neither with a calibration slot; a
+  generic instantiation takes every other step (multifurcating trees,
+  calibrated slides).  A CTA of 128 threads (at
+  most 64 registers a thread, 8 CTAs an SM) takes a contiguous range of
+  (chain, ticket) pairs in the outputs' chain-major order, a pair a
+  thread per round, the fewest rounds that fit the step into one wave: a
+  warp's lanes take neighbouring tickets of one chain.  The CTA forms each
+  chain's constants once (``BdConsts``, ``GammaClock``: the same
+  operations, so the terms stay bitwise); each pair issues all its gathers
+  first; each warp stores its round's ``tn``, ``delta`` and ``zG`` from
+  shared memory as 16-byte words.
+- The epilogue takes a CTA per chain and a thread per ticket: its
+  decision, its distance slots, its height or rate, terms and accept count,
+  and its part of ``q``, summed by a block reduction in a fixed order.
+
+Both mirror their plain versions operation by operation (built with
+``-fmad=false``), with CUDA's normal CDF and its inverse in place of
+PyTorch's: a slide's proposal may differ from the plain one in its last
+bits, so the checks on the card replay the kernel's proposals through
+:func:`point_lik_given`.
+
+To time the two kernels of a checkout against another's on the card (the
+other unpacked with ``git archive`` into a git-ignored directory, in turns
+P / C / C / P): ``python3 mcmcdate_tpu_torch/tools/phase_time.py --phase
+kernels [--root DIR]``.
 """
 
 from __future__ import annotations
@@ -55,14 +87,17 @@ _I = ctypes.c_int
 _PROLOGUE_ARGTYPES = (
     (_P,) * 5  # heights, rates, terms, d, z
     + (_P,) * 6  # tuning, birth, death, rate_var, height, rate_mean
-    + (_P,) * 8  # node, par, ch, t_rows, d_rows, rows, valid, sd
-    + (_P,) * 4  # cal_lo, cal_lo_s, cal_hi, cal_hi_s
-    + (_P,) * 3  # is_leaf, pos, draw
+    + (_P,) * 5  # plan, cal_lo, cal_lo_s, cal_hi, cal_hi_s
+    + (_P,) * 1  # draw
     + (_P,) * 7  # prop, lq, tn, delta, d_pr, lmhg, zG
-    + (_I,) * 12  # C, B, N, T, P, D, KC, KT, KD, KN, clock_model, branch
+    + (_I,) * 13  # C, B, N, T, P, D, KC, KT, KD, KN, W, clock_model, branch
     + (_P,)  # stream
 )
-KT_MAX = 64  # touched terms per ticket the prologue kernel holds in registers
+KT_MAX = 64  # touched terms per ticket the prologue kernel holds
+KC_MAX = (KT_MAX - 2) // 2  # children per ticket (a flag bit each)
+# The fields of a ticket's plan record (point_plan), then ch [KC], t_rows
+# [KT], d_rows [KD] and the distance slots' owners [KD].
+PLAN_NODE, PLAN_PAR, PLAN_ROW, PLAN_FLAGS, PLAN_SD, PLAN_HEAD = range(6)
 _EPILOGUE_ARGTYPES = (
     (_P,) * 7  # heights, rates, terms, d, q, acc, dacc
     + (_P,) * 8  # accept, dq, u_acc, d_pr, lmhg, prop, tn, delta
@@ -82,6 +117,49 @@ class PointProposal(NamedTuple):
     d_pr: torch.Tensor    # prior delta
     lmhg: torch.Tensor    # lq, or -inf where a new term is invalid or the slot a pad
     zG: Optional[torch.Tensor]  # carried z at the rows [C, B KD] (None without a likelihood)
+
+
+def plan_width(kc, kt, kd):
+    """int32 words of a ticket's plan record: the head, ``ch``, ``t_rows``,
+    ``d_rows`` and the owners, rounded up to 16 bytes."""
+    return (PLAN_HEAD + kc + kt + 2 * kd + 3) // 4 * 4
+
+
+def slot_owners(sx, pos):
+    """Each distance slot's owner ``[B, KD]``: 0 where ``d_rows`` is the
+    node's own branch row (``pos[node]``), 1 + j where it is child j's (the
+    last such child, as the plain prologue's matching takes it), -1 where
+    the slot is a pad or matches neither."""
+    node, ch, d_rows = sx["node"].long(), sx["ch"].long(), sx["d_rows"]
+    pos = pos.to(d_rows.dtype)
+    own = torch.where(d_rows == pos[node][:, None], 0, -1)
+    for j in range(ch.shape[-1]):
+        cj = ch[:, j]
+        hit = (d_rows == pos[cj.clamp(min=0)][:, None]) & (cj >= 0)[:, None]
+        own = torch.where(hit, 1 + j, own)
+    return torch.where(d_rows >= 0, own, -1).to(torch.int32)
+
+
+def point_plan(sx, pos, is_leaf):
+    """A step's plan as the prologue kernel reads it: one record of
+    :func:`plan_width` int32 words per ticket ``[B, W]``: node, parent,
+    tuning row, flags (bit 0 valid, bit 1 + j child j is a leaf), ``sd`` as
+    float32 bits, then ``ch``, ``t_rows``, ``d_rows`` and
+    :func:`slot_owners`, zero-padded."""
+    ch = sx["ch"]
+    B, KC = ch.shape
+    KT, KD = sx["t_rows"].shape[-1], sx["d_rows"].shape[-1]
+    if KC > KC_MAX:
+        raise ValueError(f"point_plan: {KC} children per ticket, the record holds {KC_MAX}")
+    leaf = is_leaf[ch.clamp(min=0).long()] & (ch >= 0)
+    bits = torch.arange(1, KC + 1, device=ch.device)
+    flags = sx["valid"].long() | (leaf.long() << bits).sum(-1)
+    sd = sx["sd"].to(torch.float32).view(torch.int32)
+    head = torch.stack([sx["node"], sx["par"], sx["rows"], flags.to(torch.int32), sd], dim=1)
+    rec = torch.cat([head.to(torch.int32), ch, sx["t_rows"], sx["d_rows"],
+                     slot_owners(sx, pos)], dim=1)
+    pad = plan_width(KC, KT, KD) - rec.shape[1]
+    return torch.nn.functional.pad(rec, (0, pad)).contiguous()
 
 
 def point_proposal(branch, state, tuning, sx, draw):
@@ -196,7 +274,9 @@ def point_lik_prologue(branch, state, terms, d, z, tuning, sx, is_leaf, pos, clo
     """The prologue of a likelihood point step on every chain: returns a
     :class:`PointProposal`.  ``branch`` picks the branch-rate kind (else the
     node slide); ``sx`` holds the step's plan arrays (``node, par, ch,
-    t_rows, d_rows, d_flat, rows, valid, sd, cal_*``); ``pos`` ``[N]`` is
+    t_rows, d_rows, d_flat, rows, valid, sd, cal_*``, and for the kernel
+    the packed ``kplan`` of :func:`point_plan`, which ``FastSweeps``
+    binds); ``pos`` ``[N]`` is
     each node's distance row; ``draw`` ``[C, B]`` is the truncated-normal
     uniform or the standard gamma variate.  The plain version runs for CPU
     tensors, the kernel for CUDA tensors (float32).  Without a likelihood
@@ -214,16 +294,18 @@ def point_lik_prologue(branch, state, terms, d, z, tuning, sx, is_leaf, pos, clo
     for name, t in (("heights", state.heights), ("rates", state.rates), ("terms", terms),
                     ("d", d), ("z", z), ("tuning", tuning), ("birth", state.birth),
                     ("death", state.death), ("rate_var", state.rate_var),
-                    ("height", state.height), ("rate_mean", state.rate_mean),
-                    ("sd", sx["sd"]), ("draw", draw)):
+                    ("height", state.height), ("rate_mean", state.rate_mean), ("draw", draw)):
         if t is not None:
             build.require_cuda(t, name, torch.float32)
-    for name in ("node", "par", "ch", "t_rows", "d_rows", "rows"):
-        build.require_cuda(sx[name], name, torch.int32)
-    build.require_cuda(pos, "pos", torch.int32)
-    for name, t in (("valid", sx["valid"]), ("is_leaf", is_leaf)):
-        build.require_cuda(t, name, torch.bool)  # read as bytes 0 / 1
+    plan = sx["kplan"]
+    build.require_cuda(plan, "kplan", torch.int32)
+    W = plan_width(KC, KT, KD)
+    if tuple(plan.shape) != (B, W):
+        raise ValueError(f"point_lik_prologue: kplan is {tuple(plan.shape)}, not {(B, W)}")
     cal = [sx[k] if KN else None for k in ("cal_lo", "cal_lo_s", "cal_hi", "cal_hi_s")]
+    for name, t in zip(("cal_lo", "cal_lo_s", "cal_hi", "cal_hi_s"), cal):
+        if t is not None:
+            build.require_cuda(t, name, torch.float32)
     dev = terms.device
 
     def out(*shape):
@@ -234,11 +316,10 @@ def point_lik_prologue(branch, state, terms, d, z, tuning, sx, is_leaf, pos, clo
     p = build.ptr
     err = build.bind("mcmcdate_point_lik_prologue_f32", _PROLOGUE_ARGTYPES)(
         p(state.heights), p(state.rates), p(terms), p(d), p(z), p(tuning), p(state.birth),
-        p(state.death), p(state.rate_var), p(state.height), p(state.rate_mean),
-        p(sx["node"]), p(sx["par"]), p(sx["ch"]), p(sx["t_rows"]), p(sx["d_rows"]),
-        p(sx["rows"]), p(sx["valid"]), p(sx["sd"]), *map(p, cal), p(is_leaf), p(pos), p(draw),
-        *map(p, pro), C, B, N, terms.shape[1], tuning.shape[1], d.shape[1], KC, KT, KD, KN,
-        clocks.MODELS.index(clock), int(bool(branch)), build.stream_ptr(dev),
+        p(state.death), p(state.rate_var), p(state.height), p(state.rate_mean), p(plan),
+        *map(p, cal), p(draw), *map(p, pro), C, B, N, terms.shape[1], tuning.shape[1],
+        d.shape[1], KC, KT, KD, KN, W, clocks.MODELS.index(clock), int(bool(branch)),
+        build.stream_ptr(dev),
     )
     build.check(err, "point_lik_prologue kernel")
     point_lik_prologue.launches += 1

@@ -40,15 +40,20 @@ kernels' device milliseconds per call (the epilogue also with every ticket
 rejected, which writes no row back).
 
 ``--phase kernels`` times, per call, K6 ``contra_slide`` on the first
-contrary slide step and G3 ``glob_dense_epilogue`` on the first ticket of
+contrary slide step, G3 ``glob_dense_epilogue`` on the first ticket of
 sub_ultra and of var_tree (after G2 and the product, with the wrappers'
 positional arguments that every version since the subtree product takes),
-each call on its own copy of the state it writes.  ``flush_ms``: before
+and K4's ``point_lik_prologue`` and ``point_lik_epilogue`` on the first
+step of the node slides and of the branch-rate scales (the epilogue on
+the decisions and dq of one prologue and ``point_scan``, with the
+positional arguments that every version of the two wrappers takes), each
+call on its own copy of the state it writes.  ``flush_ms``: before
 each of ``REPS["kernels"]`` calls, a read of ``FLUSH_BYTES`` (several
 times the H100's 50 MB L2) evicts the call's inputs, as a sweep's other
 work does, so a call cannot read below its bytes bound; ``warm_ms``: the
 same calls back to back, without it.  Per kernel also the accepted
-(chain, ticket) pairs of one call.
+(chain, ticket) pairs of one call (K4: of its step), and K4's tickets B
+and distance rows per ticket KD.
 """
 
 from __future__ import annotations
@@ -206,10 +211,12 @@ def range_phase(torch, fs, carry, tuning, gen) -> dict:
 
 
 def kernels_phase(torch, fs, carry, tuning, gen) -> dict:
-    """K6 ``contra_slide``'s first step and G3 on sub_ultra's and var_tree's
-    first tickets, per call, with and without an L2 flush before each."""
+    """K6 ``contra_slide``'s first step, G3 on sub_ultra's and var_tree's
+    first tickets and K4's prologue and epilogue on the first step of both
+    point kinds, per call, with and without an L2 flush before each."""
     from mcmcdate_tpu_torch.engine import fast_sweep, proposals as P
-    from mcmcdate_tpu_torch.kernels import contra_step as K, glob_step as G
+    from mcmcdate_tpu_torch.kernels import contra_step as K, glob_step as G, point_step as K4
+    from mcmcdate_tpu_torch.kernels.point_scan import point_scan
     from mcmcdate_tpu_torch.models.state import FIELDS, State
     from mcmcdate_tpu_torch.ops.dists import standard_gamma
 
@@ -267,6 +274,30 @@ def kernels_phase(torch, fs, carry, tuning, gen) -> dict:
         out[f"glob_dense_epilogue {tag}"] = dict(
             rows=rows, accepted=int(epilogue(copies()[0]).sum()),
             **timed(epilogue, "glob_dense_epilogue_kernel"))
+    for kind in (P.K_SLIDE_NODE_ULTRA, P.K_SCALE_BRANCH_RATE):
+        branch = kind == P.K_SCALE_BRANCH_RATE
+        sx = fs.spec_t[kind][0]
+        B, KD = sx["rows"].shape[0], sx["d_rows"].shape[1]
+        draw = (standard_gamma(sx["sd"] / tuning[:, sx["rows"]], gen) if branch
+                else torch.rand((CHAINS, B), generator=gen, device="cuda"))
+        u = torch.rand((CHAINS, B), generator=gen, device="cuda")
+
+        def prologue(c, sx=sx, branch=branch, draw=draw):
+            return K4.point_lik_prologue(branch, c.batch, c.terms, c.d, c.z, tuning, sx, leaf,
+                                         fs.pos_t, fs.model.clock, draw)
+
+        pro = prologue(copies()[0])
+        accept, dq = point_scan(pro.delta, pro.zG, sx["Pblk"], pro.d_pr, pro.lmhg, u)
+
+        def epilogue(c, sx=sx, branch=branch, pro=pro, accept=accept, dq=dq):
+            return K4.point_lik_epilogue(branch, c.batch, c.terms, c.d, c.q, c.acc, sx, pro,
+                                         accept, dq)
+
+        tag = "branch" if branch else "slide"
+        out[f"point_lik_prologue {tag}"] = dict(B=B, KD=KD, accepted=int(accept.sum()),
+                                                **timed(prologue, "point_lik_prologue_kernel"))
+        out[f"point_lik_epilogue {tag}"] = dict(B=B, KD=KD, accepted=int(accept.sum()),
+                                                **timed(epilogue, "point_lik_epilogue_kernel"))
     return dict(reps=reps, flush_mb=FLUSH_BYTES / 1e6, records=out)
 
 

@@ -180,20 +180,13 @@ def test_point_scan_kernel_tiles(card, C, B, KD):
     _scan_agree(ak, dk, ap, dp, d_pr - 0.5 * dp + lmhg, torch.log(u))
 
 
-def test_point_step_kernel(card):
-    """K4's point step (prologue, point_scan, epilogue and the z product) on
-    every likelihood point step of a 40-taxon calibrated model, against the
-    plain step replayed at the kernels' proposals and decisions: proposals
-    within 1e-5 (1 + |x|) of the plain ones from the same draws, decisions
-    equal except at ties, heights, rates and terms bitwise equal, d, z and q
-    within 1e-5 of scale; the prologue's and epilogue's outputs against
-    their plain versions'; one launch of each kernel per step."""
+def _point_calibrated():
+    """The 40-taxon model with three calibrations (the root and two inner
+    nodes) and its calibrated proposal table: its slides carry calibration
+    slots (K4's generic prologue), its branch scales none."""
     import dataclasses
 
-    from mcmcdate_tpu_torch.engine import fast_sweep as TF, proposals as TP
-    from mcmcdate_tpu_torch.kernels import point_step as K
-    from mcmcdate_tpu_torch.kernels.point_scan import point_scan
-    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+    from mcmcdate_tpu_torch.engine import proposals as TP
     from mcmcdate_tpu_torch.ops.node_priors import CalibrationSet
 
     model, batch = _model()
@@ -203,7 +196,23 @@ def test_point_step_kernel(card):
                          upper=np.asarray([1.6, np.inf, 0.9]),
                          upper_pm=np.asarray([0.01, 1.0, 0.05]))
     model = dataclasses.replace(model, calibrations=cal)
-    table = TP.build_proposal_table(model.topo, model.braces, True)
+    return model, batch, TP.build_proposal_table(model.topo, model.braces, True)
+
+
+def test_point_step_kernel(card):
+    """K4's point step (prologue, point_scan, epilogue and the z product) on
+    every likelihood point step of a 40-taxon calibrated model, against the
+    plain step replayed at the kernels' proposals and decisions: proposals
+    within 1e-5 (1 + |x|) of the plain ones from the same draws, decisions
+    equal except at ties, heights, rates and terms bitwise equal, d, z and q
+    within 1e-5 of scale; the prologue's and epilogue's outputs against
+    their plain versions'; one launch of each kernel per step."""
+    from mcmcdate_tpu_torch.engine import fast_sweep as TF, proposals as TP
+    from mcmcdate_tpu_torch.kernels import point_step as K
+    from mcmcdate_tpu_torch.kernels.point_scan import point_scan
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    model, batch, table = _point_calibrated()
     fs = TF.FastSweeps(model, table)
     leaf = model.topo.is_leaf_t
     g = torch.Generator(device=card).manual_seed(9)
@@ -269,6 +278,155 @@ def test_point_step_kernel(card):
             assert (cp.q - cq.q).abs().max() <= 1e-5 * max(1.0, float(cq.q.abs().max()))
             n_acc += int(accept.sum())
             n += accept.numel()
+    assert 0 < n_acc < n
+
+
+# K4's prologue instantiations: (KC, KT, KD, KN) of every step of each kind,
+# None where the step takes the generic kernel (any other shape).
+K4_SHAPES = {"binary": ((2, 6, 3, 0), (2, 6, 1, 0)), "binary-wide": ((2, 6, 3, 0), (2, 6, 1, 0)),
+             "calibrated": (None, (2, 6, 1, 0)), "multifurcating": (None, None)}
+
+
+def _point_case(model_of):
+    """FastSweeps of a K4 test model with a carry (z and q filled), a
+    tuning and a generator: the 40-taxon binary model at 96 chains, the
+    136-taxon one at 2048 chains (more (chain, ticket) pairs in a branch
+    step than an H100 holds threads at once, so the prologue's threads take
+    more than one pair), the calibrated 40-taxon model and the
+    multifurcating one (KC = 4)."""
+    from mcmcdate_tpu_torch.engine import fast_sweep as TF, proposals as TP
+
+    if model_of == "calibrated":
+        model, batch, table = _point_calibrated()
+    else:
+        if model_of == "binary":
+            model, batch = _model()
+        elif model_of == "binary-wide":
+            model, batch = synthetic.build(136, 2048, device="cuda")
+        else:
+            model, batch = _multifurcating()
+        table = TP.build_proposal_table(model.topo, model.braces, False)
+    fs = TF.FastSweeps(model, table)
+    carry = fs.init_carry(batch)
+    carry.z, carry.q = fs._zq_from_y(model.whitened_residual_internal(carry.batch))
+    g = torch.Generator(device="cuda").manual_seed(21)
+    tuning = torch.rand(batch.n_chains, table.n_proposals, generator=g, device="cuda") * 3 + 0.3
+    return fs, carry, tuning, g
+
+
+def _point_steps(fs, model_of, g, tuning):
+    """Every point step of both kinds with its draws: ``(kind, branch, sx,
+    draw, u)``, each step's shape checked against K4_SHAPES."""
+    from mcmcdate_tpu_torch.engine import proposals as TP
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    C = tuning.shape[0]
+    for kind, shape in zip((TP.K_SLIDE_NODE_ULTRA, TP.K_SCALE_BRANCH_RATE), K4_SHAPES[model_of]):
+        branch = kind == TP.K_SCALE_BRANCH_RATE
+        assert fs.spec_t[kind]
+        for sx in fs.spec_t[kind]:
+            got = (sx["ch"].shape[1], sx["t_rows"].shape[1], sx["d_rows"].shape[1],
+                   sx["cal_lo"].shape[-1])
+            if shape is None:
+                assert (got[3] > 0 if model_of == "calibrated" else got[0] == 4), got
+            else:
+                assert got == shape
+            B = sx["rows"].shape[0]
+            draw = (standard_gamma(sx["sd"] / tuning[:, sx["rows"]], g) if branch
+                    else torch.rand(C, B, generator=g, device="cuda"))
+            yield kind, branch, sx, draw, torch.rand(C, B, generator=g, device="cuda")
+
+
+@pytest.mark.parametrize("model_of", list(K4_SHAPES))
+def test_point_prologue_instantiations(card, model_of):
+    """K4's prologue on every point step of both kinds, through each of its
+    instantiations (the binary slide, the branch scale, the generic kernel
+    on calibrated slides and on a multifurcating tree), against the plain
+    prologue: proposals within 1e-5 (1 + |x|) of the plain ones from the
+    same draws; replayed at the kernel's proposals, the new terms bitwise
+    equal, lq, d_pr, delta and zG within 1e-4 (1 + |x|), -inf in lmhg
+    where the replay's; one launch a step; without z the same outputs
+    bitwise and no zG."""
+    from mcmcdate_tpu_torch.kernels import point_step as K
+
+    fs, carry, tuning, g = _point_case(model_of)
+    model = fs.model
+    leaf = model.topo.is_leaf_t
+    for _, branch, sx, draw, _ in _point_steps(fs, model_of, g, tuning):
+        args = (branch, carry.batch, carry.terms, carry.d, carry.z, tuning, sx, leaf, fs.pos_t,
+                model.clock, draw)
+        before = K.point_lik_prologue.launches
+        pro = K.point_lik_prologue(*args)
+        assert K.point_lik_prologue.launches == before + 1
+        pp = K.point_lik_prologue_plain(*args)
+        assert torch.all((pro.prop - pp.prop).abs() <= 1e-5 * (1 + pp.prop.abs()))
+        pr = K.point_lik_prologue_given(branch, carry.batch, carry.terms, carry.d, carry.z,
+                                        tuning, sx, leaf, fs.pos_t, model.clock, pro.prop)
+        assert torch.equal(pro.tn.nan_to_num(), pr.tn.nan_to_num())
+        for a, b in ((pro.lq, pr.lq), (pro.d_pr, pr.d_pr), (pro.delta, pr.delta),
+                     (pro.zG, pr.zG), (pro.lmhg, pr.lmhg)):
+            _near(a, b, 1e-4 * (1 + b.abs()))
+        assert torch.equal(pro.lmhg == -math.inf, pr.lmhg == -math.inf)
+        pn = K.point_lik_prologue(*args[:4], None, *args[5:])
+        assert pn.zG is None
+        for a, b in zip(pn[:-1], pro[:-1]):
+            assert torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+@pytest.mark.parametrize("mode", ("scan", "u_acc"))
+@pytest.mark.parametrize("model_of", ("binary", "calibrated", "multifurcating"))
+def test_point_epilogue_modes(card, model_of, mode):
+    """K4's epilogue on every point step of both kinds against the plain
+    epilogue on the same inputs (the plain prologue's at the kernel's
+    proposals): with the scan's decisions and dq (``scan``: the plain
+    scan's), the same accept mask and dacc, heights, rates, terms, d and
+    accept counts bitwise equal and q within 1e-5 of scale; with accept
+    uniforms and no dq (``u_acc``), where the epilogue decides, its
+    decisions those of log u < d_pr + lmhg except at ties, then the plain
+    epilogue's state on its decisions bitwise, and q as it was.  One launch
+    a step; decisions mixed."""
+    from mcmcdate_tpu_torch.engine import fast_sweep as TF
+    from mcmcdate_tpu_torch.kernels import point_step as K
+    from mcmcdate_tpu_torch.kernels.point_scan import point_scan_plain
+
+    fs, carry, tuning, g = _point_case(model_of)
+    model = fs.model
+    leaf = model.topo.is_leaf_t
+    n_acc = n = 0
+
+    def copy():
+        return TF.FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
+                            carry.terms.clone(), carry.d.clone(), carry.z.clone(),
+                            carry.q.clone(), carry.acc.clone())
+
+    for _, branch, sx, draw, u in _point_steps(fs, model_of, g, tuning):
+        prop = K.point_lik_prologue(branch, carry.batch, carry.terms, carry.d, carry.z, tuning,
+                                    sx, leaf, fs.pos_t, model.clock, draw).prop
+        pr = K.point_lik_prologue_given(branch, carry.batch, carry.terms, carry.d, carry.z,
+                                        tuning, sx, leaf, fs.pos_t, model.clock, prop)
+        ck, cp = copy(), copy()
+        kargs, pargs = ((branch, c.batch, c.terms, c.d, c.q, c.acc, sx, pr) for c in (ck, cp))
+        before = K.point_lik_epilogue.launches
+        if mode == "scan":
+            accept, dq = point_scan_plain(pr.delta, pr.zG, sx["Pblk"], pr.d_pr, pr.lmhg, u)
+            ak, dk = K.point_lik_epilogue(*kargs, accept, dq)
+            ap, dp = K.point_lik_epilogue_plain(*pargs, accept, dq)
+            assert torch.equal(ak, ap)
+            assert (ck.q - cp.q).abs().max() <= 1e-5 * max(1.0, float(cp.q.abs().max()))
+        else:
+            ak, dk = K.point_lik_epilogue(*kargs, None, None, u)
+            la = torch.nan_to_num(pr.d_pr + pr.lmhg, nan=-math.inf)
+            differ = ((torch.log(u) < la) & sx["valid"]) != ak
+            assert torch.all((torch.log(u) - la).abs()[differ] < TIE)
+            _, dp = K.point_lik_epilogue_plain(*pargs, ak, None)
+            assert torch.equal(ck.q, carry.q)
+        assert K.point_lik_epilogue.launches == before + 1
+        assert torch.equal(dk, dp)
+        for a, b in ((ck.batch.heights, cp.batch.heights), (ck.batch.rates, cp.batch.rates),
+                     (ck.terms, cp.terms), (ck.d, cp.d), (ck.acc, cp.acc)):
+            assert torch.equal(a.nan_to_num(), b.nan_to_num())
+        n_acc += int(ak.sum())
+        n += ak.numel()
     assert 0 < n_acc < n
 
 
