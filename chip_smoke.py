@@ -390,12 +390,34 @@ def _model(n_taxa):
     return _MODELS[n_taxa]
 
 
+def _k1_agree(name, m, s):
+    """K1 against its plain version on state ``s``: finiteness, NaNs and
+    infinities equal, finite terms within K1_ATOL + K1_RTOL |term|.
+    Returns K1's terms and the largest difference."""
+    import torch
+
+    from mcmcdate_tpu_torch.kernels.prior_terms import prior_terms, prior_terms_plain
+
+    k = prior_terms(m, s)
+    p = prior_terms_plain(m, s)
+    _sync()
+    fin = torch.isfinite(p)
+    check(torch.equal(fin, torch.isfinite(k)), f"{name}: finiteness differs")
+    check(torch.equal(torch.isnan(p), torch.isnan(k)), f"{name}: NaNs differ")
+    check(torch.equal(p[~fin & ~torch.isnan(p)], k[~fin & ~torch.isnan(k)]),
+          f"{name}: infinite terms differ")
+    err = (k[fin] - p[fin]).abs()
+    bad = err > K1_ATOL + K1_RTOL * p[fin].abs()
+    check(not bool(bad.any()), lambda: f"{name}: max error {float(err.max()):.3g}")
+    return k, float(err.max())
+
+
 def check_prior_terms(n_taxa):
     import dataclasses
 
     import torch
 
-    from mcmcdate_tpu_torch.kernels.prior_terms import prior_terms, prior_terms_plain
+    from mcmcdate_tpu_torch.kernels.prior_terms import prior_terms_plain
     from mcmcdate_tpu_torch.ops import clocks
 
     model, batch = _model(n_taxa)
@@ -405,19 +427,8 @@ def check_prior_terms(n_taxa):
         m = dataclasses.replace(model, clock=clock, calibrations=cal, constraints=con,
                                 braces=br, mean_root_height=1.5)
         s = _perturbed(m, batch, 1)
-        k = prior_terms(m, s)
-        p = prior_terms_plain(m, s)
-        _sync()
-        fin = torch.isfinite(p)
-        check(torch.equal(fin, torch.isfinite(k)), f"prior_terms {clock}: finiteness differs")
-        check(torch.equal(torch.isnan(p), torch.isnan(k)), f"prior_terms {clock}: NaNs differ")
-        check(torch.equal(p[~fin & ~torch.isnan(p)], k[~fin & ~torch.isnan(k)]),
-              f"prior_terms {clock}: infinite terms differ")
-        err = (k[fin] - p[fin]).abs()
-        bad = err > K1_ATOL + K1_RTOL * p[fin].abs()
-        check(not bool(bad.any()),
-              lambda: f"prior_terms {clock}: max error {float(err.max()):.3g}")
-        worst = max(worst, float(err.max()))
+        k, err = _k1_agree(f"prior_terms {clock}", m, s)
+        worst = max(worst, err)
         bd = slice(4, 4 + m.topo.n + 1)
         p64 = prior_terms_plain(dataclasses.replace(m, dtype=torch.float64),
                                 s.to(dtype=torch.float64))[:, bd]
@@ -429,16 +440,25 @@ def check_prior_terms(n_taxa):
         check(not bool(bad.any()), lambda:
               f"prior_terms {clock}: birth-death terms off float64 by {float(err.max()):.3g}")
     s = _perturbed(model, batch, 2)
-    ms = _device_ms(lambda: prior_terms(model, s), only="prior_terms_kernel")
-    plain_ms = _device_ms(lambda: prior_terms_plain(model, s))
+    return {"prior_terms": _k1_record(worst, model, s)}
+
+
+def _k1_record(err, model, s):
+    """K1's record on state ``s``: flushed device time (K1 runs at a
+    carry's start, after other work), the plain version's, and the bound.
+    Bytes: heights and rates, five scalars per chain, parent and leaf flags
+    in; the term vector out.  Operations: the birth-death terms in double,
+    about 100 per node and chain (two D/E evaluations of an inner node, one
+    of a leaf, each exp or log counted as 10), as T1's record counts them;
+    the clock terms in float, about 40."""
+    from mcmcdate_tpu_torch.kernels.prior_terms import prior_terms, prior_terms_plain
+
+    ms = _device_ms(lambda: prior_terms(model, s), only="prior_terms_kernel", flush=True)
+    plain_ms = _device_ms(lambda: prior_terms_plain(model, s), reps=5)
     C, N = s.heights.shape
     T = sum(model.term_block_sizes)
-    # Bytes: heights and rates, five scalars per chain, parent and leaf
-    # flags in; the term vector out.  Operations: about 100 per node and
-    # chain (two double-precision D/E evaluations and a gamma density, with
-    # each exp, log or lgamma counted as 10).
     nbytes = 4 * (2 * C * N + 5 * C) + 5 * N + 4 * C * T
-    return {"prior_terms": _record(worst, ms, plain_ms, nbytes, 100 * C * N)}
+    return _record(err, ms, plain_ms, nbytes, 40 * C * N, ops64=100 * C * N)
 
 
 def check_whiten(n_taxa):
@@ -700,7 +720,7 @@ def check_ticket(n_taxa):
     dy, d_lik = tk._k2(c3, p, pro)
     acc0 = accept_select(tt, _mh_copy(c3), tuning, dr, 0, pro, dy, d_lik)
     ms3 = _device_ms(lambda: accept_select(tt, c3, tuning, dr, 0, pro, dy, d_lik),
-                     only="accept_select_kernel")
+                     only="accept_select_kernel", flush=True)
     c4 = _mh_copy(carry)
     pp = ticket_prologue_plain(tt, c4, tuning, p, draw)
     plain3 = _device_ms(lambda: accept_select_plain(tt, c4, p, pp, u, dy, d_lik))
@@ -2363,6 +2383,13 @@ def phase_univariate_10k():
     batch, tuning = runner.init_chains(init)
     _sync()
     setup_s = time.perf_counter() - t0
+    s = _perturbed(model, batch, 3)
+    _, err = _k1_agree(f"prior_terms at {UNI_TAXA} taxa", model, s)
+    k1 = _k1_record(err, model, s)
+    del s
+    log(f"[kernels] prior_terms at {UNI_TAXA} taxa x {CHAINS} chains (univariate): max error "
+        f"{err:.3g}, device time per call (L2 flushed): kernel {k1['ms']:.4f} ms, plain "
+        f"{k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms ({k1['bound_by']})")
     n_t = int(table.n_tickets)
     log(f"[univariate 10k] {UNI_TAXA} taxa x {CHAINS} chains, D = {model.likelihood.dim}, "
         f"{table.n_proposals} proposal rows, {n_t} tickets a sweep ({-(-n_t // CHUNK)} chunks); "
@@ -2442,7 +2469,7 @@ def phase_univariate_10k():
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; acceptance {rate:.4f}; carried log "
         f"posterior within {err:.3g} of the direct float32 one (float32 vs float64: "
         f"{err64:.3g}); launches per sweep {json.dumps(per_sweep)}")
-    return launches, rec
+    return launches, rec, k1
 
 
 def main():
@@ -2458,7 +2485,7 @@ def main():
     full = phase_full_width()
     prior = phase_prior_only()
     sequential = phase_sequential(seq)
-    uni, uni_rec = phase_univariate_10k()
+    uni, uni_rec, k1_10k = phase_univariate_10k()
     log(f"[ticket_scan] at {UNI_TAXA} taxa: {json.dumps(uni_rec)}")
     check("jax" not in sys.modules, "the port imported jax")
     check(not [m for m in sys.modules if m == "mcmcdate_tpu" or m.startswith("mcmcdate_tpu.")],
@@ -2476,6 +2503,7 @@ def main():
     t3["launches_by_kernel"] = {p: {k: n[f"ticket_scan_{k}"] for k in ("light", "heavy")}
                                 for p, n in paths.items()}
     t3["records_10k"] = uni_rec
+    next(r for r in record["kernels"] if r["name"] == "prior_terms")["record_10k"] = k1_10k
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

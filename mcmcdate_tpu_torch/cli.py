@@ -290,13 +290,13 @@ def _settings(args):
 
 def _device(name: str):
     """The torch device of ``--device``; a CUDA device with no card fails."""
-    import torch
+    from .utils import device as devices
 
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    try:
+        return devices.resolve(name)
+    except devices.NoCardError:
         raise SystemExit(f"--device {name}: no CUDA device is available "
-                         "(use --device cpu to run on the CPU)")
-    return device
+                         "(use --device cpu to run on the CPU)") from None
 
 
 def cmd_prepare(args):

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..models.state import FIELDS, State
+from ..utils import device as devices
 
 FORMAT_VERSION = 1
 
@@ -110,13 +111,14 @@ def save(
     _atomic_write(os.path.join(out_dir, meta_file(analysis_name)), _write_meta)
 
 
-def load(analysis_name: str, dtype=None, in_dir: str = ".", device="cpu"):
+def load(analysis_name: str, dtype=None, in_dir: str = ".", device="cuda"):
     """Returns (state, tuning, key, meta) with the state and tuning as
-    tensors on ``device``.
+    tensors on ``device`` (the card unless the caller asks for the CPU).
 
     ``dtype=None`` restores the precision the run was saved with (recorded
     in the JSON sidecar; falls back to the npz array dtype).
     """
+    device = devices.resolve(device)
     path = os.path.join(in_dir, checkpoint_file(analysis_name))
     with open(os.path.join(in_dir, meta_file(analysis_name))) as fh:
         meta = json.load(fh)

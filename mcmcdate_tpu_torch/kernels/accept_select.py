@@ -12,15 +12,18 @@ log alpha`` and then writes back only what the ticket touched: for an
 accepted chain its term entries, ``d`` on the class rows, ``y`` (all of it
 after K2, the class rows under the univariate kind), the accept count and
 the bad-term count (0); for a rejected one the old heights, rates and
-scalars T1 kept.  The same device functions end every ticket of T3
-``ticket_scan``.
+scalars T1 kept.  T3 ``ticket_scan`` ends its tickets with the same
+semantics (``ticket_epilogue_dev``, ``csrc/ticket_step.cuh``).
 
-On the H100 it is bound by latency and bytes: a few per-chain values, the
-ticket's touched entries (O(1) for a node-local ticket; the whole blocks of
-a global one), and ``y`` after K2 (``D`` floats per accepted chain).  The
-kernel (``csrc/accept_select.cu``, device functions in
-``csrc/ticket_step.cuh``) runs one CTA per chain, built with ``-fmad=false``
-as its plain version's arithmetic.
+On the H100 it is bound by bytes, and at 136 taxa by latency: a few
+per-chain values, the ticket's touched entries (O(1) for a node-local
+ticket; the whole blocks of a global one), and ``y`` after K2 (``D``
+floats per accepted chain).  The kernel (``csrc/accept_select.cu``) runs
+one CTA per chain: the row's record staged once and the decision's inputs
+in one round, then the chosen write-back as one list of segments, copied
+with every load of a thread's entries issued before their stores (16-byte
+words for the long ones); built with ``-fmad=false`` as its plain
+version's arithmetic.
 """
 
 from __future__ import annotations

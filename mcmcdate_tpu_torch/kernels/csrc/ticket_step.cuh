@@ -1,7 +1,9 @@
 // The sequential sweep's ticket step as device functions: the prologue
 // (kernel T1 ticket_prologue, csrc/ticket_step.cu), the likelihood deltas
-// and the epilogue (kernel K3 accept_select, csrc/accept_select.cu), all
-// three chained ticket after ticket by T3 ticket_scan (csrc/ticket_step.cu).
+// and the epilogue, all three chained ticket after ticket by T3
+// ticket_scan (csrc/ticket_step.cu).  Kernel K3 accept_select
+// (csrc/accept_select.cu) ends T1's tickets with the epilogue's semantics
+// in a body of its own, and shares diag_lik_dev.
 //
 // Together they replace the XLA-compiled MHKernel._ticket_step of the JAX
 // package (mcmcdate_tpu/engine/mh.py:52-210: the 17 proposal kernels _k_*

@@ -4,8 +4,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import torch
-
 from ..ops import clocks, mvn, node_priors
 from .dating import DatingModel  # noqa: F401
 from .state import State, init_state, is_valid_state  # noqa: F401
@@ -20,13 +18,15 @@ def _copy(cls, obj):
 
 def from_numpy(topo, likelihood, state: dict, *, clock=clocks.UNCORRELATED_GAMMA,
                calibrations=None, constraints=None, braces=None,
-               mean_root_height=1.0, dtype=torch.float64, device="cpu"):
+               mean_root_height=1.0, dtype=None, device="cuda"):
     """The port's ``(DatingModel, State)`` from host data: a
     ``FlatTopology``, a likelihood description with the fields of
     ``LikelihoodData``, the calibration/constraint/brace sets (any objects
     with the ``*Set`` fields, e.g. the JAX package's), and a dict of the
     state arrays ``heights, rates, birth, death, height, rate_mean,
-    rate_var`` with or without a leading chain axis."""
+    rate_var`` with or without a leading chain axis.  On the card unless
+    ``device`` says otherwise (no card: :class:`~..utils.device.NoCardError`);
+    ``dtype=None``: float32 on a CUDA device, float64 on the CPU."""
     model = DatingModel(
         topo=topo,
         likelihood=_copy(mvn.LikelihoodData, likelihood),
@@ -41,4 +41,4 @@ def from_numpy(topo, likelihood, state: dict, *, clock=clocks.UNCORRELATED_GAMMA
         device=device,
         dtype=dtype,
     )
-    return model, State.from_arrays(state, dtype=dtype, device=device)
+    return model, State.from_arrays(state, dtype=model.dtype, device=model.device)

@@ -21,6 +21,7 @@ from ..kernels.whiten import whiten
 from ..ops import birth_death, clocks, heights as H, mvn, node_priors
 from ..ops.dists import exponential_logpdf, gamma_logpdf
 from ..tree import DeviceTopology
+from ..utils import device as devices
 from .state import State
 
 
@@ -30,7 +31,9 @@ class DatingModel:
 
     ``topo`` may be given as a flat topology (the port's ``FlatTopology``
     or the JAX package's); it is wrapped in a :class:`DeviceTopology` on
-    ``device``."""
+    ``device``: the card unless the caller asks for the CPU (no card:
+    :class:`~..utils.device.NoCardError`).  ``dtype=None``: float32 on a
+    CUDA device, float64 on the CPU."""
 
     topo: DeviceTopology
     likelihood: mvn.LikelihoodData
@@ -43,13 +46,14 @@ class DatingModel:
     )
     braces: node_priors.BraceSet = field(default_factory=node_priors.BraceSet.empty)
     mean_root_height: float = 1.0
-    device: str = "cpu"
-    dtype: torch.dtype = torch.float64
+    device: str = "cuda"
+    dtype: Optional[torch.dtype] = None
 
     def __post_init__(self):
+        self.device = devices.resolve(self.device)
+        self.dtype = devices.float_dtype(self.device, self.dtype)
         if not isinstance(self.topo, DeviceTopology):
             self.topo = DeviceTopology(self.topo, self.device)
-        self.device = torch.device(self.device)
 
     @property
     def calibrations_available(self) -> bool:

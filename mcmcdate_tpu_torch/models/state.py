@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..tree import Node, make_ultrametric, node_heights, normalize_height
+from ..utils import device as devices
 
 FIELDS = ("birth", "death", "height", "heights", "rate_mean", "rate_var", "rates")
 
@@ -46,8 +47,12 @@ class State:
         return {k: getattr(self, k).detach().cpu().numpy() for k in FIELDS}
 
     @staticmethod
-    def from_arrays(arrays: dict, dtype=torch.float64, device="cpu") -> "State":
-        """State from a dict of arrays; unbatched arrays become one chain."""
+    def from_arrays(arrays: dict, dtype=None, device="cuda") -> "State":
+        """State from a dict of arrays; unbatched arrays become one chain.
+        On the card unless ``device`` says otherwise; ``dtype=None``:
+        float32 on a CUDA device, float64 on the CPU."""
+        device = devices.resolve(device)
+        dtype = devices.float_dtype(device, dtype)
         out = {}
         for k in FIELDS:
             t = torch.as_tensor(np.asarray(arrays[k]), dtype=dtype, device=device)
@@ -56,12 +61,16 @@ class State:
         return State(**out)
 
 
-def init_state(tree: Node, topo, n_chains: int = 1, dtype=torch.float64,
-               device="cpu") -> State:
+def init_state(tree: Node, topo, n_chains: int = 1, dtype=None,
+               device="cuda") -> State:
     """Initial state from a tree with branch lengths (``initWith``): make the
     tree ultrametric with height one, all rates and hyper-parameters one;
     zero-length branches (except the stem) take the average branch length.
-    Every chain starts from the same state."""
+    Every chain starts from the same state, on the card unless ``device``
+    says otherwise; ``dtype=None``: float32 on a CUDA device, float64 on
+    the CPU."""
+    device = devices.resolve(device)
+    dtype = devices.float_dtype(device, dtype)
     t = tree.copy()
     bs = [n.length for c in t.children for n in c.preorder()]
     avg = sum(bs) / len(bs) if bs else 1.0

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..kernels.whiten import whiten
+from ..utils import device as devices
 from .dists import LN_SQRT_2PI
 
 FULL = "full"
@@ -85,8 +86,12 @@ def univariate_log_density(dx, variances, log_var_sum):
     return -LN_SQRT_2PI * k - 0.5 * (log_var_sum + quad)
 
 
-def make_log_likelihood(data: LikelihoodData, dtype=torch.float64, device="cpu"):
-    """``log_lik(distances [C, D]) -> [C]`` closed over the static data."""
+def make_log_likelihood(data: LikelihoodData, dtype=None, device="cuda"):
+    """``log_lik(distances [C, D]) -> [C]`` closed over the static data, on
+    the card unless ``device`` says otherwise; ``dtype=None``: float32 on a
+    CUDA device, float64 on the CPU."""
+    device = devices.resolve(device)
+    dtype = devices.float_dtype(device, dtype)
     if data.kind == NONE:
         def f_none(d):
             return d.new_zeros(d.shape[:-1])

@@ -46,8 +46,16 @@ positional arguments that every version since the subtree product takes),
 and K4's ``point_lik_prologue`` and ``point_lik_epilogue`` on the first
 step of the node slides and of the branch-rate scales (the epilogue on
 the decisions and dq of one prologue and ``point_scan``, with the
-positional arguments that every version of the two wrappers takes), each
-call on its own copy of the state it writes.  ``flush_ms``: before
+positional arguments that every version of the two wrappers takes), K1
+``prior_terms`` (``prior_terms(model, state)``) and K3 ``accept_select`` on
+the pulley and on the first subtree scale of a range class, after T1 and
+K2 (``accept_select(tt, carry, tuning, dr, j, pro, dy, d_lik)``, on an
+``MHKernel`` of the same model and table), each call on its own copy of the
+state it writes.  K1 also runs on the univariate model of ``UNI_TAXA``
+taxa x ``CHAINS`` (``seq_time.univariate_model``, after the other shapes),
+and its record holds, per relaxed clock, a hash of its terms on a state
+made on the host from ``K1_SEED`` with node priors (``bits``: equal hashes
+of two checkouts mean bitwise equal terms).  ``flush_ms``: before
 each of ``REPS["kernels"]`` calls, a read of ``FLUSH_BYTES`` (several
 times the H100's 50 MB L2) evicts the call's inputs, as a sweep's other
 work does, so a call cannot read below its bytes bound; ``warm_ms``: the
@@ -70,6 +78,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CHAINS, WARMUP = 1024, 2
 REPS = {"glob": 3, "range": 20, "kernels": 20}
 FLUSH_BYTES = 256 << 20
+UNI_TAXA, K1_SEED = 10_000, 3
 GLOB_KINDS = (("G1", "glob_scan_kernel"), ("G2", "glob_dense_prologue_kernel"),
               ("G3", "glob_dense_epilogue_kernel"), ("product", "gemm"))
 
@@ -210,29 +219,15 @@ def range_phase(torch, fs, carry, tuning, gen) -> dict:
     return dict(reps=reps, blocks=blocks)
 
 
-def kernels_phase(torch, fs, carry, tuning, gen) -> dict:
-    """K6 ``contra_slide``'s first step, G3 on sub_ultra's and var_tree's
-    first tickets and K4's prologue and epilogue on the first step of both
-    point kinds, per call, with and without an L2 flush before each."""
-    from mcmcdate_tpu_torch.engine import fast_sweep, proposals as P
-    from mcmcdate_tpu_torch.kernels import contra_step as K, glob_step as G, point_step as K4
-    from mcmcdate_tpu_torch.kernels.point_scan import point_scan
-    from mcmcdate_tpu_torch.models.state import FIELDS, State
-    from mcmcdate_tpu_torch.ops.dists import standard_gamma
-
-    reps = REPS["kernels"]
+def _flush_timer(torch):
+    """``timed(call, pattern, copies)``: device ms per call of ``call(x)``,
+    ``x`` from ``copies()`` (one per call), with (``flush_ms``) and without
+    (``warm_ms``) a read of ``FLUSH_BYTES`` before each."""
     flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
     flush.fill_(1.0)
+    reps = REPS["kernels"]
 
-    def copies():
-        torch.cuda.synchronize()
-        return [fast_sweep.FastCarry(
-            State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
-            carry.terms.clone(), carry.d.clone(), carry.z.clone(), carry.q.clone(),
-            carry.acc.clone()) for _ in range(reps + 1)]
-
-    def timed(call, pattern):
-        kinds = (("k", pattern),)
+    def timed(call, pattern, copies):
         out = {}
         for name, flushed in (("flush_ms", True), ("warm_ms", False)):
             cs = copies()
@@ -242,8 +237,159 @@ def kernels_phase(torch, fs, carry, tuning, gen) -> dict:
                     flush.sum()
                 call(cs[i])
 
-            out[name] = _device_ms(torch, fn, reps, kinds)["k"]
+            out[name] = _device_ms(torch, fn, reps, (("k", pattern),))["k"]
         return out
+
+    return timed
+
+
+def _k1_state(torch, model, batch):
+    """A state near ``batch`` made on the host from ``K1_SEED``: varied
+    scalars and rates per chain, a near-critical chain in seven, a gamma
+    shape above 100 in five."""
+    import numpy as np
+
+    rng = np.random.default_rng(K1_SEED)
+    C, N = batch.heights.shape
+    h = batch.heights.cpu().double().numpy() * rng.uniform(0.97, 1.0, (C, 1))
+    h[:, 0] = 1.0
+    h[:, np.asarray(model.topo.is_leaf, bool)] = 0.0
+    birth = rng.uniform(0.2, 3.0, C)
+    death = rng.uniform(0.0, 3.0, C)
+    death[::7] = birth[::7] + 2e-7
+    rate_var = rng.uniform(0.02, 1.5, C)
+    rate_var[::5] = 1e-3
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=batch.heights.device)
+
+    return batch.replace(heights=t(h), rates=t(rng.gamma(5.0, 0.2, (C, N))), birth=t(birth),
+                         death=t(death), height=t(rng.uniform(0.5, 3.0, C)),
+                         rate_mean=t(rng.uniform(0.5, 2.0, C)), rate_var=t(rate_var))
+
+
+def _node_priors(topo):
+    """Two calibrations, a constraint and a brace on inner nodes."""
+    import numpy as np
+
+    from mcmcdate_tpu_torch.ops.node_priors import BraceSet, CalibrationSet, ConstraintSet
+
+    inner = [int(i) for i in topo.inner_nodes if i != 0]
+    return dict(
+        calibrations=CalibrationSet(node=np.asarray([0, inner[0]], np.int32),
+                                    lower=np.asarray([1.0, 0.4]),
+                                    lower_pm=np.asarray([0.01, 0.02]),
+                                    upper=np.asarray([2.0, np.inf]),
+                                    upper_pm=np.asarray([0.01, 1.0])),
+        constraints=ConstraintSet(young=np.asarray([inner[-1]], np.int32),
+                                  old=np.asarray([inner[-2]], np.int32), pm=np.asarray([0.01])),
+        braces=BraceSet(node=np.asarray([[inner[2], inner[-3], -1]], np.int32),
+                        sd=np.asarray([0.02])))
+
+
+def k1_bits(model, state) -> dict:
+    """Per relaxed clock, the sha256 (16 hex digits) of ``prior_terms`` of
+    ``state`` under ``model`` with node priors."""
+    import dataclasses
+    import hashlib
+
+    from mcmcdate_tpu_torch.kernels.prior_terms import prior_terms
+    from mcmcdate_tpu_torch.ops import clocks
+
+    bits = {}
+    for clock in clocks.MODELS:
+        m = dataclasses.replace(model, clock=clock, **_node_priors(model.topo))
+        terms = prior_terms(m, state)
+        bits[clock] = hashlib.sha256(terms.cpu().numpy().tobytes()).hexdigest()[:16]
+    return bits
+
+
+def k1_record(torch, model, batch) -> dict:
+    """K1 on ``model``: flushed and warm ms a call on a ``_k1_state``, and
+    its ``k1_bits``."""
+    from mcmcdate_tpu_torch.kernels.prior_terms import prior_terms
+
+    state = _k1_state(torch, model, batch)
+    timed = _flush_timer(torch)
+    return dict(T=int(sum(model.term_block_sizes)), bits=k1_bits(model, state),
+                **timed(lambda s: prior_terms(model, s), "prior_terms_kernel",
+                        lambda: [state] * (REPS["kernels"] + 1)))
+
+
+def k3_rows(tt) -> dict:
+    """The rows K3 is timed on: the pulley and the first subtree scale of a
+    range class (both end in T1, K2 and K3 under a full MVN)."""
+    import numpy as np
+
+    from mcmcdate_tpu_torch.engine import proposals as P
+
+    kind = np.asarray(tt.table.kind)
+    return {"pulley": int(np.nonzero(kind == P.K_PULLEY_ULTRA)[0][0]),
+            "range": next(q for q in range(len(kind)) if kind[q] == P.K_SCALE_SUBTREE_ULTRA
+                          and int(tt.d_class[q]) not in (P.DC_INV, P.DC_FULL, P.DC_GATHER))}
+
+
+def k3_records(torch, fs, carry, tuning, gen) -> dict:
+    """K3 on the pulley and on the first subtree scale of a range class,
+    after T1 and K2, each call on a copy of the carry T1 left."""
+    from mcmcdate_tpu_torch.engine import mh as M
+    from mcmcdate_tpu_torch.engine.mh import Carry
+    from mcmcdate_tpu_torch.kernels.accept_select import accept_select
+    from mcmcdate_tpu_torch.kernels.ticket_step import TicketDraws, ticket_prologue
+    from mcmcdate_tpu_torch.models.state import FIELDS, State
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    tk = M.MHKernel(fs.model, fs.table)
+    tt = tk.tt
+    timed = _flush_timer(torch)
+    out = {}
+    for tag, p in k3_rows(tt).items():
+        base = tk.init_carry(carry.batch)
+        draw = (standard_gamma(float(fs.table.par[p]) / tuning[:, p], gen) if tt.gamma[p]
+                else torch.rand(CHAINS, generator=gen, device="cuda"))
+        dr = TicketDraws.single(p, draw, torch.rand(CHAINS, generator=gen, device="cuda"))
+        pro = ticket_prologue(tt, base, tuning, dr, 0)
+        dy, d_lik = tk._k2(base, p, pro)
+
+        def copies(base=base):
+            torch.cuda.synchronize()
+            return [Carry(State(**{f: getattr(base.batch, f).clone() for f in FIELDS}),
+                          base.terms.clone(), base.d.clone(), base.y.clone(), base.acc.clone(),
+                          base.nbad.clone()) for _ in range(REPS["kernels"] + 1)]
+
+        def call(c, dr=dr, pro=pro, dy=dy, d_lik=d_lik):
+            return accept_select(tt, c, tuning, dr, 0, pro, dy, d_lik)
+
+        out[f"accept_select {tag}"] = dict(
+            row=p, d_class=int(tt.d_class[p]), rows=(tt.D if tt.rows(p) is None
+                                                       else int(tt.rows(p).numel())),
+            accepted=int(call(copies()[0]).sum()), **timed(call, "accept_select_kernel", copies))
+    return out
+
+
+def kernels_phase(torch, fs, carry, tuning, gen) -> dict:
+    """K6 ``contra_slide``'s first step, G3 on sub_ultra's and var_tree's
+    first tickets, K4's prologue and epilogue on the first step of both
+    point kinds, K1 and K3, per call, with and without an L2 flush before
+    each."""
+    from mcmcdate_tpu_torch.engine import fast_sweep, proposals as P
+    from mcmcdate_tpu_torch.kernels import contra_step as K, glob_step as G, point_step as K4
+    from mcmcdate_tpu_torch.kernels.point_scan import point_scan
+    from mcmcdate_tpu_torch.models.state import FIELDS, State
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    reps = REPS["kernels"]
+    timer = _flush_timer(torch)
+
+    def copies():
+        torch.cuda.synchronize()
+        return [fast_sweep.FastCarry(
+            State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
+            carry.terms.clone(), carry.d.clone(), carry.z.clone(), carry.q.clone(),
+            carry.acc.clone()) for _ in range(reps + 1)]
+
+    def timed(call, pattern):
+        return timer(call, pattern, copies)
 
     out = {}
     sx = fs.spec_t[P.K_SLIDE_NODES_CONTRA][0]
@@ -298,6 +444,8 @@ def kernels_phase(torch, fs, carry, tuning, gen) -> dict:
                                                 **timed(prologue, "point_lik_prologue_kernel"))
         out[f"point_lik_epilogue {tag}"] = dict(B=B, KD=KD, accepted=int(accept.sum()),
                                                 **timed(epilogue, "point_lik_epilogue_kernel"))
+    out["prior_terms"] = k1_record(torch, fs.model, carry.batch)
+    out.update(k3_records(torch, fs, carry, tuning, gen))
     return dict(reps=reps, flush_mb=FLUSH_BYTES / 1e6, records=out)
 
 
@@ -341,6 +489,17 @@ def main(argv=None) -> list:
         out.append(rec)
         del fs, model, batch, carry
         torch.cuda.empty_cache()
+    if args.phase == "kernels":
+        from mcmcdate_tpu_torch.tools.seq_time import univariate_model
+
+        model, init = univariate_model(UNI_TAXA)
+        batch = init.replace(**{f: getattr(init, f).expand(CHAINS, *getattr(init, f).shape[1:])
+                                .contiguous() for f in ("heights", "rates", "birth", "death",
+                                                        "height", "rate_mean", "rate_var")})
+        rec = dict(root=root, card=card, taxa=UNI_TAXA, chains=CHAINS, phase=args.phase,
+                   model="univariate", records={"prior_terms": k1_record(torch, model, batch)})
+        print(json.dumps(rec), flush=True)
+        out.append(rec)
     return out
 
 

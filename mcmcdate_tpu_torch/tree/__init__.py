@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import device as devices
 from .flat import FlatTopology
 from .rose import (  # noqa: F401
     Node,
@@ -23,12 +24,13 @@ from .rose import (  # noqa: F401
 
 class DeviceTopology:
     """A flat topology (:class:`FlatTopology`, or any object with its
-    fields) with its index arrays as int64 tensors on ``device``; every
-    other attribute reads through to the host topology."""
+    fields) with its index arrays as int64 tensors on ``device`` (the card
+    unless the caller asks for the CPU); every other attribute reads
+    through to the host topology."""
 
-    def __init__(self, flat: FlatTopology, device="cpu"):
+    def __init__(self, flat: FlatTopology, device="cuda"):
         self.flat = flat
-        self.device = torch.device(device)
+        self.device = devices.resolve(device)
 
         def t(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=self.device)

@@ -40,16 +40,105 @@ def _model(clock=clocks.UNCORRELATED_GAMMA):
         rate_var=torch.as_tensor(g.uniform(1e-3, 1, 96), dtype=torch.float32, device="cuda"))
 
 
-@pytest.mark.parametrize("clock", clocks.MODELS)
-def test_prior_terms_kernel(card, clock):
-    model, batch = _model(clock)
+def _k1_agree(model, batch):
     before = prior_terms.launches
     k = prior_terms(model, batch)
     p = prior_terms_plain(model, batch)
     assert prior_terms.launches == before + 1
     assert torch.equal(torch.isfinite(k), torch.isfinite(p))
+    assert torch.equal(k[torch.isinf(p)], p[torch.isinf(p)])
     fin = torch.isfinite(p)
     assert torch.all((k[fin] - p[fin]).abs() <= 1e-5 + 1e-5 * p[fin].abs())
+
+
+def _node_priors(topo):
+    """Two calibrations, a constraint and a brace on inner nodes."""
+    from mcmcdate_tpu_torch.ops.node_priors import BraceSet, CalibrationSet, ConstraintSet
+
+    inner = [int(i) for i in topo.inner_nodes if i != 0]
+    return dict(
+        calibrations=CalibrationSet(node=np.asarray([0, inner[0]], np.int32),
+                                    lower=np.asarray([1.0, 0.4]), lower_pm=np.asarray([0.01, 0.02]),
+                                    upper=np.asarray([2.0, np.inf]),
+                                    upper_pm=np.asarray([0.01, 1.0])),
+        constraints=ConstraintSet(young=np.asarray([inner[-1]], np.int32),
+                                  old=np.asarray([inner[-2]], np.int32), pm=np.asarray([0.01])),
+        braces=BraceSet(node=np.asarray([[inner[2], inner[-3], -1]], np.int32),
+                        sd=np.asarray([0.02])))
+
+
+@pytest.mark.parametrize("clock", clocks.MODELS)
+def test_prior_terms_kernel(card, clock):
+    model, batch = _model(clock)
+    _k1_agree(model, batch)
+
+
+@pytest.mark.parametrize("taxa, chains", ((40, 2200), (4000, 8)), ids=("shared_cta", "unstaged"))
+def test_prior_terms_kernel_layouts(card, taxa, chains):
+    """K1 where several chains share a CTA (more chains than one wave of
+    CTAs holds: at most 16 an SM on 132 SMs) and where a CTA's term rows
+    do not fit its shared memory (8,004 nodes: each term goes straight to
+    device memory), with node priors and a near-critical chain."""
+    import dataclasses
+
+    from mcmcdate_tpu_torch.tools.seq_time import univariate_model
+
+    if taxa > 1000:
+        model, init = univariate_model(taxa)
+        batch = init.to(dtype=torch.float32)
+        batch = State(**{f: getattr(batch, f).expand(chains, *getattr(batch, f).shape[1:])
+                         .contiguous() for f in FIELDS})
+    else:
+        model, batch = synthetic.build(taxa, chains, device="cuda")
+    g = np.random.default_rng(1)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device="cuda")
+
+    birth = g.uniform(0.2, 3, chains)
+    death = g.uniform(0.0, 3, chains)
+    death[0] = birth[0] + 2e-7
+    h = batch.heights * t(g.uniform(0.95, 1.0, (chains, 1)))
+    h[:, 0] = 1.0
+    h[:, model.topo.is_leaf_t] = 0.0
+    batch = batch.replace(heights=h.contiguous(), birth=t(birth), death=t(death),
+                          rates=t(g.gamma(5.0, 0.2, (chains, model.topo.n))),
+                          rate_var=t(g.uniform(1e-3, 1, chains)))
+    for clock in (clocks.UNCORRELATED_GAMMA, clocks.AUTOCORRELATED_LOG_NORMAL):
+        _k1_agree(dataclasses.replace(model, clock=clock, **_node_priors(model.topo)), batch)
+
+
+def test_entry_points_default_to_the_card(card, tmp_path):
+    """The library entry points, called without a device, land on the card,
+    as float32 where they take a dtype."""
+    from mcmcdate_tpu_torch.engine import checkpoint
+    from mcmcdate_tpu_torch.models import DatingModel, from_numpy, init_state
+    from mcmcdate_tpu_torch.ops import mvn
+    from mcmcdate_tpu_torch.tree import DeviceTopology
+    from mcmcdate_tpu_torch.tree.flat import FlatTopology
+    from mcmcdate_tpu_torch.utils.simulate import random_ultrametric_tree
+
+    rng = np.random.default_rng(0)
+    tree = random_ultrametric_tree(rng, 6)
+    topo = FlatTopology.from_tree(tree)
+    k = topo.n - 2
+    lik = mvn.LikelihoodData.univariate(rng.uniform(0.1, 0.5, k), rng.uniform(0.01, 0.1, k))
+    arrays = {f: rng.uniform(0.5, 1.0, (2, topo.n) if f in ("heights", "rates") else 2)
+              for f in FIELDS}
+    made = {
+        "from_numpy": from_numpy(topo, lik, arrays)[1].heights,
+        "State.from_arrays": State.from_arrays(arrays).birth,
+        "init_state": init_state(tree, topo, 2).heights,
+        "make_log_likelihood": mvn.make_log_likelihood(lik)(
+            torch.zeros((2, k), dtype=torch.float32, device="cuda")),
+        "DatingModel": DatingModel(topo=topo, likelihood=lik).inv_sd_internal_t,
+    }
+    checkpoint.save("e", State.from_arrays(arrays), np.ones((2, 3)), np.zeros(2, np.uint32), 1,
+                    3, out_dir=str(tmp_path))
+    made["checkpoint.load"] = checkpoint.load("e", in_dir=str(tmp_path))[0].heights
+    for name, x in made.items():
+        assert x.device.type == "cuda" and x.dtype == torch.float32, name
+    assert DeviceTopology(topo).parent_t.device.type == "cuda"
 
 
 def test_whiten_kernel(card):
@@ -110,6 +199,47 @@ def test_accept_select_kernel(card):
         assert torch.equal(ak, ap) and 0 < int(ak.sum()) < C
         if p == birth:
             assert not bool(ak[::5].any())
+        _ticket_agree(ck, cp, torch.log(u), la_p, ak)
+
+
+@pytest.mark.parametrize("what", ("pulley", "range"))
+def test_accept_select_long_rows(card, what):
+    """K3 where its write-back takes 16-byte copies (300 taxa: D = 598, its
+    whole-D y and d and the term blocks past 512 entries): the pulley
+    (DC_FULL) and a subtree scale of a range class, after T1 and K2,
+    against the plain epilogue from the same prologue: decisions equal but
+    at ties, state, terms, d and the counts bitwise, y within 1e-5 of its
+    scale; then the same ticket with every chain rejected (u NaN) and with
+    every chain whose ratio is above -inf accepted (u = 0)."""
+    from mcmcdate_tpu_torch.engine import proposals as TP
+
+    tk, carry, tuning, g = _ticket_setup("full", 300, C=64)
+    tt = tk.tt
+    C = carry.terms.shape[0]
+    t = tt.table
+    if what == "pulley":
+        p = int(np.nonzero(t.kind == TP.K_PULLEY_ULTRA)[0][0])
+    else:
+        p = next(q for q in range(len(t.kind)) if t.kind[q] == TP.K_SCALE_SUBTREE_ULTRA
+                 and int(tt.d_class[q]) not in (TP.DC_INV, TP.DC_FULL, TP.DC_GATHER))
+    assert tt.breaks(p)
+    draw = (torch._standard_gamma(float(t.par[p]) / tuning[:, p], generator=g) if tt.gamma[p]
+            else torch.rand(C, generator=g, device=card))
+    mixed = torch.rand(C, generator=g, device=card)
+    for u in (mixed, torch.full((C,), math.nan, device=card), torch.zeros(C, device=card)):
+        dr = TicketDraws.single(p, draw, u)
+        ck, cp = _copy(carry), _copy(carry)
+        pro = ticket_prologue(tt, ck, tuning, dr, 0)
+        prop = pro.prop.clone()
+        dy, d_lik = tk._k2(ck, p, pro)
+        ak, la_k = accept_select(tt, ck, tuning, dr, 0, pro, dy, d_lik, out=True)
+        pp = ticket_prologue_plain(tt, cp, tuning, p, draw, given=prop)
+        ap, la_p = accept_select_plain(tt, cp, p, pp, torch.where(ak, 0.0, math.nan), dy, d_lik)
+        assert torch.equal(ak, ap)
+        if u is mixed:
+            assert 0 < int(ak.sum()) < C
+        elif bool(u.isnan().all()):
+            assert not bool(ak.any())
         _ticket_agree(ck, cp, torch.log(u), la_p, ak)
 
 

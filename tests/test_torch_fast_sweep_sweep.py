@@ -34,9 +34,9 @@ def build(lik, n_leaves=8, seed=0, C=64):
         data = mvn.LikelihoodData.univariate(mu, rng.uniform(0.01, 0.1, size=k) ** 2)
     else:
         data = mvn.LikelihoodData.none()
-    model = DatingModel(topo=topo, likelihood=data)
+    model = DatingModel(topo=topo, likelihood=data, device="cpu")
     table = TP.build_proposal_table(model.topo, model.braces, False)
-    batch = init_state(tree, topo, C)
+    batch = init_state(tree, topo, C, device="cpu")
     r = rng.gamma(5.0, 0.2, size=(C, topo.n))
     r[:, 0] = 1.0
     batch = batch.replace(rates=torch.as_tensor(r))

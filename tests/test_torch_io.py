@@ -91,7 +91,7 @@ def test_checkpoint_round_trips(tmp_path, dtype):
     jdir.mkdir(), tdir.mkdir()
     jckpt.save("an", JState(**{k: jnp.asarray(v) for k, v in st.items()}), jnp.asarray(tuning),
                jnp.asarray(key), 20, 7, out_dir=str(jdir))
-    state, tun, k2, meta = tckpt.load("an", in_dir=str(jdir))
+    state, tun, k2, meta = tckpt.load("an", in_dir=str(jdir), device="cpu")
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(state, f).numpy(), st[f])
         assert getattr(state, f).numpy().dtype == dtype
@@ -147,7 +147,8 @@ def test_specs_and_monitor_files_identical(fixture_dir, tmp_path):
     lik = jmvn.LikelihoodData.none()
     jm = JModel(topo=topo, likelihood=lik, calibrations=cal, constraints=con, braces=br)
     st = _state(C=2, N=topo.n, seed=3)
-    pm, _ = from_numpy(topo, lik, st, calibrations=cal, constraints=con, braces=br)
+    pm, _ = from_numpy(topo, lik, st, calibrations=cal, constraints=con, braces=br,
+                       device="cpu")
     rng = np.random.default_rng(5)
     T = 6
     rows = {k: rng.uniform(0.1, 2, size=T) for k in (

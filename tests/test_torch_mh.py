@@ -62,7 +62,8 @@ def setup():
                  birth=rng.uniform(0.5, 2, C), death=rng.uniform(0.1, 1, C),
                  height=rng.uniform(1.0, 1.4, C), rate_mean=rng.uniform(0.8, 1.2, C),
                  rate_var=rng.uniform(0.05, 0.5, C))
-    pm, ps = from_numpy(topo, data, state, calibrations=cal, braces=br, mean_root_height=1.2)
+    pm, ps = from_numpy(topo, data, state, calibrations=cal, braces=br, mean_root_height=1.2,
+                        device="cpu")
     js = JState(**{k2: jnp.asarray(v) for k2, v in state.items()})
     tuning = rng.uniform(0.3, 3.0, size=(C, table.n_proposals))
     return topo, br, jm, js, pm, ps, table, tuning

@@ -68,7 +68,7 @@ def _setup(clock=jclocks.UNCORRELATED_GAMMA, seed=5, n_leaves=14):
     state["death"][0] = state["birth"][0] + 2e-7
     state["rate_var"][1] = 2e-3
     pm, ps = from_numpy(topo, data, state, clock=clock, calibrations=cal, constraints=con,
-                        braces=br, mean_root_height=1.2)
+                        braces=br, mean_root_height=1.2, device="cpu")
     js = JState(**{k: jnp.asarray(v) for k, v in state.items()})
     return t, topo, jm, js, pm, ps, rng
 
@@ -134,7 +134,7 @@ def test_whiten_plain_matches_residual_and_classes():
 def test_state_init_and_validity():
     t, topo, jm, js, pm, ps, _ = _setup()
     ref = j_init(t, topo)
-    port = init_state(t, topo, n_chains=3)
+    port = init_state(t, topo, n_chains=3, device="cpu")
     for k in FIELDS:
         np.testing.assert_array_equal(getattr(port, k).numpy(),
                                       np.broadcast_to(np.asarray(getattr(ref, k)),
@@ -145,7 +145,7 @@ def test_state_init_and_validity():
     bad["birth"][3] = 0.0
     bad["heights"][4, 0] = 0.9
     jbad = JState(**{k: jnp.asarray(v) for k, v in bad.items()})
-    tbad = State.from_arrays(bad)
+    tbad = State.from_arrays(bad, device="cpu")
     np.testing.assert_array_equal(t_valid(tbad, topo).numpy(),
                                   np.asarray(jax.vmap(lambda s: is_valid_state(s, topo))(jbad)))
     assert not t_valid(tbad, topo)[1:5].any() and t_valid(tbad, topo)[0]
@@ -167,7 +167,8 @@ def test_from_numpy_copies_sets_and_kinds():
     np.testing.assert_array_equal(pm.chol_internal, np.asarray(jm.chol_internal))
     uni = jmvn.LikelihoodData.univariate(jm.likelihood.mu, np.diag(np.linalg.inv(
         jm.likelihood.precision)))
-    pu, psu = from_numpy(topo, uni, {k: np.asarray(getattr(js, k)) for k in FIELDS})
+    pu, psu = from_numpy(topo, uni, {k: np.asarray(getattr(js, k)) for k in FIELDS},
+                         device="cpu")
     ju = JModel(topo=topo, likelihood=uni)
     close(pu.whitened_residual_internal(psu), jax.vmap(ju.whitened_residual_internal)(js),
           atol=1e-13)

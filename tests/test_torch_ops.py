@@ -226,14 +226,14 @@ def test_mvn_densities(rng):
     d = mu + rng.normal(size=(C, k)) * 0.1
     full_j = jmvn.LikelihoodData.full(mu, np.linalg.inv(sigma), np.linalg.slogdet(sigma)[1])
     full_t = tmvn.LikelihoodData.full(mu, np.linalg.inv(sigma), np.linalg.slogdet(sigma)[1])
-    close(tmvn.make_log_likelihood(full_t)(T(d)),
+    close(tmvn.make_log_likelihood(full_t, device="cpu")(T(d)),
           jax.vmap(jmvn.make_log_likelihood(full_j))(jnp.asarray(d)))
     var = np.diag(sigma)
-    close(tmvn.make_log_likelihood(tmvn.LikelihoodData.univariate(mu, var))(T(d)),
+    close(tmvn.make_log_likelihood(tmvn.LikelihoodData.univariate(mu, var), device="cpu")(T(d)),
           jax.vmap(jmvn.make_log_likelihood(jmvn.LikelihoodData.univariate(mu, var)))(
               jnp.asarray(d)))
-    assert torch.equal(tmvn.make_log_likelihood(tmvn.LikelihoodData.none())(T(d)),
+    assert torch.equal(tmvn.make_log_likelihood(tmvn.LikelihoodData.none(), device="cpu")(T(d)),
                        torch.zeros(C, dtype=torch.float64))
     for kind in (tmvn.SPARSE, tmvn.BANDED):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmvn.make_log_likelihood(tmvn.LikelihoodData(kind=kind, mu=mu))
+            tmvn.make_log_likelihood(tmvn.LikelihoodData(kind=kind, mu=mu), device="cpu")

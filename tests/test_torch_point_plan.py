@@ -39,7 +39,7 @@ def _multifurcating():
                               precision=chol @ chol.T, chol_precision=chol,
                               log_det_sigma=float(-2.0 * np.log(np.diag(chol)).sum()))
     model = DatingModel(topo=topo, likelihood=data, device="cpu", dtype=torch.float32)
-    batch = init_state(tree, topo, C, dtype=torch.float32)
+    batch = init_state(tree, topo, C, dtype=torch.float32, device="cpu")
     h = batch.heights * torch.as_tensor(rng.uniform(0.9, 1.0, size=(C, 1)), dtype=torch.float32)
     h[:, 0] = 1.0
     h[:, model.topo.is_leaf_t] = 0.0

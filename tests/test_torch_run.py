@@ -29,11 +29,13 @@ def test_run_analysis_node_ages_agree_with_jax(tmp_path):
 
     # The port: run_analysis on the CPU at float64.
     C = 48
-    model = DatingModel(topo=topo, likelihood=tlh.load_data(str(tmp_path / "an.data")))
+    model = DatingModel(topo=topo, likelihood=tlh.load_data(str(tmp_path / "an.data")),
+                        device="cpu")
     settings = tchains.RunSettings(
         "an", burn_in=tmh.BurnInSettings([10], []), iterations=20, n_chains=C,
         out_dir=str(tmp_path), seed=3, dtype="float64", device="cpu")
-    runner = tchains.run_analysis(model, init_state(tree, topo), settings, log=lambda *a: None)
+    runner = tchains.run_analysis(model, init_state(tree, topo, device="cpu"), settings,
+                                  log=lambda *a: None)
     with np.load(tmp_path / "an.trace.npz") as z:
         port = {lbl: z[f"age[{lbl}]"] for lbl in runner.diag_labels}
     assert all(v.shape == (20, C) for v in port.values())

@@ -19,14 +19,14 @@ Z_MAX = 6.0  # as in tests/test_engine.py
 def test_prior_marginals_match_golden():
     t = parse_newick(FOUR)
     topo = FlatTopology.from_tree(t)
-    model = DatingModel(topo=topo, likelihood=mvn.LikelihoodData.none())
+    model = DatingModel(topo=topo, likelihood=mvn.LikelihoodData.none(), device="cpu")
     tb = TP.build_proposal_table(model.topo, model.braces, calibrations_available=False)
     # Root Jacobians off, as in tests/test_engine.py: they tilt the measure.
     table = TP.ProposalTable(tb.kind, tb.node, tb.aux, tb.par, tb.weight, tb.dim,
                              np.zeros_like(tb.root_jac), tb.names, tb.tickets)
     kern = tmh.MHKernel(model, table)
     C = 64
-    batch = init_state(t, topo, C)
+    batch = init_state(t, topo, C, device="cpu")
     r = np.random.default_rng(0).gamma(5.0, 0.2, size=(C, topo.n))
     r[:, 0] = 1.0
     batch = batch.replace(rates=torch.as_tensor(r))

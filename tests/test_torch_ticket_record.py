@@ -84,7 +84,7 @@ def _jcarry(jm, js, topo, tuning, keys):
 def _port(setup, lik):
     topo, table, br, cal, con, datas, state, _ = setup
     pm, ps = from_numpy(topo, datas[lik], state, calibrations=cal, constraints=con, braces=br,
-                        mean_root_height=1.2)
+                        mean_root_height=1.2, device="cpu")
     return pm, ps, tmh.MHKernel(pm, table)
 
 

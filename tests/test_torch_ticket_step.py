@@ -76,7 +76,7 @@ def setup():
         jm = JModel(topo=topo, likelihood=data, calibrations=cal, constraints=con, braces=br,
                     mean_root_height=1.2)
         pm, ps = from_numpy(topo, data, state, calibrations=cal, constraints=con, braces=br,
-                            mean_root_height=1.2)
+                            mean_root_height=1.2, device="cpu")
         step = jmh.MHKernel(jm, table)._ticket_step(kernels, 1.0, jnp.float64)
         out[lik] = dict(jm=jm, pm=pm, ps=ps, step=jax.jit(step), tk=tmh.MHKernel(pm, table))
     # One ticket of every kind and every (class, kind) pair, with the draws

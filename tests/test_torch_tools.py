@@ -143,3 +143,33 @@ def test_seq_time_univariate_model():
     assert model.chol_internal is None
     assert model.likelihood.dim == 57 and model.inv_sd_internal.shape == (57,)
     assert init.heights.shape == (1, 59)
+
+
+def test_phase_time_k1_and_k3_inputs_on_cpu():
+    """``phase_time.py --phase kernels``' K1 and K3 inputs, on a small
+    float32 model on the CPU: the host-made K1 state (leaves at 0, root at
+    1, the near-critical chains), its terms' hashes (the same state gives
+    the same hashes; each clock its own), and K3's two rows, which end in
+    T1, K2 and K3 under a full MVN."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch import synthetic
+    from mcmcdate_tpu_torch.engine import mh as M, proposals as P
+    from mcmcdate_tpu_torch.tools import phase_time
+
+    model, batch = synthetic.build(12, 8, dtype=torch.float32, device="cpu")
+    s = phase_time._k1_state(torch, model, batch)
+    assert s.heights.dtype == torch.float32 and s.heights.shape == batch.heights.shape
+    assert bool((s.heights[:, 0] == 1).all())
+    assert bool((s.heights[:, torch.as_tensor(np.asarray(model.topo.is_leaf))] == 0).all())
+    assert float((s.death[::7] - s.birth[::7]).abs().max()) < 1e-6
+    bits = phase_time.k1_bits(model, s)
+    assert bits == phase_time.k1_bits(model, phase_time._k1_state(torch, model, batch))
+    assert len(set(bits.values())) == len(bits)
+    table = P.build_proposal_table(model.topo, model.braces, False)
+    tt = M.MHKernel(model, table).tt
+    rows = phase_time.k3_rows(tt)
+    assert table.kind[rows["pulley"]] == P.K_PULLEY_ULTRA
+    assert table.kind[rows["range"]] == P.K_SCALE_SUBTREE_ULTRA
+    assert all(tt.breaks(p) for p in rows.values())

@@ -96,7 +96,7 @@ class Case:
                           height=rng.uniform(1.0, 1.4, C), rate_mean=rng.uniform(0.8, 1.2, C),
                           rate_var=rng.uniform(0.05, 0.5, C))
         self.pm, self.ps = from_numpy(topo, data, self.state, mean_root_height=1.2,
-                                      **{k: v for k, v in kw.items()})
+                                      device="cpu", **{k: v for k, v in kw.items()})
         self.ptable = TP.build_proposal_table(self.pm.topo, self.pm.braces,
                                               self.pm.calibrations_available)
         self.pfs = TF.FastSweeps(self.pm, self.ptable)
