@@ -72,11 +72,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    above 1,024 distances), the light run and the birth-death scale each a
    record of its own (``records_10k`` in the kernels' line); two timed
    sweeps and one whose carried log posterior is checked, every sweep
-   through T3 alone, both of its kernels launched.
+   through T3 alone, both of its kernels launched;
+9. sparse tutorial: the reference tutorials' workflow at 136 taxa x 1024
+   chains through the CLI: simulate -> prepare "sparse 0.1" (host BCD, D =
+   269; the .data file tagged SparseS) -> run --profile --iterations 20
+   (FastSweeps on the dense sparse precision; the main path's checks) ->
+   continue --iterations 10 (monitor rows numbered after the checkpoint's
+   iteration, the checkpoint advanced, carry check) -> analyze (its files);
+10. sparse full width: simulate -> prepare "sparse 0.1" at 1000 taxa (D =
+   1,997 > 400: the graphical lasso's ADMM on the card, A1 admm_shift, A2
+   admm_eig_scale and A3 admm_update launched once an iteration each) ->
+   run --profile --iterations 10 at 1000 taxa x 1024 chains (FastSweeps,
+   carry check).  On that prepare's own S the whole ADMM runs again by the
+   kernels (bitwise the prepare's) and by the plain versions on the card
+   (the same iterations and zero pattern, Theta and W within
+   ADMM_THETA_TOL), and A1-A3 are held to their plain versions on one more
+   iteration (A1, A2 and A3's Z and U bitwise, A3's sums within
+   ADMM_SUM_REL) and timed flushed, beside eigh's and the product's device
+   times (the A1-A3 records; their ``launches`` are this path's).
 
 Every phase after the kernels sets each wrapper's launch count to 0 just
 before it and reads it just after (T3's also by kernel: ``light`` and
-``heavy``, in ``launches_by_kernel``).  The last two lines of standard output
+``heavy``, in ``launches_by_kernel``; every kernel's by path in
+``launches_by_path``).  The last two lines of standard output
 are the card's name and power limit and, on success, ``{"ok": true,
 "device": {...}}``; the line before them is the kernels' JSON record.
 """
@@ -110,6 +128,11 @@ PRIOR_ONLY_SWEEPS = 10
 SEQUENTIAL_SWEEPS = 10
 UNI_TAXA = 10_000
 UNI_SWEEPS = 2
+# The sparse paths: the reference tutorials' likelihood spec; the tutorial
+# path's continue adds CONTINUE_ITERATIONS to its ITERATIONS, the full-width
+# path runs FULL_WIDTH_SWEEPS after the --profile burn-in.
+SPARSE_SPEC = "sparse 0.1"
+CONTINUE_ITERATIONS = 10
 # Back-to-back calls per kernel timing.
 REPS = 20
 # Bytes read before each call of a kernel timed with the L2 flushed: several
@@ -170,6 +193,14 @@ LP_REL = 1e-5
 # near-critical birth-death cancellation added about +2 per inner node,
 # over 100 at 136 taxa) fails it.
 LP_F64_REL = 1e-4
+# A1-A3 (float64, -fmad=false) against their plain versions on the same
+# inputs: A1's A and U, A2's Qs and A3's Z and U bitwise; A3's r^2 and s^2
+# are the same terms summed in another order: within ADMM_SUM_REL relative.
+ADMM_SUM_REL = 1e-12
+# The whole ADMM by the kernels against the plain route on the card: the
+# same iterations and zero pattern, Theta and W within ADMM_THETA_TOL.
+ADMM_THETA_TOL = 1e-10
+ADMM_NAMES = ("admm_shift", "admm_eig_scale", "admm_update")
 
 KERNELS = (
     ("prior_terms", "mcmcdate_tpu_torch/kernels/csrc/prior_terms.cu",
@@ -204,12 +235,23 @@ KERNELS = (
      "mcmcdate_tpu/engine/fast_sweep.py:949"),
     ("glob_dense_epilogue", "mcmcdate_tpu_torch/kernels/csrc/glob_step.cu",
      "mcmcdate_tpu/engine/fast_sweep.py:1192"),
+    ("admm_shift", "mcmcdate_tpu_torch/kernels/csrc/glasso_admm.cu",
+     "mcmcdate_tpu/utils/glasso.py:110"),
+    ("admm_eig_scale", "mcmcdate_tpu_torch/kernels/csrc/glasso_admm.cu",
+     "mcmcdate_tpu/utils/glasso.py:111"),
+    ("admm_update", "mcmcdate_tpu_torch/kernels/csrc/glasso_admm.cu",
+     "mcmcdate_tpu/utils/glasso.py:125"),
 )
+# The path whose launches a kernel's record reports (the main path's but
+# for A1-A3, which only the 1000-taxon sparse prepare runs).
+RECORD_PATH = {k: "sparse_full_width" for k in ADMM_NAMES}
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s, and float32 and float64 operations/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_F64 = 34e12
+# float64 on the tensor cores (cuBLAS's DGEMM: the ADMM's product).
+PEAK_F64_TC = 67e12
 # The profiler names of T3's two kernels (a warp per ticket in light runs, a
 # CTA per chain for a heavy ticket).
 T3_KERNELS = ("ticket_run_kernel", "ticket_scan_kernel")
@@ -2007,7 +2049,7 @@ def phase_kernels():
     return results
 
 
-def check_carried_posterior(runner, run_dir, lp_post):
+def check_carried_posterior(runner, run_dir, lp_post, name="smoke"):
     """The run's last log posterior per chain, which the sweep carries
     incrementally (prior terms replaced per accepted ticket, the whitened
     residual updated by K2's deltas), against a fresh float32 evaluation of
@@ -2020,7 +2062,7 @@ def check_carried_posterior(runner, run_dir, lp_post):
     from mcmcdate_tpu_torch.engine import checkpoint as ckpt
     from mcmcdate_tpu_torch.tools.profile_sweep import direct_log_posterior
 
-    state, _, _, _ = ckpt.load("smoke", in_dir=run_dir, device=runner.device)
+    state, _, _, _ = ckpt.load(name, in_dir=run_dir, device=runner.device)
 
     def direct(dtype):
         return direct_log_posterior(runner.model, state, dtype).double().cpu().numpy()
@@ -2039,6 +2081,7 @@ def check_carried_posterior(runner, run_dir, lp_post):
 def _wrappers():
     from mcmcdate_tpu_torch.kernels.accept_select import accept_select
     from mcmcdate_tpu_torch.kernels.contra_step import contra_range, contra_slide
+    from mcmcdate_tpu_torch.kernels.glasso_admm import admm_eig_scale, admm_shift, admm_update
     from mcmcdate_tpu_torch.kernels.glob_step import (
         glob_dense_epilogue,
         glob_dense_prologue,
@@ -2059,7 +2102,8 @@ def _wrappers():
             "range_scan": range_scan, "range_lik_epilogue": range_lik_epilogue,
             "contra_slide": contra_slide, "contra_range": contra_range, "glob_scan": glob_scan,
             "glob_dense_prologue": glob_dense_prologue,
-            "glob_dense_epilogue": glob_dense_epilogue}
+            "glob_dense_epilogue": glob_dense_epilogue, "admm_shift": admm_shift,
+            "admm_eig_scale": admm_eig_scale, "admm_update": admm_update}
 
 
 def _counted(run, inside=(), within=None):
@@ -2119,6 +2163,16 @@ def _counted(run, inside=(), within=None):
     counts.update({f"ticket_scan_{k}": n for k, n in by_kind.items()})
     counts["plain_proposals"] = plain[0]
     return counts, out
+
+
+def _check_all_launched(name, launches):
+    """Every kernel of a CLI run at 136 taxa was launched: all but
+    contra_range's buckets one by one, T3's heavy kernel (at 136 taxa no
+    ticket's work passes HEAVY; the univariate 10k phase runs it) and A1-A3
+    (the 1000-taxon sparse prepare's)."""
+    for k, n in launches.items():
+        if k not in ("plain_proposals", "ticket_scan_heavy", *ADMM_NAMES):
+            check(n > 0 or k.startswith("contra_range_"), f"the {name} never launched {k}")
 
 
 def _check_seq_phase(name, within):
@@ -2213,11 +2267,7 @@ def phase_main_path():
         rate = runner.accepted / runner.attempted
         check(0.0 < rate < 1.0, f"overall acceptance {rate}")
         n_sweeps = len(runner.sweep_seconds) * 10
-        # Every kernel, but contra_range's buckets one by one and T3's heavy
-        # kernel (at 136 taxa no ticket's work passes HEAVY; phase 8 runs it).
-        for k, n in launches.items():
-            if k not in ("plain_proposals", "ticket_scan_heavy"):
-                check(n > 0 or k.startswith("contra_range_"), f"the main path never launched {k}")
+        _check_all_launched("main path", launches)
         check(launches["plain_proposals"] == 0, "the main path ran a plain proposal kernel")
         seq_per_sweep = _check_seq_phase("main path", within)
         _check_point_path("main path", launches, runner.kern)
@@ -2472,6 +2522,305 @@ def phase_univariate_10k():
     return launches, rec, k1
 
 
+def _monitor_iterations(run_dir, an, name):
+    with open(os.path.join(run_dir, f"{an}.{name}.monitor")) as fh:
+        return [int(line.split("\t", 1)[0]) for line in fh.read().splitlines()[1:]]
+
+
+def _data_tag(run_dir, an):
+    with open(os.path.join(run_dir, f"{an}.data")) as fh:
+        return json.load(fh)["tag"]
+
+
+def phase_sparse_tutorial():
+    """The reference tutorials' workflow at their 136-taxon shape through the
+    CLI: simulate -> prepare SPARSE_SPEC (the host BCD: D = 269, at most
+    GLASSO_HOST_MAX) -> run --profile --iterations ITERATIONS (FastSweeps on
+    the dense sparse precision; the main path's carry check) -> continue
+    --iterations CONTINUE_ITERATIONS (rows numbered after the checkpoint's
+    iteration, the checkpoint advanced, carry check) -> analyze."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch import cli, prepare
+    from mcmcdate_tpu_torch.engine.fast_sweep import FastSweeps
+
+    an = "sp136"
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        cli.main(["simulate", "--leaves", str(MAIN_TAXA), "--trees", str(TREES), "--out", data])
+        t0 = time.perf_counter()
+        res = cli.main(["prepare", "-a", an, "--rooted-tree", os.path.join(data, "time.tree"),
+                        "--trees", os.path.join(data, "trees.nwk"), "--likelihood-spec",
+                        SPARSE_SPEC, "--out-dir", tmp])
+        prep_s = time.perf_counter() - t0
+        D = res.data.dim
+        check(_data_tag(tmp, an) == "SparseS", f"{an}.data is not tagged SparseS")
+        check(D == 2 * MAIN_TAXA - 3 and D <= prepare.GLASSO_HOST_MAX,
+              f"D = {D}: not the host BCD's shape")
+        kept = len(res.data.precision_assoc) / D ** 2
+        within = {}
+        t0 = time.perf_counter()
+        launches, runner = _counted(lambda: cli.main(
+            ["run", "-a", an, "--chains", str(CHAINS), "--profile", "--seed", "1", "--device",
+             "cuda", "--iterations", str(ITERATIONS), "--out-dir", tmp]),
+            inside=((FastSweeps, "seq_phase"),), within=within)
+        run_s = time.perf_counter() - t0
+        check(isinstance(runner.kern, FastSweeps), "sparse run did not take FastSweeps")
+        check(runner.model.likelihood.kind == "sparse", "the run's likelihood is not sparse")
+        with np.load(os.path.join(tmp, f"{an}.trace.npz")) as z:
+            lp_post = z["lp_post"]
+        check(lp_post.shape == (ITERATIONS, CHAINS), f"trace lp_post {lp_post.shape}")
+        lp_err, lp_f64 = check_carried_posterior(runner, tmp, lp_post[-1], name=an)
+        _check_all_launched("sparse tutorial run", launches)
+        check(launches["plain_proposals"] == 0, "the sparse run ran a plain proposal kernel")
+        _check_seq_phase("sparse tutorial run", within)
+        _check_point_path("sparse tutorial run", launches, runner.kern)
+        before = {m: _monitor_iterations(tmp, an, m)
+                  for m in ("params", "timetree", "ratetree", "prior")}
+        t0 = time.perf_counter()
+        c_launches, c_runner = _counted(lambda: cli.main(
+            ["continue", "-a", an, "--profile", "--seed", "2", "--device", "cuda",
+             "--iterations", str(CONTINUE_ITERATIONS), "--out-dir", tmp]))
+        cont_s = time.perf_counter() - t0
+        end = ITERATIONS + CONTINUE_ITERATIONS
+        with open(os.path.join(tmp, f"{an}.mcmc.json")) as fh:
+            it = json.load(fh)["iteration"]
+        check(it == end, f"continue left the checkpoint at iteration {it}, not {end}")
+        for m, rows in before.items():
+            got = _monitor_iterations(tmp, an, m)
+            want = rows + list(range(ITERATIONS + 2, end + 1, 2))
+            check(got == want, f"{an}.{m}.monitor rows after continue: {got[-6:]}")
+        with np.load(os.path.join(tmp, f"{an}.trace.npz")) as z:
+            lp_post = z["lp_post"]
+        check(lp_post.shape == (end, CHAINS), f"continued trace lp_post {lp_post.shape}")
+        c_err, _ = check_carried_posterior(c_runner, tmp, lp_post[-1], name=an)
+        check(c_launches["plain_proposals"] == 0, "continue ran a plain proposal kernel")
+        _check_all_launched("sparse tutorial continue", c_launches)
+        t0 = time.perf_counter()
+        cli.main(["analyze", "-a", an, "--out-dir", tmp])
+        an_s = time.perf_counter() - t0
+        for suffix in ("params.thinned", "timetree.tree.mean", "timetree.tree.combined",
+                       "timetree.ages.summary", "timetree.nexus", "timetree.densitree.nex",
+                       "ratetree.tree.mean"):
+            check(os.path.getsize(os.path.join(tmp, f"{an}.{suffix}")) > 0,
+                  f"analyze wrote no {an}.{suffix}")
+        with open(os.path.join(tmp, f"{an}.timetree.ages.summary")) as fh:
+            n_rows = len(fh.read().splitlines()) - 1
+        check(n_rows == runner.model.topo.n, f"ages.summary has {n_rows} nodes")
+    log(f"[sparse tutorial] {MAIN_TAXA} taxa x {CHAINS} chains, {SPARSE_SPEC}: prepare (host "
+        f"BCD, D = {D}, {kept:.4f} of the precision kept) {prep_s:.1f} s; run (FastSweeps, "
+        f"--profile burn-in of 60, then {ITERATIONS} iterations) {run_s:.1f} s, median "
+        f"{statistics.median(runner.sweep_seconds):.4f} s per sweep on "
+        f"{torch.cuda.get_device_name(0)}, carried log posterior within {lp_err:.3g} of the "
+        f"direct float32 one (float32 vs float64: {lp_f64:.3g}); continue ({CONTINUE_ITERATIONS}"
+        f" iterations, monitors appended to iteration {end}) {cont_s:.1f} s, carry within "
+        f"{c_err:.3g}; analyze {an_s:.1f} s")
+    return {k: launches[k] + c_launches[k] for k in launches}
+
+
+def _admm_check(S_np, rho, W_k, Theta_k, iterations):
+    """A1-A3 at the 1000-taxon prepare's own S: the whole ADMM once more by
+    the kernels (it must repeat the prepare's Theta bitwise: the sums' order
+    is fixed) and once by the plain versions on the card (the same
+    iterations and zero pattern, Theta and W within ADMM_THETA_TOL); each
+    kernel against its plain version on the final iterate's next iteration;
+    each kernel's flushed device time, its plain version's and its bound;
+    eigh's and the product's device times.  Returns the A1-A3 records."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch.kernels import glasso_admm as K
+    from mcmcdate_tpu_torch.utils import glasso
+
+    S = torch.as_tensor(S_np, dtype=torch.float64, device="cuda")
+    p = S.shape[0]
+
+    def host(run):
+        th = run.Z.cpu().numpy()
+        th = 0.5 * (th + th.T)
+        return th, np.linalg.inv(th)
+
+    _sync()
+    t0 = time.perf_counter()
+    run_k = glasso.admm_solve(S, rho)
+    _sync()
+    wall_k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_p = glasso.admm_solve(S, rho, ops=K.PLAIN)
+    _sync()
+    wall_p = time.perf_counter() - t0
+    th_k, _ = host(run_k)
+    check(run_k.iterations == iterations and np.array_equal(th_k, Theta_k),
+          "the kernel ADMM did not repeat the prepare's run bitwise")
+    th_p, w_p = host(run_p)
+    check(run_p.iterations == iterations,
+          f"plain-route ADMM took {run_p.iterations} iterations, the kernels {iterations}")
+    check(np.array_equal(Theta_k == 0, th_p == 0), "the two ADMM routes' zero patterns differ")
+    err_th = float(np.abs(Theta_k - th_p).max())
+    err_w = float(np.abs(W_k - w_p).max())
+    check(err_th <= ADMM_THETA_TOL and err_w <= ADMM_THETA_TOL,
+          f"ADMM routes differ: Theta by {err_th:.3g}, W by {err_w:.3g}")
+
+    # One more iteration from the final iterate, pass by pass.
+    Z, t, fac = run_k.Z, run_k.t, run_k.fac
+    Uk, Up = run_k.U.clone(), run_k.U.clone()
+    A = K.admm_shift(Z, Uk, S, t, fac)
+    check(torch.equal(A, K.admm_shift_plain(Z, Up, S, t, fac)) and torch.equal(Uk, Up),
+          "admm_shift differs from its plain version")
+    lam, Q = torch.linalg.eigh(A)
+    Qs = K.admm_eig_scale(lam, Q, t)
+    check(torch.equal(Qs, K.admm_eig_scale_plain(lam, Q, t)),
+          "admm_eig_scale differs from its plain version")
+    T = (Qs @ Q.mT).contiguous()
+    Zk, Zp, U2k, U2p = Z.clone(), Z.clone(), Uk.clone(), Uk.clone()
+    rs_k = K.admm_update(T, Zk, U2k, glasso.ALPHA, rho / t)
+    rs_p = K.admm_update_plain(T, Zp, U2p, glasso.ALPHA, rho / t)
+    check(torch.equal(Zk, Zp) and torch.equal(U2k, U2p),
+          "admm_update's Z or U differs from its plain version")
+    rs_err = float((rs_k - rs_p).abs().max())
+    check(rs_err <= ADMM_SUM_REL * float(rs_p.abs().max()),
+          f"admm_update's sums differ by {rs_err:.3g} from {rs_p.tolist()}")
+
+    # Timings.  Each kernel moves 2-5 p x p matrices (64-160 MB at 1000 taxa,
+    # beyond the 50 MB L2), so back to back every call reads its inputs from
+    # device memory and writes back the previous call's dirty lines.  That
+    # steady state, by CUDA events around 20 calls (the host enqueues a call
+    # faster than the card runs it), is the record.  The profiler's
+    # intervals for these kernels, back to back and flushed, are logged
+    # beside: they have come out below the bytes bound (PERF.md).  eigh and
+    # the product by both.
+    mat = 8 * p * p
+    Ut, Zt, Ut2 = Uk.clone(), Z.clone(), Uk.clone()
+    calls = {
+        "admm_shift": (lambda: K.admm_shift(Z, Ut, S, t, 1.0),
+                       lambda: K.admm_shift_plain(Z, Ut2, S, t, 1.0),
+                       "admm_shift_kernel", 5 * mat, 6 * p * p, 0.0),
+        "admm_eig_scale": (lambda: K.admm_eig_scale(lam, Q, t),
+                           lambda: K.admm_eig_scale_plain(lam, Q, t),
+                           "admm_eig_scale_kernel", 2 * mat + 8 * p, 6 * p * p, 0.0),
+        "admm_update": (lambda: K.admm_update(T, Zt, Ut, glasso.ALPHA, rho / t),
+                        lambda: K.admm_update_plain(T, Zp, U2p, glasso.ALPHA, rho / t),
+                        ("admm_update_kernel", "admm_reduce_kernel"), 5 * mat, 14 * p * p,
+                        rs_err),
+    }
+    def event_ms(fn, reps=10):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        _sync()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        _sync()
+        return start.elapsed_time(end) / reps
+
+    recs = {}
+    for name, (kern, plain, kname, nbytes, ops64, err) in calls.items():
+        ms = event_ms(kern, reps=20)
+        plain_ms = _device_ms(plain, reps=5)
+        recs[name] = _record(err, ms, plain_ms, nbytes, 0, None, ops64=ops64)
+        recs[name]["ms_profiler"] = _device_ms(kern, only=kname)
+        recs[name]["ms_flushed"] = _device_ms(kern, only=kname, flush=True)
+    eigh_ms = _device_ms(lambda: torch.linalg.eigh(A), reps=5)
+    eigh_ev = event_ms(lambda: torch.linalg.eigh(A), reps=5)
+    prod_ms = _device_ms(lambda: Qs @ Q.mT, reps=5)
+    prod_ev = event_ms(lambda: Qs @ Q.mT, reps=20)
+    prod_bound = max(3 * mat / PEAK_BYTES, 2 * p ** 3 / PEAK_F64_TC) * 1e3
+    log(f"[sparse full width] ADMM at p = {p} (rho {rho}): {iterations} iterations; kernels "
+        f"{wall_k:.3f} s ({wall_k / iterations * 1e3:.2f} ms an iteration, host clock), plain "
+        f"route {wall_p:.3f} s; Theta within {err_th:.3g} and W within {err_w:.3g} of the "
+        f"plain route, {float((Theta_k == 0).mean()):.4f} of Theta zero; device time per call: "
+        f"eigh {eigh_ms:.4f} ms (CUDA events {eigh_ev:.4f}), product {prod_ms:.4f} ms (CUDA "
+        f"events {prod_ev:.4f}; bound {prod_bound:.4f} ms at 67 TFLOP/s float64 on the tensor "
+        f"cores); " + "; ".join(
+            f"{k} {r['ms']:.4f} ms back to back by CUDA events (profiler: {r['ms_profiler']:.4f} "
+            f"back to back, {r['ms_flushed']:.4f} flushed), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})" for k, r in recs.items()))
+    for r in recs.values():
+        r.update(eigh_ms=eigh_ms, eigh_event_ms=eigh_ev, product_ms=prod_ms,
+                 product_event_ms=prod_ev, product_bound_ms=prod_bound, iterations=iterations)
+    return recs
+
+
+def phase_sparse_full_width():
+    """The GOE tutorial's scale: simulate -> prepare SPARSE_SPEC at 1000 taxa
+    (D = 1,997 > GLASSO_HOST_MAX: the ADMM on the card through A1-A3, each
+    launched once an iteration) -> run --profile --iterations
+    FULL_WIDTH_SWEEPS at 1000 taxa x 1024 chains (FastSweeps; carry check).
+    A1-A3 are also held to their plain versions on that prepare's own S
+    (``_admm_check``).  Returns the launches and the A1-A3 records."""
+    import numpy as np
+
+    from mcmcdate_tpu_torch import cli, prepare
+    from mcmcdate_tpu_torch.engine.fast_sweep import FastSweeps
+    from mcmcdate_tpu_torch.utils import glasso
+
+    an = "sp1000"
+    seen = {}
+    real = glasso.graphical_lasso_admm
+
+    def spy(S, rho, **kw):
+        out = real(S, rho, **kw)
+        seen.update(S=S, rho=rho, out=out, iterations=kw["stats"]["iterations"])
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        cli.main(["simulate", "--leaves", str(BENCH_TAXA), "--trees", str(TREES), "--out", data])
+        sim_s = time.perf_counter() - t0
+        glasso.graphical_lasso_admm = spy
+        try:
+            t0 = time.perf_counter()
+            p_launches, res = _counted(lambda: cli.main(
+                ["prepare", "-a", an, "--rooted-tree", os.path.join(data, "time.tree"),
+                 "--trees", os.path.join(data, "trees.nwk"), "--likelihood-spec", SPARSE_SPEC,
+                 "--device", "cuda", "--out-dir", tmp]))
+            prep_s = time.perf_counter() - t0
+        finally:
+            glasso.graphical_lasso_admm = real
+        D = res.data.dim
+        check(D == 2 * BENCH_TAXA - 3 and D > prepare.GLASSO_HOST_MAX and "S" in seen,
+              f"D = {D}: the prepare did not take the ADMM")
+        check(_data_tag(tmp, an) == "SparseS", f"{an}.data is not tagged SparseS")
+        its = seen["iterations"]
+        got = {k: p_launches[k] for k in ADMM_NAMES}
+        check(its > 0 and got == {k: its for k in ADMM_NAMES},
+              f"A1-A3 launched {got} in {its} ADMM iterations, not once an iteration each")
+        kept = len(res.data.precision_assoc) / D ** 2
+        W_k, Theta_k = seen["out"]
+        recs = _admm_check(seen["S"], seen["rho"], W_k, Theta_k, its)
+        within = {}
+        t0 = time.perf_counter()
+        r_launches, runner = _counted(lambda: cli.main(
+            ["run", "-a", an, "--chains", str(CHAINS), "--profile", "--seed", "1", "--device",
+             "cuda", "--iterations", str(FULL_WIDTH_SWEEPS), "--out-dir", tmp]),
+            inside=((FastSweeps, "seq_phase"),), within=within)
+        run_s = time.perf_counter() - t0
+        check(isinstance(runner.kern, FastSweeps), "sparse 1000 run did not take FastSweeps")
+        check(runner.model.likelihood.kind == "sparse", "the run's likelihood is not sparse")
+        with np.load(os.path.join(tmp, f"{an}.trace.npz")) as z:
+            lp_post = z["lp_post"]
+        check(lp_post.shape == (FULL_WIDTH_SWEEPS, CHAINS), f"trace lp_post {lp_post.shape}")
+        lp_err, lp_f64 = check_carried_posterior(runner, tmp, lp_post[-1], name=an)
+        for k in ("point_lik_prologue", "point_scan", "point_lik_epilogue",
+                  "range_lik_prologue", "range_scan", "range_lik_epilogue", "contra_slide",
+                  "contra_range", "glob_scan", "glob_dense_prologue", "glob_dense_epilogue",
+                  "ticket_prologue", "accept_select", "ticket_scan"):
+            check(r_launches[k] > 0, f"sparse full width: never launched {k}")
+        check(r_launches["plain_proposals"] == 0, "sparse full width ran a plain proposal")
+        _check_seq_phase("sparse full width", within)
+        _check_point_path("sparse full width", r_launches, runner.kern)
+    log(f"[sparse full width] {BENCH_TAXA} taxa x {CHAINS} chains, {SPARSE_SPEC}: simulate "
+        f"{sim_s:.1f} s; prepare (ADMM on the card, D = {D}, {its} iterations, {kept:.4f} of "
+        f"the precision kept) {prep_s:.1f} s; run (FastSweeps, --profile burn-in of 60, then "
+        f"{FULL_WIDTH_SWEEPS} iterations) {run_s:.1f} s, median "
+        f"{statistics.median(runner.sweep_seconds):.4f} s per sweep, carried log posterior "
+        f"within {lp_err:.3g} of the direct float32 one (float32 vs float64: {lp_f64:.3g})")
+    return {k: p_launches[k] + r_launches[k] for k in p_launches}, recs
+
+
 def main():
     """Run every phase; any failure raises, so the exit code is not 0."""
     import torch
@@ -2487,15 +2836,24 @@ def main():
     sequential = phase_sequential(seq)
     uni, uni_rec, k1_10k = phase_univariate_10k()
     log(f"[ticket_scan] at {UNI_TAXA} taxa: {json.dumps(uni_rec)}")
+    t0 = time.perf_counter()
+    sparse = phase_sparse_tutorial()
+    log(f"[sparse tutorial] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sparse_full, admm_recs = phase_sparse_full_width()
+    log(f"[sparse full width] took {time.perf_counter() - t0:.1f} s")
+    results.update(admm_recs)
     check("jax" not in sys.modules, "the port imported jax")
     check(not [m for m in sys.modules if m == "mcmcdate_tpu" or m.startswith("mcmcdate_tpu.")],
           "the port imported the JAX package")
 
     name = torch.cuda.get_device_name(0)
     paths = {"main": launches, "full_width": full, "prior_only": prior,
-             "sequential": sequential, "univariate_10k": uni}
+             "sequential": sequential, "univariate_10k": uni, "sparse_tutorial": sparse,
+             "sparse_full_width": sparse_full}
     record = {"kernels": [
-        dict(name=k, route="cuda", source=src, replaces=rep, launches=launches[k],
+        dict(name=k, route="cuda", source=src, replaces=rep,
+             launches=paths[RECORD_PATH.get(k, "main")][k],
              launches_by_path={p: n[k] for p, n in paths.items()},
              **results[k]) for k, src, rep in KERNELS
     ]}

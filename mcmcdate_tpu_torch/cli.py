@@ -1,11 +1,15 @@
-"""Command-line interface of the PyTorch port: prepare / run / simulate.
+"""Command-line interface of the PyTorch port: prepare / run / continue /
+analyze / simulate.
 
-Port of ``mcmcdate_tpu/cli.py``.  ``run`` takes the JAX CLI's flags
-except ``--mc3``, ``--hamiltonian``, ``--bold-*``, ``--fiber-*`` and
-``--trace-dir``, plus ``--device`` (default ``cuda``).  With a CUDA device
-and no card present ``run`` fails; it never carries on on the CPU.
-``simulate`` runs the port's own NumPy-only fixture generator (``utils/simulate.py``).
-``continue``, ``marginal-likelihood`` and ``analyze`` are not ported yet.
+Port of ``mcmcdate_tpu/cli.py``.  ``run`` and ``continue`` take the JAX
+CLI's flags except ``--mc3``, ``--hamiltonian``, ``--bold-*``, ``--fiber-*``
+and ``--trace-dir``, plus ``--device`` (default ``cuda``).  With a CUDA
+device and no card present they fail; they never carry on on the CPU.
+``prepare`` takes ``--device`` too, which only the sparse kind above
+``prepare.GLASSO_HOST_MAX`` dims uses (its ADMM runs there).  ``analyze``
+post-processes monitor files on the host.  ``simulate`` runs the port's own
+NumPy-only fixture generator (``utils/simulate.py``).  ``marginal-likelihood``
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -142,8 +146,8 @@ def _add_run_args(p: argparse.ArgumentParser):
     p.add_argument("--profile", action="store_true",
                    help="shrink schedules for profiling")
     p.add_argument("--likelihood-spec", metavar="SPEC",
-                   help="full | univariate | none (reference constructor "
-                        "spellings and f/u/n codes accepted); default: the "
+                   help="full | sparse | univariate | none (reference constructor "
+                        "spellings and f/s/u/n codes accepted); default: the "
                         "kind recorded in the .data file")
     p.add_argument("--relaxed-molecular-clock", metavar="MODEL",
                    help="default UncorrelatedGamma; ug/ul/uw/al codes accepted")
@@ -174,9 +178,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trees", metavar="FILE")
     p.add_argument("--likelihood-spec", metavar="SPEC")
     p.add_argument("--out-dir", default=".")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the sparse kind's ADMM, used above "
+                        "400 dims only (default cuda)")
 
     p = sub.add_parser("run", help="run the MCMC sampler")
     _add_run_args(p)
+
+    p = sub.add_parser("continue", help="continue a previous run")
+    _add_run_args(p)
+
+    p = sub.add_parser("analyze", help="post-process monitor files "
+                       "(scripts/analyze equivalent)")
+    p.add_argument("-a", "--analysis-name", required=True, metavar="NAME")
+    p.add_argument("--out-dir", default=".")
+    p.add_argument("--burn-in", type=float, default=0.25,
+                   help="fraction of monitor rows to drop (default 0.25)")
+    p.add_argument("--thin", type=int, default=10,
+                   help="thinning factor for the params trace (default 10)")
+    p.add_argument("--rhat-threshold", type=float, default=1.1,
+                   help="node-age R-hat above which per-mode summaries "
+                        "are emitted to <an>.ages.modes (default 1.1)")
 
     p = sub.add_parser("simulate", help="generate a synthetic fixture (extra)")
     p.add_argument("--leaves", type=int, default=6)
@@ -300,13 +322,14 @@ def _device(name: str):
 
 
 def cmd_prepare(args):
+    """Prepare the likelihood data; returns ``prepare``'s result."""
     from .prepare import prepare
 
-    spec, _ = _parse_likelihood_spec(args.likelihood_spec)
+    spec, rho = _parse_likelihood_spec(args.likelihood_spec)
     log = Tee(os.path.join(args.out_dir, args.analysis_name + ".prepare.log"))
     try:
-        prepare(args.analysis_name, args.rooted_tree, args.trees, spec,
-                out_dir=args.out_dir, log=log)
+        return prepare(args.analysis_name, args.rooted_tree, args.trees, spec,
+                       sparse_rho=rho, out_dir=args.out_dir, device=args.device, log=log)
     finally:
         log.close()
 
@@ -344,6 +367,91 @@ def cmd_run(args):
         log.close()
 
 
+def cmd_continue(args):
+    """Continue a saved run (``<name>.mcmc.npz``, written by either
+    package): sampling only, monitors appended; returns the chain runner.
+    On a CUDA device the run continues in float32 (the kernels' type), on
+    the CPU in the checkpoint's type."""
+    import json
+
+    import torch
+
+    from .engine import checkpoint as ckpt
+    from .engine.chains import run_analysis
+
+    device = _device(args.device)
+    with open(os.path.join(args.out_dir, ckpt.meta_file(args.analysis_name))) as fh:
+        meta = json.load(fh)
+    for flag, what in (("mc3", "MC3"), ("hamiltonian", "the NUTS move")):
+        if meta.get(flag):
+            raise NotImplementedError(
+                f"the checkpoint is of a run with {what}, which is not ported to PyTorch "
+                "yet (ROADMAP.md, Queue 1)")
+    dtype = torch.float32 if device.type == "cuda" else getattr(torch, meta.get("dtype",
+                                                                               "float32"))
+    args.dtype = str(dtype).removeprefix("torch.")
+    log = Tee(os.path.join(args.out_dir, args.analysis_name + ".continue.log"))
+    try:
+        model, init = _load_model(args, device, dtype, log)
+        settings = _settings(args)
+        state, tuning, key, meta = ckpt.load(args.analysis_name, dtype=dtype,
+                                             in_dir=args.out_dir, device=device)
+        # The saved batch sets the chain count (the trace's columns too).
+        settings.n_chains = state.n_chains
+        log(f"Continuing from iteration {meta['iteration']}.")
+        return run_analysis(model, init, settings,
+                            continue_from=(state, tuning, key, meta["iteration"]), log=log)
+    finally:
+        log.close()
+
+
+def cmd_analyze(args):
+    """Post-process one analysis' monitor files: thin the params trace,
+    emit ultrametric summary trees + age tables for the time tree,
+    per-branch summaries for the rate tree, and Nexus conversions
+    (the scripts/analyze workflow, scripts/analyze:32-46)."""
+    from . import analyze as A
+
+    an = args.analysis_name
+    d = args.out_dir
+
+    def p(name):
+        return os.path.join(d, f"{an}.{name}")
+
+    if os.path.exists(p("params.monitor")):
+        n = A.thin(p("params.monitor"), p("params.thinned"), args.thin)
+        print(f"params trace: kept {n} rows (thin {args.thin})")
+    if os.path.exists(p("timetree.monitor")):
+        out = A.summarize_trees_ultrametric(
+            p("timetree.monitor"), burn_in_fraction=args.burn_in
+        )
+        print(f"time tree: ultrametric summaries over {out['n']} samples "
+              f"-> {an}.timetree.tree.* and {an}.timetree.ages.*")
+        A.to_nexus(p("timetree.monitor"), p("timetree.nexus"))
+        A.densitree_prep(p("timetree.monitor"), p("timetree.densitree.nex"))
+        print("time tree: Nexus + DensiTree prep written")
+    if os.path.exists(p("ratetree.monitor")):
+        summ = A.summarize_trees(p("ratetree.monitor"),
+                                 burn_in_fraction=args.burn_in)
+        with open(p("ratetree.tree.mean"), "w") as fh:
+            fh.write(summ["mean"] + "\n")
+        print(f"rate tree: per-branch mean tree over {summ['n']} samples")
+    # Per-mode summaries for monitored node ages whose cross-chain R-hat
+    # fails: a blended mean over a multimodal posterior describes neither
+    # mode (analyze.mode_report).
+    modes = A.mode_report(an, d, rhat_threshold=args.rhat_threshold,
+                          burn_in_fraction=args.burn_in)
+    if modes:
+        print(f"multimodal node ages (R-hat > {args.rhat_threshold:g}): "
+              f"{len(modes)} -> {an}.ages.modes")
+        for name, rep in modes.items():
+            occ = ", ".join(
+                f"{m['chains']} chains at {m['mean']:.4g}"
+                for m in rep["modes"]
+            )
+            print(f"  {name} (R-hat {rep['rhat']:.3f}): {occ}")
+
+
 def cmd_simulate(args):
     from .utils.simulate import simulate, write_fixture
 
@@ -356,9 +464,9 @@ def cmd_simulate(args):
 
 def main(argv=None):
     """Parse ``argv`` and run the mode; returns what the mode returns (the
-    chain runner for ``run``)."""
+    chain runner for ``run`` and ``continue``, the result for ``prepare``)."""
     args = build_parser().parse_args(argv)
-    if args.mode in ("prepare", "run"):
+    if args.mode in ("prepare", "run", "continue"):
         _apply_conf(args)
         if args.analysis_name is None:
             raise SystemExit("analysis name missing (flag or analysis.conf)")
@@ -372,6 +480,10 @@ def main(argv=None):
         return cmd_prepare(args)
     if args.mode == "run":
         return cmd_run(args)
+    if args.mode == "continue":
+        return cmd_continue(args)
+    if args.mode == "analyze":
+        return cmd_analyze(args)
     return cmd_simulate(args)
 
 

@@ -257,6 +257,22 @@ class ChainRunner:
         """Full cross-chain draw history as ``{name: [draws, chains]}``."""
         return {k: np.concatenate(v, axis=0) for k, v in self._draws_hist.items() if v}
 
+    def preload_trace(self, trace: Optional[dict]):
+        """Seed the draw history from a saved trace (``continue``): the final
+        diagnostics then cover the whole run, not just post-continue draws."""
+        if not trace:
+            return
+        C = self.s.n_chains
+        for k, arr in trace.items():
+            arr = np.asarray(arr)
+            if arr.ndim == 2 and arr.shape[1] == C:
+                self._draws_hist.setdefault(k, []).append(arr)
+            else:
+                self.log(
+                    f"trace: dropping {k} (saved chains {arr.shape} do not "
+                    f"match the current {C}-chain run)"
+                )
+
     # Fraction of the sampling draws dropped before R-hat/ESS (residual
     # post-burn-in drift otherwise dominates split R-hat on long runs).
     DIAG_DROP_FRACTION = 0.25
@@ -286,11 +302,15 @@ class ChainRunner:
 
 
 def run_analysis(model: DatingModel, init: State, settings: RunSettings, *,
-                 init_from: Optional[tuple] = None, log=print) -> ChainRunner:
-    """The ``run`` entry point: burn-in, a checkpoint, sampling with
-    monitors, a final checkpoint.  ``init_from = (state, tuning,
-    same_cycle)`` warm-starts from a previous save.  Returns the runner
-    (its ``sweep_seconds`` hold the wall time per sweep of every chunk)."""
+                 init_from: Optional[tuple] = None, continue_from: Optional[tuple] = None,
+                 log=print) -> ChainRunner:
+    """The ``run`` and ``continue`` entry point: burn-in, a checkpoint,
+    sampling with monitors, a final checkpoint.  ``init_from = (state,
+    tuning, same_cycle)`` warm-starts from a previous save; ``continue_from
+    = (state, tuning, key, it)`` resumes a saved run: no burn-in, the
+    monitors reopened in append mode with iterations numbered after ``it``,
+    the saved trace preloaded.  Returns the runner (its ``sweep_seconds``
+    hold the wall time per sweep of every chunk)."""
     table = props.build_proposal_table(model.topo, model.braces, model.calibrations_available)
     runner = ChainRunner(model, table, settings, log=log)
     key = new_key(settings.seed if settings.seed is not None else 42)
@@ -303,28 +323,39 @@ def run_analysis(model: DatingModel, init: State, settings: RunSettings, *,
             ckpt.save_trace(settings.analysis_name, trace, out_dir=settings.out_dir)
         log(f"checkpoint at iteration {it}")
 
-    if init_from is not None:
-        # Warm start: reuse the saved batch; reuse tuning and a reduced
-        # burn-in only when the cycle shape matches.
-        state0, tuning0, same_cycle = init_from
-        _, tuning = runner.init_chains(init)
+    def writer():
+        return MonitorWriter(model, settings.analysis_name, settings.out_dir,
+                             period=settings.monitor_period, log=log)
+
+    if continue_from is not None:
+        state0, tuning0, key, start_it = continue_from
         batch = state0.to(device=runner.device, dtype=runner.dtype)
-        if batch.n_chains == 1:  # single saved chain -> broadcast
-            batch, _ = runner.init_chains(batch, jitter_rates=False)
-        if same_cycle and tuning0 is not None:
-            tuning = torch.as_tensor(tuning0, dtype=runner.dtype, device=runner.device)
-            if tuning.dim() == 1:
-                tuning = tuning.expand(settings.n_chains, -1).contiguous()
-            settings.burn_in = BurnInSettings.informed()
+        tuning = torch.as_tensor(tuning0, dtype=runner.dtype, device=runner.device)
+        runner.preload_trace(ckpt.load_trace(settings.analysis_name, in_dir=settings.out_dir))
+        monitor = writer().open(mode="a")
     else:
-        batch, tuning = runner.init_chains(init)
-    monitor = MonitorWriter(model, settings.analysis_name, settings.out_dir,
-                            period=settings.monitor_period, log=log).open()
-    log(f"burn-in: {settings.burn_in.total} iterations")
-    batch, tuning, key = runner.burn_in(batch, tuning, key)
-    do_checkpoint(batch, tuning, key, 0)
+        start_it = 0
+        if init_from is not None:
+            # Warm start: reuse the saved batch; reuse tuning and a reduced
+            # burn-in only when the cycle shape matches.
+            state0, tuning0, same_cycle = init_from
+            _, tuning = runner.init_chains(init)
+            batch = state0.to(device=runner.device, dtype=runner.dtype)
+            if batch.n_chains == 1:  # single saved chain -> broadcast
+                batch, _ = runner.init_chains(batch, jitter_rates=False)
+            if same_cycle and tuning0 is not None:
+                tuning = torch.as_tensor(tuning0, dtype=runner.dtype, device=runner.device)
+                if tuning.dim() == 1:
+                    tuning = tuning.expand(settings.n_chains, -1).contiguous()
+                settings.burn_in = BurnInSettings.informed()
+        else:
+            batch, tuning = runner.init_chains(init)
+        monitor = writer().open()
+        log(f"burn-in: {settings.burn_in.total} iterations")
+        batch, tuning, key = runner.burn_in(batch, tuning, key)
+        do_checkpoint(batch, tuning, key, 0)
     batch, tuning, key = runner.sample(batch, tuning, key, settings.iterations, monitor,
-                                       on_checkpoint=do_checkpoint)
-    do_checkpoint(batch, tuning, key, settings.iterations)
+                                       start_iteration=start_it, on_checkpoint=do_checkpoint)
+    do_checkpoint(batch, tuning, key, start_it + settings.iterations)
     monitor.close()
     return runner

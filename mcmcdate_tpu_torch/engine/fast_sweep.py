@@ -2,12 +2,13 @@
 
 Port of ``mcmcdate_tpu/engine/fast_sweep.py`` without its optional bold
 contrary mixture and fiber node-slide, without NUTS and without the banded
-and sparse likelihood kinds.  A sweep executes sets of provably
-non-interacting proposal tickets as one vectorised step each: their prior
-dependencies are disjoint by construction, and the likelihood couples them
-only through the carried ``z = P (d - mu)`` and ``q = (d-mu)' P (d-mu)``,
-for which a sequential accept scan over each batch applies the exact
-pairwise corrections (see the JAX module's docstring).
+likelihood kind (a sparse precision is stored dense and runs as full).  A
+sweep executes sets of provably non-interacting proposal tickets as one
+vectorised step each: their prior dependencies are disjoint by
+construction, and the likelihood couples them only through the carried
+``z = P (d - mu)`` and ``q = (d-mu)' P (d-mu)``, for which a sequential
+accept scan over each batch applies the exact pairwise corrections (see
+the JAX module's docstring).
 
 Phases of a sweep, in the JAX package's order:
 
@@ -571,8 +572,9 @@ def step_tensors(spec, device, dtype) -> List[dict]:
 
 class FastSweeps:
     """Drop-in alternative to ``MHKernel.sweeps`` using the batched plan,
-    for the full, univariate (as a dense diagonal, up to
-    ``UNIVARIATE_DENSE_MAX`` dims) and none likelihood kinds."""
+    for the full and sparse (its dense precision, as full), univariate (as
+    a dense diagonal, up to ``UNIVARIATE_DENSE_MAX`` dims) and none
+    likelihood kinds."""
 
     def __init__(self, model: DatingModel, table: P.ProposalTable, bold_p: float = 0.0,
                  fiber_slide: float = 0.0):
@@ -581,7 +583,7 @@ class FastSweeps:
                 "the bold contrary mixture and the fiber node-slide are not ported "
                 "(ROADMAP.md, Queue 1)")
         kind = model.likelihood.kind
-        if kind in (mvn.SPARSE, mvn.BANDED):
+        if kind == mvn.BANDED:
             raise NotImplementedError(mvn.NOT_PORTED.format(kind))
         self.model = model
         self.table = table

@@ -5,10 +5,11 @@ Host copy of ``mcmcdate_tpu/io/lhdata.py`` for the kinds the port runs
 same, so ``.data`` files move between the packages (and the reference):
 
 - ``{"tag": "FullS", "contents": [mu, sigmaInvRows, logDetSigma]}``
+- ``{"tag": "SparseS", "contents": [mu, [[[i, j], v], ...], logDetSigma]}``
 - ``{"tag": "UnivariateS", "contents": [mu, variances]}``
 - ``{"tag": "NoLikelihoodS", "contents": []}``
 
-``SparseS`` and ``BandedS`` files raise ``NotImplementedError``.
+``BandedS`` files raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,12 +33,24 @@ def save_data(path: str, data: mvn.LikelihoodData) -> None:
                 data.log_det_sigma,
             ],
         }
+    elif data.kind == mvn.SPARSE:
+        assoc = data.precision_assoc
+        if assoc is None:
+            assoc = dense_to_assoc(data.precision)
+        obj = {
+            "tag": "SparseS",
+            "contents": [
+                data.mu.tolist(),
+                [[[int(i), int(j)], float(v)] for (i, j), v in assoc],
+                data.log_det_sigma,
+            ],
+        }
     elif data.kind == mvn.UNIVARIATE:
         obj = {
             "tag": "UnivariateS",
             "contents": [data.mu.tolist(), data.variances.tolist()],
         }
-    elif data.kind in (mvn.SPARSE, mvn.BANDED):
+    elif data.kind == mvn.BANDED:
         raise NotImplementedError(mvn.NOT_PORTED.format(data.kind))
     else:
         raise ValueError(f"save_data: unknown kind {data.kind!r}")
@@ -55,9 +68,31 @@ def load_data(path: str) -> mvn.LikelihoodData:
     if tag == "FullS":
         mu, rows, log_det = contents
         return mvn.LikelihoodData.full(np.asarray(mu), np.asarray(rows), log_det)
+    if tag == "SparseS":
+        mu, assoc, log_det = contents
+        mu = np.asarray(mu)
+        n = len(mu)
+        prec = np.zeros((n, n))
+        pairs = []
+        for (i, j), v in ((tuple(ij), v) for ij, v in assoc):
+            prec[i, j] = v
+            pairs.append(((i, j), v))
+        return mvn.LikelihoodData.sparse(mu, prec, log_det, assoc=pairs)
     if tag == "UnivariateS":
         mu, vs = contents
         return mvn.LikelihoodData.univariate(np.asarray(mu), np.asarray(vs))
-    if tag in ("SparseS", "BandedS"):
-        raise NotImplementedError(mvn.NOT_PORTED.format(tag[:-1].lower()))
+    if tag == "BandedS":
+        raise NotImplementedError(mvn.NOT_PORTED.format("banded"))
     raise ValueError(f"load_data: Could not decode data file {path} (tag {tag!r}).")
+
+
+def dense_to_assoc(m: np.ndarray, eps: float = 1e-8):
+    """Association list of entries with |value| > eps (``toAssocMatrix``,
+    app/Main.hs:142-155), in row-major order as the JAX package's loop
+    writes it."""
+    m = np.asarray(m)
+    n, mm = m.shape
+    if n != mm:
+        raise ValueError("dense_to_assoc: Matrix not square.")
+    ii, jj = np.nonzero(np.abs(m) > eps)
+    return [((int(i), int(j)), float(v)) for i, j, v in zip(ii, jj, m[ii, jj])]

@@ -11,7 +11,9 @@ likelihood range-block step: ``range_step``'s ``range_lik_prologue`` and
 scan), ``contra_step`` (K6, with two wrappers: ``contra_slide`` and
 ``contra_range``) and ``glob_step`` (the global-move families: G1
 ``glob_scan``, G2 ``glob_dense_prologue`` and G3 ``glob_dense_epilogue``)
-for the ticket-batched one.
+for the ticket-batched one; ``glasso_admm`` (A1 ``admm_shift``, A2
+``admm_eig_scale`` and A3 ``admm_update``, the graphical lasso's ADMM
+iteration) for ``prepare``'s sparse kind above ``GLASSO_HOST_MAX`` dims.
 A wrapper runs the plain PyTorch version for CPU tensors and launches its
 kernel for CUDA tensors (or raises); it counts its launches in
 ``<wrapper>.launches``.  ``build`` compiles ``csrc/*.cu`` with ``nvcc`` at

@@ -178,8 +178,9 @@ class TicketTable:
         topo = model.topo
         N, Pn = topo.n, table.n_proposals
         kind = model.likelihood.kind
-        if kind in (mvn.SPARSE, mvn.BANDED):
+        if kind == mvn.BANDED:
             raise NotImplementedError(mvn.NOT_PORTED.format(kind))
+        # full and sparse (its dense precision) take the full MVN's classes
         self.lik = {mvn.NONE: LIK_NONE, mvn.UNIVARIATE: LIK_DIAG}.get(kind, LIK_FULL)
         self.D = model.likelihood.dim if self.lik else 0
         self.N = N

@@ -159,11 +159,12 @@ class DatingModel:
 
     @cached_property
     def chol_internal(self) -> Optional[np.ndarray]:
-        """Lower Cholesky of the internally permuted precision (f64);
-        ``None`` for the univariate and none kinds."""
+        """Lower Cholesky of the internally permuted precision (f64; a
+        sparse precision is stored dense and taken as a full one); ``None``
+        for the univariate and none kinds."""
         if self.likelihood.kind in (mvn.NONE, mvn.UNIVARIATE):
             return None
-        if self.likelihood.kind != mvn.FULL:
+        if self.likelihood.kind not in (mvn.FULL, mvn.SPARSE):
             raise NotImplementedError(mvn.NOT_PORTED.format(self.likelihood.kind))
         perm = self.topo.ref_to_internal_perm
         prec = self.likelihood.precision[np.ix_(perm, perm)]

@@ -1,10 +1,11 @@
 """Multivariate-normal approximations of the phylogenetic likelihood.
 
-Port of ``mcmcdate_tpu/ops/mvn.py`` for the ``full``, ``univariate`` and
-``none`` kinds.  :class:`LikelihoodData` is the same host description as
-the JAX package's (copied, because that module imports JAX).  The
-``sparse`` and ``banded`` kinds are not ported yet (ROADMAP.md, Queue 1:
-"sparse and banded specs").
+Port of ``mcmcdate_tpu/ops/mvn.py`` for the ``full``, ``sparse``,
+``univariate`` and ``none`` kinds.  :class:`LikelihoodData` is the same
+host description as the JAX package's (copied, because that module imports
+JAX).  A ``sparse`` precision (the graphical lasso's, ``prepare``) is
+stored dense and evaluated as ``full``, as in the JAX package.  The
+``banded`` kind is not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ UNIVARIATE = "univariate"
 NONE = "none"
 
 NOT_PORTED = ("the {} likelihood kind is not ported to PyTorch yet "
-              "(ROADMAP.md, Queue 1: sparse and banded specs)")
+              "(ROADMAP.md, Queue 1: the banded kind)")
 
 
 @dataclass(frozen=True)
@@ -35,7 +36,8 @@ class LikelihoodData:
     kinds ``precision`` is the inverted covariance, ``chol_precision`` its
     lower Cholesky factor and ``log_det_sigma`` the covariance's log
     determinant; for ``univariate`` ``variances`` holds the per-branch
-    variances."""
+    variances.  ``precision_assoc`` keeps a sparse precision's association
+    list for ``.data`` round trips."""
 
     kind: str
     mu: Optional[np.ndarray] = None
@@ -43,6 +45,7 @@ class LikelihoodData:
     chol_precision: Optional[np.ndarray] = None
     log_det_sigma: Optional[float] = None
     variances: Optional[np.ndarray] = None
+    precision_assoc: Optional[tuple] = None
 
     @staticmethod
     def none() -> "LikelihoodData":
@@ -57,6 +60,18 @@ class LikelihoodData:
             precision=precision,
             chol_precision=np.linalg.cholesky(precision),
             log_det_sigma=float(log_det_sigma),
+        )
+
+    @staticmethod
+    def sparse(mu, precision, log_det_sigma, assoc=None) -> "LikelihoodData":
+        precision = np.asarray(precision, dtype=np.float64)
+        return LikelihoodData(
+            kind=SPARSE,
+            mu=np.asarray(mu, dtype=np.float64),
+            precision=precision,
+            chol_precision=np.linalg.cholesky(precision),
+            log_det_sigma=float(log_det_sigma),
+            precision_assoc=tuple(assoc) if assoc is not None else None,
         )
 
     @staticmethod
@@ -97,10 +112,10 @@ def make_log_likelihood(data: LikelihoodData, dtype=None, device="cuda"):
             return d.new_zeros(d.shape[:-1])
 
         return f_none
-    if data.kind in (SPARSE, BANDED):
+    if data.kind == BANDED:
         raise NotImplementedError(NOT_PORTED.format(data.kind))
     mu = torch.as_tensor(data.mu, dtype=dtype, device=device)
-    if data.kind == FULL:
+    if data.kind in (FULL, SPARSE):
         chol = torch.as_tensor(data.chol_precision, dtype=dtype, device=device)
         log_det = float(data.log_det_sigma)
 

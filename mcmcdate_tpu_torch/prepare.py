@@ -9,13 +9,16 @@ Re-implements app/Main.hs:159-307 on the host (NumPy/LAPACK):
    match; rooted tree: topology up to order);
 5. branch matrix with the two root branches merged; posterior mean and
    covariance; inverse + log-determinant;
-6. full / univariate / no-likelihood variants;
+6. full / sparse (graphical lasso) / univariate / no-likelihood variants;
 7. write ``<name>.data`` (reference-compatible JSON) and ``<name>.meantree``.
 
-Port of ``mcmcdate_tpu/prepare.py``: the same steps, on the JAX package's
-NumPy-only tree code and native tree-list parser, so the files written are
-identical to the JAX package's.  The ``sparse`` and ``banded`` specs are
-not ported yet and raise ``NotImplementedError``.
+Port of ``mcmcdate_tpu/prepare.py``: the same steps, on copies of the JAX
+package's NumPy-only tree code, native tree-list parser and graphical lasso,
+so the files written are identical to the JAX package's.  Everything runs
+on the host but the sparse kind's ADMM above ``GLASSO_HOST_MAX`` dims,
+whose iterations run on ``device`` (the card unless the caller asks for the
+CPU).  The ``banded`` spec is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,8 +42,14 @@ from .tree.rose import (
 )
 from .utils import native
 
-from .io.lhdata import save_data
+from .io.lhdata import dense_to_assoc, save_data
 from .ops import mvn
+from .utils import glasso as G
+
+# Above this dimension the sparse (graphical-lasso) preparation runs the ADMM
+# solver on the card (utils/glasso.py:graphical_lasso_admm); at or below it
+# the host BCD solver, as in the JAX package.
+GLASSO_HOST_MAX = 400
 
 
 @dataclass
@@ -128,10 +137,14 @@ def prepare(
     trees_file: str,
     likelihood_spec: str,
     *,
+    sparse_rho: float = 0.1,
     out_dir: str = ".",
+    device="cuda",
     log=print,
 ) -> PrepareResult:
-    if likelihood_spec in (mvn.SPARSE, mvn.BANDED):
+    """``device``: where the sparse kind's ADMM iterations run (above
+    ``GLASSO_HOST_MAX`` dims; no other branch does device work)."""
+    if likelihood_spec == mvn.BANDED:
         raise NotImplementedError(mvn.NOT_PORTED.format(likelihood_spec))
     log("Read rooted tree.")
     tree_rooted = read_one_newick(rooted_tree_file)
@@ -227,6 +240,40 @@ def prepare(
             f"{log_det_sigma}")
         log("Use full covariance matrix.")
         data = mvn.LikelihoodData.full(mu, sigma_inv, log_det_sigma)
+    elif likelihood_spec == mvn.SPARSE:
+        log("Use a sparse covariance/precision matrix (graphical lasso).")
+        log(f"Use a (provided) penalty parameter of: {sparse_rho}.")
+        mu_s, sd_s, xs_norm = G.scale_data(pm_r)
+        corr = np.cov(xs_norm, rowvar=False)
+        if len(mu) > GLASSO_HOST_MAX:
+            # The host BCD (cyclic Python lasso solves) is practical to a few
+            # hundred dims; the reference's largest sparse preparation is
+            # GOE-scale, 2,047 dims (tutorial_goe.md).
+            log(f"Graphical lasso on the accelerator (ADMM, "
+                f"{len(mu)} dims > host limit {GLASSO_HOST_MAX}).")
+            stats = {}
+            sigma_norm_sparse, prec_norm_sparse = G.graphical_lasso_admm(
+                corr, sparse_rho, device=device, stats=stats
+            )
+            log(f"ADMM iterations: {stats['iterations']}.")
+        else:
+            sigma_norm_sparse, prec_norm_sparse = G.graphical_lasso(
+                corr, sparse_rho
+            )
+        sigma_sparse = G.rescale_cov(sd_s, sigma_norm_sparse)
+        prec_sparse = G.rescale_precision(sd_s, prec_norm_sparse)
+        sign_s, log_det_s = np.linalg.slogdet(sigma_sparse)
+        if sign_s <= 0:
+            raise ValueError("prepare: Determinant of sparse covariance matrix is negative?")
+        assoc = dense_to_assoc(prec_sparse)
+        n_full = prec_sparse.size
+        log(f"Number of elements of full matrix: {n_full}")
+        log(f"Number of elements of sparse matrix: {len(assoc)}")
+        log(f"Proportion of elements kept: {len(assoc) / n_full}")
+        prec_dense = np.zeros_like(prec_sparse)
+        for (i, j), v in assoc:
+            prec_dense[i, j] = v
+        data = mvn.LikelihoodData.sparse(mu_s, prec_dense, log_det_s, assoc=assoc)
     elif likelihood_spec == mvn.UNIVARIATE:
         log("Use univariate normal distributions.")
         data = mvn.LikelihoodData.univariate(mu, variances)

@@ -1332,3 +1332,67 @@ def test_ticket_scan_light_and_heavy(card, lik, kind):
     accept = torch.cat(accept, 1)
     assert 0 < int(accept.sum()) < accept.numel()
     _ticket_agree(ck, cp, torch.log(dr.u_acc), torch.cat(la, 1), accept)
+
+
+def _corr(p, seed):
+    """A correlation matrix of 3 p standardized samples of a random
+    precision: the graphical lasso's input."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(p, p)) / np.sqrt(p)
+    x = rng.multivariate_normal(np.zeros(p), np.linalg.inv(a @ a.T + np.eye(p)), size=3 * p)
+    x = (x - x.mean(0)) / x.std(0, ddof=1)
+    return np.cov(x, rowvar=False)
+
+
+@pytest.mark.parametrize("p", (64, 101))
+def test_glasso_admm_kernels(card, p):
+    """A1-A3 against their plain versions on the card, at float64: A1's A
+    and U, A2's Qs (on eigh's column-major Q and a row-major copy) and A3's
+    Z and U bitwise; A3's two sums within 1e-12 (another order)."""
+    from mcmcdate_tpu_torch.kernels import glasso_admm as K
+
+    g = np.random.default_rng(p)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    S = torch.as_tensor(_corr(p, 1), **f64)
+    Z = torch.as_tensor(g.normal(size=(p, p)) * 0.1, **f64)
+    U0 = torch.as_tensor(g.normal(size=(p, p)) * 0.1, **f64)
+    t, fac = 1.7, 0.5
+    before = [k.launches for k in K.KERNELS]
+    Uk, Up = U0.clone(), U0.clone()
+    A = K.admm_shift(Z, Uk, S, t, fac)
+    assert torch.equal(A, K.admm_shift_plain(Z, Up, S, t, fac)) and torch.equal(Uk, Up)
+    assert torch.equal(A, A.mT)
+    lam, Q = torch.linalg.eigh(A)
+    for q in (Q, Q.contiguous()):
+        qs = K.admm_eig_scale(lam, q, t)
+        assert qs.stride() == q.stride()
+        assert torch.equal(qs, K.admm_eig_scale_plain(lam, q, t))
+    T = K.admm_eig_scale(lam, Q, t) @ Q.mT
+    Zk, Zp = Z.clone(), Z.clone()
+    rs = K.admm_update(T, Zk, Uk, 1.5, 0.1 / t)
+    rp = K.admm_update_plain(T, Zp, Up, 1.5, 0.1 / t)
+    assert torch.equal(Zk, Zp) and torch.equal(Uk, Up)
+    assert 0 < int((Zk == 0).sum()) < p * p
+    assert torch.allclose(rs, rp, rtol=1e-12, atol=0)
+    assert [k.launches - b for k, b in zip(K.KERNELS, before)] == [1, 3, 1]
+
+
+def test_glasso_admm_kernel_route(card):
+    """The whole ADMM through A1-A3 against the plain route on the card:
+    the same iterations, zero pattern and Theta and W within 1e-10; A1-A3
+    launched once an iteration each."""
+    from mcmcdate_tpu_torch.kernels import glasso_admm as K
+    from mcmcdate_tpu_torch.utils import glasso
+
+    S = torch.as_tensor(_corr(150, 2), dtype=torch.float64, device="cuda")
+    before = [k.launches for k in K.KERNELS]
+    run_k = glasso.admm_solve(S, 0.1)
+    run_p = glasso.admm_solve(S, 0.1, ops=K.PLAIN)
+    n = run_k.iterations
+    assert [k.launches - b for k, b in zip(K.KERNELS, before)] == [n, n, n]
+    assert n == run_p.iterations and n > 2
+    assert torch.equal(run_k.Z == 0, run_p.Z == 0)
+    assert float((run_k.Z - run_p.Z).abs().max()) <= 1e-10
+    Wk = np.linalg.inv(run_k.Z.cpu().numpy())
+    Wp = np.linalg.inv(run_p.Z.cpu().numpy())
+    assert np.abs(Wk - Wp).max() <= 1e-10

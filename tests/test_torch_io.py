@@ -63,14 +63,14 @@ def test_prepare_files_identical(fixture_dir, spec):
 
 
 def test_unported_kinds_raise(fixture_dir, tmp_path):
-    for spec in ("sparse", "banded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tprep.prepare("x", str(fixture_dir / "data/time.tree"),
-                          str(fixture_dir / "data/trees.nwk"), spec, out_dir=str(tmp_path),
-                          log=quiet)
-    path = tmp_path / "s.data"
-    path.write_text(json.dumps({"tag": "SparseS", "contents": [[0.1], [[[0, 0], 1.0]], 0.0]}))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tprep.prepare("x", str(fixture_dir / "data/time.tree"),
+                      str(fixture_dir / "data/trees.nwk"), "banded", out_dir=str(tmp_path),
+                      log=quiet)
+    path = tmp_path / "b.data"
+    path.write_text(json.dumps({"tag": "BandedS",
+                                "contents": [[0.1], [[1.0]], 0.0, [0]]}))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlh.load_data(str(path))
 
 

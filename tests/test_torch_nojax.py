@@ -1,7 +1,8 @@
 """The PyTorch port never imports JAX nor the JAX package: in a fresh
 interpreter, import every module of ``mcmcdate_tpu_torch`` and run
-``simulate``, ``prepare`` and ``run --device cpu`` through its CLI on a
-6-leaf fixture."""
+``simulate``, ``prepare`` (full, and sparse by the host BCD and by the
+ADMM's plain route), ``run --device cpu``, ``continue`` and ``analyze``
+through its CLI on a 6-leaf fixture."""
 
 import os
 import subprocess
@@ -29,6 +30,19 @@ runner = cli.main(["run", "-a", "x", "--device", "cpu", "--chains", "4", "--iter
                    "--seed", "2", "--out-dir", d, "--profile"])
 assert os.path.exists(os.path.join(d, "x.mcmc.npz"))
 assert 0 < runner.accepted < runner.attempted
+runner = cli.main(["continue", "-a", "x", "--device", "cpu", "--iterations", "10",
+                   "--out-dir", d, "--profile"])
+assert 0 < runner.accepted < runner.attempted
+cli.main(["analyze", "-a", "x", "--out-dir", d])
+assert os.path.exists(os.path.join(d, "x.timetree.ages.summary"))
+from mcmcdate_tpu_torch import prepare
+for host_max in (400, 2):
+    prepare.GLASSO_HOST_MAX = host_max
+    res = cli.main(["prepare", "-a", f"s{host_max}", "--rooted-tree",
+                    os.path.join(d, "data", "time.tree"), "--trees",
+                    os.path.join(d, "data", "trees.nwk"), "--likelihood-spec", "sparse 0.1",
+                    "--device", "cpu", "--out-dir", d])
+    assert res.data.kind == "sparse"
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 assert not bad, bad
 # Nor anything of the JAX package, not even its modules that import no JAX.

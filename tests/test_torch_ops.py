@@ -234,6 +234,5 @@ def test_mvn_densities(rng):
               jnp.asarray(d)))
     assert torch.equal(tmvn.make_log_likelihood(tmvn.LikelihoodData.none(), device="cpu")(T(d)),
                        torch.zeros(C, dtype=torch.float64))
-    for kind in (tmvn.SPARSE, tmvn.BANDED):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmvn.make_log_likelihood(tmvn.LikelihoodData(kind=kind, mu=mu), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmvn.make_log_likelihood(tmvn.LikelihoodData(kind=tmvn.BANDED, mu=mu), device="cpu")
