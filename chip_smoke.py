@@ -41,7 +41,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    first ticket (whole D) and each subtree ticket's product over its
    support rows against the full product; K6's and G3's logs also give
    each bound by the coarser count: K6 without its double operations, G3
-   with every chain reading delta, z and w over D).  Each kernel's
+   with every chain reading delta, z and w over D).  The six decision
+   kernels (K3, T3, K4 point_scan, K5 range_scan, G1, G3) again with the
+   128-point stepping-stone ladder tiled over the chains as each chain's
+   likelihood temperature (check_tempered: K3 and T3's light and heavy
+   kernels replayed as above, the scans against their plain versions on
+   the inputs of a tempered step, G1 and G3 on all 14 families), each timed
+   flushed with the ladder beside a ones vector, in turns (the ``tempered``
+   key of its record); cascade_seed against the per-field copy, bitwise,
+   timed beside ``torch._foreach_copy_``.  Each kernel's
    device time and its plain version's are read from the profiler over
    back-to-back calls (K4's prologue and epilogue, K6 slide's and G3's
    kernel with the L2 flushed before each call, so that a call cannot read
@@ -51,7 +59,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    temporary directory; checks the outputs, the carried log posterior,
    that the run launched every kernel and no plain proposal kernel, that
    its point steps went through the three K4 kernels alone (as many
-   launches of each) and that its sequential phase launched no K1;
+   launches of each) and that its sequential phase launched no K1; then,
+   on that run's prepared data, marginal likelihood: the CLI's
+   marginal-likelihood --profile (12 stones: the annealed cascade, burn-in,
+   ML_ITERATIONS iterations): the log's cascade line and a finite log Z,
+   the beta = 1 stone's log likelihood above the beta = 0 stone's, every
+   decision kernel and 11 cascade_seed launches, no plain proposal or
+   plain twin; and ml full ladder: annealed_cascade over all 128 stones
+   (127 cascade_seed launches, the middle rung's seeding bitwise the
+   per-field copy's), two chunks with the estimator (a finite log Z), a
+   carry check;
 5. full width: FastSweeps through ChainRunner at 1000 taxa x 1024 chains
    (D = 1,997) on the synthetic model; median s/sweep, carry check, K4-K6,
    G1-G3 and the ticket kernels launched, the point steps through K4
@@ -104,6 +121,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -133,6 +151,9 @@ UNI_SWEEPS = 2
 # path runs FULL_WIDTH_SWEEPS after the --profile burn-in.
 SPARSE_SPEC = "sparse 0.1"
 CONTINUE_ITERATIONS = 10
+# marginal-likelihood --profile runs 50 iterations after its cascade and
+# burn-in; cut to 20.
+ML_ITERATIONS = 20
 # Back-to-back calls per kernel timing.
 REPS = 20
 # Bytes read before each call of a kernel timed with the L2 flushed: several
@@ -210,19 +231,19 @@ KERNELS = (
     ("ticket_prologue", "mcmcdate_tpu_torch/kernels/csrc/ticket_step.cu",
      "mcmcdate_tpu/engine/proposals.py:388"),
     ("accept_select", "mcmcdate_tpu_torch/kernels/csrc/accept_select.cu",
-     "mcmcdate_tpu/engine/mh.py:120"),
+     "mcmcdate_tpu/engine/mh.py:194"),
     ("ticket_scan", "mcmcdate_tpu_torch/kernels/csrc/ticket_step.cu",
-     "mcmcdate_tpu/engine/mh.py:271"),
+     "mcmcdate_tpu/engine/mh.py:194"),
     ("point_lik_prologue", "mcmcdate_tpu_torch/kernels/csrc/point_step.cu",
      "mcmcdate_tpu/engine/fast_sweep.py:1324"),
     ("point_scan", "mcmcdate_tpu_torch/kernels/csrc/point_scan.cu",
-     "mcmcdate_tpu/engine/fast_sweep.py:1477"),
+     "mcmcdate_tpu/engine/fast_sweep.py:1511"),
     ("point_lik_epilogue", "mcmcdate_tpu_torch/kernels/csrc/point_step.cu",
      "mcmcdate_tpu/engine/fast_sweep.py:1536"),
     ("range_lik_prologue", "mcmcdate_tpu_torch/kernels/csrc/range_step.cu",
      "mcmcdate_tpu/engine/fast_sweep.py:1695"),
     ("range_scan", "mcmcdate_tpu_torch/kernels/csrc/range_scan.cu",
-     "mcmcdate_tpu/engine/fast_sweep.py:1839"),
+     "mcmcdate_tpu/engine/fast_sweep.py:1860"),
     ("range_lik_epilogue", "mcmcdate_tpu_torch/kernels/csrc/range_step.cu",
      "mcmcdate_tpu/engine/fast_sweep.py:1876"),
     ("contra_slide", "mcmcdate_tpu_torch/kernels/csrc/contra_step.cu",
@@ -230,21 +251,27 @@ KERNELS = (
     *((f"contra_range_{rb}", "mcmcdate_tpu_torch/kernels/csrc/contra_step.cu",
        "mcmcdate_tpu/engine/fast_sweep.py:1566") for rb in (16, 64, 256)),
     ("glob_scan", "mcmcdate_tpu_torch/kernels/csrc/glob_step.cu",
-     "mcmcdate_tpu/engine/fast_sweep.py:878"),
+     "mcmcdate_tpu/engine/fast_sweep.py:1195"),
     ("glob_dense_prologue", "mcmcdate_tpu_torch/kernels/csrc/glob_step.cu",
      "mcmcdate_tpu/engine/fast_sweep.py:949"),
     ("glob_dense_epilogue", "mcmcdate_tpu_torch/kernels/csrc/glob_step.cu",
-     "mcmcdate_tpu/engine/fast_sweep.py:1192"),
+     "mcmcdate_tpu/engine/fast_sweep.py:1195"),
     ("admm_shift", "mcmcdate_tpu_torch/kernels/csrc/glasso_admm.cu",
      "mcmcdate_tpu/utils/glasso.py:110"),
     ("admm_eig_scale", "mcmcdate_tpu_torch/kernels/csrc/glasso_admm.cu",
      "mcmcdate_tpu/utils/glasso.py:111"),
     ("admm_update", "mcmcdate_tpu_torch/kernels/csrc/glasso_admm.cu",
      "mcmcdate_tpu/utils/glasso.py:125"),
+    ("cascade_seed", "mcmcdate_tpu_torch/kernels/csrc/cascade_seed.cu",
+     "mcmcdate_tpu/engine/stepping_stone.py:85"),
 )
+# The kernels whose decisions take the likelihood temperature beta.
+BETA_KERNELS = ("accept_select", "ticket_scan", "point_scan", "range_scan", "glob_scan",
+                "glob_dense_epilogue")
 # The path whose launches a kernel's record reports (the main path's but
 # for A1-A3, which only the 1000-taxon sparse prepare runs).
-RECORD_PATH = {k: "sparse_full_width" for k in ADMM_NAMES}
+RECORD_PATH = {**{k: "sparse_full_width" for k in ADMM_NAMES},
+               "cascade_seed": "marginal_likelihood"}
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s, and float32 and float64 operations/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
@@ -563,7 +590,7 @@ def _mh_copy(carry):
 
     return Carry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
                  carry.terms.clone(), cl(carry.d), cl(carry.y), carry.acc.clone(),
-                 carry.nbad.clone())
+                 carry.nbad.clone(), beta=carry.beta)
 
 
 def _mh_same(name, worst, ck, cp, logu, la_p, accept):
@@ -853,7 +880,7 @@ def _copy_carry(carry):
 
     return FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
                      carry.terms.clone(), carry.d.clone(), carry.z.clone(), carry.q.clone(),
-                     carry.acc.clone())
+                     carry.acc.clone(), beta=carry.beta)
 
 
 def _step_recorded(names, step):
@@ -1711,7 +1738,7 @@ def _glob_run(fs, fam, carry, tun, draws, u_acc):
             torch.stack(mean, 1) if fam.tag == "var_tree" else None)
 
 
-def _glob_agree(name, fs, carry, fam, tun, draws, u):
+def _glob_agree(name, fs, carry, fam, tun, draws, u, q_scale=None):
     """One family through the glob kernels against its plain scan, on
     copies of ``carry``: the kernels' proposals (and var_tree's rate means)
     against the plain version's from the same draws; the kernels'
@@ -1719,7 +1746,8 @@ def _glob_agree(name, fs, carry, fam, tun, draws, u):
     taken as the kernels took it, whose log alpha must give the kernels'
     decisions except at ties and whose heights, rates, scalars and terms
     must equal the kernels' bitwise, with d, z and q within SCAN_REL of
-    their scale and equal accept counts.  Returns ``(worst differences,
+    their scale (q's each chain's ``q_scale(replay carry, proposals)``
+    where given) and equal accept counts.  Returns ``(worst differences,
     accept)``."""
     import torch
 
@@ -1758,7 +1786,9 @@ def _glob_agree(name, fs, carry, fam, tun, draws, u):
     check(_same(ck.terms, cr.terms), lambda: f"{name} terms: "
           f"{int((ck.terms != cr.terms).sum())} values differ from the replay's")
     for what, a, b in (("d", ck.d, cr.d), ("z", ck.z, cr.z), ("q", ck.q, cr.q)):
-        within(what, a, b, SCAN_REL * max(1.0, float(b.abs().max())))
+        scale = (q_scale(cr, prop) if what == "q" and q_scale
+                 else max(1.0, float(b.abs().max())))
+        within(what, a, b, SCAN_REL * scale)
     check(torch.equal(ck.acc, cr.acc), f"{name}: accept counts differ")
     log(f"[kernels] {name}: {fam.n} tickets, {int(accept.sum())} accepts of {accept.numel()}, "
         f"{int(differ.sum())} tie decisions differ from the replay, state and terms bitwise "
@@ -2022,17 +2052,285 @@ def check_glob(n_taxa):
     }
 
 
+# -- the likelihood temperature of the decision kernels, and cascade_seed ------
+
+
+def _ladder(C):
+    """The 128-point stepping-stone ladder tiled over ``C`` chains, float32
+    on the card: every beta in [0, 1], C / 128 chains at beta = 0."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch.engine.stepping_stone import N_POINTS, beta_ladder
+
+    return torch.as_tensor(np.resize(beta_ladder(N_POINTS), C), dtype=torch.float32,
+                           device="cuda")
+
+
+def _in_turns(fn, carry, beta, only):
+    """Flushed device ms of ``fn()`` with ``carry.beta`` None (a ones
+    vector) and ``beta``, in turns (ones, beta, beta, ones): ``(ones,
+    beta)``, each the mean of its two timings."""
+    ms = {"ones": 0.0, "beta": 0.0}
+    for which in ("ones", "beta", "beta", "ones"):
+        carry.beta = None if which == "ones" else beta
+        ms[which] += _device_ms(fn, only=only, flush=True) / 2
+    return ms["ones"], ms["beta"]
+
+
+def _scan_pair_agree(name, worst, out_k, out_p, d_pr, lmhg, u, beta):
+    """A scan kernel's ``(accept, dq)`` against its plain version's, both
+    tempered by ``beta``: per chain equal up to the first decision that
+    differs, which must be a tie of the tempered log alpha (SCAN_TIE); dq
+    within SCAN_REL of the chain's largest |dq| up to there.  Returns the
+    number of decisions that differ."""
+    import torch
+
+    (ak, dk), (ap, dp) = out_k, out_p
+    la = torch.nan_to_num(d_pr - 0.5 * (beta[:, None] * dp) + lmhg, nan=-math.inf)
+    differ = ak != ap
+    first = torch.where(differ.any(1), differ.int().argmax(1), ak.shape[1])
+    upto = torch.arange(ak.shape[1], device=ak.device)[None, :] <= first[:, None]
+    gap = (torch.log(u) - la).abs()[differ & upto]
+    check(bool((gap < SCAN_TIE).all()), lambda: f"{name}: decisions differ beyond ties "
+          f"(largest |log u - log alpha| {float(gap.max()):.3g})")
+    scale = dp.abs().amax(1, keepdim=True).clamp(min=1.0)
+    err = ((dk - dp).abs() / scale)[upto]
+    worst["dq"] = max(worst.get("dq", 0.0), float(err.max()))
+    check(bool((err <= SCAN_REL).all()), lambda: f"{name}: dq off the plain version by "
+          f"{worst['dq']:.3g} of its scale")
+    check(0 < int(ak.sum()) < ak.numel(), f"{name}: not a mixed case")
+    return int(differ.sum())
+
+
+def check_tempered(n_taxa):
+    """The six decision kernels with the 128-point ladder tiled over the
+    chains (``_ladder``), each against its plain version, both tempered:
+    K3 (after T1 and K2) on one ticket of every kind and likelihood class
+    and T3's light and heavy kernels on a 256-ticket run (replayed, as
+    check_ticket), K4 ``point_scan`` on the first step of both point kinds
+    and K5 ``range_scan`` on the first block of every likelihood bucket
+    (the scans' inputs recorded from the tempered step), G1 and G3 on all
+    14 glob families (replayed, as check_glob).  Each is timed flushed
+    with a ones vector and with the ladder, in turns: the pulley's K3, T3's
+    run, K4's slide step, K5's largest block, G1 on bd_scale and G3 on
+    sub_ultra's first ticket.  Returns per kernel ``(max_abs_err, ms
+    tempered, ms untempered)`` as a dict."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch.engine import mh as M, proposals as P
+    from mcmcdate_tpu_torch.kernels import glob_step as G, ticket_step as TS
+    from mcmcdate_tpu_torch.kernels.accept_select import accept_select
+    from mcmcdate_tpu_torch.kernels.point_scan import point_scan, point_scan_plain
+    from mcmcdate_tpu_torch.kernels.range_scan import range_scan, range_scan_plain
+    from mcmcdate_tpu_torch.kernels.ticket_step import TicketDraws, ticket_prologue, ticket_scan
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    out = {}
+    beta = _ladder(CHAINS)
+    # K3 and T3.
+    fs, fcarry, tuning, gen = _glob_fast(n_taxa)
+    tk = M.MHKernel(fs.model, fs.table)
+    tt = tk.tt
+    carry = tk.init_carry(fcarry.batch)
+    carry.beta = beta
+    C = CHAINS
+
+    def draw_of(p):
+        return (standard_gamma(float(tt.table.par[p]) / tuning[:, p], gen) if tt.gamma[p]
+                else torch.rand(C, generator=gen, device="cuda"))
+
+    rows = {}
+    for p, kind in enumerate(tt.table.kind):
+        rows.setdefault((int(kind), int(tt.d_class[p])), p)
+    worst, ties, n_acc = {}, 0, 0
+    for p in sorted(set(rows.values())):
+        t, a = _ticket_one_agree(f"tempered ticket {tt.table.names[p]} at {n_taxa} taxa", tk,
+                                 carry, tuning, p, draw_of(p),
+                                 torch.rand(C, generator=gen, device="cuda"), worst)
+        ties, n_acc = ties + t, n_acc + a
+    check(n_acc > 0, "the tempered ticket checks accepted nothing")
+    p = int(np.nonzero(tt.table.kind == P.K_PULLEY_ULTRA)[0][0])
+    dr = TicketDraws.single(p, draw_of(p), torch.rand(C, generator=gen, device="cuda"))
+    c3 = _mh_copy(carry)
+    pro = ticket_prologue(tt, c3, tuning, dr, 0)
+    dy, d_lik = tk._k2(c3, p, pro)
+    ms = _in_turns(lambda: accept_select(tt, c3, tuning, dr, 0, pro, dy, d_lik), c3, beta,
+                   "accept_select_kernel")
+    out["accept_select"] = dict(max_abs_err=worst.get("y", 0.0), ms=ms[1], ms_untempered=ms[0])
+    log(f"[tempered] accept_select at {n_taxa} taxa: {len(set(rows.values()))} rows, {n_acc} "
+        f"accepts, {ties} tie decisions; the pulley flushed {ms[1]:.4f} ms with the ladder, "
+        f"{ms[0]:.4f} ms untempered")
+    tickets = np.asarray(tt.table.tickets)
+    ok = np.asarray([not tt.breaks(int(q)) for q in tickets])
+    order = np.random.default_rng(n_taxa + 2).choice(tickets[ok], 256).astype(np.int32)
+    sdr = tk.draws(order, tuning, gen)
+    saved = TS.HEAVY
+    w3, t3 = {}, {}
+    try:
+        for kind, heavy in (("light", 10 ** 9), ("heavy", -1)):
+            TS.HEAVY = heavy
+            before = dict(ticket_scan.launches_by_kind)
+            ties, n_acc, n_all = _ticket_scan_agree(f"tempered ticket_scan ({kind}) at {n_taxa} "
+                                                    f"taxa", tk, carry, tuning, sdr, w3)
+            check(ticket_scan.launches_by_kind[kind] == before[kind] + 1,
+                  f"tempered ticket_scan did not take its {kind} kernel")
+            check(0 < n_acc < n_all, f"tempered ticket_scan accepted {n_acc} of {n_all}")
+            c5 = _mh_copy(carry)
+            t3[kind] = _in_turns(lambda: ticket_scan(tt, c5, tuning, sdr, 0, len(order)), c5,
+                                 beta, T3_KERNELS)
+    finally:
+        TS.HEAVY = saved
+    out["ticket_scan"] = dict(max_abs_err=max(w3.get("prop", 0.0), w3.get("y", 0.0)),
+                              ms=t3["light"][1], ms_untempered=t3["light"][0],
+                              heavy_ms=t3["heavy"][1], heavy_ms_untempered=t3["heavy"][0])
+    log(f"[tempered] ticket_scan at {n_taxa} taxa: a 256-ticket run flushed, light "
+        f"{t3['light'][1]:.4f} ms with the ladder, {t3['light'][0]:.4f} untempered; heavy "
+        f"{t3['heavy'][1]:.4f} and {t3['heavy'][0]:.4f}")
+    # G1 and G3.
+    fcarry = _copy_carry(fcarry)
+    fcarry.beta = beta
+
+    def mu_z(c):
+        return (fs.glob.mu.abs() * c.z.abs()).sum(1)
+
+    q0, mz0 = fcarry.q.abs(), mu_z(fcarry)
+
+    def q_scale(c, u):
+        # A uniform family's ticket moves q by the closed form dq = (u^2 - 1)
+        # q + 2 u (u - 1) mu'z + (u - 1)^2 mu'P mu, and G1 sums mu'z in
+        # another order than the plain version, so q's float32 error scales
+        # with the magnitude of those terms summed over the family's
+        # tickets, not with q: a chain at a small beta takes scales of up to
+        # 2.4 on the prior alone (measured on the H100: errors up to 4e-7 of
+        # that sum, 0.02 at 1000 taxa, where q is about 1,000).
+        um1 = (u - 1).abs()
+        terms = ((u * u - 1).abs() * torch.maximum(q0, c.q.abs())[:, None]
+                 + 2 * (u * um1).abs() * torch.maximum(mz0, mu_z(c))[:, None]
+                 + um1 * um1 * abs(fs.glob.mPm))
+        return terms.sum(1).clamp(min=1.0)
+
+    wg = {"glob_scan": {}, "glob_dense_epilogue": {}}
+    for tag, fam in fs.glob_fam.items():
+        tun, draws, u = _glob_draws(fam, tuning, gen)
+        uniform = G.FAMILIES[tag].lik == G.UNIFORM
+        w, _ = _glob_agree(f"tempered {tag} at {n_taxa} taxa", fs, fcarry, fam, tun, draws, u,
+                           q_scale if uniform else None)
+        key = "glob_dense_epilogue" if G.FAMILIES[tag].lik == G.DENSE else "glob_scan"
+        for k, v in w.items():
+            wg[key][k] = max(wg[key].get(k, 0.0), v)
+    fam = fs.glob_fam["bd_scale"]
+    tun, draws, u = _glob_draws(fam, tuning, gen)
+    c6 = _copy_carry(fcarry)
+    ms = _in_turns(lambda: G.glob_scan(fs.glob, fam, c6, tun, draws, u), c6, beta,
+                   "glob_scan_kernel")
+    out["glob_scan"] = dict(max_abs_err=max(wg["glob_scan"].values()), ms=ms[1],
+                            ms_untempered=ms[0])
+    fam = fs.glob_fam["sub_ultra"]
+    tun, draws, u = _glob_draws(fam, tuning, gen)
+    c7 = _copy_carry(fcarry)
+    gpro = G.glob_dense_prologue(fs.glob, fam, 0, c7, tun, draws)
+    wprod = fs.glob_product(fam, 0, gpro)
+    ms3 = _in_turns(lambda: G.glob_dense_epilogue(fs.glob, fam, 0, c7, gpro, wprod, u), c7,
+                    beta, "glob_dense_epilogue_kernel")
+    out["glob_dense_epilogue"] = dict(max_abs_err=max(wg["glob_dense_epilogue"].values()),
+                                      ms=ms3[1], ms_untempered=ms3[0])
+    log(f"[tempered] glob_scan on bd_scale at {n_taxa} taxa flushed: {ms[1]:.4f} ms with the "
+        f"ladder, {ms[0]:.4f} untempered; glob_dense_epilogue on sub_ultra's first ticket "
+        f"{ms3[1]:.4f} and {ms3[0]:.4f}")
+    # K4 and K5: the scans' inputs from the tempered steps.
+    fs, carry, tuning, gen = _fast(n_taxa)
+    carry = _copy_carry(carry)
+    carry.beta = beta
+    for step, names, kinds in (
+            ("point", K4_NAMES, [(k, fs.spec_t[k][0]) for k in (P.K_SCALE_BRANCH_RATE,
+                                                                P.K_SLIDE_NODE_ULTRA)]),
+            ("range", ("range_lik_prologue", "range_scan", "range_lik_epilogue"),
+             [(k, steps[0]) for (k, _), steps in fs.range_t.items()
+              if k != P.K_SCALE_SUBTREES_CONTRA])):
+        worst, ties, timed = {}, 0, None
+        scan, plain = (point_scan, point_scan_plain) if step == "point" else (range_scan,
+                                                                              range_scan_plain)
+        for kind, sx in kinds:
+            gamma = kind in (P.K_SCALE_BRANCH_RATE, P.K_SCALE_SUBTREE_RATE)
+            draw, u = _draws(fs, sx, tuning, gen, gamma)
+            ck = _copy_carry(carry)
+            call = (fs.point_lik_step if step == "point" else fs.range_lik_step)
+            rec, _ = _step_recorded(names, lambda: call(kind, ck, tuning, sx, draw, u))
+            args = rec[f"{step}_scan_args"]
+            check(args[-1] is beta, f"the {step} step did not hand its scan the carry's beta")
+            ties += _scan_pair_agree(f"tempered {step}_scan kind {kind} at {n_taxa} taxa", worst,
+                                     rec[f"{step}_scan"], plain(*args), args[-4], args[-3],
+                                     args[-2], beta)
+            if step == "point" and kind == P.K_SLIDE_NODE_ULTRA or step == "range" and (
+                    timed is None or sx["rows"].shape[0] > timed[0]["rows"].shape[0]):
+                timed = sx, args
+        holder = _copy_carry(carry)  # carries the beta that _in_turns switches
+        sx, args = timed
+        ms = _in_turns(lambda: scan(*args[:-1], holder.beta), holder, beta,
+                       f"{step}_scan_kernel")
+        out[f"{step}_scan"] = dict(max_abs_err=worst["dq"], ms=ms[1], ms_untempered=ms[0])
+        log(f"[tempered] {step}_scan at {n_taxa} taxa: {len(kinds)} steps, {ties} tie decisions; "
+            f"flushed on {sx['rows'].shape[0]} tickets {ms[1]:.4f} ms with the ladder, "
+            f"{ms[0]:.4f} untempered")
+    return out
+
+
+def check_cascade_seed(n_taxa):
+    """cascade_seed on the kernels' batch (CHAINS chains) against its plain
+    version (the per-field copy): bitwise on rung 63; the kernel timed
+    flushed, the plain version, and one ``torch._foreach_copy_`` over the
+    fields' rows as the library call.  Bound: one chain's row of every
+    field read and written."""
+    import torch
+
+    from mcmcdate_tpu_torch.kernels.cascade_seed import cascade_seed, cascade_seed_plain
+    from mcmcdate_tpu_torch.models.state import FIELDS, State
+
+    _, batch = _model(n_taxa)
+    j = 63
+    ck = State(**{f: getattr(batch, f).clone() for f in FIELDS})
+    cp = State(**{f: getattr(batch, f).clone() for f in FIELDS})
+    g = torch.Generator(device="cuda").manual_seed(n_taxa)
+    for f in FIELDS:
+        x = getattr(ck, f)
+        x.copy_(torch.rand(x.shape, generator=g, device="cuda"))
+        getattr(cp, f).copy_(x)
+    cascade_seed(ck, j)
+    cascade_seed_plain(cp, j)
+    _sync()
+    for f in FIELDS:
+        check(torch.equal(getattr(ck, f), getattr(cp, f)),
+              f"cascade_seed at {n_taxa} taxa: {f} differs from the per-field copy")
+    ms = _device_ms(lambda: cascade_seed(ck, j), only="cascade_seed_kernel", flush=True)
+    plain_ms = _device_ms(lambda: cascade_seed_plain(cp, j))
+    dst = [getattr(cp, f)[j + 1] for f in FIELDS]
+    src = [getattr(cp, f)[j] for f in FIELDS]
+    lib_ms = _device_ms(lambda: torch._foreach_copy_(dst, src))
+    row_bytes = sum(getattr(ck, f)[0].numel() * 4 for f in FIELDS)
+    return {"cascade_seed": _record(0.0, ms, plain_ms, 2 * row_bytes, 0, library_ms=lib_ms)}
+
+
 # Each check returns its kernels' records by kernel name.
 CHECKS = (check_prior_terms, check_whiten, check_ticket, check_point_step,
           check_range_step, check_prior_only_steps, check_contra_slide, check_contra_range,
-          check_glob)
+          check_glob, check_cascade_seed)
 
 
 def phase_kernels():
-    """Every kernel against its plain version at both shapes; the record
-    keeps the run's shape (136 taxa)."""
+    """Every kernel against its plain version at both shapes, the six
+    decision kernels also tempered by the ladder (check_tempered); the
+    record keeps the run's shape (136 taxa), the tempered times under
+    ``tempered``."""
     results = {}
     for n_taxa in (MAIN_TAXA, BENCH_TAXA):
+        t0 = time.perf_counter()
+        tempered = check_tempered(n_taxa)
+        log(f"[tempered] at {n_taxa} taxa x {CHAINS} chains: {json.dumps(tempered)} (check took "
+            f"{time.perf_counter() - t0:.1f} s)")
+        if n_taxa == MAIN_TAXA:
+            results["tempered"] = tempered
         for fn in CHECKS:
             t0 = time.perf_counter()
             for name, r in fn(n_taxa).items():
@@ -2080,6 +2378,7 @@ def check_carried_posterior(runner, run_dir, lp_post, name="smoke"):
 
 def _wrappers():
     from mcmcdate_tpu_torch.kernels.accept_select import accept_select
+    from mcmcdate_tpu_torch.kernels.cascade_seed import cascade_seed
     from mcmcdate_tpu_torch.kernels.contra_step import contra_range, contra_slide
     from mcmcdate_tpu_torch.kernels.glasso_admm import admm_eig_scale, admm_shift, admm_update
     from mcmcdate_tpu_torch.kernels.glob_step import (
@@ -2103,7 +2402,21 @@ def _wrappers():
             "contra_slide": contra_slide, "contra_range": contra_range, "glob_scan": glob_scan,
             "glob_dense_prologue": glob_dense_prologue,
             "glob_dense_epilogue": glob_dense_epilogue, "admm_shift": admm_shift,
-            "admm_eig_scale": admm_eig_scale, "admm_update": admm_update}
+            "admm_eig_scale": admm_eig_scale, "admm_update": admm_update,
+            "cascade_seed": cascade_seed}
+
+
+# The plain twins a wrapper takes for CPU tensors, by module: on the card a
+# path calls none of them (``_counted`` counts them as ``plain_twins``).
+PLAIN_TWINS = (
+    ("accept_select", ("accept_select_plain",)),
+    ("ticket_step", ("ticket_prologue_plain", "ticket_scan_plain")),
+    ("point_scan", ("point_scan_plain",)),
+    ("range_scan", ("range_scan_plain",)),
+    ("glob_step", ("glob_family_plain", "glob_dense_prologue_plain",
+                   "glob_dense_epilogue_plain")),
+    ("cascade_seed", ("cascade_seed_plain",)),
+)
 
 
 def _counted(run, inside=(), within=None):
@@ -2148,20 +2461,38 @@ def _counted(run, inside=(), within=None):
         return wrapped
 
     saved = [(cls, meth, getattr(cls, meth)) for cls, meth in inside]
+    twins = [0]
+
+    def twin_counting(fn):
+        def k(*a, **kw):
+            twins[0] += 1
+            return fn(*a, **kw)
+        return k
+
+    import importlib
+
+    real_twins = [(mod, name, getattr(mod, name)) for mod, names in (
+        (importlib.import_module(f"mcmcdate_tpu_torch.kernels.{m}"), n) for m, n in PLAIN_TWINS)
+        for name in names]
     for kk, fn in real_k.items():
         P.KERNELS[kk] = counting(fn)
     for cls, meth, real in saved:
         setattr(cls, meth, inside_of(real, within.setdefault(meth, {})))
+    for mod, name, fn in real_twins:
+        setattr(mod, name, twin_counting(fn))
     try:
         out = run()
     finally:
         P.KERNELS.update(real_k)
         for cls, meth, real in saved:
             setattr(cls, meth, real)
+        for mod, name, fn in real_twins:
+            setattr(mod, name, fn)
     counts = {k: w.launches for k, w in wrappers.items()}
     counts.update({f"contra_range_{rb}": n for rb, n in by_rows.items()})
     counts.update({f"ticket_scan_{k}": n for k, n in by_kind.items()})
     counts["plain_proposals"] = plain[0]
+    counts["plain_twins"] = twins[0]
     return counts, out
 
 
@@ -2171,7 +2502,8 @@ def _check_all_launched(name, launches):
     ticket's work passes HEAVY; the univariate 10k phase runs it) and A1-A3
     (the 1000-taxon sparse prepare's)."""
     for k, n in launches.items():
-        if k not in ("plain_proposals", "ticket_scan_heavy", *ADMM_NAMES):
+        if k not in ("plain_proposals", "plain_twins", "ticket_scan_heavy", "cascade_seed",
+                     *ADMM_NAMES):
             check(n > 0 or k.startswith("contra_range_"), f"the {name} never launched {k}")
 
 
@@ -2271,10 +2603,15 @@ def phase_main_path():
         check(launches["plain_proposals"] == 0, "the main path ran a plain proposal kernel")
         seq_per_sweep = _check_seq_phase("main path", within)
         _check_point_path("main path", launches, runner.kern)
-        # The sequential model for the last phase: this run's prepared data.
+        # The sequential model for the last phase: this run's prepared data,
+        # which the marginal-likelihood phases read too (a copy that they
+        # remove).
         args = cli.build_parser().parse_args(["run", "-a", "smoke", "--out-dir", tmp])
         seq_model, seq_init = cli._load_model(args, torch.device("cuda"), torch.float32,
                                               lambda *a: None)
+        prep = tempfile.mkdtemp(prefix="smoke_prep_")
+        for suffix in ("data", "meantree"):
+            shutil.copy(os.path.join(tmp, f"smoke.{suffix}"), prep)
     med = statistics.median(runner.sweep_seconds)
     per_sweep = {k: n / n_sweeps for k, n in launches.items()}
     log(f"[main path] FastSweeps, {MAIN_TAXA} taxa x {CHAINS} chains, {n_sweeps} sweeps "
@@ -2285,7 +2622,7 @@ def phase_main_path():
         f"float64 evaluation of the final state: {lp_f64:.3g}); launches {launches}; "
         f"per sweep {json.dumps({k: round(v, 2) for k, v in per_sweep.items()})}; the "
         f"sequential phase per sweep, no K1 and no plain proposal: {json.dumps(seq_per_sweep)}")
-    return launches, (seq_model, seq_init)
+    return launches, (seq_model, seq_init), prep
 
 
 def _check_lp(name, model, batch, lp_carried):
@@ -2520,6 +2857,145 @@ def phase_univariate_10k():
         f"posterior within {err:.3g} of the direct float32 one (float32 vs float64: "
         f"{err64:.3g}); launches per sweep {json.dumps(per_sweep)}")
     return launches, rec, k1
+
+
+def _check_ml_launches(name, launches, seeds):
+    """A marginal-likelihood path went through the kernels: every decision
+    kernel launched, ``seeds`` cascade_seed launches, no plain proposal and
+    no plain twin."""
+    for k in BETA_KERNELS:
+        check(launches[k] > 0, f"{name}: never launched {k}")
+    check(launches["cascade_seed"] == seeds,
+          f"{name}: {launches['cascade_seed']} cascade_seed launches, not {seeds}")
+    check(launches["plain_proposals"] == 0 and launches["plain_twins"] == 0,
+          f"{name}: ran {launches['plain_proposals']} plain proposals and "
+          f"{launches['plain_twins']} plain twins")
+
+
+def phase_marginal_likelihood(prep):
+    """The CLI's marginal-likelihood --profile (12 stones: the cascade of 11
+    rungs x 3 sweeps, 60 + 100 burn-in sweeps, ML_ITERATIONS iterations) on
+    the main path's prepared 136-taxon data: the log's cascade line and a
+    finite log Z, the beta = 1 stone's mean log likelihood above the beta
+    = 0 stone's, every decision kernel and 11 cascade_seed launches, no
+    plain proposal, no plain twin, the sequential phase without K1."""
+    import numpy as np
+
+    from mcmcdate_tpu_torch import cli
+    from mcmcdate_tpu_torch.engine.fast_sweep import FastSweeps
+    from mcmcdate_tpu_torch.engine.stepping_stone import N_POINTS_PROF
+
+    within = {}
+    t0 = time.perf_counter()
+    launches, res = _counted(lambda: cli.main(
+        ["marginal-likelihood", "-a", "smoke", "--profile", "--seed", "1", "--device", "cuda",
+         "--iterations", str(ML_ITERATIONS), "--out-dir", prep]),
+        inside=((FastSweeps, "seq_phase"),), within=within)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(prep, "smoke.mlh.log")) as fh:
+        lines = fh.read().splitlines()
+    casc = [s for s in lines if s.startswith("annealed-init cascade:")]
+    check(len(casc) == 1 and f" {N_POINTS_PROF - 1} rungs x 3 sweeps" in casc[0],
+          f"smoke.mlh.log has no cascade line of {N_POINTS_PROF - 1} rungs: {casc}")
+    lz = [s for s in lines if s.startswith("log marginal likelihood")]
+    check(len(lz) == 1 and math.isfinite(float(lz[0].rsplit(" ", 1)[1])),
+          f"smoke.mlh.log has no finite log Z: {lz}")
+    check(math.isfinite(res.log_marginal_likelihood), "log Z is not finite")
+    ll = res.mean_log_lik_per_point
+    check(bool(np.isfinite(ll).all()) and ll[-1] > ll[0],
+          f"stone log likelihoods {ll[0]} (beta 0) and {ll[-1]} (beta 1)")
+    _check_ml_launches("marginal likelihood", launches, N_POINTS_PROF - 1)
+    seq = _check_seq_phase("marginal likelihood", within)
+    sampling = [s for s in lines if s.startswith("sampling:")]
+    log(f"[marginal likelihood] CLI --profile at {MAIN_TAXA} taxa, {N_POINTS_PROF} stones, "
+        f"{ML_ITERATIONS} iterations (cut from --profile's 50) in {wall:.1f} s: {casc[0]}; "
+        f"{sampling[0] if sampling else ''}; log Z {res.log_marginal_likelihood:.4f}; mean log "
+        f"likelihood by stone {json.dumps([round(float(x), 3) for x in ll])}; launches "
+        f"{launches}; the sequential phase per sweep: {json.dumps(seq)}")
+    return launches
+
+
+def phase_ml_full_ladder(seq):
+    """``annealed_cascade`` over all N_POINTS stones (one chain a stone) on
+    the main path's 136-taxon model, then two chunks of CHUNK sweeps with
+    each stone's log likelihood collected and the estimator, then one sweep
+    whose carried log posterior is checked: 127 cascade_seed launches,
+    the middle rung's seeding bitwise the per-field copy's, every decision
+    kernel launched, no plain proposal or twin, a finite log Z, the beta =
+    1 stone above the beta = 0 stone.  Returns the launches and the
+    cascade's and the chunks' times."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch.engine import proposals as P
+    from mcmcdate_tpu_torch.engine.chains import CHUNK, ChainRunner, RunSettings, new_key
+    from mcmcdate_tpu_torch.engine.fast_sweep import FastSweeps
+    from mcmcdate_tpu_torch.engine.stepping_stone import N_POINTS, annealed_cascade, \
+        beta_ladder, stepping_stone_log_z
+    from mcmcdate_tpu_torch.kernels.cascade_seed import cascade_seed_plain
+    from mcmcdate_tpu_torch.models.state import FIELDS, State
+
+    model, init = seq
+    table = P.build_proposal_table(model.topo, model.braces, model.calibrations_available)
+    runner = ChainRunner(model, table, RunSettings("ml_full", n_chains=N_POINTS, seed=1,
+                                                   device="cuda"), log=lambda *a: None)
+    kern = runner.kern
+    betas = torch.as_tensor(beta_ladder(N_POINTS), dtype=torch.float32, device="cuda")
+    batch, tuning = runner.init_chains(init)
+    J = N_POINTS // 2
+    probe = {"rung": 0, "ref": None, "same": None}
+
+    def sweeps_fn(b, tu, seed, n, beta=None):
+        # Rung J's output, seeded by the kernel, against a copy seeded by the
+        # plain version (taken before the kernel's launch on the stream).
+        if probe["rung"] == J + 1:
+            probe["same"] = all(torch.equal(getattr(b, f), getattr(probe["ref"], f))
+                                for f in FIELDS)
+        out = kern.sweeps(b, tu, seed, n, beta=beta)
+        if probe["rung"] == J:
+            probe["ref"] = State(**{f: getattr(out[0], f).clone() for f in FIELDS})
+            cascade_seed_plain(probe["ref"], J)
+        probe["rung"] += 1
+        return out
+
+    def run():
+        t0 = time.perf_counter()
+        b = annealed_cascade(sweeps_fn, batch, tuning, new_key(2), betas, N_POINTS)
+        _sync()
+        t_casc = time.perf_counter() - t0
+        lls, secs = [], []
+        for c in range(2):
+            t0 = time.perf_counter()
+            out = kern.sweeps(b, tuning, 11 + c, CHUNK, beta=betas,
+                              collect=lambda s, lp_pr, lp_lik: lp_lik)
+            b = out[0]
+            lls.append(torch.stack(out[5]).cpu().numpy())
+            secs.append((time.perf_counter() - t0) / CHUNK)
+        b2, lp_pr, lp_lik, *_ = kern.sweeps(b, tuning, 7, 1, beta=betas)
+        return b2, lp_pr + lp_lik, np.concatenate(lls), t_casc, secs
+
+    within = {}
+    launches, (b2, lp, ll, t_casc, secs) = _counted(run, inside=((FastSweeps, "seq_phase"),),
+                                                    within=within)
+    check(probe["same"] is True, f"rung {J}: cascade_seed's seeding differs from the per-field "
+          f"copy's")
+    _check_ml_launches("ml full ladder", launches, N_POINTS - 1)
+    _check_seq_phase("ml full ladder", within)
+    err, err64 = _check_lp("ml full ladder", model, b2, lp)
+    log_z = stepping_stone_log_z(ll, betas.cpu().numpy())
+    mean_ll = ll.mean(axis=0)
+    check(math.isfinite(log_z), f"ml full ladder: log Z {log_z}")
+    check(mean_ll[-1] > mean_ll[0], f"ml full ladder: stone log likelihoods {mean_ll[0]} "
+          f"(beta 0) and {mean_ll[-1]} (beta 1)")
+    rung_s = t_casc / (N_POINTS - 1)
+    log(f"[ml full ladder] {MAIN_TAXA} taxa x {N_POINTS} stones on "
+        f"{torch.cuda.get_device_name(0)}: the cascade ({N_POINTS - 1} rungs x 3 sweeps, a "
+        f"carry rebuilt a rung) {t_casc:.1f} s, {rung_s:.4f} s a rung; then {2 * CHUNK} sweeps "
+        f"at {json.dumps([round(x, 4) for x in secs])} s a sweep (chunks of {CHUNK}); log Z "
+        f"{log_z:.4f} from {ll.shape[0]} iterations (a smoke value, not an estimate); carried "
+        f"log posterior within {err:.3g} of the direct float32 one (float32 vs float64: "
+        f"{err64:.3g}); launches {launches}")
+    return launches, dict(cascade_s=t_casc, rung_s=rung_s, sweep_s=secs)
 
 
 def _monitor_iterations(run_dir, an, name):
@@ -2830,7 +3306,16 @@ def main():
     t0 = time.perf_counter()
     results = phase_kernels()
     log(f"[kernels] all checks took {time.perf_counter() - t0:.1f} s")
-    launches, seq = phase_main_path()
+    launches, seq, prep = phase_main_path()
+    try:
+        t0 = time.perf_counter()
+        ml = phase_marginal_likelihood(prep)
+        log(f"[marginal likelihood] took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ml_full, ml_times = phase_ml_full_ladder(seq)
+        log(f"[ml full ladder] took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(prep, ignore_errors=True)
     full = phase_full_width()
     prior = phase_prior_only()
     sequential = phase_sequential(seq)
@@ -2850,7 +3335,8 @@ def main():
     name = torch.cuda.get_device_name(0)
     paths = {"main": launches, "full_width": full, "prior_only": prior,
              "sequential": sequential, "univariate_10k": uni, "sparse_tutorial": sparse,
-             "sparse_full_width": sparse_full}
+             "sparse_full_width": sparse_full, "marginal_likelihood": ml,
+             "ml_full_ladder": ml_full}
     record = {"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,
              launches=paths[RECORD_PATH.get(k, "main")][k],
@@ -2862,6 +3348,11 @@ def main():
                                 for p, n in paths.items()}
     t3["records_10k"] = uni_rec
     next(r for r in record["kernels"] if r["name"] == "prior_terms")["record_10k"] = k1_10k
+    for r in record["kernels"]:
+        if r["name"] in BETA_KERNELS:
+            r["tempered"] = results["tempered"][r["name"]]
+        if r["name"] == "cascade_seed":
+            r["ml_full_ladder"] = ml_times
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

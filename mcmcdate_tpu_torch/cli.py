@@ -1,15 +1,18 @@
 """Command-line interface of the PyTorch port: prepare / run / continue /
-analyze / simulate.
+marginal-likelihood / analyze / simulate.
 
-Port of ``mcmcdate_tpu/cli.py``.  ``run`` and ``continue`` take the JAX
-CLI's flags except ``--mc3``, ``--hamiltonian``, ``--bold-*``, ``--fiber-*``
-and ``--trace-dir``, plus ``--device`` (default ``cuda``).  With a CUDA
-device and no card present they fail; they never carry on on the CPU.
+Port of ``mcmcdate_tpu/cli.py``.  ``run``, ``continue`` and
+``marginal-likelihood`` take the JAX CLI's flags except ``--mc3``,
+``--bold-*``, ``--fiber-*`` and ``--trace-dir`` (and ``--hamiltonian``
+but for ``marginal-likelihood``, where it raises: the NUTS move is not
+ported), plus ``--device`` (default ``cuda``).  With a CUDA device and no
+card present they fail; they never carry on on the CPU.
+``marginal-likelihood`` runs the stepping-stone sampler
+(``engine/stepping_stone.py``) and logs to ``<name>.mlh.log``.
 ``prepare`` takes ``--device`` too, which only the sparse kind above
 ``prepare.GLASSO_HOST_MAX`` dims uses (its ADMM runs there).  ``analyze``
 post-processes monitor files on the host.  ``simulate`` runs the port's own
-NumPy-only fixture generator (``utils/simulate.py``).  ``marginal-likelihood``
-is not ported yet.
+NumPy-only fixture generator (``utils/simulate.py``).
 """
 
 from __future__ import annotations
@@ -188,6 +191,14 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("continue", help="continue a previous run")
     _add_run_args(p)
 
+    p = sub.add_parser("marginal-likelihood", help="stepping-stone marginal likelihood")
+    _add_run_args(p)
+    p.add_argument("--no-annealed-init", action="store_true",
+                   help="skip the annealed-init cascade (each stone then burns in from "
+                        "the naive init in parallel; the reference always anneals)")
+    p.add_argument("--hamiltonian", action="store_true",
+                   help="the NUTS move in every stone (not ported: raises)")
+
     p = sub.add_parser("analyze", help="post-process monitor files "
                        "(scripts/analyze equivalent)")
     p.add_argument("-a", "--analysis-name", required=True, metavar="NAME")
@@ -334,17 +345,23 @@ def cmd_prepare(args):
         log.close()
 
 
-def cmd_run(args):
-    """Run the sampler; returns the chain runner."""
+def _device_dtype(args):
+    """The device and state type of ``--device`` and ``--dtype``."""
     import torch
-
-    from .engine import checkpoint as ckpt
-    from .engine.chains import run_analysis
 
     device = _device(args.device)
     dtype = getattr(torch, args.dtype)
     if device.type == "cuda" and dtype != torch.float32:
         raise SystemExit("the CUDA kernels take float32: use --dtype float32 with --device cuda")
+    return device, dtype
+
+
+def cmd_run(args):
+    """Run the sampler; returns the chain runner."""
+    from .engine import checkpoint as ckpt
+    from .engine.chains import run_analysis
+
+    device, dtype = _device_dtype(args)
     log = Tee(os.path.join(args.out_dir, args.analysis_name + ".run.log"))
     try:
         model, init = _load_model(args, device, dtype, log)
@@ -401,6 +418,25 @@ def cmd_continue(args):
         log(f"Continuing from iteration {meta['iteration']}.")
         return run_analysis(model, init, settings,
                             continue_from=(state, tuning, key, meta["iteration"]), log=log)
+    finally:
+        log.close()
+
+
+def cmd_marginal_likelihood(args):
+    """The stepping-stone marginal likelihood; returns its result."""
+    from .engine.stepping_stone import ITERATIONS_ML, run_marginal_likelihood
+
+    device, dtype = _device_dtype(args)
+    log = Tee(os.path.join(args.out_dir, args.analysis_name + ".mlh.log"))
+    try:
+        model, init = _load_model(args, device, dtype, log)
+        settings = _settings(args)
+        # The reference's default: 4000 iterations a stepping stone.
+        if args.iterations is None:
+            settings.iterations = 50 if args.profile else ITERATIONS_ML
+        return run_marginal_likelihood(model, init, settings, profile=args.profile,
+                                       hamiltonian=args.hamiltonian,
+                                       annealed_init=not args.no_annealed_init, log=log)
     finally:
         log.close()
 
@@ -464,9 +500,10 @@ def cmd_simulate(args):
 
 def main(argv=None):
     """Parse ``argv`` and run the mode; returns what the mode returns (the
-    chain runner for ``run`` and ``continue``, the result for ``prepare``)."""
+    chain runner for ``run`` and ``continue``, the result for ``prepare``
+    and ``marginal-likelihood``)."""
     args = build_parser().parse_args(argv)
-    if args.mode in ("prepare", "run", "continue"):
+    if args.mode in ("prepare", "run", "continue", "marginal-likelihood"):
         _apply_conf(args)
         if args.analysis_name is None:
             raise SystemExit("analysis name missing (flag or analysis.conf)")
@@ -482,6 +519,8 @@ def main(argv=None):
         return cmd_run(args)
     if args.mode == "continue":
         return cmd_continue(args)
+    if args.mode == "marginal-likelihood":
+        return cmd_marginal_likelihood(args)
     if args.mode == "analyze":
         return cmd_analyze(args)
     return cmd_simulate(args)

@@ -94,6 +94,7 @@ class RunSettings:
     out_dir: str = "."
     seed: Optional[int] = None
     dtype: str = "float32"
+    beta: float = 1.0  # likelihood temperature of every decision
     fast_sweep: bool = True  # ticket-batched sweep (engine/fast_sweep.py)
     device: str = "cuda"
 
@@ -145,7 +146,7 @@ class ChainRunner:
             rate_var=state.rate_var.clone(),
             heights=state.heights.clone(),
             rates=state.rates.clone(),
-            lp_post=lp_pr + lp_lik,
+            lp_post=lp_pr + self.s.beta * lp_lik,
             lp_prior=lp_pr,
             lp_lik=lp_lik,
             lp_cal=m.log_prior_cal_con_brace(state),
@@ -186,7 +187,7 @@ class ChainRunner:
             t0 = time.perf_counter()
             batch, _, _, acc, tot, outs = self.kern.sweeps(
                 batch, tuning, seed, CHUNK,
-                collect=self._collect if collect else None,
+                collect=self._collect if collect else None, beta=self.s.beta,
             )
             acc_sum = acc_sum + acc
             tot_sum = tot_sum + tot

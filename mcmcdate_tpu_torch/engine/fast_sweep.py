@@ -35,7 +35,10 @@ a plain index gather and every write-back an ``index_add_`` (the JAX
 module's one-hot selector matmuls and transposed range layout are TPU
 workarounds).  Every step function takes its random draws as arguments;
 :meth:`FastSweeps.sweeps` draws them from ``torch.Generator``s on the
-batch's device.  Steps update the carry in place.
+batch's device.  Steps update the carry in place.  Every decision with a
+likelihood takes the carry's per-chain likelihood temperature
+(``FastCarry.beta``, ``[C]``: the stepping-stone ladder; None: 1), as the
+JAX steps take their ``beta``.
 """
 
 from __future__ import annotations
@@ -74,7 +77,7 @@ from ..ops.dists import standard_gamma
 from ..ops.heights import distances_internal
 from ..ops.node_priors import SQRT_2_OVER_PI
 from . import proposals as P
-from .mh import Carry, MHKernel
+from .mh import Carry, MHKernel, chain_beta
 
 BATCH_MAX = 512
 
@@ -522,8 +525,9 @@ class FastCarry:
     """What the batched phases carry per chain and update in place: the
     state, the prior terms ``[C, T]``, the internal-layout distances ``d``
     ``[C, D]``, ``z = P (d - mu)`` ``[C, D]`` (``[C, 0]`` without a
-    likelihood), ``q = (d-mu)' P (d-mu)`` ``[C]`` and the accept counts
-    ``[C, P]``."""
+    likelihood), ``q = (d-mu)' P (d-mu)`` ``[C]``, the accept counts
+    ``[C, P]`` and the likelihood temperature ``beta`` ``[C]`` of every
+    decision (None: 1)."""
 
     batch: State
     terms: torch.Tensor
@@ -531,6 +535,7 @@ class FastCarry:
     z: torch.Tensor
     q: torch.Tensor
     acc: torch.Tensor
+    beta: Optional[torch.Tensor] = None
 
 
 def spec_tensors(spec, device, dtype) -> dict:
@@ -798,7 +803,8 @@ class FastSweeps:
             return point_lik_epilogue(*args, carry.q, carry.acc, sx, pro, None, None, u_acc)[0]
         pro = point_lik_prologue(*args, carry.z, tuning, sx, self.is_leaf_t, self.pos_t, m.clock,
                                  draw)
-        accept, dq = point_scan(pro.delta, pro.zG, sx["Pblk"], pro.d_pr, pro.lmhg, u_acc)
+        accept, dq = point_scan(pro.delta, pro.zG, sx["Pblk"], pro.d_pr, pro.lmhg, u_acc,
+                                carry.beta)
         accept, dacc = point_lik_epilogue(*args, carry.q, carry.acc, sx, pro, accept, dq)
         carry.z.addmm_(dacc, sx["Prow"])
         return accept
@@ -834,7 +840,8 @@ class FastSweeps:
             pro = range_lik_prologue(*args, None, tuning, sx, m.topo.is_leaf_t, m.clock, draw)
             return range_lik_epilogue(*args, carry.q, carry.acc, sx, pro, None, None, u_acc)[0]
         pro = range_lik_prologue(*args, carry.z, tuning, sx, m.topo.is_leaf_t, m.clock, draw)
-        accept, dq = range_scan(pro.g, pro.zg, sx["Q"], pro.coef, pro.d_pr, pro.lmhg, u_acc)
+        accept, dq = range_scan(pro.g, pro.zg, sx["Q"], pro.coef, pro.d_pr, pro.lmhg, u_acc,
+                                carry.beta)
         accept, dacc = range_lik_epilogue(*args, carry.q, carry.acc, sx, pro, accept, dq)
         carry.z.addmm_(dacc, sx["Prow"])
         return accept
@@ -878,7 +885,8 @@ class FastSweeps:
         rows_t = torch.as_tensor(plan.seq_rows.astype(np.int64), device=dev)
         seq = Carry(carry.batch, carry.terms, carry.d if self.use_lik else None,
                     y if self.use_lik else None,
-                    torch.zeros((C, plan.seq_table.n_proposals), dtype=torch.int32, device=dev))
+                    torch.zeros((C, plan.seq_table.n_proposals), dtype=torch.int32, device=dev),
+                    beta=carry.beta)
         self.seq_kern.sweep_once(seq, tuning[:, rows_t], host_gen, gen)
         carry.acc.index_add_(1, rows_t, seq.acc)
         if not self.use_lik:
@@ -962,15 +970,17 @@ class FastSweeps:
         return lp_pr, self.model.log_lik_const - 0.5 * torch.sum(y * y, dim=-1)
 
     def sweeps(self, batch: State, tuning, seed: int, n: int,
-               collect: Optional[Callable] = None):
+               collect: Optional[Callable] = None, beta=None):
         """Same contract as ``MHKernel.sweeps``: ``n`` sweeps of the chain
         batch, ``seed`` seeding the sequential phase's ticket order (host)
-        and every draw (on the batch's device).  Returns ``(batch, lp_pr,
-        lp_lik, acc, tot, outs)``."""
+        and every draw (on the batch's device), ``beta`` (a number or
+        ``[C]``, None: 1) tempering the likelihood in every phase's
+        decisions.  Returns ``(batch, lp_pr, lp_lik, acc, tot, outs)``."""
         device = batch.heights.device
         host_gen = torch.Generator().manual_seed(seed)
         gen = torch.Generator(device=device).manual_seed(seed)
         carry = self.init_carry(batch)
+        carry.beta = chain_beta(beta, batch.n_chains, batch.heights.dtype, device)
         y = self.model.whitened_residual_internal(carry.batch)
         C = batch.n_chains
         outs = []

@@ -15,7 +15,9 @@ per chunk of at most ``CHUNK`` tickets: one uniform call for the
 proposals, one for the accepts and one standard-gamma call over the
 chunk's gamma tickets.  No ticket recomputes the prior terms whole: the
 sweep carries them, with each chain's count of NaN or -inf terms (the JAX
-package's invalid rule reads the whole new term vector).
+package's invalid rule reads the whole new term vector), and each chain's
+likelihood temperature ``beta``, which tempers the likelihood delta of
+every decision (``MHKernel.sweeps(beta=)``; the stepping-stone ladder).
 """
 
 from __future__ import annotations
@@ -47,8 +49,9 @@ class Carry:
     """What a sweep carries per chain besides the state: the prior terms
     ``[C, T]``, the internal-layout distances ``d`` and whitened residual
     ``y`` ``[C, D]`` (None without a likelihood), the accept counts
-    ``[C, P]`` and the number of NaN or -inf terms ``nbad`` (int32 ``[C]``;
-    counted at the sweep's start where None)."""
+    ``[C, P]``, the number of NaN or -inf terms ``nbad`` (int32 ``[C]``;
+    counted at the sweep's start where None) and the likelihood temperature
+    ``beta`` ``[C]`` of every decision (None: 1)."""
 
     batch: State
     terms: torch.Tensor
@@ -56,6 +59,20 @@ class Carry:
     y: Optional[torch.Tensor]
     acc: torch.Tensor
     nbad: Optional[torch.Tensor] = None
+    beta: Optional[torch.Tensor] = None
+
+
+def chain_beta(beta, C: int, dtype, device) -> torch.Tensor:
+    """The per-chain likelihood temperature ``[C]`` of ``beta``: None (a
+    ones vector), a number, or a ``[C]`` tensor; in ``dtype`` on ``device``."""
+    if beta is None:
+        return torch.ones(C, dtype=dtype, device=device)
+    beta = torch.as_tensor(beta, dtype=dtype, device=device)
+    if beta.dim() == 0:
+        return beta.expand(C).contiguous()
+    if beta.shape != (C,):
+        raise ValueError(f"beta must be a number or [{C}], got {tuple(beta.shape)}")
+    return beta.contiguous()
 
 
 class MHKernel:
@@ -134,17 +151,21 @@ class MHKernel:
         return lp_pr, lp_lik
 
     def sweeps(self, batch: State, tuning, seed: int, n: int,
-               collect: Optional[Callable] = None):
+               collect: Optional[Callable] = None, beta=None):
         """``n`` sweeps of the chain batch.  ``seed`` seeds the ticket order
         (drawn on the host) and the per-chain draws (drawn on the batch's
         device).  ``collect(batch, lp_pr, lp_lik) -> dict of [C, ...]``
-        runs after each sweep.  Returns ``(batch, lp_pr, lp_lik, acc, tot,
-        outs)`` with ``outs`` the list of per-sweep collections."""
+        runs after each sweep.  ``beta`` tempers the likelihood in every
+        decision (``log alpha = d_pr + beta d_lik + lmhg + lj``): a number
+        or a per-chain ``[C]`` vector (None: 1).  Returns ``(batch, lp_pr,
+        lp_lik, acc, tot, outs)`` with ``outs`` the list of per-sweep
+        collections."""
         device = batch.heights.device
         host_gen = torch.Generator().manual_seed(seed)
         gen = torch.Generator(device=device).manual_seed(seed)
         carry = self.init_carry(batch)
         C = batch.n_chains
+        carry.beta = chain_beta(beta, C, batch.heights.dtype, device)
         outs = []
         for _ in range(n):
             self.sweep_once(carry, tuning, host_gen, gen)
@@ -183,7 +204,8 @@ class MHKernel:
         the per-chain draws from ``gen``, in chunks of at most ``CHUNK``
         tickets.  ``given = (order, draws, u_acc)`` replaces the order
         (table rows ``[n]``) and the draws (each ticket's uniform or
-        standard-gamma draw and its accept uniform, ``[C, n]``)."""
+        standard-gamma draw and its accept uniform, ``[C, n]``).  The
+        decisions take the likelihood temperature ``carry.beta``."""
         if carry.nbad is None:
             carry.nbad = count_bad(carry.terms)
         if given is not None:

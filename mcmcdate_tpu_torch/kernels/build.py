@@ -129,6 +129,27 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def _ones(n: int, device: str):
+    import torch
+
+    return torch.ones(n, dtype=torch.float32, device=device)
+
+
+def beta_arg(beta, n: int, device):
+    """The ``[n]`` float32 likelihood temperature a decision kernel reads:
+    ``beta`` checked, or where None a ones vector made once per chain count
+    and device (the untempered case; no kernel writes it)."""
+    import torch
+
+    if beta is None:
+        return _ones(n, str(device))
+    require_cuda(beta, "beta", torch.float32)
+    if beta.shape != (n,):
+        raise ValueError(f"beta must be [{n}], got {tuple(beta.shape)}")
+    return beta
+
+
 def require_cuda(t, name: str, dtype=None) -> None:
     """Validate a tensor handed to a kernel: on a CUDA device, contiguous,
     and of ``dtype`` where given."""

@@ -7,7 +7,9 @@
 //   dq0_t = 2 delta_t . zG_t + delta_t' Pblk[t, t] delta_t
 //   T_at  = delta_a' Pblk[a, t] delta_t                       (a < t)
 //   dq_t  = dq0_t + 2 sum_{a < t accepted} T_at
-//   accept_t = log u_t < dpr_t - dq_t / 2 + lmhg_t
+//   accept_t = log u_t < dpr_t - (beta_c dq_t) / 2 + lmhg_t
+// (beta_c the chain's likelihood temperature: the JAX scan's la_t,
+// fast_sweep.py:1511)
 // and between sub-blocks zG += sum_{a accepted} delta_a' Pblk[a, :].
 //
 // What bounds it on the H100: the serial scan (one dependent step per
@@ -73,6 +75,7 @@ struct PointArgs {
   const float* d_pr;   // [C, B]
   const float* lmhg;   // [C, B]
   const float* u;      // [C, B]
+  const float* beta;   // [C] likelihood temperature
   unsigned char* accept;  // [C, B]
   float* dq;              // [C, B]
   float* zwork;           // [C, F]
@@ -102,7 +105,7 @@ size_t smem_bytes(int n) {
 // diagonal block is pd[r pitch + off + k].
 __device__ __forceinline__ void scan_shared(const PointArgs& a, const float* pd, int pitch,
                                             int off, float* dl, float* z, int c, int warp,
-                                            int lane, int lo, int sn, int n) {
+                                            int lane, int lo, int sn, int n, float beta) {
   for (int t0 = 0; t0 < sn; t0 += 32) {
     const int tt = t0 + lane;
     const size_t o = (size_t)c * a.B + lo + tt;
@@ -126,7 +129,7 @@ __device__ __forceinline__ void scan_shared(const PointArgs& a, const float* pd,
         self += dl[(base + i) * kChains + warp] * w;
       }
       const float dq_t = 2.0f * lin + self;
-      float la = dpr - 0.5f * dq_t + lm;
+      float la = dpr - 0.5f * (beta * dq_t) + lm;
       if (isnan(la)) la = -INFINITY;
       const bool acc = lu < la;
       __syncwarp();  // every lane has read this ticket's deltas before they change
@@ -169,6 +172,7 @@ __global__ void __launch_bounds__(kThreads) point_scan_kernel(PointArgs a) {
   const int lane = tid % 32;
   const int c0 = blockIdx.x * kChains;
   const int c = c0 + warp;                   // the chain this warp scans
+  const float beta = c < a.C ? a.beta[c] : 1.f;
   const float* P = a.Pblk;
   const int n_sub = (a.B + a.S - 1) / a.S;
   for (int s0 = 0; s0 < n_sub; ++s0) {
@@ -261,7 +265,7 @@ __global__ void __launch_bounds__(kThreads) point_scan_kernel(PointArgs a) {
 #pragma unroll
         for (int k = 0; k < 32; ++k) {
           const float dq_l = dq0 + 2.0f * corr;
-          float la = dpr[w] - 0.5f * dq_l + lm[w];
+          float la = dpr[w] - 0.5f * (beta * dq_l) + lm[w];
           if (isnan(la)) la = -INFINITY;
           const bool acc = __shfl_sync(0xffffffffu, (int)(lu[w] < la), k) != 0;
           dq_mine = lane == k ? dq_l : dq_mine;
@@ -304,7 +308,7 @@ __global__ void __launch_bounds__(kThreads) point_scan_kernel(PointArgs a) {
         for (int i = 0; i < KDR; ++i) dl[(t * KD + i) * kChains + warp] = dr[w][i];
       }
     } else if (c < a.C) {
-      scan_shared(a, pd, pitch, off, dl, zl + warp * n, c, warp, lane, lo, sn, n);
+      scan_shared(a, pd, pitch, off, dl, zl + warp * n, c, warp, lane, lo, sn, n, beta);
     }
     __syncthreads();
     if (s0 == n_sub - 1) break;
@@ -400,14 +404,15 @@ int launch(const PointArgs& a, size_t smem, cudaStream_t stream) {
 
 extern "C" int mcmcdate_point_scan_f32(const float* delta, const float* zG, const float* Pblk,
                                        const float* d_pr, const float* lmhg, const float* u,
-                                       unsigned char* accept, float* dq, float* zwork, int C,
-                                       int B, int KD, int ldp, void* stream) {
+                                       const float* beta, unsigned char* accept, float* dq,
+                                       float* zwork, int C, int B, int KD, int ldp,
+                                       void* stream) {
   if (KD < 1 || KD > kRowsMax || ldp % 4 || ldp < B * KD ||
       reinterpret_cast<size_t>(Pblk) % 16) {
     return (int)cudaErrorInvalidValue;
   }
   const int S = B < kRowsMax / KD ? B : kRowsMax / KD;
-  PointArgs a{delta, zG, Pblk, d_pr, lmhg, u, accept, dq, zwork, C, B, KD, S, ldp};
+  PointArgs a{delta, zG, Pblk, d_pr, lmhg, u, beta, accept, dq, zwork, C, B, KD, S, ldp};
   if (C <= 0 || B <= 0) return (int)cudaGetLastError();
   const size_t smem = smem_bytes(S * KD);
   cudaStream_t st = (cudaStream_t)stream;

@@ -7,7 +7,9 @@
 // 1024 rows in all).  Per chain:
 //   G_ab  = g_a' Q[a, b] g_b                 (a <= b; Q = P between the rows)
 //   dq_t  = 2 coef_t g_t . zg_t + coef_t^2 G_tt + 2 sum_{a < t accepted} coef_a G_at coef_t
-//   accept_t = log u_t < dpr_t - dq_t / 2 + lmhg_t
+//   accept_t = log u_t < dpr_t - (beta_c dq_t) / 2 + lmhg_t
+// (beta_c the chain's likelihood temperature: the JAX scan's la_t,
+// fast_sweep.py:1860)
 //
 // What bounds it on the H100: operations.  The upper triangle of G is
 // F^2 / 2 multiply-adds per chain (about 0.5 G at 1024 chains and F =
@@ -81,8 +83,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     range_scan_kernel(const float* __restrict__ g, const float* __restrict__ zg,
                       const float* __restrict__ Qt, int ldq, const float* __restrict__ coef,
                       const float* __restrict__ d_pr, const float* __restrict__ lmhg,
-                      const float* __restrict__ u, unsigned char* __restrict__ accept,
-                      float* __restrict__ dq, int C, int S, int RB) {
+                      const float* __restrict__ u, const float* __restrict__ beta,
+                      unsigned char* __restrict__ accept, float* __restrict__ dq, int C, int S,
+                      int RB) {
   extern __shared__ __align__(16) float sm[];
   __shared__ unsigned long long bars[kStages];  // one per Q stage buffer
   const int F = S * RB;
@@ -99,6 +102,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   const int c0 = blockIdx.x * kChains;
+  // The tile's likelihood temperatures, one a deciding thread (tid < kChains).
+  const float bt = (tid < kChains && c0 + tid < C) ? beta[c0 + tid] : 1.f;
 
   const int kch = (RB + kKT - 1) / kKT;  // stages per ticket
   const int n_stages = S * kch;
@@ -236,7 +241,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int o = tid * S + t;
         const float ct = cs[o];
         const float dq_t = ct * (2.0f * vs[o] + sum);
-        float la = dps[o] - 0.5f * dq_t + lms[o];
+        float la = dps[o] - 0.5f * (bt * dq_t) + lms[o];
         if (isnan(la)) la = -INFINITY;
         const bool ok = lus[o] < la;
         accept[(size_t)c * S + t] = ok;
@@ -252,8 +257,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 extern "C" int mcmcdate_range_scan_f32(const float* g, const float* zg, const float* Qt, int ldq,
                                        const float* coef, const float* d_pr, const float* lmhg,
-                                       const float* u, unsigned char* accept, float* dq, int C,
-                                       int S, int RB, void* stream) {
+                                       const float* u, const float* beta,
+                                       unsigned char* accept, float* dq, int C, int S, int RB,
+                                       void* stream) {
   if (S > kSMax || S * RB > kFMax || ldq % 4 != 0 || ldq < S * RB ||
       reinterpret_cast<size_t>(Qt) % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -267,6 +273,6 @@ extern "C" int mcmcdate_range_scan_f32(const float* g, const float* zg, const fl
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<(C + kChains - 1) / kChains, kThreads, smem, (cudaStream_t)stream>>>(
-      g, zg, Qt, ldq, coef, d_pr, lmhg, u, accept, dq, C, S, RB);
+      g, zg, Qt, ldq, coef, d_pr, lmhg, u, beta, accept, dq, C, S, RB);
   return (int)cudaGetLastError();
 }

@@ -122,6 +122,7 @@ struct TicketArgs {
   float* y;      // [C, D]
   int* acc;      // [C, P]
   int* nbad;     // [C] NaN or -inf terms
+  const float* beta;  // [C] likelihood temperature of every decision
   // the table
   const int* rec;    // [P, kRecWords] packed records
   const int* didx;   // [P, KG], D padding
@@ -731,7 +732,9 @@ __device__ inline float gather_lik_dev(const TicketArgs& a, const Team& tm, int 
   return -0.5f * v[0];
 }
 
-// The decision and write-back of ticket j (row rw) on chain c; dy is the
+// The decision and write-back of ticket j (row rw) on chain c, d_lik
+// tempered by the chain's likelihood temperature (the JAX step's
+// beta * d_lik, engine/mh.py:194); dy is the
 // chain's full dy row (K2's or the gather's, all D), or null (the class
 // rows of dys under the univariate kind; no y change otherwise).  `oi` is
 // the index of the optional outputs.  Ends with the team synchronised.
@@ -831,6 +834,7 @@ __device__ inline bool ticket_fast_dev(const TicketArgs& a, int c, int j, int gi
   const Scalars cur = scalars_at(a, c);
   const float u = a.u_acc[(size_t)c * a.n + j];
   const int nbad = a.nbad[c];
+  const float beta = a.beta[c];
   const float hq = q >= 0 ? h[q] : 0.f, rq = q >= 0 ? r[q] : 0.f;
   const float to = t >= 0 ? te[t] : 0.f;
   const float dold = row >= 0 ? d[row] : 0.f, yold = row >= 0 ? y[row] : 0.f;
@@ -889,7 +893,7 @@ __device__ inline bool ticket_fast_dev(const TicketArgs& a, int c, int j, int gi
   const float lmhg = (var && nonpos) ? -INFINITY : mv.k.lmhg;
   const float lj = rj ? (-logf(rb_new)) - (-logf(rb_old)) : 0.f;
   const bool invalid = v[1] > 0.f || (float)nbad > v[2];
-  float la = (((invalid ? -INFINITY : v[0]) + -0.5f * v[3]) + lmhg) + lj;
+  float la = (((invalid ? -INFINITY : v[0]) + beta * (-0.5f * v[3])) + lmhg) + lj;
   if (isnan(la)) la = -INFINITY;
   const bool acc = logf(u) < la;
   if (acc) {
@@ -935,7 +939,7 @@ __device__ inline bool ticket_finish(const TicketArgs& a, const Team& tm, int c,
     if (a.prop_out != nullptr) a.prop_out[oi] = o.prop;
     if (a.mean_out != nullptr && rw[R_MODE] == VAR_TREE) a.mean_out[oi] = o.mean;
   }
-  return ticket_epilogue_dev(a, tm, c, j, rw, o, d_lik, dy, oi);
+  return ticket_epilogue_dev(a, tm, c, j, rw, o, a.beta[c] * d_lik, dy, oi);
 }
 
 }  // namespace mcmcdate

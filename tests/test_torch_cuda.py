@@ -1396,3 +1396,183 @@ def test_glasso_admm_kernel_route(card):
     Wk = np.linalg.inv(run_k.Z.cpu().numpy())
     Wp = np.linalg.inv(run_p.Z.cpu().numpy())
     assert np.abs(Wk - Wp).max() <= 1e-10
+
+
+# -- the likelihood temperature of the decision kernels, and cascade_seed ------
+
+
+def _ladder(C):
+    """The 128-point stepping-stone ladder tiled over ``C`` chains: every
+    beta in [0, 1], chain c at point c mod 128."""
+    from mcmcdate_tpu_torch.engine.stepping_stone import beta_ladder
+
+    return torch.as_tensor(np.resize(beta_ladder(128), C), dtype=torch.float32, device="cuda")
+
+
+@pytest.mark.parametrize("which, C, B, KD", (("point", 64, 150, 3), ("point", 17, 70, 5),
+                                             ("range", 70, 64, 16), ("range", 33, 4, 256)))
+def test_tempered_scan_kernels(card, which, C, B, KD):
+    """K4 point_scan (KD 3: tickets in registers; KD 5: in shared memory)
+    and K5 range_scan (B tickets of KD rows) with a beta ladder against
+    their plain versions: decisions up to ties of the tempered log alpha,
+    dq within 1e-5 of scale; beta = 0 chains take the prior's decision."""
+    from mcmcdate_tpu_torch.kernels.point_scan import pitched, point_scan, point_scan_plain
+    from mcmcdate_tpu_torch.kernels.range_scan import kernel_layout, range_scan, range_scan_plain
+
+    g = torch.Generator(device=card).manual_seed(B + KD)
+    beta = _ladder(C)
+    F = B * KD
+    a = torch.randn(F, F, generator=g, device=card) / F ** 0.5
+    P = a @ a.T + torch.eye(F, device=card)
+    d_pr = 0.1 * torch.randn(C, B, generator=g, device=card)
+    lmhg = torch.randn(C, B, generator=g, device=card)
+    u = torch.rand(C, B, generator=g, device=card)
+    if which == "point":
+        delta = 0.3 * torch.randn(C, B, KD, generator=g, device=card)
+        zG = torch.randn(C, F, generator=g, device=card)
+        args = (delta, zG, pitched(P), d_pr, lmhg, u)
+        before = point_scan.launches
+        ak, dk = point_scan(*args, beta)
+        assert point_scan.launches == before + 1
+        ap, dp = point_scan_plain(delta, zG, P, d_pr, lmhg, u, beta)
+        a1, _ = point_scan_plain(delta, zG, P, d_pr, lmhg, u)
+    else:
+        gg = torch.randn(C, B, KD, generator=g, device=card)
+        zg = torch.randn(C, B, KD, generator=g, device=card)
+        coef = 0.1 * torch.randn(C, B, generator=g, device=card)
+        args = (gg, zg, kernel_layout(P), coef, d_pr, lmhg, u)
+        before = range_scan.launches
+        ak, dk = range_scan(*args, beta)
+        assert range_scan.launches == before + 1
+        ap, dp = range_scan_plain(gg, zg, P, coef, d_pr, lmhg, u, beta)
+        a1, _ = range_scan_plain(gg, zg, P, coef, d_pr, lmhg, u)
+    assert 0 < int(ap.sum()) < ap.numel() and not torch.equal(ap, a1)
+    _scan_agree(ak, dk, ap, dp, d_pr - 0.5 * (beta[:, None] * dp) + lmhg, torch.log(u))
+
+
+@pytest.mark.parametrize("lik", ("full", "univariate"))
+def test_tempered_ticket_kernels(card, lik):
+    """K3 after T1 (and K2) on one ticket of every kind and likelihood class,
+    then T3's light and heavy kernels on a 192-ticket run, all with a beta
+    ladder in the carry, against the plain versions replayed at the
+    kernels' proposals and decisions (see _ticket_agree)."""
+    from mcmcdate_tpu_torch.engine import proposals as TP
+    from mcmcdate_tpu_torch.kernels import ticket_step as TS
+
+    tk, carry, tuning, g = _ticket_setup(lik, 40)
+    tt = tk.tt
+    C = carry.terms.shape[0]
+    carry.beta = _ladder(C)
+
+    def tempered(c):
+        c = _copy(c)
+        c.beta = carry.beta
+        return c
+
+    rows = {}
+    for p, kind in enumerate(tt.table.kind):
+        rows.setdefault((int(kind), int(tt.d_class[p])), p)
+    n_acc = 0
+    for p in sorted(set(rows.values())):
+        draw = (torch._standard_gamma(float(tt.table.par[p]) / tuning[:, p], generator=g)
+                if tt.gamma[p] else torch.rand(C, generator=g, device=card))
+        u = torch.rand(C, generator=g, device=card)
+        dr = TicketDraws.single(p, draw, u)
+        ck, cp = tempered(carry), tempered(carry)
+        pro = ticket_prologue(tt, ck, tuning, dr, 0)
+        prop = pro.prop.clone()
+        mean = None if pro.mean is None else pro.mean.clone()
+        dy, d_lik = tk._k2(ck, p, pro)
+        ak = accept_select(tt, ck, tuning, dr, 0, pro, dy, d_lik)
+        pp = ticket_prologue_plain(tt, cp, tuning, p, draw, given=prop, given_mean=mean)
+        ap, la_p = accept_select_plain(tt, cp, p, pp, torch.where(ak, 0.0, math.nan), dy, d_lik)
+        assert torch.equal(ak, ap), tt.table.names[p]
+        _ticket_agree(ck, cp, torch.log(u), la_p, ak)
+        n_acc += int(ak.sum())
+    assert n_acc > 0
+    tickets = np.asarray(tt.table.tickets)
+    ok = np.asarray([not tt.breaks(int(p)) for p in tickets])
+    order = np.random.default_rng(8).choice(tickets[ok], 192).astype(np.int32)
+    dr = tk.draws(order, tuning, torch.Generator(device="cuda").manual_seed(9))
+    saved = TS.HEAVY
+    for kind, heavy in (("light", 10 ** 9), ("heavy", -1)):
+        TS.HEAVY = heavy
+        try:
+            before = dict(ticket_scan.launches_by_kind)
+            ck, cp = tempered(carry), tempered(carry)
+            out = ticket_scan(tt, ck, tuning, dr, 0, len(order), out=True)
+            assert ticket_scan.launches_by_kind[kind] == before[kind] + 1
+        finally:
+            TS.HEAVY = saved
+        rec = ticket_scan_plain(tt, cp, tuning, dr._replace(
+            u_acc=torch.where(out.accept, 0.0, math.nan)), 0, len(order),
+            given=dict(prop=out.prop, mean=out.mean))
+        assert torch.equal(rec.accept, out.accept)
+        assert 0 < int(out.accept.sum()) < out.accept.numel()
+        _ticket_agree(ck, cp, torch.log(dr.u_acc), rec.log_alpha, out.accept)
+
+
+@pytest.mark.parametrize("dense", (False, True), ids=("G1", "G3"))
+def test_tempered_glob_kernels(card, dense):
+    """G1 on the scan families and G2/G3 on the dense ones with a beta
+    ladder in the carry, against the plain family scan replayed at the
+    kernels' proposals and decisions (see _glob_replay_agree)."""
+    from mcmcdate_tpu_torch.kernels import glob_step as G
+    from mcmcdate_tpu_torch.ops.dists import standard_gamma
+
+    fs, carry, tuning, g = _glob_fast(10, taxa=40, chains=96)
+    C = carry.d.shape[0]
+    carry.beta = _ladder(C)
+    n_acc = n = 0
+    for tag, fam in fs.glob_fam.items():
+        if (G.FAMILIES[tag].lik == G.DENSE) != dense:
+            continue
+        tun = tuning.index_select(1, fam.rows)
+        draws = (standard_gamma(fam.sd / tun, g) if tag in G.GAMMA_TAGS
+                 else torch.rand(C, fam.n, generator=g, device=card))
+        u = torch.rand(C, fam.n, generator=g, device=card)
+        ck, cr = _glob_copy(carry), _glob_copy(carry)
+        ck.beta = cr.beta = carry.beta
+        if dense:
+            acc, prop, mean = [], [], []
+            nbad = None
+            for s in range(fam.n):
+                pro = G.glob_dense_prologue(fs.glob, fam, s, ck, tun, draws, nbad)
+                nbad = pro.nbad
+                acc.append(G.glob_dense_epilogue(fs.glob, fam, s, ck, pro,
+                                                 fs.glob_product(fam, s, pro), u))
+                prop.append(pro.prop)
+                mean.append(pro.mean)
+            accept, prop = torch.stack(acc, 1), torch.stack(prop, 1)
+            mean = torch.stack(mean, 1) if tag == "var_tree" else None
+        else:
+            out = G.glob_scan(fs.glob, fam, ck, tun, draws, u)
+            accept, prop, mean = out.accept, out.prop, None
+        _glob_replay_agree(fs, tag, ck, cr, tun, draws, u, accept, prop, mean)
+        n_acc += int(accept.sum())
+        n += accept.numel()
+    assert 0 < n_acc < n
+
+
+def test_cascade_seed_kernel(card):
+    """cascade_seed against its plain version (the per-field copy) on every
+    row of a 136-taxon batch of 12 chains: bitwise, one launch a row, the
+    other rows untouched."""
+    from mcmcdate_tpu_torch.kernels.cascade_seed import cascade_seed, cascade_seed_plain
+
+    _, batch = synthetic.build(136, 12, device="cuda")
+    g = torch.Generator(device=card).manual_seed(12)
+    batch = State(**{f: torch.rand(getattr(batch, f).shape, generator=g, device=card)
+                     for f in FIELDS})
+    for j in range(11):
+        ck = State(**{f: getattr(batch, f).clone() for f in FIELDS})
+        cp = State(**{f: getattr(batch, f).clone() for f in FIELDS})
+        before = cascade_seed.launches
+        cascade_seed(ck, j)
+        assert cascade_seed.launches == before + 1
+        cascade_seed_plain(cp, j)
+        for f in FIELDS:
+            assert torch.equal(getattr(ck, f), getattr(cp, f)), f
+        batch = ck
+    with pytest.raises(ValueError, match="no next row"):
+        cascade_seed(batch, 11)
