@@ -106,7 +106,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ADMM_THETA_TOL), and A1-A3 are held to their plain versions on one more
    iteration (A1, A2 and A3's Z and U bitwise, A3's sums within
    ADMM_SUM_REL) and timed flushed, beside eigh's and the product's device
-   times (the A1-A3 records; their ``launches`` are this path's).
+   times (the A1-A3 records; their ``launches`` are this path's);
+11. banded tutorial: simulate -> prepare "banded 128" (the host's Cholesky
+   banding estimator, D = 269; the .data file tagged BandedS) -> run
+   --profile --iterations 20 (FastSweeps, every precision and Cholesky
+   product through B1 band_matmul and B2 band_matmul_t; the main path's
+   carry check) -> analyze at 136 taxa x 1024 chains, then 10 + 1 sweeps of
+   MHKernel on that model (T1, B1, K3 per ticket that moves distances);
+12. banded full width: FastSweeps through ChainRunner on the synthetic
+   banded model of 5,000 taxa x 1024 chains ("banded 128": D = 9,997, 79
+   blocks of 128), 10 + 1 sweeps: carry check, s/sweep, B1's and B2's
+   launches per sweep, the sweep's construction time, the device memory's
+   peak.  Both banded paths must launch B1 (and B2 on FastSweeps), never
+   K2 or a plain version, and their sweeps hold no [D, D] or [rows, D]
+   tensor.  The kernels phase also holds B1 and B2 to their plain versions
+   at 136 and 5,000 taxa on every site's shape, whole and windowed, with
+   each reduction (check_band; records at 5,000 taxa, flushed, beside
+   torch.matmul with the densified matrix).
 
 Every phase after the kernels sets each wrapper's launch count to 0 just
 before it and reads it just after (T3's also by kernel: ``light`` and
@@ -146,6 +162,14 @@ PRIOR_ONLY_SWEEPS = 10
 SEQUENTIAL_SWEEPS = 10
 UNI_TAXA = 10_000
 UNI_SWEEPS = 2
+# The banded kind: the JAX package's own banded end-to-end shape (5,000 taxa,
+# "banded 128": D = 9,997, wb = 128, nb = 79) at the smoke's chain count,
+# FULL_WIDTH_SWEEPS + 1 sweeps on FastSweeps; the tutorial path prepares
+# "banded 128" at the main path's 136 taxa (D = 269, nb = 3) and adds
+# SEQUENTIAL_SWEEPS + 1 sweeps of MHKernel.
+BANDED_TAXA = 5000
+BANDED_SPEC = "banded 128"
+BANDWIDTH = 128
 # The sparse paths: the reference tutorials' likelihood spec; the tutorial
 # path's continue adds CONTINUE_ITERATIONS to its ITERATIONS, the full-width
 # path runs FULL_WIDTH_SWEEPS after the --profile burn-in.
@@ -264,13 +288,19 @@ KERNELS = (
      "mcmcdate_tpu/utils/glasso.py:125"),
     ("cascade_seed", "mcmcdate_tpu_torch/kernels/csrc/cascade_seed.cu",
      "mcmcdate_tpu/engine/stepping_stone.py:85"),
+    ("band_matmul", "mcmcdate_tpu_torch/kernels/csrc/band_matmul.cu",
+     "mcmcdate_tpu/ops/banded.py:209"),
+    ("band_matmul_t", "mcmcdate_tpu_torch/kernels/csrc/band_matmul.cu",
+     "mcmcdate_tpu/ops/banded.py:235"),
 )
+BAND_NAMES = ("band_matmul", "band_matmul_t")
 # The kernels whose decisions take the likelihood temperature beta.
 BETA_KERNELS = ("accept_select", "ticket_scan", "point_scan", "range_scan", "glob_scan",
                 "glob_dense_epilogue")
 # The path whose launches a kernel's record reports (the main path's but
 # for A1-A3, which only the 1000-taxon sparse prepare runs).
 RECORD_PATH = {**{k: "sparse_full_width" for k in ADMM_NAMES},
+               **{k: "banded_full_width" for k in BAND_NAMES},
                "cascade_seed": "marginal_likelihood"}
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s, and float32 and float64 operations/s outside the tensor cores.
@@ -2312,6 +2342,130 @@ def check_cascade_seed(n_taxa):
     return {"cascade_seed": _record(0.0, ms, plain_ms, 2 * row_bytes, 0, library_ms=lib_ms)}
 
 
+_BANDED = {}
+
+
+def _banded_model(n_taxa):
+    """The synthetic banded model (bandwidth BANDWIDTH) and chain batch of a
+    shape, built once, and the host seconds the build took."""
+    from mcmcdate_tpu_torch import synthetic
+
+    if n_taxa not in _BANDED:
+        t0 = time.perf_counter()
+        model, batch = synthetic.build(n_taxa, CHAINS, device="cuda", kind="banded",
+                                       bandwidth=BANDWIDTH)
+        _BANDED[n_taxa] = (model, batch, time.perf_counter() - t0)
+    return _BANDED[n_taxa]
+
+
+def _densified(B3, D):
+    """The ``[D, D]`` matrix whose block-tridiagonal form is ``B3`` (for the
+    library's time)."""
+    import torch
+
+    nb, _, wb, _ = B3.shape
+    M = torch.zeros(((nb + 2) * wb, (nb + 2) * wb), dtype=B3.dtype, device=B3.device)
+    for n in range(nb):
+        for o in range(3):
+            M[(n + 1) * wb:(n + 2) * wb, (n + o) * wb:(n + o + 1) * wb] = B3[n, o]
+    return M[wb:wb + D, wb:wb + D].contiguous()
+
+
+def _band_terms(nb, upper):
+    """The block products of one whole call (each reads one distinct ``wb x
+    wb`` block of ``B3``)."""
+    return sum(1 for m in range(nb) for o in range(1 if upper else 0, 3) if 0 <= m + 1 - o < nb)
+
+
+def check_band(n_taxa):
+    """B1 ``band_matmul`` and B2 ``band_matmul_t`` against their plain
+    versions on the synthetic banded model's own blocks, ``L3`` (upper) and
+    ``P3``, at the shapes of every site of the banded sweep: the whitened
+    residual ``(d - mu) L``, a sequential ticket's ``dy = delta L`` on its
+    window with its rows and ``y``, the glob families' ``delta @ P`` whole
+    and on a subtree's window, the point and range steps' ``z += dacc P``
+    and ``z = y L^T``; within K2_REL of the largest output.  Records: B1 on
+    the whole ``delta @ P``, B2 on ``z = y L^T``, each timed flushed beside
+    ``torch.matmul`` with the densified matrix."""
+    import torch
+
+    from mcmcdate_tpu_torch.kernels.band_matmul import band_matmul, band_matmul_plain, \
+        band_matmul_t, band_matmul_t_plain
+    from mcmcdate_tpu_torch.ops import banded
+    from mcmcdate_tpu_torch.ops.heights import distances_internal
+
+    model, batch, build_s = _banded_model(n_taxa)
+    s = _perturbed(model, batch, 5)
+    L3 = model.band_L3_internal_t
+    nb, _, wb, _ = L3.shape
+    P3 = torch.as_tensor(banded.blocks_from_sym_band(
+        banded.pband_from_chol_upper(model.likelihood.band_chol), wb), dtype=torch.float32,
+        device="cuda")
+    D, mu = model.likelihood.dim, model.mu_internal_t
+    d = distances_internal(s, model.topo).contiguous()
+    y = band_matmul_plain(d, L3, sub=mu)[0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    delta = (0.01 * d * torch.randn(d.shape, generator=g, device="cuda")).contiguous()
+    lo, hi = D // 3, min(D // 3 + 300, D)
+    keep = torch.zeros(D, dtype=torch.bool, device="cuda")
+    keep[lo:hi] = True
+    dspan = torch.where(keep, delta, 0.0).contiguous()
+    win_l, win_p = (banded.block_window(lo, hi, wb, nb, upper=True),
+                    banded.block_window(lo, hi, wb, nb))
+    cases = (
+        ("band_matmul", "(d - mu) L", L3, dict(x=d, sub=mu, upper=True)),
+        ("band_matmul", "ticket dy", L3, dict(x=delta, y=y, upper=True, window=win_l,
+                                              x_rows=(lo, hi))),
+        ("band_matmul", "delta P", P3, dict(x=delta)),
+        ("band_matmul", "subtree delta P", P3, dict(x=dspan, window=win_p)),
+        ("band_matmul", "z += dacc P", P3, dict(x=dspan, window=win_p, into=y)),
+        ("band_matmul_t", "z = y L^T", L3, dict(x=y, upper=True)),
+        ("band_matmul_t", "windowed, y", L3, dict(x=dspan, y=y, upper=True, window=win_l)),
+        ("band_matmul_t", "P^T, sub", P3, dict(x=d, sub=mu)),
+    )
+    fns = {"band_matmul": (band_matmul, band_matmul_plain),
+           "band_matmul_t": (band_matmul_t, band_matmul_t_plain)}
+    worst = {k: 0.0 for k in fns}
+    for name, what, B3, kw in cases:
+        fn, plain = fns[name]
+        kk, kp = dict(kw), dict(kw)
+        if "into" in kw:
+            kk["into"], kp["into"] = kw["into"].clone(), kw["into"].clone()
+        ok, rk = fn(B3=B3, **kk)
+        op, rp = plain(B3=B3, **kp)
+        _sync()
+        pairs = (("out", ok, op),) + ((("reduction", rk, rp),) if rp is not None else ())
+        for part, a, b in pairs:
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            check(err <= K2_REL * max(scale, 1.0),
+                  f"{name} {what} {part} at {n_taxa} taxa: max error {err:.3g} at scale "
+                  f"{scale:.3g}")
+            worst[name] = max(worst[name], err)
+    C = d.shape[0]
+    out = {}
+    for name, B3, upper, x in (("band_matmul", P3, False, delta), ("band_matmul_t", L3, True, y)):
+        fn, plain = fns[name]
+        ms = _device_ms(lambda: fn(x, B3, upper=upper), only=("band_kernel", "band_reduce"),
+                        flush=True)
+        plain_ms = _device_ms(lambda: plain(x, B3, upper=upper))
+        M = _densified(B3, D)
+        if name == "band_matmul_t":
+            lib_ms = _device_ms(lambda: torch.matmul(x, M.t()))
+        else:
+            lib_ms = _device_ms(lambda: torch.matmul(x, M))
+        del M
+        terms = _band_terms(nb, upper)
+        # Bytes: x and each block read once, the product and the per-chain
+        # sum written once.  Operations: the block products formed.
+        nbytes = 4 * (2 * C * D + terms * wb * wb + C)
+        out[name] = _record(worst[name], ms, plain_ms, nbytes, 2 * C * terms * wb * wb, lib_ms)
+    log(f"[band] at {n_taxa} taxa: D = {D}, wb = {wb}, nb = {nb}; the synthetic banded model "
+        f"built in {build_s:.1f} s; {len(cases)} cases ({', '.join(w for _, w, _, _ in cases)}) "
+        f"within K2_REL of their plain versions")
+    return out
+
+
 # Each check returns its kernels' records by kernel name.
 CHECKS = (check_prior_terms, check_whiten, check_ticket, check_point_step,
           check_range_step, check_prior_only_steps, check_contra_slide, check_contra_range,
@@ -2344,6 +2498,20 @@ def phase_kernels():
         _FAST.pop(n_taxa, None)
         _GLOB.pop(n_taxa, None)
         _MODELS.pop(n_taxa, None)
+    # B1 and B2 at the main path's and the banded full width's shapes; the
+    # record keeps the full width's (its launches are that path's).
+    for n_taxa in (MAIN_TAXA, BANDED_TAXA):
+        t0 = time.perf_counter()
+        for name, r in check_band(n_taxa).items():
+            log(f"[kernels] {name} at {n_taxa} taxa x {CHAINS} chains: max error "
+                f"{r['max_abs_err']:.3g}, device time per call: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}) (check took "
+                f"{time.perf_counter() - t0:.1f} s)")
+            if n_taxa == MAIN_TAXA:
+                results[f"{name}_136"] = r
+            else:
+                results[name] = dict(r, record_136=results.pop(f"{name}_136"))
     return results
 
 
@@ -2378,6 +2546,7 @@ def check_carried_posterior(runner, run_dir, lp_post, name="smoke"):
 
 def _wrappers():
     from mcmcdate_tpu_torch.kernels.accept_select import accept_select
+    from mcmcdate_tpu_torch.kernels.band_matmul import band_matmul, band_matmul_t
     from mcmcdate_tpu_torch.kernels.cascade_seed import cascade_seed
     from mcmcdate_tpu_torch.kernels.contra_step import contra_range, contra_slide
     from mcmcdate_tpu_torch.kernels.glasso_admm import admm_eig_scale, admm_shift, admm_update
@@ -2403,7 +2572,8 @@ def _wrappers():
             "glob_dense_prologue": glob_dense_prologue,
             "glob_dense_epilogue": glob_dense_epilogue, "admm_shift": admm_shift,
             "admm_eig_scale": admm_eig_scale, "admm_update": admm_update,
-            "cascade_seed": cascade_seed}
+            "cascade_seed": cascade_seed, "band_matmul": band_matmul,
+            "band_matmul_t": band_matmul_t}
 
 
 # The plain twins a wrapper takes for CPU tensors, by module: on the card a
@@ -2416,6 +2586,7 @@ PLAIN_TWINS = (
     ("glob_step", ("glob_family_plain", "glob_dense_prologue_plain",
                    "glob_dense_epilogue_plain")),
     ("cascade_seed", ("cascade_seed_plain",)),
+    ("band_matmul", ("band_matmul_plain", "band_matmul_t_plain")),
 )
 
 
@@ -2496,15 +2667,19 @@ def _counted(run, inside=(), within=None):
     return counts, out
 
 
-def _check_all_launched(name, launches):
+def _check_all_launched(name, launches, banded=False):
     """Every kernel of a CLI run at 136 taxa was launched: all but
     contra_range's buckets one by one, T3's heavy kernel (at 136 taxa no
     ticket's work passes HEAVY; the univariate 10k phase runs it) and A1-A3
-    (the 1000-taxon sparse prepare's)."""
+    (the 1000-taxon sparse prepare's); K2 ``whiten`` under a dense
+    precision, B1 and B2 under the banded kind (and not K2)."""
+    skip = ("plain_proposals", "plain_twins", "ticket_scan_heavy", "cascade_seed", *ADMM_NAMES,
+            *(("whiten",) if banded else BAND_NAMES))
     for k, n in launches.items():
-        if k not in ("plain_proposals", "plain_twins", "ticket_scan_heavy", "cascade_seed",
-                     *ADMM_NAMES):
+        if k not in skip:
             check(n > 0 or k.startswith("contra_range_"), f"the {name} never launched {k}")
+    if banded:
+        check(launches["whiten"] == 0, f"the {name} launched K2 on the banded kind")
 
 
 def _check_seq_phase(name, within):
@@ -2531,9 +2706,10 @@ def _check_seq_sweeps(name, kern, within, n_chunks):
     brk = sum(tt.breaks(int(p)) for p in kern.table.tickets)
     heavy = sum(not tt.breaks(int(p)) and tt.work[p] > HEAVY for p in kern.table.tickets)
     want = {"ticket_prologue": brk * calls, "accept_select": brk * calls,
-            "whiten": brk * calls}
+            "band_matmul" if tt.banded else "whiten": brk * calls}
     got = {k: n.get(k, 0) for k in want}
-    check(got == want, f"{name}: T1, K2, K3 launched {got}, not once per breaking ticket {want}")
+    check(got == want, f"{name}: T1, K2 (B1 under the banded kind), K3 launched {got}, not "
+          f"once per breaking ticket {want}")
     check(n["prior_terms"] == 0 and n["plain_proposals"] == 0,
           f"{name}: a sweep launched K1 or a plain proposal: {n}")
     check(max(1, heavy) * calls <= n["ticket_scan"] <= (2 * (brk + heavy) + n_chunks) * calls,
@@ -2646,12 +2822,15 @@ def _check_lp(name, model, batch, lp_carried):
     return err, err64
 
 
-def _runner_phase(name, model, init, fast_sweep, n_sweeps, need):
+def _runner_phase(name, model, init, fast_sweep, n_sweeps, need, stats=None):
     """``n_sweeps`` sweeps through ``ChainRunner`` (chunks of 10, counted),
     then one more sweep whose carried log posterior is checked.  Fails
     unless every kernel in ``need`` was launched, or where a sweep's
     sequential part (FastSweeps' sequential phase, or the sequential
-    sweep) launched K1 or a plain proposal."""
+    sweep) launched K1 or a plain proposal.  ``stats`` (a dict) receives
+    the runner (``runner``), its construction's host seconds (``init_s``:
+    the sweep's ``__init__``), the median seconds per sweep (``sweep_s``)
+    and the device memory's peak over the phase (``peak_bytes``)."""
     import torch
 
     from mcmcdate_tpu_torch.engine import proposals as P
@@ -2659,10 +2838,14 @@ def _runner_phase(name, model, init, fast_sweep, n_sweeps, need):
     from mcmcdate_tpu_torch.engine.fast_sweep import FastSweeps
     from mcmcdate_tpu_torch.engine.mh import MHKernel
 
+    torch.cuda.reset_peak_memory_stats()
     table = P.build_proposal_table(model.topo, model.braces, model.calibrations_available)
     settings = RunSettings(name, n_chains=CHAINS, seed=1, device="cuda",
                            fast_sweep=fast_sweep)
+    t0 = time.perf_counter()
     runner = ChainRunner(model, table, settings, log=lambda *a: None)
+    _sync()
+    init_s = time.perf_counter() - t0
     batch, tuning = runner.init_chains(init)
 
     def run():
@@ -2686,12 +2869,16 @@ def _runner_phase(name, model, init, fast_sweep, n_sweeps, need):
         seq = _check_seq_sweeps(name, runner.kern, within, 1)
     err, err64 = _check_lp(name, model, batch, lp)
     med = statistics.median(runner.sweep_seconds)
+    if stats is not None:
+        stats.update(runner=runner, init_s=init_s, sweep_s=med,
+                     peak_bytes=torch.cuda.max_memory_allocated())
     if fast_sweep and runner.kern.use_lik:
         gathered = sum(sx[k].untyped_storage().nbytes() for steps in runner.kern.spec_t.values()
                        for sx in steps for k in ("Prow", "Pblk") if k in sx)
         log(f"[{name}] the point steps' Prow and Pblk, gathered once: {gathered / 1e9:.3f} GB")
     log(f"[{name}] {type(runner.kern).__name__}, {model.topo.n_leaves} taxa x {CHAINS} "
-        f"chains, {n_sweeps + 1} sweeps in {wall:.1f} s; median {med:.4f} s per sweep "
+        f"chains (built in {init_s:.2f} s), {n_sweeps + 1} sweeps in {wall:.1f} s; median "
+        f"{med:.4f} s per sweep "
         f"(chunks of 10) on {torch.cuda.get_device_name(0)}; acceptance {rate:.4f}; carried "
         f"log posterior within {err:.3g} of the direct float32 one (float32 vs float64: "
         f"{err64:.3g}); launches {launches}; {'the sequential phase' if fast_sweep else 'a sweep'}"
@@ -3297,6 +3484,144 @@ def phase_sparse_full_width():
     return {k: p_launches[k] + r_launches[k] for k in p_launches}, recs
 
 
+def _dense_tensors(kern, D, C):
+    """Shapes of the tensors reachable from a sweep (its model, plan steps,
+    glob constants and sequential kernel) with ``D`` columns on other rows
+    than a chain batch's: ``[D, D]`` precisions and ``[rows, D]`` gathers."""
+    import torch
+
+    seen, out, todo = set(), [], [kern]
+    while todo:
+        obj = todo.pop()
+        if id(obj) in seen:
+            continue
+        seen.add(id(obj))
+        if isinstance(obj, torch.Tensor):
+            if obj.dim() >= 2 and obj.shape[-1] == D and obj.shape[-2] != C:
+                out.append(tuple(obj.shape))
+        elif isinstance(obj, dict):
+            todo.extend(obj.values())
+        elif isinstance(obj, (list, tuple)):
+            todo.extend(obj)
+        elif type(obj).__module__.startswith("mcmcdate_tpu_torch") and hasattr(obj, "__dict__"):
+            todo.extend(vars(obj).values())
+    return out
+
+
+def _check_banded_path(name, launches, kern):
+    """A banded path launched B1 (and, on FastSweeps, B2), no K2, no plain
+    version, and its sweep holds no dense precision."""
+    from mcmcdate_tpu_torch.engine.fast_sweep import FastSweeps
+
+    fast = isinstance(kern, FastSweeps)
+    for k in ("band_matmul",) + (("band_matmul_t",) if fast else ()):
+        check(launches[k] > 0, f"{name}: never launched {k}")
+    check(launches["whiten"] == 0 and launches["plain_twins"] == 0
+          and launches["plain_proposals"] == 0,
+          f"{name}: launched K2, a plain version or a plain proposal: {launches}")
+    D = kern.model.likelihood.dim
+    dense = _dense_tensors(kern, D, CHAINS)
+    check(not dense, f"{name}: the banded sweep holds [D, D] or [rows, D] tensors {dense}")
+
+
+def phase_banded_tutorial():
+    """The banded kind through the CLI at the main path's 136 taxa x 1024
+    chains: simulate -> prepare BANDED_SPEC (the host's Cholesky banding
+    estimator; the .data file tagged BandedS) -> run --profile --iterations
+    ITERATIONS (FastSweeps; the main path's carry check) -> analyze; then
+    SEQUENTIAL_SWEEPS + 1 sweeps of MHKernel on the prepared model
+    (RunSettings(fast_sweep=False)): T1, B1, K3 per ticket that moves
+    distances."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch import cli
+    from mcmcdate_tpu_torch.engine.fast_sweep import FastSweeps
+
+    an = "bd136"
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        cli.main(["simulate", "--leaves", str(MAIN_TAXA), "--trees", str(TREES), "--out", data])
+        t0 = time.perf_counter()
+        res = cli.main(["prepare", "-a", an, "--rooted-tree", os.path.join(data, "time.tree"),
+                        "--trees", os.path.join(data, "trees.nwk"), "--likelihood-spec",
+                        BANDED_SPEC, "--out-dir", tmp])
+        prep_s = time.perf_counter() - t0
+        check(_data_tag(tmp, an) == "BandedS", f"{an}.data is not tagged BandedS")
+        check(res.data.bandwidth == BANDWIDTH, f"bandwidth {res.data.bandwidth}")
+        within = {}
+        t0 = time.perf_counter()
+        launches, runner = _counted(lambda: cli.main(
+            ["run", "-a", an, "--chains", str(CHAINS), "--profile", "--seed", "1", "--device",
+             "cuda", "--iterations", str(ITERATIONS), "--out-dir", tmp]),
+            inside=((FastSweeps, "seq_phase"),), within=within)
+        run_s = time.perf_counter() - t0
+        check(isinstance(runner.kern, FastSweeps) and runner.kern.banded,
+              "the banded run did not take FastSweeps' banded branch")
+        with np.load(os.path.join(tmp, f"{an}.trace.npz")) as z:
+            lp_post = z["lp_post"]
+        check(lp_post.shape == (ITERATIONS, CHAINS), f"trace lp_post {lp_post.shape}")
+        lp_err, lp_f64 = check_carried_posterior(runner, tmp, lp_post[-1], name=an)
+        _check_all_launched("banded tutorial run", launches, banded=True)
+        _check_banded_path("banded tutorial run", launches, runner.kern)
+        seq = _check_seq_phase("banded tutorial run", within)
+        _check_point_path("banded tutorial run", launches, runner.kern)
+        t0 = time.perf_counter()
+        cli.main(["analyze", "-a", an, "--out-dir", tmp])
+        an_s = time.perf_counter() - t0
+        for suffix in ("params.thinned", "timetree.tree.mean", "timetree.ages.summary",
+                       "ratetree.tree.mean"):
+            check(os.path.getsize(os.path.join(tmp, f"{an}.{suffix}")) > 0,
+                  f"analyze wrote no {an}.{suffix}")
+        args = cli.build_parser().parse_args(["run", "-a", an, "--out-dir", tmp])
+        seq_model, seq_init = cli._load_model(args, torch.device("cuda"), torch.float32,
+                                              lambda *a: None)
+    per_sweep = {k: round(launches[k] / (len(runner.sweep_seconds) * 10), 2) for k in BAND_NAMES}
+    log(f"[banded tutorial] {MAIN_TAXA} taxa x {CHAINS} chains, {BANDED_SPEC} (D = "
+        f"{res.data.dim}): prepare {prep_s:.1f} s; run (FastSweeps, --profile burn-in of 60, "
+        f"then {ITERATIONS} iterations) {run_s:.1f} s, median "
+        f"{statistics.median(runner.sweep_seconds):.4f} s per sweep on "
+        f"{torch.cuda.get_device_name(0)}, carried log posterior within {lp_err:.3g} of the "
+        f"direct float32 one (float32 vs float64: {lp_f64:.3g}); B1 and B2 per sweep "
+        f"{json.dumps(per_sweep)}; the sequential phase per sweep {json.dumps(seq)}; analyze "
+        f"{an_s:.1f} s")
+    log(f"[banded sequential] cut: {SEQUENTIAL_SWEEPS} sweeps (+1 for the carry check) of the "
+        f"tutorial's model")
+    stats = {}
+    s_launches = _runner_phase("banded sequential", seq_model, seq_init, False,
+                               SEQUENTIAL_SWEEPS, ("band_matmul", "ticket_prologue",
+                                                   "accept_select", "ticket_scan"), stats)
+    _check_banded_path("banded sequential", s_launches, stats["runner"].kern)
+    return {k: launches[k] + s_launches[k] for k in launches}
+
+
+def phase_banded_full_width():
+    """The banded kind at its full width: FastSweeps through ChainRunner on
+    the synthetic banded model of BANDED_TAXA taxa x 1024 chains (BANDED_SPEC:
+    D = 9,997, nb = 79 blocks of 128), FULL_WIDTH_SWEEPS + 1 sweeps with the
+    carry check; logs the seconds per sweep, B1's and B2's launches per
+    sweep, the sweep's construction time and the device memory's peak."""
+    model, batch, build_s = _banded_model(BANDED_TAXA)
+    _BANDED.clear()
+    log(f"[banded full width] cut: {FULL_WIDTH_SWEEPS} sweeps (+1 for the carry check); the "
+        f"model built in {build_s:.1f} s")
+    stats = {}
+    launches = _runner_phase("banded full width", model, batch, True, FULL_WIDTH_SWEEPS,
+                             ("point_lik_prologue", "point_scan", "point_lik_epilogue",
+                              "range_lik_prologue", "range_scan", "range_lik_epilogue",
+                              "contra_slide", "contra_range", "glob_scan",
+                              "glob_dense_prologue", "glob_dense_epilogue", "ticket_scan"),
+                             stats)
+    _check_banded_path("banded full width", launches, stats["runner"].kern)
+    n = FULL_WIDTH_SWEEPS + 1
+    log(f"[banded full width] {BANDED_TAXA} taxa x {CHAINS} chains, D = "
+        f"{model.likelihood.dim}: median {stats['sweep_s']:.4f} s per sweep; B1 "
+        f"{launches['band_matmul'] / n:.2f} and B2 {launches['band_matmul_t'] / n:.2f} launches "
+        f"per sweep; FastSweeps built (ChainRunner) in {stats['init_s']:.2f} s; device memory "
+        f"peak {stats['peak_bytes'] / 1e9:.2f} GB; no [D, D] or [rows, D] tensor")
+    return launches
+
+
 def main():
     """Run every phase; any failure raises, so the exit code is not 0."""
     import torch
@@ -3328,6 +3653,12 @@ def main():
     sparse_full, admm_recs = phase_sparse_full_width()
     log(f"[sparse full width] took {time.perf_counter() - t0:.1f} s")
     results.update(admm_recs)
+    t0 = time.perf_counter()
+    banded = phase_banded_tutorial()
+    log(f"[banded tutorial] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    banded_full = phase_banded_full_width()
+    log(f"[banded full width] took {time.perf_counter() - t0:.1f} s")
     check("jax" not in sys.modules, "the port imported jax")
     check(not [m for m in sys.modules if m == "mcmcdate_tpu" or m.startswith("mcmcdate_tpu.")],
           "the port imported the JAX package")
@@ -3336,7 +3667,8 @@ def main():
     paths = {"main": launches, "full_width": full, "prior_only": prior,
              "sequential": sequential, "univariate_10k": uni, "sparse_tutorial": sparse,
              "sparse_full_width": sparse_full, "marginal_likelihood": ml,
-             "ml_full_ladder": ml_full}
+             "ml_full_ladder": ml_full, "banded_tutorial": banded,
+             "banded_full_width": banded_full}
     record = {"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,
              launches=paths[RECORD_PATH.get(k, "main")][k],

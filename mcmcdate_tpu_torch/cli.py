@@ -340,7 +340,8 @@ def cmd_prepare(args):
     log = Tee(os.path.join(args.out_dir, args.analysis_name + ".prepare.log"))
     try:
         return prepare(args.analysis_name, args.rooted_tree, args.trees, spec,
-                       sparse_rho=rho, out_dir=args.out_dir, device=args.device, log=log)
+                       sparse_rho=rho, banded_w=int(rho), out_dir=args.out_dir,
+                       device=args.device, log=log)
     finally:
         log.close()
 

@@ -1,8 +1,11 @@
 """Ticket-batched sweep (FastSweeps): the default proposal cycle of ``run``.
 
 Port of ``mcmcdate_tpu/engine/fast_sweep.py`` without its optional bold
-contrary mixture and fiber node-slide, without NUTS and without the banded
-likelihood kind (a sparse precision is stored dense and runs as full).  A
+contrary mixture and fiber node-slide and without NUTS (a sparse precision
+is stored dense and runs as full).  Under the banded likelihood kind every
+precision and Cholesky product goes through the block-tridiagonal kernels
+B1 ``band_matmul`` and B2 ``band_matmul_t`` (``ops/banded.py``), and no
+``[D, D]`` or ``[rows, D]`` tensor is built.  A
 sweep executes sets of provably non-interacting proposal tickets as one
 vectorised step each: their prior dependencies are disjoint by
 construction, and the likelihood couples them only through the carried
@@ -50,6 +53,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..kernels.band_matmul import band_matmul, band_matmul_t
 from ..kernels.contra_step import contra_range, contra_slide
 from ..kernels.glob_step import (
     DENSE,
@@ -72,7 +76,7 @@ from ..kernels.range_step import RangeWork, range_lik_epilogue, range_lik_prolog
 from ..kernels.whiten import whiten
 from ..models.dating import DatingModel
 from ..models.state import FIELDS, State
-from ..ops import mvn
+from ..ops import banded, mvn
 from ..ops.dists import standard_gamma
 from ..ops.heights import distances_internal
 from ..ops.node_priors import SQRT_2_OVER_PI
@@ -577,9 +581,9 @@ def step_tensors(spec, device, dtype) -> List[dict]:
 
 class FastSweeps:
     """Drop-in alternative to ``MHKernel.sweeps`` using the batched plan,
-    for the full and sparse (its dense precision, as full), univariate (as
-    a dense diagonal, up to ``UNIVARIATE_DENSE_MAX`` dims) and none
-    likelihood kinds."""
+    for the full and sparse (its dense precision, as full), banded (its
+    block-tridiagonal ``P3`` and ``L3``), univariate (as a dense diagonal,
+    up to ``UNIVARIATE_DENSE_MAX`` dims) and none likelihood kinds."""
 
     def __init__(self, model: DatingModel, table: P.ProposalTable, bold_p: float = 0.0,
                  fiber_slide: float = 0.0):
@@ -588,16 +592,26 @@ class FastSweeps:
                 "the bold contrary mixture and the fiber node-slide are not ported "
                 "(ROADMAP.md, Queue 1)")
         kind = model.likelihood.kind
-        if kind == mvn.BANDED:
-            raise NotImplementedError(mvn.NOT_PORTED.format(kind))
         self.model = model
         self.table = table
         self.plan = plan_batches(model, table)
         self.seq_kern = MHKernel(model, self.plan.seq_table)
         self.use_lik = kind != mvn.NONE
+        self.banded = kind == mvn.BANDED
         self.dim = model.likelihood.dim
         dev, dt = model.device, model.dtype
-        if kind == mvn.UNIVARIATE:
+        self.P = self.L = None
+        self._scatter = {}  # the banded z update's zero [C, D] buffer, by shape
+        if self.banded:
+            # The precision's symmetric band (its Q and Pblk entries) and
+            # the block forms of P and L, all O(D w).
+            pband = banded.pband_from_chol_upper(model.likelihood.band_chol)
+            self.L3 = model.band_L3_internal_t
+            self.nb, _, self.wb, _ = self.L3.shape
+            self.P3 = torch.as_tensor(banded.blocks_from_sym_band(pband, self.wb), dtype=dt,
+                                      device=dev)
+            self.pband = torch.as_tensor(pband, dtype=dt, device=dev)
+        elif kind == mvn.UNIVARIATE:
             if self.dim > UNIVARIATE_DENSE_MAX:
                 raise ValueError(
                     f"FastSweeps univariate path materializes a diagonal {self.dim}^2 "
@@ -612,9 +626,12 @@ class FastSweeps:
             # (rate-mean / absolute-height scales): with d' = u d,
             # z' = u z + (u-1) P mu and dq = (u^2-1) q + 2u(u-1) mu'z + (u-1)^2 mu'P mu.
             mu64 = np.asarray(model.mu_internal, np.float64)
-            pmu = np.asarray(prec, np.float64) @ mu64
-            self.P = torch.as_tensor(np.asarray(prec, np.float64), dtype=dt, device=dev)
-            self.L = torch.as_tensor(np.asarray(chol, np.float64), dtype=dt, device=dev)
+            if self.banded:
+                pmu = banded.sym_band_matvec(pband, mu64)
+            else:
+                pmu = np.asarray(prec, np.float64) @ mu64
+                self.P = torch.as_tensor(np.asarray(prec, np.float64), dtype=dt, device=dev)
+                self.L = torch.as_tensor(np.asarray(chol, np.float64), dtype=dt, device=dev)
             self.mu = model.mu_internal_t
             self.Pmu = torch.as_tensor(pmu, dtype=dt, device=dev)
             self.mPm = float(mu64 @ pmu)
@@ -647,7 +664,7 @@ class FastSweeps:
             for k, steps in self.spec_t.items() if k == P.K_SCALE_BRANCH_RATE}
         child_list = [int(c) for c in topo.children[0] if c >= 0]
         self.glob = GlobConsts(
-            model=model, use_lik=self.use_lik, P=self.P if self.use_lik else None,
+            model=model, use_lik=self.use_lik, P=self.P,
             mu=self.mu if self.use_lik else None, Pmu=self.Pmu if self.use_lik else None,
             mPm=self.mPm if self.use_lik else 0.0, child_list=child_list,
             n_inner_total=int((~np.asarray(topo.is_leaf)).sum()),
@@ -655,16 +672,24 @@ class FastSweeps:
                           bdc=P.SC_BIRTH_DEATH_CONTRA),
             dist_idx=torch.as_tensor(np.asarray(topo.internal_dist_index, np.int32), device=dev),
             root_ch=torch.as_tensor(np.asarray(child_list, np.int32), device=dev),
-            pos=np.asarray(topo.internal_pos, np.int64))
+            pos=np.asarray(topo.internal_pos, np.int64),
+            product=self._x_P if self.banded else None)
         # Bound once: a subtree family's support rows, which G3 reads.
         self.glob_fam = {tag: GlobFamily.of(grp, dev, dt, pos=self.glob.pos)
                          for tag, grp in self.plan.glob_groups.items()}
         # The precision rows P[S] of each subtree that a sub_ultra or
         # sub_rate ticket scales, gathered once (the two families share
         # their subtrees): at 1000 taxa (synthetic.build) 13 subtrees of
-        # 7,861 rows in all, 63 MB in float32 beside P's 16 MB.
+        # 7,861 rows in all, 63 MB in float32 beside P's 16 MB.  Under the
+        # banded kind, instead, the output blocks of each ticket's product.
         self.glob_prows = {}
-        if self.use_lik:
+        self.glob_win = {}
+        if self.banded:
+            for tag in SUBTREE_DENSE & set(self.glob_fam):
+                grp = self.plan.glob_groups[tag]
+                self.glob_win[tag] = [self._block_window(self.glob.support(lo, hi))
+                                      for lo, hi in zip(grp.lo.tolist(), grp.hi.tolist())]
+        elif self.use_lik:
             for tag in SUBTREE_DENSE & set(self.glob_fam):
                 grp = self.plan.glob_groups[tag]
                 for lo, hi in zip(grp.lo.tolist(), grp.hi.tolist()):
@@ -680,7 +705,9 @@ class FastSweeps:
         each block gathers them once, here: the 452 blocks of the synthetic
         1000-taxon model hold 0.59 GB of ``Q`` and 1.86 GB of ``Prow`` in
         float32 (trimmed to their rows), against 16 MB for ``P``.  ``Q`` is
-        kept in :func:`~..kernels.range_scan.kernel_layout`.  Also the
+        kept in :func:`~..kernels.range_scan.kernel_layout`.  Under the
+        banded kind ``Q`` comes from the band and there is no ``Prow``: the
+        block's ``z`` update is a band product (:meth:`_z_add`).  Also the
         block's row plan for K5's prologue and epilogue kernels (``rplan``,
         ``tplan``: :func:`~..kernels.range_step.range_plan`)."""
         own_ok = sx["own"] >= 0
@@ -688,7 +715,11 @@ class FastSweeps:
                                    0).reshape(-1).contiguous()
         sx["rplan"], sx["tplan"] = range_plan(sx)
         if self.use_lik:
-            ok = own_ok.reshape(-1).to(self.P.dtype)
+            ok = own_ok.reshape(-1).to(self.model.dtype)
+            if self.banded:
+                self._band_rows(sx, ok)
+                sx["Q"] = kernel_layout(self._prec_sub(sx["d_flat"]) * ok[:, None] * ok[None, :])
+                return
             prow = self.P[sx["d_flat"]] * ok[:, None]
             sx["Prow"] = prow
             sx["Q"] = kernel_layout(prow[:, sx["d_flat"]] * ok[None, :])
@@ -705,19 +736,69 @@ class FastSweeps:
         sx["d_flat"] = torch.clamp(sx["d_rows"], min=0).reshape(-1).contiguous()
         sx["kplan"] = point_plan(sx, self.pos_t, self.is_leaf_t)
         if self.use_lik:
-            ok = d_ok.reshape(-1).to(self.P.dtype)
+            ok = d_ok.reshape(-1).to(self.model.dtype)
+            if self.banded:
+                self._band_rows(sx, ok)
+                sx["Pblk"] = pitched(self._prec_sub(sx["d_flat"]) * ok[:, None] * ok[None, :])
+                return
             prow = self.P[sx["d_flat"]] * ok[:, None]
             sx["Prow"] = prow
             sx["Pblk"] = pitched(prow[:, sx["d_flat"]] * ok[None, :])
 
+    # -- the banded kind's gathers and windows ---------------------------
+
+    def _prec_sub(self, rows):
+        """``P[rows][:, rows]`` from the precision's band (banded kind):
+        ``P[a, b] = pband[min(a, b), |a - b|]`` within the bandwidth, 0
+        outside."""
+        a, b = rows.long()[:, None], rows.long()[None, :]
+        off = (b - a).abs()
+        w = self.pband.shape[1] - 1
+        return torch.where(off <= w, self.pband[torch.minimum(a, b), off.clamp(max=w)], 0.0)
+
+    def _block_window(self, rows, upper=False) -> tuple:
+        """The output blocks a band product can move from an input that is
+        zero off ``rows`` (host ints): :func:`~..ops.banded.block_window`."""
+        rows = np.asarray(rows)
+        if not len(rows):
+            return (0, 0)
+        return banded.block_window(int(rows.min()), int(rows.max()) + 1, self.wb, self.nb,
+                                   upper)
+
+    def _band_rows(self, sx: dict, ok):
+        """A banded step's ``z`` update data: its rows as int64
+        (``d_flat64``, for the scatter buffer's reset) and the output blocks
+        its rows reach (``zwin``)."""
+        sx["d_flat64"] = sx["d_flat"].long()
+        sx["zwin"] = self._block_window(sx["d_flat"][ok > 0].cpu().numpy())
+
+    def _z_add(self, z, dacc, sx: dict):
+        """``z += dacc @ P[d_flat]`` of a point step or range block: one
+        product with the step's precision rows, or under the banded kind
+        ``dacc`` scattered to its rows (pad rows add zero) and one B1
+        product added to ``z`` on the blocks they reach."""
+        if not self.banded:
+            z.addmm_(dacc, sx["Prow"])
+            return
+        buf = self._scatter.get(z.shape)
+        if buf is None:
+            buf = self._scatter[z.shape] = torch.zeros_like(z)
+        buf.index_add_(1, sx["d_flat"], dacc)
+        band_matmul(buf, self.P3, window=sx["zwin"], into=z)
+        buf.index_fill_(1, sx["d_flat64"], 0.0)
+
     # -- precision/Cholesky right-multiplications -----------------------
 
     def _x_P(self, X):
-        """``X @ P_internal``."""
+        """``X @ P_internal`` (B1 under the banded kind)."""
+        if self.banded:
+            return band_matmul(X.contiguous(), self.P3)[0]
         return X @ self.P
 
     def _x_Lt(self, X):
-        """``X @ L.T`` with ``P_internal = L L'``."""
+        """``X @ L.T`` with ``P_internal = L L'`` (B2 under the banded kind)."""
+        if self.banded:
+            return band_matmul_t(X.contiguous(), self.L3, upper=True)[0]
         return X @ self.L.T
 
     # -- carried-quantity conversions ----------------------------------
@@ -728,11 +809,13 @@ class FastSweeps:
         return self._x_Lt(y), torch.sum(y * y, dim=-1)
 
     def _y_from_d(self, d):
-        """Whitened residual ``(d - mu) L``: kernel K2 for the full kind,
-        elementwise for the univariate one."""
+        """Whitened residual ``(d - mu) L``: kernel K2 for the full kind, B1
+        for the banded one, elementwise for the univariate one."""
         m = self.model
         if not self.use_lik:
             return d.new_zeros((d.shape[0], 0))
+        if self.banded:
+            return band_matmul(d, self.L3, sub=self.mu, upper=True)[0]
         if m.likelihood.kind == mvn.UNIVARIATE:
             return (d - m.mu_internal_t) * m.inv_sd_internal_t
         y, _ = whiten(d, m.chol_internal_t, sub=m.mu_internal_t)
@@ -766,11 +849,14 @@ class FastSweeps:
     def glob_product(self, fam, s: int, pro):
         """``w = delta @ P`` of ticket ``s`` of dense family ``fam`` (None
         without a likelihood): ``delta_S @ P[S]`` over a subtree ticket's
-        support rows, where ``delta`` is zero elsewhere."""
+        support rows, where ``delta`` is zero elsewhere; under the banded
+        kind B1 over the blocks those rows reach (zero elsewhere)."""
         if not self.use_lik:
             return None
         if pro.delta_s is None:
             return self._x_P(pro.delta)
+        if self.banded:
+            return band_matmul(pro.delta, self.P3, window=self.glob_win[fam.tag][s])[0]
         return pro.delta_s @ self.glob_prows[int(fam.grp.lo[s])]
 
     # -- point mega-steps -------------------------------------------------
@@ -789,9 +875,9 @@ class FastSweeps:
         prologue kernel draws the proposals and evaluates their terms and
         distance deltas, K4 (``point_scan``) runs the accept scan, the
         epilogue kernel writes the accepted tickets back, and one product
-        updates ``z``.  ``Pblk`` and ``Prow`` are the step's own (built with
-        the plan).  Without a likelihood the prologue and the epilogue run
-        alone, the epilogue taking the decisions.  ``draw`` is the
+        updates ``z`` (:meth:`_z_add`).  ``Pblk`` and ``Prow`` are the
+        step's own (built with the plan).  Without a likelihood the prologue
+        and the epilogue run alone, the epilogue taking the decisions.  ``draw`` is the
         truncated-normal uniform or standard-gamma variate ``[C, B]``.
         Returns the ``[C, B]`` accept mask."""
         m = self.model
@@ -806,7 +892,7 @@ class FastSweeps:
         accept, dq = point_scan(pro.delta, pro.zG, sx["Pblk"], pro.d_pr, pro.lmhg, u_acc,
                                 carry.beta)
         accept, dacc = point_lik_epilogue(*args, carry.q, carry.acc, sx, pro, accept, dq)
-        carry.z.addmm_(dacc, sx["Prow"])
+        self._z_add(carry.z, dacc, sx)
         return accept
 
     # -- subtree-range blocks ---------------------------------------------
@@ -826,9 +912,10 @@ class FastSweeps:
         prologue kernel draws the proposals and evaluates their terms, K5
         (``range_scan``) forms the Gram blocks ``g_a' Q_ab g_b`` and runs the
         accept scan, the epilogue kernel writes the accepted tickets back,
-        and one product updates ``z``.  ``Q`` and ``Prow`` are the block's
-        own (built with the plan).  Without a likelihood the prologue and
-        the epilogue run alone, the epilogue taking the decisions.  On the
+        and one product updates ``z`` (:meth:`_z_add`).  ``Q`` and ``Prow``
+        are the block's own (built with the plan).  Without a likelihood the
+        prologue and the epilogue run alone, the epilogue taking the
+        decisions.  On the
         card both kernels write into the block's (kind, row bucket)
         :class:`~..kernels.range_step.RangeWork` (``sx["work"]``).  Returns
         the ``[C, S]`` accept mask; on the card, without a likelihood, it
@@ -843,7 +930,7 @@ class FastSweeps:
         accept, dq = range_scan(pro.g, pro.zg, sx["Q"], pro.coef, pro.d_pr, pro.lmhg, u_acc,
                                 carry.beta)
         accept, dacc = range_lik_epilogue(*args, carry.q, carry.acc, sx, pro, accept, dq)
-        carry.z.addmm_(dacc, sx["Prow"])
+        self._z_add(carry.z, dacc, sx)
         return accept
 
     # -- the sweep -----------------------------------------------------

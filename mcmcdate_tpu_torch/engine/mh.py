@@ -7,10 +7,13 @@ drawn on the host and shared by all chains, so the host splits the order
 into runs from the table's static likelihood classes without reading any
 device value back.  A run of tickets whose likelihood update is local (all
 of them without a likelihood or under the univariate kind; under a full MVN
-the distance-invariant and gather classes) is one launch of T3
-``ticket_scan``; a full-MVN ticket of the dense or range classes is T1
-``ticket_prologue``, K2 ``whiten`` for its ``dy`` and K3 ``accept_select``
-(``kernels/ticket_step.py``, ``kernels/accept_select.py``).  The draws come
+the distance-invariant and gather classes; under the banded kind the
+distance-invariant class) is one launch of T3 ``ticket_scan``; a full-MVN
+ticket of the dense or range classes is T1 ``ticket_prologue``, K2
+``whiten`` for its ``dy`` and K3 ``accept_select``
+(``kernels/ticket_step.py``, ``kernels/accept_select.py``), and under the
+banded kind every ticket that moves distances is T1, B1 ``band_matmul``
+(``dy = delta L`` over the blocks its rows reach) and K3.  The draws come
 per chunk of at most ``CHUNK`` tickets: one uniform call for the
 proposals, one for the accepts and one standard-gamma call over the
 chunk's gamma tickets.  No ticket recomputes the prior terms whole: the
@@ -29,11 +32,13 @@ import numpy as np
 import torch
 
 from ..kernels.accept_select import accept_select
+from ..kernels.band_matmul import band_matmul
 from ..kernels.ticket_step import CHUNK, LIK_FULL, TicketDraws, TicketTable, count_bad, \
     ticket_prologue, ticket_scan
 from ..kernels.whiten import range_rows, whiten
 from ..models.dating import DatingModel
 from ..models.state import FIELDS, State
+from ..ops import banded
 from ..ops.dists import standard_gamma
 from ..ops.heights import distances_internal
 from . import proposals as props
@@ -86,7 +91,13 @@ class MHKernel:
         self.use_lik = self.tt.lik != 0
         # K2's row lists of the full-MVN gather and range classes (int32).
         self.rows = [None] * table.n_proposals
-        if self.tt.lik == LIK_FULL:
+        # B1's output blocks of a banded ticket: those its class rows reach.
+        self.band_win = None
+        if self.tt.banded:
+            nb, _, wb, _ = model.band_L3_internal.shape
+            self.band_win = [banded.block_window(int(lo), int(hi), wb, nb, upper=True)
+                             for lo, hi in self.tt.band_rows]
+        elif self.tt.lik == LIK_FULL:
             D = model.likelihood.dim
             for p in range(table.n_proposals):
                 dc = int(self.tt.d_class[p])
@@ -100,12 +111,15 @@ class MHKernel:
         self.par = np.asarray(table.par, np.float64)
 
     def _k2(self, carry: Carry, pidx: int, pro):
-        """K2's ``(dy, d_lik)`` of a full-MVN ticket (None, None for
-        ``DC_INV``)."""
+        """K2's ``(dy, d_lik)`` of a full-MVN ticket, B1's under the banded
+        kind (None, None for ``DC_INV``)."""
         m = self.model
         dc = int(self.tt.d_class[pidx])
         if self.tt.lik != LIK_FULL or dc == props.DC_INV:
             return None, None
+        if self.tt.banded:
+            return band_matmul(pro.delta, m.band_L3_internal_t, window=self.band_win[pidx],
+                               y=carry.y, upper=True, x_rows=self.tt.band_rows[pidx])
         if dc == props.DC_FULL:
             return whiten(pro.d_new, m.chol_internal_t, sub=m.mu_internal_t, y=carry.y,
                           minus_y=True)

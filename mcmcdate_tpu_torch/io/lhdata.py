@@ -1,15 +1,15 @@
 """Serialization of likelihood data (the ``.data`` file).
 
-Host copy of ``mcmcdate_tpu/io/lhdata.py`` for the kinds the port runs
-(that module imports the JAX likelihood module).  The JSON layout is the
+Host copy of ``mcmcdate_tpu/io/lhdata.py`` (that module imports the JAX
+likelihood module).  The JSON layout is the
 same, so ``.data`` files move between the packages (and the reference):
 
 - ``{"tag": "FullS", "contents": [mu, sigmaInvRows, logDetSigma]}``
 - ``{"tag": "SparseS", "contents": [mu, [[[i, j], v], ...], logDetSigma]}``
 - ``{"tag": "UnivariateS", "contents": [mu, variances]}``
 - ``{"tag": "NoLikelihoodS", "contents": []}``
-
-``BandedS`` files raise ``NotImplementedError``.
+- ``{"tag": "BandedS", "contents": [mu, bandChol, logDetSigma, perm]}``
+  (the JAX package's own kind, which the reference does not have)
 """
 
 from __future__ import annotations
@@ -51,7 +51,15 @@ def save_data(path: str, data: mvn.LikelihoodData) -> None:
             "contents": [data.mu.tolist(), data.variances.tolist()],
         }
     elif data.kind == mvn.BANDED:
-        raise NotImplementedError(mvn.NOT_PORTED.format(data.kind))
+        obj = {
+            "tag": "BandedS",
+            "contents": [
+                data.mu.tolist(),
+                data.band_chol.tolist(),
+                data.log_det_sigma,
+                np.asarray(data.band_perm).tolist(),
+            ],
+        }
     else:
         raise ValueError(f"save_data: unknown kind {data.kind!r}")
     with open(path, "w") as fh:
@@ -82,7 +90,9 @@ def load_data(path: str) -> mvn.LikelihoodData:
         mu, vs = contents
         return mvn.LikelihoodData.univariate(np.asarray(mu), np.asarray(vs))
     if tag == "BandedS":
-        raise NotImplementedError(mvn.NOT_PORTED.format("banded"))
+        mu, band, log_det, perm = contents
+        return mvn.LikelihoodData.banded(np.asarray(mu), np.asarray(band), log_det,
+                                         np.asarray(perm))
     raise ValueError(f"load_data: Could not decode data file {path} (tag {tag!r}).")
 
 

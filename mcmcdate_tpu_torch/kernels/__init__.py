@@ -14,7 +14,9 @@ scan), ``contra_step`` (K6, with two wrappers: ``contra_slide`` and
 for the ticket-batched one; ``glasso_admm`` (A1 ``admm_shift``, A2
 ``admm_eig_scale`` and A3 ``admm_update``, the graphical lasso's ADMM
 iteration) for ``prepare``'s sparse kind above ``GLASSO_HOST_MAX`` dims;
-``cascade_seed`` (one rung's seeding of the stepping-stone cascade).  K3,
+``cascade_seed`` (one rung's seeding of the stepping-stone cascade);
+``band_matmul`` (B1 ``band_matmul`` and B2 ``band_matmul_t``, the banded
+likelihood kind's block-tridiagonal products).  K3,
 T3, K4's and K5's scans, G1 and G3 read each chain's likelihood
 temperature from a ``[C]`` float32 vector (``build.beta_arg``).
 A wrapper runs the plain PyTorch version for CPU tensors and launches its

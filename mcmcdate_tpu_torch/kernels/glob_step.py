@@ -116,9 +116,10 @@ _SCALARS = ("birth", "death", "height", "rate_mean", "rate_var")
 class GlobConsts:
     """What every family needs of the model, built once with FastSweeps:
     the model, the likelihood's constants (``P``, ``mu``, ``P mu`` and
-    ``mu' P mu``, None without a likelihood), the root's children, the
-    number of inner nodes, the scalar kernel's ``SC_*`` codes and, on the
-    model's device, the arrays the kernels read."""
+    ``mu' P mu``, None without a likelihood; ``P`` None and the
+    ``product`` ``delta -> delta @ P`` under the banded kind), the root's
+    children, the number of inner nodes, the scalar kernel's ``SC_*`` codes
+    and, on the model's device, the arrays the kernels read."""
 
     model: Any
     use_lik: bool
@@ -132,6 +133,9 @@ class GlobConsts:
     dist_idx: torch.Tensor  # int32 [D]
     root_ch: torch.Tensor   # int32 [K]
     pos: np.ndarray         # int [N]: each node's internal distance row (root -1)
+    # ``delta -> delta @ P`` where ``P`` is not held dense (the banded kind's
+    # B1 product); None: ``delta @ P``.
+    product: Optional[Any] = None
 
     def support(self, lo: int, hi: int) -> np.ndarray:
         """The distance rows of the subtree of pre-order nodes ``[lo, hi)``:
@@ -516,7 +520,9 @@ def glob_ticket_plain(gc: GlobConsts, tag, carry, tune, sx, draw, u_acc, row=Non
     if FAMILIES[tag].lik != DENSE:
         return glob_scan_ticket_plain(gc, tag, carry, tune, sx, draw, u_acc, row, given)
     pro = glob_dense_prologue_plain(gc, tag, carry, tune, sx, draw, given)
-    w = pro.delta @ gc.P if gc.use_lik else None
+    w = None
+    if gc.use_lik:
+        w = pro.delta @ gc.P if gc.product is None else gc.product(pro.delta)
     accept, log_alpha = glob_dense_epilogue_plain(gc, tag, carry, pro, w, u_acc, row)
     return GlobOut(accept, pro.prop, log_alpha, pro.mean if tag == "var_tree" else None,
                    pro.dx_dp)

@@ -36,7 +36,10 @@ left), so every kernel runs one CTA per chain.
   under a full MVN the ``DC_INV`` and ``DC_GATHER`` tickets (``dy =
   delta[rows] @ L[rows, :]``, at most KG rows of ``L``).  A full-MVN
   ``DC_FULL`` or ``DC_B*`` ticket goes T1, K2, K3
-  (:meth:`TicketTable.breaks`).  Two kernels: ``ticket_run_kernel`` for a
+  (:meth:`TicketTable.breaks`); under the banded kind every ticket that
+  moves distances goes T1, B1 ``band_matmul`` (its delta on the span of
+  rows its class can move, ``TicketTable.band_rows``), K3.  Two kernels:
+  ``ticket_run_kernel`` for a
   light run (a warp per ticket, the tickets of a chain in windows of up to
   ``RUN_SLOTS`` that touch disjoint state, :meth:`TicketTable.windows`,
   eight chains a CTA in lockstep), ``ticket_scan_kernel`` for a heavy
@@ -168,7 +171,8 @@ class TicketTable:
     entries (``t_off``/``t_idx``, CSR) and the node set whose heights or
     rates it writes (``n_off``/``n_idx``); the likelihood class of every
     row (``d_class``, ``d_lo``, ``d_n`` rows, ``row0``; ``DC_RANGE`` for a
-    subtree move under the univariate kind); all of it packed into one
+    subtree move under the univariate kind, and for every move of distances
+    under the banded kind, over ``band_rows``); all of it packed into one
     record a row (``rec``, :meth:`decode`); what a row touches, for T3's
     windows (:meth:`conflicts`); and the same on the model's device
     (``dev``)."""
@@ -179,10 +183,10 @@ class TicketTable:
         topo = model.topo
         N, Pn = topo.n, table.n_proposals
         kind = model.likelihood.kind
-        if kind == mvn.BANDED:
-            raise NotImplementedError(mvn.NOT_PORTED.format(kind))
-        # full and sparse (its dense precision) take the full MVN's classes
+        # full, sparse (its dense precision) and banded take the full MVN's
+        # decisions
         self.lik = {mvn.NONE: LIK_NONE, mvn.UNIVARIATE: LIK_DIAG}.get(kind, LIK_FULL)
+        self.banded = kind == mvn.BANDED
         self.D = model.likelihood.dim if self.lik else 0
         self.N = N
         self.T = sum(model.term_block_sizes)
@@ -198,7 +202,22 @@ class TicketTable:
                     lo, hi = topo.dist_range(int(table.node[p]))
                     self.d_class[p], self.d_lo[p], span[p] = DC_RANGE, lo, hi - lo
         self.didx = (np.full((Pn, 1), self.D, np.int32) if table.didx is None
-                     else np.asarray(table.didx, np.int32))
+                     else np.asarray(table.didx, np.int32).copy())
+        if self.lik:
+            self._braced_contra_rows(topo, model.braces, table)
+        self.band_rows = None
+        if self.banded:
+            # Under the banded kind a ticket that moves distances takes the
+            # band product of its delta (T1, B1, K3) over the span of rows
+            # its class can move, which becomes its class (DC_RANGE): T1
+            # forms d_new and delta on that span, B1 reads delta there and
+            # K3 writes d back there, as the dense classes keep d and y
+            # consistent on their own rows.
+            self.band_rows = self._band_rows(topo)
+            moves = self.d_class != props.DC_INV
+            self.d_class[moves] = DC_RANGE
+            self.d_lo[moves] = self.band_rows[moves, 0]
+            span[moves] = self.band_rows[moves, 1] - self.band_rows[moves, 0]
         self.gamma = np.isin(table.kind, sorted(props.GAMMA_KINDS))
 
         off_bd, off_ck = 4, 4 + N + 1
@@ -288,8 +307,9 @@ class TicketTable:
                         + [1 + b for b in props.D_BUCKETS.values()], 0)
         # Row 0 joins a subtree's own rows where the subtree holds a root
         # child (its branch is part of row 0).
-        self.row0 = ((self.d_class != DC_RANGE)
-                     | np.isin(cols["node"], [0, *topo.root_children])).astype(np.int32)
+        self.row0 = (((self.d_class != DC_RANGE)
+                      | np.isin(cols["node"], [0, *topo.root_children]))
+                     & (not self.banded)).astype(np.int32)
         self.d_n = np.where(self.d_class == DC_RANGE, span + self.row0, d_n).astype(np.int32)
         self._touch(topo, off_nd)
         self.work = (sum(((tb & bit) > 0) * (b - a) for a, b, bit in self.blocks)
@@ -298,6 +318,46 @@ class TicketTable:
         self.rec = self._records(np.asarray(table.par, np.float32),
                                  np.asarray(table.root_jac, bool), np.asarray(topo.parent), ch)
         self._tix, self._rows = {}, {}
+
+    def _braced_contra_rows(self, topo, braces, table) -> None:
+        """A contrary braced slide whose brace holds a node and its parent
+        scales that node's rate twice (as its parent's child and for its
+        own stem) while its branch keeps its length: its distance moves,
+        which the proposal table's ``DC_INV`` (the JAX package's) misses.
+        Such a row takes the gather class of those nodes' rows (or
+        ``DC_FULL`` where they outnumber the gather slots)."""
+        kg = self.didx.shape[1]
+        for p in np.nonzero(np.asarray(table.kind) == props.K_SLIDE_BRACED_CONTRA)[0]:
+            nodes = [int(x) for x in np.asarray(braces.node)[int(table.aux[p])] if x >= 0]
+            rows = sorted(int(topo.internal_pos[i]) for i in nodes
+                          if int(topo.parent[i]) in nodes)
+            if not rows or self.d_class[p] != props.DC_INV:
+                continue
+            if len(rows) <= kg:
+                self.d_class[p] = props.DC_GATHER
+                self.didx[p] = rows + [self.D] * (kg - len(rows))
+            else:
+                self.d_class[p] = props.DC_FULL
+
+    def _band_rows(self, topo) -> np.ndarray:
+        """``[P, 2]``: the span ``[lo, hi)`` of the distance rows each row's
+        likelihood class can move (empty for ``DC_INV``): every row, the
+        gather rows, or a range bucket's own rows (row 0 only where the
+        subtree holds a root child, whose branch row 0 is)."""
+        D = self.D
+        out = np.zeros((len(self.d_class), 2), np.int64)
+        root_side = {0, *(int(c) for c in topo.root_children)}
+        for p, dc in enumerate(self.d_class.tolist()):
+            if dc == props.DC_FULL:
+                out[p] = 0, D
+            elif dc == props.DC_GATHER:
+                r = self.didx[p][self.didx[p] < D]
+                out[p] = (int(r.min()), int(r.max()) + 1) if len(r) else (0, 0)
+            elif dc in props.D_BUCKETS:
+                lo = int(self.d_lo[p])
+                hi = min(lo + props.D_BUCKETS[dc], D)
+                out[p] = (0 if int(self.table.node[p]) in root_side else lo), hi
+        return out
 
     def _touch(self, topo, off_nd) -> None:
         """What each row's tickets touch, for :meth:`windows`: a node-local
@@ -484,6 +544,10 @@ class TicketTable:
         )
         if self.lik == LIK_DIAG:
             out["inv_sd"] = m.inv_sd_internal_t.float().contiguous()
+        elif self.banded:
+            # No gather ticket under the banded kind: B1 reads L3, no kernel
+            # here reads L.
+            out["L3"] = m.band_L3_internal_t.float().contiguous()
         elif self.lik == LIK_FULL:
             out["L"] = m.chol_internal_t.float().contiguous()
         return out

@@ -3,7 +3,8 @@
 Port of ``mcmcdate_tpu/models/dating.py``.  Static data stays on the host
 (NumPy); the tensors the densities need live on ``device`` in ``dtype``.
 The flat prior-term vector goes through kernel K1 (``prior_terms``) and
-the whitened residual through kernel K2 (``whiten``).
+the whitened residual through kernel K2 (``whiten``), or under the banded
+kind kernel B1 (``band_matmul``).
 """
 
 from __future__ import annotations
@@ -16,9 +17,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels.band_matmul import band_matmul
 from ..kernels.prior_terms import kernel_arrays as prior_kernel_arrays, prior_terms
 from ..kernels.whiten import whiten
-from ..ops import birth_death, clocks, heights as H, mvn, node_priors
+from ..ops import banded, birth_death, clocks, heights as H, mvn, node_priors
 from ..ops.dists import exponential_logpdf, gamma_logpdf
 from ..tree import DeviceTopology
 from ..utils import device as devices
@@ -161,14 +163,27 @@ class DatingModel:
     def chol_internal(self) -> Optional[np.ndarray]:
         """Lower Cholesky of the internally permuted precision (f64; a
         sparse precision is stored dense and taken as a full one); ``None``
-        for the univariate and none kinds."""
-        if self.likelihood.kind in (mvn.NONE, mvn.UNIVARIATE):
-            return None
+        for the univariate, banded and none kinds (no O(D^2) matrix)."""
         if self.likelihood.kind not in (mvn.FULL, mvn.SPARSE):
-            raise NotImplementedError(mvn.NOT_PORTED.format(self.likelihood.kind))
+            return None
         perm = self.topo.ref_to_internal_perm
         prec = self.likelihood.precision[np.ix_(perm, perm)]
         return np.linalg.cholesky(prec)
+
+    @cached_property
+    def band_L3_internal(self) -> Optional[np.ndarray]:
+        """Banded kind: the block-tridiagonal form ``[nb, 3, wb, wb]`` of the
+        upper-banded ``L`` (``P_internal = L L'``, f64).  The band was
+        estimated in the internal layout at ``prepare``; the stored
+        permutation must be this topology's."""
+        if self.likelihood.kind != mvn.BANDED:
+            return None
+        if not np.array_equal(np.asarray(self.likelihood.band_perm),
+                              self.topo.ref_to_internal_perm):
+            raise ValueError("banded likelihood data was prepared for a different topology "
+                             "(internal permutation mismatch)")
+        wb = banded.default_block_size(int(self.likelihood.bandwidth))
+        return banded.blocks_from_upper_band(self.likelihood.band_chol, wb)
 
     @cached_property
     def inv_sd_internal(self) -> Optional[np.ndarray]:
@@ -190,17 +205,26 @@ class DatingModel:
         return self._dev(self.chol_internal)
 
     @cached_property
+    def band_L3_internal_t(self):
+        return self._dev(self.band_L3_internal)
+
+    @cached_property
     def inv_sd_internal_t(self):
         return self._dev(self.inv_sd_internal)
 
     def whitened_residual_internal(self, state: State):
-        """Internal-layout whitened residual ``y`` ``[C, D]`` (kernel K2 for
-        the full kind); empty for the none kind."""
+        """Internal-layout whitened residual ``y = (d - mu) L`` ``[C, D]``
+        (kernel K2 for the full kind, B1 for the banded one); empty for the
+        none kind."""
         if self.likelihood.kind == mvn.NONE:
             return state.heights.new_zeros((state.n_chains, 0))
         d = H.distances_internal(state, self.topo)
         if self.likelihood.kind == mvn.UNIVARIATE:
             return (d - self.mu_internal_t) * self.inv_sd_internal_t
+        if self.likelihood.kind == mvn.BANDED:
+            y, _ = band_matmul(d.contiguous(), self.band_L3_internal_t, sub=self.mu_internal_t,
+                               upper=True)
+            return y
         y, _ = whiten(d, self.chol_internal_t, sub=self.mu_internal_t)
         return y
 

@@ -1,11 +1,12 @@
 """Multivariate-normal approximations of the phylogenetic likelihood.
 
-Port of ``mcmcdate_tpu/ops/mvn.py`` for the ``full``, ``sparse``,
-``univariate`` and ``none`` kinds.  :class:`LikelihoodData` is the same
-host description as the JAX package's (copied, because that module imports
-JAX).  A ``sparse`` precision (the graphical lasso's, ``prepare``) is
-stored dense and evaluated as ``full``, as in the JAX package.  The
-``banded`` kind is not ported yet (ROADMAP.md, Queue 1).
+Port of ``mcmcdate_tpu/ops/mvn.py``.  :class:`LikelihoodData` is the
+same host description as the JAX package's (copied, because that module
+imports JAX).  A ``sparse`` precision (the graphical lasso's, ``prepare``)
+is stored dense and evaluated as ``full``, as in the JAX package.  A
+``banded`` precision is stored as the upper band of its Cholesky factor in
+the internal pre-order layout and evaluated by kernel B1
+(``ops/banded.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels.band_matmul import band_matmul
 from ..kernels.whiten import whiten
 from ..utils import device as devices
 from .dists import LN_SQRT_2PI
@@ -26,9 +28,6 @@ BANDED = "banded"
 UNIVARIATE = "univariate"
 NONE = "none"
 
-NOT_PORTED = ("the {} likelihood kind is not ported to PyTorch yet "
-              "(ROADMAP.md, Queue 1: the banded kind)")
-
 
 @dataclass(frozen=True)
 class LikelihoodData:
@@ -37,7 +36,11 @@ class LikelihoodData:
     lower Cholesky factor and ``log_det_sigma`` the covariance's log
     determinant; for ``univariate`` ``variances`` holds the per-branch
     variances.  ``precision_assoc`` keeps a sparse precision's association
-    list for ``.data`` round trips."""
+    list for ``.data`` round trips.  For ``banded``, ``band_chol`` is the
+    upper band of ``L`` with ``P_internal = L L'`` (``band_chol[i, t] =
+    L[i, i+t]``, ``t = 0..bandwidth``) in the internal pre-order layout,
+    and ``band_perm`` maps the reference branch order into it
+    (``d_internal = d_ref[band_perm]``)."""
 
     kind: str
     mu: Optional[np.ndarray] = None
@@ -46,6 +49,9 @@ class LikelihoodData:
     log_det_sigma: Optional[float] = None
     variances: Optional[np.ndarray] = None
     precision_assoc: Optional[tuple] = None
+    band_chol: Optional[np.ndarray] = None
+    bandwidth: Optional[int] = None
+    band_perm: Optional[np.ndarray] = None
 
     @staticmethod
     def none() -> "LikelihoodData":
@@ -72,6 +78,21 @@ class LikelihoodData:
             chol_precision=np.linalg.cholesky(precision),
             log_det_sigma=float(log_det_sigma),
             precision_assoc=tuple(assoc) if assoc is not None else None,
+        )
+
+    @staticmethod
+    def banded(mu, band_chol, log_det_sigma, perm) -> "LikelihoodData":
+        """The banded precision of ``prepare "banded W"``: ``mu`` in the
+        reference branch order, ``band_chol`` and the band's layout in the
+        internal order given by ``perm``."""
+        band_chol = np.asarray(band_chol, dtype=np.float64)
+        return LikelihoodData(
+            kind=BANDED,
+            mu=np.asarray(mu, dtype=np.float64),
+            log_det_sigma=float(log_det_sigma),
+            band_chol=band_chol,
+            bandwidth=int(band_chol.shape[1] - 1),
+            band_perm=np.asarray(perm, dtype=np.int64),
         )
 
     @staticmethod
@@ -113,7 +134,22 @@ def make_log_likelihood(data: LikelihoodData, dtype=None, device="cuda"):
 
         return f_none
     if data.kind == BANDED:
-        raise NotImplementedError(NOT_PORTED.format(data.kind))
+        from . import banded
+
+        wb = banded.default_block_size(int(data.bandwidth))
+        L3 = torch.as_tensor(banded.blocks_from_upper_band(data.band_chol, wb), dtype=dtype,
+                             device=device)
+        perm = torch.as_tensor(data.band_perm, device=device)
+        mu_int = torch.as_tensor(data.mu[data.band_perm], dtype=dtype, device=device)
+        log_det = float(data.log_det_sigma)
+        D = int(data.band_chol.shape[0])
+
+        def f_banded(d):
+            # (d - mu) L with mu subtracted in the kernel, sum y^2 its epilogue.
+            _, quad = band_matmul(d[:, perm].contiguous(), L3, sub=mu_int, upper=True)
+            return -LN_SQRT_2PI * D - 0.5 * (log_det + quad)
+
+        return f_banded
     mu = torch.as_tensor(data.mu, dtype=dtype, device=device)
     if data.kind in (FULL, SPARSE):
         chol = torch.as_tensor(data.chol_precision, dtype=dtype, device=device)

@@ -138,14 +138,15 @@ def prepare(
     likelihood_spec: str,
     *,
     sparse_rho: float = 0.1,
+    banded_w: int = 128,
     out_dir: str = ".",
     device="cuda",
     log=print,
 ) -> PrepareResult:
     """``device``: where the sparse kind's ADMM iterations run (above
-    ``GLASSO_HOST_MAX`` dims; no other branch does device work)."""
-    if likelihood_spec == mvn.BANDED:
-        raise NotImplementedError(mvn.NOT_PORTED.format(likelihood_spec))
+    ``GLASSO_HOST_MAX`` dims; no other branch does device work, and the
+    banded kind's estimator runs on the host).  ``banded_w``: the banded
+    kind's bandwidth."""
     log("Read rooted tree.")
     tree_rooted = read_one_newick(rooted_tree_file)
     og, _ = bipartition(tree_rooted)
@@ -274,6 +275,24 @@ def prepare(
         for (i, j), v in assoc:
             prec_dense[i, j] = v
         data = mvn.LikelihoodData.sparse(mu_s, prec_dense, log_det_s, assoc=assoc)
+    elif likelihood_spec == mvn.BANDED:
+        # The JAX package's own scaling kind (no reference analog): a
+        # block-banded precision in the internal pre-order layout, from the
+        # Cholesky banding estimator (ops/banded.py).
+        from .ops import banded as banded_ops
+
+        w = int(banded_w)
+        log("Use a banded precision matrix (Cholesky banding estimator).")
+        log(f"Use a (provided) bandwidth of: {w}.")
+        perm = topo.ref_to_internal_perm
+        xs_int = pm_r[:, perm]
+        _, band, log_det_b = banded_ops.estimate_banded_chol(xs_int, w)
+        nnz_band = int(np.count_nonzero(band)) * 2 - len(mu)
+        log(f"Number of elements of full matrix: {len(mu) ** 2}")
+        log(f"Number of elements within the band: {nnz_band}")
+        log("The logarithm of the determinant of the banded covariance "
+            f"matrix is: {log_det_b}")
+        data = mvn.LikelihoodData.banded(mu, band, log_det_b, perm)
     elif likelihood_spec == mvn.UNIVARIATE:
         log("Use univariate normal distributions.")
         data = mvn.LikelihoodData.univariate(mu, variances)

@@ -3,18 +3,20 @@
 Run from the root of a checkout, on a machine with a card:
 
     python -m mcmcdate_tpu_torch.tools.profile_sweep [--sweep fast|sequential]
-        [--taxa 136|1000] [--out profile_sweep.json] [--trace TRACE.json]
+        [--taxa 136|1000|5000] [--out profile_sweep.json] [--trace TRACE.json]
 
 at the shape of ``chip_smoke.py``'s main path (136 taxa x 1024 chains) or,
 with ``--taxa 1000``, of its full-width phase (1000 taxa x 1024 chains),
-for the ticket-batched sweep (``fast``, the default, as ``run`` takes it)
+or with ``--taxa 5000`` of its banded full-width phase (5,000 taxa x 1024
+chains, "banded 128"), for the ticket-batched sweep (``fast``, the default, as ``run`` takes it)
 or the sequential one:
 
 1. at 136 taxa ``simulate`` and ``prepare --likelihood-spec full`` in a
    temporary directory, then the run's initial chain batch (jittered
    rates, untuned proposals), as ``run`` builds it; at 1000 taxa the
-   ``synthetic.build`` model (a full MVN likelihood over 1,997 distances)
-   and the same initial batch;
+   ``synthetic.build`` model (a full MVN likelihood over 1,997 distances),
+   at 5000 its banded model (9,997 distances, bandwidth 128), and the same
+   initial batch;
 2. ``WARMUP`` sweeps, then ``TIMED`` sweeps, each timed on the host clock
    up to a device sync;
 3. one sweep under ``torch.profiler``: kernel launches (runtime and driver
@@ -58,9 +60,9 @@ PORT_KERNELS = ("prior_terms_kernel", "whiten", "accept_select_kernel",
                 "range_lik_prologue_kernel", "range_scan_kernel", "range_lik_epilogue_kernel",
                 "contra_slide_kernel", "contra_range_kernel", "glob_scan_kernel",
                 "glob_dense_prologue_kernel", "glob_dense_epilogue_kernel",
-                "ticket_prologue_kernel", "ticket_scan_kernel")
+                "ticket_prologue_kernel", "ticket_scan_kernel", "band_kernel")
 PHASES = ("seq", "glob", "point", "range", "y")
-TAXA, FULL_TAXA, CHAINS, TREES, SEED = 136, 1000, 1024, 600, 1
+TAXA, FULL_TAXA, BANDED_TAXA, CHAINS, TREES, SEED = 136, 1000, 5000, 1024, 600, 1
 WARMUP, TIMED = 10, 2
 TOP_BY_PHASE = 16  # kernel names kept per phase, by launches
 
@@ -75,14 +77,15 @@ def _card() -> str:
 def setup(tmp: str, fast: bool = True, taxa: int = TAXA):
     """The run's model, runner and initial batch and tuning, on the card:
     the main path's simulated and prepared model at ``TAXA``, the synthetic
-    model at ``FULL_TAXA``."""
+    full model at ``FULL_TAXA`` and banded one at ``BANDED_TAXA``."""
     from .. import cli, synthetic
     from ..engine import proposals as props
     from ..engine.chains import ChainRunner, RunSettings
 
     quiet = lambda *a: None  # noqa: E731
-    if taxa == FULL_TAXA:
-        model, init = synthetic.build(taxa, 1, device="cuda")
+    if taxa in (FULL_TAXA, BANDED_TAXA):
+        model, init = synthetic.build(taxa, 1, device="cuda",
+                                      kind="banded" if taxa == BANDED_TAXA else "full")
         table = props.build_proposal_table(model.topo, model.braces, False)
         settings = RunSettings("prof", n_chains=CHAINS, seed=SEED, device="cuda",
                                fast_sweep=fast)
@@ -182,11 +185,26 @@ def trace_summary(trace_path: str) -> dict:
     return out
 
 
+def whitened_plain(m, d):
+    """The model's own whitening ``((d - mu) L, sum of its squares)`` by the
+    plain versions: K2's for the full and sparse kinds, B1's for the banded
+    one, elementwise for the univariate one."""
+    from ..kernels.band_matmul import band_matmul_plain
+    from ..kernels.whiten import whiten_plain
+    from ..ops import mvn
+
+    if m.likelihood.kind == mvn.UNIVARIATE:
+        y = (d - m.mu_internal_t) * m.inv_sd_internal_t
+        return y, (y * y).sum(-1)
+    if m.likelihood.kind == mvn.BANDED:
+        return band_matmul_plain(d, m.band_L3_internal_t, sub=m.mu_internal_t, upper=True)
+    return whiten_plain(d, m.chol_internal_t, sub=m.mu_internal_t)
+
+
 def direct_log_posterior(model, state, dtype):
     """``[C]`` log posterior of ``state`` evaluated afresh by the kernels'
     plain versions in ``dtype``, on the state's device."""
     from ..kernels.prior_terms import prior_terms_plain
-    from ..kernels.whiten import whiten_plain
     from ..ops import mvn
     from ..ops.heights import distances_internal
 
@@ -195,11 +213,7 @@ def direct_log_posterior(model, state, dtype):
     lp = prior_terms_plain(m, s).sum(-1)
     if m.likelihood.kind == mvn.NONE:
         return lp
-    d = distances_internal(s, m.topo)
-    if m.likelihood.kind == mvn.UNIVARIATE:
-        q = (((d - m.mu_internal_t) * m.inv_sd_internal_t) ** 2).sum(-1)
-    else:
-        _, q = whiten_plain(d, m.chol_internal_t, sub=m.mu_internal_t)
+    _, q = whitened_plain(m, distances_internal(s, m.topo))
     return lp + m.log_lik_const - 0.5 * q
 
 
@@ -208,7 +222,6 @@ def check_carry(runner, batch, tuning, seed: int) -> dict:
     evaluations after every segment (a run of tickets, or a ticket alone);
     largest absolute errors over all segments and chains."""
     from ..kernels.prior_terms import prior_terms_plain
-    from ..kernels.whiten import whiten_plain
     from ..ops.heights import distances_internal
 
     kern = runner.kern
@@ -219,7 +232,7 @@ def check_carry(runner, batch, tuning, seed: int) -> dict:
     def checked(carry, *a, **k):
         out = segment(carry, *a, **k)
         d = distances_internal(carry.batch, m.topo)
-        y, _ = whiten_plain(d, m.chol_internal_t, sub=m.mu_internal_t)
+        y, _ = whitened_plain(m, d)
         terms = prior_terms_plain(m, carry.batch)
         for key, a_, b_ in (("d", carry.d, d), ("y", carry.y, y), ("terms", carry.terms, terms)):
             worst[key] = torch.maximum(worst[key], (a_ - b_).abs().nan_to_num(0.0).max())
@@ -313,7 +326,7 @@ def _lp_check(m, batch, lp) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", choices=("fast", "sequential"), default="fast")
-    ap.add_argument("--taxa", type=int, choices=(TAXA, FULL_TAXA), default=TAXA)
+    ap.add_argument("--taxa", type=int, choices=(TAXA, FULL_TAXA, BANDED_TAXA), default=TAXA)
     ap.add_argument("--out", default="profile_sweep.json")
     ap.add_argument("--trace", default=None, help="where to keep the chrome trace")
     args = ap.parse_args(argv)

@@ -1576,3 +1576,62 @@ def test_cascade_seed_kernel(card):
         batch = ck
     with pytest.raises(ValueError, match="no next row"):
         cascade_seed(batch, 11)
+
+
+@pytest.mark.parametrize("wb", [8, 33, 128])
+@pytest.mark.parametrize("which", ["L3", "P3"])
+def test_band_matmul_kernels(card, wb, which):
+    """B1 and B2 against their plain versions on the card: whole and on
+    windows of output blocks, with sub, x_rows, both reductions and into,
+    at 1e-5 of the largest output; one launch a call."""
+    from mcmcdate_tpu_torch.kernels import band_matmul as B
+    from mcmcdate_tpu_torch.ops import banded
+
+    rng = np.random.default_rng(wb)
+    D, w, C = 301, min(wb, 24), 200
+    xs = rng.normal(size=(80, D + 2))
+    _, lb, _ = banded.estimate_banded_chol(xs[:, :D] + 0.5 * xs[:, 2:], w)
+    M3 = (banded.blocks_from_upper_band(lb, wb) if which == "L3"
+          else banded.blocks_from_sym_band(banded.pband_from_chol_upper(lb), wb))
+    nb = M3.shape[0]
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=card).contiguous()
+
+    M3, x, y, sub = t(M3), t(rng.normal(size=(C, D))), t(rng.normal(size=(C, D))), t(
+        rng.normal(size=D))
+    upper = which == "L3"
+    for fn, plain in ((B.band_matmul, B.band_matmul_plain), (B.band_matmul_t,
+                                                            B.band_matmul_t_plain)):
+        for win in (None, (1, nb - 1), (nb - 1, nb), (0, 1)):
+            for kw in (dict(sub=sub), dict(y=y), dict(y=y, x_rows=(wb + 3, 3 * wb - 1))):
+                before = fn.launches
+                out, red = fn(x, M3, window=win, upper=upper, **kw)
+                assert fn.launches == before + 1
+                ref, rref = plain(x, M3, window=win, upper=upper, **kw)
+                scale = float(ref.abs().max()) + 1.0
+                assert float((out - ref).abs().max()) <= 1e-5 * scale
+                assert float((red - rref).abs().max()) <= 1e-5 * (float(rref.abs().max()) + 1)
+            into, iref = y.clone(), y.clone()
+            fn(x, M3, window=win, upper=upper, into=into)
+            plain(x, M3, window=win, upper=upper, into=iref)
+            assert float((into - iref).abs().max()) <= 1e-5 * (float(iref.abs().max()) + 1)
+
+
+def test_banded_fast_sweeps_on_card(card):
+    """FastSweeps and MHKernel on a banded synthetic model of 40 taxa and 96
+    chains: B1 and B2 launched, no plain product, and the carried log
+    likelihood within 1e-5 of a fresh one."""
+    from mcmcdate_tpu_torch.engine import fast_sweep as TF, mh as TM, proposals as TP
+    from mcmcdate_tpu_torch.kernels import band_matmul as B
+
+    model, batch = synthetic.build(40, 96, device="cuda", kind="banded", bandwidth=16)
+    table = TP.build_proposal_table(model.topo, model.braces, False)
+    tuning = torch.ones((96, table.n_proposals), device=card)
+    for kern in (TF.FastSweeps(model, table), TM.MHKernel(model, table)):
+        b1, b2 = B.band_matmul.launches, B.band_matmul_t.launches
+        out, lp_pr, lp_lik, *_ = kern.sweeps(batch, tuning, 3, 2)
+        assert B.band_matmul.launches > b1
+        assert (B.band_matmul_t.launches > b2) == isinstance(kern, TF.FastSweeps)
+        fresh = model.log_likelihood(out)
+        assert float((lp_lik - fresh).abs().max()) <= 1e-5 * float(fresh.abs().max())

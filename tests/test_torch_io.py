@@ -63,14 +63,19 @@ def test_prepare_files_identical(fixture_dir, spec):
 
 
 def test_unported_kinds_raise(fixture_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Every likelihood kind is ported (the banded kind last): a BandedS
+    # file loads, and only an unknown spec or tag raises.
+    with pytest.raises(ValueError, match="Unknown likelihood spec"):
         tprep.prepare("x", str(fixture_dir / "data/time.tree"),
-                      str(fixture_dir / "data/trees.nwk"), "banded", out_dir=str(tmp_path),
+                      str(fixture_dir / "data/trees.nwk"), "bogus", out_dir=str(tmp_path),
                       log=quiet)
     path = tmp_path / "b.data"
     path.write_text(json.dumps({"tag": "BandedS",
                                 "contents": [[0.1], [[1.0]], 0.0, [0]]}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    data = tlh.load_data(str(path))
+    assert data.kind == "banded" and data.bandwidth == 0
+    path.write_text(json.dumps({"tag": "NoSuchS", "contents": []}))
+    with pytest.raises(ValueError, match="Could not decode"):
         tlh.load_data(str(path))
 
 

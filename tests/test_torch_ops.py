@@ -234,5 +234,11 @@ def test_mvn_densities(rng):
               jnp.asarray(d)))
     assert torch.equal(tmvn.make_log_likelihood(tmvn.LikelihoodData.none(), device="cpu")(T(d)),
                        torch.zeros(C, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmvn.make_log_likelihood(tmvn.LikelihoodData(kind=tmvn.BANDED, mu=mu), device="cpu")
+    # The banded kind: an upper band of width 2 in a permuted layout.
+    perm = rng.permutation(k)
+    lb = np.column_stack([rng.uniform(1.0, 2.0, k), rng.normal(size=(k, 2)) * 0.3])
+    lb_ld = 0.7
+    close(tmvn.make_log_likelihood(tmvn.LikelihoodData.banded(mu, lb, lb_ld, perm),
+                                   device="cpu")(T(d)),
+          jax.vmap(jmvn.make_log_likelihood(jmvn.LikelihoodData.banded(mu, lb, lb_ld, perm)))(
+              jnp.asarray(d)))
