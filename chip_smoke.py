@@ -122,7 +122,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tensor.  The kernels phase also holds B1 and B2 to their plain versions
    at 136 and 5,000 taxa on every site's shape, whole and windowed, with
    each reduction (check_band; records at 5,000 taxa, flushed, beside
-   torch.matmul with the densified matrix).
+   torch.matmul with the densified matrix), and H1 nuts_leapfrog_prologue,
+   H2 nuts_leapfrog_epilogue and H3 nuts_merge along whole NUTS
+   trajectories of up to 8 doublings (check_nuts: every launch replayed
+   through the plain versions from the kernels' state,
+   kernels.nuts_step.NutsCheck; some chain of each case doubles at least
+   5 times) at 136 and 1000 taxa with node priors and
+   the 128-point ladder as beta_lik, at 136 also under the univariate and
+   the banded kind (through B1); records at 1000 taxa, flushed; the
+   product z = r P (cuBLAS, a library call) on a line of its own beside
+   the float64 product;
+13. hamiltonian tutorial: simulate -> prepare full -> run --hamiltonian
+   --profile (the adaptation and acceptance lines, a finite eps, H1-H3
+   and the product launched, no plain twin, the carry check) -> continue
+   (NUTS resumed from the checkpoint) -> marginal-likelihood --hamiltonian
+   --profile (a finite log Z) at 136 taxa x 1024 chains, then 1 + 1
+   MHKernel sweeps with the move;
+14. hamiltonian full width: FastSweeps with the NUTS move at 1000 taxa x
+   1024 chains: the step size adapted over three windows, then 10 + 1
+   sweeps (s/sweep beside the same sweeps without the move, H1-H3
+   launches a sweep, mean leapfrog steps a trajectory, the carry check,
+   the memory peak).  No path without --hamiltonian launches H1-H3.
 
 Every phase after the kernels sets each wrapper's launch count to 0 just
 before it and reads it just after (T3's also by kernel: ``light`` and
@@ -178,6 +198,22 @@ CONTINUE_ITERATIONS = 10
 # marginal-likelihood --profile runs 50 iterations after its cascade and
 # burn-in; cut to 20.
 ML_ITERATIONS = 20
+# The kernels phase's NUTS trajectories: up to NUTS_DEPTH doublings (the
+# kernels' MAX_DEPTH, 255 leapfrog steps) at step size NUTS_EPS[taxa], every
+# launch replayed (from the perturbed state, whose gradient grows with the
+# tree: at 1000 taxa a step of 1e-3 diverges at once, 1e-4 stops after 4
+# doublings); some chain of each case doubles at least NUTS_MIN_DEPTH times,
+# so the deep U-turn checks and checkpoint slots are replayed (6 at both
+# sizes on an H100).
+NUTS_DEPTH = 8
+NUTS_MIN_DEPTH = 5
+NUTS_EPS = {MAIN_TAXA: 1e-3, BENCH_TAXA: 3e-5}
+# The hamiltonian full width: HAM_WARM_SWEEPS sweeps without the move,
+# HAM_WINDOWS adaptation windows from HAM_EPS0, then the timed sweeps.
+HAM_WARM_SWEEPS = 20
+HAM_WINDOWS = 3
+HAM_EPS0 = 1e-3
+HAM_FULL_SWEEPS = 10
 # Back-to-back calls per kernel timing.
 REPS = 20
 # Bytes read before each call of a kernel timed with the L2 flushed: several
@@ -292,8 +328,15 @@ KERNELS = (
      "mcmcdate_tpu/ops/banded.py:209"),
     ("band_matmul_t", "mcmcdate_tpu_torch/kernels/csrc/band_matmul.cu",
      "mcmcdate_tpu/ops/banded.py:235"),
+    ("nuts_leapfrog_prologue", "mcmcdate_tpu_torch/kernels/csrc/nuts_step.cu",
+     "mcmcdate_tpu/engine/hmc.py:118"),
+    ("nuts_leapfrog_epilogue", "mcmcdate_tpu_torch/kernels/csrc/nuts_step.cu",
+     "mcmcdate_tpu/engine/hmc.py:183"),
+    ("nuts_merge", "mcmcdate_tpu_torch/kernels/csrc/nuts_step.cu",
+     "mcmcdate_tpu/engine/hmc.py:246"),
 )
 BAND_NAMES = ("band_matmul", "band_matmul_t")
+NUTS_NAMES = ("nuts_leapfrog_prologue", "nuts_leapfrog_epilogue", "nuts_merge")
 # The kernels whose decisions take the likelihood temperature beta.
 BETA_KERNELS = ("accept_select", "ticket_scan", "point_scan", "range_scan", "glob_scan",
                 "glob_dense_epilogue")
@@ -301,6 +344,7 @@ BETA_KERNELS = ("accept_select", "ticket_scan", "point_scan", "range_scan", "glo
 # for A1-A3, which only the 1000-taxon sparse prepare runs).
 RECORD_PATH = {**{k: "sparse_full_width" for k in ADMM_NAMES},
                **{k: "banded_full_width" for k in BAND_NAMES},
+               **{k: "hamiltonian_full_width" for k in NUTS_NAMES},
                "cascade_seed": "marginal_likelihood"}
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s, and float32 and float64 operations/s outside the tensor cores.
@@ -412,6 +456,21 @@ def _device_ms(fn, only=None, reps=REPS, flush=False):
     log(f"[timing] the profiler recorded no device time for {names or 'the call'} three times: "
         f"{ms:.4f} ms a call from CUDA events")
     return ms
+
+
+def _event_ms(fn, reps=REPS):
+    """Milliseconds per call of ``fn`` by CUDA events around ``reps``
+    back-to-back calls after a warm-up call."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    _sync()
+    return start.elapsed_time(end) / reps
 
 
 def _bound(nbytes, ops, ops64=0):
@@ -2466,6 +2525,213 @@ def check_band(n_taxa):
     return out
 
 
+# ---------------------------------------------------------------------------
+# NUTS: H1-H3 and the gradient product
+# ---------------------------------------------------------------------------
+
+# Operations per node that H1's function needs, counted from the terms'
+# expressions (csrc/device_math.cuh): a de_factors is 16 operations (a
+# transcendental counted as one), an inner node's birth-death term two of
+# them and 2 more, a leaf's one and 2 more, in float64 as K1 evaluates
+# them; the UncorrelatedGamma clock term of a branch 5 in float32 (its
+# shape's terms are the chain's); the gradient by reverse mode at 2
+# operations a value operation (a local partial, an accumulation), so 3
+# times the value's.
+NUTS_F64_BD_INNER = 3 * (2 * 16 + 2)
+NUTS_F64_BD_LEAF = 3 * (16 + 2)
+NUTS_F32_CLOCK = 3 * 5
+
+
+def _nuts_setup(model, batch, depth, eps, beta, seed):
+    """A NutsMove of ``depth`` doublings on a perturbed state of ``batch``,
+    with an inverse mass from the chains' coordinate variances; returns
+    ``(move, state, q0, inv_mass, args)``."""
+    import torch
+
+    from mcmcdate_tpu_torch.engine import hmc
+
+    mv = hmc.NutsMove(model, depth)
+    s = _perturbed(model, batch, seed)
+    q0 = mv.coords.to_vector(s)
+    inv_mass = (q0.var(dim=0) + 1e-4).contiguous()
+    C = q0.shape[0]
+    w = mv.work(C, torch.float32, q0.device)
+    bp = torch.ones(C, device="cuda")
+    return mv, s, q0, inv_mass, (mv.nc, w, s, eps, inv_mass, beta, bp)
+
+
+def _nuts_checked(name, model, batch, depth, eps, beta, seed):
+    """One trajectory per chain with every launch replayed through the
+    plain versions (``NutsCheck``); returns the check and the mean steps."""
+    import torch
+
+    from mcmcdate_tpu_torch.engine import hmc
+    from mcmcdate_tpu_torch.kernels.nuts_step import NutsCheck
+
+    mv, s, q0, inv_mass, args = _nuts_setup(model, batch, depth, eps, beta, seed)
+    C, dim = q0.shape
+    chk = NutsCheck(args[1], mv.coords)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    draws = hmc.NutsDraws(gen, C, dim, torch.float32, "cuda")
+    _, astat, n = mv.trajectory(s, q0, eps, inv_mass, draws, beta_lik=beta, check=chk)
+    _sync()
+    check(bool(torch.isfinite(astat).all()), f"{name}: acceptance statistics not finite")
+    check(chk.compared > 2 and int(n.max()) > 1, f"{name}: a trajectory of {int(n.max())} steps")
+    return chk, float(n.float().mean())
+
+
+def check_nuts(n_taxa):
+    """H1, H2 and H3 against their plain versions on the card: whole
+    trajectories of up to NUTS_DEPTH doublings at ``n_taxa`` x CHAINS on the
+    synthetic full model with node priors (every launch replayed from the
+    kernels' state: ``kernels.nuts_step.NutsCheck``'s CHECK_TOL and
+    decisions equal up to ties), with the 128-point ladder tiled over the
+    chains as β_lik, from a perturbed state (near-critical chains, the
+    Stirling branch of the clock); at MAIN_TAXA also under the univariate
+    kind and, through B1, the banded kind, each reaching NUTS_MIN_DEPTH.
+    Records: each kernel timed flushed on one leaf (H1 forward, H2 on leaf
+    1 with its one U-turn check, H3 after a doubling), the plain version
+    back to back, and the product ``z = r P`` (cuBLAS) beside the float64
+    product, its error against it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch import synthetic
+    from mcmcdate_tpu_torch.kernels import nuts_step as NS
+    from mcmcdate_tpu_torch.ops import mvn
+
+    cal, con, br = _node_priors(synthetic.build(n_taxa, 1, device="cuda")[0].topo)
+    model, batch = synthetic.build(n_taxa, CHAINS, device="cuda", calibrations=cal,
+                                   constraints=con, braces=br)
+    beta = _ladder(CHAINS)
+    worst = {"prologue": 0.0, "epilogue": 0.0, "merge": 0.0}
+    cases = [("full, node priors", model, batch)]
+    if n_taxa == MAIN_TAXA:
+        rng = np.random.default_rng(3)
+        uni = dataclasses.replace(model, likelihood=mvn.LikelihoodData.univariate(
+            model.likelihood.mu, rng.uniform(1e-3, 1e-2, model.likelihood.dim)))
+        bm, bb, _ = _banded_model(n_taxa)
+        cases += [("univariate", uni, batch), ("banded", bm, bb)]
+    notes = []
+    check(NUTS_DEPTH == NS.MAX_DEPTH, "NUTS_DEPTH is not the kernels' MAX_DEPTH")
+    for what, m, b in cases:
+        b1 = NS.nuts_leapfrog_prologue.launches
+        chk, steps = _nuts_checked(f"nuts {what} at {n_taxa} taxa", m, b, NUTS_DEPTH,
+                                   NUTS_EPS[n_taxa], beta, 11)
+        for k in worst:
+            worst[k] = max(worst[k], chk.err[k])
+        errs = {k: float(f"{v:.3g}") for k, v in chk.field_err.items()}
+        notes.append(f"{what}: {chk.compared} launches replayed, deepest {chk.depth} "
+                     f"doublings, {chk.ties} take ties, {chk.turn_ties} U-turn ties, mean "
+                     f"{steps:.2f} steps, errors by field {json.dumps(errs)}")
+        check(NS.nuts_leapfrog_prologue.launches > b1, f"nuts {what}: H1 never launched")
+        check(chk.depth >= NUTS_MIN_DEPTH,
+              f"nuts {what}: the deepest checked trajectory doubled {chk.depth} times")
+    log(f"[nuts] at {n_taxa} taxa x {CHAINS} chains, depth up to {NUTS_DEPTH}, eps "
+        f"{NUTS_EPS[n_taxa]}, the ladder as beta_lik: " + "; ".join(notes))
+
+    # Timings on the full model: an init, then one forward leaf.
+    mv, s, q0, inv_mass, args = _nuts_setup(model, batch, NUTS_DEPTH, NUTS_EPS[n_taxa], beta,
+                                            12)
+    w = args[1]
+    C, dim = q0.shape
+    N, D = model.topo.n, model.likelihood.dim
+    dirs = torch.ones(C, dtype=torch.bool, device="cuda")
+    u = torch.full((C,), 0.5, device="cuda")
+    w.q_new.copy_(q0)
+    NS.nuts_leapfrog_prologue(*args, normals=torch.randn(C, dim, device="cuda"))
+    mv.product(w)
+    NS.nuts_leapfrog_epilogue(*args)
+    for leaf in (0, 1):
+        NS.nuts_leapfrog_prologue(*args, dirs=dirs)
+        mv.product(w)
+        if leaf == 0:
+            NS.nuts_leapfrog_epilogue(*args, dirs=dirs, u_leaf=u, leaf=0)
+    # Every chain active in the timed leaf: a chain that turned or diverged
+    # at leaf 0 skips H1 and H2 and would flatter their times.
+    done = int((w.stop | w.trn | w.div).sum())
+    for k in ("stop", "trn", "div"):
+        getattr(w, k).zero_()
+    scal = ("n_steps", "sum_acc", "lw_sub", "trn", "div", "stop", "depth", "log_w", "logp",
+            "dh")
+    saved = {k: getattr(w, k).clone() for k in scal}
+
+    def restored(fn):
+        def run():
+            for k, v in saved.items():
+                getattr(w, k).copy_(v)
+            fn()
+        return run
+
+    h1 = lambda: NS.nuts_leapfrog_prologue(*args, dirs=dirs)  # noqa: E731
+    h2 = lambda: NS.nuts_leapfrog_epilogue(*args, dirs=dirs, u_leaf=u, leaf=1)  # noqa: E731
+    h3 = lambda: NS.nuts_merge(w, inv_mass, u)  # noqa: E731
+    times = {
+        "prologue": (_device_ms(h1, only="nuts_prologue_kernel", flush=True),
+                     _device_ms(lambda: NS.nuts_leapfrog_prologue_plain(*args, dirs=dirs))),
+        "epilogue": (_device_ms(restored(h2), only="nuts_epilogue_kernel", flush=True),
+                     _device_ms(restored(lambda: NS.nuts_leapfrog_epilogue_plain(
+                         *args, dirs=dirs, u_leaf=u, leaf=1)))),
+        "merge": (_device_ms(restored(h3), only="nuts_merge_kernel", flush=True),
+                  _device_ms(restored(lambda: NS.nuts_merge_plain(w, inv_mass, u)))),
+    }
+    # The product by CUDA events over REPS back-to-back calls (a profile of
+    # it can miss calls: one read 0.1146 ms at 1000 taxa, below the float32
+    # bound, where events read 0.1768), and each kernel's back-to-back
+    # events time beside its flushed profile, in the log; its error against
+    # the float64 product on the same r.
+    prod_ms = _event_ms(lambda: mv.product(w))
+    mv.product(w)
+    r64, p64 = w.r.double(), mv.P.double()
+    z64 = r64 @ p64
+    prod_err = float((w.z.double() - z64).abs().max() / z64.abs().max())
+    prod64_ms = _event_ms(lambda: torch.mm(r64, p64))
+    log(f"[nuts] at {n_taxa} taxa, timed on a leaf of all {C} chains ({done} had turned or "
+        f"diverged at leaf 0), back to back by CUDA events (ms a call): H1 "
+        f"{_event_ms(h1):.4f}, H2 {_event_ms(restored(h2)):.4f} (with its scalars' restore), "
+        f"H3 {_event_ms(restored(h3)):.4f}, the product {prod_ms:.4f} (float64 {prod64_ms:.4f})")
+    n_inner = int((~np.asarray(model.topo.is_leaf)).sum()) - 1
+    n_leaf = N - 1 - n_inner
+    # The state's entries that are not coordinates (the tips' and the
+    # root's heights, the height when not calibrated), read by H1 and H2.
+    fixed = C * (N - len(mv.coords.height_idx)) + (0 if mv.coords.calibrated else C)
+    f4 = 4
+    # Bytes the functions must move: each input read once, each output
+    # written once.  H1: the moving end's q, p, g, the fixed state entries,
+    # mu and the inverse mass in; q', p_half, the gradient, r and lp, jac
+    # out.  H2 (leaf 1, one U-turn check): q', p_half, the gradient, r, z,
+    # the fixed state entries, one checkpoint's q and p, the inverse mass
+    # and the per-chain scalars in; the end's q, p, g and the per-chain
+    # scalars out.  H3: both ends' q and p in, the flags and weights out (no
+    # replace: u = 0.5 of equal weights keeps the proposal).  Operations:
+    # H1 the drift (5 a coordinate), the distances and r (4 an entry), the
+    # terms and their gradient (NUTS_*); H2 r.z, the distances' transposed
+    # Jacobian (5 an entry), the kick, the kinetic energy and two U-turn
+    # dot products (12 a coordinate); H3 two dot products (7 a coordinate).
+    b1 = f4 * (3 * C * dim + fixed + D + dim + 3 * C * dim + C * D + 2 * C)
+    ops1 = C * (5 * dim + 4 * D + (N - 1) * NUTS_F32_CLOCK)
+    ops64 = C * (n_inner * NUTS_F64_BD_INNER + n_leaf * NUTS_F64_BD_LEAF)
+    b2 = f4 * (3 * C * dim + 2 * C * D + fixed + 2 * C * dim + dim + 8 * C + 3 * C * dim + 8 * C)
+    b3 = f4 * (4 * C * dim + dim + 6 * C)
+    out = {}
+    for name, key, nbytes, ops, o64 in (
+            ("nuts_leapfrog_prologue", "prologue", b1, ops1, ops64),
+            ("nuts_leapfrog_epilogue", "epilogue", b2, C * (5 * D + 12 * dim), 0),
+            ("nuts_merge", "merge", b3, 7 * C * dim, 0)):
+        out[name] = _record(worst[key], times[key][0], times[key][1], nbytes, ops, None, o64)
+        log(f"[nuts] {name} at {n_taxa} taxa: {nbytes} bytes ({nbytes / PEAK_BYTES * 1e3:.4f} "
+            f"ms), {ops} float32 and {o64} float64 operations "
+            f"({(ops / PEAK_F32 + o64 / PEAK_F64) * 1e3:.4f} ms)")
+    # The product, a library call and not a hand-written kernel: r and P
+    # read, z written; 2 C D^2 float32 operations; "plain_ms" the float64
+    # product's time.
+    out["nuts_product"] = _record(prod_err, prod_ms, prod64_ms, f4 * (2 * C * D + D * D),
+                                  2 * C * D * D, prod_ms)
+    return out
+
+
 # Each check returns its kernels' records by kernel name.
 CHECKS = (check_prior_terms, check_whiten, check_ticket, check_point_step,
           check_range_step, check_prior_only_steps, check_contra_slide, check_contra_range,
@@ -2498,6 +2764,20 @@ def phase_kernels():
         _FAST.pop(n_taxa, None)
         _GLOB.pop(n_taxa, None)
         _MODELS.pop(n_taxa, None)
+    # H1-H3 and the product at both shapes; the record keeps the full
+    # width's (its launches are that path's), the run's shape as record_136.
+    nuts_136 = {}
+    for n_taxa in (MAIN_TAXA, BENCH_TAXA):
+        t0 = time.perf_counter()
+        for name, r in check_nuts(n_taxa).items():
+            log(f"[kernels] {name} at {n_taxa} taxa x {CHAINS} chains: max error "
+                f"{r['max_abs_err']:.3g}, device time per call: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) (check "
+                f"took {time.perf_counter() - t0:.1f} s)")
+            if n_taxa == MAIN_TAXA:
+                nuts_136[name] = r
+            else:
+                results[name] = dict(r, record_136=nuts_136[name])
     # B1 and B2 at the main path's and the banded full width's shapes; the
     # record keeps the full width's (its launches are that path's).
     for n_taxa in (MAIN_TAXA, BANDED_TAXA):
@@ -2550,6 +2830,8 @@ def _wrappers():
     from mcmcdate_tpu_torch.kernels.cascade_seed import cascade_seed
     from mcmcdate_tpu_torch.kernels.contra_step import contra_range, contra_slide
     from mcmcdate_tpu_torch.kernels.glasso_admm import admm_eig_scale, admm_shift, admm_update
+    from mcmcdate_tpu_torch.kernels.nuts_step import nuts_leapfrog_epilogue, \
+        nuts_leapfrog_prologue, nuts_merge
     from mcmcdate_tpu_torch.kernels.glob_step import (
         glob_dense_epilogue,
         glob_dense_prologue,
@@ -2573,7 +2855,8 @@ def _wrappers():
             "glob_dense_epilogue": glob_dense_epilogue, "admm_shift": admm_shift,
             "admm_eig_scale": admm_eig_scale, "admm_update": admm_update,
             "cascade_seed": cascade_seed, "band_matmul": band_matmul,
-            "band_matmul_t": band_matmul_t}
+            "band_matmul_t": band_matmul_t, "nuts_leapfrog_prologue": nuts_leapfrog_prologue,
+            "nuts_leapfrog_epilogue": nuts_leapfrog_epilogue, "nuts_merge": nuts_merge}
 
 
 # The plain twins a wrapper takes for CPU tensors, by module: on the card a
@@ -2587,6 +2870,8 @@ PLAIN_TWINS = (
                    "glob_dense_epilogue_plain")),
     ("cascade_seed", ("cascade_seed_plain",)),
     ("band_matmul", ("band_matmul_plain", "band_matmul_t_plain")),
+    ("nuts_step", ("nuts_leapfrog_prologue_plain", "nuts_leapfrog_epilogue_plain",
+                   "nuts_merge_plain")),
 )
 
 
@@ -2598,8 +2883,9 @@ def _counted(run, inside=(), within=None):
     ``(counts, run's result)``.  The plain proposal kernels
     (``proposals.KERNELS``) are counted too, under ``plain_proposals``.
     ``inside`` names ``(class, method)`` pairs: the launch counts and plain
-    proposals of their calls, and the calls, go to ``within[method]``."""
-    from mcmcdate_tpu_torch.engine import proposals as P
+    proposals of their calls, and the calls, go to ``within[method]``.  The
+    NUTS move's products ``z = r P`` are counted as ``nuts_product``."""
+    from mcmcdate_tpu_torch.engine import hmc, proposals as P
 
     wrappers = _wrappers()
     by_rows = wrappers["contra_range"].launches_by_rows
@@ -2633,6 +2919,12 @@ def _counted(run, inside=(), within=None):
 
     saved = [(cls, meth, getattr(cls, meth)) for cls, meth in inside]
     twins = [0]
+    products = [0]
+    real_product = hmc.NutsMove.product
+
+    def product(self, w):
+        products[0] += 1
+        return real_product(self, w)
 
     def twin_counting(fn):
         def k(*a, **kw):
@@ -2651,9 +2943,11 @@ def _counted(run, inside=(), within=None):
         setattr(cls, meth, inside_of(real, within.setdefault(meth, {})))
     for mod, name, fn in real_twins:
         setattr(mod, name, twin_counting(fn))
+    hmc.NutsMove.product = product
     try:
         out = run()
     finally:
+        hmc.NutsMove.product = real_product
         P.KERNELS.update(real_k)
         for cls, meth, real in saved:
             setattr(cls, meth, real)
@@ -2664,6 +2958,7 @@ def _counted(run, inside=(), within=None):
     counts.update({f"ticket_scan_{k}": n for k, n in by_kind.items()})
     counts["plain_proposals"] = plain[0]
     counts["plain_twins"] = twins[0]
+    counts["nuts_product"] = products[0]
     return counts, out
 
 
@@ -2674,7 +2969,7 @@ def _check_all_launched(name, launches, banded=False):
     (the 1000-taxon sparse prepare's); K2 ``whiten`` under a dense
     precision, B1 and B2 under the banded kind (and not K2)."""
     skip = ("plain_proposals", "plain_twins", "ticket_scan_heavy", "cascade_seed", *ADMM_NAMES,
-            *(("whiten",) if banded else BAND_NAMES))
+            *NUTS_NAMES, "nuts_product", *(("whiten",) if banded else BAND_NAMES))
     for k, n in launches.items():
         if k not in skip:
             check(n > 0 or k.startswith("contra_range_"), f"the {name} never launched {k}")
@@ -3622,6 +3917,227 @@ def phase_banded_full_width():
     return launches
 
 
+def _check_nuts_launched(name, launches):
+    """A NUTS path launched H1, H2 and H3 and the product (H1 and H2 once a
+    leapfrog step each), no plain twin and no plain proposal."""
+    for k in (*NUTS_NAMES, "nuts_product"):
+        check(launches[k] > 0, f"{name}: never launched {k}")
+    check(launches["nuts_leapfrog_prologue"] == launches["nuts_leapfrog_epilogue"],
+          f"{name}: {launches['nuts_leapfrog_prologue']} H1 but "
+          f"{launches['nuts_leapfrog_epilogue']} H2 launches")
+    check(launches["plain_twins"] == 0 and launches["plain_proposals"] == 0,
+          f"{name}: ran {launches['plain_twins']} plain twins and {launches['plain_proposals']} "
+          f"plain proposals")
+
+
+def _per(launches, n):
+    """H1-H3's and the product's launches a sweep of ``n``."""
+    return {k: round(launches[k] / n, 2) for k in (*NUTS_NAMES, "nuts_product")}
+
+
+def _nuts_line(lines, prefix):
+    """The log line starting with ``prefix``, exactly one."""
+    found = [s for s in lines if s.startswith(prefix)]
+    check(len(found) == 1, f"expected one log line '{prefix}...', found {found}")
+    return found[0]
+
+
+def phase_hamiltonian_tutorial():
+    """``--hamiltonian`` through the CLI at MAIN_TAXA x CHAINS: simulate ->
+    prepare full -> run --hamiltonian --profile --iterations ITERATIONS (the
+    adaptation and acceptance lines, a finite eps, H1-H3 launched, no plain
+    twin, the carry check) -> continue --iterations CONTINUE_ITERATIONS (NUTS
+    on from the checkpoint, its eps restored) -> marginal-likelihood
+    --hamiltonian --profile (a finite log Z); then 1 + 1 MHKernel sweeps
+    with the move (the carry check)."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch import cli
+    from mcmcdate_tpu_torch.engine import checkpoint as ckpt
+    from mcmcdate_tpu_torch.engine.chains import ChainRunner, RunSettings
+    from mcmcdate_tpu_torch.engine.hmc import NutsInCycle
+    from mcmcdate_tpu_torch.engine.proposals import build_proposal_table
+
+    an = "ham"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        cli.main(["simulate", "--leaves", str(MAIN_TAXA), "--trees", str(TREES), "--out", data])
+        cli.main(["prepare", "-a", an, "--rooted-tree", os.path.join(data, "time.tree"),
+                  "--trees", os.path.join(data, "trees.nwk"), "--likelihood-spec", "full",
+                  "--out-dir", tmp])
+        t0 = time.perf_counter()
+        launches, runner = _counted(lambda: cli.main(
+            ["run", "-a", an, "--chains", str(CHAINS), "--profile", "--seed", "1", "--device",
+             "cuda", "--iterations", str(ITERATIONS), "--hamiltonian", "--out-dir", tmp]))
+        run_s = time.perf_counter() - t0
+        check(runner.nuts is not None, "run --hamiltonian built no NUTS move")
+        with open(os.path.join(tmp, f"{an}.run.log")) as fh:
+            lines = fh.read().splitlines()
+        adapt = _nuts_line(lines, "NUTS adaptation: eps")
+        move = _nuts_line(lines, "NUTS in-cycle move: mean acceptance statistic")
+        eps = runner.nuts.eps
+        check(math.isfinite(eps) and eps > 0, f"adapted eps {eps}")
+        _check_nuts_launched("hamiltonian run", launches)
+        with np.load(os.path.join(tmp, f"{an}.trace.npz")) as z:
+            lp_post = z["lp_post"]
+        lp_err, lp_f64 = check_carried_posterior(runner, tmp, lp_post[-1], name=an)
+        with open(os.path.join(tmp, f"{an}.mcmc.json")) as fh:
+            check(json.load(fh).get("hamiltonian") is True,
+                  "the checkpoint's meta lacks hamiltonian")
+        saved = ckpt.load_arrays(an, ("nuts_eps", "nuts_inv_mass"), in_dir=tmp)
+        check(float(saved["nuts_eps"]) == eps, "the checkpoint's nuts_eps is not the run's")
+        n_sweeps = len(runner.sweep_seconds) * 10
+        log(f"[hamiltonian tutorial] run --hamiltonian --profile, {MAIN_TAXA} taxa x {CHAINS} "
+            f"chains, {n_sweeps} sweeps ({ITERATIONS} iterations) in {run_s:.1f} s, median "
+            f"{statistics.median(runner.sweep_seconds):.4f} s per sweep on "
+            f"{torch.cuda.get_device_name(0)}; {adapt}; {move}; carried log posterior within "
+            f"{lp_err:.3g} of the direct float32 one (float32 vs float64: {lp_f64:.3g}); "
+            f"H1-H3 and the product per sweep "
+            f"{json.dumps(_per(launches, n_sweeps))}")
+        out["run"] = launches
+
+        t0 = time.perf_counter()
+        c_launches, runner2 = _counted(lambda: cli.main(
+            ["continue", "-a", an, "--profile", "--seed", "2", "--device", "cuda",
+             "--iterations", str(CONTINUE_ITERATIONS), "--out-dir", tmp]))
+        cont_s = time.perf_counter() - t0
+        check(runner2.nuts is not None and runner2.nuts.eps == eps,
+              "continue did not resume the NUTS move with the saved eps")
+        _check_nuts_launched("hamiltonian continue", c_launches)
+        with np.load(os.path.join(tmp, f"{an}.trace.npz")) as z:
+            lp_post = z["lp_post"]
+        check(lp_post.shape[0] == ITERATIONS + CONTINUE_ITERATIONS,
+              f"continued trace of {lp_post.shape[0]} draws")
+        c_err, _ = check_carried_posterior(runner2, tmp, lp_post[-1], name=an)
+        log(f"[hamiltonian tutorial] continue --iterations {CONTINUE_ITERATIONS} in {cont_s:.1f} "
+            f"s with the NUTS move (eps {runner2.nuts.eps:.5f} from the checkpoint); carried log "
+            f"posterior within {c_err:.3g}")
+        out["continue"] = c_launches
+
+        t0 = time.perf_counter()
+        m_launches, res = _counted(lambda: cli.main(
+            ["marginal-likelihood", "-a", an, "--profile", "--hamiltonian", "--seed", "1",
+             "--device", "cuda", "--iterations", str(ML_ITERATIONS), "--out-dir", tmp]))
+        ml_s = time.perf_counter() - t0
+        check(math.isfinite(res.log_marginal_likelihood), "log Z with NUTS is not finite")
+        with open(os.path.join(tmp, f"{an}.mlh.log")) as fh:
+            ml_adapt = _nuts_line(fh.read().splitlines(), "NUTS adaptation: eps")
+        _check_nuts_launched("hamiltonian marginal likelihood", m_launches)
+        log(f"[hamiltonian tutorial] marginal-likelihood --hamiltonian --profile in {ml_s:.1f} s: "
+            f"log Z {res.log_marginal_likelihood:.4f}; {ml_adapt}; H1-H3 and the product "
+            f"{json.dumps({k: m_launches[k] for k in (*NUTS_NAMES, 'nuts_product')})}")
+        out["ml"] = m_launches
+
+        args = cli.build_parser().parse_args(["run", "-a", an, "--out-dir", tmp])
+        model, init = cli._load_model(args, torch.device("cuda"), torch.float32,
+                                      lambda *a: None)
+    table = build_proposal_table(model.topo, model.braces, model.calibrations_available)
+    seq = ChainRunner(model, table, RunSettings("hamseq", n_chains=CHAINS, seed=1,
+                                                device="cuda", fast_sweep=False),
+                      log=lambda *a: None)
+    nuts = NutsInCycle(model)
+    nuts.eps, nuts.inv_mass = runner2.nuts.eps, runner2.nuts.inv_mass
+    batch, tuning = seq.init_chains(init)
+
+    def two():
+        b = seq.kern.sweeps(batch, tuning, 3, 1, nuts=nuts)[0]
+        return seq.kern.sweeps(b, tuning, 4, 1, nuts=nuts)
+
+    s_launches, res2 = _counted(two)
+    _check_nuts_launched("hamiltonian sequential", s_launches)
+    err, err64 = _check_lp("hamiltonian sequential", model, res2[0], res2[1] + res2[2])
+    log(f"[hamiltonian sequential] 1 + 1 MHKernel sweeps with the NUTS move at {MAIN_TAXA} "
+        f"taxa x {CHAINS} chains: mean acceptance statistic {float(res2[6].mean()):.3f}; carried "
+        f"log posterior within {err:.3g} (float32 vs float64: {err64:.3g}); launches "
+        f"{json.dumps({k: s_launches[k] for k in (*NUTS_NAMES, 'nuts_product')})}")
+    out["sequential"] = s_launches
+    return {k: sum(p[k] for p in out.values()) for k in out["run"]}
+
+
+def phase_hamiltonian_full_width():
+    """The NUTS move at its full width: FastSweeps through ChainRunner on
+    the synthetic model of BENCH_TAXA taxa x CHAINS chains (D = 1,997, dim =
+    3,000): HAM_WARM_SWEEPS sweeps without the move, HAM_WINDOWS adaptation
+    windows of HAM_FULL_SWEEPS sweeps with it (dual averaging from eps
+    HAM_EPS0, the inverse mass from the chains' variances), then
+    HAM_FULL_SWEEPS + 1 sweeps with the adapted eps (counted; the last with
+    the carry check) and HAM_FULL_SWEEPS without the move, timed.  Logs
+    s/sweep with and without, H1-H3's launches a sweep, the mean leapfrog
+    steps a trajectory, the device memory's peak."""
+    import torch
+
+    from mcmcdate_tpu_torch import synthetic
+    from mcmcdate_tpu_torch.engine import hmc, proposals as P
+    from mcmcdate_tpu_torch.engine.chains import ChainRunner, RunSettings, new_key
+
+    model, init = synthetic.build(BENCH_TAXA, 1, device="cuda")
+    table = P.build_proposal_table(model.topo, model.braces, model.calibrations_available)
+    runner = ChainRunner(model, table, RunSettings("hamfull", n_chains=CHAINS, seed=1,
+                                                   device="cuda"), log=lambda *a: None)
+    runner.nuts = hmc.NutsInCycle(model)
+    runner.nuts.eps = HAM_EPS0
+    runner.nuts.da = hmc.DualAveraging.init(HAM_EPS0)
+    batch, tuning = runner.init_chains(init)
+    steps = []
+    real = hmc.NutsMove.trajectory
+
+    def counting(self, *a, **kw):
+        q, astat, n = real(self, *a, **kw)
+        steps.append(float(n.float().mean()))
+        return q, astat, n
+
+    hmc.NutsMove.trajectory = counting
+    try:
+        t0 = time.perf_counter()
+        batch, key, _, _, _ = runner._run_window(batch, tuning, new_key(1), HAM_WARM_SWEEPS,
+                                                 use_nuts=False)
+        windows = []
+        for _ in range(HAM_WINDOWS):
+            batch, key, _, _, _ = runner._run_window(batch, tuning, key, HAM_FULL_SWEEPS)
+            windows.append((round(runner.nuts.eps, 6),
+                            round(statistics.mean(runner._nuts_astats), 3),
+                            round(statistics.mean(steps), 2)))
+            runner.adapt_nuts(batch)
+            steps.clear()
+        runner.finalize_nuts()
+        adapt_s = time.perf_counter() - t0
+        eps = runner.nuts.eps
+        check(math.isfinite(eps) and eps > 0, f"adapted eps {eps}")
+        runner.sweep_seconds.clear()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            b, k, _, _, _ = runner._run_window(batch, tuning, key, HAM_FULL_SWEEPS)
+            out = runner.kern.sweeps(b, tuning, 7, 1, nuts=runner.nuts)
+            return out, k
+
+        launches, (out, key) = _counted(run)
+        with_s = statistics.median(runner.sweep_seconds)
+        peak = torch.cuda.max_memory_allocated()
+        n_traj = len(steps)
+        mean_steps = statistics.mean(steps)
+    finally:
+        hmc.NutsMove.trajectory = real
+    _check_nuts_launched("hamiltonian full width", launches)
+    err, err64 = _check_lp("hamiltonian full width", model, out[0], out[1] + out[2])
+    runner.sweep_seconds.clear()
+    runner._run_window(out[0], tuning, key, HAM_FULL_SWEEPS, use_nuts=False)
+    without_s = statistics.median(runner.sweep_seconds)
+    n = HAM_FULL_SWEEPS + 1
+    log(f"[hamiltonian full width] {BENCH_TAXA} taxa x {CHAINS} chains, D = "
+        f"{model.likelihood.dim}, dim = {runner.nuts.coords.dim}: {HAM_WARM_SWEEPS} sweeps "
+        f"without the move, then {HAM_WINDOWS} adaptation windows of {HAM_FULL_SWEEPS} "
+        f"sweeps (eps, mean acceptance statistic, mean steps: {windows}) in {adapt_s:.1f} s; "
+        f"adapted eps {eps:.5f}; median {with_s:.4f} s per sweep with the move, "
+        f"{without_s:.4f} s without, on {torch.cuda.get_device_name(0)}; {n_traj} "
+        f"trajectories, mean {mean_steps:.2f} leapfrog steps a trajectory; mean acceptance "
+        f"statistic {float(out[6].mean()):.3f}; per sweep {json.dumps(_per(launches, n))}; "
+        f"carried log posterior within {err:.3g} (float32 vs float64: {err64:.3g}); device "
+        f"memory peak {peak / 1e9:.2f} GB")
+    return launches
+
 def main():
     """Run every phase; any failure raises, so the exit code is not 0."""
     import torch
@@ -3659,6 +4175,12 @@ def main():
     t0 = time.perf_counter()
     banded_full = phase_banded_full_width()
     log(f"[banded full width] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ham = phase_hamiltonian_tutorial()
+    log(f"[hamiltonian tutorial] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ham_full = phase_hamiltonian_full_width()
+    log(f"[hamiltonian full width] took {time.perf_counter() - t0:.1f} s")
     check("jax" not in sys.modules, "the port imported jax")
     check(not [m for m in sys.modules if m == "mcmcdate_tpu" or m.startswith("mcmcdate_tpu.")],
           "the port imported the JAX package")
@@ -3668,7 +4190,12 @@ def main():
              "sequential": sequential, "univariate_10k": uni, "sparse_tutorial": sparse,
              "sparse_full_width": sparse_full, "marginal_likelihood": ml,
              "ml_full_ladder": ml_full, "banded_tutorial": banded,
-             "banded_full_width": banded_full}
+             "banded_full_width": banded_full, "hamiltonian_tutorial": ham,
+             "hamiltonian_full_width": ham_full}
+    for p, n in paths.items():
+        if not p.startswith("hamiltonian"):
+            check(all(n[k] == 0 for k in (*NUTS_NAMES, "nuts_product")),
+                  f"the {p} path, without --hamiltonian, launched a NUTS kernel")
     record = {"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,
              launches=paths[RECORD_PATH.get(k, "main")][k],
@@ -3685,6 +4212,15 @@ def main():
             r["tempered"] = results["tempered"][r["name"]]
         if r["name"] == "cascade_seed":
             r["ml_full_ladder"] = ml_times
+    # The NUTS gradient's product z = r P: a library call (cuBLAS), not a
+    # hand-written kernel, so a line of its own ("plain_ms": the float64
+    # product; "max_abs_err": against it, relative to its largest entry).
+    log("[nuts product] " + json.dumps(dict(
+        name="nuts_product", route="library (torch.mm, cuBLAS)",
+        source="mcmcdate_tpu_torch/engine/hmc.py", replaces="mcmcdate_tpu/engine/hmc.py:118",
+        launches=paths["hamiltonian_full_width"]["nuts_product"],
+        launches_by_path={p: n["nuts_product"] for p, n in paths.items()},
+        **results["nuts_product"])))
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,9 +3,9 @@ marginal-likelihood / analyze / simulate.
 
 Port of ``mcmcdate_tpu/cli.py``.  ``run``, ``continue`` and
 ``marginal-likelihood`` take the JAX CLI's flags except ``--mc3``,
-``--bold-*``, ``--fiber-*`` and ``--trace-dir`` (and ``--hamiltonian``
-but for ``marginal-likelihood``, where it raises: the NUTS move is not
-ported), plus ``--device`` (default ``cuda``).  With a CUDA device and no
+``--bold-*``, ``--fiber-*`` and ``--trace-dir``, plus ``--device``
+(default ``cuda``); ``--hamiltonian`` adds the in-cycle NUTS move, and
+``continue`` of a checkpoint saved with it continues with it.  With a CUDA device and no
 card present they fail; they never carry on on the CPU.
 ``marginal-likelihood`` runs the stepping-stone sampler
 (``engine/stepping_stone.py``) and logs to ``<name>.mlh.log``.
@@ -164,6 +164,9 @@ def _add_run_args(p: argparse.ArgumentParser):
                    help="state precision; the CUDA kernels take float32")
     p.add_argument("--device", default="cuda",
                    help="torch device of the chain state (default cuda)")
+    p.add_argument("--hamiltonian", action="store_true",
+                   help="add the in-cycle NUTS move (once a sweep; continue: implied by a "
+                        "checkpoint saved with it)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -196,8 +199,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-annealed-init", action="store_true",
                    help="skip the annealed-init cascade (each stone then burns in from "
                         "the naive init in parallel; the reference always anneals)")
-    p.add_argument("--hamiltonian", action="store_true",
-                   help="the NUTS move in every stone (not ported: raises)")
 
     p = sub.add_parser("analyze", help="post-process monitor files "
                        "(scripts/analyze equivalent)")
@@ -380,7 +381,8 @@ def cmd_run(args):
             log("Using tuning parameters from save." if same
                 else "Cycle has changed, start with untuned proposals.")
             init_from = (state0, tuning0 if same else None, same)
-        return run_analysis(model, init, settings, init_from=init_from, log=log)
+        return run_analysis(model, init, settings, init_from=init_from,
+                            hamiltonian=args.hamiltonian, log=log)
     finally:
         log.close()
 
@@ -400,11 +402,11 @@ def cmd_continue(args):
     device = _device(args.device)
     with open(os.path.join(args.out_dir, ckpt.meta_file(args.analysis_name))) as fh:
         meta = json.load(fh)
-    for flag, what in (("mc3", "MC3"), ("hamiltonian", "the NUTS move")):
-        if meta.get(flag):
-            raise NotImplementedError(
-                f"the checkpoint is of a run with {what}, which is not ported to PyTorch "
-                "yet (ROADMAP.md, Queue 1)")
+    if meta.get("mc3"):
+        raise NotImplementedError("the checkpoint is of a run with MC3, which is not ported "
+                                  "to PyTorch yet (ROADMAP.md, Queue 1)")
+    # A run saved with the NUTS move continues with it.
+    args.hamiltonian = args.hamiltonian or bool(meta.get("hamiltonian"))
     dtype = torch.float32 if device.type == "cuda" else getattr(torch, meta.get("dtype",
                                                                                "float32"))
     args.dtype = str(dtype).removeprefix("torch.")
@@ -418,7 +420,8 @@ def cmd_continue(args):
         settings.n_chains = state.n_chains
         log(f"Continuing from iteration {meta['iteration']}.")
         return run_analysis(model, init, settings,
-                            continue_from=(state, tuning, key, meta["iteration"]), log=log)
+                            continue_from=(state, tuning, key, meta["iteration"]),
+                            hamiltonian=args.hamiltonian, log=log)
     finally:
         log.close()
 

@@ -2,9 +2,10 @@
 
 Port of ``mcmcdate_tpu/engine/chains.py`` for MHG on one device, with the
 ticket-batched ``FastSweeps`` by default and the sequential ``MHKernel``
-as the fallback, chosen as the JAX package chooses.  NUTS, MC3, the fiber
-moves, the bold contrary kernels and the device mesh stay in the JAX
-package for now.  The sampler's random streams derive
+as the fallback, chosen as the JAX package chooses, and the in-cycle NUTS
+move of ``--hamiltonian`` (``engine/hmc.py``; in the slow burn-in windows
+and in sampling).  MC3, the fiber moves, the bold contrary kernels and the
+device mesh stay in the JAX package for now.  The sampler's random streams derive
 from a ``uint32[2]`` key that is split once per sweep chunk and saved in
 the checkpoint.
 """
@@ -25,6 +26,7 @@ from . import checkpoint as ckpt
 from . import proposals as props
 from .diagnostics import summarize
 from .fast_sweep import UNIVARIATE_DENSE_MAX, FastSweeps
+from .hmc import NutsInCycle
 from .mh import BurnInSettings, MHKernel, tune_step
 from .monitor import MonitorWriter
 
@@ -133,6 +135,8 @@ class ChainRunner:
         self.sweep_seconds: list = []
         self.accepted = 0
         self.attempted = 0
+        self.nuts = None  # a NutsInCycle, set by run_analysis with hamiltonian
+        self._nuts_astats: list = []
 
     def _collect(self, state: State, lp_pr, lp_lik):
         """One sweep's monitor row for every chain.  The sweep updates the
@@ -175,20 +179,28 @@ class ChainRunner:
         tuning = torch.ones((C, self.table.n_proposals), dtype=self.dtype, device=self.device)
         return batch, tuning
 
-    def _run_window(self, batch, tuning, key, n_sweeps, collect=False):
+    def _run_window(self, batch, tuning, key, n_sweeps, collect=False, use_nuts=None):
         """Run ``n_sweeps`` (a multiple of CHUNK, padded up) sweeps; returns
         the batch, the key, the summed accept and attempt counts and the
-        collected rows per chunk (host arrays, monitor leaves slimmed)."""
+        collected rows per chunk (host arrays, monitor leaves slimmed).
+        ``use_nuts`` says whether the NUTS move runs (default: whenever the
+        runner has one); each chunk's mean acceptance statistic is kept for
+        the adaptation and the log."""
+        with_nuts = self.nuts is not None if use_nuts is None else use_nuts
         n_chunks = max(1, (n_sweeps + CHUNK - 1) // CHUNK)
         acc_sum = tot_sum = 0
         outs_all = []
         for _ in range(n_chunks):
             key, seed = split_key(key)
             t0 = time.perf_counter()
-            batch, _, _, acc, tot, outs = self.kern.sweeps(
+            out = self.kern.sweeps(
                 batch, tuning, seed, CHUNK,
                 collect=self._collect if collect else None, beta=self.s.beta,
+                nuts=self.nuts if with_nuts else None,
             )
+            batch, _, _, acc, tot, outs = out[:6]
+            if with_nuts:
+                self._nuts_astats.append(float(out[6].mean()))
             acc_sum = acc_sum + acc
             tot_sum = tot_sum + tot
             self.accepted += int(acc.sum())
@@ -206,9 +218,13 @@ class ChainRunner:
         t0 = time.time()
         for kind, windows in (("fast", bi.fast), ("slow", bi.slow)):
             for w in windows:
-                batch, key, acc, tot, _ = self._run_window(batch, tuning, key, w)
+                # Fast windows run without the NUTS move, like the engine's
+                # fast-proposal-only windows.
+                batch, key, acc, tot, _ = self._run_window(
+                    batch, tuning, key, w, use_nuts=self.nuts is not None and kind == "slow")
                 tuning = tune_step(tuning, acc.to(self.dtype), tot.to(self.dtype),
                                    self.targets, tune_max=self.tune_max)
+                self.adapt_nuts(batch)
                 done += w
                 rate = float(acc.to(self.dtype).sum()) / max(float(tot.to(self.dtype).sum()),
                                                              1.0)
@@ -216,7 +232,28 @@ class ChainRunner:
                     f"burn-in [{kind}] window {w}: {done}/{bi.total} iterations, "
                     f"acceptance {rate:.3f}, {time.time() - t0:.1f}s elapsed"
                 )
+        self.finalize_nuts()
         return batch, tuning, key
+
+    def adapt_nuts(self, batch):
+        """After a window with the NUTS move: the step size by dual averaging
+        on the window's mean acceptance statistic, the inverse mass from the
+        chains' coordinate variances."""
+        if self.nuts is None or not self._nuts_astats:
+            return
+        vecs = self.nuts.coords.to_vector(batch).cpu().numpy()
+        self.nuts.adapt(float(np.mean(self._nuts_astats)), vecs)
+        self._nuts_astats = []
+
+    def finalize_nuts(self):
+        """The adapted step size for sampling, logged with the inverse
+        mass's range."""
+        if self.nuts is None:
+            return
+        self.nuts.finalize_adaptation()
+        im = np.asarray(self.nuts.inv_mass)
+        self.log(f"NUTS adaptation: eps {self.nuts.eps:.5f}, "
+                 f"inv_mass [{im.min():.3g}, {im.max():.3g}]")
 
     def sample(self, batch, tuning, key, iterations, monitor: Optional[MonitorWriter],
                start_iteration: int = 0, on_checkpoint: Optional[Callable] = None):
@@ -251,6 +288,11 @@ class ChainRunner:
             f"sampling: {iterations} iterations x {self.s.n_chains} chains in "
             f"{time.time() - t0:.1f}s"
         )
+        if self.nuts is not None and self._nuts_astats:
+            self.log(f"NUTS in-cycle move: mean acceptance statistic "
+                     f"{float(np.mean(self._nuts_astats)):.3f} over "
+                     f"{len(self._nuts_astats)} chunks (eps {self.nuts.eps:.5f})")
+            self._nuts_astats = []
         self._write_diagnostics(draws)
         return batch, tuning, key
 
@@ -304,21 +346,28 @@ class ChainRunner:
 
 def run_analysis(model: DatingModel, init: State, settings: RunSettings, *,
                  init_from: Optional[tuple] = None, continue_from: Optional[tuple] = None,
-                 log=print) -> ChainRunner:
+                 hamiltonian: bool = False, log=print) -> ChainRunner:
     """The ``run`` and ``continue`` entry point: burn-in, a checkpoint,
     sampling with monitors, a final checkpoint.  ``init_from = (state,
     tuning, same_cycle)`` warm-starts from a previous save; ``continue_from
     = (state, tuning, key, it)`` resumes a saved run: no burn-in, the
     monitors reopened in append mode with iterations numbered after ``it``,
-    the saved trace preloaded.  Returns the runner (its ``sweep_seconds``
-    hold the wall time per sweep of every chunk)."""
+    the saved trace preloaded.  ``hamiltonian`` adds the in-cycle NUTS move
+    (its step size and inverse mass saved in the checkpoint, restored on
+    ``continue``).  Returns the runner (its ``sweep_seconds`` hold the wall
+    time per sweep of every chunk)."""
     table = props.build_proposal_table(model.topo, model.braces, model.calibrations_available)
     runner = ChainRunner(model, table, settings, log=log)
+    if hamiltonian:
+        runner.nuts = NutsInCycle(model, dtype=runner.dtype)
     key = new_key(settings.seed if settings.seed is not None else 42)
 
     def do_checkpoint(batch, tuning, k, it):
+        nuts = runner.nuts
         ckpt.save(settings.analysis_name, batch, tuning, k, it, table.n_proposals,
-                  out_dir=settings.out_dir)
+                  out_dir=settings.out_dir,
+                  extra={"hamiltonian": True} if nuts is not None else None,
+                  extra_arrays=nuts.state_arrays() if nuts is not None else None)
         trace = runner.trace_arrays()
         if trace:
             ckpt.save_trace(settings.analysis_name, trace, out_dir=settings.out_dir)
@@ -333,6 +382,10 @@ def run_analysis(model: DatingModel, init: State, settings: RunSettings, *,
         batch = state0.to(device=runner.device, dtype=runner.dtype)
         tuning = torch.as_tensor(tuning0, dtype=runner.dtype, device=runner.device)
         runner.preload_trace(ckpt.load_trace(settings.analysis_name, in_dir=settings.out_dir))
+        if runner.nuts is not None:
+            runner.nuts.restore(ckpt.load_arrays(settings.analysis_name,
+                                                 ("nuts_eps", "nuts_inv_mass"),
+                                                 in_dir=settings.out_dir))
         monitor = writer().open(mode="a")
     else:
         start_it = 0

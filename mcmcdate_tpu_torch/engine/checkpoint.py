@@ -91,10 +91,17 @@ def save(
     iteration: int,
     n_proposals: int,
     out_dir: str = ".",
+    extra: Optional[dict] = None,
+    extra_arrays: Optional[dict] = None,
 ):
+    """Write the checkpoint: the state, tuning and key arrays plus
+    ``extra_arrays`` (the NUTS adaptation state) in the ``.npz``, and the
+    meta with ``extra`` (``{"hamiltonian": True}``) in the JSON sidecar."""
     arrays = state.numpy()
     arrays["tuning"] = _host(tuning)
     arrays["key"] = np.asarray(key)
+    if extra_arrays:
+        arrays.update({k: _host(v) for k, v in extra_arrays.items()})
     path = os.path.join(out_dir, checkpoint_file(analysis_name))
     _atomic_write(path, lambda tmp: _savez(tmp, arrays))
     meta = {
@@ -103,6 +110,8 @@ def save(
         "n_proposals": int(n_proposals),
         "dtype": str(arrays["heights"].dtype),
     }
+    if extra:
+        meta.update(extra)
 
     def _write_meta(tmp):
         with open(tmp, "w") as fh:
@@ -130,3 +139,11 @@ def load(analysis_name: str, dtype=None, in_dir: str = ".", device="cuda"):
         key = np.asarray(z["key"])
     return state, tuning, key, meta
 
+
+
+def load_arrays(analysis_name: str, names, in_dir: str = ".") -> dict:
+    """Extra saved arrays by name (the NUTS adaptation state); names the
+    checkpoint lacks are left out."""
+    path = os.path.join(in_dir, checkpoint_file(analysis_name))
+    with np.load(path) as z:
+        return {n: np.asarray(z[n]) for n in names if n in z.files}

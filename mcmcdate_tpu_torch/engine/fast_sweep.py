@@ -1,8 +1,10 @@
 """Ticket-batched sweep (FastSweeps): the default proposal cycle of ``run``.
 
 Port of ``mcmcdate_tpu/engine/fast_sweep.py`` without its optional bold
-contrary mixture and fiber node-slide and without NUTS (a sparse precision
-is stored dense and runs as full).  Under the banded likelihood kind every
+contrary mixture and fiber node-slide (a sparse precision is stored dense
+and runs as full); the in-cycle NUTS move (``sweeps(nuts=)``,
+``engine/hmc.py``) runs after the batched phases, as in the JAX package.
+Under the banded likelihood kind every
 precision and Cholesky product goes through the block-tridiagonal kernels
 B1 ``band_matmul`` and B2 ``band_matmul_t`` (``ops/banded.py``), and no
 ``[D, D]`` or ``[rows, D]`` tensor is built.  A
@@ -1056,13 +1058,26 @@ class FastSweeps:
             return lp_pr, torch.zeros_like(lp_pr)
         return lp_pr, self.model.log_lik_const - 0.5 * torch.sum(y * y, dim=-1)
 
+    def nuts_phase(self, carry: FastCarry, nuts, gen):
+        """The in-cycle NUTS move after the batched phases (``nuts`` a
+        :class:`~.hmc.NutsInCycle`, every chain at its likelihood
+        temperature), then the carried terms (K1) and distances rebuilt from
+        the moved state.  Returns the acceptance statistics ``[C]``."""
+        astat = nuts(carry.batch, gen, beta_lik=carry.beta)
+        carry.terms = self.model.log_prior_terms(carry.batch)
+        carry.d = distances_internal(carry.batch, self.model.topo)
+        return astat
+
     def sweeps(self, batch: State, tuning, seed: int, n: int,
-               collect: Optional[Callable] = None, beta=None):
+               collect: Optional[Callable] = None, beta=None, nuts=None):
         """Same contract as ``MHKernel.sweeps``: ``n`` sweeps of the chain
         batch, ``seed`` seeding the sequential phase's ticket order (host)
         and every draw (on the batch's device), ``beta`` (a number or
         ``[C]``, None: 1) tempering the likelihood in every phase's
-        decisions.  Returns ``(batch, lp_pr, lp_lik, acc, tot, outs)``."""
+        decisions.  Returns ``(batch, lp_pr, lp_lik, acc, tot, outs)``, and
+        with ``nuts`` (a :class:`~.hmc.NutsInCycle`: the in-cycle NUTS move
+        after each sweep's batched phases) a seventh element, the move's
+        acceptance statistics ``[n, C]``."""
         device = batch.heights.device
         host_gen = torch.Generator().manual_seed(seed)
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -1070,11 +1085,15 @@ class FastSweeps:
         carry.beta = chain_beta(beta, batch.n_chains, batch.heights.dtype, device)
         y = self.model.whitened_residual_internal(carry.batch)
         C = batch.n_chains
-        outs = []
+        outs, astats = [], []
         for _ in range(n):
             y = self.sweep_once(carry, y, tuning, host_gen, gen)
+            if nuts is not None:
+                astats.append(self.nuts_phase(carry, nuts, gen))
+                y = self._y_from_d(carry.d)
             if collect is not None:
                 outs.append(collect(carry.batch, *self.lp_of(carry, y)))
         tot = (torch.as_tensor(self.table.weight, dtype=torch.int32, device=device) * n
                ).expand(C, -1)
-        return (carry.batch, *self.lp_of(carry, y), carry.acc, tot, outs)
+        ret = (carry.batch, *self.lp_of(carry, y), carry.acc, tot, outs)
+        return ret if nuts is None else ret + (torch.stack(astats),)

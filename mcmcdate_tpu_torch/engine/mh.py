@@ -1,7 +1,8 @@
 """Metropolis-Hastings-Green sampler: the sequential sweep, auto-tuning,
 burn-in schedules.
 
-Port of ``mcmcdate_tpu/engine/mh.py`` (without the in-cycle NUTS move).  A
+Port of ``mcmcdate_tpu/engine/mh.py``, with the in-cycle NUTS move after
+each sweep (``sweeps(nuts=)``, ``engine/hmc.py``).  A
 sweep runs the weight-expanded proposal tickets in a random order that is
 drawn on the host and shared by all chains, so the host splits the order
 into runs from the table's static likelihood classes without reading any
@@ -165,7 +166,7 @@ class MHKernel:
         return lp_pr, lp_lik
 
     def sweeps(self, batch: State, tuning, seed: int, n: int,
-               collect: Optional[Callable] = None, beta=None):
+               collect: Optional[Callable] = None, beta=None, nuts=None):
         """``n`` sweeps of the chain batch.  ``seed`` seeds the ticket order
         (drawn on the host) and the per-chain draws (drawn on the batch's
         device).  ``collect(batch, lp_pr, lp_lik) -> dict of [C, ...]``
@@ -173,21 +174,41 @@ class MHKernel:
         decision (``log alpha = d_pr + beta d_lik + lmhg + lj``): a number
         or a per-chain ``[C]`` vector (None: 1).  Returns ``(batch, lp_pr,
         lp_lik, acc, tot, outs)`` with ``outs`` the list of per-sweep
-        collections."""
+        collections, and with ``nuts`` (a :class:`~.hmc.NutsInCycle`: the
+        in-cycle NUTS move after each sweep, every chain at its likelihood
+        temperature) a seventh element, the move's acceptance statistics
+        ``[n, C]``."""
         device = batch.heights.device
         host_gen = torch.Generator().manual_seed(seed)
         gen = torch.Generator(device=device).manual_seed(seed)
         carry = self.init_carry(batch)
         C = batch.n_chains
         carry.beta = chain_beta(beta, C, batch.heights.dtype, device)
-        outs = []
+        outs, astats = [], []
         for _ in range(n):
             self.sweep_once(carry, tuning, host_gen, gen)
+            if nuts is not None:
+                astats.append(self.nuts_phase(carry, nuts, gen))
             if collect is not None:
                 outs.append(collect(carry.batch, *self.lp_of(carry)))
         tot = (torch.as_tensor(self.table.weight, dtype=torch.int32, device=device) * n
                ).expand(C, -1)
-        return (carry.batch, *self.lp_of(carry), carry.acc, tot, outs)
+        ret = (carry.batch, *self.lp_of(carry), carry.acc, tot, outs)
+        return ret if nuts is None else ret + (torch.stack(astats),)
+
+    def nuts_phase(self, carry: Carry, nuts, gen):
+        """The in-cycle NUTS move after a sweep, then the carried terms
+        (K1), distances and whitened residual rebuilt from the moved state
+        (one full recompute a sweep, as the JAX package does).  Returns the
+        acceptance statistics ``[C]``."""
+        m = self.model
+        astat = nuts(carry.batch, gen, beta_lik=carry.beta)
+        carry.terms = m.log_prior_terms(carry.batch)
+        carry.nbad = count_bad(carry.terms)
+        if carry.y is not None:
+            carry.d = distances_internal(carry.batch, m.topo)
+            carry.y = m.whitened_residual_internal(carry.batch)
+        return astat
 
     def draws(self, order: np.ndarray, tuning, gen) -> TicketDraws:
         """The draws of ``order``'s tickets: two ``[C, n]`` uniform calls

@@ -1,7 +1,9 @@
 """Marginal likelihood by stepping-stone sampling.
 
-Port of ``mcmcdate_tpu/engine/stepping_stone.py`` without the NUTS move.
-The reference (``marginalLikelihood`` with ``SteppingStoneSampling``: 128
+Port of ``mcmcdate_tpu/engine/stepping_stone.py``; with ``hamiltonian``
+the in-cycle NUTS move runs in every stone (target prior + beta_k
+likelihood), in the slow windows of the burn-ins and in sampling.  The
+reference (``marginalLikelihood`` with ``SteppingStoneSampling``: 128
 points, 4000 iterations a point, repetitive burn-in) runs the points one
 after the other; here, as in the JAX package, the beta ladder is the chain
 axis: all K points run at once as one chain batch, each chain's likelihood
@@ -36,6 +38,7 @@ from ..models.dating import DatingModel
 from ..models.state import State
 from . import proposals as props
 from .chains import CHUNK, ChainRunner, RunSettings, new_key, split_key
+from .hmc import NutsInCycle
 from .mh import BurnInSettings, tune_step
 
 N_POINTS = 128
@@ -94,9 +97,6 @@ def run_marginal_likelihood(model: DatingModel, init: State, settings: RunSettin
     chain batch on ``settings.device``, the cascade, burn-in and repetitive
     burn-in windows with tuning, then sampling with each point's log
     likelihood collected every sweep."""
-    if hamiltonian:
-        raise NotImplementedError("the NUTS move is not ported to PyTorch yet "
-                                  "(ROADMAP.md, Queue 1)")
     table = props.build_proposal_table(model.topo, model.braces, model.calibrations_available)
     n_points = N_POINTS_PROF if profile else N_POINTS
     iters = settings.iterations if settings.iterations else ITERATIONS_ML
@@ -116,6 +116,11 @@ def run_marginal_likelihood(model: DatingModel, init: State, settings: RunSettin
         log(f"annealed-init cascade: {n_points - 1} rungs x {CASCADE_SWEEPS} sweeps in "
             f"{time.perf_counter() - t0:.1f}s (one cascade_seed launch a rung)")
 
+    # NUTS per stone: each chain's target is prior + beta_k likelihood; the
+    # runner adapts it as run's burn-in does.
+    if hamiltonian:
+        runner.nuts = NutsInCycle(model, dtype=runner.dtype)
+    nuts = runner.nuts
     burn = REPETITIVE_BURN_IN_PROF if profile else REPETITIVE_BURN_IN
     # The initial burn-in, then the repetitive one, each point's chain at
     # its own beta (the reference's repetitive burn-in a point, all points
@@ -125,16 +130,23 @@ def run_marginal_likelihood(model: DatingModel, init: State, settings: RunSettin
         f"burn-in {bi.total} + repetitive {burn.total}")
     schedule = ([("fast", w) for w in bi.fast] + [("slow", w) for w in bi.slow]
                 + [("fast", w) for w in burn.fast] + [("slow", w) for w in burn.slow])
-    for _, w in schedule:
+    for kind, w in schedule:
         acc_s = tot_s = 0
+        # Fast windows run without the NUTS move (the MHG policy of burn_in).
+        with_nuts = nuts is not None and kind == "slow"
         for _ in range(max(1, w // CHUNK)):
             key, seed = split_key(key)
-            out = kern.sweeps(batch, tuning, seed, CHUNK, beta=betas)
+            out = kern.sweeps(batch, tuning, seed, CHUNK, beta=betas,
+                              nuts=nuts if with_nuts else None)
             batch = out[0]
             acc_s = acc_s + out[3]
             tot_s = tot_s + out[4]
+            if with_nuts:
+                runner._nuts_astats.append(float(out[6].mean()))
         tuning = tune_step(tuning, acc_s.to(runner.dtype), tot_s.to(runner.dtype),
                            runner.targets, tune_max=runner.tune_max)
+        runner.adapt_nuts(batch)
+    runner.finalize_nuts()
 
     # Sampling: every point's log likelihood after each sweep.
     lls = []
@@ -143,7 +155,7 @@ def run_marginal_likelihood(model: DatingModel, init: State, settings: RunSettin
     while it < iters:
         key, seed = split_key(key)
         out = kern.sweeps(batch, tuning, seed, CHUNK, beta=betas,
-                          collect=lambda s, lp_pr, lp_lik: lp_lik)
+                          collect=lambda s, lp_pr, lp_lik: lp_lik, nuts=nuts)
         batch = out[0]
         lls.append(torch.stack(out[5]).cpu().numpy())  # [CHUNK, n_points]
         it += CHUNK

@@ -25,8 +25,8 @@ CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "_build")
 
 # No --use_fast_math: the kernels rely on exact isnan, isinf and -inf.  The
-# prior, accept, contrary-step, point-step, range-step, glob-family and
-# graphical-lasso kernels round every product on its own (-fmad=false), as
+# prior, accept, contrary-step, point-step, range-step, glob-family,
+# graphical-lasso and NUTS kernels round every product on its own (-fmad=false), as
 # the op-by-op plain versions do; the product and scan kernels keep fused
 # multiply-adds.
 COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,7 +35,7 @@ FILE_FLAGS = {"prior_terms.cu": ["-fmad=false"], "accept_select.cu": ["-fmad=fal
               "contra_step.cu": ["-fmad=false"], "point_step.cu": ["-fmad=false"],
               "range_step.cu": ["-fmad=false"],
               "glob_step.cu": ["-fmad=false"], "ticket_step.cu": ["-fmad=false"],
-              "glasso_admm.cu": ["-fmad=false"]}
+              "glasso_admm.cu": ["-fmad=false"], "nuts_step.cu": ["-fmad=false"]}
 
 
 def _nvcc() -> str:

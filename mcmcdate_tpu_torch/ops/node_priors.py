@@ -88,7 +88,11 @@ def _calibration_terms(cal, heights, height_mult):
     h = heights[:, _i(cal.node, heights)]
     hm = height_mult[:, None]
     lo = _f(cal.lower, heights) / hm
-    hi = _f(cal.upper, heights) / hm
+    upper = _f(cal.upper, heights)
+    # An absent upper bound (+inf) is divided as 0, so that its masked term
+    # has a finite gradient in the absolute height (the JAX module's is NaN,
+    # ROADMAP.md Queue 3); every value is the same.
+    hi = torch.where(torch.isfinite(upper), upper, 0.0) / hm
     s_lo = SQRT_2_OVER_PI * _f(cal.lower_pm, heights)
     s_hi = SQRT_2_OVER_PI * _f(cal.upper_pm, heights)
     below = torch.clamp(lo - h, min=0.0)
@@ -96,7 +100,7 @@ def _calibration_terms(cal, heights, height_mult):
     s_lo_safe = torch.where(s_lo > 0, s_lo, 1.0)
     s_hi_safe = torch.where(s_hi > 0, s_hi, 1.0)
     lp = -0.5 * (below / s_lo_safe) ** 2 - 0.5 * torch.where(
-        torch.isfinite(hi), (above / s_hi_safe) ** 2, 0.0
+        torch.isfinite(upper / hm), (above / s_hi_safe) ** 2, 0.0
     )
     return lp, h, hm
 

@@ -17,8 +17,8 @@ package's NumPy-only tree code, native tree-list parser and graphical lasso,
 so the files written are identical to the JAX package's.  Everything runs
 on the host but the sparse kind's ADMM above ``GLASSO_HOST_MAX`` dims,
 whose iterations run on ``device`` (the card unless the caller asks for the
-CPU).  The ``banded`` spec is not ported yet and raises
-``NotImplementedError``.
+CPU).  The ``banded`` spec (``banded W``) writes the Cholesky banding
+estimate of ``ops/banded.py``, as the JAX package does.
 """
 
 from __future__ import annotations

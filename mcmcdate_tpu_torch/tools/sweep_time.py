@@ -13,13 +13,16 @@ and chain batch of each shape in ``TAXA`` x ``CHAINS`` (``synthetic.build``,
 seed 0), constructs ``FastSweeps`` (timed: it gathers each range block's
 precision rows), runs ``WARMUP`` sweeps, then times ``TIMED`` single
 sweeps on the host clock, each ending in a device sync.  Prints one JSON
-line per shape with the card's name and power limit.  Run each checkout in
+line per shape with the card's name and power limit, and ``digest``: a
+sha256 of the final chain state's bytes (16 hex digits; equal between two
+checkouts when their sweeps are bitwise equal).  Run each checkout in
 its own process, in turns (A, B, B, A): host speed varies between calls.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -67,9 +70,12 @@ def main(argv=None) -> list:
             batch = fs.sweeps(batch, tuning, 2 + i, 1)[0]
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+        h = hashlib.sha256()
+        for f in ("birth", "death", "height", "heights", "rate_mean", "rate_var", "rates"):
+            h.update(getattr(batch, f).cpu().numpy().tobytes())
         rec = dict(root=root, card=card, taxa=taxa, chains=CHAINS,
                    tickets_per_sweep=int(table.n_tickets), setup_s=setup_s, sweep_s=times,
-                   median_s=statistics.median(times))
+                   median_s=statistics.median(times), digest=h.hexdigest()[:16])
         print(json.dumps(rec), flush=True)
         out.append(rec)
         del fs, model, batch

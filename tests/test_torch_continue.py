@@ -2,7 +2,8 @@
 continue_from=)``) on the CPU: a port run continued by the port appends its
 monitors with iterations numbered after the checkpoint's and preloads the
 saved trace; a float64 checkpoint written by the JAX package continues in
-the port at float64; an MC3 or NUTS checkpoint raises."""
+the port at float64; an MC3 checkpoint raises, a NUTS one continues with
+the NUTS move."""
 
 import json
 import os
@@ -116,7 +117,13 @@ def test_continue_a_jax_checkpoint(prepared):
 
 
 @pytest.mark.parametrize("flag", ("mc3", "hamiltonian"))
-def test_unported_checkpoints_raise(prepared, flag):
+def test_unported_checkpoints_raise(prepared, flag, monkeypatch):
+    """An MC3 checkpoint raises (not ported); a checkpoint marked
+    ``hamiltonian`` continues with the NUTS move (ported since; its
+    trajectories cut to one doubling)."""
+    from mcmcdate_tpu_torch.engine import hmc
+
+    monkeypatch.setattr(hmc, "MAX_DEPTH", 1)
     d = prepared
     cli.main(["run", "-a", "x", "--device", "cpu", "--chains", "2", "--iterations", "2",
               "--seed", "2", "--profile", "--out-dir", d])
@@ -124,5 +131,9 @@ def test_unported_checkpoints_raise(prepared, flag):
     meta[flag] = True
     with open(os.path.join(d, "x.mcmc.json"), "w") as fh:
         json.dump(meta, fh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _continue(d, 2)
+    if flag == "mc3":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _continue(d, 2)
+        return
+    runner = _continue(d, 2)
+    assert runner.nuts is not None and _meta(d)["hamiltonian"] is True

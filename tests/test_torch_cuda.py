@@ -1635,3 +1635,59 @@ def test_banded_fast_sweeps_on_card(card):
         assert (B.band_matmul_t.launches > b2) == isinstance(kern, TF.FastSweeps)
         fresh = model.log_likelihood(out)
         assert float((lp_lik - fresh).abs().max()) <= 1e-5 * float(fresh.abs().max())
+
+
+def _nuts_model(case: str, chains: int = 64):
+    """A 40-taxon model for the NUTS kernels: the full kind with node
+    priors, or the univariate, banded or none kind (the full kind's mean)."""
+    import dataclasses
+
+    from mcmcdate_tpu_torch.models.dating import DatingModel
+    from mcmcdate_tpu_torch.ops import mvn
+
+    kind = "banded" if case == "banded" else "full"
+    extra = _node_priors(synthetic.build(40, 1, device="cuda")[0].topo) if case == "priors" else {}
+    model, batch = synthetic.build(40, chains, device="cuda", kind=kind, bandwidth=16,
+                                   clock=clocks.AUTOCORRELATED_GAMMA if case == "none"
+                                   else clocks.UNCORRELATED_GAMMA, **extra)
+    if case in ("univariate", "none"):
+        lik = model.likelihood
+        rng = np.random.default_rng(1)
+        data = (mvn.LikelihoodData.univariate(lik.mu, rng.uniform(1e-3, 1e-2, lik.dim))
+                if case == "univariate" else mvn.LikelihoodData.none())
+        model = DatingModel(**{f.name: getattr(model, f.name) for f in dataclasses.fields(model)
+                               if f.name != "likelihood"}, likelihood=data)
+    return model, batch
+
+
+@pytest.mark.parametrize("case", ("priors", "univariate", "banded", "none"))
+def test_nuts_kernels(card, case):
+    """H1, H2 and H3 against their plain versions along a whole trajectory
+    of up to MAX_DEPTH doublings on 64 chains, each launch replayed from the
+    kernels' state (``kernels.nuts_step.NutsCheck``: the fields within
+    ``CHECK_TOL``, the decisions equal up to ties), with a likelihood
+    temperature ladder; at a step of 1e-3 some chain doubles at least 7
+    times (8 on an H100), so the deep U-turn checks and checkpoint slots
+    are replayed."""
+    from mcmcdate_tpu_torch.engine import hmc
+    from mcmcdate_tpu_torch.kernels import nuts_step as NS
+
+    model, batch = _nuts_model(case)
+    mv = hmc.NutsMove(model, NS.MAX_DEPTH)
+    q0 = mv.coords.to_vector(batch)
+    C, dim = q0.shape
+    inv_mass = torch.full((dim,), 1e-3, device=card)
+    gen = torch.Generator(device=card).manual_seed(5)
+    draws = hmc.NutsDraws(gen, C, dim, torch.float32, card)
+    beta = torch.linspace(0.0, 1.0, C, device=card)
+    chk = NS.NutsCheck(mv.work(C, torch.float32, card), mv.coords)
+    before = (NS.nuts_leapfrog_prologue.launches, NS.nuts_leapfrog_epilogue.launches,
+              NS.nuts_merge.launches)
+    q, astat, n = mv.trajectory(batch, q0, 1e-3, inv_mass, draws, beta_lik=beta, check=chk)
+    torch.cuda.synchronize()
+    after = (NS.nuts_leapfrog_prologue.launches, NS.nuts_leapfrog_epilogue.launches,
+             NS.nuts_merge.launches)
+    assert after[0] - before[0] == after[1] - before[1] >= 2 and after[2] > before[2]
+    assert chk.compared == sum(a - b for a, b in zip(after, before))
+    assert torch.isfinite(q).all() and torch.isfinite(astat).all() and int(n.max()) > 1
+    assert chk.depth >= 7

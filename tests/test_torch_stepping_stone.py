@@ -19,7 +19,7 @@ from scipy.special import logsumexp
 
 from mcmcdate_tpu.engine import stepping_stone as JSS
 from mcmcdate_tpu_torch import cli
-from mcmcdate_tpu_torch.engine import mh as TM, stepping_stone as SS
+from mcmcdate_tpu_torch.engine import hmc, mh as TM, stepping_stone as SS
 from mcmcdate_tpu_torch.engine.chains import RunSettings, new_key, split_key
 from mcmcdate_tpu_torch.kernels.cascade_seed import cascade_seed, cascade_seed_plain
 from mcmcdate_tpu_torch.models import DatingModel, init_state
@@ -159,11 +159,11 @@ def test_no_likelihood_is_zero(short_schedule):
     assert not res.mean_log_lik_per_point.any()
 
 
-def test_cli_marginal_likelihood_on_cpu(tmp_path, short_schedule):
+def test_cli_marginal_likelihood_on_cpu(tmp_path, short_schedule, monkeypatch):
     """``marginal-likelihood --device cpu --profile --iterations 4`` on a
     ``simulate --leaves 8`` fixture writes ``<name>.mlh.log`` with the
-    cascade's line and a finite log Z (the schedule cut as above);
-    ``--hamiltonian`` raises; without a card ``--device cuda`` stops and
+    cascade's line and a finite log Z (the schedule cut as above), and so
+    does ``--hamiltonian``; without a card ``--device cuda`` stops and
     never carries on on the CPU."""
     d = str(tmp_path)
     cli.main(["simulate", "--leaves", "8", "--trees", "200", "--out", os.path.join(d, "data")])
@@ -180,8 +180,11 @@ def test_cli_marginal_likelihood_on_cpu(tmp_path, short_schedule):
     assert len(line) == 1 and math.isfinite(float(line[0].rsplit(" ", 1)[1]))
     assert math.isfinite(res.log_marginal_likelihood)
     assert res.mean_log_lik_per_point.shape == (SS.N_POINTS_PROF,)
-    with pytest.raises(NotImplementedError, match="NUTS"):
-        cli.main(args + ["--device", "cpu", "--hamiltonian"])
+    # With --hamiltonian the NUTS move runs in every stone's sampling sweeps
+    # (no slow window here; trajectories cut to one doubling, no cascade).
+    monkeypatch.setattr(hmc, "MAX_DEPTH", 1)
+    res = cli.main(args + ["--device", "cpu", "--hamiltonian", "--no-annealed-init"])
+    assert math.isfinite(res.log_marginal_likelihood)
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             cli.main(args + ["--device", "cuda"])

@@ -173,3 +173,16 @@ def test_phase_time_k1_and_k3_inputs_on_cpu():
     assert table.kind[rows["pulley"]] == P.K_PULLEY_ULTRA
     assert table.kind[rows["range"]] == P.K_SCALE_SUBTREE_ULTRA
     assert all(tt.breaks(p) for p in rows.values())
+
+
+def test_range_drift_is_rounding_at_float64():
+    """``tools/range_drift.py``: at float64 the range phase's carried
+    distances stay a fresh evaluation's after every block (the float32
+    drift is rounding, ROADMAP Queue 3)."""
+    import torch
+
+    from mcmcdate_tpu_torch.tools.range_drift import replay
+
+    out = replay(40, torch.float64, 8, 1, log=lambda *a: None)
+    (e_glob, e_point, (worst, _)), = out
+    assert max(e_glob, e_point, worst) < 1e-13
