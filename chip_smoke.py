@@ -44,12 +44,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    with every chain reading delta, z and w over D).  The six decision
    kernels (K3, T3, K4 point_scan, K5 range_scan, G1, G3) again with the
    128-point stepping-stone ladder tiled over the chains as each chain's
-   likelihood temperature (check_tempered: K3 and T3's light and heavy
-   kernels replayed as above, the scans against their plain versions on
-   the inputs of a tempered step, G1 and G3 on all 14 families), each timed
-   flushed with the ladder beside a ones vector, in turns (the ``tempered``
-   key of its record); cascade_seed against the per-field copy, bitwise,
-   timed beside ``torch._foreach_copy_``.  Each kernel's
+   likelihood temperature and a 4-rung MC3 ladder as its prior temperature
+   (check_tempered: K3 and T3's light and heavy kernels replayed as above,
+   the scans against their plain versions on the inputs of a tempered
+   step, G1 and G3 on all 14 families), and with the MC3 ladder alone the
+   sites that take only the prior, K6 in both modes and the K4 and K5
+   epilogues' own decisions without a likelihood, each timed flushed with
+   the ladders beside ones vectors, in turns (the ``tempered`` key of its
+   record); cascade_seed against the per-field copy, bitwise, timed beside
+   ``torch._foreach_copy_``; M1 mc3_swap against its plain version
+   (check_mc3_swap: state, U, decisions and per-pair counts bitwise),
+   timed flushed beside one ``index_select`` a field.  Each kernel's
    device time and its plain version's are read from the profiler over
    back-to-back calls (K4's prologue and epilogue, K6 slide's and G3's
    kernel with the L2 flushed before each call, so that a call cannot read
@@ -142,7 +147,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    1024 chains: the step size adapted over three windows, then 10 + 1
    sweeps (s/sweep beside the same sweeps without the move, H1-H3
    launches a sweep, mean leapfrog steps a trajectory, the carry check,
-   the memory peak).  No path without --hamiltonian launches H1-H3.
+   the memory peak).  No path without --hamiltonian launches H1-H3;
+15. mc3 tutorial: simulate -> prepare full -> run --mc3 --profile (136
+   taxa x 256 groups x 4 temperatures) -> continue, then both with
+   --hamiltonian, through the CLI: the JAX package's log lines, the MC3
+   meta and mc3_dt, the cold-chain trace, one M1 launch a chunk of two
+   sweeps, every kernel of the main path, no plain twin;
+16. mc3 full width: run_mc3 at 1000 taxa x 256 groups x 4 temperatures
+   (burn-in windows, timed iterations, a continue), with and without the
+   NUTS move: the last swap's carried U against a fresh evaluation, every
+   pair's swap rate in (0, 1), dt moved in burn-in, s/sweep; and a sweep
+   with beta_prior None bitwise one with a ones vector.  No path without
+   --mc3 launches M1.
 
 Every phase after the kernels sets each wrapper's launch count to 0 just
 before it and reads it just after (T3's also by kernel: ``light`` and
@@ -214,8 +230,31 @@ HAM_WARM_SWEEPS = 20
 HAM_WINDOWS = 3
 HAM_EPS0 = 1e-3
 HAM_FULL_SWEEPS = 10
-# Back-to-back calls per kernel timing.
+# MC3: CHAINS chains as MC3_GROUPS groups of 4 temperatures.  The kernels
+# phase tempers the prior by a ladder of rung gaps MC3_DT (inside the
+# [0.01, 2] the run's tuning keeps them in).  The tutorial runs the CLI's
+# --profile schedule (60 burn-in iterations) and ITERATIONS, then continues
+# CONTINUE_ITERATIONS; the full width burns in MC3_WINDOWS windows of
+# MC3_WINDOW iterations (two sweeps and a swap a chunk), then samples
+# MC3_ITERATIONS and continues CONTINUE_ITERATIONS; with the NUTS move the
+# last MC3_HAM_WINDOWS of the windows are slow ones (the move adapts
+# there).  At 1000 taxa, this early in a run, the chains still climb and
+# the swaps sort each group's states by their log posterior, so the
+# coldest pair swaps rarely: 2e-4 to 1.1e-3 of its attempts on an H100
+# (PERF.md), 2,500 nats between slots 0 and 1 where tempering by 1% would
+# leave about 25 at equilibrium.  Windows of one chunk (2 iterations) take
+# the rungs to the 0.01 floor in 32 iterations, and the swap rates are
+# checked on the counts pooled over the phase's four runs.
+MC3_GROUPS = CHAINS // 4
+MC3_DT = (0.3, 0.6, 1.0)
+MC3_WINDOW = 2
+MC3_WINDOWS = 16
+MC3_ITERATIONS = 20
+MC3_HAM_WINDOWS = 2
+# Back-to-back calls per kernel timing; PLAIN_REPS for a plain version that
+# launches thousands of kernels a call.
 REPS = 20
+PLAIN_REPS = 3
 # Bytes read before each call of a kernel timed with the L2 flushed: several
 # times the H100's 50 MB L2.
 FLUSH_BYTES = 256 << 20
@@ -334,10 +373,15 @@ KERNELS = (
      "mcmcdate_tpu/engine/hmc.py:183"),
     ("nuts_merge", "mcmcdate_tpu_torch/kernels/csrc/nuts_step.cu",
      "mcmcdate_tpu/engine/hmc.py:246"),
+    ("mc3_swap", "mcmcdate_tpu_torch/kernels/csrc/mc3_swap.cu",
+     "mcmcdate_tpu/engine/mc3.py:37"),
 )
 BAND_NAMES = ("band_matmul", "band_matmul_t")
 NUTS_NAMES = ("nuts_leapfrog_prologue", "nuts_leapfrog_epilogue", "nuts_merge")
-# The kernels whose decisions take the likelihood temperature beta.
+# The kernels whose decisions take the likelihood temperature beta (all of
+# them, with K6 and the K4 and K5 epilogues' own decisions, take the prior
+# temperature beta_prior: check_tempered gives each record a ``tempered``
+# key).
 BETA_KERNELS = ("accept_select", "ticket_scan", "point_scan", "range_scan", "glob_scan",
                 "glob_dense_epilogue")
 # The path whose launches a kernel's record reports (the main path's but
@@ -345,7 +389,7 @@ BETA_KERNELS = ("accept_select", "ticket_scan", "point_scan", "range_scan", "glo
 RECORD_PATH = {**{k: "sparse_full_width" for k in ADMM_NAMES},
                **{k: "banded_full_width" for k in BAND_NAMES},
                **{k: "hamiltonian_full_width" for k in NUTS_NAMES},
-               "cascade_seed": "marginal_likelihood"}
+               "cascade_seed": "marginal_likelihood", "mc3_swap": "mc3_full_width"}
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s, and float32 and float64 operations/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
@@ -679,7 +723,7 @@ def _mh_copy(carry):
 
     return Carry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
                  carry.terms.clone(), cl(carry.d), cl(carry.y), carry.acc.clone(),
-                 carry.nbad.clone(), beta=carry.beta)
+                 carry.nbad.clone(), beta=carry.beta, beta_prior=carry.beta_prior)
 
 
 def _mh_same(name, worst, ck, cp, logu, la_p, accept):
@@ -969,7 +1013,7 @@ def _copy_carry(carry):
 
     return FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
                      carry.terms.clone(), carry.d.clone(), carry.z.clone(), carry.q.clone(),
-                     carry.acc.clone(), beta=carry.beta)
+                     carry.acc.clone(), beta=carry.beta, beta_prior=carry.beta_prior)
 
 
 def _step_recorded(names, step):
@@ -1272,7 +1316,10 @@ def check_point_step(n_taxa):
 
     ms = {"scan": _device_ms(lambda: point_scan(*sargs), only="point_scan_kernel"),
           "step": _device_ms(lambda: fs.point_lik_step(kind, c3, tuning, sx, draw, u))}
-    plain = {"scan": _device_ms(lambda: point_scan_plain(*sargs)), "step": _device_ms(plain_step)}
+    # The plain scan launches a few kernels a ticket (about 5,000 a call at
+    # 1000 taxa): PLAIN_REPS calls, not REPS, keep the profile short.
+    plain = {"scan": _device_ms(lambda: point_scan_plain(*sargs), reps=PLAIN_REPS),
+             "step": _device_ms(plain_step, reps=PLAIN_REPS)}
     C, B = accept.shape
     KD = sx["d_rows"].shape[1]
     F = B * KD
@@ -1316,6 +1363,15 @@ def check_prior_only_steps(n_taxa):
     gives their heights, rates and terms bitwise, d within SCAN_REL of its
     scale and the same accept counts; q stays as it was.  No records: the
     kernels' come from their likelihood checks."""
+    return _prior_only(n_taxa)
+
+
+def _prior_only(n_taxa, beta_prior=None):
+    """check_prior_only_steps, or with ``beta_prior`` (each chain's prior
+    temperature, which the epilogues' decisions take) the tempered check:
+    no launch count; the epilogue timed flushed with ones and with
+    ``beta_prior`` in turns on the first slide step and the largest range
+    block, ``{"point_lik_epilogue": ..., "range_lik_epilogue": ...}``."""
     import dataclasses
 
     import torch
@@ -1334,9 +1390,11 @@ def check_prior_only_steps(n_taxa):
              for k in (P.K_SCALE_BRANCH_RATE, P.K_SLIDE_NODE_ULTRA)]
     cases += [("range", k, k == P.K_SCALE_SUBTREE_RATE, steps[0])
               for (k, _), steps in fs.range_t.items() if k != P.K_SCALE_SUBTREES_CONTRA]
-    worst = {}
+    carry.beta_prior = beta_prior
+    worst, out, timed = {}, {}, {}
     for step, kind, flag, sx in cases:
-        name = f"{step} step kind {kind} without a likelihood at {n_taxa} taxa"
+        name = (f"{step} step kind {kind} without a likelihood at {n_taxa} taxa"
+                + ("" if beta_prior is None else ", tempered"))
         draw, u = _draws(fs, sx, tuning, gen, flag)
         ck, cr = _copy_carry(carry), _copy_carry(carry)
         run = fs.point_lik_step if step == "point" else fs.range_lik_step
@@ -1348,6 +1406,9 @@ def check_prior_only_steps(n_taxa):
         launched = {k: n for k, n in counts.items() if n}
         want = {f"{step}_lik_prologue": 1, f"{step}_lik_epilogue": 1}
         check(launched == want, f"{name}: launched {launched}, not {want}")
+        if step == "point" and kind == P.K_SLIDE_NODE_ULTRA or step == "range" and (
+                step not in timed or sx["rows"].shape[0] > timed[step][2]["rows"].shape[0]):
+            timed[step] = (kind, flag, sx, draw, u)
         if step == "point":
             pro = KP.point_lik_prologue(flag, cr.batch, cr.terms, cr.d, None, tuning, sx, leaf,
                                         fs.pos_t, model.clock, draw)
@@ -1360,7 +1421,8 @@ def check_prior_only_steps(n_taxa):
             pr = KR.range_lik_prologue_given(flag, cr.batch, cr.terms, cr.d, None, tuning, sx,
                                              leaf, model.clock, pro.prop)
             epilogue_plain = KR.range_lik_epilogue_plain
-        la = torch.nan_to_num(pr.d_pr + pr.lmhg, nan=-math.inf)
+        bp = 1.0 if beta_prior is None else beta_prior[:, None]
+        la = torch.nan_to_num(bp * pr.d_pr + pr.lmhg, nan=-math.inf)
         differ = ((torch.log(u) < la) & sx["valid"]) != accept
         gap = (torch.log(u) - la).abs()[differ]
         check(bool((gap < SCAN_TIE).all()), lambda: f"{name}: {int(differ.sum())} decisions "
@@ -1375,6 +1437,11 @@ def check_prior_only_steps(n_taxa):
         check(torch.equal(ck.q, carry.q), f"{name}: q changed")
         check(0 < int(accept.sum()) < int(sx["valid"].sum()) * accept.shape[0],
               f"{name}: not a mixed case")
+        if beta_prior is not None:
+            log(f"[tempered] {name}: {int(accept.sum())} accepts, {int(differ.sum())} tie "
+                f"decisions differ from the replay, heights, rates and terms bitwise equal to "
+                f"it; d within {worst['d']:.3g}")
+            continue
         # Three steps launch the prologue and epilogue kernels alone.
         names, n_launch = _kernel_names(lambda: run(kind, ck, tuning, sx, draw, u),
                                         wrappers=(f"{step}_lik_prologue", f"{step}_lik_epilogue"))
@@ -1384,7 +1451,23 @@ def check_prior_only_steps(n_taxa):
         log(f"[kernels] {name}: {int(accept.sum())} accepts, {int(differ.sum())} tie decisions "
             f"differ from the replay, heights, rates and terms bitwise equal to it; d within "
             f"{worst['d']:.3g}; three steps launched {n_launch} kernels")
-    return {}
+    if beta_prior is None:
+        return out
+    for step, (kind, flag, sx, draw, u) in timed.items():
+        K = KP if step == "point" else KR
+        h = _copy_carry(carry)
+        extra = (fs.pos_t,) if step == "point" else ()
+        pro = getattr(K, f"{step}_lik_prologue")(flag, h.batch, h.terms, h.d, None, tuning, sx,
+                                                 leaf, *extra, model.clock, draw)
+        epilogue = getattr(K, f"{step}_lik_epilogue")
+        ms = _in_turns(lambda: epilogue(flag, h.batch, h.terms, h.d, h.q, h.acc, sx, pro, None,
+                                        None, u, h.beta_prior),
+                       h, None, beta_prior, f"{step}_lik_epilogue_kernel")
+        out[f"{step}_lik_epilogue"] = dict(max_abs_err=worst["d"], ms=ms[1], ms_untempered=ms[0])
+        log(f"[tempered] {step}_lik_epilogue without a likelihood at {n_taxa} taxa, kind {kind}, "
+            f"{sx['rows'].shape[0]} tickets, flushed: {ms[1]:.4f} ms with the prior ladder, "
+            f"{ms[0]:.4f} untempered")
+    return out
 
 
 def _range_step_agree(name, fs, carry, tuning, kind, sx, draw, u):
@@ -1594,7 +1677,7 @@ def _contra_agree(name, mode, fs, carry, tuning, sx, u_prop, u_acc):
     distance invariance; and the kernel's terms against a fresh evaluation
     of its own new state.  Returns ``(worst differences, kernel output,
     run(fn))``, where ``run`` calls the kernel or its plain version on that
-    function's own copy."""
+    function's own copy.  The decisions take ``carry.beta_prior``."""
     import torch
 
     from mcmcdate_tpu_torch.engine.fast_sweep import FastCarry
@@ -1609,10 +1692,12 @@ def _contra_agree(name, mode, fs, carry, tuning, sx, u_prop, u_acc):
 
     def copy():
         return FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
-                         carry.terms.clone(), carry.d, carry.z, carry.q, carry.acc.clone())
+                         carry.terms.clone(), carry.d, carry.z, carry.q, carry.acc.clone(),
+                         beta_prior=carry.beta_prior)
 
     def run(fn, c):
-        return fn(c.batch, c.terms, c.acc, tuning, sx, leaf, model.clock, u_prop, u_acc)
+        return fn(c.batch, c.terms, c.acc, tuning, sx, leaf, model.clock, u_prop, u_acc,
+                  c.beta_prior)
 
     def lengths(st):
         """Branch distances (time x rate) and the size of the products they
@@ -1644,7 +1729,8 @@ def _contra_agree(name, mode, fs, carry, tuning, sx, u_prop, u_acc):
     # The kernel's proposals through the plain version, each decision taken
     # as the kernel took it (log 0 < any finite log alpha; log NaN < nothing).
     forced = torch.where(ok.accept, 0.0, math.nan)
-    orr = given(cr.batch, cr.terms, cr.acc, tuning, sx, leaf, model.clock, ok.h_prop, forced)
+    orr = given(cr.batch, cr.terms, cr.acc, tuning, sx, leaf, model.clock, ok.h_prop, forced,
+                carry.beta_prior)
     within("lq", torch.where(valid, ok.lq, 0.0), torch.where(valid, orr.lq, 0.0), SCAN_TIE)
     check(torch.equal(orr.accept, ok.accept),
           f"{name}: the kernel accepted a proposal whose log alpha the plain version makes -inf")
@@ -2156,27 +2242,41 @@ def _ladder(C):
                            device="cuda")
 
 
-def _in_turns(fn, carry, beta, only):
-    """Flushed device ms of ``fn()`` with ``carry.beta`` None (a ones
-    vector) and ``beta``, in turns (ones, beta, beta, ones): ``(ones,
-    beta)``, each the mean of its two timings."""
+def _mc3_ladder(C):
+    """A 4-rung MC3 ladder (rung gaps MC3_DT, inside the range the run's
+    tuning keeps them in) tiled over ``C`` chains, float32 on the card."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch.engine.mc3 import ladder_of
+
+    return torch.as_tensor(np.resize(ladder_of(MC3_DT), C), dtype=torch.float32, device="cuda")
+
+
+def _in_turns(fn, carry, beta, beta_prior, only):
+    """Flushed device ms of ``fn()`` with ``carry.beta`` and
+    ``carry.beta_prior`` None (ones vectors) and ``beta`` and
+    ``beta_prior``, in turns (ones, ladders, ladders, ones): ``(ones,
+    ladders)``, each the mean of its two timings."""
     ms = {"ones": 0.0, "beta": 0.0}
     for which in ("ones", "beta", "beta", "ones"):
         carry.beta = None if which == "ones" else beta
+        carry.beta_prior = None if which == "ones" else beta_prior
         ms[which] += _device_ms(fn, only=only, flush=True) / 2
     return ms["ones"], ms["beta"]
 
 
-def _scan_pair_agree(name, worst, out_k, out_p, d_pr, lmhg, u, beta):
+def _scan_pair_agree(name, worst, out_k, out_p, d_pr, lmhg, u, beta, beta_prior):
     """A scan kernel's ``(accept, dq)`` against its plain version's, both
-    tempered by ``beta``: per chain equal up to the first decision that
-    differs, which must be a tie of the tempered log alpha (SCAN_TIE); dq
-    within SCAN_REL of the chain's largest |dq| up to there.  Returns the
-    number of decisions that differ."""
+    tempered by ``beta`` and ``beta_prior``: per chain equal up to the first
+    decision that differs, which must be a tie of the tempered log alpha
+    (SCAN_TIE); dq within SCAN_REL of the chain's largest |dq| up to there.
+    Returns the number of decisions that differ."""
     import torch
 
     (ak, dk), (ap, dp) = out_k, out_p
-    la = torch.nan_to_num(d_pr - 0.5 * (beta[:, None] * dp) + lmhg, nan=-math.inf)
+    la = torch.nan_to_num(beta_prior[:, None] * d_pr - 0.5 * (beta[:, None] * dp) + lmhg,
+                          nan=-math.inf)
     differ = ak != ap
     first = torch.where(differ.any(1), differ.int().argmax(1), ak.shape[1])
     upto = torch.arange(ak.shape[1], device=ak.device)[None, :] <= first[:, None]
@@ -2193,23 +2293,30 @@ def _scan_pair_agree(name, worst, out_k, out_p, d_pr, lmhg, u, beta):
 
 
 def check_tempered(n_taxa):
-    """The six decision kernels with the 128-point ladder tiled over the
-    chains (``_ladder``), each against its plain version, both tempered:
-    K3 (after T1 and K2) on one ticket of every kind and likelihood class
-    and T3's light and heavy kernels on a 256-ticket run (replayed, as
-    check_ticket), K4 ``point_scan`` on the first step of both point kinds
-    and K5 ``range_scan`` on the first block of every likelihood bucket
-    (the scans' inputs recorded from the tempered step), G1 and G3 on all
-    14 glob families (replayed, as check_glob).  Each is timed flushed
-    with a ones vector and with the ladder, in turns: the pulley's K3, T3's
-    run, K4's slide step, K5's largest block, G1 on bd_scale and G3 on
-    sub_ultra's first ticket.  Returns per kernel ``(max_abs_err, ms
-    tempered, ms untempered)`` as a dict."""
+    """The ten decision sites with both temperatures of each chain: the
+    128-point ladder tiled over the chains as the likelihood's (``_ladder``)
+    and a 4-rung MC3 ladder as the prior's (``_mc3_ladder``), each kernel
+    against its plain version, both tempered: K3 (after T1 and K2) on one
+    ticket of every kind and likelihood class and T3's light and heavy
+    kernels on a 256-ticket run (replayed, as check_ticket), K4
+    ``point_scan`` on the first step of both point kinds and K5
+    ``range_scan`` on the first block of every likelihood bucket (the scans'
+    inputs recorded from the tempered step), G1 and G3 on all 14 glob
+    families (replayed, as check_glob), K6 in both modes (replayed, as
+    check_contra_slide; the prior ladder alone: no likelihood) and,
+    without a likelihood, the K4 and K5 epilogues' own decisions (replayed,
+    as check_prior_only_steps).  Each is timed flushed with ones vectors
+    and with the ladders, in turns: the pulley's K3, T3's run, K4's slide
+    step, K5's largest block, G1 on bd_scale, G3 on sub_ultra's first
+    ticket, K6 on its first slide step and each range bucket's first block,
+    the epilogues on the first slide step and the largest range block.
+    Returns per record ``(max_abs_err, ms tempered, ms untempered)`` as a
+    dict."""
     import numpy as np
     import torch
 
     from mcmcdate_tpu_torch.engine import mh as M, proposals as P
-    from mcmcdate_tpu_torch.kernels import glob_step as G, ticket_step as TS
+    from mcmcdate_tpu_torch.kernels import contra_step as K6, glob_step as G, ticket_step as TS
     from mcmcdate_tpu_torch.kernels.accept_select import accept_select
     from mcmcdate_tpu_torch.kernels.point_scan import point_scan, point_scan_plain
     from mcmcdate_tpu_torch.kernels.range_scan import range_scan, range_scan_plain
@@ -2217,13 +2324,13 @@ def check_tempered(n_taxa):
     from mcmcdate_tpu_torch.ops.dists import standard_gamma
 
     out = {}
-    beta = _ladder(CHAINS)
+    beta, bprior = _ladder(CHAINS), _mc3_ladder(CHAINS)
     # K3 and T3.
     fs, fcarry, tuning, gen = _glob_fast(n_taxa)
     tk = M.MHKernel(fs.model, fs.table)
     tt = tk.tt
     carry = tk.init_carry(fcarry.batch)
-    carry.beta = beta
+    carry.beta, carry.beta_prior = beta, bprior
     C = CHAINS
 
     def draw_of(p):
@@ -2246,10 +2353,10 @@ def check_tempered(n_taxa):
     pro = ticket_prologue(tt, c3, tuning, dr, 0)
     dy, d_lik = tk._k2(c3, p, pro)
     ms = _in_turns(lambda: accept_select(tt, c3, tuning, dr, 0, pro, dy, d_lik), c3, beta,
-                   "accept_select_kernel")
+                   bprior, "accept_select_kernel")
     out["accept_select"] = dict(max_abs_err=worst.get("y", 0.0), ms=ms[1], ms_untempered=ms[0])
     log(f"[tempered] accept_select at {n_taxa} taxa: {len(set(rows.values()))} rows, {n_acc} "
-        f"accepts, {ties} tie decisions; the pulley flushed {ms[1]:.4f} ms with the ladder, "
+        f"accepts, {ties} tie decisions; the pulley flushed {ms[1]:.4f} ms with the ladders, "
         f"{ms[0]:.4f} ms untempered")
     tickets = np.asarray(tt.table.tickets)
     ok = np.asarray([not tt.breaks(int(q)) for q in tickets])
@@ -2268,18 +2375,18 @@ def check_tempered(n_taxa):
             check(0 < n_acc < n_all, f"tempered ticket_scan accepted {n_acc} of {n_all}")
             c5 = _mh_copy(carry)
             t3[kind] = _in_turns(lambda: ticket_scan(tt, c5, tuning, sdr, 0, len(order)), c5,
-                                 beta, T3_KERNELS)
+                                 beta, bprior, T3_KERNELS)
     finally:
         TS.HEAVY = saved
     out["ticket_scan"] = dict(max_abs_err=max(w3.get("prop", 0.0), w3.get("y", 0.0)),
                               ms=t3["light"][1], ms_untempered=t3["light"][0],
                               heavy_ms=t3["heavy"][1], heavy_ms_untempered=t3["heavy"][0])
     log(f"[tempered] ticket_scan at {n_taxa} taxa: a 256-ticket run flushed, light "
-        f"{t3['light'][1]:.4f} ms with the ladder, {t3['light'][0]:.4f} untempered; heavy "
+        f"{t3['light'][1]:.4f} ms with the ladders, {t3['light'][0]:.4f} untempered; heavy "
         f"{t3['heavy'][1]:.4f} and {t3['heavy'][0]:.4f}")
     # G1 and G3.
     fcarry = _copy_carry(fcarry)
-    fcarry.beta = beta
+    fcarry.beta, fcarry.beta_prior = beta, bprior
 
     def mu_z(c):
         return (fs.glob.mu.abs() * c.z.abs()).sum(1)
@@ -2312,7 +2419,7 @@ def check_tempered(n_taxa):
     fam = fs.glob_fam["bd_scale"]
     tun, draws, u = _glob_draws(fam, tuning, gen)
     c6 = _copy_carry(fcarry)
-    ms = _in_turns(lambda: G.glob_scan(fs.glob, fam, c6, tun, draws, u), c6, beta,
+    ms = _in_turns(lambda: G.glob_scan(fs.glob, fam, c6, tun, draws, u), c6, beta, bprior,
                    "glob_scan_kernel")
     out["glob_scan"] = dict(max_abs_err=max(wg["glob_scan"].values()), ms=ms[1],
                             ms_untempered=ms[0])
@@ -2322,16 +2429,16 @@ def check_tempered(n_taxa):
     gpro = G.glob_dense_prologue(fs.glob, fam, 0, c7, tun, draws)
     wprod = fs.glob_product(fam, 0, gpro)
     ms3 = _in_turns(lambda: G.glob_dense_epilogue(fs.glob, fam, 0, c7, gpro, wprod, u), c7,
-                    beta, "glob_dense_epilogue_kernel")
+                    beta, bprior, "glob_dense_epilogue_kernel")
     out["glob_dense_epilogue"] = dict(max_abs_err=max(wg["glob_dense_epilogue"].values()),
                                       ms=ms3[1], ms_untempered=ms3[0])
     log(f"[tempered] glob_scan on bd_scale at {n_taxa} taxa flushed: {ms[1]:.4f} ms with the "
-        f"ladder, {ms[0]:.4f} untempered; glob_dense_epilogue on sub_ultra's first ticket "
+        f"ladders, {ms[0]:.4f} untempered; glob_dense_epilogue on sub_ultra's first ticket "
         f"{ms3[1]:.4f} and {ms3[0]:.4f}")
     # K4 and K5: the scans' inputs from the tempered steps.
-    fs, carry, tuning, gen = _fast(n_taxa)
-    carry = _copy_carry(carry)
-    carry.beta = beta
+    fs, carry0, tuning, gen = _fast(n_taxa)
+    carry = _copy_carry(carry0)
+    carry.beta, carry.beta_prior = beta, bprior
     for step, names, kinds in (
             ("point", K4_NAMES, [(k, fs.spec_t[k][0]) for k in (P.K_SCALE_BRANCH_RATE,
                                                                 P.K_SLIDE_NODE_ULTRA)]),
@@ -2348,21 +2455,44 @@ def check_tempered(n_taxa):
             call = (fs.point_lik_step if step == "point" else fs.range_lik_step)
             rec, _ = _step_recorded(names, lambda: call(kind, ck, tuning, sx, draw, u))
             args = rec[f"{step}_scan_args"]
-            check(args[-1] is beta, f"the {step} step did not hand its scan the carry's beta")
+            check(args[-2] is beta and args[-1] is bprior,
+                  f"the {step} step did not hand its scan the carry's temperatures")
             ties += _scan_pair_agree(f"tempered {step}_scan kind {kind} at {n_taxa} taxa", worst,
-                                     rec[f"{step}_scan"], plain(*args), args[-4], args[-3],
-                                     args[-2], beta)
+                                     rec[f"{step}_scan"], plain(*args), args[-5], args[-4],
+                                     args[-3], beta, bprior)
             if step == "point" and kind == P.K_SLIDE_NODE_ULTRA or step == "range" and (
                     timed is None or sx["rows"].shape[0] > timed[0]["rows"].shape[0]):
                 timed = sx, args
-        holder = _copy_carry(carry)  # carries the beta that _in_turns switches
+        holder = _copy_carry(carry)  # carries the temperatures that _in_turns switches
         sx, args = timed
-        ms = _in_turns(lambda: scan(*args[:-1], holder.beta), holder, beta,
-                       f"{step}_scan_kernel")
+        ms = _in_turns(lambda: scan(*args[:-2], holder.beta, holder.beta_prior), holder, beta,
+                       bprior, f"{step}_scan_kernel")
         out[f"{step}_scan"] = dict(max_abs_err=worst["dq"], ms=ms[1], ms_untempered=ms[0])
         log(f"[tempered] {step}_scan at {n_taxa} taxa: {len(kinds)} steps, {ties} tie decisions; "
-            f"flushed on {sx['rows'].shape[0]} tickets {ms[1]:.4f} ms with the ladder, "
+            f"flushed on {sx['rows'].shape[0]} tickets {ms[1]:.4f} ms with the ladders, "
             f"{ms[0]:.4f} untempered")
+    # K6: the prior ladder alone (the contrary moves leave the likelihood).
+    model = fs.model
+    leaf = model.topo.is_leaf_t
+    for mode in ("slide", "range"):
+        kernel = getattr(K6, f"contra_{mode}")
+        for label, rb, sx in _contra_steps(fs, mode):
+            u_prop, u_acc = _draws(fs, sx, tuning, gen, False)
+            c8 = _copy_carry(carry0)
+            c8.beta_prior = bprior
+            w, _, _ = _contra_agree(f"tempered contra_{mode} {label} at {n_taxa} taxa", mode,
+                                    fs, c8, tuning, sx, u_prop, u_acc)
+            holder = _copy_carry(carry0)
+            ms = _in_turns(lambda: kernel(holder.batch, holder.terms, holder.acc, tuning, sx,
+                                          leaf, model.clock, u_prop, u_acc, holder.beta_prior),
+                           holder, None, bprior, f"contra_{mode}_kernel")
+            key = "contra_slide" if mode == "slide" else f"contra_range_{rb}"
+            out[key] = dict(max_abs_err=max(w["h_prop"], w["heights"]), ms=ms[1],
+                            ms_untempered=ms[0])
+            log(f"[tempered] contra_{mode} {label} at {n_taxa} taxa flushed: {ms[1]:.4f} ms "
+                f"with the prior ladder, {ms[0]:.4f} untempered")
+    # The K4 and K5 epilogues' own decisions, without a likelihood.
+    out.update(_prior_only(n_taxa, bprior))
     return out
 
 
@@ -2399,6 +2529,68 @@ def check_cascade_seed(n_taxa):
     lib_ms = _device_ms(lambda: torch._foreach_copy_(dst, src))
     row_bytes = sum(getattr(ck, f)[0].numel() * 4 for f in FIELDS)
     return {"cascade_seed": _record(0.0, ms, plain_ms, 2 * row_bytes, 0, library_ms=lib_ms)}
+
+
+def check_mc3_swap(n_taxa):
+    """M1 mc3_swap on the kernels' batch (CHAINS chains: MC3_GROUPS groups
+    of 4 temperatures) against its plain version on the same U and draws,
+    bitwise (state, U, decisions, per-pair counts), with U the chains'
+    direct float32 log posteriors (their spread leaves most swaps
+    rejected) and with U drawn N(0, 4^2) (a mixed case, which must have
+    both); the mixed case's move timed flushed beside the plain version and
+    the library route (one ``index_select`` a field).  Bound: the moved
+    groups' rows of every field read and written, U read and written, the
+    draws and the ladder read, the decisions and counts written."""
+    import torch
+
+    from mcmcdate_tpu_torch.engine.mc3 import N_SWAPS, N_TEMPS, swap_draws, temperature_ladder
+    from mcmcdate_tpu_torch.kernels.mc3_swap import mc3_swap, mc3_swap_plain
+    from mcmcdate_tpu_torch.models.state import FIELDS, State
+    from mcmcdate_tpu_torch.tools.profile_sweep import direct_log_posterior
+
+    fs, carry, _, gen = _fast(n_taxa)
+    batch = carry.batch
+    G = MC3_GROUPS
+    betas = torch.as_tensor(temperature_ladder(), dtype=torch.float32, device="cuda")
+    cases = (("posterior", direct_log_posterior(fs.model, batch, torch.float32)),
+             ("mixed", 4 * torch.randn(CHAINS, generator=gen, device="cuda")))
+    for case, U in cases:
+        pair, u = swap_draws(gen, G)
+        ck, cp = (State(**{f: getattr(batch, f).clone() for f in FIELDS}) for _ in range(2))
+        Uk, Up = U.clone(), U.clone()
+        ak, pak, ptk = mc3_swap(ck, Uk, pair, u, betas)
+        ap, pap, ptp = mc3_swap_plain(cp, Up, pair, u, betas)
+        _sync()
+        name = f"mc3_swap ({case} U) at {n_taxa} taxa"
+        check(torch.equal(ak, ap) and torch.equal(Uk, Up), f"{name}: decisions or U differ")
+        check(torch.equal(pak, pap) and torch.equal(ptk, ptp), f"{name}: pair counts differ")
+        for f in FIELDS:
+            check(torch.equal(getattr(ck, f), getattr(cp, f)),
+                  f"{name}: {f} differs from the plain version's")
+        moved = torch.zeros(G, dtype=torch.bool, device="cuda")
+        for f in FIELDS:
+            x0, x1 = getattr(batch, f), getattr(cp, f)
+            moved |= (x0 != x1).reshape(G, -1).any(1)
+        n_moved = int(moved.sum())
+        log(f"[kernels] {name}: {int(ak.sum())} of {ak.numel()} swaps accepted, "
+            f"{n_moved} of {G} groups moved; per pair {pak.tolist()} of {ptk.tolist()}; state, "
+            f"U, decisions and counts bitwise the plain version's")
+    check(0 < int(ak.sum()) < ak.numel(), f"mc3_swap at {n_taxa} taxa: not a mixed case")
+    ms = _device_ms(lambda: mc3_swap(ck, Uk, pair, u, betas), only="mc3_swap_kernel",
+                    flush=True)
+    plain_ms = _device_ms(lambda: mc3_swap_plain(cp, Up, pair, u, betas))
+    perm = torch.randperm(CHAINS, generator=gen, device="cuda")
+    lib_ms = _device_ms(lambda: [getattr(cp, f).index_select(0, perm) for f in FIELDS],
+                        only="ndex", flush=True)
+    row_bytes = sum(getattr(ck, f)[0].numel() * 4 for f in FIELDS)
+    nbytes = (2 * n_moved * N_TEMPS * row_bytes + 2 * 4 * CHAINS + 8 * N_SWAPS * G + 4 * N_TEMPS
+              + N_SWAPS * G + 8 * (N_TEMPS - 1))
+    rec = _record(0.0, ms, plain_ms, nbytes, 6 * N_SWAPS * G, library_ms=lib_ms)
+    log(f"[kernels] mc3_swap at {n_taxa} taxa: {n_moved} groups moved; flushed {ms:.4f} ms, "
+        f"plain {plain_ms:.4f}, index_select of every field {lib_ms:.4f}, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; every group moved: "
+        f"{_bound(2 * CHAINS * row_bytes, 0)[0]:.4f} ms)")
+    return {"mc3_swap": rec}
 
 
 _BANDED = {}
@@ -2735,7 +2927,7 @@ def check_nuts(n_taxa):
 # Each check returns its kernels' records by kernel name.
 CHECKS = (check_prior_terms, check_whiten, check_ticket, check_point_step,
           check_range_step, check_prior_only_steps, check_contra_slide, check_contra_range,
-          check_glob, check_cascade_seed)
+          check_glob, check_cascade_seed, check_mc3_swap)
 
 
 def phase_kernels():
@@ -2830,6 +3022,7 @@ def _wrappers():
     from mcmcdate_tpu_torch.kernels.cascade_seed import cascade_seed
     from mcmcdate_tpu_torch.kernels.contra_step import contra_range, contra_slide
     from mcmcdate_tpu_torch.kernels.glasso_admm import admm_eig_scale, admm_shift, admm_update
+    from mcmcdate_tpu_torch.kernels.mc3_swap import mc3_swap
     from mcmcdate_tpu_torch.kernels.nuts_step import nuts_leapfrog_epilogue, \
         nuts_leapfrog_prologue, nuts_merge
     from mcmcdate_tpu_torch.kernels.glob_step import (
@@ -2856,7 +3049,8 @@ def _wrappers():
             "admm_eig_scale": admm_eig_scale, "admm_update": admm_update,
             "cascade_seed": cascade_seed, "band_matmul": band_matmul,
             "band_matmul_t": band_matmul_t, "nuts_leapfrog_prologue": nuts_leapfrog_prologue,
-            "nuts_leapfrog_epilogue": nuts_leapfrog_epilogue, "nuts_merge": nuts_merge}
+            "nuts_leapfrog_epilogue": nuts_leapfrog_epilogue, "nuts_merge": nuts_merge,
+            "mc3_swap": mc3_swap}
 
 
 # The plain twins a wrapper takes for CPU tensors, by module: on the card a
@@ -2872,6 +3066,7 @@ PLAIN_TWINS = (
     ("band_matmul", ("band_matmul_plain", "band_matmul_t_plain")),
     ("nuts_step", ("nuts_leapfrog_prologue_plain", "nuts_leapfrog_epilogue_plain",
                    "nuts_merge_plain")),
+    ("mc3_swap", ("mc3_swap_plain",)),
 )
 
 
@@ -2965,11 +3160,11 @@ def _counted(run, inside=(), within=None):
 def _check_all_launched(name, launches, banded=False):
     """Every kernel of a CLI run at 136 taxa was launched: all but
     contra_range's buckets one by one, T3's heavy kernel (at 136 taxa no
-    ticket's work passes HEAVY; the univariate 10k phase runs it) and A1-A3
-    (the 1000-taxon sparse prepare's); K2 ``whiten`` under a dense
+    ticket's work passes HEAVY; the univariate 10k phase runs it), A1-A3
+    (the 1000-taxon sparse prepare's) and M1 (the MC3 paths'); K2 ``whiten`` under a dense
     precision, B1 and B2 under the banded kind (and not K2)."""
     skip = ("plain_proposals", "plain_twins", "ticket_scan_heavy", "cascade_seed", *ADMM_NAMES,
-            *NUTS_NAMES, "nuts_product", *(("whiten",) if banded else BAND_NAMES))
+            *NUTS_NAMES, "nuts_product", "mc3_swap", *(("whiten",) if banded else BAND_NAMES))
     for k, n in launches.items():
         if k not in skip:
             check(n > 0 or k.startswith("contra_range_"), f"the {name} never launched {k}")
@@ -4138,6 +4333,249 @@ def phase_hamiltonian_full_width():
         f"memory peak {peak / 1e9:.2f} GB")
     return launches
 
+def _mc3_checked(name, run_dir, an, runner, launches, sweeps, hamiltonian):
+    """The outputs and launches of an MC3 run or continue of ``sweeps``
+    sweeps through the CLI: the JAX package's log lines, the MC3 meta with
+    the ladder's ``mc3_dt``, a finite cold-chain trace of MC3_GROUPS
+    columns, the diagnostics file, one M1 launch a chunk of two sweeps,
+    every kernel of the main path, and no plain twin or plain proposal;
+    the NUTS kernels launched exactly when ``hamiltonian``.  Returns the
+    log's swap line."""
+    import numpy as np
+
+    from mcmcdate_tpu_torch.engine import checkpoint as ckpt
+    from mcmcdate_tpu_torch.engine.mc3 import N_TEMPS, SWAP_PERIOD
+
+    mode = "continue" if "continue" in name else "run"
+    with open(os.path.join(run_dir, f"{an}.{mode}.log")) as fh:
+        lines = fh.read().splitlines()
+    _nuts_line(lines, f"MC3: {MC3_GROUPS} groups x {N_TEMPS} temperatures")
+    swaps = _nuts_line(lines, "sampling done; swap acceptance rate")
+    check("(per temperature pair: 0<->1: " in swaps, f"{name}: {swaps}")
+    if mode == "run":
+        windows = [x for x in lines if x.startswith("burn-in [")]
+        check(windows and all(", dt [" in x for x in windows), f"{name}: burn-in lines {windows}")
+    with open(os.path.join(run_dir, f"{an}.mcmc.json")) as fh:
+        meta = json.load(fh)
+    check(meta.get("mc3") is True and meta.get("n_groups") == MC3_GROUPS
+          and meta.get("n_temps") == N_TEMPS and bool(meta.get("hamiltonian")) == hamiltonian,
+          f"{name}: meta {meta}")
+    dt = ckpt.load_arrays(an, ("mc3_dt",), in_dir=run_dir)["mc3_dt"]
+    check(dt.shape == (N_TEMPS - 1,) and np.array_equal(dt, runner.mc3["dt"]),
+          f"{name}: mc3_dt {dt} is not the run's {runner.mc3['dt']}")
+    with np.load(os.path.join(run_dir, f"{an}.trace.npz")) as z:
+        lp_post = z["lp_post"]
+    check(lp_post.shape[1] == MC3_GROUPS and bool(np.isfinite(lp_post).all()),
+          f"{name}: cold-chain trace of shape {lp_post.shape} (finite: "
+          f"{bool(np.isfinite(lp_post).all())})")
+    check(os.path.exists(os.path.join(run_dir, f"{an}.diagnostics.tsv")),
+          f"{name}: no diagnostics file")
+    check(launches["mc3_swap"] == sweeps // SWAP_PERIOD,
+          f"{name}: {launches['mc3_swap']} M1 launches in {sweeps} sweeps")
+    _check_all_launched(name, launches)
+    check(launches["plain_twins"] == 0 and launches["plain_proposals"] == 0,
+          f"{name}: ran {launches['plain_twins']} plain twins and "
+          f"{launches['plain_proposals']} plain proposals")
+    if hamiltonian:
+        _check_nuts_launched(name, launches)
+    else:
+        check(all(launches[k] == 0 for k in (*NUTS_NAMES, "nuts_product")),
+              f"{name}: launched a NUTS kernel without --hamiltonian")
+    return swaps
+
+
+def phase_mc3_tutorial():
+    """``--mc3`` through the CLI at MAIN_TAXA x CHAINS (MC3_GROUPS groups of 4
+    temperatures): simulate -> prepare full -> run --mc3 --profile
+    --iterations ITERATIONS -> continue --iterations CONTINUE_ITERATIONS (as
+    MC3, from the saved ladder), then the same run and continue with
+    --hamiltonian (NUTS resumed with its saved step size); each checked by
+    ``_mc3_checked``."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch import cli
+    from mcmcdate_tpu_torch.engine.mc3 import DELTA_T
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        cli.main(["simulate", "--leaves", str(MAIN_TAXA), "--trees", str(TREES), "--out", data])
+        cli.main(["prepare", "-a", "mc3", "--rooted-tree", os.path.join(data, "time.tree"),
+                  "--trees", os.path.join(data, "trees.nwk"), "--likelihood-spec", "full",
+                  "--out-dir", tmp])
+        for ham in (False, True):
+            an = "mc3h" if ham else "mc3"
+            flag = ["--hamiltonian"] if ham else []
+            t0 = time.perf_counter()
+            launches, runner = _counted(lambda: cli.main(
+                ["run", "-a", an, "--preparation-name", "mc3", "--chains", str(MC3_GROUPS),
+                 "--mc3", "--profile", "--seed", "1", "--device", "cuda", "--iterations",
+                 str(ITERATIONS), "--out-dir", tmp, *flag]))
+            run_s = time.perf_counter() - t0
+            name = f"mc3 tutorial{' --hamiltonian' if ham else ''}"
+            check(runner.s.n_chains == CHAINS and (runner.nuts is not None) == ham,
+                  f"{name}: {runner.s.n_chains} chains, NUTS {runner.nuts is not None}")
+            sweeps = 60 + ITERATIONS
+            swaps = _mc3_checked(name + " run", tmp, an, runner, launches, sweeps, ham)
+            dt0 = runner.mc3["dt"]
+            check(not np.allclose(runner.mc3["dt_history"][0], DELTA_T),
+                  f"{name}: dt did not move in burn-in: {runner.mc3['dt_history']}")
+            if ham:
+                eps = runner.nuts.eps
+                check(math.isfinite(eps) and eps > 0, f"{name}: adapted eps {eps}")
+            log(f"[mc3 tutorial] run --mc3{' --hamiltonian' if ham else ''} --profile, "
+                f"{MAIN_TAXA} taxa x {MC3_GROUPS} groups x 4 temperatures, {sweeps} sweeps in "
+                f"{run_s:.1f} s, median {statistics.median(runner.sweep_seconds):.4f} s per sweep "
+                f"(a chunk of 2 and its swap) on {torch.cuda.get_device_name(0)}; dt "
+                f"{[round(float(x), 4) for x in dt0]}; {swaps}"
+                + (f"; NUTS eps {runner.nuts.eps:.5f}" if ham else ""))
+            out[f"run{int(ham)}"] = launches
+            t0 = time.perf_counter()
+            c_launches, runner2 = _counted(lambda: cli.main(
+                ["continue", "-a", an, "--preparation-name", "mc3", "--profile", "--seed", "2",
+                 "--device", "cuda", "--iterations", str(CONTINUE_ITERATIONS), "--out-dir",
+                 tmp]))
+            cont_s = time.perf_counter() - t0
+            swaps = _mc3_checked(name + " continue", tmp, an, runner2, c_launches,
+                                 CONTINUE_ITERATIONS, ham)
+            check(runner2.mc3["dt"].tolist() == dt0.tolist(),
+                  f"{name}: continue changed the ladder")
+            if ham:
+                check(runner2.nuts.eps == eps, f"{name}: continue did not resume the saved eps")
+            with open(os.path.join(tmp, f"{an}.mcmc.json")) as fh:
+                it = json.load(fh)["iteration"]
+            check(it == ITERATIONS + CONTINUE_ITERATIONS, f"{name}: continued to iteration {it}")
+            with np.load(os.path.join(tmp, f"{an}.trace.npz")) as z:
+                n_draws = z["lp_post"].shape[0]
+            check(n_draws == ITERATIONS + CONTINUE_ITERATIONS,
+                  f"{name}: continued trace of {n_draws} draws")
+            log(f"[mc3 tutorial] continue --iterations {CONTINUE_ITERATIONS} in {cont_s:.1f} s "
+                f"as MC3 from the saved ladder; {swaps}")
+            out[f"continue{int(ham)}"] = c_launches
+    return {k: sum(p[k] for p in out.values()) for k in out["run0"]}
+
+
+def phase_mc3_full_width():
+    """MC3 at its full width: ``run_mc3`` on the synthetic model of
+    BENCH_TAXA taxa x CHAINS chains (MC3_GROUPS groups x 4 temperatures; D
+    = 1,997): MC3_WINDOWS burn-in windows of MC3_WINDOW iterations, then
+    MC3_ITERATIONS timed iterations and a continue of CONTINUE_ITERATIONS
+    from the checkpoint; then the same with the NUTS move (the last
+    MC3_HAM_WINDOWS windows slow).  Checks: the
+    carried U the last swap read against a fresh evaluation of the state it
+    read it from (_check_lp's limits), every pair's swap rate in (0, 1) on
+    the counts pooled over the four runs, dt moved in burn-in, one M1
+    launch a chunk; and one sweep of the
+    untempered FastSweeps with beta_prior None and with a ones vector,
+    bitwise equal.  Logs s/sweep (two sweeps and a swap a chunk, host
+    clock) beside the plain sweep's."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch import synthetic
+    from mcmcdate_tpu_torch.engine import checkpoint as ckpt, mc3 as M
+    from mcmcdate_tpu_torch.engine.chains import RunSettings
+    from mcmcdate_tpu_torch.engine.mh import BurnInSettings
+    from mcmcdate_tpu_torch.models.state import FIELDS, State
+
+    model, init = synthetic.build(BENCH_TAXA, 1, device="cuda")
+    seen = []
+    real = M.mc3_swap
+
+    def spy(batch, U, pair, u, betas):
+        seen[:] = [State(**{f: getattr(batch, f).clone() for f in FIELDS}), U.clone()]
+        return real(batch, U, pair, u, betas)
+
+    M.mc3_swap = spy
+    out, counts = {}, []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for ham in (False, True):
+                n_slow = MC3_HAM_WINDOWS if ham else 0
+                burn = BurnInSettings([MC3_WINDOW] * (MC3_WINDOWS - n_slow),
+                                      [MC3_WINDOW] * n_slow)
+                an = "mc3fullh" if ham else "mc3full"
+                settings = RunSettings(an, burn_in=burn, iterations=MC3_ITERATIONS,
+                                       n_chains=MC3_GROUPS, out_dir=tmp, seed=1, device="cuda")
+                name = f"mc3 full width{' with NUTS' if ham else ''}"
+                t0 = time.perf_counter()
+                launches, runner = _counted(lambda: M.run_mc3(model, init, settings,
+                                                              hamiltonian=ham,
+                                                              log=lambda *a: None))
+                wall = time.perf_counter() - t0
+                n_sweeps = burn.total + MC3_ITERATIONS
+                check(launches["mc3_swap"] == n_sweeps // M.SWAP_PERIOD,
+                      f"{name}: {launches['mc3_swap']} M1 launches in {n_sweeps} sweeps")
+                check(launches["plain_twins"] == 0 and launches["plain_proposals"] == 0,
+                      f"{name}: a plain twin or proposal ran")
+                check((launches["nuts_leapfrog_prologue"] > 0) == ham,
+                      f"{name}: {launches['nuts_leapfrog_prologue']} H1 launches")
+                b, U = seen
+                err, err64 = _check_lp(f"{name} (the last swap's U)", model, b, U)
+                Ug = U.double().view(MC3_GROUPS, -1)
+                slots = (Ug - Ug[:, :1]).mean(0).tolist(), Ug.std(0).tolist()
+                rates = runner.mc3["pair_rates"]
+                counts.append(runner.mc3["pair_counts"])
+                hist = runner.mc3["dt_history"]
+                check(hist and not np.allclose(hist[0], M.DELTA_T),
+                      f"{name}: dt did not move in burn-in: {hist}")
+                sample_s = runner.sweep_seconds[-(MC3_ITERATIONS // M.SWAP_PERIOD):]
+                med = statistics.median(sample_s)
+                log(f"[{name}] {BENCH_TAXA} taxa x {MC3_GROUPS} groups x 4 temperatures "
+                    f"(D = {model.likelihood.dim}), {n_sweeps} sweeps in {wall:.1f} s; "
+                    f"sampling median {med:.4f} s per sweep (a chunk of 2 sweeps and its swap, "
+                    f"host clock) on {torch.cuda.get_device_name(0)}; dt after each window "
+                    f"{[[round(float(x), 4) for x in h] for h in hist]}; swap rates per pair "
+                    f"{[round(float(x), 4) for x in rates]}, sampling "
+                    f"{[round(float(x), 4) for x in runner.mc3['sampling_pair_rates']]}; the "
+                    f"last swap's carried U within {err:.3g} of the direct float32 log "
+                    f"posterior (float32 vs float64: {err64:.3g}); at that swap each slot's "
+                    f"U less slot 0's, mean over the groups "
+                    f"{[round(x, 1) for x in slots[0]]}, spread {[round(x, 1) for x in slots[1]]}"
+                    + (f"; NUTS eps {runner.nuts.eps:.5f}" if ham else ""))
+                out[f"run{int(ham)}"] = launches
+                state, tuning, key, meta = ckpt.load(an, in_dir=tmp, device="cuda")
+                t0 = time.perf_counter()
+                c_launches, runner2 = _counted(lambda: M.run_mc3(
+                    model, init, dataclasses.replace(settings, iterations=CONTINUE_ITERATIONS),
+                    hamiltonian=ham, continue_from=(state, tuning, key, meta["iteration"]),
+                    log=lambda *a: None))
+                check(c_launches["mc3_swap"] == CONTINUE_ITERATIONS // M.SWAP_PERIOD
+                      and runner2.mc3["dt"].tolist() == runner.mc3["dt"].tolist(),
+                      f"{name}: continue launched {c_launches['mc3_swap']} M1 or moved dt")
+                counts.append(runner2.mc3["pair_counts"])
+                log(f"[{name}] continue of {CONTINUE_ITERATIONS} iterations from the "
+                    f"checkpoint in {time.perf_counter() - t0:.1f} s; swap rates per pair "
+                    f"{[round(float(x), 4) for x in runner2.mc3['pair_rates']]}")
+                out[f"continue{int(ham)}"] = c_launches
+            acc = sum(c[0] for c in counts)
+            tot = sum(c[1] for c in counts)
+            check(bool(((acc > 0) & (acc < tot)).all()),
+                  f"mc3 full width: pooled swaps per pair {acc.tolist()} of {tot.tolist()}")
+            log(f"[mc3 full width] swaps per pair pooled over the four runs: {acc.tolist()} of "
+                f"{tot.tolist()}")
+            # beta_prior None is a ones vector, bitwise.
+            fs = runner.kern
+            digests = []
+            for bp in (None, torch.ones(CHAINS, device="cuda")):
+                b2 = fs.sweeps(state, tuning, 11, 1, beta_prior=bp)[0]
+                h = hashlib.sha256()
+                for f in FIELDS:
+                    h.update(getattr(b2, f).cpu().numpy().tobytes())
+                digests.append(h.hexdigest()[:16])
+            check(digests[0] == digests[1],
+                  f"mc3 full width: a sweep with beta_prior None and with ones differ: {digests}")
+            log(f"[mc3 full width] one untempered sweep with beta_prior None and with a ones "
+                f"vector: state digests {digests[0]} and {digests[1]}")
+    finally:
+        M.mc3_swap = real
+    return {k: sum(p[k] for p in out.values()) for k in out["run0"]}
+
+
 def main():
     """Run every phase; any failure raises, so the exit code is not 0."""
     import torch
@@ -4181,6 +4619,12 @@ def main():
     t0 = time.perf_counter()
     ham_full = phase_hamiltonian_full_width()
     log(f"[hamiltonian full width] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mc3 = phase_mc3_tutorial()
+    log(f"[mc3 tutorial] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mc3_full = phase_mc3_full_width()
+    log(f"[mc3 full width] took {time.perf_counter() - t0:.1f} s")
     check("jax" not in sys.modules, "the port imported jax")
     check(not [m for m in sys.modules if m == "mcmcdate_tpu" or m.startswith("mcmcdate_tpu.")],
           "the port imported the JAX package")
@@ -4191,11 +4635,13 @@ def main():
              "sparse_full_width": sparse_full, "marginal_likelihood": ml,
              "ml_full_ladder": ml_full, "banded_tutorial": banded,
              "banded_full_width": banded_full, "hamiltonian_tutorial": ham,
-             "hamiltonian_full_width": ham_full}
+             "hamiltonian_full_width": ham_full, "mc3_tutorial": mc3, "mc3_full_width": mc3_full}
     for p, n in paths.items():
-        if not p.startswith("hamiltonian"):
+        if not p.startswith(("hamiltonian", "mc3")):
             check(all(n[k] == 0 for k in (*NUTS_NAMES, "nuts_product")),
                   f"the {p} path, without --hamiltonian, launched a NUTS kernel")
+        if not p.startswith("mc3"):
+            check(n["mc3_swap"] == 0, f"the {p} path, without --mc3, launched M1")
     record = {"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,
              launches=paths[RECORD_PATH.get(k, "main")][k],
@@ -4208,7 +4654,7 @@ def main():
     t3["records_10k"] = uni_rec
     next(r for r in record["kernels"] if r["name"] == "prior_terms")["record_10k"] = k1_10k
     for r in record["kernels"]:
-        if r["name"] in BETA_KERNELS:
+        if r["name"] in results["tempered"]:
             r["tempered"] = results["tempered"][r["name"]]
         if r["name"] == "cascade_seed":
             r["ml_full_ladder"] = ml_times

@@ -2,11 +2,15 @@
 marginal-likelihood / analyze / simulate.
 
 Port of ``mcmcdate_tpu/cli.py``.  ``run``, ``continue`` and
-``marginal-likelihood`` take the JAX CLI's flags except ``--mc3``,
-``--bold-*``, ``--fiber-*`` and ``--trace-dir``, plus ``--device``
-(default ``cuda``); ``--hamiltonian`` adds the in-cycle NUTS move, and
-``continue`` of a checkpoint saved with it continues with it.  With a CUDA device and no
-card present they fail; they never carry on on the CPU.
+``marginal-likelihood`` take the JAX CLI's flags except ``--bold-*``,
+``--fiber-*`` and ``--trace-dir``, plus ``--device`` (default ``cuda``);
+``--hamiltonian`` adds the in-cycle NUTS move, and ``continue`` of a
+checkpoint saved with it continues with it.  ``run --mc3`` runs MC3
+(``engine/mc3.py``: ``--chains`` counts its groups of 4 temperatures), and
+``continue`` of a checkpoint whose meta says ``mc3`` resumes as MC3 with
+the saved group count (and NUTS where the meta says ``hamiltonian``), as
+the JAX CLI does.  With a CUDA device and no card present they fail; they
+never carry on on the CPU.
 ``marginal-likelihood`` runs the stepping-stone sampler
 (``engine/stepping_stone.py``) and logs to ``<name>.mlh.log``.
 ``prepare`` takes ``--device`` too, which only the sparse kind above
@@ -167,6 +171,9 @@ def _add_run_args(p: argparse.ArgumentParser):
     p.add_argument("--hamiltonian", action="store_true",
                    help="add the in-cycle NUTS move (once a sweep; continue: implied by a "
                         "checkpoint saved with it)")
+    p.add_argument("--mc3", action="store_true",
+                   help="use MC3 (parallel tempering) instead of MHG; --chains counts its "
+                        "groups of 4 temperatures (continue: implied by an MC3 checkpoint)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -359,9 +366,11 @@ def _device_dtype(args):
 
 
 def cmd_run(args):
-    """Run the sampler; returns the chain runner."""
+    """Run the sampler (MHG, or MC3 with ``--mc3``); returns the chain
+    runner."""
     from .engine import checkpoint as ckpt
     from .engine.chains import run_analysis
+    from .engine.mc3 import run_mc3
 
     device, dtype = _device_dtype(args)
     log = Tee(os.path.join(args.out_dir, args.analysis_name + ".run.log"))
@@ -381,6 +390,8 @@ def cmd_run(args):
             log("Using tuning parameters from save." if same
                 else "Cycle has changed, start with untuned proposals.")
             init_from = (state0, tuning0 if same else None, same)
+        if args.mc3:
+            return run_mc3(model, init, settings, hamiltonian=args.hamiltonian, log=log)
         return run_analysis(model, init, settings, init_from=init_from,
                             hamiltonian=args.hamiltonian, log=log)
     finally:
@@ -389,22 +400,20 @@ def cmd_run(args):
 
 def cmd_continue(args):
     """Continue a saved run (``<name>.mcmc.npz``, written by either
-    package): sampling only, monitors appended; returns the chain runner.
-    On a CUDA device the run continues in float32 (the kernels' type), on
-    the CPU in the checkpoint's type."""
+    package): sampling only, monitors appended; an MC3 save continues as
+    MC3.  Returns the chain runner.  On a CUDA device the run continues in
+    float32 (the kernels' type), on the CPU in the checkpoint's type."""
     import json
 
     import torch
 
     from .engine import checkpoint as ckpt
     from .engine.chains import run_analysis
+    from .engine.mc3 import N_TEMPS, run_mc3
 
     device = _device(args.device)
     with open(os.path.join(args.out_dir, ckpt.meta_file(args.analysis_name))) as fh:
         meta = json.load(fh)
-    if meta.get("mc3"):
-        raise NotImplementedError("the checkpoint is of a run with MC3, which is not ported "
-                                  "to PyTorch yet (ROADMAP.md, Queue 1)")
     # A run saved with the NUTS move continues with it.
     args.hamiltonian = args.hamiltonian or bool(meta.get("hamiltonian"))
     dtype = torch.float32 if device.type == "cuda" else getattr(torch, meta.get("dtype",
@@ -416,9 +425,16 @@ def cmd_continue(args):
         settings = _settings(args)
         state, tuning, key, meta = ckpt.load(args.analysis_name, dtype=dtype,
                                              in_dir=args.out_dir, device=device)
+        log(f"Continuing from iteration {meta['iteration']}.")
+        if meta.get("mc3"):
+            # An MC3 analysis continues as MC3 (the reference's mc3Load):
+            # the saved batch is groups x temperatures.
+            log("Saved chain is an MC3 run; continuing with MC3.")
+            settings.n_chains = meta.get("n_groups", state.n_chains // N_TEMPS)
+            return run_mc3(model, init, settings, hamiltonian=args.hamiltonian,
+                           continue_from=(state, tuning, key, meta["iteration"]), log=log)
         # The saved batch sets the chain count (the trace's columns too).
         settings.n_chains = state.n_chains
-        log(f"Continuing from iteration {meta['iteration']}.")
         return run_analysis(model, init, settings,
                             continue_from=(state, tuning, key, meta["iteration"]),
                             hamiltonian=args.hamiltonian, log=log)

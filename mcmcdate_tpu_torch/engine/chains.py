@@ -4,7 +4,8 @@ Port of ``mcmcdate_tpu/engine/chains.py`` for MHG on one device, with the
 ticket-batched ``FastSweeps`` by default and the sequential ``MHKernel``
 as the fallback, chosen as the JAX package chooses, and the in-cycle NUTS
 move of ``--hamiltonian`` (``engine/hmc.py``; in the slow burn-in windows
-and in sampling).  MC3, the fiber moves, the bold contrary kernels and the
+and in sampling).  MC3 runs its own loop over this runner
+(``engine/mc3.py``); the fiber moves, the bold contrary kernels and the
 device mesh stay in the JAX package for now.  The sampler's random streams derive
 from a ``uint32[2]`` key that is split once per sweep chunk and saved in
 the checkpoint.
@@ -137,6 +138,7 @@ class ChainRunner:
         self.attempted = 0
         self.nuts = None  # a NutsInCycle, set by run_analysis with hamiltonian
         self._nuts_astats: list = []
+        self.mc3 = None  # an MC3 run's ladder and swap rates (engine/mc3.py)
 
     def _collect(self, state: State, lp_pr, lp_lik):
         """One sweep's monitor row for every chain.  The sweep updates the

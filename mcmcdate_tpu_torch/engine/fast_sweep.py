@@ -43,7 +43,9 @@ workarounds).  Every step function takes its random draws as arguments;
 batch's device.  Steps update the carry in place.  Every decision with a
 likelihood takes the carry's per-chain likelihood temperature
 (``FastCarry.beta``, ``[C]``: the stepping-stone ladder; None: 1), as the
-JAX steps take their ``beta``.
+JAX steps take their ``beta``, and every decision its prior temperature
+(``FastCarry.beta_prior``: MC3's ladder; None: 1), as they take their
+``beta_prior``.
 """
 
 from __future__ import annotations
@@ -532,8 +534,8 @@ class FastCarry:
     state, the prior terms ``[C, T]``, the internal-layout distances ``d``
     ``[C, D]``, ``z = P (d - mu)`` ``[C, D]`` (``[C, 0]`` without a
     likelihood), ``q = (d-mu)' P (d-mu)`` ``[C]``, the accept counts
-    ``[C, P]`` and the likelihood temperature ``beta`` ``[C]`` of every
-    decision (None: 1)."""
+    ``[C, P]``, and the likelihood and prior temperatures ``beta`` and
+    ``beta_prior`` ``[C]`` of every decision (None: 1)."""
 
     batch: State
     terms: torch.Tensor
@@ -542,6 +544,7 @@ class FastCarry:
     q: torch.Tensor
     acc: torch.Tensor
     beta: Optional[torch.Tensor] = None
+    beta_prior: Optional[torch.Tensor] = None
 
 
 def spec_tensors(spec, device, dtype) -> dict:
@@ -869,7 +872,7 @@ class FastSweeps:
         the ``[C, B]`` accept mask."""
         m = self.model
         return contra_slide(carry.batch, carry.terms, carry.acc, tuning, sx, m.topo.is_leaf_t,
-                            m.clock, u_prop, u_acc).accept
+                            m.clock, u_prop, u_acc, carry.beta_prior).accept
 
     def point_lik_step(self, kind: int, carry: FastCarry, tuning, sx: dict, draw, u_acc):
         """One mega-step of likelihood-coupled node slides or branch-rate
@@ -888,11 +891,12 @@ class FastSweeps:
         if not self.use_lik:
             pro = point_lik_prologue(*args, None, tuning, sx, self.is_leaf_t, self.pos_t, m.clock,
                                      draw)
-            return point_lik_epilogue(*args, carry.q, carry.acc, sx, pro, None, None, u_acc)[0]
+            return point_lik_epilogue(*args, carry.q, carry.acc, sx, pro, None, None, u_acc,
+                                      carry.beta_prior)[0]
         pro = point_lik_prologue(*args, carry.z, tuning, sx, self.is_leaf_t, self.pos_t, m.clock,
                                  draw)
         accept, dq = point_scan(pro.delta, pro.zG, sx["Pblk"], pro.d_pr, pro.lmhg, u_acc,
-                                carry.beta)
+                                carry.beta, carry.beta_prior)
         accept, dacc = point_lik_epilogue(*args, carry.q, carry.acc, sx, pro, accept, dq)
         self._z_add(carry.z, dacc, sx)
         return accept
@@ -905,7 +909,7 @@ class FastSweeps:
         mode.  Returns the ``[C, S]`` accept mask."""
         m = self.model
         return contra_range(carry.batch, carry.terms, carry.acc, tuning, sx, m.topo.is_leaf_t,
-                            m.clock, u_prop, u_acc).accept
+                            m.clock, u_prop, u_acc, carry.beta_prior).accept
 
     def range_lik_step(self, kind: int, carry: FastCarry, tuning, sx: dict, draw, u_acc):
         """One block of likelihood-coupled subtree scales, ultrametric
@@ -927,10 +931,11 @@ class FastSweeps:
         args = (rate, carry.batch, carry.terms, carry.d)
         if not self.use_lik:
             pro = range_lik_prologue(*args, None, tuning, sx, m.topo.is_leaf_t, m.clock, draw)
-            return range_lik_epilogue(*args, carry.q, carry.acc, sx, pro, None, None, u_acc)[0]
+            return range_lik_epilogue(*args, carry.q, carry.acc, sx, pro, None, None, u_acc,
+                                      carry.beta_prior)[0]
         pro = range_lik_prologue(*args, carry.z, tuning, sx, m.topo.is_leaf_t, m.clock, draw)
         accept, dq = range_scan(pro.g, pro.zg, sx["Q"], pro.coef, pro.d_pr, pro.lmhg, u_acc,
-                                carry.beta)
+                                carry.beta, carry.beta_prior)
         accept, dacc = range_lik_epilogue(*args, carry.q, carry.acc, sx, pro, accept, dq)
         self._z_add(carry.z, dacc, sx)
         return accept
@@ -975,7 +980,7 @@ class FastSweeps:
         seq = Carry(carry.batch, carry.terms, carry.d if self.use_lik else None,
                     y if self.use_lik else None,
                     torch.zeros((C, plan.seq_table.n_proposals), dtype=torch.int32, device=dev),
-                    beta=carry.beta)
+                    beta=carry.beta, beta_prior=carry.beta_prior)
         self.seq_kern.sweep_once(seq, tuning[:, rows_t], host_gen, gen)
         carry.acc.index_add_(1, rows_t, seq.acc)
         if not self.use_lik:
@@ -1060,29 +1065,35 @@ class FastSweeps:
 
     def nuts_phase(self, carry: FastCarry, nuts, gen):
         """The in-cycle NUTS move after the batched phases (``nuts`` a
-        :class:`~.hmc.NutsInCycle`, every chain at its likelihood
-        temperature), then the carried terms (K1) and distances rebuilt from
-        the moved state.  Returns the acceptance statistics ``[C]``."""
-        astat = nuts(carry.batch, gen, beta_lik=carry.beta)
+        :class:`~.hmc.NutsInCycle`, every chain at its temperatures), then
+        the carried terms (K1) and distances rebuilt from the moved state.
+        Returns the acceptance statistics ``[C]``."""
+        astat = nuts(carry.batch, gen, beta_lik=carry.beta, beta_prior=carry.beta_prior)
         carry.terms = self.model.log_prior_terms(carry.batch)
         carry.d = distances_internal(carry.batch, self.model.topo)
         return astat
 
     def sweeps(self, batch: State, tuning, seed: int, n: int,
-               collect: Optional[Callable] = None, beta=None, nuts=None):
+               collect: Optional[Callable] = None, beta=None, nuts=None, beta_prior=None):
         """Same contract as ``MHKernel.sweeps``: ``n`` sweeps of the chain
         batch, ``seed`` seeding the sequential phase's ticket order (host)
-        and every draw (on the batch's device), ``beta`` (a number or
-        ``[C]``, None: 1) tempering the likelihood in every phase's
-        decisions.  Returns ``(batch, lp_pr, lp_lik, acc, tot, outs)``, and
-        with ``nuts`` (a :class:`~.hmc.NutsInCycle`: the in-cycle NUTS move
-        after each sweep's batched phases) a seventh element, the move's
-        acceptance statistics ``[n, C]``."""
+        and every draw (on the batch's device), ``beta`` and ``beta_prior``
+        (each a number or ``[C]``, None: 1) tempering the likelihood and the
+        prior in every phase's decisions (the JAX ``sweeps``'
+        ``beta_prior``, ``engine/fast_sweep.py:2122``).  Returns ``(batch,
+        lp_pr, lp_lik, acc, tot, outs)``, and with ``nuts`` (a
+        :class:`~.hmc.NutsInCycle`: the in-cycle NUTS move after each
+        sweep's batched phases) a seventh element, the move's acceptance
+        statistics ``[n, C]``."""
         device = batch.heights.device
         host_gen = torch.Generator().manual_seed(seed)
         gen = torch.Generator(device=device).manual_seed(seed)
         carry = self.init_carry(batch)
         carry.beta = chain_beta(beta, batch.n_chains, batch.heights.dtype, device)
+        # None stays None: the kernels read a cached ones vector, the plain
+        # versions skip the product.
+        carry.beta_prior = (None if beta_prior is None else
+                            chain_beta(beta_prior, batch.n_chains, batch.heights.dtype, device))
         y = self.model.whitened_residual_internal(carry.batch)
         C = batch.n_chains
         outs, astats = [], []

@@ -19,9 +19,11 @@ per chunk of at most ``CHUNK`` tickets: one uniform call for the
 proposals, one for the accepts and one standard-gamma call over the
 chunk's gamma tickets.  No ticket recomputes the prior terms whole: the
 sweep carries them, with each chain's count of NaN or -inf terms (the JAX
-package's invalid rule reads the whole new term vector), and each chain's
+package's invalid rule reads the whole new term vector), each chain's
 likelihood temperature ``beta``, which tempers the likelihood delta of
-every decision (``MHKernel.sweeps(beta=)``; the stepping-stone ladder).
+every decision (``MHKernel.sweeps(beta=)``; the stepping-stone ladder),
+and each chain's prior temperature ``beta_prior``, which tempers the prior
+delta (``sweeps(beta_prior=)``; MC3's ladder, ``engine/mc3.py``).
 """
 
 from __future__ import annotations
@@ -56,8 +58,9 @@ class Carry:
     ``[C, T]``, the internal-layout distances ``d`` and whitened residual
     ``y`` ``[C, D]`` (None without a likelihood), the accept counts
     ``[C, P]``, the number of NaN or -inf terms ``nbad`` (int32 ``[C]``;
-    counted at the sweep's start where None) and the likelihood temperature
-    ``beta`` ``[C]`` of every decision (None: 1)."""
+    counted at the sweep's start where None), and the likelihood and prior
+    temperatures ``beta`` and ``beta_prior`` ``[C]`` of every decision
+    (None: 1)."""
 
     batch: State
     terms: torch.Tensor
@@ -66,11 +69,13 @@ class Carry:
     acc: torch.Tensor
     nbad: Optional[torch.Tensor] = None
     beta: Optional[torch.Tensor] = None
+    beta_prior: Optional[torch.Tensor] = None
 
 
 def chain_beta(beta, C: int, dtype, device) -> torch.Tensor:
-    """The per-chain likelihood temperature ``[C]`` of ``beta``: None (a
-    ones vector), a number, or a ``[C]`` tensor; in ``dtype`` on ``device``."""
+    """The per-chain temperature ``[C]`` (likelihood or prior) of ``beta``:
+    None (a ones vector), a number, or a ``[C]`` tensor; in ``dtype`` on
+    ``device``."""
     if beta is None:
         return torch.ones(C, dtype=dtype, device=device)
     beta = torch.as_tensor(beta, dtype=dtype, device=device)
@@ -166,17 +171,20 @@ class MHKernel:
         return lp_pr, lp_lik
 
     def sweeps(self, batch: State, tuning, seed: int, n: int,
-               collect: Optional[Callable] = None, beta=None, nuts=None):
+               collect: Optional[Callable] = None, beta=None, nuts=None, beta_prior=None):
         """``n`` sweeps of the chain batch.  ``seed`` seeds the ticket order
         (drawn on the host) and the per-chain draws (drawn on the batch's
         device).  ``collect(batch, lp_pr, lp_lik) -> dict of [C, ...]``
-        runs after each sweep.  ``beta`` tempers the likelihood in every
-        decision (``log alpha = d_pr + beta d_lik + lmhg + lj``): a number
-        or a per-chain ``[C]`` vector (None: 1).  Returns ``(batch, lp_pr,
+        runs after each sweep.  ``beta`` and ``beta_prior`` temper the
+        likelihood and the prior in every decision (``log alpha =
+        beta_prior d_pr + beta d_lik + lmhg + lj``, the JAX step's
+        ``engine/mh.py:194``; the root Jacobian and the proposal ratio are
+        not tempered): each a number or a per-chain ``[C]`` vector (None:
+        1).  ``lp_pr`` and ``lp_lik`` are untempered.  Returns ``(batch, lp_pr,
         lp_lik, acc, tot, outs)`` with ``outs`` the list of per-sweep
         collections, and with ``nuts`` (a :class:`~.hmc.NutsInCycle`: the
-        in-cycle NUTS move after each sweep, every chain at its likelihood
-        temperature) a seventh element, the move's acceptance statistics
+        in-cycle NUTS move after each sweep, every chain at its
+        temperatures) a seventh element, the move's acceptance statistics
         ``[n, C]``."""
         device = batch.heights.device
         host_gen = torch.Generator().manual_seed(seed)
@@ -184,6 +192,10 @@ class MHKernel:
         carry = self.init_carry(batch)
         C = batch.n_chains
         carry.beta = chain_beta(beta, C, batch.heights.dtype, device)
+        # None stays None: the kernels read a cached ones vector, the plain
+        # versions skip the product.
+        carry.beta_prior = (None if beta_prior is None
+                            else chain_beta(beta_prior, C, batch.heights.dtype, device))
         outs, astats = [], []
         for _ in range(n):
             self.sweep_once(carry, tuning, host_gen, gen)
@@ -202,7 +214,7 @@ class MHKernel:
         (one full recompute a sweep, as the JAX package does).  Returns the
         acceptance statistics ``[C]``."""
         m = self.model
-        astat = nuts(carry.batch, gen, beta_lik=carry.beta)
+        astat = nuts(carry.batch, gen, beta_lik=carry.beta, beta_prior=carry.beta_prior)
         carry.terms = m.log_prior_terms(carry.batch)
         carry.nbad = count_bad(carry.terms)
         if carry.y is not None:
@@ -240,7 +252,8 @@ class MHKernel:
         tickets.  ``given = (order, draws, u_acc)`` replaces the order
         (table rows ``[n]``) and the draws (each ticket's uniform or
         standard-gamma draw and its accept uniform, ``[C, n]``).  The
-        decisions take the likelihood temperature ``carry.beta``."""
+        decisions take the temperatures ``carry.beta`` and
+        ``carry.beta_prior``."""
         if carry.nbad is None:
             carry.nbad = count_bad(carry.terms)
         if given is not None:

@@ -6,8 +6,9 @@ Replaces the accept-and-select part of the XLA-compiled
 full-MVN ticket of a dense or range class, K2's ``dy``, it takes the
 likelihood delta (K2's under a full MVN; ``dy = delta * inv_sd`` on the
 row's class rows under the univariate kind; zero with no likelihood or for
-``DC_INV``), ``log alpha = d_pr + beta d_lik + lmhg + lj`` with the chain's
-likelihood temperature ``beta`` (``carry.beta``; NaN -> -inf, d_pr
+``DC_INV``), ``log alpha = beta_prior d_pr + beta d_lik + lmhg + lj``
+with the chain's likelihood and prior temperatures ``beta`` and
+``beta_prior`` (``carry.beta``, ``carry.beta_prior``; NaN -> -inf, d_pr
 -inf where T1 found the new term vector invalid), the decision ``log u <
 log alpha`` and then writes back only what the ticket touched: for an
 accepted chain its term entries, ``d`` on the class rows, ``y`` (all of it
@@ -41,8 +42,9 @@ from .ticket_step import LIK_DIAG, LIK_FULL, TicketDraws, TicketPro, TicketTable
 def accept_select_plain(tt: TicketTable, carry, pidx: int, pro: TicketPro, u_acc, dy=None,
                         d_lik=None):
     """Plain version of :func:`accept_select` for one ticket of row ``pidx``
-    (``u_acc`` ``[C]``), in place, the likelihood delta tempered by
-    ``carry.beta`` (None: untempered).  Returns ``(accept, log_alpha)``."""
+    (``u_acc`` ``[C]``), in place, the likelihood and prior deltas tempered
+    by ``carry.beta`` and ``carry.beta_prior`` (None: untempered).  Returns
+    ``(accept, log_alpha)``."""
     p = int(pidx)
     rows = tt.rows(p)
     has_rows = rows is None or rows.numel() > 0
@@ -55,6 +57,8 @@ def accept_select_plain(tt: TicketTable, carry, pidx: int, pro: TicketPro, u_acc
             inv_sd if rows is None else inv_sd[rows])
         d_lik = -0.5 * torch.sum(dy_r * (2.0 * y_r + dy_r), dim=-1)
     d_pr = torch.where(pro.invalid, -math.inf, pro.d_pr)
+    if carry.beta_prior is not None:
+        d_pr = carry.beta_prior * d_pr
     if d_lik is not None and carry.beta is not None:
         d_lik = carry.beta * d_lik
     log_alpha = d_pr + (0.0 if d_lik is None else d_lik) + pro.lmhg + pro.lj

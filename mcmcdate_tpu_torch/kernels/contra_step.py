@@ -60,7 +60,7 @@ _SLIDE_ARGTYPES = (
     + (_P,) * 5  # tuning, birth, death, rate_var, height
     + (_P,) * 7  # node, par, ch, t_rows, rows, valid, sd
     + (_P,) * 4  # cal_lo, cal_lo_s, cal_hi, cal_hi_s
-    + (_P,) * 7  # is_leaf, u_prop, u_acc, accept, log_alpha, h_prop, lq
+    + (_P,) * 8  # is_leaf, u_prop, u_acc, beta_prior, accept, log_alpha, h_prop, lq
     + (_I,) * 9  # C, B, N, T, P, KC, KT, KN, clock_model
     + (_P,)  # stream
 )
@@ -69,7 +69,7 @@ _RANGE_ARGTYPES = (
     + (_P,) * 5  # tuning, birth, death, rate_var, height
     + (_P,) * 9  # node, par, own, own_par, rows, valid, sd, n_inner, n_nodes
     + (_P,) * 6  # cal_t_rows, cal_hsrc, cal_lo, cal_lo_s, cal_hi, cal_hi_s
-    + (_P,) * 7  # is_leaf, u_prop, u_acc, accept, log_alpha, h_prop, lq
+    + (_P,) * 8  # is_leaf, u_prop, u_acc, beta_prior, accept, log_alpha, h_prop, lq
     + (_I,) * 9  # C, S, N, T, P, RB, KN, clock_model, width
     + (_P,)  # stream
 )
@@ -96,16 +96,19 @@ class ContraOut(NamedTuple):
     lq: torch.Tensor         # log proposal-density ratio of that proposal
 
 
-def contra_slide_plain(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc):
+def contra_slide_plain(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc,
+                       beta_prior=None):
     """Plain PyTorch version of :func:`contra_slide` (updates in place)."""
     h, ch = state.heights, sx["ch"]
     hc_max = torch.where(ch >= 0, h[:, torch.clamp(ch, min=0)], NEG_INF).amax(dim=-1)
     hnew = truncated_normal_draw(u_prop, h[:, sx["node"]], sx["sd"], tuning[:, sx["rows"]],
                                  hc_max, h[:, sx["par"]])
-    return contra_slide_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_acc)
+    return contra_slide_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_acc,
+                              beta_prior)
 
 
-def contra_slide_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_acc):
+def contra_slide_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_acc,
+                       beta_prior=None):
     """The plain slide step at given proposed node heights ``hnew`` ``[C,
     B]`` (so a check can replay the kernel's own proposals)."""
     node, par, ch, valid = sx["node"], sx["par"], sx["ch"], sx["valid"]
@@ -129,6 +132,8 @@ def contra_slide_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_ac
     told = terms[:, t_safe]
     d_pr = sum_valid(torch.where(t_ok, tn - told, 0.0))
     invalid = torch.any(t_ok & is_bad(tn), dim=-1)
+    if beta_prior is not None:
+        d_pr = beta_prior[:, None] * d_pr
     log_alpha = torch.where(invalid, NEG_INF, d_pr + lq + log_jac)
     log_alpha = torch.where(valid & ~torch.isnan(log_alpha), log_alpha, NEG_INF)
     accept = (torch.log(u_acc) < log_alpha) & valid      # [C, B]
@@ -141,15 +146,18 @@ def contra_slide_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_ac
     return ContraOut(accept, log_alpha, hnew, lq)
 
 
-def contra_range_plain(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc):
+def contra_range_plain(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc,
+                       beta_prior=None):
     """Plain PyTorch version of :func:`contra_range` (updates in place)."""
     h = state.heights
     hnew = truncated_normal_draw(u_prop, h[:, sx["node"]], sx["sd"], tuning[:, sx["rows"]],
                                  0.0, h[:, sx["par"]])
-    return contra_range_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_acc)
+    return contra_range_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_acc,
+                              beta_prior)
 
 
-def contra_range_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_acc):
+def contra_range_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_acc,
+                       beta_prior=None):
     """The plain range step at given proposed subtree-root heights, as
     :func:`contra_slide_given`."""
     N = state.heights.shape[1]
@@ -176,6 +184,8 @@ def contra_range_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_ac
         d_pr = d_pr + dpc
         invalid = invalid | invc
     log_jac = (sx["n_inner"] - sx["n_nodes"]) * torch.log(xi) + torch.log(xi_stem)
+    if beta_prior is not None:
+        d_pr = beta_prior[:, None] * d_pr
     log_alpha = d_pr + lq + log_jac
     log_alpha = torch.where(invalid | ~valid | torch.isnan(log_alpha), NEG_INF, log_alpha)
     accept = (torch.log(u_acc) < log_alpha) & valid      # [C, S]
@@ -223,16 +233,20 @@ def _outputs(C, B, device):
             *(torch.empty((C, B), dtype=torch.float32, device=device) for _ in range(3)))
 
 
-def contra_slide(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc):
+def contra_slide(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc, beta_prior=None):
     """One mega-step of contrary node slides on every chain, in place:
     ``state`` heights and rates, ``terms`` ``[C, T]`` and ``acc`` ``[C, P]``.
     ``sx`` holds the point step's plan arrays (``node, par, ch, valid,
     t_rows, rows, sd, cal_*``), ``u_prop`` and ``u_acc`` the
-    truncated-normal and accept uniforms ``[C, B]``.  Returns a
+    truncated-normal and accept uniforms ``[C, B]``, ``beta_prior`` the
+    chains' prior temperature ``[C]`` (None: 1), which tempers each
+    ticket's prior delta (``log alpha = beta_prior d_pr + lq + log_jac``,
+    the JAX step's ``fast_sweep.py:1302-1304``).  Returns a
     :class:`ContraOut`.  The plain version runs for CPU tensors, kernel K6
     for CUDA tensors (float32)."""
     if terms.device.type == "cpu":
-        return contra_slide_plain(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc)
+        return contra_slide_plain(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc,
+                                  beta_prior)
     C, N = state.heights.shape
     B, KC = sx["ch"].shape
     KT = sx["t_rows"].shape[-1]
@@ -249,24 +263,26 @@ def contra_slide(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc):
         p(state.heights), p(state.rates), p(terms), p(acc), p(tuning), p(state.birth),
         p(state.death), p(state.rate_var), p(state.height), p(sx["node"]), p(sx["par"]),
         p(sx["ch"]), p(sx["t_rows"]), p(sx["rows"]), p(sx["valid"]), p(sx["sd"]), *map(p, cal),
-        p(is_leaf), p(u_prop), p(u_acc), p(accept), p(log_alpha), p(h_prop), p(lq),
-        C, B, N, terms.shape[1], acc.shape[1], KC, KT, KN, clocks.MODELS.index(clock),
-        build.stream_ptr(terms.device),
+        p(is_leaf), p(u_prop), p(u_acc), p(build.beta_arg(beta_prior, C, terms.device)),
+        p(accept), p(log_alpha), p(h_prop), p(lq), C, B, N, terms.shape[1], acc.shape[1], KC,
+        KT, KN, clocks.MODELS.index(clock), build.stream_ptr(terms.device),
     )
     build.check(err, "contra_slide kernel")
     contra_slide.launches += 1
     return ContraOut(accept, log_alpha, h_prop, lq)
 
 
-def contra_range(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc):
+def contra_range(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc, beta_prior=None):
     """One block of contrary subtree scales on every chain, in place, as
     :func:`contra_slide`; ``sx`` holds the range block's plan arrays
     (``node, par, own, own_par, rows, valid, sd, n_inner, n_nodes,
-    cal_*``).  Returns a :class:`ContraOut` ``[C, S]``.  The plain version
-    runs for CPU tensors, kernel K6's range mode for CUDA tensors
-    (float32)."""
+    cal_*``), with the prior delta tempered by ``beta_prior`` (the JAX
+    step's ``fast_sweep.py:1674-1675``).  Returns a :class:`ContraOut` ``[C,
+    S]``.  The plain version runs for CPU tensors, kernel K6's range mode
+    for CUDA tensors (float32)."""
     if terms.device.type == "cpu":
-        return contra_range_plain(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc)
+        return contra_range_plain(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc,
+                                  beta_prior)
     C, N = state.heights.shape
     S, RB = sx["own"].shape
     KN = sx["cal_t_rows"].shape[-1]
@@ -285,9 +301,9 @@ def contra_range(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc):
         p(state.death), p(state.rate_var), p(state.height), p(sx["node"]), p(sx["par"]),
         p(sx["own"]), p(sx["own_par"]), p(sx["rows"]), p(sx["valid"]), p(sx["sd"]),
         p(sx["n_inner"]), p(sx["n_nodes"]), *map(p, cal),
-        p(is_leaf), p(u_prop), p(u_acc), p(accept), p(log_alpha), p(h_prop), p(lq),
-        C, S, N, terms.shape[1], acc.shape[1], RB, KN, clocks.MODELS.index(clock),
-        group_width(RB, KN), build.stream_ptr(terms.device),
+        p(is_leaf), p(u_prop), p(u_acc), p(build.beta_arg(beta_prior, C, terms.device)),
+        p(accept), p(log_alpha), p(h_prop), p(lq), C, S, N, terms.shape[1], acc.shape[1], RB,
+        KN, clocks.MODELS.index(clock), group_width(RB, KN), build.stream_ptr(terms.device),
     )
     build.check(err, "contra_range kernel")
     contra_range.launches += 1

@@ -7,8 +7,9 @@
 // MHKernel._ticket_step (mcmcdate_tpu/engine/mh.py:120-128 and 180-207):
 //   d_lik   = K2's (full MVN), -0.5 sum dy (2 y + dy) with dy = delta
 //             inv_sd on the class rows (univariate), or 0
-//   alpha   = d_pr + beta d_lik + lmhg + lj   (beta the chain's likelihood
-//             temperature, mh.py:194; d_pr -inf where T1 found the new
+//   alpha   = beta_prior d_pr + beta d_lik + lmhg + lj   (beta and
+//             beta_prior the chain's likelihood and prior temperatures,
+//             mh.py:194; d_pr -inf where T1 found the new
 //             term vector invalid; NaN -> -inf)
 //   accept  = log(u) < alpha
 // then, for accepted chains, the ticket's term entries, d on its class
@@ -261,13 +262,14 @@ __global__ void __launch_bounds__(kThreads) accept_select_kernel(TicketArgs a) {
   const float lj = a.lj[c];
   const float d_pr = a.d_pr[c];
   const float beta = a.beta[c];
+  const float bprior = a.beta_prior[c];
   const bool invalid = a.invalid[c] != 0;
   const bool full_dy = a.lik == LIK_FULL && a.dy_in != nullptr;
   float d_lik = full_dy ? a.dlik_in[c] : 0.f;
   __syncthreads();
   const Row rw{rec};
   if (a.lik == LIK_DIAG) d_lik = diag_lik_dev(a, CtaTeam{red}, c, rw);
-  float la = (((invalid ? -INFINITY : d_pr) + beta * d_lik) + lmhg) + lj;
+  float la = (((invalid ? -INFINITY : __fmul_rn(bprior, d_pr)) + beta * d_lik) + lmhg) + lj;
   if (isnan(la)) la = -INFINITY;
   const bool acc = logf(u) < la;
   if (tid == 0) build(sl, a, rw, c, acc, full_dy);

@@ -6,8 +6,10 @@
 // (max child height, h_p) around h_i, rescale the stem rate by
 // (h_p - h_i)/(h_p - h_i') and each child rate by (h_i - h_c)/(h_i' - h_c)
 // (so every branch distance is unchanged), evaluate the touched birth-death,
-// clock and calibration terms, accept on the prior ratio, the kernel ratio
-// and the log-Jacobian, and write heights, rates, terms and the accept
+// clock and calibration terms, accept on the prior ratio (times the
+// chain's prior temperature beta_prior: the JAX step's fast_sweep.py:
+// 1302-1304, and 1674-1675 in the range mode), the kernel ratio and the
+// log-Jacobian, and write heights, rates, terms and the accept
 // count back in place.  The planner puts no parent-child pair and no row
 // twice into one step, so the (chain, ticket) pairs read and write
 // disjoint entries and run as independent threads.
@@ -101,6 +103,7 @@ struct SlideArgs {
   const unsigned char* is_leaf;  // [N]
   const float* u_prop;  // [C, B]
   const float* u_acc;   // [C, B]
+  const float* beta_prior;  // [C] prior temperature
   unsigned char* accept;  // [C, B]
   float* log_alpha;       // [C, B]
   float* h_prop;          // [C, B]
@@ -236,7 +239,7 @@ __device__ __forceinline__ void slide_ticket(const SlideArgs& a, const SlideChai
     if (!isnan(diff)) d_pr += diff;
     if (isnan(tn[t]) || tn[t] == -INFINITY) invalid = true;
   }
-  float log_alpha = invalid ? -INFINITY : d_pr + lq + log_jac;
+  float log_alpha = invalid ? -INFINITY : __fmul_rn(a.beta_prior[c], d_pr) + lq + log_jac;
   if (isnan(log_alpha)) log_alpha = -INFINITY;
   const bool acc = logf(u_acc) < log_alpha;
   a.accept[cb] = acc;
@@ -307,6 +310,7 @@ struct RangeArgs {
   const unsigned char* is_leaf;  // [N]
   const float* u_prop;  // [C, S]
   const float* u_acc;   // [C, S]
+  const float* beta_prior;  // [C] prior temperature
   unsigned char* accept;  // [C, S]
   float* log_alpha;       // [C, S]
   float* h_prop;          // [C, S]
@@ -402,7 +406,7 @@ __global__ void __launch_bounds__(kThreads) contra_range_kernel(RangeArgs a, int
   invalid = group_any(invalid, width);
   const float d_pr = a.KN > 0 ? d_rows + d_cal : d_rows;
   const float log_jac = (float)(a.n_inner[s] - a.n_nodes[s]) * logf(xi) + logf(xi_stem);
-  float log_alpha = d_pr + lq + log_jac;
+  float log_alpha = __fmul_rn(a.beta_prior[c], d_pr) + lq + log_jac;
   if (invalid || isnan(log_alpha)) log_alpha = -INFINITY;
   const bool acc = act && logf(a.u_acc[cs]) < log_alpha;
   if (lane == 0 && live) {
@@ -444,14 +448,15 @@ extern "C" int mcmcdate_contra_range_f32(
     const unsigned char* valid, const float* sd, const int* n_inner, const int* n_nodes,
     const int* cal_t_rows, const int* cal_hsrc, const float* cal_lo, const float* cal_lo_s,
     const float* cal_hi, const float* cal_hi_s, const unsigned char* is_leaf,
-    const float* u_prop, const float* u_acc, unsigned char* accept, float* log_alpha,
-    float* h_prop, float* lq, int C, int S, int N, int T, int P, int RB, int KN,
-    int clock_model, int width, void* stream) {
-  RangeArgs a{heights, rates,   terms,      acc,      tuning,    birth,  death,    rate_var,
-              height,  node,    par,        own,      own_par,   rows,   valid,    sd,
-              n_inner, n_nodes, cal_t_rows, cal_hsrc, cal_lo,    cal_lo_s, cal_hi, cal_hi_s,
-              is_leaf, u_prop,  u_acc,      accept,   log_alpha, h_prop, lq,       C,
-              S,       N,       T,          P,        RB,        KN,     clock_model};
+    const float* u_prop, const float* u_acc, const float* beta_prior, unsigned char* accept,
+    float* log_alpha, float* h_prop, float* lq, int C, int S, int N, int T, int P, int RB,
+    int KN, int clock_model, int width, void* stream) {
+  RangeArgs a{heights,    rates,   terms,      acc,       tuning,   birth,    death,
+              rate_var,   height,  node,       par,       own,      own_par,  rows,
+              valid,      sd,      n_inner,    n_nodes,   cal_t_rows, cal_hsrc, cal_lo,
+              cal_lo_s,   cal_hi,  cal_hi_s,   is_leaf,   u_prop,   u_acc,    beta_prior,
+              accept,     log_alpha, h_prop,   lq,        C,        S,        N,
+              T,          P,       RB,         KN,        clock_model};
   // width: lanes per (chain, ticket), a power of 2 up to a warp.
   if (width < 1 || width > 32 || (width & (width - 1)) || RB > kRowsPerLane * width ||
       KN > kCalPerLane * width) {
@@ -497,15 +502,15 @@ extern "C" int mcmcdate_contra_slide_f32(
     const int* node, const int* par, const int* ch, const int* t_rows, const int* rows,
     const unsigned char* valid, const float* sd, const float* cal_lo, const float* cal_lo_s,
     const float* cal_hi, const float* cal_hi_s, const unsigned char* is_leaf,
-    const float* u_prop, const float* u_acc, unsigned char* accept, float* log_alpha,
-    float* h_prop, float* lq, int C, int B, int N, int T, int P, int KC, int KT, int KN,
-    int clock_model, void* stream) {
+    const float* u_prop, const float* u_acc, const float* beta_prior, unsigned char* accept,
+    float* log_alpha, float* h_prop, float* lq, int C, int B, int N, int T, int P, int KC,
+    int KT, int KN, int clock_model, void* stream) {
   if (KT > kKtMax || 2 * (1 + KC) + KN != KT) return (int)cudaErrorInvalidValue;
-  SlideArgs a{heights, rates,    terms,  acc,      tuning,  birth,  death,     rate_var,
-              height,  node,     par,    ch,       t_rows,  rows,   valid,     sd,
-              cal_lo,  cal_lo_s, cal_hi, cal_hi_s, is_leaf, u_prop, u_acc,     accept,
-              log_alpha, h_prop, lq,     C,        B,       N,      T,         P,
-              KC,      KT,       KN,     clock_model};
+  SlideArgs a{heights, rates,    terms,  acc,      tuning,  birth,  death,      rate_var,
+              height,  node,     par,    ch,       t_rows,  rows,   valid,      sd,
+              cal_lo,  cal_lo_s, cal_hi, cal_hi_s, is_leaf, u_prop, u_acc,      beta_prior,
+              accept,  log_alpha, h_prop, lq,      C,       B,      N,          T,
+              P,       KC,       KT,     KN,       clock_model};
   if ((long)C * B == 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
   if (KC == 2 && KN == 0) return (int)launch_slide<2>(a, st);

@@ -8,8 +8,9 @@
 // chain (each proposes from the state the previous one left) and chains are
 // independent, so every kernel runs one CTA per chain.
 //
-// G1 and G3 decide with log alpha = d_pr - (beta dq) / 2 + lmhg + lj, beta
-// the chain's likelihood temperature (the JAX step's fast_sweep.py:1195).
+// G1 and G3 decide with log alpha = beta_prior d_pr - (beta dq) / 2 + lmhg
+// + lj, beta and beta_prior the chain's likelihood and prior temperatures
+// (the JAX step's fast_sweep.py:1194-1195).
 //
 // G1 glob_scan_kernel: the eight families whose distances are untouched
 // (bd_scale, rate_var, hm_contra, norm_contra, normh_contra, sub_contra) or
@@ -152,6 +153,7 @@ struct GlobArgs {
   int* nbad;     // [C] NaN or -inf old entries of a subtree family's bd and ck blocks
   const float* w;          // [C, D] delta @ P (G3, use_lik)
   const float* beta;       // [C] likelihood temperature (G1, G3)
+  const float* beta_prior; // [C] prior temperature (G1, G3)
   // ints
   int N, C, T, D, P, n, s, family, blocks, fields, use_lik, clock_model;
   int n_cal, n_con, n_br, br_width, n_root_ch, root_right, n_inner_total;
@@ -351,6 +353,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) glob_scan_kernel(GlobArg
   const bool lik = uniform && a.use_lik;
   const bool sub = a.family == SUB_CONTRA;
   const float beta = a.beta[c];  // the chain's likelihood temperature
+  const float bprior = a.beta_prior[c];  // and its prior temperature
   const int need = needed_arrays(a);
   const int mask = smem_arrays(a);
   if (tid == 0) {
@@ -468,7 +471,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) glob_scan_kernel(GlobArg
       if (a.rj[s]) lj = logf(d0) - logf(k.u * d0);
     }
     const float part[4] = {sc_sum, v[0], v[1], v[2]};
-    float la = ((prior_delta(a.blocks, part) - 0.5f * (beta * dq)) + k.lmhg) + lj;
+    float la = ((__fmul_rn(bprior, prior_delta(a.blocks, part)) - 0.5f * (beta * dq)) + k.lmhg)
+               + lj;
     // A bad entry outside [lo, hi) stays in the new blocks.
     if (bad || (sub && nbad > v[4]) || isnan(la)) la = -INFINITY;
     const bool acc = logf(a.u_acc[cs]) < la;
@@ -792,6 +796,7 @@ __global__ void __launch_bounds__(kEpiThreads, kEpiMinBlocks)
   const float lj = a.lj[c];
   const bool invalid = a.invalid[c];
   const float beta = a.beta[c];  // the chain's likelihood temperature
+  const float bprior = a.beta_prior[c];  // and its prior temperature
   const float q0 = a.use_lik ? a.q[c] : 0.f;
   int* acc_at = a.acc + (size_t)c * a.P + a.rows[s];
   const int acc0 = tid == 0 ? *acc_at : 0;
@@ -858,7 +863,7 @@ __global__ void __launch_bounds__(kEpiThreads, kEpiMinBlocks)
   float sum[1] = {v};
   block_sums<1>(sum, red, none);
   const float dq = sum[0];
-  float la = ((d_pr - 0.5f * (beta * dq)) + lmhg) + lj;
+  float la = ((__fmul_rn(bprior, d_pr) - 0.5f * (beta * dq)) + lmhg) + lj;
   if (invalid || isnan(la)) la = -INFINITY;
   const bool acc = logf(u_acc) < la;
   if (acc) {

@@ -7,9 +7,10 @@
 //   dq0_t = 2 delta_t . zG_t + delta_t' Pblk[t, t] delta_t
 //   T_at  = delta_a' Pblk[a, t] delta_t                       (a < t)
 //   dq_t  = dq0_t + 2 sum_{a < t accepted} T_at
-//   accept_t = log u_t < dpr_t - (beta_c dq_t) / 2 + lmhg_t
-// (beta_c the chain's likelihood temperature: the JAX scan's la_t,
-// fast_sweep.py:1511)
+//   accept_t = log u_t < bprior_c dpr_t - (beta_c dq_t) / 2 + lmhg_t
+// (beta_c and bprior_c the chain's likelihood and prior temperatures: the
+// JAX scan's la_t, fast_sweep.py:1511; bprior_c dpr_t is taken when d_pr
+// is loaded, by __fmul_rn, so a temperature of 1 keeps dpr_t's bits)
 // and between sub-blocks zG += sum_{a accepted} delta_a' Pblk[a, :].
 //
 // What bounds it on the H100: the serial scan (one dependent step per
@@ -76,6 +77,7 @@ struct PointArgs {
   const float* lmhg;   // [C, B]
   const float* u;      // [C, B]
   const float* beta;   // [C] likelihood temperature
+  const float* beta_prior;  // [C] prior temperature
   unsigned char* accept;  // [C, B]
   float* dq;              // [C, B]
   float* zwork;           // [C, F]
@@ -105,12 +107,13 @@ size_t smem_bytes(int n) {
 // diagonal block is pd[r pitch + off + k].
 __device__ __forceinline__ void scan_shared(const PointArgs& a, const float* pd, int pitch,
                                             int off, float* dl, float* z, int c, int warp,
-                                            int lane, int lo, int sn, int n, float beta) {
+                                            int lane, int lo, int sn, int n, float beta,
+                                            float bprior) {
   for (int t0 = 0; t0 < sn; t0 += 32) {
     const int tt = t0 + lane;
     const size_t o = (size_t)c * a.B + lo + tt;
     const bool have = tt < sn;
-    const float dpr_l = have ? a.d_pr[o] : 0.f;
+    const float dpr_l = have ? __fmul_rn(bprior, a.d_pr[o]) : 0.f;
     const float lm_l = have ? a.lmhg[o] : -INFINITY;
     const float lu_l = have ? logf(a.u[o]) : 0.f;
     const int t1 = min(t0 + 32, sn);
@@ -173,6 +176,7 @@ __global__ void __launch_bounds__(kThreads) point_scan_kernel(PointArgs a) {
   const int c0 = blockIdx.x * kChains;
   const int c = c0 + warp;                   // the chain this warp scans
   const float beta = c < a.C ? a.beta[c] : 1.f;
+  const float bprior = c < a.C ? a.beta_prior[c] : 1.f;
   const float* P = a.Pblk;
   const int n_sub = (a.B + a.S - 1) / a.S;
   for (int s0 = 0; s0 < n_sub; ++s0) {
@@ -206,7 +210,7 @@ __global__ void __launch_bounds__(kThreads) point_scan_kernel(PointArgs a) {
           dr[j][i] = have ? a.delta[row + i] : 0.f;
           zr[j][i] = have ? zsrc[row + i] : 0.f;
         }
-        dpr[j] = have ? a.d_pr[o] : 0.f;
+        dpr[j] = have ? __fmul_rn(bprior, a.d_pr[o]) : 0.f;
         lm[j] = have ? a.lmhg[o] : -INFINITY;
         lu[j] = have ? logf(a.u[o]) : 0.f;
         dqr[j] = 0.f;
@@ -308,7 +312,8 @@ __global__ void __launch_bounds__(kThreads) point_scan_kernel(PointArgs a) {
         for (int i = 0; i < KDR; ++i) dl[(t * KD + i) * kChains + warp] = dr[w][i];
       }
     } else if (c < a.C) {
-      scan_shared(a, pd, pitch, off, dl, zl + warp * n, c, warp, lane, lo, sn, n, beta);
+      scan_shared(a, pd, pitch, off, dl, zl + warp * n, c, warp, lane, lo, sn, n, beta,
+                  bprior);
     }
     __syncthreads();
     if (s0 == n_sub - 1) break;
@@ -404,7 +409,8 @@ int launch(const PointArgs& a, size_t smem, cudaStream_t stream) {
 
 extern "C" int mcmcdate_point_scan_f32(const float* delta, const float* zG, const float* Pblk,
                                        const float* d_pr, const float* lmhg, const float* u,
-                                       const float* beta, unsigned char* accept, float* dq,
+                                       const float* beta, const float* beta_prior,
+                                       unsigned char* accept, float* dq,
                                        float* zwork, int C, int B, int KD, int ldp,
                                        void* stream) {
   if (KD < 1 || KD > kRowsMax || ldp % 4 || ldp < B * KD ||
@@ -412,7 +418,8 @@ extern "C" int mcmcdate_point_scan_f32(const float* delta, const float* zG, cons
     return (int)cudaErrorInvalidValue;
   }
   const int S = B < kRowsMax / KD ? B : kRowsMax / KD;
-  PointArgs a{delta, zG, Pblk, d_pr, lmhg, u, beta, accept, dq, zwork, C, B, KD, S, ldp};
+  PointArgs a{delta,  zG, Pblk,  d_pr, lmhg, u, beta, beta_prior,
+              accept, dq, zwork, C,    B,    KD, S, ldp};
   if (C <= 0 || B <= 0) return (int)cudaGetLastError();
   const size_t smem = smem_bytes(S * KD);
   cudaStream_t st = (cudaStream_t)stream;

@@ -19,7 +19,8 @@
 // plain stores suffice), the accept counts, q += the accepted dq (summed
 // in a fixed order; skipped without a likelihood, dq null), and dacc (delta
 // where accepted, else 0) for the z update.  Without a likelihood it also
-// takes the decisions, log u < d_pr + lmhg (u_acc not null, accept written).
+// takes the decisions, log u < beta_prior d_pr + lmhg with the chain's
+// prior temperature (u_acc not null, accept written).
 //
 // What bounds them on the H100.  The prologue: its instructions and a long
 // dependent path per (chain, ticket) pair: its plan, one round of gathers
@@ -391,6 +392,7 @@ struct EpilogueArgs {
   unsigned char* accept;        // [C, B] (written when u_acc is given)
   const float* dq;              // [C, B], null without a likelihood
   const float* u_acc;           // [C, B], null with a likelihood
+  const float* beta_prior;      // [C] prior temperature of the decisions taken here
   const float* d_pr;            // [C, B]
   const float* lmhg;            // [C, B]
   const float* prop;            // [C, B]
@@ -405,10 +407,12 @@ struct EpilogueArgs {
 };
 
 // Ticket b of chain c accepted: the scan's decision, or without a
-// likelihood log u < d_pr + lmhg (the plain version's log u < (NaN ? -inf :
-// d_pr + lmhg): a NaN compares false as well).
-__device__ __forceinline__ bool accepted(const EpilogueArgs& a, size_t cb, int b) {
-  if (a.u_acc != nullptr) return logf(a.u_acc[cb]) < a.d_pr[cb] + a.lmhg[cb] && a.valid[b];
+// likelihood log u < bprior d_pr + lmhg with the chain's prior temperature
+// (the JAX step's fast_sweep.py:1471; the plain version's log u < (NaN ?
+// -inf : bprior d_pr + lmhg): a NaN compares false as well).
+__device__ __forceinline__ bool accepted(const EpilogueArgs& a, size_t cb, int c, int b) {
+  if (a.u_acc != nullptr)
+    return logf(a.u_acc[cb]) < __fmul_rn(a.beta_prior[c], a.d_pr[cb]) + a.lmhg[cb] && a.valid[b];
   return a.accept[cb] && a.valid[b];
 }
 
@@ -422,7 +426,7 @@ __global__ void __launch_bounds__(kEpiThreads) point_lik_epilogue_kernel(Epilogu
   const int k = tid;
   if (k < B) {
     const size_t cb = (size_t)c * B + k;
-    const bool ok = accepted(a, cb, k);
+    const bool ok = accepted(a, cb, c, k);
     if (a.u_acc != nullptr) a.accept[cb] = ok;
     const int* dr = a.d_rows + (size_t)k * KD;
     float* dc = a.d + (size_t)c * a.D;
@@ -529,16 +533,17 @@ extern "C" int mcmcdate_point_lik_prologue_f32(
 
 extern "C" int mcmcdate_point_lik_epilogue_f32(
     float* heights, float* rates, float* terms, float* d, float* q, int* acc, float* dacc,
-    unsigned char* accept, const float* dq, const float* u_acc, const float* d_pr,
-    const float* lmhg, const float* prop, const float* tn, const float* delta, const int* node,
-    const int* t_rows, const int* d_rows, const int* rows, const unsigned char* valid, int C,
-    int B, int N, int T, int P, int D, int KT, int KD, int branch, void* stream) {
+    unsigned char* accept, const float* dq, const float* u_acc, const float* beta_prior,
+    const float* d_pr, const float* lmhg, const float* prop, const float* tn, const float* delta,
+    const int* node, const int* t_rows, const int* d_rows, const int* rows,
+    const unsigned char* valid, int C, int B, int N, int T, int P, int D, int KT, int KD,
+    int branch, void* stream) {
   // With the decisions taken here, q is left as it is.
   if (u_acc != nullptr && dq != nullptr) return (int)cudaErrorInvalidValue;
-  EpilogueArgs a{heights, rates, terms,  d,    q,    acc,    dacc,   accept, dq,
-                 u_acc,   d_pr,  lmhg,   prop, tn,   delta,  node,   t_rows, d_rows,
-                 rows,    valid, C,      B,    N,    T,      P,      D,      KT,
-                 KD,      branch};
+  EpilogueArgs a{heights, rates,      terms, d,    q,  acc,   dacc,   accept, dq,
+                 u_acc,   beta_prior, d_pr,  lmhg, prop, tn, delta,  node,   t_rows,
+                 d_rows,  rows,       valid, C,    B,  N,  T,      P,      D,
+                 KT,      KD,         branch};
   // A thread per ticket, in whole warps.
   if (B > kEpiThreads) return (int)cudaErrorInvalidValue;
   const int threads = (B + 31) / 32 * 32;

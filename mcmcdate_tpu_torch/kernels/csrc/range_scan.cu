@@ -7,9 +7,10 @@
 // 1024 rows in all).  Per chain:
 //   G_ab  = g_a' Q[a, b] g_b                 (a <= b; Q = P between the rows)
 //   dq_t  = 2 coef_t g_t . zg_t + coef_t^2 G_tt + 2 sum_{a < t accepted} coef_a G_at coef_t
-//   accept_t = log u_t < dpr_t - (beta_c dq_t) / 2 + lmhg_t
-// (beta_c the chain's likelihood temperature: the JAX scan's la_t,
-// fast_sweep.py:1860)
+//   accept_t = log u_t < bprior_c dpr_t - (beta_c dq_t) / 2 + lmhg_t
+// (beta_c and bprior_c the chain's likelihood and prior temperatures: the
+// JAX scan's la_t, fast_sweep.py:1860; bprior_c dpr_t is taken when d_pr is
+// staged, by __fmul_rn, so a temperature of 1 keeps dpr_t's bits)
 //
 // What bounds it on the H100: operations.  The upper triangle of G is
 // F^2 / 2 multiply-adds per chain (about 0.5 G at 1024 chains and F =
@@ -84,8 +85,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                       const float* __restrict__ Qt, int ldq, const float* __restrict__ coef,
                       const float* __restrict__ d_pr, const float* __restrict__ lmhg,
                       const float* __restrict__ u, const float* __restrict__ beta,
-                      unsigned char* __restrict__ accept, float* __restrict__ dq, int C, int S,
-                      int RB) {
+                      const float* __restrict__ beta_prior, unsigned char* __restrict__ accept,
+                      float* __restrict__ dq, int C, int S, int RB) {
   extern __shared__ __align__(16) float sm[];
   __shared__ unsigned long long bars[kStages];  // one per Q stage buffer
   const int F = S * RB;
@@ -141,7 +142,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const size_t o = (size_t)c * S + i % S;
     const bool in = c < C;
     cs[i] = in ? coef[o] : 0.f;
-    dps[i] = in ? d_pr[o] : 0.f;
+    dps[i] = in ? __fmul_rn(beta_prior[c], d_pr[o]) : 0.f;
     lms[i] = in ? lmhg[o] : 0.f;
     lus[i] = in ? logf(u[o]) : 0.f;
     steps[i] = 0.f;
@@ -258,7 +259,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 extern "C" int mcmcdate_range_scan_f32(const float* g, const float* zg, const float* Qt, int ldq,
                                        const float* coef, const float* d_pr, const float* lmhg,
                                        const float* u, const float* beta,
-                                       unsigned char* accept, float* dq, int C, int S, int RB,
+                                       const float* beta_prior, unsigned char* accept, float* dq,
+                                       int C, int S, int RB,
                                        void* stream) {
   if (S > kSMax || S * RB > kFMax || ldq % 4 != 0 || ldq < S * RB ||
       reinterpret_cast<size_t>(Qt) % 16 != 0)
@@ -273,6 +275,6 @@ extern "C" int mcmcdate_range_scan_f32(const float* g, const float* zg, const fl
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<(C + kChains - 1) / kChains, kThreads, smem, (cudaStream_t)stream>>>(
-      g, zg, Qt, ldq, coef, d_pr, lmhg, u, beta, accept, dq, C, S, RB);
+      g, zg, Qt, ldq, coef, d_pr, lmhg, u, beta, beta_prior, accept, dq, C, S, RB);
   return (int)cudaGetLastError();
 }

@@ -23,8 +23,8 @@
 // block, so plain stores suffice), the accept counts, q += the accepted
 // dq (summed in a fixed order; skipped without a likelihood, dq null), and
 // dacc (coef g where accepted, else 0) for the z update.  Without a
-// likelihood it also takes the decisions, log u < d_pr + lmhg (u_acc not
-// null, accept written).
+// likelihood it also takes the decisions, log u < beta_prior d_pr + lmhg
+// with the chain's prior temperature (u_acc not null, accept written).
 //
 // What bounds them on the H100: the prologue's special functions (the
 // inverse normal CDF and erfc, or lgamma, per ticket; the birth-death exp,
@@ -126,6 +126,7 @@ struct EpilogueState {
   unsigned char* accept;  // [C, S] (written when u_acc is given)
   const float* dq;        // [C, S], null without a likelihood
   const float* u_acc;     // [C, S], null with a likelihood
+  const float* beta_prior;  // [C] prior temperature of the decisions taken here
 };
 
 // A chain's constants, formed once per CTA.
@@ -328,12 +329,14 @@ __global__ void __launch_bounds__(kThreads) range_lik_prologue_kernel(RangeBlock
 }
 
 // Ticket s of chain c accepted: the scan's decision, or without a
-// likelihood log u < d_pr + lmhg (a NaN compares false as well).
+// likelihood log u < bprior d_pr + lmhg with the chain's prior temperature
+// (the JAX step's fast_sweep.py:1834; a NaN compares false as well).
 __device__ __forceinline__ bool accepted(const RangeBlockArgs& a, const EpilogueState& st, int c,
                                          int s) {
   const size_t cs = (size_t)c * a.S + s;
   const bool valid = a.tplan[s * kTicketFields + kValid] != 0;
-  if (st.u_acc != nullptr) return logf(st.u_acc[cs]) < a.d_pr[cs] + a.lmhg[cs] && valid;
+  if (st.u_acc != nullptr)
+    return logf(st.u_acc[cs]) < __fmul_rn(st.beta_prior[c], a.d_pr[cs]) + a.lmhg[cs] && valid;
   return st.accept[cs] && valid;
 }
 
@@ -435,12 +438,13 @@ extern "C" int mcmcdate_range_lik_prologue_f32(
 extern "C" int mcmcdate_range_lik_epilogue_f32(const void* args, float* heights, float* rates,
                                                float* terms, float* d, float* q, int* acc,
                                                unsigned char* accept, const float* dq,
-                                               const float* u_acc, void* stream) {
+                                               const float* u_acc, const float* beta_prior,
+                                               void* stream) {
   const RangeBlockArgs& a = *static_cast<const RangeBlockArgs*>(args);
   if (const int err = check_args(a)) return err;
   // With the decisions taken here, the sum of q would read other threads'.
   if (u_acc != nullptr && dq != nullptr) return (int)cudaErrorInvalidValue;
-  const EpilogueState st{heights, rates, terms, d, q, acc, accept, dq, u_acc};
+  const EpilogueState st{heights, rates, terms, d, q, acc, accept, dq, u_acc, beta_prior};
   const long items = (long)a.C * epilogue_items(a.S, a.RB);
   if (a.C > 0 && a.S > 0) {
     range_lik_epilogue_kernel<<<(int)((items + kThreads - 1) / kThreads), kThreads, 0,

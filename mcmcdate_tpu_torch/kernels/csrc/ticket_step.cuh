@@ -123,6 +123,7 @@ struct TicketArgs {
   int* acc;      // [C, P]
   int* nbad;     // [C] NaN or -inf terms
   const float* beta;  // [C] likelihood temperature of every decision
+  const float* beta_prior;  // [C] prior temperature of every decision
   // the table
   const int* rec;    // [P, kRecWords] packed records
   const int* didx;   // [P, KG], D padding
@@ -733,8 +734,10 @@ __device__ inline float gather_lik_dev(const TicketArgs& a, const Team& tm, int 
 }
 
 // The decision and write-back of ticket j (row rw) on chain c, d_lik
-// tempered by the chain's likelihood temperature (the JAX step's
-// beta * d_lik, engine/mh.py:194); dy is the
+// tempered by the chain's likelihood temperature and d_pr by its prior
+// temperature (the JAX step's beta_prior * d_pr + beta * d_lik,
+// engine/mh.py:194; __fmul_rn, so that a temperature of 1 gives d_pr's own
+// bits whatever the compiler fuses); dy is the
 // chain's full dy row (K2's or the gather's, all D), or null (the class
 // rows of dys under the univariate kind; no y change otherwise).  `oi` is
 // the index of the optional outputs.  Ends with the team synchronised.
@@ -742,7 +745,8 @@ template <class Team>
 __device__ inline bool ticket_epilogue_dev(const TicketArgs& a, const Team& tm, int c, int j,
                                            const Row& rw, const TicketOut& o, float d_lik,
                                            const float* dy, size_t oi) {
-  float la = (((o.invalid ? -INFINITY : o.d_pr) + d_lik) + o.lmhg) + o.lj;
+  const float d_pr = __fmul_rn(a.beta_prior[c], o.d_pr);
+  float la = (((o.invalid ? -INFINITY : d_pr) + d_lik) + o.lmhg) + o.lj;
   if (isnan(la)) la = -INFINITY;
   const bool acc = logf(a.u_acc[(size_t)c * a.n + j]) < la;
   float* h = a.heights + (size_t)c * a.N;
@@ -835,6 +839,7 @@ __device__ inline bool ticket_fast_dev(const TicketArgs& a, int c, int j, int gi
   const float u = a.u_acc[(size_t)c * a.n + j];
   const int nbad = a.nbad[c];
   const float beta = a.beta[c];
+  const float bprior = a.beta_prior[c];
   const float hq = q >= 0 ? h[q] : 0.f, rq = q >= 0 ? r[q] : 0.f;
   const float to = t >= 0 ? te[t] : 0.f;
   const float dold = row >= 0 ? d[row] : 0.f, yold = row >= 0 ? y[row] : 0.f;
@@ -893,7 +898,8 @@ __device__ inline bool ticket_fast_dev(const TicketArgs& a, int c, int j, int gi
   const float lmhg = (var && nonpos) ? -INFINITY : mv.k.lmhg;
   const float lj = rj ? (-logf(rb_new)) - (-logf(rb_old)) : 0.f;
   const bool invalid = v[1] > 0.f || (float)nbad > v[2];
-  float la = (((invalid ? -INFINITY : v[0]) + beta * (-0.5f * v[3])) + lmhg) + lj;
+  float la = (((invalid ? -INFINITY : __fmul_rn(bprior, v[0])) + beta * (-0.5f * v[3])) + lmhg)
+             + lj;
   if (isnan(la)) la = -INFINITY;
   const bool acc = logf(u) < la;
   if (acc) {

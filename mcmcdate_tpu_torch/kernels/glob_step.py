@@ -21,9 +21,10 @@ independent.
   the caller forms ``w = delta @ P`` (one large product, left to
   ``torch.matmul`` as the JAX package leaves it to XLA); the epilogue takes
   ``dq = sum delta (2 z + w)``, decides and writes back.  Every decision
-  is ``log alpha = d_pr - (beta dq) / 2 + lmhg + lj`` with the chain's
-  likelihood temperature ``beta`` (``carry.beta``, ``[C]``; None: 1), the
-  JAX step's ``fast_sweep.py:1195``.  A subtree ticket
+  is ``log alpha = beta_prior d_pr - (beta dq) / 2 + lmhg + lj`` with the
+  chain's likelihood and prior temperatures ``beta`` and ``beta_prior``
+  (``carry.beta``, ``carry.beta_prior``, ``[C]``; None: 1), the JAX step's
+  ``fast_sweep.py:1194-1195``.  A subtree ticket
   (sub_ultra, sub_rate) changes only its subtree's distances, its support
   rows ``S`` (:meth:`GlobConsts.support`): its prologue evaluates only
   those and also gives ``delta_S = delta[:, S]``, so that the product
@@ -411,9 +412,11 @@ def _terms(gc: GlobConsts, tag, bnew, terms):
     return full, d_pr, invalid
 
 
-def _decide(d_pr, dq, lmhg, lj, invalid, u_acc, beta=None):
-    """``log alpha = d_pr - (beta dq) / 2 + lmhg + lj`` (``beta`` None:
-    untempered) and the decision."""
+def _decide(d_pr, dq, lmhg, lj, invalid, u_acc, beta=None, beta_prior=None):
+    """``log alpha = beta_prior d_pr - (beta dq) / 2 + lmhg + lj`` (either
+    temperature None: untempered) and the decision."""
+    if beta_prior is not None:
+        d_pr = beta_prior * d_pr
     log_alpha = d_pr - 0.5 * (dq if beta is None else beta * dq) + lmhg + lj
     log_alpha = torch.where(invalid | torch.isnan(log_alpha), NEG_INF, log_alpha)
     return torch.log(u_acc) < log_alpha, log_alpha
@@ -460,7 +463,8 @@ def glob_scan_ticket_plain(gc: GlobConsts, tag, carry, tune, sx, draw, u_acc, ro
             # Root-branch Jacobian ratio; the merged root-adjacent entry is
             # internal row 0.
             lj = torch.log(d[:, 0]) - torch.log(d_new[:, 0])
-    accept, log_alpha = _decide(d_pr, dq, lmhg, lj, invalid, u_acc, carry.beta)
+    accept, log_alpha = _decide(d_pr, dq, lmhg, lj, invalid, u_acc, carry.beta,
+                                carry.beta_prior)
     _select(gc, tag, carry, bnew, full, accept, row)
     if uniform:
         a = accept[:, None]
@@ -502,7 +506,7 @@ def glob_dense_epilogue_plain(gc: GlobConsts, tag, carry, pro: GlobDense, w, u_a
     else:
         dq = torch.zeros_like(q)
     accept, log_alpha = _decide(pro.d_pr, dq, pro.lmhg, pro.lj, pro.invalid, u_acc,
-                                carry.beta)
+                                carry.beta, carry.beta_prior)
     _select(gc, tag, carry, pro.state, pro.terms, accept, row)
     a = accept[:, None]
     d.copy_(torch.where(a, pro.d_new, d))
@@ -558,7 +562,8 @@ _PTRS = ("parent", "is_leaf", "cal_node", "cal_lower", "cal_lower_pm", "cal_uppe
          "rows", "sd", "aux", "lo", "hi", "n_inner", "n_nodes", "rj", "srow", "tun", "draw",
          "u_acc",
          "accept", "prop", "mean", "h_new", "r_new", "s_new", "t_new", "d_new", "delta",
-         "delta_s", "lmhg", "lj", "d_pr", "invalid", "nbad", "w", "beta")
+         "delta_s", "lmhg", "lj", "d_pr", "invalid", "nbad", "w", "beta",
+         "beta_prior")
 _INTS = ("N", "C", "T", "D", "P", "n", "s", "family", "blocks", "fields", "use_lik",
          "clock_model", "n_cal", "n_con", "n_br", "br_width", "n_root_ch", "root_right",
          "n_inner_total", "sc_birth", "sc_death", "sc_bd", "sc_bdc", "smem_budget",
@@ -629,7 +634,8 @@ def _args(gc: GlobConsts, fam: GlobFamily, carry, tun, draws, u_acc) -> dict:
         n_inner_total=gc.n_inner_total, sc_birth=gc.sc_codes["birth"],
         sc_death=gc.sc_codes["death"], sc_bd=gc.sc_codes["bd"], sc_bdc=gc.sc_codes["bdc"],
         mean_root_height=float(model.mean_root_height), rho=1.0, mPm=float(gc.mPm),
-        beta=build.beta_arg(carry.beta, C, carry.d.device))
+        beta=build.beta_arg(carry.beta, C, carry.d.device),
+        beta_prior=build.beta_arg(carry.beta_prior, C, carry.d.device))
     if gc.use_lik:
         args.update(z=carry.z, mu=gc.mu, pmu=gc.Pmu)
     return {k: v for k, v in args.items() if v is not None}

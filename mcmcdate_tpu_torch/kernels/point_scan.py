@@ -6,12 +6,13 @@ Replaces the XLA-compiled correction scan of ``FastSweeps._mega_point_lik``
 step's B tickets in order, each with a distance delta ``delta_t`` on KD
 rows: ``dq0_t = 2 delta_t . zG_t + delta_t' Pself_t delta_t``, the cross
 terms ``T_at = delta_a' Pcross_at delta_t`` and the scan ``dq_t = dq0_t +
-2 sum_{a<t accepted} T_at``, ``log alpha_t = dpr_t - (beta dq_t) / 2 +
-lmhg_t`` with the chain's likelihood temperature ``beta`` (the JAX scan's
-``la_t``, ``engine/fast_sweep.py:1511``), accept where ``log u_t < log
-alpha_t``.  The scan runs in sub-blocks of ``SUB`` tickets; between them
-the gathered ``zG`` takes the accepted deltas through ``Pblk`` (``zG +=
-dacc @ Pblk[sub rows]``).
+2 sum_{a<t accepted} T_at``, ``log alpha_t = beta_prior dpr_t - (beta
+dq_t) / 2 + lmhg_t`` with the chain's likelihood and prior temperatures
+``beta`` and ``beta_prior`` (the JAX scan's ``la_t``,
+``engine/fast_sweep.py:1511``), accept where ``log u_t < log alpha_t``.
+The scan runs in sub-blocks of ``SUB`` tickets; between them the gathered
+``zG`` takes the accepted deltas through ``Pblk`` (``zG += dacc @ Pblk[sub
+rows]``).
 
 On the H100 it is bound by its serial scan and by the reads of the step's
 ``Pblk`` (up to 9 MB at 1000 taxa, shared by every chain): the cross terms
@@ -39,7 +40,7 @@ from . import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P,) * 7 + (_P, _P, _P) + (_I,) * 4 + (_P,)
+_ARGTYPES = (_P,) * 8 + (_P, _P, _P) + (_I,) * 4 + (_P,)
 SUB = 64  # the plain scan's sub-block (the JAX step's SUB)
 
 
@@ -51,10 +52,12 @@ def pitched(x):
     return buf[:, :x.shape[1]]
 
 
-def point_scan_plain(delta, zG, Pblk, d_pr, lmhg, u, beta=None):
-    """Plain PyTorch version of :func:`point_scan` (``beta`` None:
-    untempered)."""
+def point_scan_plain(delta, zG, Pblk, d_pr, lmhg, u, beta=None, beta_prior=None):
+    """Plain PyTorch version of :func:`point_scan` (``beta`` or
+    ``beta_prior`` None: untempered)."""
     C, B, kd = delta.shape
+    if beta_prior is not None:
+        d_pr = beta_prior[:, None] * d_pr
     Pblk4 = Pblk.reshape(B, kd, B, kd)
     logu = torch.log(u)
     zG = zG.clone()
@@ -87,18 +90,19 @@ def point_scan_plain(delta, zG, Pblk, d_pr, lmhg, u, beta=None):
     return accept, dq_all
 
 
-def point_scan(delta, zG, Pblk, d_pr, lmhg, u, beta=None):
+def point_scan(delta, zG, Pblk, d_pr, lmhg, u, beta=None, beta_prior=None):
     """Accept scan of a point mega-step.  ``delta`` ``[C, B, KD]`` are the
     tickets' distance deltas (zero on pad rows), ``zG`` ``[C, B*KD]`` the
     carried ``z`` at their rows, ``Pblk`` ``[B*KD, B*KD]`` the precision
     between them (zero rows and columns for pads; on a CUDA tensor its rows
     on a 16-byte pitch, as :func:`pitched` makes them),
     ``d_pr``, ``lmhg`` and the accept uniforms ``u`` ``[C, B]``, and the
-    chains' likelihood temperature ``beta`` ``[C]`` (None: 1).  Returns
+    chains' likelihood and prior temperatures ``beta`` and ``beta_prior``
+    ``[C]`` (None: 1).  Returns
     ``(accept [C, B] bool, dq [C, B])``.  The plain version runs for CPU
     tensors, kernel K4 for CUDA tensors (float32)."""
     if delta.device.type == "cpu":
-        return point_scan_plain(delta, zG, Pblk, d_pr, lmhg, u, beta)
+        return point_scan_plain(delta, zG, Pblk, d_pr, lmhg, u, beta, beta_prior)
     C, B, kd = delta.shape
     for name, t in (("delta", delta), ("zG", zG), ("d_pr", d_pr), ("lmhg", lmhg), ("u", u)):
         build.require_cuda(t, name, torch.float32)
@@ -108,12 +112,14 @@ def point_scan(delta, zG, Pblk, d_pr, lmhg, u, beta=None):
         raise ValueError("Pblk's rows must lie on a 16-byte pitch (point_scan.pitched)")
     dev = delta.device
     beta = build.beta_arg(beta, C, dev)
+    beta_prior = build.beta_arg(beta_prior, C, dev)
     accept = torch.empty((C, B), dtype=torch.bool, device=dev)  # written as bytes 0 / 1
     dq = torch.empty((C, B), dtype=torch.float32, device=dev)
     zwork = torch.empty_like(zG)  # the chains' zG as the sub-blocks update it
     p = build.ptr
     err = build.bind("mcmcdate_point_scan_f32", _ARGTYPES)(
-        p(delta), p(zG), p(Pblk), p(d_pr), p(lmhg), p(u), p(beta), p(accept), p(dq), p(zwork),
+        p(delta), p(zG), p(Pblk), p(d_pr), p(lmhg), p(u), p(beta), p(beta_prior),
+        p(accept), p(dq), p(zwork),
         C, B, kd, Pblk.stride(0), build.stream_ptr(dev),
     )
     build.check(err, "point_scan kernel")

@@ -21,7 +21,8 @@ rows in all, ``d_rows``).
   dacc``, ``q += sum of accepted dq``, the accept counts, and ``dacc``
   ``[C, B KD]`` for the ``z`` update ``z += dacc @ Prow``.  Without a
   likelihood there is no scan: the epilogue takes the decisions itself,
-  ``log u < d_pr + lmhg``, and leaves ``q``.
+  ``log u < beta_prior d_pr + lmhg`` (the chain's prior temperature), and
+  leaves ``q``.
 
 On the H100 the prologue is bound by its instructions and a long dependent
 path per (chain, ticket) pair: its plan, one round of gathers from the
@@ -100,7 +101,7 @@ KC_MAX = (KT_MAX - 2) // 2  # children per ticket (a flag bit each)
 PLAN_NODE, PLAN_PAR, PLAN_ROW, PLAN_FLAGS, PLAN_SD, PLAN_HEAD = range(6)
 _EPILOGUE_ARGTYPES = (
     (_P,) * 7  # heights, rates, terms, d, q, acc, dacc
-    + (_P,) * 8  # accept, dq, u_acc, d_pr, lmhg, prop, tn, delta
+    + (_P,) * 9  # accept, dq, u_acc, beta_prior, d_pr, lmhg, prop, tn, delta
     + (_P,) * 5  # node, t_rows, d_rows, rows, valid
     + (_I,) * 9  # C, B, N, T, P, D, KT, KD, branch
     + (_P,)  # stream
@@ -232,11 +233,12 @@ def point_lik_prologue_given(branch, state, terms, d, z, tuning, sx, is_leaf, po
     return PointProposal(prop, lq, tn, delta, d_pr, lmhg, zG)
 
 
-def point_lik_epilogue_plain(branch, state, terms, d, q, acc, sx, pro, accept, dq, u_acc=None):
+def point_lik_epilogue_plain(branch, state, terms, d, q, acc, sx, pro, accept, dq, u_acc=None,
+                             beta_prior=None):
     """Plain PyTorch version of :func:`point_lik_epilogue` (updates in
     place; ``dq`` None skips ``q``)."""
     if accept is None:
-        accept = prior_accept(pro.d_pr, pro.lmhg, u_acc)
+        accept = prior_accept(pro.d_pr, pro.lmhg, u_acc, beta_prior)
     accept = accept & sx["valid"]
     node, t_rows = sx["node"], sx["t_rows"]
     a = accept[..., None]
@@ -326,20 +328,23 @@ def point_lik_prologue(branch, state, terms, d, z, tuning, sx, is_leaf, pos, clo
     return pro
 
 
-def point_lik_epilogue(branch, state, terms, d, q, acc, sx, pro, accept, dq, u_acc=None):
+def point_lik_epilogue(branch, state, terms, d, q, acc, sx, pro, accept, dq, u_acc=None,
+                       beta_prior=None):
     """The write-back of a likelihood point step on every chain, in place:
     heights (slide) or rates (branch), terms, ``d``, ``q`` and the accept
     counts ``acc`` of the accepted tickets (``accept``, ``dq`` from
     :func:`~.point_scan.point_scan`, ``pro`` from the prologue; pad slots
     never accept, their ``lmhg`` is ``-inf``).  Without a likelihood
     ``accept`` and ``dq`` are None and the accept uniforms ``u_acc`` are
-    given: the epilogue decides, ``log u < d_pr + lmhg``, and leaves ``q``.
-    Returns ``(accept, dacc [C, B KD])`` with ``dacc`` the accepted
-    distance deltas at the step's rows (``d_flat``).  The plain version
-    runs for CPU tensors, the kernel for CUDA tensors (float32)."""
+    given: the epilogue decides, ``log u < beta_prior d_pr + lmhg`` with the
+    chains' prior temperature ``beta_prior`` ``[C]`` (None: 1; the JAX
+    step's ``fast_sweep.py:1471``), and leaves ``q``.  Returns ``(accept,
+    dacc [C, B KD])`` with ``dacc`` the accepted distance deltas at the
+    step's rows (``d_flat``).  The plain version runs for CPU tensors, the
+    kernel for CUDA tensors (float32)."""
     if terms.device.type == "cpu":
         return point_lik_epilogue_plain(branch, state, terms, d, q, acc, sx, pro, accept, dq,
-                                        u_acc)
+                                        u_acc, beta_prior)
     C, N = state.heights.shape
     B, KT = sx["t_rows"].shape
     KD = sx["d_rows"].shape[-1]
@@ -362,7 +367,8 @@ def point_lik_epilogue(branch, state, terms, d, q, acc, sx, pro, accept, dq, u_a
     p = build.ptr
     err = build.bind("mcmcdate_point_lik_epilogue_f32", _EPILOGUE_ARGTYPES)(
         p(state.heights), p(state.rates), p(terms), p(d), p(q), p(acc), p(dacc), p(accept),
-        p(dq), p(u_acc), p(pro.d_pr), p(pro.lmhg), p(pro.prop), p(pro.tn), p(pro.delta),
+        p(dq), p(u_acc), p(build.beta_arg(beta_prior, C, terms.device)), p(pro.d_pr),
+        p(pro.lmhg), p(pro.prop), p(pro.tn), p(pro.delta),
         p(sx["node"]), p(sx["t_rows"]), p(sx["d_rows"]), p(sx["rows"]), p(sx["valid"]), C, B, N,
         terms.shape[1], acc.shape[1], d.shape[1], KT, KD, int(bool(branch)),
         build.stream_ptr(terms.device),

@@ -10,8 +10,9 @@ chain: ``v_a = g_a . zg_a``, the Gram matrix ``G_ab = g_a' Q_ab g_b`` with
 ``Q`` the precision between the block's rows, ``dq0_a = 2 coef_a v_a +
 coef_a^2 G_aa``, ``X_ab = coef_a G_ab coef_b``, then the serial scan
 ``dq_t = dq0_t + 2 sum_{a<t accepted} X_at`` and accept where ``log u_t <
-dpr_t - (beta dq_t) / 2 + lmhg_t``, ``beta`` the chain's likelihood
-temperature (the JAX scan's ``la_t``, ``engine/fast_sweep.py:1860``).
+beta_prior dpr_t - (beta dq_t) / 2 + lmhg_t``, ``beta`` and ``beta_prior``
+the chain's likelihood and prior temperatures (the JAX scan's ``la_t``,
+``engine/fast_sweep.py:1860``).
 
 On the H100 it is bound by operations: the upper triangle of ``G`` is
 ``(S RB)^2 / 2`` multiply-adds per chain (about 0.5 G at 1024 chains, since
@@ -33,7 +34,7 @@ from . import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P,) * 3 + (_I,) + (_P,) * 7 + (_I,) * 3 + (_P,)
+_ARGTYPES = (_P,) * 3 + (_I,) + (_P,) * 8 + (_I,) * 3 + (_P,)
 S_MAX = 64     # tickets per block the kernel takes
 F_MAX = 1024   # rows per block (S RB) the kernel takes
 
@@ -49,10 +50,12 @@ def kernel_layout(Q):
     return buf[:, :F].T
 
 
-def range_scan_plain(g, zg, Q, coef, d_pr, lmhg, u, beta=None):
-    """Plain PyTorch version of :func:`range_scan` (``beta`` None:
-    untempered)."""
+def range_scan_plain(g, zg, Q, coef, d_pr, lmhg, u, beta=None, beta_prior=None):
+    """Plain PyTorch version of :func:`range_scan` (``beta`` or
+    ``beta_prior`` None: untempered)."""
     C, S, RB = g.shape
+    if beta_prior is not None:
+        d_pr = beta_prior[:, None] * d_pr
     v = torch.sum(g * zg, dim=-1)                                    # [C, S]
     G = torch.einsum("cai,aibj,cbj->cab", g, Q.reshape(S, RB, S, RB), g)
     gamma = torch.diagonal(G, dim1=1, dim2=2)
@@ -74,17 +77,18 @@ def range_scan_plain(g, zg, Q, coef, d_pr, lmhg, u, beta=None):
     return accept, dq
 
 
-def range_scan(g, zg, Q, coef, d_pr, lmhg, u, beta=None):
+def range_scan(g, zg, Q, coef, d_pr, lmhg, u, beta=None, beta_prior=None):
     """Accept scan of a range block.  ``g`` ``[C, S, RB]`` are the tickets'
     rank-1 delta directions (zero on pad rows), ``zg`` ``[C, S, RB]`` the
     carried ``z`` at their rows, ``Q`` ``[S*RB, S*RB]`` the precision
     between those rows (for the kernel in :func:`kernel_layout`), ``coef =
     f - 1``, ``d_pr``, ``lmhg`` and the accept uniforms ``u`` ``[C, S]``,
-    and the chains' likelihood temperature ``beta`` ``[C]`` (None: 1).
-    Returns ``(accept [C, S] bool, dq [C, S])``.  The plain version runs
-    for CPU tensors, kernel K5 for CUDA tensors (float32)."""
+    and the chains' likelihood and prior temperatures ``beta`` and
+    ``beta_prior`` ``[C]`` (None: 1).  Returns ``(accept [C, S] bool, dq [C,
+    S])``.  The plain version runs for CPU tensors, kernel K5 for CUDA
+    tensors (float32)."""
     if g.device.type == "cpu":
-        return range_scan_plain(g, zg, Q, coef, d_pr, lmhg, u, beta)
+        return range_scan_plain(g, zg, Q, coef, d_pr, lmhg, u, beta, beta_prior)
     C, S, RB = g.shape
     for name, t in (("g", g), ("zg", zg), ("coef", coef), ("d_pr", d_pr), ("lmhg", lmhg),
                     ("u", u)):
@@ -101,12 +105,13 @@ def range_scan(g, zg, Q, coef, d_pr, lmhg, u, beta=None):
         raise ValueError("range_scan: Q must be in kernel_layout")
     dev = g.device
     beta = build.beta_arg(beta, C, dev)
+    beta_prior = build.beta_arg(beta_prior, C, dev)
     accept = torch.empty((C, S), dtype=torch.bool, device=dev)  # written as bytes 0 / 1
     dq = torch.empty((C, S), dtype=torch.float32, device=dev)
     p = build.ptr
     err = build.bind("mcmcdate_range_scan_f32", _ARGTYPES)(
-        p(g), p(zg), p(Q), Q.stride(1), p(coef), p(d_pr), p(lmhg), p(u), p(beta), p(accept),
-        p(dq), C, S, RB, build.stream_ptr(dev),
+        p(g), p(zg), p(Q), Q.stride(1), p(coef), p(d_pr), p(lmhg), p(u), p(beta),
+        p(beta_prior), p(accept), p(dq), C, S, RB, build.stream_ptr(dev),
     )
     build.check(err, "range_scan kernel")
     range_scan.launches += 1

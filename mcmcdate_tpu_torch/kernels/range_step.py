@@ -19,8 +19,9 @@ inside by a gamma factor ``f``).
   write-back of the accepted tickets: heights or rates, terms, ``d += dacc``,
   ``q += sum of accepted dq``, the accept counts, and ``dacc`` ``[C, S RB]``
   for the ``z`` update ``z += dacc @ Prow``.  Without a likelihood there
-  is no scan: the epilogue takes the decisions itself, ``log u < d_pr +
-  lmhg``, and leaves ``q``.
+  is no scan: the epilogue takes the decisions itself, ``log u <
+  beta_prior d_pr + lmhg`` (the chain's prior temperature), and leaves
+  ``q``.
 
 The prologue is bound on the H100 by its special functions (the inverse
 normal CDF or lgamma per ticket, the double-precision birth-death exp, log
@@ -169,12 +170,13 @@ def range_lik_prologue_given(rate, state, terms, d, z, tuning, sx, is_leaf, cloc
     return RangeProposal(prop, lq, coef, d_pr, lmhg, g, zg, x_new, bd_new, ck_new, cal_new)
 
 
-def range_lik_epilogue_plain(rate, state, terms, d, q, acc, sx, pro, accept, dq, u_acc=None):
+def range_lik_epilogue_plain(rate, state, terms, d, q, acc, sx, pro, accept, dq, u_acc=None,
+                             beta_prior=None):
     """Plain PyTorch version of :func:`range_lik_epilogue` (updates in
     place; ``dq`` None skips ``q``)."""
     N = state.heights.shape[1]
     if accept is None:
-        accept = prior_accept(pro.d_pr, pro.lmhg, u_acc)
+        accept = prior_accept(pro.d_pr, pro.lmhg, u_acc, beta_prior)
     accept = accept & sx["valid"]
     own_ok = sx["own"] >= 0
     own_s = torch.clamp(sx["own"], min=0)
@@ -283,8 +285,8 @@ _P = ctypes.c_void_p
 # args, heights, rates, terms, d, z, tuning, birth, death, rate_var, height,
 # rate_mean, is_leaf, draw, stream
 _PROLOGUE_ARGTYPES = (_P,) * 15
-# args, heights, rates, terms, d, q, acc, accept, dq, u_acc, stream
-_EPILOGUE_ARGTYPES = (_P,) * 11
+# args, heights, rates, terms, d, q, acc, accept, dq, u_acc, beta_prior, stream
+_EPILOGUE_ARGTYPES = (_P,) * 12
 
 
 class RangeBlock(NamedTuple):
@@ -459,14 +461,17 @@ def range_lik_prologue(rate, state, terms, d, z, tuning, sx, is_leaf, clock, dra
     return blk.pro
 
 
-def range_lik_epilogue(rate, state, terms, d, q, acc, sx, pro, accept, dq, u_acc=None):
+def range_lik_epilogue(rate, state, terms, d, q, acc, sx, pro, accept, dq, u_acc=None,
+                       beta_prior=None):
     """The write-back of a likelihood range block on every chain, in place:
     heights (ultrametric) or rates (rate), terms, ``d``, ``q`` and the accept
     counts ``acc`` of the accepted tickets (``accept``, ``dq`` from
     :func:`~.range_scan.range_scan`, ``pro`` from the prologue; pad slots
     never accept, their ``lmhg`` is ``-inf``).  Without a likelihood
     ``accept`` and ``dq`` are None and the accept uniforms ``u_acc`` are
-    given: the epilogue decides, ``log u < d_pr + lmhg``, and leaves ``q``.
+    given: the epilogue decides, ``log u < beta_prior d_pr + lmhg`` with the
+    chains' prior temperature ``beta_prior`` ``[C]`` (None: 1; the JAX
+    step's ``fast_sweep.py:1834``), and leaves ``q``.
     Returns ``(accept, dacc [C, S RB])`` with ``dacc`` the accepted distance
     deltas at the block's rows (``d_flat``).  The plain version runs for
     CPU tensors, the kernel for CUDA tensors (float32): ``pro`` must be
@@ -475,7 +480,7 @@ def range_lik_epilogue(rate, state, terms, d, q, acc, sx, pro, accept, dq, u_acc
     :class:`RangeWork` buffers, valid until the next block of its bucket."""
     if terms.device.type == "cpu":
         return range_lik_epilogue_plain(rate, state, terms, d, q, acc, sx, pro, accept, dq,
-                                        u_acc)
+                                        u_acc, beta_prior)
     if (accept is None) == (u_acc is None) or (u_acc is not None and dq is not None):
         raise ValueError("range_lik_epilogue takes accept and dq, or u_acc alone")
     work = sx.get("work")
@@ -494,7 +499,8 @@ def range_lik_epilogue(rate, state, terms, d, q, acc, sx, pro, accept, dq, u_acc
     p = build.ptr
     err = build.bind("mcmcdate_range_lik_epilogue_f32", _EPILOGUE_ARGTYPES)(
         blk.addr, p(state.heights), p(state.rates), p(terms), p(d), p(q), p(acc), p(accept),
-        p(dq), p(u_acc), build.stream_ptr(terms.device))
+        p(dq), p(u_acc), p(build.beta_arg(beta_prior, terms.shape[0], terms.device)),
+        build.stream_ptr(terms.device))
     build.check(err, "range_lik_epilogue kernel")
     range_lik_epilogue.launches += 1
     return accept, blk.dacc

@@ -26,7 +26,8 @@ left), so every kernel runs one CTA per chain.
   class rows (:meth:`TicketTable.rows`).
 - K3 ``accept_select`` takes the likelihood delta (K2's under a full MVN,
   ``delta * inv_sd`` on the class rows under the univariate kind), tempers
-  it by the chain's likelihood temperature (``carry.beta``, ``[C]``),
+  it by the chain's likelihood temperature (``carry.beta``, ``[C]``) and
+  the prior delta by its prior temperature (``carry.beta_prior``),
   decides and writes back only what the ticket touched, or restores the
   old values.
 - ``ticket_scan``: a run of consecutive tickets in one launch, each chain
@@ -719,7 +720,7 @@ _PTRS = ("parent", "is_leaf", "children", "cal_node", "cal_lower", "cal_lower_pm
          "cal_upper_pm", "con_young", "con_old", "con_pm", "br_node", "br_sd", "root_ch",
          "dist_idx", "inv_sd", "L",
          "heights", "rates", "birth", "death", "height", "rate_mean", "rate_var", "terms", "d",
-         "y", "acc", "nbad", "beta",
+         "y", "acc", "nbad", "beta", "beta_prior",
          "rec", "didx", "t_idx", "n_idx",
          "tuning", "order", "draw", "gdraw", "gidx", "u_acc", "lead",
          "hs", "rs", "ss", "tn", "dn", "dl", "dys", "lmhg", "lj", "d_pr", "invalid", "sprop",
@@ -821,7 +822,8 @@ def kernel_args(tt: TicketTable, carry, tuning, dr: TicketDraws) -> dict:
                     sc_bdc=props.SC_BIRTH_DEATH_CONTRA)
     args.update(
         terms=carry.terms, d=carry.d, y=carry.y, acc=carry.acc, nbad=carry.nbad,
-        beta=build.beta_arg(carry.beta, C, b.heights.device), tuning=tuning,
+        beta=build.beta_arg(carry.beta, C, b.heights.device),
+        beta_prior=build.beta_arg(carry.beta_prior, C, b.heights.device), tuning=tuning,
         order=dr.order, draw=dr.u, gdraw=dr.g, gidx=dr.gidx, u_acc=dr.u_acc, lead=dr.lead,
         N=N, C=C, T=tt.T, D=tt.D, P=tt.table.n_proposals, n=dr.n,
         ng=0 if dr.g is None else dr.g.shape[1], row=int(dr.order_host[0]),

@@ -85,9 +85,12 @@ def is_bad(x):
     return torch.isnan(x) | torch.isneginf(x)
 
 
-def prior_accept(d_pr, lmhg, u_acc):
-    """The decisions of a step without a likelihood: ``log u < d_pr +
-    lmhg``, a NaN log alpha rejecting."""
+def prior_accept(d_pr, lmhg, u_acc, beta_prior=None):
+    """The decisions of a step without a likelihood: ``log u < beta_prior
+    d_pr + lmhg`` (``beta_prior`` ``[C]``, None: 1), a NaN log alpha
+    rejecting."""
+    if beta_prior is not None:
+        d_pr = beta_prior[:, None] * d_pr
     log_alpha = d_pr + lmhg
     return torch.log(u_acc) < torch.where(torch.isnan(log_alpha), NEG_INF, log_alpha)
 

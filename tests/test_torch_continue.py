@@ -2,7 +2,7 @@
 continue_from=)``) on the CPU: a port run continued by the port appends its
 monitors with iterations numbered after the checkpoint's and preloads the
 saved trace; a float64 checkpoint written by the JAX package continues in
-the port at float64; an MC3 checkpoint raises, a NUTS one continues with
+the port at float64; an MC3 checkpoint continues as MC3, a NUTS one with
 the NUTS move."""
 
 import json
@@ -118,22 +118,29 @@ def test_continue_a_jax_checkpoint(prepared):
 
 @pytest.mark.parametrize("flag", ("mc3", "hamiltonian"))
 def test_unported_checkpoints_raise(prepared, flag, monkeypatch):
-    """An MC3 checkpoint raises (not ported); a checkpoint marked
-    ``hamiltonian`` continues with the NUTS move (ported since; its
-    trajectories cut to one doubling)."""
+    """Checkpoints of the modes ported after ``continue``: one marked
+    ``mc3`` (here a 4-chain run's, one group of 4 temperatures) continues as
+    MC3, one marked ``hamiltonian`` with the NUTS move (its trajectories
+    cut to one doubling)."""
     from mcmcdate_tpu_torch.engine import hmc
 
     monkeypatch.setattr(hmc, "MAX_DEPTH", 1)
     d = prepared
-    cli.main(["run", "-a", "x", "--device", "cpu", "--chains", "2", "--iterations", "2",
+    chains = "4" if flag == "mc3" else "2"
+    cli.main(["run", "-a", "x", "--device", "cpu", "--chains", chains, "--iterations", "2",
               "--seed", "2", "--profile", "--out-dir", d])
     meta = _meta(d)
     meta[flag] = True
+    if flag == "mc3":
+        meta["n_groups"] = 1
     with open(os.path.join(d, "x.mcmc.json"), "w") as fh:
         json.dump(meta, fh)
     if flag == "mc3":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _continue(d, 2)
+        runner = _continue(d, 2)
+        meta = _meta(d)
+        assert runner.mc3 is not None and runner.s.n_chains == 4
+        assert meta["mc3"] is True and meta["n_groups"] == 1 and meta["iteration"] == 4
+        assert "mc3_dt" in tckpt.load_arrays("x", ("mc3_dt",), in_dir=d)
         return
     runner = _continue(d, 2)
     assert runner.nuts is not None and _meta(d)["hamiltonian"] is True

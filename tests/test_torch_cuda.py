@@ -706,6 +706,17 @@ def test_prior_only_step_kernels(card, step):
     ties, and the plain epilogue on their decisions gives their heights,
     rates and terms bitwise, d within 1e-5 of scale and the same accept
     counts; q stays as it was."""
+    _prior_only_steps(card, step, False)
+
+
+@pytest.mark.parametrize("step", ("point", "range"))
+def test_prior_tempered_prior_only_steps(card, step):
+    """The same with the MC3 ladder as each chain's prior temperature, which
+    the epilogues' own decisions take."""
+    _prior_only_steps(card, step, True)
+
+
+def _prior_only_steps(card, step, prior):
     import dataclasses
 
     from mcmcdate_tpu_torch.engine import fast_sweep as TF, proposals as TP
@@ -724,6 +735,7 @@ def test_prior_only_step_kernels(card, step):
     C = batch.n_chains
     tuning = torch.rand(C, table.n_proposals, generator=g, device=card) * 3 + 0.3
     carry = fs.init_carry(batch)
+    bp = _mc3_ladder(C) if prior else None
     if step == "point":
         K, scan, run = KP, point_scan, fs.point_lik_step
         cases = [(k, k == TP.K_SCALE_BRANCH_RATE, sx)
@@ -751,14 +763,16 @@ def test_prior_only_step_kernels(card, step):
         u = torch.rand(C, B, generator=g, device=card)
         ck, cr = (TF.FastCarry(State(**{f: getattr(carry.batch, f).clone() for f in FIELDS}),
                                carry.terms.clone(), carry.d.clone(), carry.z.clone(),
-                               carry.q.clone(), carry.acc.clone()) for _ in range(2))
+                               carry.q.clone(), carry.acc.clone(), beta_prior=bp)
+                  for _ in range(2))
         before = [w.launches for w in wrappers]
         accept = run(k, ck, tuning, sx, draw, u)
         assert [w.launches for w in wrappers] == [before[0] + 1, before[1], before[2] + 1]
         pro = prologue(flag, cr.batch, cr.terms, cr.d, None, tuning, sx, leaf,
                        *((fs.pos_t,) if step == "point" else ()), model.clock, draw)
         pr = given(flag, cr, pro.prop)
-        la = torch.nan_to_num(pr.d_pr + pr.lmhg, nan=-math.inf)
+        la = torch.nan_to_num((1.0 if bp is None else bp[:, None]) * pr.d_pr + pr.lmhg,
+                              nan=-math.inf)
         differ = ((torch.log(u) < la) & sx["valid"]) != accept
         assert torch.all((torch.log(u) - la).abs()[differ] < TIE)
         epilogue_plain(flag, cr.batch, cr.terms, cr.d, cr.q, cr.acc, sx, pr, accept, None)
@@ -773,7 +787,7 @@ def test_prior_only_step_kernels(card, step):
     assert 0 < n_acc < n
 
 
-def _contra_agree(model, batch, table, sx, seed, mode):
+def _contra_agree(model, batch, table, sx, seed, mode, beta_prior=None):
     """K6 in one mode on one step against its plain version.  Proposals may
     differ in their last bits (CUDA's normal CDF and inverse against
     PyTorch's), which a short branch amplifies in its terms: the kernel's
@@ -801,15 +815,18 @@ def _contra_agree(model, batch, table, sx, seed, mode):
         assert torch.all((a[fin] - b[fin]).abs() <= rel * (1 + b[fin].abs()))
 
     sk, tk, acck = fresh()
-    ok = kernel(sk, tk, acck, tuning, sx, model.topo.is_leaf_t, model.clock, u_prop, u_acc)
+    ok = kernel(sk, tk, acck, tuning, sx, model.topo.is_leaf_t, model.clock, u_prop, u_acc,
+                beta_prior)
     sp, tp, accp = fresh()
-    op = plain(sp, tp, accp, tuning, sx, model.topo.is_leaf_t, model.clock, u_prop, u_acc)
+    op = plain(sp, tp, accp, tuning, sx, model.topo.is_leaf_t, model.clock, u_prop, u_acc,
+               beta_prior)
     valid = sx["valid"].expand_as(ok.accept)
     assert 0 < int(ok.accept.sum()) < int(valid.sum())
     near(torch.where(valid, ok.h_prop, 0.0), torch.where(valid, op.h_prop, 0.0))
     sr, tr, accr = fresh()
     forced = torch.where(ok.accept, 0.0, math.nan)
-    orr = given(sr, tr, accr, tuning, sx, model.topo.is_leaf_t, model.clock, ok.h_prop, forced)
+    orr = given(sr, tr, accr, tuning, sx, model.topo.is_leaf_t, model.clock, ok.h_prop, forced,
+                beta_prior)
     near(torch.where(valid, ok.lq, 0.0), torch.where(valid, orr.lq, 0.0), TIE)
     assert torch.equal(orr.accept, ok.accept)
     differ = ((torch.log(u_acc) < orr.log_alpha) & valid) != ok.accept
@@ -905,6 +922,25 @@ def test_contra_range_kernel(card):
     assert keys
     for k in keys:
         _contra_agree(model, batch, table, fs.range_t[k][0], k[1], "range")
+
+
+@pytest.mark.parametrize("mode", ("slide", "range"))
+def test_prior_tempered_contra_kernels(card, mode):
+    """K6 in both modes with the MC3 ladder as each chain's prior
+    temperature, against its plain version as test_contra_slide_kernel
+    holds it, on every step of the kind."""
+    from mcmcdate_tpu_torch.engine import proposals as TP
+
+    model, batch = _model()
+    fs, table = _fast(model)
+    bp = _mc3_ladder(batch.n_chains)
+    if mode == "slide":
+        steps = fs.spec_t[TP.K_SLIDE_NODES_CONTRA]
+    else:
+        steps = [blocks[0] for (k, _), blocks in fs.range_t.items()
+                 if k == TP.K_SCALE_SUBTREES_CONTRA]
+    for i, sx in enumerate(steps):
+        _contra_agree(model, batch, table, sx, 21 + i, mode, bp)
 
 
 def test_contra_range_kernel_buckets(card):
@@ -1409,13 +1445,36 @@ def _ladder(C):
     return torch.as_tensor(np.resize(beta_ladder(128), C), dtype=torch.float32, device="cuda")
 
 
-@pytest.mark.parametrize("which, C, B, KD", (("point", 64, 150, 3), ("point", 17, 70, 5),
-                                             ("range", 70, 64, 16), ("range", 33, 4, 256)))
+def _mc3_ladder(C):
+    """A 4-rung MC3 ladder (rung gaps 0.3, 0.6, 1.0) tiled over ``C``
+    chains, chain c at rung c mod 4."""
+    from mcmcdate_tpu_torch.engine.mc3 import ladder_of
+
+    return torch.as_tensor(np.resize(ladder_of([0.3, 0.6, 1.0]), C), dtype=torch.float32,
+                           device="cuda")
+
+
+SCAN_SHAPES = (("point", 64, 150, 3), ("point", 17, 70, 5), ("range", 70, 64, 16),
+               ("range", 33, 4, 256))
+
+
+@pytest.mark.parametrize("which, C, B, KD", SCAN_SHAPES)
 def test_tempered_scan_kernels(card, which, C, B, KD):
     """K4 point_scan (KD 3: tickets in registers; KD 5: in shared memory)
     and K5 range_scan (B tickets of KD rows) with a beta ladder against
     their plain versions: decisions up to ties of the tempered log alpha,
     dq within 1e-5 of scale; beta = 0 chains take the prior's decision."""
+    _tempered_scans(card, which, C, B, KD, None)
+
+
+@pytest.mark.parametrize("which, C, B, KD", SCAN_SHAPES)
+def test_prior_tempered_scan_kernels(card, which, C, B, KD):
+    """The same with the MC3 ladder as each chain's prior temperature
+    besides the beta ladder as its likelihood temperature."""
+    _tempered_scans(card, which, C, B, KD, _mc3_ladder(C))
+
+
+def _tempered_scans(card, which, C, B, KD, beta_prior):
     from mcmcdate_tpu_torch.kernels.point_scan import pitched, point_scan, point_scan_plain
     from mcmcdate_tpu_torch.kernels.range_scan import kernel_layout, range_scan, range_scan_plain
 
@@ -1432,9 +1491,9 @@ def test_tempered_scan_kernels(card, which, C, B, KD):
         zG = torch.randn(C, F, generator=g, device=card)
         args = (delta, zG, pitched(P), d_pr, lmhg, u)
         before = point_scan.launches
-        ak, dk = point_scan(*args, beta)
+        ak, dk = point_scan(*args, beta, beta_prior)
         assert point_scan.launches == before + 1
-        ap, dp = point_scan_plain(delta, zG, P, d_pr, lmhg, u, beta)
+        ap, dp = point_scan_plain(delta, zG, P, d_pr, lmhg, u, beta, beta_prior)
         a1, _ = point_scan_plain(delta, zG, P, d_pr, lmhg, u)
     else:
         gg = torch.randn(C, B, KD, generator=g, device=card)
@@ -1442,12 +1501,13 @@ def test_tempered_scan_kernels(card, which, C, B, KD):
         coef = 0.1 * torch.randn(C, B, generator=g, device=card)
         args = (gg, zg, kernel_layout(P), coef, d_pr, lmhg, u)
         before = range_scan.launches
-        ak, dk = range_scan(*args, beta)
+        ak, dk = range_scan(*args, beta, beta_prior)
         assert range_scan.launches == before + 1
-        ap, dp = range_scan_plain(gg, zg, P, coef, d_pr, lmhg, u, beta)
+        ap, dp = range_scan_plain(gg, zg, P, coef, d_pr, lmhg, u, beta, beta_prior)
         a1, _ = range_scan_plain(gg, zg, P, coef, d_pr, lmhg, u)
     assert 0 < int(ap.sum()) < ap.numel() and not torch.equal(ap, a1)
-    _scan_agree(ak, dk, ap, dp, d_pr - 0.5 * (beta[:, None] * dp) + lmhg, torch.log(u))
+    bp = 1.0 if beta_prior is None else beta_prior[:, None]
+    _scan_agree(ak, dk, ap, dp, bp * d_pr - 0.5 * (beta[:, None] * dp) + lmhg, torch.log(u))
 
 
 @pytest.mark.parametrize("lik", ("full", "univariate"))
@@ -1456,6 +1516,16 @@ def test_tempered_ticket_kernels(card, lik):
     then T3's light and heavy kernels on a 192-ticket run, all with a beta
     ladder in the carry, against the plain versions replayed at the
     kernels' proposals and decisions (see _ticket_agree)."""
+    _tempered_tickets(card, lik, False)
+
+
+@pytest.mark.parametrize("lik", ("full", "univariate"))
+def test_prior_tempered_ticket_kernels(card, lik):
+    """The same with the MC3 ladder as each chain's prior temperature."""
+    _tempered_tickets(card, lik, True)
+
+
+def _tempered_tickets(card, lik, prior):
     from mcmcdate_tpu_torch.engine import proposals as TP
     from mcmcdate_tpu_torch.kernels import ticket_step as TS
 
@@ -1463,10 +1533,11 @@ def test_tempered_ticket_kernels(card, lik):
     tt = tk.tt
     C = carry.terms.shape[0]
     carry.beta = _ladder(C)
+    carry.beta_prior = _mc3_ladder(C) if prior else None
 
     def tempered(c):
         c = _copy(c)
-        c.beta = carry.beta
+        c.beta, c.beta_prior = carry.beta, carry.beta_prior
         return c
 
     rows = {}
@@ -1517,12 +1588,23 @@ def test_tempered_glob_kernels(card, dense):
     """G1 on the scan families and G2/G3 on the dense ones with a beta
     ladder in the carry, against the plain family scan replayed at the
     kernels' proposals and decisions (see _glob_replay_agree)."""
+    _tempered_glob(card, dense, False)
+
+
+@pytest.mark.parametrize("dense", (False, True), ids=("G1", "G3"))
+def test_prior_tempered_glob_kernels(card, dense):
+    """The same with the MC3 ladder as each chain's prior temperature."""
+    _tempered_glob(card, dense, True)
+
+
+def _tempered_glob(card, dense, prior):
     from mcmcdate_tpu_torch.kernels import glob_step as G
     from mcmcdate_tpu_torch.ops.dists import standard_gamma
 
     fs, carry, tuning, g = _glob_fast(10, taxa=40, chains=96)
     C = carry.d.shape[0]
     carry.beta = _ladder(C)
+    carry.beta_prior = _mc3_ladder(C) if prior else None
     n_acc = n = 0
     for tag, fam in fs.glob_fam.items():
         if (G.FAMILIES[tag].lik == G.DENSE) != dense:
@@ -1533,6 +1615,7 @@ def test_tempered_glob_kernels(card, dense):
         u = torch.rand(C, fam.n, generator=g, device=card)
         ck, cr = _glob_copy(carry), _glob_copy(carry)
         ck.beta = cr.beta = carry.beta
+        ck.beta_prior = cr.beta_prior = carry.beta_prior
         if dense:
             acc, prop, mean = [], [], []
             nbad = None
@@ -1551,6 +1634,49 @@ def test_tempered_glob_kernels(card, dense):
         _glob_replay_agree(fs, tag, ck, cr, tun, draws, u, accept, prop, mean)
         n_acc += int(accept.sum())
         n += accept.numel()
+    assert 0 < n_acc < n
+
+
+@pytest.mark.parametrize("taxa, groups", ((136, 16), (1000, 8)))
+def test_mc3_swap_kernel(card, taxa, groups):
+    """M1 mc3_swap against its plain version on the same U and draws: the
+    permuted state, U, each decision and the per-pair counts bitwise, one
+    launch a move, three moves in a row (the last CTA's ticket counter is
+    left at 0 for the next); with equal U and uniforms of 1 every draw
+    rejects (log 1 < 0 is false) and nothing moves."""
+    from mcmcdate_tpu_torch.engine.mc3 import N_TEMPS, swap_draws, temperature_ladder
+    from mcmcdate_tpu_torch.kernels.mc3_swap import mc3_swap, mc3_swap_plain
+
+    C = groups * N_TEMPS
+    _, batch = synthetic.build(taxa, C, device="cuda")
+    g = torch.Generator(device=card).manual_seed(taxa)
+    batch = State(**{f: torch.rand(getattr(batch, f).shape, generator=g, device=card)
+                     for f in FIELDS})
+    betas = torch.as_tensor(temperature_ladder(N_TEMPS, 0.5), dtype=torch.float32, device=card)
+    n_acc = n = 0
+    for rep in range(4):
+        U = 4 * torch.randn(C, generator=g, device=card)
+        pair, u = swap_draws(g, groups)
+        if rep == 3:
+            U, u = torch.zeros_like(U), torch.ones_like(u)
+        ck, cp = (State(**{f: getattr(batch, f).clone() for f in FIELDS}) for _ in range(2))
+        Uk, Up = U.clone(), U.clone()
+        before = mc3_swap.launches
+        ak, pak, ptk = mc3_swap(ck, Uk, pair, u, betas)
+        assert mc3_swap.launches == before + 1
+        ap, pap, ptp = mc3_swap_plain(cp, Up, pair, u, betas)
+        assert torch.equal(ak, ap) and torch.equal(Uk, Up)
+        assert torch.equal(pak, pap) and torch.equal(ptk, ptp)
+        assert int(ptk.sum()) == ak.numel() and int(pak.sum()) == int(ak.sum())
+        for f in FIELDS:
+            assert torch.equal(getattr(ck, f), getattr(cp, f)), f
+        if rep == 3:
+            assert not ak.any()
+            for f in FIELDS:
+                assert torch.equal(getattr(ck, f), getattr(batch, f)), f
+        n_acc += int(ak.sum())
+        n += ak.numel()
+        batch = ck
     assert 0 < n_acc < n
 
 
