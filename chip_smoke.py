@@ -70,8 +70,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ML_ITERATIONS iterations): the log's cascade line and a finite log Z,
    the beta = 1 stone's log likelihood above the beta = 0 stone's, every
    decision kernel and 11 cascade_seed launches, no plain proposal or
-   plain twin; and ml full ladder: annealed_cascade over all 128 stones
-   (127 cascade_seed launches, the middle rung's seeding bitwise the
+   plain twin; and ml full ladder: annealed_cascade over all 128 stones,
+   ML_CASCADE_SWEEPS sweeps a rung (127 cascade_seed launches, the middle
+   rung's seeding bitwise the
    per-field copy's), two chunks with the estimator (a finite log Z), a
    carry check;
 5. full width: FastSweeps through ChainRunner at 1000 taxa x 1024 chains
@@ -158,7 +159,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    NUTS move: the last swap's carried U against a fresh evaluation, every
    pair's swap rate in (0, 1), dt moved in burn-in, s/sweep; and a sweep
    with beta_prior None bitwise one with a ones vector.  No path without
-   --mc3 launches M1.
+   --mc3 launches M1;
+17. optional moves tutorial: simulate -> prepare full at 136 taxa x 1024
+   chains, then through the CLI run --profile --bold-contra 0.4
+   --bold-factor 8 --fiber-slide 1 --fiber-de 2 -> continue with the same
+   flags -> marginal-likelihood --profile --fiber-slide 1 --bold-contra 0.4
+   -> run --mc3 --fiber-slide 1 (a few iterations): the log lines, F1
+   fiber_slide once a colour class a sweep, F2 fiber_de twice a round (run
+   and continue only), K6 range and G1 sub_contra with the bold uniforms,
+   the carry checks, no plain twin;
+18. optional moves full width: FastSweeps through ChainRunner at 1000 taxa
+   x 1024 chains with the three moves, 10 + 1 sweeps (the carry check)
+   beside 10 without: s/sweep with and without, the slide's and the DE's
+   acceptance.  No path without the flags launches F1, F2 or the bold
+   mixture.  The kernels phase holds F1 (class by class) and F2 (a
+   half-update) to their plain versions at 136 and 1000 taxa on the model
+   with node priors (check_fiber), and K6's range mode and G1's sub_contra
+   with the bold uniforms, each timed beside the call without them
+   (check_bold, the ``bold`` key of their records).
 
 Every phase after the kernels sets each wrapper's launch count to 0 just
 before it and reads it just after (T3's also by kernel: ``light`` and
@@ -212,8 +230,10 @@ BANDWIDTH = 128
 SPARSE_SPEC = "sparse 0.1"
 CONTINUE_ITERATIONS = 10
 # marginal-likelihood --profile runs 50 iterations after its cascade and
-# burn-in; cut to 20.
+# burn-in; cut to 20.  The ml full ladder's cascade runs ML_CASCADE_SWEEPS
+# sweeps a rung (the CLI's 3: cut to 1 to keep the smoke inside its limit).
 ML_ITERATIONS = 20
+ML_CASCADE_SWEEPS = 1
 # The kernels phase's NUTS trajectories: up to NUTS_DEPTH doublings (the
 # kernels' MAX_DEPTH, 255 leapfrog steps) at step size NUTS_EPS[taxa], every
 # launch replayed (from the perturbed state, whose gradient grows with the
@@ -226,6 +246,10 @@ NUTS_MIN_DEPTH = 5
 NUTS_EPS = {MAIN_TAXA: 1e-3, BENCH_TAXA: 3e-5}
 # The hamiltonian full width: HAM_WARM_SWEEPS sweeps without the move,
 # HAM_WINDOWS adaptation windows from HAM_EPS0, then the timed sweeps.
+# The hamiltonian tutorial's run and marginal-likelihood take HAM_ITERATIONS
+# iterations (the main path's 20, cut to 10 to keep the smoke inside its
+# limit).
+HAM_ITERATIONS = 10
 HAM_WARM_SWEEPS = 20
 HAM_WINDOWS = 3
 HAM_EPS0 = 1e-3
@@ -251,6 +275,15 @@ MC3_WINDOW = 2
 MC3_WINDOWS = 16
 MC3_ITERATIONS = 20
 MC3_HAM_WINDOWS = 2
+# The optional moves (--bold-contra, --bold-factor, --fiber-slide,
+# --fiber-de) of the two optional phases and the kernel checks.  The fiber
+# DE's decisions against its plain version's: the log prior of a whole
+# state is a sum of 3 N terms in another order, so a decision may differ
+# where |log u - dlp| < LP_REL (1 + |log prior|).
+BOLD_P, BOLD_FACTOR, FIBER_SLIDE, FIBER_DE = 0.4, 8.0, 1.0, 2.0
+OPT_FLAGS = ("--bold-contra", str(BOLD_P), "--bold-factor", str(BOLD_FACTOR), "--fiber-slide",
+             str(FIBER_SLIDE), "--fiber-de", str(FIBER_DE))
+OPT_MC3_ITERATIONS = 4
 # Back-to-back calls per kernel timing; PLAIN_REPS for a plain version that
 # launches thousands of kernels a call.
 REPS = 20
@@ -375,7 +408,12 @@ KERNELS = (
      "mcmcdate_tpu/engine/hmc.py:246"),
     ("mc3_swap", "mcmcdate_tpu_torch/kernels/csrc/mc3_swap.cu",
      "mcmcdate_tpu/engine/mc3.py:37"),
+    ("fiber_slide", "mcmcdate_tpu_torch/kernels/csrc/fiber_slide.cu",
+     "mcmcdate_tpu/engine/fast_sweep.py:2016"),
+    ("fiber_de", "mcmcdate_tpu_torch/kernels/csrc/fiber_de.cu",
+     "mcmcdate_tpu/engine/ensemble.py:81"),
 )
+OPT_NAMES = ("fiber_slide", "fiber_de", "contra_range_bold", "glob_scan_bold")
 BAND_NAMES = ("band_matmul", "band_matmul_t")
 NUTS_NAMES = ("nuts_leapfrog_prologue", "nuts_leapfrog_epilogue", "nuts_merge")
 # The kernels whose decisions take the likelihood temperature beta (all of
@@ -389,7 +427,8 @@ BETA_KERNELS = ("accept_select", "ticket_scan", "point_scan", "range_scan", "glo
 RECORD_PATH = {**{k: "sparse_full_width" for k in ADMM_NAMES},
                **{k: "banded_full_width" for k in BAND_NAMES},
                **{k: "hamiltonian_full_width" for k in NUTS_NAMES},
-               "cascade_seed": "marginal_likelihood", "mc3_swap": "mc3_full_width"}
+               "cascade_seed": "marginal_likelihood", "mc3_swap": "mc3_full_width",
+               "fiber_slide": "optional_tutorial", "fiber_de": "optional_tutorial"}
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s, and float32 and float64 operations/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
@@ -449,7 +488,7 @@ def _sync():
 
 def _device_ms(fn, only=None, reps=REPS, flush=False):
     """Device milliseconds per call of ``fn`` over ``reps`` back-to-back
-    calls, from the profiler's kernel, memcpy and memset intervals (only
+    calls, from the profiler's device intervals: kernels, memcpy, memset (only
     those whose name contains ``only``, or one of them, where given), so
     the host's enqueue gaps do not count.  ``flush``: a read of
     ``FLUSH_BYTES`` before each call evicts its inputs from the L2, as the
@@ -460,6 +499,7 @@ def _device_ms(fn, only=None, reps=REPS, flush=False):
     around ``reps`` calls (which also count the gaps between launches),
     and the log says so."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     names = (only,) if isinstance(only, str) else only
@@ -470,22 +510,20 @@ def _device_ms(fn, only=None, reps=REPS, flush=False):
     fn()
     _sync()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # Device activity only, read from the profiler's events (no host
+        # operators, no trace file: a plain version's thousands of launches
+        # made those the most of the kernel checks' time).
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 if flush:
                     buf.sum()
                 fn()
             _sync()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as fh:
-                events = json.load(fh)["traceEvents"]
-        dev = [e for e in events if e.get("ph") == "X"
-               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-               and (names is None or any(o in e["name"] for o in names))]
+        dev = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and (names is None or any(o in e.name() for o in names))]
         if dev:
-            return sum(e["dur"] for e in dev) / 1e3 / reps
+            return sum(dev) / 1e6 / reps
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     ms = 0.0
     for _ in range(reps if flush else 1):
@@ -1667,7 +1705,7 @@ def check_range_step(n_taxa):
     }
 
 
-def _contra_agree(name, mode, fs, carry, tuning, sx, u_prop, u_acc):
+def _contra_agree(name, mode, fs, carry, tuning, sx, u_prop, u_acc, bold=None):
     """K6 in one mode on one step against its plain version, on copies of
     ``carry``: the kernel's proposals against the plain version's from the
     same uniforms; the kernel's proposals replayed through the plain
@@ -1677,7 +1715,9 @@ def _contra_agree(name, mode, fs, carry, tuning, sx, u_prop, u_acc):
     distance invariance; and the kernel's terms against a fresh evaluation
     of its own new state.  Returns ``(worst differences, kernel output,
     run(fn))``, where ``run`` calls the kernel or its plain version on that
-    function's own copy.  The decisions take ``carry.beta_prior``."""
+    function's own copy.  The decisions take ``carry.beta_prior``; ``bold``
+    (range mode: ``u_bold``, ``bold_p``, ``bold_factor``) adds the bold
+    mixture to every call."""
     import torch
 
     from mcmcdate_tpu_torch.engine.fast_sweep import FastCarry
@@ -1695,9 +1735,11 @@ def _contra_agree(name, mode, fs, carry, tuning, sx, u_prop, u_acc):
                          carry.terms.clone(), carry.d, carry.z, carry.q, carry.acc.clone(),
                          beta_prior=carry.beta_prior)
 
+    bold = bold or {}
+
     def run(fn, c):
         return fn(c.batch, c.terms, c.acc, tuning, sx, leaf, model.clock, u_prop, u_acc,
-                  c.beta_prior)
+                  c.beta_prior, **bold)
 
     def lengths(st):
         """Branch distances (time x rate) and the size of the products they
@@ -1730,7 +1772,7 @@ def _contra_agree(name, mode, fs, carry, tuning, sx, u_prop, u_acc):
     # as the kernel took it (log 0 < any finite log alpha; log NaN < nothing).
     forced = torch.where(ok.accept, 0.0, math.nan)
     orr = given(cr.batch, cr.terms, cr.acc, tuning, sx, leaf, model.clock, ok.h_prop, forced,
-                carry.beta_prior)
+                carry.beta_prior, **bold)
     within("lq", torch.where(valid, ok.lq, 0.0), torch.where(valid, orr.lq, 0.0), SCAN_TIE)
     check(torch.equal(orr.accept, ok.accept),
           f"{name}: the kernel accepted a proposal whose log alpha the plain version makes -inf")
@@ -1890,15 +1932,17 @@ def _glob_draws(fam, tuning, gen):
     return tun, draws, torch.rand((CHAINS, fam.n), generator=gen, device="cuda")
 
 
-def _glob_run(fs, fam, carry, tun, draws, u_acc):
+def _glob_run(fs, fam, carry, tun, draws, u_acc, **bold):
     """A family through the glob kernels, as ``FastSweeps.glob_phase``
-    runs it: ``(accept, prop, mean)`` ``[C, n]`` (mean: var_tree's only)."""
+    runs it: ``(accept, prop, mean)`` ``[C, n]`` (mean: var_tree's only);
+    ``bold``: sub_contra's bold mixture (``u_bold``, ``bold_p``,
+    ``bold_factor``)."""
     import torch
 
     from mcmcdate_tpu_torch.kernels import glob_step as G
 
     if G.FAMILIES[fam.tag].lik != G.DENSE:
-        out = G.glob_scan(fs.glob, fam, carry, tun, draws, u_acc)
+        out = G.glob_scan(fs.glob, fam, carry, tun, draws, u_acc, **bold)
         return out.accept, out.prop, None
     acc, prop, mean = [], [], []
     nbad = None
@@ -1913,7 +1957,7 @@ def _glob_run(fs, fam, carry, tun, draws, u_acc):
             torch.stack(mean, 1) if fam.tag == "var_tree" else None)
 
 
-def _glob_agree(name, fs, carry, fam, tun, draws, u, q_scale=None):
+def _glob_agree(name, fs, carry, fam, tun, draws, u, q_scale=None, bold=None):
     """One family through the glob kernels against its plain scan, on
     copies of ``carry``: the kernels' proposals (and var_tree's rate means)
     against the plain version's from the same draws; the kernels'
@@ -1922,15 +1966,20 @@ def _glob_agree(name, fs, carry, fam, tun, draws, u, q_scale=None):
     decisions except at ties and whose heights, rates, scalars and terms
     must equal the kernels' bitwise, with d, z and q within SCAN_REL of
     their scale (q's each chain's ``q_scale(replay carry, proposals)``
-    where given) and equal accept counts.  Returns ``(worst differences,
-    accept)``."""
+    where given) and equal accept counts; ``bold`` (sub_contra: ``u_bold``,
+    ``bold_p``, ``bold_factor``) adds the bold mixture, which the replay
+    takes as its tuning.  Returns ``(worst differences, accept)``."""
     import torch
 
+    from mcmcdate_tpu_torch.ops.dists import bold_tune
+
+    bold = bold or {}
     ck, cr = _copy_carry(carry), _copy_carry(carry)
-    accept, prop, mean = _glob_run(fs, fam, ck, tun, draws, u)
+    accept, prop, mean = _glob_run(fs, fam, ck, tun, draws, u, **bold)
     _sync()
     forced = torch.where(accept, 0.0, math.nan)
-    rec = fs.glob_family_plain(fam.tag, cr, tun, draws, forced, given=dict(prop=prop, mean=mean))
+    rec = fs.glob_family_plain(fam.tag, cr, bold_tune(tun, **bold), draws, forced,
+                               given=dict(prop=prop, mean=mean))
     _sync()
     worst = {}
 
@@ -2925,9 +2974,330 @@ def check_nuts(n_taxa):
 
 
 # Each check returns its kernels' records by kernel name.
+def _fiber_classes(fs):
+    """The fiber plan's colour classes of FastSweeps ``fs``'s model on the
+    card (as a FastSweeps built with ``fiber_slide`` holds them)."""
+    from mcmcdate_tpu_torch.engine.fast_sweep import fiber_slide_plan
+    from mcmcdate_tpu_torch.kernels.fiber_slide import FiberClass
+
+    T = sum(fs.model.term_block_sizes)
+    return [FiberClass.of(c, T, "cuda") for c in fiber_slide_plan(fs.model)]
+
+
+def _check_fiber_slide(n_taxa, beta_prior=None):
+    """F1 on each colour class in turn (a whole phase) against its plain
+    version, on the model with node priors, each chain's decisions at its
+    ``beta_prior`` (``[C]``; None: 1): the kernel's decisions replayed
+    through the plain version (every decision taken as the kernel took it),
+    whose log alpha must give the kernel's decisions except at ties
+    (|log u - log alpha| < SCAN_TIE) and whose proposals, heights and rates
+    must equal the kernel's bitwise and terms within CONTRA_REL (1 + |x|);
+    the accept count the kernel summed; every branch distance kept; the
+    kernel's terms against a fresh evaluation.  Each class timed flushed,
+    its plain version by PLAIN_REPS calls (without ``beta_prior`` only).
+    Returns the record (per launch: the mean over the classes; plain_ms
+    None with ``beta_prior``) and the number of accepts."""
+    import torch
+
+    from mcmcdate_tpu_torch.kernels.fiber_slide import fiber_slide, fiber_slide_plain
+    from mcmcdate_tpu_torch.kernels.prior_terms import prior_terms_plain
+
+    fs, carry, _, gen = _glob_fast(n_taxa)
+    model = fs.model
+    classes = _fiber_classes(fs)
+    ck, cr = _copy_carry(carry), _copy_carry(carry)
+    count = torch.zeros(1, dtype=torch.int32, device="cuda")
+    worst = {"log_alpha": 0.0, "terms": 0.0}
+    n_acc = n_tie = n_pairs = n_bits = 0
+    ms = plain_ms = nbytes = ops = ops64 = 0.0
+    par, nr = model.topo.parent_t, model.topo.non_root_t
+
+    def lengths(st):
+        h, r = st.heights, st.rates
+        return (torch.where(nr, (h[:, par] - h) * r, 0.0),
+                torch.where(nr, (h[:, par].abs() + h.abs()) * r.abs(), 0.0))
+
+    (l0, m0) = lengths(carry.batch)
+    for cls in classes:
+        u = torch.empty((CHAINS, cls.m), device="cuda").uniform_(1e-6, 1.0, generator=gen)
+        u_acc = torch.rand((CHAINS, cls.m), generator=gen, device="cuda")
+        ok = fiber_slide(model, ck.batch, ck.terms, cls, u, u_acc, beta_prior, count)
+        forced = torch.where(ok.accept, 0.0, math.nan)
+        orr = fiber_slide_plain(model, cr.batch, cr.terms, cls, u, forced, beta_prior)
+        _sync()
+        name = f"fiber_slide class of {cls.m} nodes at {n_taxa} taxa"
+        check(torch.equal(orr.accept, ok.accept),
+              f"{name}: the kernel accepted where the plain log alpha is -inf or NaN")
+        check(_same(ok.h_new, orr.h_new), f"{name}: proposals differ from the plain ones")
+        logu = torch.log(u_acc)
+        differ = (logu < orr.log_alpha) != ok.accept
+        gap = (logu - orr.log_alpha).abs()[differ]
+        check(bool((gap < SCAN_TIE).all()), lambda: f"{name}: {int(differ.sum())} decisions "
+              f"differ beyond ties (largest |log u - log alpha| {float(gap.max()):.3g})")
+        fin = torch.isfinite(orr.log_alpha)
+        check(torch.equal(fin, torch.isfinite(ok.log_alpha)),
+              f"{name}: log alpha finiteness differs")
+        err = (ok.log_alpha - orr.log_alpha).abs()[fin]
+        worst["log_alpha"] = max(worst["log_alpha"], float(err.max()) if err.numel() else 0.0)
+        for what in ("heights", "rates"):
+            check(_same(getattr(ck.batch, what), getattr(cr.batch, what)),
+                  f"{name}: {what} differ from the replay's")
+        fin = torch.isfinite(cr.terms)
+        check(torch.equal(fin, torch.isfinite(ck.terms)), f"{name}: terms finiteness differs")
+        err = (ck.terms - cr.terms).abs()[fin]
+        worst["terms"] = max(worst["terms"], float(err.max()))
+        check(bool((err <= CONTRA_REL * (1 + cr.terms.abs()[fin])).all()),
+              f"{name}: terms off the replay's by {worst['terms']:.3g}")
+        n_bits += int((ck.terms.nan_to_num() != cr.terms.nan_to_num()).sum())
+        n_acc += int(ok.accept.sum())
+        n_tie += int(differ.sum())
+        n_pairs += ok.accept.numel()
+        # The class's cost: per (chain, node) its draws, heights of the node,
+        # parent and children, rates of the node and children, owned terms
+        # in, the decision out, and for accepts the same out; per chain its
+        # five scalars; the plan.  Operations: about 60 a term (special
+        # functions counted as 10) and 100 in double per birth-death term.
+        ptr = cls.own_ptr.cpu().numpy()
+        E = int(ptr[-1])
+        KC = cls.ch.shape[1]
+        n_bd = int(((cls.own_rows >= 4) & (cls.own_rows < 4 + model.topo.n)).sum())
+        acc_terms = float((ok.accept.float() * torch.as_tensor(
+            ptr[1:] - ptr[:-1], device="cuda", dtype=torch.float32)).sum())
+        nbytes += (4 * CHAINS * (cls.m * (5 + 2 * KC) + E) + 9 * CHAINS * cls.m
+                   + 4 * (int(ok.accept.sum()) * (2 + KC) + acc_terms) + 20 * CHAINS
+                   + 4 * (cls.m * (3 + KC) + E))
+        ops += CHAINS * (60 * E + 30 * cls.m)
+        ops64 += 100 * CHAINS * n_bd
+        c1 = _copy_carry(carry)
+        ms += _device_ms(lambda: fiber_slide(model, c1.batch, c1.terms, cls, u, u_acc,
+                                             beta_prior),
+                         only="fiber_slide_kernel", flush=True)
+        if beta_prior is None:
+            c2 = _copy_carry(carry)
+            plain_ms += _device_ms(lambda: fiber_slide_plain(model, c2.batch, c2.terms, cls, u,
+                                                             u_acc), reps=PLAIN_REPS)
+    check(int(count) == n_acc, f"fiber_slide: the kernel counted {int(count)} accepts of {n_acc}")
+    check(0 < n_acc < n_pairs, f"fiber_slide at {n_taxa} taxa: {n_acc} accepts of {n_pairs}")
+    l1, _ = lengths(ck.batch)
+    worst["distances"] = float(((l1 - l0).abs() / m0.clamp(min=1e-30)).max())
+    check(worst["distances"] <= CONTRA_REL, f"fiber_slide: a branch distance moved by "
+          f"{worst['distances']:.3g} of its heights' products")
+    direct = prior_terms_plain(model, ck.batch)
+    fin = torch.isfinite(direct)
+    check(torch.equal(fin, torch.isfinite(ck.terms)), "fiber_slide: fresh terms finiteness")
+    err = (ck.terms[fin] - direct[fin]).abs()
+    worst["fresh_terms"] = float(err.max())
+    check(bool((err <= CONTRA_REL * (1 + direct[fin].abs())).all()),
+          f"fiber_slide: terms off a fresh evaluation by {worst['fresh_terms']:.3g}")
+    k = len(classes)
+    rec = _record(max(worst["log_alpha"], worst["terms"]), ms / k, plain_ms / k, nbytes / k,
+                  ops / k, ops64=ops64 / k)
+    at, plain = (("at beta_prior 1", f"plain {plain_ms:.4f} ms, ") if beta_prior is None
+                 else ("with the MC3 ladder as beta_prior", ""))
+    log(f"[kernels] fiber_slide at {n_taxa} taxa x {CHAINS} chains {at}: {k} colour classes "
+        f"({[c.m for c in classes]} nodes), one launch each: {ms:.4f} ms a phase "
+        f"({plain}bound {_bound(nbytes, ops, ops64)[0]:.4f} ms); "
+        f"{n_acc} accepts of {n_pairs} ({n_acc / n_pairs:.3f}), {n_tie} tie decisions differ "
+        f"from the replay, {n_bits} terms not bitwise equal to it; largest differences "
+        f"{json.dumps(worst)}")
+    if beta_prior is not None:
+        rec["plain_ms"] = None
+    return rec, n_acc
+
+
+def _de_ensemble(model, batch, seed):
+    """An ensemble near one state, as the chains of a run near equilibrium
+    are: every chain takes chain 0's heights, then each inner node moves a
+    random fraction (up to 1%) of the way to its parent, in pre-order (so
+    every span stays positive); each chain keeps its own scalars and
+    rates."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C, N = batch.heights.shape
+    h = batch.heights[:1].expand(C, N).clone()
+    parent = model.topo.parent.tolist()
+    leaf = model.topo.is_leaf.tolist()
+    u = 0.01 * torch.rand((C, N), generator=g, device="cuda")
+    for i in range(1, N):
+        if not leaf[i]:
+            h[:, i] += u[:, i] * (h[:, parent[i]] - h[:, i])
+    return batch.replace(heights=h)
+
+
+def _check_fiber_de(n_taxa):
+    """F2 on the first half-update of a round against its plain version, on
+    the model with node priors and an ensemble near one state
+    (``_de_ensemble``, so that some proposals are accepted): the
+    kernel's step against the plain one from the same draws (CUDA's exp
+    against PyTorch's: within CONTRA_REL), then the plain version at the
+    kernel's step with every decision taken as the kernel took it: its
+    proposals bitwise the kernel's, its decisions the kernel's except at
+    ties (|log u - dlp| < LP_REL (1 + |log prior|)), the chains' heights
+    and rates bitwise the kernel's.  Timed flushed, the plain version by
+    PLAIN_REPS calls.  Returns the record."""
+    import torch
+
+    from mcmcdate_tpu_torch.engine.ensemble import GAMMA_JITTER, GAMMA_JUMP, JUMP_P, FiberDE
+    from mcmcdate_tpu_torch.kernels.fiber_de import fiber_de, fiber_de_plain
+    from mcmcdate_tpu_torch.models.state import FIELDS, State
+
+    fs, carry, tuning, gen = _glob_fast(n_taxa)
+    model = fs.model
+    batch = _de_ensemble(model, carry.batch, n_taxa)
+    de = FiberDE(model)
+    h = CHAINS // 2
+    draws = de.draws(gen, h, CHAINS - h, torch.float32, "cuda")
+    args = (0, h, h, *draws, de.gamma_small, JUMP_P, GAMMA_JUMP, GAMMA_JITTER)
+    name = f"fiber_de at {n_taxa} taxa"
+
+    def copy():
+        return State(**{f: getattr(batch, f).clone() for f in FIELDS})
+
+    sk, sr, sp = copy(), copy(), copy()
+    ok = fiber_de(model, sk, *args)
+    op = fiber_de_plain(model, sp, *args)
+    forced = torch.where(ok.accept, 0.0, math.nan)
+    orr = fiber_de_plain(model, sr, *args[:7], forced, *args[8:], g=ok.g)
+    _sync()
+    worst = {}
+    worst["g"] = float((ok.g - op.g).abs().max())
+    check(bool(((ok.g - op.g).abs() <= CONTRA_REL * op.g.abs()).all()),
+          f"{name}: steps off the plain ones by {worst['g']:.3g}")
+    check(_same(ok.h_prop, orr.h_prop) and _same(ok.r_prop, orr.r_prop),
+          f"{name}: proposals differ from the replay's")
+    check(torch.equal(orr.accept, ok.accept), f"{name}: the kernel accepted an invalid proposal")
+    lp = model.log_prior(State(**{f: getattr(batch, f)[:h] for f in FIELDS})).abs()
+    logu = torch.log(draws[4])
+    parent = model.topo.parent_t.clamp(min=0)
+    valid = ((orr.h_prop[:, parent] - orr.h_prop)[:, 1:] > 1e-7).all(dim=1)
+    differ = (valid & (logu < orr.dlp)) != ok.accept
+    gap = (logu - orr.dlp).abs()
+    check(bool((gap[differ] < LP_REL * (1 + lp[differ])).all()),
+          lambda: f"{name}: {int(differ.sum())} decisions differ beyond ties")
+    fin = torch.isfinite(orr.dlp)
+    check(torch.equal(fin, torch.isfinite(ok.dlp)), f"{name}: dlp finiteness differs")
+    worst["dlp"] = float((ok.dlp - orr.dlp).abs()[fin].max()) if fin.any() else 0.0
+    worst["log_jac"] = float((ok.log_jac - orr.log_jac).abs()[fin].max()) if fin.any() else 0.0
+    check(_same(sk.heights, sr.heights) and _same(sk.rates, sr.rates),
+          f"{name}: the chains' states differ from the replay's")
+    n_acc = int(ok.accept.sum())
+    check(n_acc > 0, f"{name}: no accept of {h}")
+    N = model.topo.n
+    # Bytes: per active chain its and two donors' heights and its rates in
+    # (16 N), the proposal out (8 N), an accepted chain's heights and rates
+    # out (8 N), draws and outputs; per chain five scalars.  Operations:
+    # per node and state its clock term (60) and in double its birth-death
+    # term (100 each of the two D/E evaluations of an inner node, one of a
+    # leaf), 30 for the proposal.
+    n_inner = int((~model.topo.is_leaf_t).sum())
+    nbytes = h * (24 * N + 8 * N * n_acc / h + 33 + 20)
+    ops = h * N * (2 * 60 + 30)
+    ops64 = h * 2 * 100 * (2 * n_inner + (N - n_inner))
+    s1 = copy()
+    ms = _device_ms(lambda: fiber_de(model, s1, *args), only="fiber_de_kernel", flush=True)
+    s2 = copy()
+    plain_ms = _device_ms(lambda: fiber_de_plain(model, s2, *args), reps=PLAIN_REPS)
+    rec = _record(max(worst["dlp"], worst["g"]), ms, plain_ms, nbytes, ops, ops64=ops64)
+    log(f"[kernels] {name} x {CHAINS} chains: a half-update of {h} chains, {n_acc} accepts, "
+        f"{int(differ.sum())} tie decisions differ from the replay, proposals and states "
+        f"bitwise equal to it; largest differences {json.dumps(worst)}")
+    return rec
+
+
+def check_fiber(n_taxa):
+    """F1 (a whole fiber phase, class by class) and F2 (a half-update)
+    against their plain versions; F1 again at each chain's prior
+    temperature, the 4-rung MC3 ladder (``_mc3_ladder``) as under ``run
+    --mc3``: its error, flushed time and accepts under F1's ``tempered``
+    key, beside the time at beta_prior 1."""
+    rec, _ = _check_fiber_slide(n_taxa)
+    t, n_acc = _check_fiber_slide(n_taxa, _mc3_ladder(CHAINS))
+    rec["tempered"] = dict(max_abs_err=t["max_abs_err"], ms=t["ms"], ms_untempered=rec["ms"],
+                           accepts=n_acc)
+    return {"fiber_slide": rec, "fiber_de": _check_fiber_de(n_taxa)}
+
+
+def check_bold(n_taxa):
+    """K6's range mode on the first block of each row bucket and G1 on the
+    sub_contra family with the bold mixture's uniforms against their plain
+    versions (``_contra_agree``, ``_glob_agree``), each timed with them and
+    without them in turns (off, on, on, off) on copies of the carry; with
+    every uniform above ``bold_p`` the kernels' states are bitwise those of
+    the call without the uniforms.  Returns per kernel, named
+    ``<kernel>_bold``, the largest difference from the plain version, the
+    time with the uniforms (``ms``) and without them (``ms_off``)."""
+    import torch
+
+    from mcmcdate_tpu_torch.kernels import contra_step as K, glob_step as G
+
+    out = {}
+    fs, carry, tuning, gen = _fast(n_taxa)
+
+    def bold_args(shape):
+        return dict(u_bold=torch.rand(shape, generator=gen, device="cuda"), bold_p=BOLD_P,
+                    bold_factor=BOLD_FACTOR)
+
+    def in_turns(call):
+        off1, on1 = call(False), call(True)
+        on2, off2 = call(True), call(False)
+        return (on1 + on2) / 2, (off1 + off2) / 2
+
+    for step, rb, sx in _contra_steps(fs, "range"):
+        u_prop, u_acc = _draws(fs, sx, tuning, gen, False)
+        bold = bold_args(u_acc.shape)
+        w, ok, _ = _contra_agree(f"contra_range {step} at {n_taxa} taxa with the bold mixture",
+                                 "range", fs, carry, tuning, sx, u_prop, u_acc, bold)
+        # Uniforms that never choose the bold kernel: bitwise the call without.
+        c0, c1 = _copy_carry(carry), _copy_carry(carry)
+        never = dict(bold, u_bold=torch.ones_like(u_acc))
+        a0 = K.contra_range(c0.batch, c0.terms, c0.acc, tuning, sx, fs.model.topo.is_leaf_t,
+                            fs.model.clock, u_prop, u_acc)
+        a1 = K.contra_range(c1.batch, c1.terms, c1.acc, tuning, sx, fs.model.topo.is_leaf_t,
+                            fs.model.clock, u_prop, u_acc, **never)
+        _sync()
+        check(torch.equal(a0.accept, a1.accept) and _same(c0.batch.heights, c1.batch.heights)
+              and _same(c0.terms, c1.terms), f"contra_range {step}: never-bold uniforms change it")
+
+        def call(on, sx=sx, u_prop=u_prop, u_acc=u_acc, bold=bold):
+            c = _copy_carry(carry)
+            return _device_ms(lambda: K.contra_range(
+                c.batch, c.terms, c.acc, tuning, sx, fs.model.topo.is_leaf_t, fs.model.clock,
+                u_prop, u_acc, **(bold if on else {})), only="contra_range_kernel")
+
+        on, off = in_turns(call)
+        out[f"contra_range_{rb}_bold"] = dict(max_abs_err=max(w["h_prop"], w["heights"]), ms=on,
+                                              ms_off=off, accepts=int(ok.accept.sum()))
+    gfs, gcarry, gtuning, ggen = _glob_fast(n_taxa)
+    fam = gfs.glob_fam["sub_contra"]
+    tun, draws, u = _glob_draws(fam, gtuning, ggen)
+    bold = bold_args(u.shape)
+    w, accept = _glob_agree(f"glob_scan sub_contra at {n_taxa} taxa with the bold mixture",
+                            gfs, gcarry, fam, tun, draws, u, bold=bold)
+    c0, c1 = _copy_carry(gcarry), _copy_carry(gcarry)
+    G.glob_scan(gfs.glob, fam, c0, tun, draws, u)
+    G.glob_scan(gfs.glob, fam, c1, tun, draws, u, **dict(bold, u_bold=torch.ones_like(u)))
+    _sync()
+    check(_same(c0.batch.heights, c1.batch.heights) and _same(c0.terms, c1.terms),
+          "glob_scan sub_contra: never-bold uniforms change it")
+
+    def gcall(on):
+        c = _copy_carry(gcarry)
+        return _device_ms(lambda: G.glob_scan(gfs.glob, fam, c, tun, draws, u,
+                                              **(bold if on else {})), only="glob_scan_kernel")
+
+    on, off = in_turns(gcall)
+    out["glob_scan_bold"] = dict(max_abs_err=w["prop"], ms=on, ms_off=off, family="sub_contra",
+                                 accepts=int(accept.sum()))
+    for k, r in out.items():
+        log(f"[kernels] {k} at {n_taxa} taxa: {r['ms']:.4f} ms with the bold uniforms, "
+            f"{r['ms_off']:.4f} ms without (in turns), {100 * (r['ms'] / r['ms_off'] - 1):+.1f}%")
+    return out
+
+
 CHECKS = (check_prior_terms, check_whiten, check_ticket, check_point_step,
           check_range_step, check_prior_only_steps, check_contra_slide, check_contra_range,
-          check_glob, check_cascade_seed, check_mc3_swap)
+          check_glob, check_cascade_seed, check_mc3_swap, check_fiber)
 
 
 def phase_kernels():
@@ -2953,6 +3323,12 @@ def phase_kernels():
                     f"({r['bound_by']}) (check took {time.perf_counter() - t0:.1f} s)")
                 if n_taxa == MAIN_TAXA:
                     results[name] = r
+        t0 = time.perf_counter()
+        bold = check_bold(n_taxa)
+        log(f"[kernels] the bold mixture at {n_taxa} taxa x {CHAINS} chains: {json.dumps(bold)} "
+            f"(check took {time.perf_counter() - t0:.1f} s)")
+        if n_taxa == MAIN_TAXA:
+            results["bold"] = bold
         _FAST.pop(n_taxa, None)
         _GLOB.pop(n_taxa, None)
         _MODELS.pop(n_taxa, None)
@@ -2987,13 +3363,18 @@ def phase_kernels():
     return results
 
 
-def check_carried_posterior(runner, run_dir, lp_post, name="smoke"):
+def check_carried_posterior(runner, run_dir, lp_post, name="smoke", de=None):
     """The run's last log posterior per chain, which the sweep carries
     incrementally (prior terms replaced per accepted ticket, the whitened
     residual updated by K2's deltas), against a fresh float32 evaluation of
     the saved final state by the plain versions; and that float32
     evaluation against a float64 one of the same state (the model's float32
-    rounding, not the carry's).  Returns both errors."""
+    rounding, not the carry's).  ``de``: the fiber-DE half-updates that ran
+    in place after the last chunk, so after the trace's last draw
+    (``_de_recorded``'s ``last``): a chain that one accepted must hold the
+    proposal of its last accept, bitwise, and its carried log posterior
+    gains each accept's log prior delta (``dlp - log_jac``; the likelihood
+    is invariant).  Returns both errors."""
     import numpy as np
     import torch
 
@@ -3001,6 +3382,20 @@ def check_carried_posterior(runner, run_dir, lp_post, name="smoke"):
     from mcmcdate_tpu_torch.tools.profile_sweep import direct_log_posterior
 
     state, _, _, _ = ckpt.load(name, in_dir=run_dir, device=runner.device)
+    if de:
+        lp_post = np.array(lp_post, dtype=np.float64)
+        want_h = torch.full_like(state.heights, math.nan)
+        want_r = torch.full_like(state.rates, math.nan)
+        for act0, o in de:
+            rows = act0 + torch.nonzero(o.accept).flatten()
+            want_h[rows] = o.h_prop[o.accept]
+            want_r[rows] = o.r_prop[o.accept]
+            lp_post[act0:act0 + o.accept.numel()] += torch.where(
+                o.accept, (o.dlp - o.log_jac).double(), 0.0).cpu().numpy()
+        moved = ~torch.isnan(want_h[:, 0])
+        check(_same(state.heights[moved], want_h[moved])
+              and _same(state.rates[moved], want_r[moved]),
+              f"{name}: the chains the last fiber-DE rounds moved do not hold their proposals")
 
     def direct(dtype):
         return direct_log_posterior(runner.model, state, dtype).double().cpu().numpy()
@@ -3021,6 +3416,8 @@ def _wrappers():
     from mcmcdate_tpu_torch.kernels.band_matmul import band_matmul, band_matmul_t
     from mcmcdate_tpu_torch.kernels.cascade_seed import cascade_seed
     from mcmcdate_tpu_torch.kernels.contra_step import contra_range, contra_slide
+    from mcmcdate_tpu_torch.kernels.fiber_de import fiber_de
+    from mcmcdate_tpu_torch.kernels.fiber_slide import fiber_slide
     from mcmcdate_tpu_torch.kernels.glasso_admm import admm_eig_scale, admm_shift, admm_update
     from mcmcdate_tpu_torch.kernels.mc3_swap import mc3_swap
     from mcmcdate_tpu_torch.kernels.nuts_step import nuts_leapfrog_epilogue, \
@@ -3050,7 +3447,7 @@ def _wrappers():
             "cascade_seed": cascade_seed, "band_matmul": band_matmul,
             "band_matmul_t": band_matmul_t, "nuts_leapfrog_prologue": nuts_leapfrog_prologue,
             "nuts_leapfrog_epilogue": nuts_leapfrog_epilogue, "nuts_merge": nuts_merge,
-            "mc3_swap": mc3_swap}
+            "mc3_swap": mc3_swap, "fiber_slide": fiber_slide, "fiber_de": fiber_de}
 
 
 # The plain twins a wrapper takes for CPU tensors, by module: on the card a
@@ -3067,6 +3464,8 @@ PLAIN_TWINS = (
     ("nuts_step", ("nuts_leapfrog_prologue_plain", "nuts_leapfrog_epilogue_plain",
                    "nuts_merge_plain")),
     ("mc3_swap", ("mc3_swap_plain",)),
+    ("fiber_slide", ("fiber_slide_plain",)),
+    ("fiber_de", ("fiber_de_plain",)),
 )
 
 
@@ -3087,6 +3486,8 @@ def _counted(run, inside=(), within=None):
     by_kind = wrappers["ticket_scan"].launches_by_kind
     for w in wrappers.values():
         w.launches = 0
+    # The launches with the bold mixture's uniforms.
+    wrappers["contra_range"].launches_bold = wrappers["glob_scan"].launches_bold = 0
     for rb in by_rows:
         by_rows[rb] = 0
     for k in by_kind:
@@ -3151,20 +3552,55 @@ def _counted(run, inside=(), within=None):
     counts = {k: w.launches for k, w in wrappers.items()}
     counts.update({f"contra_range_{rb}": n for rb, n in by_rows.items()})
     counts.update({f"ticket_scan_{k}": n for k, n in by_kind.items()})
+    counts["contra_range_bold"] = wrappers["contra_range"].launches_bold
+    counts["glob_scan_bold"] = wrappers["glob_scan"].launches_bold
     counts["plain_proposals"] = plain[0]
     counts["plain_twins"] = twins[0]
     counts["nuts_product"] = products[0]
     return counts, out
 
 
+def _de_recorded(run):
+    """``run()`` with the fiber DE's half-updates recorded: returns ``(rec,
+    run's result)``, ``rec["last"]`` the ``(act0, DEOut)`` of each
+    half-update after the last chunk (``ChainRunner._de_rounds`` starts a
+    new list), ``rec["accepts"]`` the accepts of all of them (a 0-dim
+    tensor, or 0)."""
+    from mcmcdate_tpu_torch.engine.chains import ChainRunner
+    from mcmcdate_tpu_torch.engine.ensemble import FiberDE
+
+    rec = {"last": [], "accepts": 0}
+    real_half, real_rounds = FiberDE.half_update, ChainRunner._de_rounds
+
+    def half_update(self, batch, act0, m, oth0, draws):
+        out = real_half(self, batch, act0, m, oth0, draws)
+        rec["last"].append((act0, out._replace(**{k: v.clone()
+                                                  for k, v in out._asdict().items()})))
+        rec["accepts"] = rec["accepts"] + out.accept.sum()
+        return out
+
+    def de_rounds(self, batch, seed):
+        rec["last"] = []
+        return real_rounds(self, batch, seed)
+
+    FiberDE.half_update, ChainRunner._de_rounds = half_update, de_rounds
+    try:
+        out = run()
+    finally:
+        FiberDE.half_update, ChainRunner._de_rounds = real_half, real_rounds
+    return rec, out
+
+
 def _check_all_launched(name, launches, banded=False):
     """Every kernel of a CLI run at 136 taxa was launched: all but
     contra_range's buckets one by one, T3's heavy kernel (at 136 taxa no
     ticket's work passes HEAVY; the univariate 10k phase runs it), A1-A3
-    (the 1000-taxon sparse prepare's) and M1 (the MC3 paths'); K2 ``whiten`` under a dense
+    (the 1000-taxon sparse prepare's), M1 (the MC3 paths') and the optional
+    moves' F1, F2 and bold launches (the optional paths'); K2 ``whiten`` under a dense
     precision, B1 and B2 under the banded kind (and not K2)."""
     skip = ("plain_proposals", "plain_twins", "ticket_scan_heavy", "cascade_seed", *ADMM_NAMES,
-            *NUTS_NAMES, "nuts_product", "mc3_swap", *(("whiten",) if banded else BAND_NAMES))
+            *NUTS_NAMES, "nuts_product", "mc3_swap", *OPT_NAMES,
+            *(("whiten",) if banded else BAND_NAMES))
     for k, n in launches.items():
         if k not in skip:
             check(n > 0 or k.startswith("contra_range_"), f"the {name} never launched {k}")
@@ -3637,7 +4073,8 @@ def phase_ml_full_ladder(seq):
 
     def run():
         t0 = time.perf_counter()
-        b = annealed_cascade(sweeps_fn, batch, tuning, new_key(2), betas, N_POINTS)
+        b = annealed_cascade(sweeps_fn, batch, tuning, new_key(2), betas, N_POINTS,
+                             ML_CASCADE_SWEEPS)
         _sync()
         t_casc = time.perf_counter() - t0
         lls, secs = [], []
@@ -3666,7 +4103,8 @@ def phase_ml_full_ladder(seq):
           f"(beta 0) and {mean_ll[-1]} (beta 1)")
     rung_s = t_casc / (N_POINTS - 1)
     log(f"[ml full ladder] {MAIN_TAXA} taxa x {N_POINTS} stones on "
-        f"{torch.cuda.get_device_name(0)}: the cascade ({N_POINTS - 1} rungs x 3 sweeps, a "
+        f"{torch.cuda.get_device_name(0)}: the cascade ({N_POINTS - 1} rungs x "
+        f"{ML_CASCADE_SWEEPS} sweeps, a "
         f"carry rebuilt a rung) {t_casc:.1f} s, {rung_s:.4f} s a rung; then {2 * CHUNK} sweeps "
         f"at {json.dumps([round(x, 4) for x in secs])} s a sweep (chunks of {CHUNK}); log Z "
         f"{log_z:.4f} from {ll.shape[0]} iterations (a smoke value, not an estimate); carried "
@@ -4139,7 +4577,7 @@ def _nuts_line(lines, prefix):
 
 def phase_hamiltonian_tutorial():
     """``--hamiltonian`` through the CLI at MAIN_TAXA x CHAINS: simulate ->
-    prepare full -> run --hamiltonian --profile --iterations ITERATIONS (the
+    prepare full -> run --hamiltonian --profile --iterations HAM_ITERATIONS (the
     adaptation and acceptance lines, a finite eps, H1-H3 launched, no plain
     twin, the carry check) -> continue --iterations CONTINUE_ITERATIONS (NUTS
     on from the checkpoint, its eps restored) -> marginal-likelihood
@@ -4165,7 +4603,8 @@ def phase_hamiltonian_tutorial():
         t0 = time.perf_counter()
         launches, runner = _counted(lambda: cli.main(
             ["run", "-a", an, "--chains", str(CHAINS), "--profile", "--seed", "1", "--device",
-             "cuda", "--iterations", str(ITERATIONS), "--hamiltonian", "--out-dir", tmp]))
+             "cuda", "--iterations", str(HAM_ITERATIONS), "--hamiltonian", "--out-dir",
+             tmp]))
         run_s = time.perf_counter() - t0
         check(runner.nuts is not None, "run --hamiltonian built no NUTS move")
         with open(os.path.join(tmp, f"{an}.run.log")) as fh:
@@ -4185,7 +4624,7 @@ def phase_hamiltonian_tutorial():
         check(float(saved["nuts_eps"]) == eps, "the checkpoint's nuts_eps is not the run's")
         n_sweeps = len(runner.sweep_seconds) * 10
         log(f"[hamiltonian tutorial] run --hamiltonian --profile, {MAIN_TAXA} taxa x {CHAINS} "
-            f"chains, {n_sweeps} sweeps ({ITERATIONS} iterations) in {run_s:.1f} s, median "
+            f"chains, {n_sweeps} sweeps ({HAM_ITERATIONS} iterations) in {run_s:.1f} s, median "
             f"{statistics.median(runner.sweep_seconds):.4f} s per sweep on "
             f"{torch.cuda.get_device_name(0)}; {adapt}; {move}; carried log posterior within "
             f"{lp_err:.3g} of the direct float32 one (float32 vs float64: {lp_f64:.3g}); "
@@ -4203,7 +4642,7 @@ def phase_hamiltonian_tutorial():
         _check_nuts_launched("hamiltonian continue", c_launches)
         with np.load(os.path.join(tmp, f"{an}.trace.npz")) as z:
             lp_post = z["lp_post"]
-        check(lp_post.shape[0] == ITERATIONS + CONTINUE_ITERATIONS,
+        check(lp_post.shape[0] == HAM_ITERATIONS + CONTINUE_ITERATIONS,
               f"continued trace of {lp_post.shape[0]} draws")
         c_err, _ = check_carried_posterior(runner2, tmp, lp_post[-1], name=an)
         log(f"[hamiltonian tutorial] continue --iterations {CONTINUE_ITERATIONS} in {cont_s:.1f} "
@@ -4214,7 +4653,7 @@ def phase_hamiltonian_tutorial():
         t0 = time.perf_counter()
         m_launches, res = _counted(lambda: cli.main(
             ["marginal-likelihood", "-a", an, "--profile", "--hamiltonian", "--seed", "1",
-             "--device", "cuda", "--iterations", str(ML_ITERATIONS), "--out-dir", tmp]))
+             "--device", "cuda", "--iterations", str(HAM_ITERATIONS), "--out-dir", tmp]))
         ml_s = time.perf_counter() - t0
         check(math.isfinite(res.log_marginal_likelihood), "log Z with NUTS is not finite")
         with open(os.path.join(tmp, f"{an}.mlh.log")) as fh:
@@ -4576,6 +5015,243 @@ def phase_mc3_full_width():
     return {k: sum(p[k] for p in out.values()) for k in out["run0"]}
 
 
+def _opt_checked(name, launches, runner, sweeps, slide=True, de=True, bold=True, chunks=None):
+    """An optional-moves run of ``sweeps`` sweeps: F1 once a colour class a
+    sweep when ``slide`` (every sweep at --fiber-slide 1), F2 twice a round
+    (two rounds a chunk) when ``de`` and never otherwise, K6's range blocks
+    and G1's sub_contra family with the bold uniforms when ``bold`` (every
+    contrary range launch and one G1 launch a sweep), every kernel of the
+    main path, no plain twin or plain proposal.  ``chunks``: the chunks
+    the rounds ran after (default: a chunk a 10 sweeps).  Returns the
+    launches a sweep of F1, F2 and the bold paths."""
+    from mcmcdate_tpu_torch.engine import proposals as P
+
+    kern = runner.kern
+    n_classes = len(kern.fiber_classes)
+    want_f1 = n_classes * sweeps if slide else 0
+    check(launches["fiber_slide"] == want_f1,
+          f"{name}: {launches['fiber_slide']} F1 launches, {want_f1} expected")
+    chunks = -(-sweeps // 10) if chunks is None else chunks
+    want_f2 = 2 * int(round(FIBER_DE)) * chunks if de else 0
+    check(launches["fiber_de"] == want_f2,
+          f"{name}: {launches['fiber_de']} F2 launches, {want_f2} expected")
+    has_sub = "sub_contra" in kern.glob_fam
+    contra_blocks = any(k == P.K_SCALE_SUBTREES_CONTRA for k, _ in kern.range_t)
+    if bold:
+        check(launches["contra_range_bold"] == launches["contra_range"] > 0 or not contra_blocks,
+              f"{name}: {launches['contra_range_bold']} of {launches['contra_range']} K6 range "
+              f"launches with the bold uniforms")
+        check(launches["glob_scan_bold"] == (sweeps if has_sub else 0),
+              f"{name}: {launches['glob_scan_bold']} G1 sub_contra launches with the bold "
+              f"uniforms in {sweeps} sweeps")
+    else:
+        check(launches["contra_range_bold"] == launches["glob_scan_bold"] == 0,
+              f"{name}: bold launches without --bold-contra")
+    _check_all_launched(name, launches)
+    check(launches["plain_twins"] == 0 and launches["plain_proposals"] == 0,
+          f"{name}: ran {launches['plain_twins']} plain twins and "
+          f"{launches['plain_proposals']} plain proposals")
+    return {k: round(launches[k] / sweeps, 2) for k in OPT_NAMES}
+
+
+def _log_lines(path, *prefixes):
+    """The lines of a log file that start with any of ``prefixes``; each
+    prefix must start one."""
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    out = []
+    for p in prefixes:
+        found = [x for x in lines if x.startswith(p)]
+        check(found, f"{os.path.basename(path)}: no line starting with '{p}'")
+        out += found
+    return out
+
+
+def phase_optional_tutorial():
+    """The optional moves through the CLI at MAIN_TAXA x CHAINS: simulate ->
+    prepare full -> run --profile with OPT_FLAGS -> continue with them ->
+    marginal-likelihood --profile --fiber-slide --bold-contra -> run --mc3
+    --profile --fiber-slide --fiber-de (OPT_MC3_ITERATIONS iterations; the
+    DE is not applied there, and says so); each checked by
+    ``_opt_checked`` and, for run and continue, the carry check."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch import cli
+    from mcmcdate_tpu_torch.engine.ensemble import FiberDE
+    from mcmcdate_tpu_torch.engine.fast_sweep import FastSweeps
+    from mcmcdate_tpu_torch.engine.stepping_stone import N_POINTS_PROF
+
+    an = "opt"
+    out = {}
+    # F1's launches a sweep and F2's a round of run and continue, from their
+    # counters and the sweeps and rounds counted.
+    within = {}
+    inside = ((FastSweeps, "sweep_once"), (FiberDE, "__call__"))
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        cli.main(["simulate", "--leaves", str(MAIN_TAXA), "--trees", str(TREES), "--out", data])
+        cli.main(["prepare", "-a", an, "--rooted-tree", os.path.join(data, "time.tree"),
+                  "--trees", os.path.join(data, "trees.nwk"), "--likelihood-spec", "full",
+                  "--out-dir", tmp])
+        common = ["--device", "cuda", "--out-dir", tmp, "--profile"]
+        t0 = time.perf_counter()
+        launches, (de, runner) = _counted(lambda: _de_recorded(lambda: cli.main(
+            ["run", "-a", an, "--chains", str(CHAINS), "--seed", "1", "--iterations",
+             str(ITERATIONS), *common, *OPT_FLAGS])), inside=inside, within=within)
+        run_s = time.perf_counter() - t0
+        sweeps = 60 + ITERATIONS
+        per = _opt_checked("optional moves run", launches, runner, sweeps)
+        lines = _log_lines(os.path.join(tmp, f"{an}.run.log"), "bold contrary kernels:",
+                           "fiber node-slide phase:", "fiber-DE ensemble phase:",
+                           "fiber node-slide: mean acceptance", "fiber DE: mean acceptance")
+        with np.load(os.path.join(tmp, f"{an}.trace.npz")) as z:
+            lp_post = z["lp_post"]
+        lp_err, lp_f64 = check_carried_posterior(runner, tmp, lp_post[-1], name=an,
+                                                 de=de["last"])
+        de_acc = int(de["accepts"])
+        moved = sum(int(o.accept.sum()) for _, o in de["last"])
+        log(f"[optional moves tutorial] run --profile {' '.join(OPT_FLAGS)}, {MAIN_TAXA} taxa x "
+            f"{CHAINS} chains, {sweeps} sweeps in {run_s:.1f} s, median "
+            f"{statistics.median(runner.sweep_seconds):.4f} s per sweep on "
+            f"{torch.cuda.get_device_name(0)}; {'; '.join(lines)}; {de_acc} fiber-DE accepts, "
+            f"{moved} in the rounds after the last chunk; carried log posterior within "
+            f"{lp_err:.3g} (float32 vs float64: {lp_f64:.3g}); per sweep {json.dumps(per)}")
+        out["run"] = launches
+
+        t0 = time.perf_counter()
+        c_launches, (de, runner2) = _counted(lambda: _de_recorded(lambda: cli.main(
+            ["continue", "-a", an, "--seed", "2", "--iterations", str(CONTINUE_ITERATIONS),
+             *common, *OPT_FLAGS])), inside=inside, within=within)
+        cont_s = time.perf_counter() - t0
+        per = _opt_checked("optional moves continue", c_launches, runner2, CONTINUE_ITERATIONS)
+        lines = _log_lines(os.path.join(tmp, f"{an}.continue.log"),
+                           "fiber node-slide: mean acceptance", "fiber DE: mean acceptance")
+        with np.load(os.path.join(tmp, f"{an}.trace.npz")) as z:
+            lp_post = z["lp_post"]
+        check(lp_post.shape[0] == ITERATIONS + CONTINUE_ITERATIONS,
+              f"continued trace of {lp_post.shape[0]} draws")
+        c_err, _ = check_carried_posterior(runner2, tmp, lp_post[-1], name=an, de=de["last"])
+        c_acc = int(de["accepts"])
+        moved = sum(int(o.accept.sum()) for _, o in de["last"])
+        check(de_acc + c_acc > 0, "optional moves: the fiber DE accepted nothing in run and "
+              "continue")
+        log(f"[optional moves tutorial] continue --iterations {CONTINUE_ITERATIONS} with the "
+            f"same flags in {cont_s:.1f} s; {'; '.join(lines)}; {c_acc} fiber-DE accepts, "
+            f"{moved} in the rounds after the last chunk; carried log posterior within "
+            f"{c_err:.3g}; per sweep {json.dumps(per)}")
+        sw, rd = within["sweep_once"], within["__call__"]
+        per_run = {"fiber_slide": sw["fiber_slide"] / sw["calls"],
+                   "fiber_de": rd["fiber_de"] / rd["calls"]}
+        log(f"[optional moves tutorial] run and continue: {sw['calls']} sweeps, "
+            f"{sw['fiber_slide']} F1 launches in them; {rd['calls']} fiber-DE rounds, "
+            f"{rd['fiber_de']} F2 launches in them")
+        out["continue"] = c_launches
+
+        t0 = time.perf_counter()
+        ml_flags = ("--fiber-slide", str(FIBER_SLIDE), "--bold-contra", str(BOLD_P))
+        m_launches, res = _counted(lambda: cli.main(
+            ["marginal-likelihood", "-a", an, "--seed", "1", "--iterations", str(ML_ITERATIONS),
+             *common, *ml_flags]))
+        ml_s = time.perf_counter() - t0
+        check(math.isfinite(res.log_marginal_likelihood), "optional moves log Z is not finite")
+        check(m_launches["fiber_slide"] > 0 and m_launches["fiber_de"] == 0
+              and m_launches["glob_scan_bold"] > 0,
+              f"optional moves marginal likelihood: launches {m_launches}")
+        _check_ml_launches("optional moves marginal likelihood", m_launches,
+                           N_POINTS_PROF - 1)
+        log(f"[optional moves tutorial] marginal-likelihood --profile {' '.join(ml_flags)} in "
+            f"{ml_s:.1f} s: log Z {res.log_marginal_likelihood:.4f}; F1, F2 and the bold paths "
+            f"{json.dumps({k: m_launches[k] for k in OPT_NAMES})}")
+        out["ml"] = m_launches
+
+        t0 = time.perf_counter()
+        mc3_flags = ("--fiber-slide", str(FIBER_SLIDE), "--fiber-de", str(FIBER_DE))
+        x_launches, runner3 = _counted(lambda: cli.main(
+            ["run", "-a", an + "m", "--preparation-name", an, "--chains", str(MC3_GROUPS),
+             "--mc3", "--seed", "3", "--iterations", str(OPT_MC3_ITERATIONS), *common,
+             *mc3_flags]))
+        mc3_s = time.perf_counter() - t0
+        sweeps = 60 + OPT_MC3_ITERATIONS
+        check(runner3.de_move is None and x_launches["mc3_swap"] == sweeps // 2,
+              f"optional moves mc3: DE {runner3.de_move}, {x_launches['mc3_swap']} M1 launches")
+        per = _opt_checked("optional moves mc3", x_launches, runner3, sweeps, de=False,
+                           bold=False)
+        lines = _log_lines(os.path.join(tmp, f"{an}m.run.log"), "fiber DE: not applied",
+                           "sampling done; swap acceptance rate")
+        log(f"[optional moves tutorial] run --mc3 --profile {' '.join(mc3_flags)}, "
+            f"{MC3_GROUPS} groups x 4 temperatures, {sweeps} sweeps in {mc3_s:.1f} s; "
+            f"{'; '.join(lines)}; per sweep {json.dumps(per)}")
+        out["mc3"] = x_launches
+    return {k: sum(p[k] for p in out.values()) for k in out["run"]}, per_run
+
+
+def phase_optional_full_width():
+    """The three optional moves at full width: FastSweeps through
+    ChainRunner on the synthetic model of BENCH_TAXA taxa x CHAINS chains
+    (D = 1,997) with --bold-contra BOLD_P, --fiber-slide 1 and --fiber-de 2:
+    FULL_WIDTH_SWEEPS sweeps with the rounds after the chunk and one more
+    sweep whose carried log posterior is checked (counted), then chunks of
+    FULL_WIDTH_SWEEPS without and with the moves in turns (without, with,
+    without, with) from that state.  Logs s/sweep with and without (host
+    clock, the DE rounds inside the chunk's time), the slide's and the
+    DE's acceptance, F1's launches a sweep."""
+    import torch
+
+    from mcmcdate_tpu_torch import synthetic
+    from mcmcdate_tpu_torch.engine import proposals as P
+    from mcmcdate_tpu_torch.engine.chains import ChainRunner, RunSettings, new_key
+
+    model, init = synthetic.build(BENCH_TAXA, 1, device="cuda")
+    table = P.build_proposal_table(model.topo, model.braces, model.calibrations_available)
+
+    def runner_of(**moves):
+        return ChainRunner(model, table, RunSettings("optfull", n_chains=CHAINS, seed=1,
+                                                     device="cuda", **moves),
+                           log=lambda *a: None)
+
+    t0 = time.perf_counter()
+    runner = runner_of(bold_contra=BOLD_P, bold_factor=BOLD_FACTOR, fiber_slide=FIBER_SLIDE,
+                       fiber_de=FIBER_DE)
+    build_s = time.perf_counter() - t0
+    batch, tuning = runner.init_chains(init)
+
+    def run():
+        b, k, _, _, _ = runner._run_window(batch, tuning, new_key(1), FULL_WIDTH_SWEEPS)
+        return runner.kern.sweeps(b, tuning, 7, 1), k
+
+    launches, (out, key) = _counted(run)
+    first_s = runner.sweep_seconds[0]
+    slide = runner._extra_accs["fiber node-slide"]
+    de = runner._extra_accs["fiber DE"]
+    n = FULL_WIDTH_SWEEPS + 1
+    per = _opt_checked("optional moves full width", launches, runner, n, chunks=1)
+    err, err64 = _check_lp("optional moves full width", model, out[0], out[1] + out[2])
+    check(0 < statistics.mean(slide) < 1, f"optional full width: slide acceptance {slide}")
+    check(len(de) == int(round(FIBER_DE)) and all(0 <= x <= 1 for x in de),
+          f"optional full width: fiber DE acceptance {de} by round")
+    plain = runner_of()
+    b = out[0]
+    turns = {"with": [], "without": []}
+    for label, r in (("without", plain), ("with", runner), ("without", plain), ("with", runner)):
+        r.sweep_seconds.clear()
+        b, key, _, _, _ = r._run_window(b, tuning, key, FULL_WIDTH_SWEEPS)
+        turns[label].append(r.sweep_seconds[0])
+    with_s, without_s = statistics.mean(turns["with"]), statistics.mean(turns["without"])
+    log(f"[optional moves full width] {BENCH_TAXA} taxa x {CHAINS} chains, D = "
+        f"{model.likelihood.dim}, {len(runner.kern.fiber_classes)} colour classes of "
+        f"{runner.kern.fiber_nodes} nodes (FastSweeps built in {build_s:.1f} s): "
+        f"{with_s:.4f} s per sweep with --bold-contra {BOLD_P} --fiber-slide {FIBER_SLIDE:g} "
+        f"--fiber-de {FIBER_DE:g} (the DE rounds in the chunk's time), {without_s:.4f} s "
+        f"without (chunks of {FULL_WIDTH_SWEEPS} in turns: {json.dumps(turns)}; the counted "
+        f"first chunk with them {first_s:.4f}), on {torch.cuda.get_device_name(0)}; fiber "
+        f"node-slide acceptance "
+        f"{statistics.mean(slide):.4f} over {len(slide)} sweeps, fiber DE "
+        f"{[round(x, 4) for x in de]} by round; carried log posterior within {err:.3g} "
+        f"(float32 vs float64: {err64:.3g}); per sweep {json.dumps(per)}")
+    return launches
+
+
 def main():
     """Run every phase; any failure raises, so the exit code is not 0."""
     import torch
@@ -4625,6 +5301,12 @@ def main():
     t0 = time.perf_counter()
     mc3_full = phase_mc3_full_width()
     log(f"[mc3 full width] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    opt, opt_per = phase_optional_tutorial()
+    log(f"[optional moves tutorial] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    opt_full = phase_optional_full_width()
+    log(f"[optional moves full width] took {time.perf_counter() - t0:.1f} s")
     check("jax" not in sys.modules, "the port imported jax")
     check(not [m for m in sys.modules if m == "mcmcdate_tpu" or m.startswith("mcmcdate_tpu.")],
           "the port imported the JAX package")
@@ -4635,13 +5317,18 @@ def main():
              "sparse_full_width": sparse_full, "marginal_likelihood": ml,
              "ml_full_ladder": ml_full, "banded_tutorial": banded,
              "banded_full_width": banded_full, "hamiltonian_tutorial": ham,
-             "hamiltonian_full_width": ham_full, "mc3_tutorial": mc3, "mc3_full_width": mc3_full}
+             "hamiltonian_full_width": ham_full, "mc3_tutorial": mc3, "mc3_full_width": mc3_full,
+             "optional_tutorial": opt, "optional_full_width": opt_full}
     for p, n in paths.items():
         if not p.startswith(("hamiltonian", "mc3")):
             check(all(n[k] == 0 for k in (*NUTS_NAMES, "nuts_product")),
                   f"the {p} path, without --hamiltonian, launched a NUTS kernel")
-        if not p.startswith("mc3"):
+        if not p.startswith(("mc3", "optional")):
             check(n["mc3_swap"] == 0, f"the {p} path, without --mc3, launched M1")
+        if not p.startswith("optional"):
+            check(all(n[k] == 0 for k in OPT_NAMES),
+                  f"the {p} path, without the optional moves' flags, launched "
+                  f"{ {k: n[k] for k in OPT_NAMES} }")
     record = {"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,
              launches=paths[RECORD_PATH.get(k, "main")][k],
@@ -4658,6 +5345,16 @@ def main():
             r["tempered"] = results["tempered"][r["name"]]
         if r["name"] == "cascade_seed":
             r["ml_full_ladder"] = ml_times
+        # K6's range mode and G1 with the bold mixture's uniforms, beside
+        # the same calls without them (check_bold).
+        if f"{r['name']}_bold" in results["bold"]:
+            r["bold"] = results["bold"][f"{r['name']}_bold"]
+        # F1's launches a sweep and F2's a round, counted on run and
+        # continue of the optional moves tutorial.
+        if r["name"] == "fiber_slide":
+            r["launches_a_sweep"] = opt_per["fiber_slide"]
+        if r["name"] == "fiber_de":
+            r["launches_a_round"] = opt_per["fiber_de"]
     # The NUTS gradient's product z = r P: a library call (cuBLAS), not a
     # hand-written kernel, so a line of its own ("plain_ms": the float64
     # product; "max_abs_err": against it, relative to its largest entry).

@@ -2,10 +2,15 @@
 marginal-likelihood / analyze / simulate.
 
 Port of ``mcmcdate_tpu/cli.py``.  ``run``, ``continue`` and
-``marginal-likelihood`` take the JAX CLI's flags except ``--bold-*``,
-``--fiber-*`` and ``--trace-dir``, plus ``--device`` (default ``cuda``);
-``--hamiltonian`` adds the in-cycle NUTS move, and ``continue`` of a
-checkpoint saved with it continues with it.  ``run --mc3`` runs MC3
+``marginal-likelihood`` take the JAX CLI's flags except ``--trace-dir``,
+plus ``--device`` (default ``cuda``); ``--hamiltonian`` adds the in-cycle
+NUTS move, and ``continue`` of a checkpoint saved with it continues with
+it.  The optional moves ``--bold-contra``/``--bold-factor`` (the bold
+contrary mixture) and ``--fiber-slide`` (the fiber node-slide phase) run in
+every FastSweeps sweep, MC3's and the stepping stones' too; ``--fiber-de``
+(the fiber differential evolution, at least 4 chains) runs after each
+chunk of ``run`` and ``continue`` without ``--mc3``, and elsewhere logs
+that it is not applied.  ``run --mc3`` runs MC3
 (``engine/mc3.py``: ``--chains`` counts its groups of 4 temperatures), and
 ``continue`` of a checkpoint whose meta says ``mc3`` resumes as MC3 with
 the saved group count (and NUTS where the meta says ``hamiltonian``), as
@@ -174,6 +179,21 @@ def _add_run_args(p: argparse.ArgumentParser):
     p.add_argument("--mc3", action="store_true",
                    help="use MC3 (parallel tempering) instead of MHG; --chains counts its "
                         "groups of 4 temperatures (continue: implied by an MC3 checkpoint)")
+    p.add_argument("--bold-contra", type=float, metavar="P",
+                   help="probability that a distance-invariant contrary subtree-scale ticket "
+                        "uses a wider kernel (an exact reversible mixture).  Default 0 (off)")
+    p.add_argument("--bold-factor", type=float, metavar="F",
+                   help="width multiplier of the bold component (default 8)")
+    p.add_argument("--fiber-slide", type=float, metavar="P",
+                   help="probability per sweep of the fiber node-slide phase: every internal "
+                        "node height is redrawn uniformly over its valid interval with the "
+                        "touched branch rates rescaled so the likelihood is exactly invariant.  "
+                        "Default 0 (off)")
+    p.add_argument("--fiber-de", type=float, metavar="N",
+                   help="cross-chain fiber differential-evolution rounds per sweep chunk "
+                        "(engine/ensemble.py): N >= 1 runs round(N) rounds; 0 < N < 1 gates "
+                        "one round by a Bernoulli(N).  Default 0 (off); needs >= 4 chains; "
+                        "not applied under --mc3 or marginal-likelihood")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -326,6 +346,10 @@ def _settings(args):
         seed=args.seed,
         dtype=args.dtype,
         device=args.device,
+        bold_contra=args.bold_contra,
+        bold_factor=args.bold_factor,
+        fiber_slide=args.fiber_slide,
+        fiber_de=args.fiber_de,
     )
 
 

@@ -4,9 +4,13 @@ Port of ``mcmcdate_tpu/engine/chains.py`` for MHG on one device, with the
 ticket-batched ``FastSweeps`` by default and the sequential ``MHKernel``
 as the fallback, chosen as the JAX package chooses, and the in-cycle NUTS
 move of ``--hamiltonian`` (``engine/hmc.py``; in the slow burn-in windows
-and in sampling).  MC3 runs its own loop over this runner
-(``engine/mc3.py``); the fiber moves, the bold contrary kernels and the
-device mesh stay in the JAX package for now.  The sampler's random streams derive
+and in sampling).  FastSweeps takes the optional bold contrary mixture and
+fiber node-slide (``--bold-contra``, ``--bold-factor``, ``--fiber-slide``),
+and with ``--fiber-de`` and at least 4 chains the fiber-DE rounds
+(``engine/ensemble.py``) run after every chunk of ``run`` and ``continue``.
+MC3 runs its own loop over this runner (``engine/mc3.py``), without the
+fiber DE, as the JAX package does; the device mesh stays in the JAX
+package for now.  The sampler's random streams derive
 from a ``uint32[2]`` key that is split once per sweep chunk and saved in
 the checkpoint.
 """
@@ -26,7 +30,8 @@ from ..ops import mvn
 from . import checkpoint as ckpt
 from . import proposals as props
 from .diagnostics import summarize
-from .fast_sweep import UNIVARIATE_DENSE_MAX, FastSweeps
+from .ensemble import FiberDE
+from .fast_sweep import UNIVARIATE_DENSE_MAX, FastSweeps, env_default
 from .hmc import NutsInCycle
 from .mh import BurnInSettings, MHKernel, tune_step
 from .monitor import MonitorWriter
@@ -100,13 +105,32 @@ class RunSettings:
     beta: float = 1.0  # likelihood temperature of every decision
     fast_sweep: bool = True  # ticket-batched sweep (engine/fast_sweep.py)
     device: str = "cuda"
+    # The optional moves (FastSweeps' and the fiber DE's; None: the
+    # MCMCDATE_BOLD_P, MCMCDATE_BOLD_FACTOR, MCMCDATE_FIBER_SLIDE and
+    # MCMCDATE_FIBER_DE variables, else off and a factor of 8).  fiber_de:
+    # rounds after each chunk, round(N) for N >= 1, one with probability N
+    # below 1.
+    bold_contra: Optional[float] = None
+    bold_factor: Optional[float] = None
+    fiber_slide: Optional[float] = None
+    fiber_de: Optional[float] = None
+
+
+def sweep_extras(out: tuple, nuts: bool, fiber: bool) -> dict:
+    """The outputs of ``sweeps`` after its first six, by name: ``"nuts"``
+    (the NUTS move's acceptance statistics ``[n, C]``) and ``"fiber"`` (the
+    fiber phase's acceptance a sweep ``[n]``, NaN where the phase was
+    skipped), as far as the call ran them."""
+    return dict(zip([k for k, on in (("nuts", nuts), ("fiber", fiber)) if on], out[6:]))
 
 
 class ChainRunner:
     """Runs burn-in and sampling of one model and proposal table."""
 
     def __init__(self, model: DatingModel, table: props.ProposalTable,
-                 settings: RunSettings, log=print):
+                 settings: RunSettings, log=print, de_refused: Optional[str] = None):
+        """``de_refused``: why the caller does not run the fiber DE (MC3,
+        the stepping stones), logged in its place when it is asked for."""
         self.model = model
         self.table = table
         self.s = settings
@@ -117,9 +141,30 @@ class ChainRunner:
             # The univariate kind rides the batched sweep as a dense diagonal
             # up to UNIVARIATE_DENSE_MAX dims; beyond that the sequential
             # sweep avoids the O(N^2) diagonal.
-            self.kern = FastSweeps(model, table)
+            self.kern = FastSweeps(model, table, bold_p=settings.bold_contra,
+                                   bold_factor=settings.bold_factor,
+                                   fiber_slide=settings.fiber_slide)
+            if self.kern.bold_p > 0:
+                log(f"bold contrary kernels: p={self.kern.bold_p:g}, "
+                    f"factor={self.kern.bold_factor:g}")
+            if self.kern.fiber_slide_p > 0:
+                log(f"fiber node-slide phase: p={self.kern.fiber_slide_p:g}")
         else:
             self.kern = MHKernel(model, table)
+        # The optional moves' acceptances, by name: the fiber phase's of each
+        # sweep it ran, the fiber DE's of each round.
+        self._extra_accs = {}
+        self.fiber_de = env_default(settings.fiber_de, "MCMCDATE_FIBER_DE", 0.0)
+        self.de_move = None
+        if self.fiber_de > 0:
+            if de_refused is None and settings.n_chains < 4:
+                de_refused = f"it needs at least 4 chains, the run has {settings.n_chains}"
+            if de_refused is None:
+                self.de_move = FiberDE(model)
+                log(f"fiber-DE ensemble phase: {self.fiber_de:g} round(s)/chunk over "
+                    f"{settings.n_chains} chains")
+            else:
+                log(f"fiber DE: not applied ({de_refused})")
         self.dtype = getattr(torch, settings.dtype)
         self.device = torch.device(settings.device)
         self.targets = torch.as_tensor(table.target_rates(), dtype=self.dtype,
@@ -194,6 +239,8 @@ class ChainRunner:
         outs_all = []
         for _ in range(n_chunks):
             key, seed = split_key(key)
+            if self.de_move is not None:
+                key, de_seed = split_key(key)
             t0 = time.perf_counter()
             out = self.kern.sweeps(
                 batch, tuning, seed, CHUNK,
@@ -201,8 +248,15 @@ class ChainRunner:
                 nuts=self.nuts if with_nuts else None,
             )
             batch, _, _, acc, tot, outs = out[:6]
-            if with_nuts:
-                self._nuts_astats.append(float(out[6].mean()))
+            extras = sweep_extras(out, with_nuts, getattr(self.kern, "fiber_slide_p", 0.0) > 0)
+            if "nuts" in extras:
+                self._nuts_astats.append(float(extras["nuts"].mean()))
+            if "fiber" in extras:
+                a = extras["fiber"].cpu().numpy()
+                self._extra_accs.setdefault("fiber node-slide", []).extend(
+                    a[~np.isnan(a)].tolist())
+            if self.de_move is not None:
+                self._de_rounds(batch, de_seed)
             acc_sum = acc_sum + acc
             tot_sum = tot_sum + tot
             self.accepted += int(acc.sum())
@@ -212,6 +266,22 @@ class ChainRunner:
                 outs_all.append({k: v.cpu().numpy() for k, v in stacked.items()})
             self.sweep_seconds.append((time.perf_counter() - t0) / CHUNK)
         return batch, key, acc_sum, tot_sum, outs_all
+
+    def _de_rounds(self, batch, seed: int):
+        """The fiber-DE rounds after a chunk (the JAX ``_fiber_de_phase``):
+        round(N) rounds for N >= 1, else one round with probability N (a
+        gate drawn on the host); ``batch`` is updated in place and each
+        round's acceptance kept."""
+        gen = torch.Generator(device=batch.heights.device).manual_seed(seed)
+        p = self.fiber_de
+        if p >= 1:
+            n = int(round(p))
+        else:
+            n = int(np.random.default_rng(seed).random() < p)
+        rates = [self.de_move(batch, gen) for _ in range(n)]
+        if rates:
+            self._extra_accs.setdefault("fiber DE", []).extend(
+                torch.stack(rates).cpu().tolist())
 
     def burn_in(self, batch, tuning, key):
         """Custom auto-tuning windows (BurnInWithCustomAutoTuning)."""
@@ -295,6 +365,11 @@ class ChainRunner:
                      f"{float(np.mean(self._nuts_astats)):.3f} over "
                      f"{len(self._nuts_astats)} chunks (eps {self.nuts.eps:.5f})")
             self._nuts_astats = []
+        for nm, accs in self._extra_accs.items():
+            if accs:
+                self.log(f"{nm}: mean acceptance {float(np.mean(accs)):.3f} "
+                         f"over {len(accs)} phase sweeps")
+        self._extra_accs = {}
         self._write_diagnostics(draws)
         return batch, tuning, key
 

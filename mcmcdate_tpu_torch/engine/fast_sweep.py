@@ -1,9 +1,14 @@
 """Ticket-batched sweep (FastSweeps): the default proposal cycle of ``run``.
 
-Port of ``mcmcdate_tpu/engine/fast_sweep.py`` without its optional bold
-contrary mixture and fiber node-slide (a sparse precision is stored dense
-and runs as full); the in-cycle NUTS move (``sweeps(nuts=)``,
-``engine/hmc.py``) runs after the batched phases, as in the JAX package.
+Port of ``mcmcdate_tpu/engine/fast_sweep.py`` (a sparse precision is
+stored dense and runs as full), with its optional moves: the bold contrary
+mixture (``bold_p``, ``bold_factor``: with probability ``bold_p`` a
+contrary subtree scale of K6's range mode or of G1's sub_contra family
+takes a ``bold_factor`` times wider kernel), the fiber node-slide phase
+(``fiber_slide``: kernel F1 ``fiber_slide``, once a sweep after the range
+phase with that probability) and the in-cycle NUTS move (``sweeps(nuts=)``,
+``engine/hmc.py``), which run after the batched phases, as in the JAX
+package.
 Under the banded likelihood kind every
 precision and Cholesky product goes through the block-tridiagonal kernels
 B1 ``band_matmul`` and B2 ``band_matmul_t`` (``ops/banded.py``), and no
@@ -33,7 +38,10 @@ Phases of a sweep, in the JAX package's order:
 4. the subtree-range blocks: the ultrametric and rate subtree scales
    (K5: the kernels ``range_lik_prologue``, ``range_scan`` for the Gram
    blocks and the accept scan, and ``range_lik_epilogue``) and the
-   distance-invariant contrary subtree scales (K6 ``contra_range``).
+   distance-invariant contrary subtree scales (K6 ``contra_range``);
+5. with ``fiber_slide``, the fiber node-slide (F1 ``fiber_slide``, one
+   launch a colour class of :func:`fiber_slide_plan`), which leaves every
+   branch distance, so ``d``, ``z``, ``q`` and ``y``, as they are.
 
 The state is ``[chains, param]`` throughout; every P, z and d row access is
 a plain index gather and every write-back an ``index_add_`` (the JAX
@@ -51,6 +59,8 @@ JAX steps take their ``beta``, and every decision its prior temperature
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
@@ -59,6 +69,7 @@ import torch
 
 from ..kernels.band_matmul import band_matmul, band_matmul_t
 from ..kernels.contra_step import contra_range, contra_slide
+from ..kernels.fiber_slide import FiberClass, fiber_slide
 from ..kernels.glob_step import (
     DENSE,
     FAMILIES,
@@ -520,6 +531,88 @@ def _subset_table(table: P.ProposalTable, rows: np.ndarray) -> P.ProposalTable:
     )
 
 
+def fiber_slide_plan(model: DatingModel) -> List[dict]:
+    """The fiber node-slide's colour classes (the JAX
+    ``FastSweeps._fiber_slide_plan``, ``engine/fast_sweep.py:1922``): the
+    internal non-root nodes, coloured greedily (most conflicts first) so
+    that no two nodes of a class are tree-adjacent or share a constraint or
+    a brace, and per class its nodes ``idx``, their parents ``par`` and
+    children ``ch`` ``[m, KC]`` (-1 pad), the children flattened (``ch_row``,
+    ``ch_col``, ``ch_idx``) and the term ``owner`` map over ``[4 | N+1 | N+1 |
+    nn]``: the class node whose move changes each term, ``m`` for none."""
+    topo = model.topo
+    N = topo.n
+    parent = np.asarray(topo.parent)
+    is_leaf = np.asarray(topo.is_leaf)
+    movable = [i for i in range(1, N) if not is_leaf[i]]
+    mov = set(movable)
+    adj = {i: set() for i in movable}
+
+    def edge(a, b):
+        if a in mov and b in mov and a != b:
+            adj[a].add(b)
+            adj[b].add(a)
+
+    for i in movable:
+        edge(i, int(parent[i]))
+    con, br, cal = model.constraints, model.braces, model.calibrations
+    if con.n:
+        for yy, oo in zip(np.asarray(con.young), np.asarray(con.old)):
+            edge(int(yy), int(oo))
+    if br.n:
+        for row in np.asarray(br.node):
+            real = [int(x) for x in row if x >= 0]
+            for a in range(len(real)):
+                for b in range(a + 1, len(real)):
+                    edge(real[a], real[b])
+    color: Dict[int, int] = {}
+    for i in sorted(movable, key=lambda i: -len(adj[i])):
+        used = {color[j] for j in adj[i] if j in color}
+        c = 0
+        while c in used:
+            c += 1
+        color[i] = c
+    n_colors = 1 + max(color.values(), default=-1)
+    T = 4 + 2 * (N + 1) + (cal.n + con.n + br.n)
+    children = np.asarray(topo.children)
+    classes = []
+    for c in range(n_colors):
+        idx = np.asarray(sorted(i for i in movable if color[i] == c), np.int32)
+        m = len(idx)
+        pos = {int(v): j for j, v in enumerate(idx)}
+        owner = np.full(T, m, np.int32)
+        # Birth-death term i depends on (h_i, h_parent(i)), clock term i on
+        # (r_i, its branch's time): both move iff i or its parent moves.
+        for i in range(1, N):
+            own = pos.get(i, pos.get(int(parent[i])))
+            if own is not None:
+                owner[4 + i] = own
+                owner[4 + (N + 1) + i] = own
+        off = 4 + 2 * (N + 1)
+        for nd in np.asarray(cal.node) if cal.n else ():
+            if int(nd) in pos:
+                owner[off] = pos[int(nd)]
+            off += 1
+        if con.n:
+            for yy, oo in zip(np.asarray(con.young), np.asarray(con.old)):
+                own = pos.get(int(yy), pos.get(int(oo)))
+                if own is not None:
+                    owner[off] = own
+                off += 1
+        for row in np.asarray(br.node) if br.n else ():
+            for x in row:
+                if int(x) in pos:
+                    owner[off] = pos[int(x)]
+                    break
+            off += 1
+        ch = children[idx]  # [m, KC], -1 padding
+        pj, pc = np.nonzero(ch >= 0)
+        classes.append(dict(idx=idx, par=parent[idx].astype(np.int32), ch=ch.astype(np.int32),
+                            ch_row=pj.astype(np.int32), ch_col=pc.astype(np.int32),
+                            ch_idx=ch[pj, pc].astype(np.int32), owner=owner))
+    return classes
+
+
 # ---------------------------------------------------------------------------
 # Device steps
 # ---------------------------------------------------------------------------
@@ -584,20 +677,33 @@ def step_tensors(spec, device, dtype) -> List[dict]:
     return out
 
 
+def env_default(value: Optional[float], name: str, default: float) -> float:
+    """``value``, or where None the environment variable ``name`` (else
+    ``default``)."""
+    return float(os.environ.get(name, default)) if value is None else float(value)
+
+
 class FastSweeps:
     """Drop-in alternative to ``MHKernel.sweeps`` using the batched plan,
     for the full and sparse (its dense precision, as full), banded (its
     block-tridiagonal ``P3`` and ``L3``), univariate (as a dense diagonal,
-    up to ``UNIVARIATE_DENSE_MAX`` dims) and none likelihood kinds."""
+    up to ``UNIVARIATE_DENSE_MAX`` dims) and none likelihood kinds.
+    ``bold_p`` and ``bold_factor`` set the bold contrary mixture (off at
+    0), ``fiber_slide`` the fiber phase's probability a sweep (off at 0);
+    None takes ``MCMCDATE_BOLD_P``, ``MCMCDATE_BOLD_FACTOR`` and
+    ``MCMCDATE_FIBER_SLIDE`` (else 0, 8 and 0), as the JAX constructor
+    does."""
 
-    def __init__(self, model: DatingModel, table: P.ProposalTable, bold_p: float = 0.0,
-                 fiber_slide: float = 0.0):
-        if bold_p or fiber_slide:
-            raise NotImplementedError(
-                "the bold contrary mixture and the fiber node-slide are not ported "
-                "(ROADMAP.md, Queue 1)")
+    def __init__(self, model: DatingModel, table: P.ProposalTable,
+                 bold_p: Optional[float] = None, bold_factor: Optional[float] = None,
+                 fiber_slide: Optional[float] = None):
         kind = model.likelihood.kind
         self.model = model
+        # The optional moves (the JAX constructor's, fast_sweep.py:733-749):
+        # the arguments win, the MCMCDATE_* variables are the fallbacks.
+        self.bold_p = env_default(bold_p, "MCMCDATE_BOLD_P", 0.0)
+        self.bold_factor = env_default(bold_factor, "MCMCDATE_BOLD_FACTOR", 8.0)
+        self.fiber_slide_p = env_default(fiber_slide, "MCMCDATE_FIBER_SLIDE", 0.0)
         self.table = table
         self.plan = plan_batches(model, table)
         self.seq_kern = MHKernel(model, self.plan.seq_table)
@@ -682,6 +788,11 @@ class FastSweeps:
         # Bound once: a subtree family's support rows, which G3 reads.
         self.glob_fam = {tag: GlobFamily.of(grp, dev, dt, pos=self.glob.pos)
                          for tag, grp in self.plan.glob_groups.items()}
+        # The fiber node-slide's colour classes on the device (F1's plan).
+        self.fiber_classes = []
+        if self.fiber_slide_p > 0:
+            T = sum(model.term_block_sizes)
+            self.fiber_classes = [FiberClass.of(c, T, dev) for c in fiber_slide_plan(model)]
         # The precision rows P[S] of each subtree that a sub_ultra or
         # sub_rate ticket scales, gathered once (the two families share
         # their subtrees): at 1000 taxa (synthetic.build) 13 subtrees of
@@ -903,13 +1014,23 @@ class FastSweeps:
 
     # -- subtree-range blocks ---------------------------------------------
 
-    def range_contra_step(self, carry: FastCarry, tuning, sx: dict, u_prop, u_acc):
+    def range_contra_step(self, carry: FastCarry, tuning, sx: dict, u_prop, u_acc,
+                          u_bold=None):
         """One block of distance-invariant contrary subtree scales
         (scaleSubTreesAtContrarily), all tickets at once: kernel K6's range
-        mode.  Returns the ``[C, S]`` accept mask."""
+        mode, with the bold mixture's uniforms ``u_bold`` ``[C, S]`` (None:
+        off).  Returns the ``[C, S]`` accept mask."""
         m = self.model
         return contra_range(carry.batch, carry.terms, carry.acc, tuning, sx, m.topo.is_leaf_t,
-                            m.clock, u_prop, u_acc, carry.beta_prior).accept
+                            m.clock, u_prop, u_acc, carry.beta_prior,
+                            **self._bold_args(u_bold)).accept
+
+    def _bold_args(self, u_bold) -> dict:
+        """The bold mixture's arguments of K6's range mode and G1 (none
+        without its uniforms)."""
+        if u_bold is None:
+            return {}
+        return dict(u_bold=u_bold, bold_p=self.bold_p, bold_factor=self.bold_factor)
 
     def range_lik_step(self, kind: int, carry: FastCarry, tuning, sx: dict, draw, u_acc):
         """One block of likelihood-coupled subtree scales, ultrametric
@@ -954,15 +1075,23 @@ class FastSweeps:
         return FastCarry(batch, m.log_prior_terms(batch), distances_internal(batch, m.topo), z,
                          batch.height.new_zeros(C), acc)
 
-    def sweep_once(self, carry: FastCarry, y, tuning, host_gen, gen):
+    def sweep_once(self, carry: FastCarry, y, tuning, host_gen, gen, slide_acc=None):
         """One sweep of every phase on ``carry`` (in place) with the
-        whitened residual ``y`` at its start; returns ``y`` at its end."""
+        whitened residual ``y`` at its start; returns ``y`` at its end.  With
+        ``fiber_slide``, the fiber phase adds its accepts to ``slide_acc``
+        (an int32 ``[1]``, or None), which is set to -1 where its coin
+        skipped it."""
         self.seq_phase(carry, y, tuning, host_gen, gen)
         carry.z, carry.q = self._zq_from_y(y)
         self.glob_phase(carry, tuning, gen)
         self.point_phase(carry, tuning, gen)
         self.range_phase(carry, tuning, gen)
-        return self._y_from_d(carry.d)
+        y = self._y_from_d(carry.d)
+        if self.fiber_slide_p > 0:
+            ran = self.fiber_phase(carry, gen, host_gen, slide_acc)
+            if not ran and slide_acc is not None:
+                slide_acc.fill_(-1)
+        return y
 
     @staticmethod
     def _rand(carry: FastCarry, gen, *shape):
@@ -989,7 +1118,8 @@ class FastSweeps:
     def glob_phase(self, carry: FastCarry, tuning, gen):
         """The global-move families in :data:`GLOB_ORDER`.  A family's draws
         come first, ``[C, n]`` in one or two generator calls (a sweep does
-        not change the tuning): kernel G1 then walks the whole family, or
+        not change the tuning; with the bold mixture on, sub_contra's bold
+        uniforms in a third): kernel G1 then walks the whole family, or
         each ticket of a dense family takes G2, ``delta @ P`` (over a
         subtree ticket's support rows, :meth:`glob_product`) and G3."""
         C = carry.d.shape[0]
@@ -1001,7 +1131,9 @@ class FastSweeps:
                 draws = self._rand(carry, gen, C, fam.n)
             u_acc = self._rand(carry, gen, C, fam.n)
             if FAMILIES[tag].lik != DENSE:
-                glob_scan(self.glob, fam, carry, tun, draws, u_acc)
+                u_bold = (self._rand(carry, gen, C, fam.n)
+                          if tag == "sub_contra" and self.bold_p > 0 else None)
+                glob_scan(self.glob, fam, carry, tun, draws, u_acc, **self._bold_args(u_bold))
                 continue
             nbad = None
             for s in range(fam.n):
@@ -1045,8 +1177,9 @@ class FastSweeps:
             for sx in steps:
                 S = sx["rows"].shape[0]
                 if k == P.K_SCALE_SUBTREES_CONTRA:
-                    self.range_contra_step(carry, tuning, sx, self._rand(carry, gen, C, S),
-                                           self._rand(carry, gen, C, S))
+                    u_prop, u_acc = self._rand(carry, gen, C, S), self._rand(carry, gen, C, S)
+                    u_bold = self._rand(carry, gen, C, S) if self.bold_p > 0 else None
+                    self.range_contra_step(carry, tuning, sx, u_prop, u_acc, u_bold)
                     continue
                 if k == P.K_SCALE_SUBTREE_RATE:
                     draw = standard_gamma(shape[:, off:off + S], gen)
@@ -1054,6 +1187,33 @@ class FastSweeps:
                     draw = self._rand(carry, gen, C, S)
                 off += S
                 self.range_lik_step(k, carry, tuning, sx, draw, self._rand(carry, gen, C, S))
+
+    def fiber_phase(self, carry: FastCarry, gen, host_gen, count=None) -> bool:
+        """The fiber node-slide phase (the JAX ``one_sweep``'s,
+        ``fast_sweep.py:2278-2292``): with probability ``fiber_slide`` (a
+        coin from the host generator, independent of the state), F1 on each
+        colour class in turn, each node's height redrawn uniformly between
+        its oldest child and its parent (draws ``[C, m]`` in ``[1e-6, 1)``)
+        with its stem and child rates rescaled, accepted on the class's owned
+        prior terms at the chains' prior temperature.  Every branch distance
+        stays, so ``d``, ``z`` and ``q`` do.  The accepts go to ``count``
+        (int32 ``[1]``).  Returns whether the phase ran (the JAX package
+        runs it and discards it instead: the same distribution)."""
+        p = self.fiber_slide_p
+        if p < 1 and not bool(torch.rand((), generator=host_gen, dtype=torch.float64) < p):
+            return False
+        C = carry.d.shape[0]
+        for cls in self.fiber_classes:
+            u = torch.empty((C, cls.m), dtype=carry.d.dtype, device=carry.d.device)
+            u.uniform_(1e-6, 1.0, generator=gen)
+            fiber_slide(self.model, carry.batch, carry.terms, cls, u,
+                        self._rand(carry, gen, C, cls.m), carry.beta_prior, count)
+        return True
+
+    @property
+    def fiber_nodes(self) -> int:
+        """Nodes the fiber phase moves (every internal non-root node)."""
+        return sum(cls.m for cls in self.fiber_classes)
 
     def lp_of(self, carry: FastCarry, y):
         """Per-chain log prior and log likelihood from the carried terms
@@ -1083,8 +1243,10 @@ class FastSweeps:
         ``beta_prior``, ``engine/fast_sweep.py:2122``).  Returns ``(batch,
         lp_pr, lp_lik, acc, tot, outs)``, and with ``nuts`` (a
         :class:`~.hmc.NutsInCycle`: the in-cycle NUTS move after each
-        sweep's batched phases) a seventh element, the move's acceptance
-        statistics ``[n, C]``."""
+        sweep's batched phases and the fiber phase) the move's acceptance
+        statistics ``[n, C]`` after them, and with ``fiber_slide`` the fiber
+        phase's acceptance of each sweep ``[n]`` (NaN where its coin skipped
+        it) after those, as the JAX ``sweeps`` (``:2319-2330``)."""
         device = batch.heights.device
         host_gen = torch.Generator().manual_seed(seed)
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -1097,8 +1259,10 @@ class FastSweeps:
         y = self.model.whitened_residual_internal(carry.batch)
         C = batch.n_chains
         outs, astats = [], []
-        for _ in range(n):
-            y = self.sweep_once(carry, y, tuning, host_gen, gen)
+        slide = self.fiber_slide_p > 0
+        slide_acc = torch.zeros((n, 1), dtype=torch.int32, device=device) if slide else None
+        for s in range(n):
+            y = self.sweep_once(carry, y, tuning, host_gen, gen, slide_acc[s] if slide else None)
             if nuts is not None:
                 astats.append(self.nuts_phase(carry, nuts, gen))
                 y = self._y_from_d(carry.d)
@@ -1107,4 +1271,10 @@ class FastSweeps:
         tot = (torch.as_tensor(self.table.weight, dtype=torch.int32, device=device) * n
                ).expand(C, -1)
         ret = (carry.batch, *self.lp_of(carry, y), carry.acc, tot, outs)
-        return ret if nuts is None else ret + (torch.stack(astats),)
+        if nuts is not None:
+            ret = ret + (torch.stack(astats),)
+        if slide:
+            k = slide_acc[:, 0]
+            ret = ret + (torch.where(k >= 0, k.double() / max(C * self.fiber_nodes, 1),
+                                     math.nan),)
+        return ret

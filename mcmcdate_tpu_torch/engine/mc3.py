@@ -105,7 +105,11 @@ def run_mc3(model: DatingModel, init: State, settings: RunSettings, *, hamiltoni
     table = props.build_proposal_table(model.topo, model.braces, model.calibrations_available)
     n_groups = settings.n_chains
     total = n_groups * N_TEMPS
-    runner = ChainRunner(model, table, dataclasses.replace(settings, n_chains=total), log=log)
+    # The fiber DE is not an MC3 move (the JAX run_mc3 never calls it); the
+    # bold mixture and the fiber node-slide run in every sweep, at each
+    # chain's prior temperature.
+    runner = ChainRunner(model, table, dataclasses.replace(settings, n_chains=total), log=log,
+                         de_refused="MC3 does not run it")
     kern, dtype, device = runner.kern, runner.dtype, runner.device
     dt_ladder = np.full(N_TEMPS - 1, DELTA_T)
     if continue_from is not None:

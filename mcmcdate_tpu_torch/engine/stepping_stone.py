@@ -100,8 +100,11 @@ def run_marginal_likelihood(model: DatingModel, init: State, settings: RunSettin
     table = props.build_proposal_table(model.topo, model.braces, model.calibrations_available)
     n_points = N_POINTS_PROF if profile else N_POINTS
     iters = settings.iterations if settings.iterations else ITERATIONS_ML
+    # The fiber DE is not a stepping-stone move (the JAX package never calls
+    # it there); the bold mixture and the fiber node-slide run in every
+    # sweep.
     runner = ChainRunner(model, table, dataclasses.replace(settings, n_chains=n_points),
-                         log=log)
+                         log=log, de_refused="marginal-likelihood does not run it")
     betas = torch.as_tensor(beta_ladder(n_points), dtype=runner.dtype, device=runner.device)
     batch, tuning = runner.init_chains(init)
     key = new_key(settings.seed if settings.seed is not None else 42)

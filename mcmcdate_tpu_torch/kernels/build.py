@@ -26,16 +26,17 @@ BUILD_DIR = os.path.join(HERE, "_build")
 
 # No --use_fast_math: the kernels rely on exact isnan, isinf and -inf.  The
 # prior, accept, contrary-step, point-step, range-step, glob-family,
-# graphical-lasso and NUTS kernels round every product on its own (-fmad=false), as
-# the op-by-op plain versions do; the product and scan kernels keep fused
-# multiply-adds.
+# graphical-lasso, NUTS and fiber kernels round every product on its own
+# (-fmad=false), as the op-by-op plain versions do; the product and scan
+# kernels keep fused multiply-adds.
 COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                 "-Xcompiler", "-fPIC"]
 FILE_FLAGS = {"prior_terms.cu": ["-fmad=false"], "accept_select.cu": ["-fmad=false"],
               "contra_step.cu": ["-fmad=false"], "point_step.cu": ["-fmad=false"],
               "range_step.cu": ["-fmad=false"],
               "glob_step.cu": ["-fmad=false"], "ticket_step.cu": ["-fmad=false"],
-              "glasso_admm.cu": ["-fmad=false"], "nuts_step.cu": ["-fmad=false"]}
+              "glasso_admm.cu": ["-fmad=false"], "nuts_step.cu": ["-fmad=false"],
+              "fiber_slide.cu": ["-fmad=false"], "fiber_de.cu": ["-fmad=false"]}
 
 
 def _nvcc() -> str:

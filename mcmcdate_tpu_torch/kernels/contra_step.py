@@ -41,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import clocks
-from ..ops.dists import truncated_normal_draw, truncated_normal_lq
+from ..ops.dists import bold_tune, truncated_normal_draw, truncated_normal_lq
 from ..ops.local_terms import (
     NEG_INF,
     cal_range_terms,
@@ -70,6 +70,7 @@ _RANGE_ARGTYPES = (
     + (_P,) * 9  # node, par, own, own_par, rows, valid, sd, n_inner, n_nodes
     + (_P,) * 6  # cal_t_rows, cal_hsrc, cal_lo, cal_lo_s, cal_hi, cal_hi_s
     + (_P,) * 8  # is_leaf, u_prop, u_acc, beta_prior, accept, log_alpha, h_prop, lq
+    + (_P, ctypes.c_float, ctypes.c_float)  # u_bold, bold_p, bold_factor
     + (_I,) * 9  # C, S, N, T, P, RB, KN, clock_model, width
     + (_P,)  # stream
 )
@@ -147,17 +148,18 @@ def contra_slide_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_ac
 
 
 def contra_range_plain(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc,
-                       beta_prior=None):
+                       beta_prior=None, u_bold=None, bold_p=0.0, bold_factor=8.0):
     """Plain PyTorch version of :func:`contra_range` (updates in place)."""
     h = state.heights
-    hnew = truncated_normal_draw(u_prop, h[:, sx["node"]], sx["sd"], tuning[:, sx["rows"]],
-                                 0.0, h[:, sx["par"]])
+    tune = bold_tune(tuning[:, sx["rows"]], u_bold, bold_p, bold_factor)
+    hnew = truncated_normal_draw(u_prop, h[:, sx["node"]], sx["sd"], tune, 0.0,
+                                 h[:, sx["par"]])
     return contra_range_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_acc,
-                              beta_prior)
+                              beta_prior, u_bold, bold_p, bold_factor)
 
 
 def contra_range_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_acc,
-                       beta_prior=None):
+                       beta_prior=None, u_bold=None, bold_p=0.0, bold_factor=8.0):
     """The plain range step at given proposed subtree-root heights, as
     :func:`contra_slide_given`."""
     N = state.heights.shape[1]
@@ -165,7 +167,8 @@ def contra_range_given(state, terms, acc, tuning, sx, is_leaf, clock, hnew, u_ac
     node, par, valid, rows = sx["node"], sx["par"], sx["valid"], sx["rows"]
     hi = h[:, node]                                      # [C, S]
     hp = h[:, par]
-    lq = truncated_normal_lq(hi, sx["sd"], tuning[:, rows], 0.0, hp, hnew)
+    tune = bold_tune(tuning[:, rows], u_bold, bold_p, bold_factor)
+    lq = truncated_normal_lq(hi, sx["sd"], tune, 0.0, hp, hnew)
     xi = hnew / hi
     xi_stem = (hp - hi) / (hp - hnew)
     rg = range_gather(state, sx)
@@ -272,17 +275,21 @@ def contra_slide(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc, b
     return ContraOut(accept, log_alpha, h_prop, lq)
 
 
-def contra_range(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc, beta_prior=None):
+def contra_range(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc, beta_prior=None,
+                 u_bold=None, bold_p=0.0, bold_factor=8.0):
     """One block of contrary subtree scales on every chain, in place, as
     :func:`contra_slide`; ``sx`` holds the range block's plan arrays
     (``node, par, own, own_par, rows, valid, sd, n_inner, n_nodes,
     cal_*``), with the prior delta tempered by ``beta_prior`` (the JAX
-    step's ``fast_sweep.py:1674-1675``).  Returns a :class:`ContraOut` ``[C,
-    S]``.  The plain version runs for CPU tensors, kernel K6's range mode
-    for CUDA tensors (float32)."""
+    step's ``fast_sweep.py:1674-1675``) and, where ``u_bold`` ``[C, S]`` is
+    given, the bold mixture: a ticket whose ``u_bold < bold_p`` takes a
+    ``bold_factor`` times wider kernel (``ops.dists.bold_tune``; None: off, the
+    kernel then runs as without the mixture).  Returns a :class:`ContraOut`
+    ``[C, S]``.  The plain version runs for CPU tensors, kernel K6's range
+    mode for CUDA tensors (float32)."""
     if terms.device.type == "cpu":
         return contra_range_plain(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc,
-                                  beta_prior)
+                                  beta_prior, u_bold, bold_p, bold_factor)
     C, N = state.heights.shape
     S, RB = sx["own"].shape
     KN = sx["cal_t_rows"].shape[-1]
@@ -294,6 +301,11 @@ def contra_range(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc, b
                    "cal_hsrc"))
     cal = [sx[k] if KN else None for k in ("cal_t_rows", "cal_hsrc", "cal_lo", "cal_lo_s",
                                            "cal_hi", "cal_hi_s")]
+    if u_bold is not None:
+        build.require_cuda(u_bold, "u_bold", torch.float32)
+        if u_bold.shape != u_acc.shape:
+            raise ValueError(f"contra_range: u_bold of {tuple(u_bold.shape)}, expected "
+                             f"{tuple(u_acc.shape)}")
     accept, log_alpha, h_prop, lq = _outputs(C, S, terms.device)
     p = build.ptr
     err = build.bind("mcmcdate_contra_range_f32", _RANGE_ARGTYPES)(
@@ -302,11 +314,13 @@ def contra_range(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc, b
         p(sx["own"]), p(sx["own_par"]), p(sx["rows"]), p(sx["valid"]), p(sx["sd"]),
         p(sx["n_inner"]), p(sx["n_nodes"]), *map(p, cal),
         p(is_leaf), p(u_prop), p(u_acc), p(build.beta_arg(beta_prior, C, terms.device)),
-        p(accept), p(log_alpha), p(h_prop), p(lq), C, S, N, terms.shape[1], acc.shape[1], RB,
-        KN, clocks.MODELS.index(clock), group_width(RB, KN), build.stream_ptr(terms.device),
+        p(accept), p(log_alpha), p(h_prop), p(lq), p(u_bold), float(bold_p), float(bold_factor),
+        C, S, N, terms.shape[1], acc.shape[1], RB, KN, clocks.MODELS.index(clock),
+        group_width(RB, KN), build.stream_ptr(terms.device),
     )
     build.check(err, "contra_range kernel")
     contra_range.launches += 1
+    contra_range.launches_bold += u_bold is not None
     bucket = next(b for b in ROW_BUCKETS if RB <= b)
     contra_range.launches_by_rows[bucket] += 1
     return ContraOut(accept, log_alpha, h_prop, lq)
@@ -314,4 +328,5 @@ def contra_range(state, terms, acc, tuning, sx, is_leaf, clock, u_prop, u_acc, b
 
 contra_slide.launches = 0
 contra_range.launches = 0
+contra_range.launches_bold = 0  # the launches with the bold mixture's uniforms
 contra_range.launches_by_rows = dict.fromkeys(ROW_BUCKETS, 0)

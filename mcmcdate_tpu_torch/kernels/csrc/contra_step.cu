@@ -18,7 +18,10 @@
 // s scales the subtree of node i (rows own[s, :], pre-order, disjoint from
 // the other tickets' subtrees) by xi = h_i'/h_i, the rates inside by 1/xi
 // and the stem rate by (h_p - h_i)/(h_p - h_i'), with every node's
-// birth-death and clock term and the calibrations inside.
+// birth-death and clock term and the calibrations inside.  With the bold
+// mixture (a non-null u_bold), a ticket whose uniform is below bold_p draws
+// from a bold_factor times wider kernel (fast_sweep.py:1599-1615); with
+// u_bold null the kernel computes what it did without the mixture.
 //
 // What bounds them on the H100: special functions (erfc, erfcx, the inverse
 // normal CDF, lgamma, and the birth-death exp/log in double), a few
@@ -315,6 +318,8 @@ struct RangeArgs {
   float* log_alpha;       // [C, S]
   float* h_prop;          // [C, S]
   float* lq;              // [C, S]
+  const float* u_bold;    // [C, S] the bold mixture's uniforms (null: off)
+  float bold_p, bold_factor;
   int C, S, N, T, P, RB, KN, clock_model;
 };
 
@@ -363,8 +368,12 @@ __global__ void __launch_bounds__(kThreads) contra_range_kernel(RangeArgs a, int
   if (act) {
     const float hi = h[i];
     const float hp = h[a.par[s]];
-    truncnorm_sample(a.u_prop[cs], hi, a.sd[s], a.tuning[(size_t)c * a.P + row], 0.f, hp,
-                     &hnew, &lq);
+    // The bold mixture (the JAX step's fast_sweep.py:1599-1615): a ticket
+    // whose uniform is below bold_p takes a bold_factor times wider kernel,
+    // the same tuning forward and reverse.
+    float tune = a.tuning[(size_t)c * a.P + row];
+    if (a.u_bold != nullptr && a.u_bold[cs] < a.bold_p) tune = tune * a.bold_factor;
+    truncnorm_sample(a.u_prop[cs], hi, a.sd[s], tune, 0.f, hp, &hnew, &lq);
     xi = hnew / hi;
     xi_stem = (hp - hi) / (hp - hnew);
   }
@@ -449,14 +458,16 @@ extern "C" int mcmcdate_contra_range_f32(
     const int* cal_t_rows, const int* cal_hsrc, const float* cal_lo, const float* cal_lo_s,
     const float* cal_hi, const float* cal_hi_s, const unsigned char* is_leaf,
     const float* u_prop, const float* u_acc, const float* beta_prior, unsigned char* accept,
-    float* log_alpha, float* h_prop, float* lq, int C, int S, int N, int T, int P, int RB,
-    int KN, int clock_model, int width, void* stream) {
+    float* log_alpha, float* h_prop, float* lq, const float* u_bold, float bold_p,
+    float bold_factor, int C, int S, int N, int T, int P, int RB, int KN, int clock_model,
+    int width, void* stream) {
   RangeArgs a{heights,    rates,   terms,      acc,       tuning,   birth,    death,
               rate_var,   height,  node,       par,       own,      own_par,  rows,
               valid,      sd,      n_inner,    n_nodes,   cal_t_rows, cal_hsrc, cal_lo,
               cal_lo_s,   cal_hi,  cal_hi_s,   is_leaf,   u_prop,   u_acc,    beta_prior,
-              accept,     log_alpha, h_prop,   lq,        C,        S,        N,
-              T,          P,       RB,         KN,        clock_model};
+              accept,     log_alpha, h_prop,   lq,        u_bold,   bold_p,   bold_factor,
+              C,          S,       N,          T,         P,        RB,       KN,
+              clock_model};
   // width: lanes per (chain, ticket), a power of 2 up to a warp.
   if (width < 1 || width > 32 || (width & (width - 1)) || RB > kRowsPerLane * width ||
       KN > kCalPerLane * width) {

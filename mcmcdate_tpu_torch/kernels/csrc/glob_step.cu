@@ -154,6 +154,7 @@ struct GlobArgs {
   const float* w;          // [C, D] delta @ P (G3, use_lik)
   const float* beta;       // [C] likelihood temperature (G1, G3)
   const float* beta_prior; // [C] prior temperature (G1, G3)
+  const float* u_bold;     // [C, n] G1 sub_contra's bold mixture uniforms (null: off)
   // ints
   int N, C, T, D, P, n, s, family, blocks, fields, use_lik, clock_model;
   int n_cal, n_con, n_br, br_width, n_root_ch, root_right, n_inner_total;
@@ -162,6 +163,7 @@ struct GlobArgs {
   int count_bad;    // G2: take nbad from the blocks (a family's first ticket)
   // floats
   float mean_root_height, rho, mPm;
+  float bold_p, bold_factor;  // the bold mixture (with u_bold)
 };
 
 __device__ __forceinline__ ModelArgs model_of(const GlobArgs& a) {
@@ -177,10 +179,16 @@ __device__ __forceinline__ GlobModel gmodel_of(const GlobArgs& a) {
                    a.sc_birth, a.sc_death, a.sc_bd, a.sc_bdc};
 }
 
-// Ticket s of the family, for chain c (cs = c n + s).
+// Ticket s of the family, for chain c (cs = c n + s).  With the bold mixture
+// (G1's sub_contra, a non-null u_bold: the JAX _glob_step's fast_sweep.py:
+// 1123-1134), a ticket whose uniform is below bold_p takes a bold_factor
+// times wider kernel, the same tuning forward and reverse.
 __device__ __forceinline__ Ticket propose(const GlobArgs& a, size_t cs, int s, const float* h,
                                           const float* r, const Scalars& cur, float mean) {
-  const GlobDraw t{a.family, a.sd[s], a.tun[cs], a.draw[cs], a.aux[s],
+  float tune = a.tun[cs];
+  if (a.u_bold != nullptr && a.family == SUB_CONTRA && a.u_bold[cs] < a.bold_p)
+    tune = tune * a.bold_factor;
+  const GlobDraw t{a.family, a.sd[s], tune,       a.draw[cs], a.aux[s],
                    a.lo[s],  a.hi[s], a.n_inner[s], a.n_nodes[s]};
   return mcmcdate::propose(gmodel_of(a), t, h, r, cur, mean);
 }

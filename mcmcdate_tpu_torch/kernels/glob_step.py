@@ -67,8 +67,8 @@ import torch
 
 from ..models.state import State
 from ..ops import clocks
-from ..ops.dists import gamma_scale_lq, gamma_scale_sample, truncated_normal_draw, \
-    truncated_normal_lq
+from ..ops.dists import bold_tune, gamma_scale_lq, gamma_scale_sample, \
+    truncated_normal_draw, truncated_normal_lq
 from ..ops.heights import distances_internal
 from ..ops.local_terms import NEG_INF, is_bad, sum_valid
 from . import build
@@ -563,12 +563,12 @@ _PTRS = ("parent", "is_leaf", "cal_node", "cal_lower", "cal_lower_pm", "cal_uppe
          "u_acc",
          "accept", "prop", "mean", "h_new", "r_new", "s_new", "t_new", "d_new", "delta",
          "delta_s", "lmhg", "lj", "d_pr", "invalid", "nbad", "w", "beta",
-         "beta_prior")
+         "beta_prior", "u_bold")
 _INTS = ("N", "C", "T", "D", "P", "n", "s", "family", "blocks", "fields", "use_lik",
          "clock_model", "n_cal", "n_con", "n_br", "br_width", "n_root_ch", "root_right",
          "n_inner_total", "sc_birth", "sc_death", "sc_bd", "sc_bdc", "smem_budget",
          "count_bad")
-_FLOATS = ("mean_root_height", "rho", "mPm")
+_FLOATS = ("mean_root_height", "rho", "mPm", "bold_p", "bold_factor")
 
 
 class _GlobArgs(ctypes.Structure):
@@ -600,7 +600,8 @@ def _launch(name: str, args: dict, device) -> None:
 
 
 def _args(gc: GlobConsts, fam: GlobFamily, carry, tun, draws, u_acc) -> dict:
-    """The kernel arguments common to G1–G3, after checking the tensors."""
+    """The kernel arguments common to G1–G3, after checking the tensors
+    (the bold mixture off: G1's wrapper sets it)."""
     model = gc.model
     batch = carry.batch
     f32 = [("heights", batch.heights), ("rates", batch.rates), ("terms", carry.terms),
@@ -634,6 +635,7 @@ def _args(gc: GlobConsts, fam: GlobFamily, carry, tun, draws, u_acc) -> dict:
         n_inner_total=gc.n_inner_total, sc_birth=gc.sc_codes["birth"],
         sc_death=gc.sc_codes["death"], sc_bd=gc.sc_codes["bd"], sc_bdc=gc.sc_codes["bdc"],
         mean_root_height=float(model.mean_root_height), rho=1.0, mPm=float(gc.mPm),
+        bold_p=0.0, bold_factor=1.0,
         beta=build.beta_arg(carry.beta, C, carry.d.device),
         beta_prior=build.beta_arg(carry.beta_prior, C, carry.d.device))
     if gc.use_lik:
@@ -684,21 +686,33 @@ def glob_scan_smem(gc: GlobConsts, fam: GlobFamily, carry, smem_budget=None) -> 
 
 
 def glob_scan(gc: GlobConsts, fam: GlobFamily, carry, tun, draws, u_acc,
-              smem_budget: Optional[int] = None) -> GlobOut:
+              smem_budget: Optional[int] = None, u_bold=None, bold_p: float = 0.0,
+              bold_factor: float = 8.0) -> GlobOut:
     """All tickets of a family whose ``d/z/q`` are untouched or scale
     uniformly, in order, on every chain, in place (``carry``: a FastCarry;
     ``tun``, ``draws``, ``u_acc`` ``[C, n]``).  Returns a :class:`GlobOut`
     ``[C, n]``.  The plain version (:func:`glob_family_plain`) runs for CPU
     tensors, kernel G1 for CUDA tensors (float32).  ``smem_budget`` caps the
     shared memory G1 takes per chain (0: every array in global memory; see
-    :func:`glob_scan_smem`)."""
+    :func:`glob_scan_smem`).  ``u_bold`` ``[C, n]`` (sub_contra only; None:
+    off) applies the bold mixture (``ops.dists.bold_tune``)."""
     if FAMILIES[fam.tag].lik == DENSE:
         raise ValueError(f"glob_scan: {fam.tag} moves the distances densely")
+    if u_bold is not None and fam.tag != "sub_contra":
+        raise ValueError(f"glob_scan: the bold mixture is sub_contra's, not {fam.tag}'s")
     if carry.d.device.type == "cpu":
-        return glob_family_plain(gc, fam, carry, tun, draws, u_acc)
+        return glob_family_plain(gc, fam, carry, bold_tune(tun, u_bold, bold_p, bold_factor),
+                                 draws, u_acc)
     args = _scan_args(gc, fam, carry, tun, draws, u_acc, smem_budget)
+    if u_bold is not None:
+        build.require_cuda(u_bold, "u_bold", torch.float32)
+        if u_bold.shape != u_acc.shape:
+            raise ValueError(f"glob_scan: u_bold of {tuple(u_bold.shape)}, expected "
+                             f"{tuple(u_acc.shape)}")
+        args.update(u_bold=u_bold, bold_p=float(bold_p), bold_factor=float(bold_factor))
     _launch("glob_scan", args, carry.d.device)
     glob_scan.launches += 1
+    glob_scan.launches_bold += u_bold is not None
     return GlobOut(args["accept"], args["prop"])
 
 
@@ -789,5 +803,6 @@ def glob_dense_epilogue(gc: GlobConsts, fam: GlobFamily, s: int, carry, pro: Glo
 
 
 glob_scan.launches = 0
+glob_scan.launches_bold = 0  # the launches with the bold mixture's uniforms
 glob_dense_prologue.launches = 0
 glob_dense_epilogue.launches = 0

@@ -159,6 +159,20 @@ def truncated_normal_lq(mean, sd, tune, a, b, x):
     return lq[1] - lq[0]
 
 
+def bold_tune(tune, u_bold=None, bold_p=0.0, bold_factor=8.0):
+    """The bold contrary mixture's tuning (the JAX ``_mega_range_contra`` and
+    ``_glob_step``'s sub_contra, ``engine/fast_sweep.py:1599-1615,
+    1123-1134``): ``bold_factor * tune`` where ``u_bold < bold_p``, else
+    ``tune``; ``u_bold`` None: ``tune``.  A state-independent mixture, so
+    the truncated normal's forward and reverse densities take the same
+    tuning."""
+    if u_bold is None:
+        return tune
+    return tune * torch.where(u_bold < bold_p,
+                              torch.as_tensor(bold_factor, dtype=tune.dtype, device=tune.device),
+                              1.0)
+
+
 def gamma_scale_sample(g, shape, tune):
     """Multiplicative factor ``u = g * tune/shape`` where ``g`` is a
     standard-gamma draw of shape ``shape/tune`` (so ``u`` has mean 1), and

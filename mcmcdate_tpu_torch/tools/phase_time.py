@@ -40,9 +40,11 @@ kernels' device milliseconds per call (the epilogue also with every ticket
 rejected, which writes no row back).
 
 ``--phase kernels`` times, per call, K6 ``contra_slide`` on the first
-contrary slide step, G3 ``glob_dense_epilogue`` on the first ticket of
-sub_ultra and of var_tree (after G2 and the product, with the wrappers'
-positional arguments that every version since the subtree product takes),
+contrary slide step and ``contra_range`` on the first block of each
+contrary row bucket (without the bold mixture: every version's call), G3
+``glob_dense_epilogue`` on the first ticket of sub_ultra and of var_tree
+(after G2 and the product, with the wrappers' positional arguments that
+every version since the subtree product takes),
 and K4's ``point_lik_prologue`` and ``point_lik_epilogue`` on the first
 step of the node slides and of the branch-rate scales (the epilogue on
 the decisions and dq of one prologue and ``point_scan``, with the
@@ -404,6 +406,19 @@ def kernels_phase(torch, fs, carry, tuning, gen) -> dict:
 
     out["contra_slide"] = dict(tickets=B, accepted=int(slide(copies()[0]).accept.sum()),
                                **timed(slide, "contra_slide_kernel"))
+    for (k, rb), blocks in fs.range_t.items():
+        if k != P.K_SCALE_SUBTREES_CONTRA:
+            continue
+        sx_r = blocks[0]
+        S = sx_r["rows"].shape[0]
+        ur = [torch.rand((CHAINS, S), generator=gen, device="cuda") for _ in range(2)]
+
+        def scale(c, sx_r=sx_r, ur=ur):
+            return K.contra_range(c.batch, c.terms, c.acc, tuning, sx_r, leaf, fs.model.clock,
+                                  *ur)
+
+        out[f"contra_range {rb}"] = dict(tickets=S, accepted=int(scale(copies()[0]).accept.sum()),
+                                         **timed(scale, "contra_range_kernel"))
     for tag in ("sub_ultra", "var_tree"):
         fam = fs.glob_fam[tag]
         tun = tuning.index_select(1, fam.rows)

@@ -3,7 +3,8 @@
 Run from the root of a checkout, on a machine with a card:
 
     python -m mcmcdate_tpu_torch.tools.profile_sweep [--sweep fast|sequential]
-        [--taxa 136|1000|5000] [--out profile_sweep.json] [--trace TRACE.json]
+        [--taxa 136|1000|5000] [--fiber-slide P] [--bold-contra P]
+        [--out profile_sweep.json] [--trace TRACE.json]
 
 at the shape of ``chip_smoke.py``'s main path (136 taxa x 1024 chains) or,
 with ``--taxa 1000``, of its full-width phase (1000 taxa x 1024 chains),
@@ -25,7 +26,8 @@ or the sequential one:
    the sweep's host span, so that rows which overlap or repeat one another
    count once.  For the ticket-batched sweep, also launches, device time
    and host span per phase (``seq``, ``glob``, ``point``, ``range``,
-   ``y``), with the phase's launches counted by the kernel they started:
+   ``y`` and, with ``--fiber-slide``, ``fiber``), with the phase's
+   launches counted by the kernel they started:
    a device interval belongs to the phase whose host span holds the launch
    it came from; and the number of range blocks of each proposal kind;
 4. one sweep with the carry checked: for the sequential sweep after every
@@ -36,7 +38,11 @@ or the sequential one:
    the end the carried log posterior against direct float32 and float64
    ones.
 
-Writes the record to ``--out`` (also printed as the last line).  The
+``--fiber-slide P`` and ``--bold-contra P`` turn the optional moves of
+``run`` on in the ticket-batched sweep (the fiber node-slide phase with
+probability ``P`` a sweep, F1 a colour class; the bold mixture in K6's
+range mode and G1's sub_contra, factor 8).  Writes the record to ``--out``
+(also printed as the last line).  The
 profiler's chrome trace (hundreds of MB at the default shape) is kept only
 where ``--trace`` names a file.
 """
@@ -60,8 +66,9 @@ PORT_KERNELS = ("prior_terms_kernel", "whiten", "accept_select_kernel",
                 "range_lik_prologue_kernel", "range_scan_kernel", "range_lik_epilogue_kernel",
                 "contra_slide_kernel", "contra_range_kernel", "glob_scan_kernel",
                 "glob_dense_prologue_kernel", "glob_dense_epilogue_kernel",
-                "ticket_prologue_kernel", "ticket_scan_kernel", "band_kernel")
-PHASES = ("seq", "glob", "point", "range", "y")
+                "ticket_prologue_kernel", "ticket_scan_kernel", "band_kernel",
+                "fiber_slide_kernel", "fiber_de_kernel")
+PHASES = ("seq", "glob", "point", "range", "y", "fiber")
 TAXA, FULL_TAXA, BANDED_TAXA, CHAINS, TREES, SEED = 136, 1000, 5000, 1024, 600, 1
 WARMUP, TIMED = 10, 2
 TOP_BY_PHASE = 16  # kernel names kept per phase, by launches
@@ -74,10 +81,12 @@ def _card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def setup(tmp: str, fast: bool = True, taxa: int = TAXA):
+def setup(tmp: str, fast: bool = True, taxa: int = TAXA, moves=None):
     """The run's model, runner and initial batch and tuning, on the card:
     the main path's simulated and prepared model at ``TAXA``, the synthetic
-    full model at ``FULL_TAXA`` and banded one at ``BANDED_TAXA``."""
+    full model at ``FULL_TAXA`` and banded one at ``BANDED_TAXA``;
+    ``moves``: the optional moves' ``RunSettings`` fields."""
+    moves = moves or {}
     from .. import cli, synthetic
     from ..engine import proposals as props
     from ..engine.chains import ChainRunner, RunSettings
@@ -88,7 +97,7 @@ def setup(tmp: str, fast: bool = True, taxa: int = TAXA):
                                       kind="banded" if taxa == BANDED_TAXA else "full")
         table = props.build_proposal_table(model.topo, model.braces, False)
         settings = RunSettings("prof", n_chains=CHAINS, seed=SEED, device="cuda",
-                               fast_sweep=fast)
+                               fast_sweep=fast, **moves)
         runner = ChainRunner(model, table, settings, log=quiet)
         return (runner, *runner.init_chains(init))
     data = os.path.join(tmp, "data")
@@ -101,7 +110,7 @@ def setup(tmp: str, fast: bool = True, taxa: int = TAXA):
          "--device", "cuda", "--out-dir", tmp])
     model, init = cli._load_model(args, torch.device("cuda"), torch.float32, quiet)
     table = props.build_proposal_table(model.topo, model.braces, model.calibrations_available)
-    settings = dataclasses.replace(cli._settings(args), fast_sweep=fast)
+    settings = dataclasses.replace(cli._settings(args), fast_sweep=fast, **moves)
     runner = ChainRunner(model, table, settings, log=quiet)
     batch, tuning = runner.init_chains(init)
     return runner, batch, tuning
@@ -262,7 +271,7 @@ def _wrapped(kern, names, around):
 
 # FastSweeps methods of the phases, by phase name.
 FAST_PHASES = {"seq": "seq_phase", "glob": "glob_phase", "point": "point_phase",
-               "range": "range_phase", "y": "_y_from_d"}
+               "range": "range_phase", "y": "_y_from_d", "fiber": "fiber_phase"}
 
 
 def check_carry_fast(runner, batch, tuning, seed: int) -> dict:
@@ -329,6 +338,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--taxa", type=int, choices=(TAXA, FULL_TAXA, BANDED_TAXA), default=TAXA)
     ap.add_argument("--out", default="profile_sweep.json")
     ap.add_argument("--trace", default=None, help="where to keep the chrome trace")
+    ap.add_argument("--fiber-slide", type=float, default=0.0, metavar="P",
+                    help="the fiber node-slide phase's probability a sweep (default 0: off)")
+    ap.add_argument("--bold-contra", type=float, default=0.0, metavar="P",
+                    help="the bold contrary mixture's probability (default 0: off)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_sweep needs a CUDA card")
@@ -337,10 +350,11 @@ def main(argv=None) -> dict:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     fast = args.sweep == "fast"
+    moves = dict(fiber_slide=args.fiber_slide, bold_contra=args.bold_contra)
     rec = dict(card=_card(), sweep=args.sweep, taxa=args.taxa, chains=CHAINS,
-               torch=torch.__version__)
+               torch=torch.__version__, **moves)
     with tempfile.TemporaryDirectory() as tmp:
-        runner, batch, tuning = setup(tmp, fast, args.taxa)
+        runner, batch, tuning = setup(tmp, fast, args.taxa, moves)
     kern = runner.kern
     rec["kernel"] = type(kern).__name__
     rec["tickets_per_sweep"] = runner.table.n_tickets

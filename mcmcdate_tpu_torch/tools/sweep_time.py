@@ -4,6 +4,7 @@ a CUDA card, so that two checkouts can be compared in one call.
 Run as a file, from the root of a checkout, on a machine with a card:
 
     python3 mcmcdate_tpu_torch/tools/sweep_time.py [--root DIR] [--variant V]
+        [--fiber-slide P] [--bold-contra P]
 
 It imports ``mcmcdate_tpu_torch`` from ``--root`` (default: the checkout
 that holds this file; an unpacked archive of another commit compares that
@@ -15,7 +16,11 @@ precision rows), runs ``WARMUP`` sweeps, then times ``TIMED`` single
 sweeps on the host clock, each ending in a device sync.  ``--variant
 none`` drops the likelihood (the point and range epilogues then take the
 decisions), ``--variant sequential`` times the sequential sweep
-(``MHKernel``) instead, at 136 taxa only.  Prints one JSON
+(``MHKernel``) instead, at 136 taxa only.  ``--fiber-slide P`` and
+``--bold-contra P`` turn FastSweeps' optional moves on (the fiber
+node-slide phase with probability ``P`` a sweep, the bold mixture with
+factor 8); with both at 0, the default, FastSweeps is built as a checkout
+without them builds it, so the digests compare the two.  Prints one JSON
 line per shape with the card's name and power limit, and ``digest``: a
 sha256 of the final chain state's bytes (16 hex digits; equal between two
 checkouts when their sweeps are bitwise equal).  Run each checkout in
@@ -42,7 +47,11 @@ def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)))
     ap.add_argument("--variant", default="full", choices=("full", "none", "sequential"))
+    ap.add_argument("--fiber-slide", type=float, default=0.0, metavar="P")
+    ap.add_argument("--bold-contra", type=float, default=0.0, metavar="P")
     args = ap.parse_args(argv)
+    moves = {k: v for k, v in (("fiber_slide", args.fiber_slide), ("bold_p", args.bold_contra))
+             if v}
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -66,8 +75,10 @@ def main(argv=None) -> list:
             model = dataclasses.replace(model, likelihood=mvn.LikelihoodData.none())
         table = proposals.build_proposal_table(model.topo, model.braces, False)
         t0 = time.perf_counter()
-        kern = mh.MHKernel if args.variant == "sequential" else fast_sweep.FastSweeps
-        fs = kern(model, table)
+        if args.variant == "sequential":
+            fs = mh.MHKernel(model, table)
+        else:
+            fs = fast_sweep.FastSweeps(model, table, **moves)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         tuning = torch.ones((CHAINS, table.n_proposals), device="cuda")
@@ -82,7 +93,7 @@ def main(argv=None) -> list:
         h = hashlib.sha256()
         for f in ("birth", "death", "height", "heights", "rate_mean", "rate_var", "rates"):
             h.update(getattr(batch, f).cpu().numpy().tobytes())
-        rec = dict(root=root, card=card, variant=args.variant, taxa=taxa, chains=CHAINS,
+        rec = dict(root=root, card=card, variant=args.variant, **moves, taxa=taxa, chains=CHAINS,
                    tickets_per_sweep=int(table.n_tickets), setup_s=setup_s, sweep_s=times,
                    median_s=statistics.median(times), digest=h.hexdigest()[:16])
         print(json.dumps(rec), flush=True)

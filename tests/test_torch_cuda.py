@@ -787,14 +787,15 @@ def _prior_only_steps(card, step, prior):
     assert 0 < n_acc < n
 
 
-def _contra_agree(model, batch, table, sx, seed, mode, beta_prior=None):
+def _contra_agree(model, batch, table, sx, seed, mode, beta_prior=None, bold=False):
     """K6 in one mode on one step against its plain version.  Proposals may
     differ in their last bits (CUDA's normal CDF and inverse against
     PyTorch's), which a short branch amplifies in its terms: the kernel's
     proposals are held to the plain version's, and, replayed through the
     plain version, to its decisions up to ties and, with the ties taken as
     the kernel took them, to its state on every chain; then to distance
-    invariance and to its own terms."""
+    invariance and to its own terms.  ``bold``: the range mode with the bold
+    mixture's uniforms (probability 0.25, factor 8)."""
     from mcmcdate_tpu_torch.kernels import contra_step as K
 
     kernel, plain, given = (getattr(K, f"contra_{mode}{s}") for s in ("", "_plain", "_given"))
@@ -803,6 +804,8 @@ def _contra_agree(model, batch, table, sx, seed, mode, beta_prior=None):
     tuning = torch.rand(C, table.n_proposals, generator=g, device="cuda") * 3 + 0.3
     u_prop = torch.rand(C, B, generator=g, device="cuda")
     u_acc = torch.rand(C, B, generator=g, device="cuda")
+    kw = dict(u_bold=torch.rand(C, B, generator=g, device="cuda"), bold_p=0.25,
+              bold_factor=8.0) if bold else {}
     terms = model.log_prior_terms(batch)
 
     def fresh():
@@ -816,17 +819,17 @@ def _contra_agree(model, batch, table, sx, seed, mode, beta_prior=None):
 
     sk, tk, acck = fresh()
     ok = kernel(sk, tk, acck, tuning, sx, model.topo.is_leaf_t, model.clock, u_prop, u_acc,
-                beta_prior)
+                beta_prior, **kw)
     sp, tp, accp = fresh()
     op = plain(sp, tp, accp, tuning, sx, model.topo.is_leaf_t, model.clock, u_prop, u_acc,
-               beta_prior)
+               beta_prior, **kw)
     valid = sx["valid"].expand_as(ok.accept)
     assert 0 < int(ok.accept.sum()) < int(valid.sum())
     near(torch.where(valid, ok.h_prop, 0.0), torch.where(valid, op.h_prop, 0.0))
     sr, tr, accr = fresh()
     forced = torch.where(ok.accept, 0.0, math.nan)
     orr = given(sr, tr, accr, tuning, sx, model.topo.is_leaf_t, model.clock, ok.h_prop, forced,
-                beta_prior)
+                beta_prior, **kw)
     near(torch.where(valid, ok.lq, 0.0), torch.where(valid, orr.lq, 0.0), TIE)
     assert torch.equal(orr.accept, ok.accept)
     differ = ((torch.log(u_acc) < orr.log_alpha) & valid) != ok.accept
@@ -1817,3 +1820,170 @@ def test_nuts_kernels(card, case):
     assert chk.compared == sum(a - b for a, b in zip(after, before))
     assert torch.isfinite(q).all() and torch.isfinite(astat).all() and int(n.max()) > 1
     assert chk.depth >= 7
+
+
+# -- the bold mixture in K6 and G1, and the fiber moves F1 and F2 --------------
+
+
+def test_contra_range_bold_kernel(card):
+    """K6's range mode with the bold mixture's uniforms on the first block
+    of every contrary bucket, against its plain version as
+    test_contra_slide_kernel holds it; uniforms that never choose the bold
+    kernel leave the call bitwise the one without them."""
+    from mcmcdate_tpu_torch.engine import proposals as TP
+    from mcmcdate_tpu_torch.kernels.contra_step import contra_range
+
+    model, batch = _model()
+    fs, table = _fast(model)
+    keys = [k for k in fs.range_t if k[0] == TP.K_SCALE_SUBTREES_CONTRA]
+    assert keys
+    for k in keys:
+        sx = fs.range_t[k][0]
+        _contra_agree(model, batch, table, sx, 31 + k[1], "range", bold=True)
+        before = contra_range.launches_bold
+        C, S = batch.n_chains, sx["rows"].shape[0]
+        g = torch.Generator(device="cuda").manual_seed(k[1])
+        tuning = torch.rand(C, table.n_proposals, generator=g, device="cuda") + 0.5
+        u_prop, u_acc = (torch.rand(C, S, generator=g, device="cuda") for _ in range(2))
+        outs = []
+        for kw in ({}, dict(u_bold=torch.ones(C, S, device="cuda"), bold_p=0.25)):
+            st = State(**{f: getattr(batch, f).clone() for f in FIELDS})
+            terms = model.log_prior_terms(st)
+            acc = torch.zeros((C, table.n_proposals), dtype=torch.int32, device="cuda")
+            o = contra_range(st, terms, acc, tuning, sx, model.topo.is_leaf_t, model.clock,
+                             u_prop, u_acc, **kw)
+            outs.append((o.accept, st.heights, st.rates, terms))
+        for a, b in zip(*outs):
+            assert torch.equal(a.nan_to_num(), b.nan_to_num())
+        assert contra_range.launches_bold == before + 1
+
+
+def test_glob_scan_bold_kernel(card):
+    """G1 on the sub_contra family with the bold mixture's uniforms, against
+    the plain family scan replayed at the kernel's proposals and decisions
+    with the bold tuning (``ops.dists.bold_tune``), as test_glob_kernels
+    holds it."""
+    from mcmcdate_tpu_torch.kernels import glob_step as G
+    from mcmcdate_tpu_torch.ops.dists import bold_tune
+
+    fs, carry, tuning, g = _glob_fast(12)
+    fam = fs.glob_fam["sub_contra"]
+    C = carry.d.shape[0]
+    tun = tuning.index_select(1, fam.rows)
+    draws = torch.rand(C, fam.n, generator=g, device="cuda")
+    u = torch.rand(C, fam.n, generator=g, device="cuda")
+    ub = torch.rand(C, fam.n, generator=g, device="cuda")
+    ck, cr = _glob_copy(carry), _glob_copy(carry)
+    out = G.glob_scan(fs.glob, fam, ck, tun, draws, u, u_bold=ub, bold_p=0.25, bold_factor=8.0)
+    _glob_replay_agree(fs, "sub_contra", ck, cr, bold_tune(tun, ub, 0.25, 8.0), draws, u,
+                       out.accept, out.prop, None)
+    assert 0 < int(out.accept.sum()) < out.accept.numel()
+
+
+def _fiber_models():
+    """The calibrated 12-taxon model (a constraint and a brace) and the
+    multifurcating one, each with a chain batch."""
+    fs, carry, _, _ = _glob_fast(5, taxa=12, chains=96)
+    model, batch = _multifurcating()
+    return [(fs.model, carry.batch), (model, batch)]
+
+
+@pytest.mark.parametrize("which", (0, 1), ids=("calibrated", "multifurcating"))
+def test_fiber_slide_kernel(card, which):
+    """F1 on every colour class in turn against its plain version, at
+    beta_prior 1 and with the MC3 ladder as each chain's beta_prior (as
+    under ``run --mc3``): the kernel's decisions replayed through the plain
+    version (each taken as the kernel took it) give its decisions except
+    at ties, bitwise its proposals, heights and rates and its terms within
+    1e-5 (1 + |t|); the accept count it sums; every branch distance kept;
+    one launch a class."""
+    from mcmcdate_tpu_torch.engine.fast_sweep import fiber_slide_plan
+    from mcmcdate_tpu_torch.kernels.fiber_slide import FiberClass, fiber_slide, \
+        fiber_slide_plain
+
+    model, batch = _fiber_models()[which]
+    C = batch.n_chains
+    T = sum(model.term_block_sizes)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    par, nr = model.topo.parent_t, model.topo.non_root_t
+    d0 = torch.where(nr, (batch.heights[:, par] - batch.heights) * batch.rates, 0.0)
+    mag = torch.where(nr, (batch.heights[:, par].abs() + batch.heights.abs())
+                      * batch.rates.abs(), 0.0)
+    for bp in (None, _mc3_ladder(C)):
+        sk = State(**{f: getattr(batch, f).clone() for f in FIELDS})
+        sr = State(**{f: getattr(batch, f).clone() for f in FIELDS})
+        tk, tr = model.log_prior_terms(sk), model.log_prior_terms(sr)
+        count = torch.zeros(1, dtype=torch.int32, device="cuda")
+        n_acc = n = 0
+        for c in fiber_slide_plan(model):
+            cls = FiberClass.of(c, T, "cuda")
+            u = torch.empty((C, cls.m), device="cuda").uniform_(1e-6, 1.0, generator=g)
+            u_acc = torch.rand(C, cls.m, generator=g, device="cuda")
+            before = fiber_slide.launches
+            ok = fiber_slide(model, sk, tk, cls, u, u_acc, bp, count)
+            assert fiber_slide.launches == before + 1
+            orr = fiber_slide_plain(model, sr, tr, cls, u,
+                                    torch.where(ok.accept, 0.0, math.nan), bp)
+            assert torch.equal(orr.accept, ok.accept)
+            assert torch.equal(ok.h_new, orr.h_new)
+            differ = (torch.log(u_acc) < orr.log_alpha) != ok.accept
+            assert torch.all((torch.log(u_acc) - orr.log_alpha).abs()[differ] < TIE)
+            assert torch.equal(sk.heights, sr.heights) and torch.equal(sk.rates, sr.rates)
+            fin = torch.isfinite(tr)
+            assert torch.equal(fin, torch.isfinite(tk))
+            assert torch.all((tk - tr).abs()[fin] <= 1e-5 * (1 + tr.abs()[fin]))
+            n_acc += int(ok.accept.sum())
+            n += ok.accept.numel()
+        assert 0 < n_acc < n and int(count) == n_acc
+        d1 = torch.where(nr, (sk.heights[:, par] - sk.heights) * sk.rates, 0.0)
+        assert torch.all((d1 - d0).abs() <= 1e-5 * mag)
+
+
+@pytest.mark.parametrize("which", (0, 1), ids=("calibrated", "multifurcating"))
+def test_fiber_de_kernel(card, which):
+    """F2's two half-updates of a round against the plain version at the
+    kernel's step, each decision taken as the kernel took it: proposals and
+    states bitwise, decisions except at ties (|log u - dlp| < 1e-5 (1 +
+    |log prior|)), the step within 1e-5 of the plain one from the same
+    draws."""
+    from mcmcdate_tpu_torch.engine.ensemble import FiberDE
+    from mcmcdate_tpu_torch.kernels.fiber_de import fiber_de, fiber_de_plain
+
+    model, batch = _fiber_models()[which]
+    C = batch.n_chains
+    # Inner heights moved a random fraction toward their parents, chain by
+    # chain (every span stays positive), so donor differences vary by node.
+    h = batch.heights.double().cpu().numpy()
+    parent = model.topo.parent_t.cpu().numpy()
+    leaf = model.topo.is_leaf_t.cpu().numpy()
+    rng = np.random.default_rng(3)
+    for c in range(C):
+        for i in range(1, h.shape[1]):
+            if not leaf[i]:
+                h[c, i] += rng.uniform(0, 0.3) * (h[c, parent[i]] - h[c, i])
+    batch = batch.replace(heights=torch.as_tensor(h, dtype=torch.float32, device="cuda"))
+    de = FiberDE(model)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    sk = State(**{f: getattr(batch, f).clone() for f in FIELDS})
+    sr = State(**{f: getattr(batch, f).clone() for f in FIELDS})
+    half = C // 2
+    n_acc = 0
+    for act0, m, oth0 in ((0, half, half), (half, C - half, 0)):
+        draws = de.draws(g, m, C - m, torch.float32, "cuda")
+        args = (act0, m, oth0, *draws, de.gamma_small)
+        lp = model.log_prior(State(**{f: getattr(sr, f)[act0:act0 + m] for f in FIELDS}))
+        ok = fiber_de(model, sk, *args)
+        op = fiber_de_plain(model, State(**{f: getattr(sr, f).clone() for f in FIELDS}), *args)
+        assert torch.all((ok.g - op.g).abs() <= 1e-5 * op.g.abs())
+        forced = torch.where(ok.accept, 0.0, math.nan)
+        orr = fiber_de_plain(model, sr, *args[:7], forced, de.gamma_small, g=ok.g)
+        assert torch.equal(orr.accept, ok.accept)
+        assert torch.equal(ok.h_prop, orr.h_prop) and torch.equal(ok.r_prop, orr.r_prop)
+        valid = ((orr.h_prop[:, model.topo.parent_t.clamp(min=0)] - orr.h_prop)[:, 1:]
+                 > 1e-7).all(1)
+        logu = torch.log(draws[4])
+        differ = (valid & (logu < orr.dlp)) != ok.accept
+        assert torch.all((logu - orr.dlp).abs()[differ] < 1e-5 * (1 + lp.abs()[differ]))
+        assert torch.equal(sk.heights, sr.heights) and torch.equal(sk.rates, sr.rates)
+        n_acc += int(ok.accept.sum())
+    assert n_acc > 0

@@ -76,11 +76,3 @@ def test_plan_matches_jax(shape, priors):
         assert max(s.ch.shape[-1] for s in ref.specs.values()) > 2
         # Some step holds a node with fewer children than its KC.
         assert any(not np.array_equal(_slotted(s), s.t_rows) for s in ref.specs.values())
-
-
-def test_unported_options_raise():
-    case = Case("none")
-    with pytest.raises(NotImplementedError):
-        TF.FastSweeps(case.pm, case.ptable, bold_p=0.1)
-    with pytest.raises(NotImplementedError):
-        TF.FastSweeps(case.pm, case.ptable, fiber_slide=0.5)
