@@ -52,7 +52,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    epilogues' own decisions without a likelihood, each timed flushed with
    the ladders beside ones vectors, in turns (the ``tempered`` key of its
    record); cascade_seed against the per-field copy, bitwise, timed beside
-   ``torch._foreach_copy_``; M1 mc3_swap against its plain version
+   ``torch._foreach_copy_``, both with the L2 flushed; M1 mc3_swap against its plain version
    (check_mc3_swap: state, U, decisions and per-pair counts bitwise),
    timed flushed beside one ``index_select`` a field.  Each kernel's
    device time and its plain version's are read from the profiler over
@@ -121,14 +121,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    MHKernel on that model (T1, B1, K3 per ticket that moves distances);
 12. banded full width: FastSweeps through ChainRunner on the synthetic
    banded model of 5,000 taxa x 1024 chains ("banded 128": D = 9,997, 79
-   blocks of 128), 10 + 1 sweeps: carry check, s/sweep, B1's and B2's
-   launches per sweep, the sweep's construction time, the device memory's
-   peak.  Both banded paths must launch B1 (and B2 on FastSweeps), never
-   K2 or a plain version, and their sweeps hold no [D, D] or [rows, D]
-   tensor.  The kernels phase also holds B1 and B2 to their plain versions
-   at 136 and 5,000 taxa on every site's shape, whole and windowed, with
-   each reduction (check_band; records at 5,000 taxa, flushed, beside
-   torch.matmul with the densified matrix), and H1 nuts_leapfrog_prologue,
+   blocks of 128), 10 + 1 sweeps: carry check, s/sweep, B1's, B2's and
+   band_rows_add's launches per sweep, their device time in one profiled
+   sweep, the sweep's construction time, the device memory's peak.  Both
+   banded paths must launch B1 (and on FastSweeps B2, and band_rows_add
+   once a point step or range block), never K2 or a plain version, and
+   their sweeps hold no [D, D] or [rows, D] tensor.  The kernels phase also
+   holds B1 and B2 to their plain versions at 136 and 5,000 taxa on every
+   site's shape, whole and windowed, with each reduction, and
+   band_rows_add on the plan's largest range block and point step
+   (check_band; records at 5,000 taxa, flushed in turns with torch.matmul
+   on the densified matrix, flushed too, and band_rows_add's with the
+   scatter-and-window path it replaced and z.addmm_ with the block's
+   densified rows), and H1 nuts_leapfrog_prologue,
    H2 nuts_leapfrog_epilogue and H3 nuts_merge along whole NUTS
    trajectories of up to 8 doublings (check_nuts: every launch replayed
    through the plain versions from the kernels' state,
@@ -400,6 +405,8 @@ KERNELS = (
      "mcmcdate_tpu/ops/banded.py:209"),
     ("band_matmul_t", "mcmcdate_tpu_torch/kernels/csrc/band_matmul.cu",
      "mcmcdate_tpu/ops/banded.py:235"),
+    ("band_rows_add", "mcmcdate_tpu_torch/kernels/csrc/band_matmul.cu",
+     "mcmcdate_tpu/engine/fast_sweep.py:1554"),
     ("nuts_leapfrog_prologue", "mcmcdate_tpu_torch/kernels/csrc/nuts_step.cu",
      "mcmcdate_tpu/engine/hmc.py:118"),
     ("nuts_leapfrog_epilogue", "mcmcdate_tpu_torch/kernels/csrc/nuts_step.cu",
@@ -414,7 +421,7 @@ KERNELS = (
      "mcmcdate_tpu/engine/ensemble.py:81"),
 )
 OPT_NAMES = ("fiber_slide", "fiber_de", "contra_range_bold", "glob_scan_bold")
-BAND_NAMES = ("band_matmul", "band_matmul_t")
+BAND_NAMES = ("band_matmul", "band_matmul_t", "band_rows_add")
 NUTS_NAMES = ("nuts_leapfrog_prologue", "nuts_leapfrog_epilogue", "nuts_merge")
 # The kernels whose decisions take the likelihood temperature beta (all of
 # them, with K6 and the K4 and K5 epilogues' own decisions, take the prior
@@ -2549,8 +2556,8 @@ def check_cascade_seed(n_taxa):
     """cascade_seed on the kernels' batch (CHAINS chains) against its plain
     version (the per-field copy): bitwise on rung 63; the kernel timed
     flushed, the plain version, and one ``torch._foreach_copy_`` over the
-    fields' rows as the library call.  Bound: one chain's row of every
-    field read and written."""
+    fields' rows as the library call, flushed as the kernel is.  Bound: one
+    chain's row of every field read and written."""
     import torch
 
     from mcmcdate_tpu_torch.kernels.cascade_seed import cascade_seed, cascade_seed_plain
@@ -2575,7 +2582,8 @@ def check_cascade_seed(n_taxa):
     plain_ms = _device_ms(lambda: cascade_seed_plain(cp, j))
     dst = [getattr(cp, f)[j + 1] for f in FIELDS]
     src = [getattr(cp, f)[j] for f in FIELDS]
-    lib_ms = _device_ms(lambda: torch._foreach_copy_(dst, src))
+    lib_ms = _device_ms(lambda: torch._foreach_copy_(dst, src),
+                        only=("multi_tensor", "opy", "Memcpy", "elementwise"), flush=True)
     row_bytes = sum(getattr(ck, f)[0].numel() * 4 for f in FIELDS)
     return {"cascade_seed": _record(0.0, ms, plain_ms, 2 * row_bytes, 0, library_ms=lib_ms)}
 
@@ -2677,16 +2685,154 @@ def _band_terms(nb, upper):
     return sum(1 for m in range(nb) for o in range(1 if upper else 0, 3) if 0 <= m + 1 - o < nb)
 
 
+def _band_steps(model):
+    """The banded z update's largest likelihood range block and largest
+    point step of the model's FastSweeps plan: ``(what, rows, ok)`` each,
+    rows and validity of the step's row slots as ``FastSweeps`` trims and
+    builds them (``d_flat``)."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch.engine import proposals as P
+    from mcmcdate_tpu_torch.engine.fast_sweep import plan_batches, step_tensors
+
+    table = P.build_proposal_table(model.topo, model.braces, False)
+    plan = plan_batches(model, table)
+    pos = np.asarray(model.topo.internal_pos, np.int64)
+    best = {}
+    for key, spec in list(plan.range_specs.items()) + list(plan.specs.items()):
+        kind = key[0] if isinstance(key, tuple) else key
+        if kind in (P.K_SCALE_SUBTREES_CONTRA, P.K_SLIDE_NODES_CONTRA):
+            continue
+        what = "range block" if isinstance(key, tuple) else "point step"
+        for sx in step_tensors(spec, "cpu", torch.float32):
+            own = (sx["own"] if "own" in sx else sx["d_rows"]).reshape(-1).numpy()
+            ok = own >= 0
+            if "own" in sx:
+                rows = np.where(ok, pos[np.maximum(own, 0)], 0)
+            else:
+                rows = np.maximum(own, 0)
+            if what not in best or ok.sum() > best[what][2].sum():
+                best[what] = (what, rows, ok)
+    return [best[k] for k in ("range block", "point step")]
+
+
+def _rows_dense(prows, plan, n, D):
+    """The ``[n, D]`` precision rows of a plan's row slots (zero on pad
+    slots), densified from the row band: the library call's operand."""
+    import torch
+
+    w = plan.w
+    rows = plan.rows.long()
+    cols = rows[:, None] - w + torch.arange(2 * w + 1, device=rows.device)[None]
+    keep = (cols >= 0) & (cols < D)
+    out = torch.zeros((n, D), dtype=prows.dtype, device=prows.device)
+    out[plan.slots.long()[:, None].expand_as(cols)[keep], cols[keep]] = prows[rows][keep]
+    return out
+
+
+def _band_rows_record(n_taxa, model, pband, P3):
+    """band_rows_add on the banded model's largest range block and largest
+    point step against its plain version, within K2_REL of the largest
+    output; the range block's kernel timed flushed beside the
+    scatter-and-window path it replaced (``index_add_`` of dacc into a zero
+    buffer, B1 on the rows' window ``into`` z, ``index_fill_``), in turns,
+    and beside ``z.addmm_(dacc, Prow)`` with the block's densified rows.
+    Bound: z over the plan's tiles read and written, dacc's valid columns,
+    the rows' bands and the plan read once; 2 C operations per (row, column
+    in its band)."""
+    import numpy as np
+    import torch
+
+    from mcmcdate_tpu_torch.kernels.band_matmul import ROWS_TILE, band_matmul, band_rows_add, \
+        band_rows_add_plain, band_rows_plan
+    from mcmcdate_tpu_torch.ops import banded
+
+    D = model.likelihood.dim
+    w = pband.shape[1] - 1
+    nb, _, wb, _ = P3.shape
+    prows = torch.as_tensor(banded.rows_from_sym_band(pband), dtype=torch.float32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(n_taxa + 19)
+    z0 = torch.randn((CHAINS, D), generator=g, device="cuda")
+    worst, rec = 0.0, None
+    for what, rows, ok in _band_steps(model):
+        plan = band_rows_plan(rows, ok, w, D, device="cuda")
+        dacc = 1e-2 * torch.randn((CHAINS, len(rows)), generator=g, device="cuda")
+        zk, zp = z0.clone(), z0.clone()
+        before = band_rows_add.launches
+        band_rows_add(zk, dacc, prows, plan)
+        band_rows_add_plain(zp, dacc, prows, plan)
+        _sync()
+        check(band_rows_add.launches == before + 1, "band_rows_add: not one launch a call")
+        err = float((zk - zp).abs().max())
+        scale = float(zp.abs().max())
+        check(err <= K2_REL * max(scale, 1.0),
+              f"band_rows_add {what} at {n_taxa} taxa: max error {err:.3g} at scale {scale:.3g}")
+        worst = max(worst, err)
+        tiles, nnz, k = plan.col0.numel(), plan.ent.shape[0], int(ok.sum())
+        reach = int(np.sum(np.minimum(rows[ok] + w, D - 1) - np.maximum(rows[ok] - w, 0) + 1))
+        log(f"[band] band_rows_add {what} at {n_taxa} taxa: {k} rows of {len(rows)} slots, "
+            f"{tiles} tiles of {ROWS_TILE} columns (of D = {D}), "
+            f"{nnz} (row, tile) entries; max error {err:.3g} at scale {scale:.3g}")
+        if what != "range block":
+            continue
+        # The parent's three launches, on the same z, dacc and rows.
+        d_flat = torch.as_tensor(rows, dtype=torch.int32, device="cuda")
+        d_flat64 = d_flat.long()
+        win = banded.block_window(int(rows[ok].min()), int(rows[ok].max()) + 1, wb, nb)
+        buf = torch.zeros_like(z0)
+        dz = torch.where(torch.as_tensor(ok, device="cuda"), dacc, 0.0)
+
+        def scatter_window():
+            buf.index_add_(1, d_flat, dz)
+            band_matmul(buf, P3, window=win, into=zk)
+            buf.index_fill_(1, d_flat64, 0.0)
+
+        zo = z0.clone()
+        buf.index_add_(1, d_flat, dz)
+        band_matmul(buf, P3, window=win, into=zo)
+        buf.index_fill_(1, d_flat64, 0.0)
+        _sync()
+        err_old = float((zo - zp).abs().max())
+        check(err_old <= K2_REL * max(scale, 1.0),
+              f"the scatter-and-window z update at {n_taxa} taxa: max error {err_old:.3g}")
+        ms, old_ms = [], []
+        for order in (0, 1, 1, 0):
+            if order == 0:
+                ms.append(_device_ms(lambda: band_rows_add(zk, dacc, prows, plan),
+                                     only="band_rows_kernel", flush=True))
+            else:
+                old_ms.append(_device_ms(scatter_window, only=("band_kernel", "ndex"), flush=True))
+        plain_ms = _device_ms(lambda: band_rows_add_plain(zp, dacc, prows, plan))
+        Prow = _rows_dense(prows, plan, len(rows), D)
+        lib_ms = _device_ms(lambda: zk.addmm_(dacc, Prow), only=("gemm", "splitK"), flush=True)
+        del Prow
+        cols = int(sum(min(j + ROWS_TILE, D) - j for j in plan.col0.tolist()))
+        nbytes = (4 * (2 * CHAINS * cols + CHAINS * k + len(np.unique(rows[ok])) * (2 * w + 1))
+                  + 4 * (2 * nnz + tiles + tiles + 1))
+        rec = _record(0.0, sum(ms) / 2, plain_ms, nbytes, 2 * CHAINS * reach, lib_ms)
+        rec["three_launch_ms"] = sum(old_ms) / 2
+        rec["readings"] = dict(kernel=ms, three_launch=old_ms)
+        log(f"[band] band_rows_add range block at {n_taxa} taxa, flushed, in turns: kernel "
+            f"{ms[0]:.4f} / {ms[1]:.4f} ms, the scatter-and-window path (index_add_ + windowed "
+            f"B1 {win} + index_fill_) {old_ms[0]:.4f} / {old_ms[1]:.4f} ms; z.addmm_(dacc, Prow) "
+            f"{lib_ms:.4f} ms; plain {plain_ms:.4f} ms; bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}: {cols} z columns, {reach} (row, column) pairs)")
+    rec["max_abs_err"] = worst
+    return rec
+
+
 def check_band(n_taxa):
     """B1 ``band_matmul`` and B2 ``band_matmul_t`` against their plain
     versions on the synthetic banded model's own blocks, ``L3`` (upper) and
     ``P3``, at the shapes of every site of the banded sweep: the whitened
     residual ``(d - mu) L``, a sequential ticket's ``dy = delta L`` on its
     window with its rows and ``y``, the glob families' ``delta @ P`` whole
-    and on a subtree's window, the point and range steps' ``z += dacc P``
-    and ``z = y L^T``; within K2_REL of the largest output.  Records: B1 on
-    the whole ``delta @ P``, B2 on ``z = y L^T``, each timed flushed beside
-    ``torch.matmul`` with the densified matrix."""
+    and on a subtree's window, the windowed ``into`` product and ``z = y
+    L^T``; within K2_REL of the largest output.  Records: B1 on the whole
+    ``delta @ P``, B2 on ``z = y L^T``, each timed flushed in turns with
+    ``torch.matmul`` with the densified matrix, flushed too (kernel,
+    library, library, kernel); and band_rows_add (``_band_rows_record``)."""
     import torch
 
     from mcmcdate_tpu_torch.kernels.band_matmul import band_matmul, band_matmul_plain, \
@@ -2698,9 +2844,9 @@ def check_band(n_taxa):
     s = _perturbed(model, batch, 5)
     L3 = model.band_L3_internal_t
     nb, _, wb, _ = L3.shape
-    P3 = torch.as_tensor(banded.blocks_from_sym_band(
-        banded.pband_from_chol_upper(model.likelihood.band_chol), wb), dtype=torch.float32,
-        device="cuda")
+    pband = banded.pband_from_chol_upper(model.likelihood.band_chol)
+    P3 = torch.as_tensor(banded.blocks_from_sym_band(pband, wb), dtype=torch.float32,
+                         device="cuda")
     D, mu = model.likelihood.dim, model.mu_internal_t
     d = distances_internal(s, model.topo).contiguous()
     y = band_matmul_plain(d, L3, sub=mu)[0]
@@ -2718,7 +2864,7 @@ def check_band(n_taxa):
                                               x_rows=(lo, hi))),
         ("band_matmul", "delta P", P3, dict(x=delta)),
         ("band_matmul", "subtree delta P", P3, dict(x=dspan, window=win_p)),
-        ("band_matmul", "z += dacc P", P3, dict(x=dspan, window=win_p, into=y)),
+        ("band_matmul", "into", P3, dict(x=dspan, window=win_p, into=y)),
         ("band_matmul_t", "z = y L^T", L3, dict(x=y, upper=True)),
         ("band_matmul_t", "windowed, y", L3, dict(x=dspan, y=y, upper=True, window=win_l)),
         ("band_matmul_t", "P^T, sub", P3, dict(x=d, sub=mu)),
@@ -2746,20 +2892,30 @@ def check_band(n_taxa):
     out = {}
     for name, B3, upper, x in (("band_matmul", P3, False, delta), ("band_matmul_t", L3, True, y)):
         fn, plain = fns[name]
-        ms = _device_ms(lambda: fn(x, B3, upper=upper), only=("band_kernel", "band_reduce"),
-                        flush=True)
-        plain_ms = _device_ms(lambda: plain(x, B3, upper=upper))
         M = _densified(B3, D)
-        if name == "band_matmul_t":
-            lib_ms = _device_ms(lambda: torch.matmul(x, M.t()))
-        else:
-            lib_ms = _device_ms(lambda: torch.matmul(x, M))
-        del M
+        Mx = M.t() if name == "band_matmul_t" else M
+        ms, lib = [], []
+        for order in (0, 1, 1, 0):
+            if order == 0:
+                ms.append(_device_ms(lambda: fn(x, B3, upper=upper),
+                                     only=("band_kernel", "band_reduce"), flush=True))
+            else:
+                lib.append(_device_ms(lambda: torch.matmul(x, Mx), only=("gemm", "splitK"),
+                                      flush=True))
+        lib_warm = _device_ms(lambda: torch.matmul(x, Mx))
+        plain_ms = _device_ms(lambda: plain(x, B3, upper=upper))
+        del M, Mx
         terms = _band_terms(nb, upper)
         # Bytes: x and each block read once, the product and the per-chain
         # sum written once.  Operations: the block products formed.
         nbytes = 4 * (2 * C * D + terms * wb * wb + C)
-        out[name] = _record(worst[name], ms, plain_ms, nbytes, 2 * C * terms * wb * wb, lib_ms)
+        out[name] = _record(worst[name], sum(ms) / 2, plain_ms, nbytes,
+                            2 * C * terms * wb * wb, sum(lib) / 2)
+        out[name]["readings"] = dict(kernel=ms, library=lib, library_warm=lib_warm)
+        log(f"[band] {name} at {n_taxa} taxa, whole product, flushed, in turns: kernel "
+            f"{ms[0]:.4f} / {ms[1]:.4f} ms, cuBLAS on the densified matrix {lib[0]:.4f} / "
+            f"{lib[1]:.4f} ms (back to back {lib_warm:.4f})")
+    out["band_rows_add"] = _band_rows_record(n_taxa, model, pband, P3)
     log(f"[band] at {n_taxa} taxa: D = {D}, wb = {wb}, nb = {nb}; the synthetic banded model "
         f"built in {build_s:.1f} s; {len(cases)} cases ({', '.join(w for _, w, _, _ in cases)}) "
         f"within K2_REL of their plain versions")
@@ -3413,7 +3569,7 @@ def check_carried_posterior(runner, run_dir, lp_post, name="smoke", de=None):
 
 def _wrappers():
     from mcmcdate_tpu_torch.kernels.accept_select import accept_select
-    from mcmcdate_tpu_torch.kernels.band_matmul import band_matmul, band_matmul_t
+    from mcmcdate_tpu_torch.kernels.band_matmul import band_matmul, band_matmul_t, band_rows_add
     from mcmcdate_tpu_torch.kernels.cascade_seed import cascade_seed
     from mcmcdate_tpu_torch.kernels.contra_step import contra_range, contra_slide
     from mcmcdate_tpu_torch.kernels.fiber_de import fiber_de
@@ -3445,7 +3601,8 @@ def _wrappers():
             "glob_dense_epilogue": glob_dense_epilogue, "admm_shift": admm_shift,
             "admm_eig_scale": admm_eig_scale, "admm_update": admm_update,
             "cascade_seed": cascade_seed, "band_matmul": band_matmul,
-            "band_matmul_t": band_matmul_t, "nuts_leapfrog_prologue": nuts_leapfrog_prologue,
+            "band_matmul_t": band_matmul_t, "band_rows_add": band_rows_add,
+            "nuts_leapfrog_prologue": nuts_leapfrog_prologue,
             "nuts_leapfrog_epilogue": nuts_leapfrog_epilogue, "nuts_merge": nuts_merge,
             "mc3_swap": mc3_swap, "fiber_slide": fiber_slide, "fiber_de": fiber_de}
 
@@ -3460,7 +3617,7 @@ PLAIN_TWINS = (
     ("glob_step", ("glob_family_plain", "glob_dense_prologue_plain",
                    "glob_dense_epilogue_plain")),
     ("cascade_seed", ("cascade_seed_plain",)),
-    ("band_matmul", ("band_matmul_plain", "band_matmul_t_plain")),
+    ("band_matmul", ("band_matmul_plain", "band_matmul_t_plain", "band_rows_add_plain")),
     ("nuts_step", ("nuts_leapfrog_prologue_plain", "nuts_leapfrog_epilogue_plain",
                    "nuts_merge_plain")),
     ("mc3_swap", ("mc3_swap_plain",)),
@@ -3797,7 +3954,7 @@ def _runner_phase(name, model, init, fast_sweep, n_sweeps, need, stats=None):
     med = statistics.median(runner.sweep_seconds)
     if stats is not None:
         stats.update(runner=runner, init_s=init_s, sweep_s=med,
-                     peak_bytes=torch.cuda.max_memory_allocated())
+                     peak_bytes=torch.cuda.max_memory_allocated(), batch=batch, tuning=tuning)
     if fast_sweep and runner.kern.use_lik:
         gathered = sum(sx[k].untyped_storage().nbytes() for steps in runner.kern.spec_t.values()
                        for sx in steps for k in ("Prow", "Pblk") if k in sx)
@@ -4437,13 +4594,19 @@ def _dense_tensors(kern, D, C):
 
 
 def _check_banded_path(name, launches, kern):
-    """A banded path launched B1 (and, on FastSweeps, B2), no K2, no plain
-    version, and its sweep holds no dense precision."""
+    """A banded path launched B1 (and, on FastSweeps, B2 and band_rows_add:
+    at least one launch a point step or range block with a likelihood), no
+    K2, no plain version, and its sweep holds no dense precision."""
     from mcmcdate_tpu_torch.engine.fast_sweep import FastSweeps
 
     fast = isinstance(kern, FastSweeps)
-    for k in ("band_matmul",) + (("band_matmul_t",) if fast else ()):
+    for k in ("band_matmul",) + (("band_matmul_t", "band_rows_add") if fast else ()):
         check(launches[k] > 0, f"{name}: never launched {k}")
+    if fast:
+        steps = launches["point_lik_epilogue"] + launches["range_lik_epilogue"]
+        check(launches["band_rows_add"] == steps,
+              f"{name}: {launches['band_rows_add']} band_rows_add launches for {steps} point "
+              f"steps and range blocks")
     check(launches["whiten"] == 0 and launches["plain_twins"] == 0
           and launches["plain_proposals"] == 0,
           f"{name}: launched K2, a plain version or a plain proposal: {launches}")
@@ -4527,8 +4690,13 @@ def phase_banded_full_width():
     """The banded kind at its full width: FastSweeps through ChainRunner on
     the synthetic banded model of BANDED_TAXA taxa x 1024 chains (BANDED_SPEC:
     D = 9,997, nb = 79 blocks of 128), FULL_WIDTH_SWEEPS + 1 sweeps with the
-    carry check; logs the seconds per sweep, B1's and B2's launches per
-    sweep, the sweep's construction time and the device memory's peak."""
+    carry check; logs the seconds per sweep, B1's, B2's and band_rows_add's
+    launches per sweep, the sweep's construction time and the device
+    memory's peak; then one more sweep under the profiler: the device time
+    of B1, B2 and band_rows_add in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     model, batch, build_s = _banded_model(BANDED_TAXA)
     _BANDED.clear()
     log(f"[banded full width] cut: {FULL_WIDTH_SWEEPS} sweeps (+1 for the carry check); the "
@@ -4540,12 +4708,29 @@ def phase_banded_full_width():
                               "contra_slide", "contra_range", "glob_scan",
                               "glob_dense_prologue", "glob_dense_epilogue", "ticket_scan"),
                              stats)
-    _check_banded_path("banded full width", launches, stats["runner"].kern)
+    kern = stats["runner"].kern
+    _check_banded_path("banded full width", launches, kern)
     n = FULL_WIDTH_SWEEPS + 1
+    # B1 and B2 are one template (band_kernel<..., TRANS>), and share the
+    # reduction's second pass.
+    kernels = {"band_matmul": ("band_kernel", ", false>"), "band_matmul_t": ("band_kernel",
+                                                                             ", true>"),
+               "band_reduce": ("band_reduce_kernel",), "band_rows_add": ("band_rows_kernel",)}
+    dev = {k: [0, 0.0] for k in kernels}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kern.sweeps(stats["batch"], stats["tuning"], 9, 1)
+        _sync()
+    for e in prof.profiler.kineto_results.events():
+        for k, tags in kernels.items():
+            if e.device_type() == DeviceType.CUDA and all(t in e.name() for t in tags):
+                dev[k][0] += 1
+                dev[k][1] += e.duration_ns() / 1e6
     log(f"[banded full width] {BANDED_TAXA} taxa x {CHAINS} chains, D = "
-        f"{model.likelihood.dim}: median {stats['sweep_s']:.4f} s per sweep; B1 "
-        f"{launches['band_matmul'] / n:.2f} and B2 {launches['band_matmul_t'] / n:.2f} launches "
-        f"per sweep; FastSweeps built (ChainRunner) in {stats['init_s']:.2f} s; device memory "
+        f"{model.likelihood.dim}: median {stats['sweep_s']:.4f} s per sweep; launches per sweep "
+        + ", ".join(f"{k} {launches[k] / n:.2f}" for k in BAND_NAMES)
+        + "; device time in one profiled sweep "
+        + ", ".join(f"{k} {ms:.2f} ms in {c} kernels" for k, (c, ms) in dev.items())
+        + f"; FastSweeps built (ChainRunner) in {stats['init_s']:.2f} s; device memory "
         f"peak {stats['peak_bytes'] / 1e9:.2f} GB; no [D, D] or [rows, D] tensor")
     return launches
 

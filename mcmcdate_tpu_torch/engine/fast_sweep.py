@@ -11,8 +11,9 @@ phase with that probability) and the in-cycle NUTS move (``sweeps(nuts=)``,
 package.
 Under the banded likelihood kind every
 precision and Cholesky product goes through the block-tridiagonal kernels
-B1 ``band_matmul`` and B2 ``band_matmul_t`` (``ops/banded.py``), and no
-``[D, D]`` or ``[rows, D]`` tensor is built.  A
+B1 ``band_matmul`` and B2 ``band_matmul_t`` (``ops/banded.py``) or, for
+the point and range steps' ``z += dacc P[rows]``, the row-sparse
+``band_rows_add``; no ``[D, D]`` or ``[rows, D]`` tensor is built.  A
 sweep executes sets of provably non-interacting proposal tickets as one
 vectorised step each: their prior dependencies are disjoint by
 construction, and the likelihood couples them only through the carried
@@ -67,7 +68,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..kernels.band_matmul import band_matmul, band_matmul_t
+from ..kernels.band_matmul import band_matmul, band_matmul_t, band_rows_add, band_rows_plan
 from ..kernels.contra_step import contra_range, contra_slide
 from ..kernels.fiber_slide import FiberClass, fiber_slide
 from ..kernels.glob_step import (
@@ -712,16 +713,17 @@ class FastSweeps:
         self.dim = model.likelihood.dim
         dev, dt = model.device, model.dtype
         self.P = self.L = None
-        self._scatter = {}  # the banded z update's zero [C, D] buffer, by shape
         if self.banded:
-            # The precision's symmetric band (its Q and Pblk entries) and
-            # the block forms of P and L, all O(D w).
+            # The precision's symmetric band (its Q and Pblk entries), its
+            # row band (the point and range steps' z update) and the block
+            # forms of P and L, all O(D w).
             pband = banded.pband_from_chol_upper(model.likelihood.band_chol)
             self.L3 = model.band_L3_internal_t
             self.nb, _, self.wb, _ = self.L3.shape
             self.P3 = torch.as_tensor(banded.blocks_from_sym_band(pband, self.wb), dtype=dt,
                                       device=dev)
             self.pband = torch.as_tensor(pband, dtype=dt, device=dev)
+            self.prows = torch.as_tensor(banded.rows_from_sym_band(pband), dtype=dt, device=dev)
         elif kind == mvn.UNIVARIATE:
             if self.dim > UNIVARIATE_DENSE_MAX:
                 raise ValueError(
@@ -823,9 +825,10 @@ class FastSweeps:
         float32 (trimmed to their rows), against 16 MB for ``P``.  ``Q`` is
         kept in :func:`~..kernels.range_scan.kernel_layout`.  Under the
         banded kind ``Q`` comes from the band and there is no ``Prow``: the
-        block's ``z`` update is a band product (:meth:`_z_add`).  Also the
-        block's row plan for K5's prologue and epilogue kernels (``rplan``,
-        ``tplan``: :func:`~..kernels.range_step.range_plan`)."""
+        block's ``z`` update is a row-sparse band product
+        (:meth:`_z_add`).  Also the block's row plan for K5's prologue and
+        epilogue kernels (``rplan``, ``tplan``:
+        :func:`~..kernels.range_step.range_plan`)."""
         own_ok = sx["own"] >= 0
         sx["d_flat"] = torch.where(own_ok, self.pos_t[torch.clamp(sx["own"], min=0)],
                                    0).reshape(-1).contiguous()
@@ -882,26 +885,21 @@ class FastSweeps:
                                    upper)
 
     def _band_rows(self, sx: dict, ok):
-        """A banded step's ``z`` update data: its rows as int64
-        (``d_flat64``, for the scatter buffer's reset) and the output blocks
-        its rows reach (``zwin``)."""
-        sx["d_flat64"] = sx["d_flat"].long()
-        sx["zwin"] = self._block_window(sx["d_flat"][ok > 0].cpu().numpy())
+        """A banded step's ``z`` update plan (``zplan``): its valid rows and
+        the column tiles their band reaches
+        (:func:`~..kernels.band_matmul.band_rows_plan`)."""
+        sx["zplan"] = band_rows_plan(sx["d_flat"].cpu().numpy(), (ok > 0).cpu().numpy(),
+                                     self.pband.shape[1] - 1, self.dim, device=self.pband.device)
 
     def _z_add(self, z, dacc, sx: dict):
-        """``z += dacc @ P[d_flat]`` of a point step or range block: one
-        product with the step's precision rows, or under the banded kind
-        ``dacc`` scattered to its rows (pad rows add zero) and one B1
-        product added to ``z`` on the blocks they reach."""
-        if not self.banded:
+        """``z += dacc @ P[d_flat]`` of a point step or range block (pad
+        rows add zero): one product with the step's precision rows, or under
+        the banded kind one row-sparse band product over its plan
+        (``band_rows_add``)."""
+        if self.banded:
+            band_rows_add(z, dacc, self.prows, sx["zplan"])
+        else:
             z.addmm_(dacc, sx["Prow"])
-            return
-        buf = self._scatter.get(z.shape)
-        if buf is None:
-            buf = self._scatter[z.shape] = torch.zeros_like(z)
-        buf.index_add_(1, sx["d_flat"], dacc)
-        band_matmul(buf, self.P3, window=sx["zwin"], into=z)
-        buf.index_fill_(1, sx["d_flat64"], 0.0)
 
     # -- precision/Cholesky right-multiplications -----------------------
 

@@ -6,8 +6,9 @@ They replace the XLA-compiled ``block_tridiag_matmul`` and
 carry every precision and Cholesky product of the banded likelihood kind:
 the whitened residual ``(d - mu) L`` (with ``mu`` subtracted as ``X`` is
 read and ``sum y^2`` as the reduction), ``z = y L^T``, a sequential
-ticket's ``dy = delta L`` (with ``-0.5 sum dy (2 y + dy)``), the glob
-families' ``delta @ P`` and the point and range steps' ``z += dacc P``.
+ticket's ``dy = delta L`` (with ``-0.5 sum dy (2 y + dy)``) and the glob
+families' ``delta @ P`` (the point and range steps' ``z += dacc P`` is
+``band_rows_add``, below).
 ``M`` is given by its blocks ``B3 [nb, 3, wb, wb]``, ``B3[n, o] = M[block
 n, block n + o - 1]`` (``ops.banded.blocks_from_sym_band`` and
 ``blocks_from_upper_band``); ``X`` is ``[C, D]`` with ``D <= nb wb``.
@@ -19,7 +20,9 @@ window: the rows of a ticket or of a subtree.  ``x_rows = (r0, r1)`` reads
 ``X`` as zero outside the columns ``[r0, r1)`` (a ticket's delta, whose
 other entries its prologue did not write).  Without ``into`` the other
 blocks of the output are zero; with ``into`` the product is added to it on
-the window (no reduction).  ``upper`` says that ``M``'s sub-diagonal
+the window (no reduction: no sweep uses it, ``chip_smoke.py`` times the
+scatter-and-window form of ``z += dacc P`` with it beside
+``band_rows_add``).  ``upper`` says that ``M``'s sub-diagonal
 blocks are zero (``L``), which the kernel then skips.
 
 Each wrapper runs the plain PyTorch version (the einsum-and-shift form of
@@ -28,12 +31,22 @@ tensors (float32), or raises; it counts its launches in
 ``<wrapper>.launches``.  The kernel (``csrc/band_matmul.cu``) is a float32
 GEMM on the SIMT cores, one CTA per tile of chains and columns of one
 output block (no TF32).
+
+``band_rows_add`` is the point and range steps' ``z += dacc P[rows]`` as
+a row-sparse band product (one launch, no scatter buffer): ``P`` read from
+its row band ``prows [D, 2w + 1]`` (``ops.banded.rows_from_sym_band``) over
+the column tiles of a step's :class:`RowsPlan` (:func:`band_rows_plan`,
+built once on the host).  It replaces the JAX steps' ``z + dacc_flat @
+Prow`` with ``Prow = block_tridiag_matmul(one_hot(rows), P3)``
+(``mcmcdate_tpu/engine/fast_sweep.py:1483, 1554``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import build
@@ -41,6 +54,11 @@ from . import build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _P) + (_I,) * 11 + (ctypes.c_float, _P)
+_ROWS_ARGTYPES = (_P,) * 6 + (_I,) * 5 + (_P,)
+# The column tile of band_rows_add's kernel (RN in csrc/band_matmul.cu).
+ROWS_TILE = 64
+# Row slots a chunk of the plain band_rows_add (its [C, k, 2w + 1] products).
+_PLAIN_CHUNK = 256
 
 
 def _window(window, nb: int) -> tuple:
@@ -169,3 +187,94 @@ def band_matmul_t(x, B3, sub=None, window=None, y=None, into=None, upper=False, 
 
 band_matmul.launches = 0
 band_matmul_t.launches = 0
+
+
+class RowsPlan(NamedTuple):
+    """A step's ``z`` update plan for :func:`band_rows_add`: its valid row
+    slots (``dacc``'s columns) and their rows of ``z``, ``slots`` and
+    ``rows`` ``[k]``; the column tiles of ``tn`` columns that the rows'
+    reaches ``[r - w, r + w]`` cover, ``col0`` ``[T]`` (each tile's first
+    column); and per tile the ``(slot, row)`` pairs that reach it, in slot
+    order, ``ent`` ``[nnz, 2]`` from ``ptr[t]`` to ``ptr[t + 1]``.  int32
+    tensors on the step's device."""
+    slots: torch.Tensor
+    rows: torch.Tensor
+    col0: torch.Tensor
+    ptr: torch.Tensor
+    ent: torch.Tensor
+    w: int
+    tn: int
+
+
+def band_rows_plan(rows, ok, w: int, D: int, device=None, tn: int = ROWS_TILE) -> RowsPlan:
+    """The :class:`RowsPlan` of a step whose row slots are ``rows`` (host
+    ints in ``[0, D)``, any shape), valid where ``ok``, for a band of width
+    ``w``."""
+    rows = np.asarray(rows, np.int64).reshape(-1)
+    slots = np.flatnonzero(np.asarray(ok).reshape(-1))
+    r = rows[slots]
+    if len(r) and (r.min() < 0 or r.max() >= D):
+        raise ValueError(f"band_rows_plan: rows outside [0, {D})")
+    t_lo = np.maximum(r - w, 0) // tn
+    cnt = np.minimum(r + w, D - 1) // tn - t_lo + 1
+    first = np.cumsum(cnt) - cnt
+    which = np.repeat(np.arange(len(r)), cnt)
+    tile = np.repeat(t_lo, cnt) + np.arange(int(cnt.sum())) - np.repeat(first, cnt)
+    order = np.lexsort((which, tile))
+    tile, which = tile[order], which[order]
+    tiles, start = np.unique(tile, return_index=True)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    return RowsPlan(t(slots), t(r), t(tiles * tn), t(np.append(start, len(tile))),
+                    t(np.stack([slots[which], r[which]], 1).reshape(-1, 2)), int(w), int(tn))
+
+
+def band_rows_add_plain(z, dacc, prows, plan: RowsPlan):
+    """Plain version of :func:`band_rows_add`: each valid row's band
+    segment times its ``dacc`` column, added to ``z`` by ``index_add_``
+    (in chunks of row slots)."""
+    D, w = z.shape[1], plan.w
+    t = torch.arange(2 * w + 1, device=z.device)
+    for i in range(0, plan.rows.numel(), _PLAIN_CHUNK):
+        rows = plan.rows[i:i + _PLAIN_CHUNK].long()
+        cols = rows[:, None] - w + t[None, :]
+        keep = (cols >= 0) & (cols < D)
+        prod = dacc[:, plan.slots[i:i + _PLAIN_CHUNK].long(), None] * prows[rows][None]
+        z.index_add_(1, cols[keep], prod[:, keep])
+    return z
+
+
+def band_rows_add(z, dacc, prows, plan: RowsPlan):
+    """``z[:, j] += sum_i dacc[:, slot_i] P[r_i, j]`` over each valid row
+    slot ``i`` of ``plan`` and ``|r_i - j| <= w``, in place; ``prows [D, 2w
+    + 1]`` is ``P``'s row band, ``prows[r, t] = P[r, r - w + t]``, ``z``
+    ``[C, D]`` and ``dacc`` ``[C, n]``.  Returns ``z``.  The plain version
+    runs for CPU tensors, the kernel for CUDA tensors (float32)."""
+    if z.device.type == "cpu":
+        return band_rows_add_plain(z, dacc, prows, plan)
+    for name, x in (("z", z), ("dacc", dacc), ("prows", prows)):
+        build.require_cuda(x, name, torch.float32)
+    for name in ("col0", "ptr", "ent"):
+        build.require_cuda(getattr(plan, name), name, torch.int32)
+    C, D = z.shape
+    if dacc.dim() != 2 or dacc.shape[0] != C:
+        raise ValueError(f"dacc must be [{C}, n], got {tuple(dacc.shape)}")
+    if tuple(prows.shape) != (D, 2 * plan.w + 1):
+        raise ValueError(f"prows must be [{D}, {2 * plan.w + 1}], got {tuple(prows.shape)}")
+    if plan.tn != ROWS_TILE:
+        raise ValueError(f"the kernel's plan needs tiles of {ROWS_TILE} columns, not {plan.tn}")
+    T = plan.col0.numel()
+    if T == 0:
+        return z
+    p = build.ptr
+    err = build.bind("mcmcdate_band_rows_add_f32", _ROWS_ARGTYPES)(
+        p(z), p(dacc), p(prows), p(plan.col0), p(plan.ptr), p(plan.ent), T, C, D,
+        dacc.shape[1], plan.w, build.stream_ptr(z.device))
+    build.check(err, "band_rows_add kernel")
+    band_rows_add.launches += 1
+    return z
+
+
+band_rows_add.launches = 0

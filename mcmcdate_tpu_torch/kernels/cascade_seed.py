@@ -10,8 +10,9 @@ each rung's seeding is one launch of this kernel.
 On the H100 it is bound by its launch: the bytes are one chain's row of
 each field, ``(2 N + 5)`` floats read and written (about 2.2 KB at 136
 taxa, a nanosecond at the memory's rate).  The kernel
-(``csrc/cascade_seed.cu``) takes every field in one launch, a CTA per
-field, 16-byte words where the rows allow.
+(``csrc/cascade_seed.cu``) takes every field in one launch, a grid of
+(chunk, field), each thread a few words (16 bytes where the rows allow),
+all its loads before any store: one round trip to memory a rung.
 """
 
 from __future__ import annotations

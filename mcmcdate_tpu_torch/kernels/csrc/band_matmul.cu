@@ -36,8 +36,38 @@
 // chains x 128 columns (8 x 8 per thread, 256 threads) where they give
 // about one CTA per SM, else 64 x 32.  Each CTA writes one partial per chain
 // of its tile; a second pass sums them in a fixed order.
+//
+// band_rows_add: the point and range steps' z += dacc P[rows], a row-sparse
+// band product in one launch:
+//   z[c, j] += sum_i dacc[c, slot_i] P[r_i, j]   over |r_i - j| <= w,
+// for the valid row slots i of a step (r_i its distance row; a row that
+// appears twice adds twice).  Replaces the JAX z + dacc_flat @ Prow with
+// Prow = block_tridiag_matmul(one_hot(rows), P3)
+// (mcmcdate_tpu/engine/fast_sweep.py:1483, 1554 and 1846, 1900), which the
+// port formed as a scatter of dacc into a zero [C, D] buffer, B1 over the
+// window of output blocks the rows reach, and a reset of the buffer.  P is
+// read from its row band prows [D, 2w + 1], prows[r, t] = P[r, r - w + t]
+// (zero outside the matrix), so a row's segment of a column tile is
+// contiguous.  The step's plan, built on the host once: the column tiles of
+// RN columns that the rows' reaches cover, and per tile the (slot, row)
+// pairs that reach it, in slot order (CSR: col0, ptr, ent).
+//
+// What bounds it on the H100: the bytes of z over the tiles (read and
+// written once), about 8 C D bytes where the rows spread over the tree (82
+// MB at 5,000 taxa x 1024 chains); the operations, 2 C (2w + 1) per row, are
+// few, so the time goes to rounds to memory, one a k-slice where a tile's
+// list is long (at 136 taxa every row reaches every tile).  Design: a CTA
+// per (tile, 64 chains), K2's register tile over k-slices of RK rows of the
+// tile's list; the list staged in shared memory first (no dependent load
+// before a slice's copies), dacc's gathered columns and the rows' band
+// segments copied with cp.async into a ring of RSTAGES buffers, and the
+// tile of z copied in at the start, so that its round trip overlaps the
+// slices'; z written back in 16-byte words where the address allows.  Each
+// z element has one owning CTA and its rows are summed in list order: no
+// atomics, the same bits every run.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "async_copy.cuh"
 
@@ -259,6 +289,142 @@ cudaError_t launch(BandArgs a, int trans, int blocks, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+constexpr int RN = 64;      // columns a tile of band_rows_add (ROWS_TILE in band_matmul.py)
+constexpr int RK = 16;      // rows a k-slice
+constexpr int RSTAGES = 3;  // k-slices in flight
+constexpr int REMAX = 256;  // entries of a tile's list staged at a time
+constexpr int RTY = 8;      // thread rows: 4 RTY x 2 chains a CTA
+constexpr int RBM = 8 * RTY;
+constexpr int RTHREADS = RTY * (RN / 4);
+
+struct RowsArgs {
+  float* z;             // [C, D]
+  const float* dacc;    // [C, n]
+  const float* prows;   // [D, 2w + 1]
+  const int* col0;      // [T] first column of each tile
+  const int* ptr;       // [T + 1] each tile's first entry
+  const int* ent;       // [nnz, 2] (slot, row)
+  int C, D, n, w;
+};
+
+// A CTA: one tile of RN columns x RBM chains; thread (ty, tx) keeps 8
+// chains (ty * 4 + 0..3 and RBM / 2 more) x 4 consecutive columns.  The
+// tile of z is copied to shared memory first (cp.async, its own group), so
+// its round trip overlaps the k-slices'; the tile's list is staged REMAX
+// entries at a time, so a slice's copies need no dependent load.
+__global__ void __launch_bounds__(RTHREADS) band_rows_kernel(const RowsArgs a) {
+  constexpr int TX = RN / 4, LDA = RBM + 4;
+  static_assert(RTHREADS % RK == 0, "A staging assumes RTHREADS % RK == 0");
+  __shared__ __align__(16) float As[RSTAGES][RK][LDA];
+  __shared__ __align__(16) float Bs[RSTAGES][RK][RN];
+  __shared__ __align__(16) float Zs[RBM][RN];
+  __shared__ int2 Es[REMAX];
+  const int tid = threadIdx.x;
+  const int tx = tid % TX;
+  const int ty = tid / TX;
+  const int j0 = a.col0[blockIdx.x];
+  const int e0 = a.ptr[blockIdx.x];
+  const int e1 = a.ptr[blockIdx.x + 1];
+  const int m0 = blockIdx.y * RBM;
+  const int C = a.C, D = a.D, W2 = 2 * a.w + 1;
+
+  for (int i = tid; i < RBM * RN; i += RTHREADS) {
+    const int c = m0 + i / RN, col = j0 + i % RN;
+    const bool ok = c < C && col < D;
+    cp_async_f32(&Zs[i / RN][i % RN], ok ? a.z + (size_t)c * D + col : a.z, ok);
+  }
+  cp_async_commit();
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  // Slice s of the staged entries: A, dacc's column of this thread's entry
+  // for the CTA's chains; B, each entry's band segment over the tile.
+  const int ka = tid % RK;
+  auto stage = [&](int s, int ne, int buf) {
+    const bool live = s * RK + ka < ne;
+    const int slot = live ? Es[s * RK + ka].x : 0;
+    for (int i = tid; i < RBM * RK; i += RTHREADS) {
+      const int c = m0 + i / RK;
+      const bool ok = live && c < C;
+      cp_async_f32(&As[buf][ka][i / RK], ok ? a.dacc + (size_t)c * a.n + slot : a.dacc, ok);
+    }
+    for (int i = tid; i < RK * RN; i += RTHREADS) {
+      const int k = i / RN;
+      const int j = i % RN;
+      const bool in = s * RK + k < ne;
+      const int r = in ? Es[s * RK + k].y : 0;
+      const int t = j0 + j - r + a.w;
+      const bool ok = in && t >= 0 && t < W2;
+      cp_async_f32(&Bs[buf][k][j], ok ? a.prows + (size_t)r * W2 + t : a.prows, ok);
+    }
+  };
+
+  for (int c0 = e0; c0 < e1; c0 += REMAX) {
+    const int ne = min(REMAX, e1 - c0);
+    __syncthreads();  // the previous entries and buffers are no longer read
+    for (int i = tid; i < ne; i += RTHREADS) Es[i] = make_int2(a.ent[2 * (c0 + i)],
+                                                               a.ent[2 * (c0 + i) + 1]);
+    __syncthreads();
+    const int nk = (ne + RK - 1) / RK;
+#pragma unroll
+    for (int s = 0; s < RSTAGES - 1; ++s) {
+      if (s < nk) stage(s, ne, s);
+      cp_async_commit();
+    }
+    for (int s = 0; s < nk; ++s) {
+      cp_async_wait<RSTAGES - 2>();  // slice s (and z) landed
+      __syncthreads();               // for every thread; slice s - 1's buffer is free
+      if (s + RSTAGES - 1 < nk) stage(s + RSTAGES - 1, ne, (s + RSTAGES - 1) % RSTAGES);
+      cp_async_commit();
+      const int buf = s % RSTAGES;
+#pragma unroll
+      for (int k = 0; k < RK; ++k) {
+        float av[8];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4 + q * (RBM / 2)]);
+          av[4 * q] = v.x; av[4 * q + 1] = v.y; av[4 * q + 2] = v.z; av[4 * q + 3] = v.w;
+        }
+        const float4 b = *reinterpret_cast<const float4*>(&Bs[buf][k][tx * 4]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[i][0] += av[i] * b.x;
+          acc[i][1] += av[i] * b.y;
+          acc[i][2] += av[i] * b.z;
+          acc[i][3] += av[i] * b.w;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // z = its tile + the sums, 16-byte stores where the address allows.
+  const int col = j0 + tx * 4;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = ty * 4 + (i / 4) * (RBM / 2) + i % 4;
+    const int c = m0 + m;
+    if (c >= C) continue;
+    const float4 zt = *reinterpret_cast<const float4*>(&Zs[m][tx * 4]);
+    const float4 o = make_float4(zt.x + acc[i][0], zt.y + acc[i][1], zt.z + acc[i][2],
+                                 zt.w + acc[i][3]);
+    float* p = a.z + (size_t)c * D + col;
+    if (col + 3 < D && ((uintptr_t)p & 15) == 0) {
+      *reinterpret_cast<float4*>(p) = o;
+    } else {
+      const float ov[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (col + u < D) p[u] = ov[u];
+    }
+  }
+}
+
 }  // namespace
 
 // The number of partials per chain of a call over `blocks` output blocks:
@@ -289,6 +455,18 @@ extern "C" int mcmcdate_band_matmul_f32(const float* x, const float* sub, const 
       const int G = mcmcdate_band_partials(C, wb, blocks);
       band_reduce_kernel<<<(C + 255) / 256, 256, 0, st>>>(partial, G, C, scale, red);
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// z[:, j] += sum_i dacc[:, slot_i] prows[r_i, j - r_i + w] over the T tiles
+// of a step's plan (col0, ptr, ent): a CTA per tile and RBM chains.
+extern "C" int mcmcdate_band_rows_add_f32(float* z, const float* dacc, const float* prows,
+                                          const int* col0, const int* ptr, const int* ent,
+                                          int T, int C, int D, int n, int w, void* stream) {
+  if (T > 0 && C > 0) {
+    const RowsArgs a{z, dacc, prows, col0, ptr, ent, C, D, n, w};
+    band_rows_kernel<<<dim3(T, (C + RBM - 1) / RBM), RTHREADS, 0, (cudaStream_t)stream>>>(a);
   }
   return (int)cudaGetLastError();
 }

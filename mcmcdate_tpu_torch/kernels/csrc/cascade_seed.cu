@@ -6,13 +6,17 @@
 // jax.tree.map(lambda x: x.at[j + 1].set(x[j]), batch) over the State
 // leaves, which XLA lowers to one dynamic-update-slice per leaf.
 //
-// What bounds it on the H100: bytes, and far more the launch.  A rung moves
-// one chain's row of each field, (2 N + 5) floats read and written (about
-// 2.2 KB at 136 taxa), so the bytes bound is about a nanosecond; the launch
-// costs microseconds.  The design: one launch for all fields (not one copy
-// per field), a CTA per field, each thread copying 16-byte words where the
-// field's row start, its next row's start and its length allow (a row of
-// 4k floats), else 4-byte words.
+// What bounds it on the H100: bytes, and far more the launch and the
+// rounds to memory.  A rung moves one chain's row of each field, (2 N + 5)
+// floats read and written (about 2.2 KB at 136 taxa, 16 KB at 1000), so
+// the bytes bound is a few nanoseconds; the launch costs microseconds, and
+// each dependent load-then-store round to memory about one more.  The
+// design: one launch for all fields (not one copy per field), a grid of
+// (chunk, field): each thread takes kWords words of one field's row, 16
+// bytes where the row's start, its next row's start and its length allow
+// (a row of 4k floats), else 4 bytes, issues all its loads before any
+// store (the two rows through __restrict__ views), so a rung is one round
+// trip to memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -20,6 +24,7 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWords = 4;  // words a thread
 constexpr int kMaxFields = 16;
 
 struct SeedField {
@@ -28,23 +33,36 @@ struct SeedField {
 };
 
 struct SeedArgs {
-  SeedField f[kMaxFields];  // a CTA a field
+  SeedField f[kMaxFields];  // grid.y: a field
   int j;                    // the source row; the destination is row j + 1
 };
 
+template <typename W>
+__device__ __forceinline__ void copy_words(const W* __restrict__ src, W* __restrict__ dst,
+                                           long long n) {
+  const long long k0 = ((long long)blockIdx.x * kThreads) * kWords + threadIdx.x;
+  W v[kWords];
+#pragma unroll
+  for (int u = 0; u < kWords; ++u) {
+    const long long k = k0 + (long long)u * kThreads;
+    if (k < n) v[u] = src[k];
+  }
+#pragma unroll
+  for (int u = 0; u < kWords; ++u) {
+    const long long k = k0 + (long long)u * kThreads;
+    if (k < n) dst[k] = v[u];
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) cascade_seed_kernel(SeedArgs a) {
-  const SeedField fd = a.f[blockIdx.x];
+  const SeedField fd = a.f[blockIdx.y];
   const long long rb = fd.row_bytes;
   const char* src = fd.base + (long long)a.j * rb;
   char* dst = fd.base + (long long)(a.j + 1) * rb;
   if ((((uintptr_t)src | (uintptr_t)dst | (uintptr_t)rb) & 15) == 0) {
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    uint4* d4 = reinterpret_cast<uint4*>(dst);
-    for (long long k = threadIdx.x; k < rb / 16; k += kThreads) d4[k] = s4[k];
+    copy_words(reinterpret_cast<const uint4*>(src), reinterpret_cast<uint4*>(dst), rb / 16);
   } else {
-    const uint32_t* s1 = reinterpret_cast<const uint32_t*>(src);
-    uint32_t* d1 = reinterpret_cast<uint32_t*>(dst);
-    for (long long k = threadIdx.x; k < rb / 4; k += kThreads) d1[k] = s1[k];
+    copy_words(reinterpret_cast<const uint32_t*>(src), reinterpret_cast<uint32_t*>(dst), rb / 4);
   }
 }
 
@@ -56,11 +74,16 @@ extern "C" int mcmcdate_cascade_seed_f32(void* const* bases, const long long* ro
                                          int n, int j, void* stream) {
   if (n < 0 || n > kMaxFields || j < 0) return (int)cudaErrorInvalidValue;
   SeedArgs a{};
+  long long most = 0;  // 4-byte words of the longest row (the grid's width)
   for (int i = 0; i < n; ++i) {
     if (row_bytes[i] % 4 != 0 || (uintptr_t)bases[i] % 4 != 0) return (int)cudaErrorInvalidValue;
     a.f[i] = SeedField{static_cast<char*>(bases[i]), row_bytes[i]};
+    most = row_bytes[i] / 4 > most ? row_bytes[i] / 4 : most;
   }
   a.j = j;
-  if (n > 0) cascade_seed_kernel<<<n, kThreads, 0, (cudaStream_t)stream>>>(a);
+  const long long chunks = (most + kThreads * kWords - 1) / (kThreads * kWords);
+  if (n > 0 && chunks > 0) {
+    cascade_seed_kernel<<<dim3((unsigned)chunks, n), kThreads, 0, (cudaStream_t)stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }

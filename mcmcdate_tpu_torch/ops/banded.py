@@ -166,6 +166,20 @@ def blocks_from_upper_band(Lb: np.ndarray, wb: int) -> np.ndarray:
     return B3
 
 
+def rows_from_sym_band(pband: np.ndarray) -> np.ndarray:
+    """Row band ``[D, 2w+1]`` of a symmetric-banded matrix given by ``pband
+    [D, w+1]``: ``out[r, t] = M[r, r - w + t]``, zero outside the matrix
+    (``band_rows_add``'s form of ``P``)."""
+    pband = np.asarray(pband, np.float64)
+    D, w1 = pband.shape
+    w = w1 - 1
+    out = np.zeros((D, 2 * w + 1))
+    for s in range(w + 1):
+        out[: D - s, w + s] = pband[: D - s, s]  # M[r, r + s]
+        out[s:, w - s] = pband[: D - s, s]       # M[r, r - s] = M[r - s, r]
+    return out
+
+
 def sym_band_matvec(pband: np.ndarray, x: np.ndarray) -> np.ndarray:
     """Host ``P @ x`` for a symmetric-banded ``P`` (``pband[i, s] =
     P[i, i+s]``)."""

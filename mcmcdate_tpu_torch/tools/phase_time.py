@@ -3,8 +3,8 @@ port on a CUDA card, so that two checkouts can be compared in one call.
 
 Run as a file, from the root of a checkout, on a machine with a card:
 
-    python3 mcmcdate_tpu_torch/tools/phase_time.py --phase glob|range|kernels [--root DIR]
-        [--taxa 136 1000]
+    python3 mcmcdate_tpu_torch/tools/phase_time.py --phase glob|range|kernels|band
+        [--root DIR] [--taxa 136 1000]
 
 It imports ``mcmcdate_tpu_torch`` from ``--root`` (default: the checkout
 that holds this file; an unpacked archive of another commit, which need not
@@ -64,6 +64,15 @@ work does, so a call cannot read below its bytes bound; ``warm_ms``: the
 same calls back to back, without it.  Per kernel also the accepted
 (chain, ticket) pairs of one call (K4: of its step), and K4's tickets B
 and distance rows per ticket KD.
+
+``--phase band`` takes the synthetic banded model ("banded 128", as
+``chip_smoke.py``'s banded full width) of each shape and times, flushed
+and warm as ``--phase kernels`` does, B1 ``band_matmul``'s whole ``delta
+@ P`` and B2 ``band_matmul_t``'s whole ``z = y L^T`` (the ``band_``
+kernels), and ``FastSweeps._z_add`` (``z += dacc P[rows]``, whichever
+kernels the checkout's banded path launches: ``band_`` and ``index``
+ones) on the likelihood range block with the most rows, ``dacc`` zero on
+its pad slots.
 """
 
 from __future__ import annotations
@@ -464,7 +473,42 @@ def kernels_phase(torch, fs, carry, tuning, gen) -> dict:
     return dict(reps=reps, flush_mb=FLUSH_BYTES / 1e6, records=out)
 
 
-PHASES = {"glob": glob_phase, "range": range_phase, "kernels": kernels_phase}
+def band_phase(torch, fs, carry, tuning, gen) -> dict:
+    """B1's and B2's whole products and the banded ``z += dacc P[rows]`` of
+    the largest likelihood range block, flushed and warm."""
+    from mcmcdate_tpu_torch.engine import proposals as P
+    from mcmcdate_tpu_torch.kernels.band_matmul import band_matmul, band_matmul_t
+
+    timed = _flush_timer(torch)
+    reps = REPS["kernels"]
+    C, D = carry.d.shape
+    delta = 0.01 * torch.randn((C, D), generator=gen, device="cuda")
+    y = torch.randn((C, D), generator=gen, device="cuda")
+    out = {"band_matmul": timed(lambda x: band_matmul(x, fs.P3), "band_",
+                                lambda: [delta] * (reps + 1)),
+           "band_matmul_t": timed(lambda x: band_matmul_t(x, fs.L3, upper=True), "band_",
+                                  lambda: [y] * (reps + 1))}
+    sx = max((sx for (k, _), steps in fs.range_t.items() if k != P.K_SCALE_SUBTREES_CONTRA
+              for sx in steps), key=lambda sx: int((sx["own"] >= 0).sum()))
+    ok = (sx["own"] >= 0).reshape(-1)
+    dacc = 0.01 * torch.randn((C, ok.numel()), generator=gen, device="cuda") * ok
+    z = carry.z.clone()
+    flush = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    rec = dict(rows=int(ok.sum()), slots=ok.numel())
+    for name, flushed in (("flush_ms", True), ("warm_ms", False)):
+        def fn(i, flushed=flushed):
+            if flushed:
+                flush.sum()
+            fs._z_add(z, dacc, sx)
+
+        ms = _device_ms(torch, fn, reps, (("band", "band_"), ("index", "index")))
+        rec[name] = ms["band"] + ms["index"]
+        rec[name + "_by_kind"] = {k: ms[k] for k in ("band", "index")}
+    out["z_add"] = rec
+    return out
+
+
+PHASES = {"glob": glob_phase, "range": range_phase, "kernels": kernels_phase, "band": band_phase}
 
 
 def main(argv=None) -> list:
@@ -490,7 +534,8 @@ def main(argv=None) -> list:
                           check=True).stdout.strip().splitlines()[0]
     out = []
     for taxa in args.taxa:
-        model, batch = synthetic.build(taxa, CHAINS, device="cuda")
+        model, batch = synthetic.build(taxa, CHAINS, device="cuda",
+                                       kind="banded" if args.phase == "band" else "full")
         table = proposals.build_proposal_table(model.topo, model.braces, False)
         fs = fast_sweep.FastSweeps(model, table)
         tuning = torch.ones((CHAINS, table.n_proposals), device="cuda")

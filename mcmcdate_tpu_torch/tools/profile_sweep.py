@@ -66,7 +66,7 @@ PORT_KERNELS = ("prior_terms_kernel", "whiten", "accept_select_kernel",
                 "range_lik_prologue_kernel", "range_scan_kernel", "range_lik_epilogue_kernel",
                 "contra_slide_kernel", "contra_range_kernel", "glob_scan_kernel",
                 "glob_dense_prologue_kernel", "glob_dense_epilogue_kernel",
-                "ticket_prologue_kernel", "ticket_scan_kernel", "band_kernel",
+                "ticket_prologue_kernel", "ticket_scan_kernel", "band_kernel", "band_rows_kernel",
                 "fiber_slide_kernel", "fiber_de_kernel")
 PHASES = ("seq", "glob", "point", "range", "y", "fiber")
 TAXA, FULL_TAXA, BANDED_TAXA, CHAINS, TREES, SEED = 136, 1000, 5000, 1024, 600, 1

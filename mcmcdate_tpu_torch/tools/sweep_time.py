@@ -4,16 +4,18 @@ a CUDA card, so that two checkouts can be compared in one call.
 Run as a file, from the root of a checkout, on a machine with a card:
 
     python3 mcmcdate_tpu_torch/tools/sweep_time.py [--root DIR] [--variant V]
-        [--fiber-slide P] [--bold-contra P]
+        [--taxa N ...] [--fiber-slide P] [--bold-contra P]
 
 It imports ``mcmcdate_tpu_torch`` from ``--root`` (default: the checkout
 that holds this file; an unpacked archive of another commit compares that
 commit, which need not have this tool: ``profile_sweep.py`` times only the
 checkout it belongs to, at 136 taxa), builds the synthetic full-MVN model
-and chain batch of each shape in ``TAXA`` x ``CHAINS`` (``synthetic.build``,
-seed 0), constructs ``FastSweeps`` (timed: it gathers each range block's
-precision rows), runs ``WARMUP`` sweeps, then times ``TIMED`` single
-sweeps on the host clock, each ending in a device sync.  ``--variant
+and chain batch of each shape in ``--taxa`` (default ``TAXA``) x ``CHAINS``
+(``synthetic.build``, seed 0; at ``BANDED_TAXA`` its banded model, "banded
+128", as ``chip_smoke.py``'s banded full width), constructs ``FastSweeps``
+(timed: it gathers each range block's precision rows), runs ``WARMUP``
+sweeps, then times ``TIMED`` single sweeps on the host clock, each ending
+in a device sync.  ``--variant
 none`` drops the likelihood (the point and range epilogues then take the
 decisions), ``--variant sequential`` times the sequential sweep
 (``MHKernel``) instead, at 136 taxa only.  ``--fiber-slide P`` and
@@ -41,12 +43,15 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TAXA, CHAINS, WARMUP, TIMED = (136, 1000), 1024, 2, 5
+BANDED_TAXA = 5000
 
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)))
     ap.add_argument("--variant", default="full", choices=("full", "none", "sequential"))
+    ap.add_argument("--taxa", type=int, nargs="+", default=list(TAXA),
+                    choices=(*TAXA, BANDED_TAXA))
     ap.add_argument("--fiber-slide", type=float, default=0.0, metavar="P")
     ap.add_argument("--bold-contra", type=float, default=0.0, metavar="P")
     args = ap.parse_args(argv)
@@ -69,8 +74,9 @@ def main(argv=None) -> list:
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
     out = []
-    for taxa in TAXA[:1] if args.variant == "sequential" else TAXA:
-        model, batch = synthetic.build(taxa, CHAINS, device="cuda")
+    for taxa in args.taxa[:1] if args.variant == "sequential" else args.taxa:
+        model, batch = synthetic.build(taxa, CHAINS, device="cuda",
+                                       kind="banded" if taxa == BANDED_TAXA else "full")
         if args.variant == "none":
             model = dataclasses.replace(model, likelihood=mvn.LikelihoodData.none())
         table = proposals.build_proposal_table(model.topo, model.braces, False)
@@ -93,7 +99,8 @@ def main(argv=None) -> list:
         h = hashlib.sha256()
         for f in ("birth", "death", "height", "heights", "rate_mean", "rate_var", "rates"):
             h.update(getattr(batch, f).cpu().numpy().tobytes())
-        rec = dict(root=root, card=card, variant=args.variant, **moves, taxa=taxa, chains=CHAINS,
+        rec = dict(root=root, card=card, variant=args.variant, **moves, taxa=taxa,
+                   kind=model.likelihood.kind, chains=CHAINS,
                    tickets_per_sweep=int(table.n_tickets), setup_s=setup_s, sweep_s=times,
                    median_s=statistics.median(times), digest=h.hexdigest()[:16])
         print(json.dumps(rec), flush=True)

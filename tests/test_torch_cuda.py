@@ -1747,10 +1747,61 @@ def test_band_matmul_kernels(card, wb, which):
             assert float((into - iref).abs().max()) <= 1e-5 * (float(iref.abs().max()) + 1)
 
 
+@pytest.mark.parametrize("D, C", [(301, 200), (8000, 256)])
+def test_band_rows_add_kernel(card, D, C):
+    """band_rows_add against its plain version on the card, at 1e-5 of the
+    largest output, one launch a call: a step's row slots with duplicate
+    rows, pad slots and rows 0 and D - 1; z rows off and on 16-byte
+    alignment (D odd, D a multiple of 4); both CTA shapes (few and many
+    tiles)."""
+    from mcmcdate_tpu_torch.kernels import band_matmul as B
+    from mcmcdate_tpu_torch.ops import banded
+
+    rng = np.random.default_rng(D)
+    w = 24
+    xs = rng.normal(size=(80, D + 2))
+    _, lb, _ = banded.estimate_banded_chol(xs[:, :D] + 0.5 * xs[:, 2:], w)
+    prows = torch.as_tensor(banded.rows_from_sym_band(banded.pband_from_chol_upper(lb)),
+                            dtype=torch.float32, device=card)
+    rows = np.concatenate([[0, D - 1, 7, 7], rng.integers(0, D, 300), [D - 1]])
+    ok = rng.uniform(size=len(rows)) < 0.9
+    ok[:4] = True
+    plan = B.band_rows_plan(rows, ok, w, D, device=card)
+    z = torch.as_tensor(rng.normal(size=(C, D)), dtype=torch.float32, device=card)
+    dacc = torch.as_tensor(rng.normal(size=(C, len(rows))), dtype=torch.float32, device=card)
+    zk, zp = z.clone(), z.clone()
+    before = B.band_rows_add.launches
+    B.band_rows_add(zk, dacc, prows, plan)
+    assert B.band_rows_add.launches == before + 1
+    B.band_rows_add_plain(zp, dacc, prows, plan)
+    assert float((zk - zp).abs().max()) <= 1e-5 * (float(zp.abs().max()) + 1)
+    with pytest.raises(ValueError, match="tiles of"):
+        B.band_rows_add(zk, dacc, prows, B.band_rows_plan(rows, ok, w, D, device=card, tn=32))
+
+
+def test_cascade_seed_kernel_rows(card):
+    """cascade_seed on fields whose rows take 16-byte words (2,048 floats)
+    and 4-byte words (1,999 floats, several chunks of the grid) and on
+    scalars: bitwise the per-field copy, the other rows untouched."""
+    from mcmcdate_tpu_torch.kernels.cascade_seed import cascade_seed, cascade_seed_plain
+
+    g = torch.Generator(device=card).manual_seed(3)
+    widths = {"heights": (2048,), "rates": (1999,)}
+    batch = State(**{f: torch.rand((6, *widths.get(f, ())), generator=g, device=card)
+                     for f in FIELDS})
+    for j in (0, 4):
+        ck = State(**{f: getattr(batch, f).clone() for f in FIELDS})
+        cp = State(**{f: getattr(batch, f).clone() for f in FIELDS})
+        cascade_seed(ck, j)
+        cascade_seed_plain(cp, j)
+        for f in FIELDS:
+            assert torch.equal(getattr(ck, f), getattr(cp, f)), f
+
+
 def test_banded_fast_sweeps_on_card(card):
     """FastSweeps and MHKernel on a banded synthetic model of 40 taxa and 96
-    chains: B1 and B2 launched, no plain product, and the carried log
-    likelihood within 1e-5 of a fresh one."""
+    chains: B1 and B2 launched (and band_rows_add on FastSweeps), no plain
+    product, and the carried log likelihood within 1e-5 of a fresh one."""
     from mcmcdate_tpu_torch.engine import fast_sweep as TF, mh as TM, proposals as TP
     from mcmcdate_tpu_torch.kernels import band_matmul as B
 
@@ -1758,10 +1809,11 @@ def test_banded_fast_sweeps_on_card(card):
     table = TP.build_proposal_table(model.topo, model.braces, False)
     tuning = torch.ones((96, table.n_proposals), device=card)
     for kern in (TF.FastSweeps(model, table), TM.MHKernel(model, table)):
-        b1, b2 = B.band_matmul.launches, B.band_matmul_t.launches
+        b1, b2, br = B.band_matmul.launches, B.band_matmul_t.launches, B.band_rows_add.launches
         out, lp_pr, lp_lik, *_ = kern.sweeps(batch, tuning, 3, 2)
         assert B.band_matmul.launches > b1
         assert (B.band_matmul_t.launches > b2) == isinstance(kern, TF.FastSweeps)
+        assert (B.band_rows_add.launches > br) == isinstance(kern, TF.FastSweeps)
         fresh = model.log_likelihood(out)
         assert float((lp_lik - fresh).abs().max()) <= 1e-5 * float(fresh.abs().max())
 
